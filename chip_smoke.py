@@ -1,0 +1,335 @@
+"""Drive redmax_tpu_torch's main path on one NVIDIA GPU and check it.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure is an exception and a non-zero exit):
+  1. card and toolchain: torch.cuda must be available;
+  2. build the chord kernel (csrc/) with nvcc for sm_90a, print the
+     -Xptxas -v register/spill report;
+  3. hold the kernel against its plain PyTorch version on the card
+     (scene_chain(12) at B = 1024 and the ragged B = 1000, scene_chain(4)):
+     x within 5e-6 max(1, |x|) of the float32 plain version, H^-1 within
+     2e-5 of scale of the plain version in float64; time both with CUDA
+     events, and compute the kernel's bound;
+  4. the main path: bench.py's batched MPC solve (12-link chain, horizon 50,
+     B = 1024, f32, one Adam step) through mpc.make_mpc_solver_batched, with
+     the launch count read around the timed solves; the same solve on the
+     op-level route (float32 and float64) must agree; a small solve on the
+     card must agree with the same solve on the CPU in float64;
+  5. print the kernels line, the card's name and power limit, and the
+     result line.
+"""
+
+import importlib.util
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from redmax_tpu_torch import chord_kernel, integrators, mpc
+from redmax_tpu_torch.scenes import scene_chain
+from redmax_tpu_torch.types import State
+
+# H100 SXM peaks at its 700 W limit (NVIDIA data sheet): f32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+CFG = integrators.NewtonConfig(fixed_iters=3, predictor="quadratic", chord=True,
+                               hessian="structured", linsolve="gj")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls, after two warm calls."""
+    fn()
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def lane_flops(topo, fixed_iters: int) -> int:
+    """Floating-point operations of one lane of csrc/chord_bdf2_lane.cuh,
+    counted from its loops (add, sub, mul, div, sqrt, sin, cos: one each)."""
+    N, NR = topo.njoints, topo.nr
+    anc = topo.ancestor_mask()[:, topo.dof_joint()]   # [N, NR] ancestor pairs
+    P = int(anc.sum())
+    P2 = int((anc.sum(1) ** 2).sum())                 # (r, s) pairs per body
+    frame_mul, frame_inv, adjoint, mat6 = 63, 18, 27, 66
+    q_local = sum(36 if t == 1 else (3 * (2 * d - 1) if d else 0)
+                  for t, d in zip(topo.jtype, topo.ndof))
+    fk = (q_local + sum(frame_mul * (2 if p < 0 else 3) for p in topo.parent)
+          + NR * (adjoint + mat6)                      # W
+          + N * (frame_inv + adjoint) + P * mat6 + P * 12   # J, phi
+          + NR * (adjoint + 30 + mat6)                 # Wdot
+          + N * (frame_inv + adjoint) + P * (mat6 + 30 + 6))  # Jdot
+    qdot = 6 * NR
+    residual = 2 + 27 * NR + N * 99 + P * 36 + 2 * NR
+    hessian = 3 + N * 90 + P * 2 * mat6 + P2 * 71 + 11 * NR
+    gj = NR + 2 * NR * NR + 4 * NR * NR * (NR - 1)
+    static = N * (frame_inv + adjoint) + NR * mat6
+    step = qdot + residual + (2 * NR + 1) + 2 * NR * NR + NR
+    return (static + qdot + fk + hessian + gj + fixed_iters * step
+            + (fixed_iters - 1) * fk)
+
+
+def rand_states(nr, B, seed, device):
+    """Chord-solve inputs as in tests/test_torch_chord.py, with per-lane
+    torques of the main path's scale (tau = 1e3 * 0.003 * N(0, 1))."""
+    rng = np.random.default_rng(seed)
+    q1 = 0.3 * rng.normal(size=(B, nr))
+    qd1 = rng.normal(size=(B, nr))
+    q0 = q1 - 0.01 * qd1
+    qd0 = qd1 + 0.05 * rng.normal(size=(B, nr))
+    x0 = q1 + 0.01 * qd1
+    tau = 3.0 * rng.normal(size=(B, nr))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return [t(a) for a in (x0, q0, qd0, q1, qd1)], t(tau)
+
+
+def phase_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (4, 1024))):
+    """Kernel vs chord_bdf2_reference on the card; returns the kernel record
+    fields measured at the main path's shapes (the first case)."""
+    record = {}
+    for nlinks, B in cases:
+        sc = scene_chain(nlinks).compile(dtype=torch.float32, device=device)
+        sc64 = scene_chain(nlinks).compile(dtype=torch.float64, device=device)
+        states, tau = rand_states(sc.topo.nr, B, seed=1, device=device)
+        params = {**sc.params, "tau": tau}
+        x, hinv = chord_kernel.chord_bdf2(sc.topo, CFG, params, *states)
+        x_ref, hinv_ref = chord_kernel.chord_bdf2_reference(sc.topo, CFG, params, *states)
+        x64, hinv64 = chord_kernel.chord_bdf2_reference(
+            sc64.topo, CFG, {**sc64.params, "tau": tau.double()}, *(a.double() for a in states))
+        torch.cuda.synchronize()
+        fin, fin_ref = torch.isfinite(x).all(-1), torch.isfinite(x_ref).all(-1)
+        if not torch.equal(fin, fin_ref):
+            raise AssertionError(f"chain {nlinks} B {B}: NaN masks differ "
+                                 f"({int((fin != fin_ref).sum())} lanes)")
+        if fin.float().mean() < 0.9:
+            raise AssertionError(f"chain {nlinks} B {B}: only {float(fin.float().mean())} finite")
+        dx = (x[fin] - x_ref[fin]).abs()
+        x_ok = bool((dx <= 5e-6 * torch.clamp(x_ref[fin].abs(), min=1.0)).all())
+        # H^-1 is held to the plain version evaluated in float64 on the same
+        # inputs: at 12 links cond(H) reaches ~1e3 and the float32 plain
+        # version is itself ~3e-5 of scale away from it, so two float32
+        # evaluations in different orders cannot agree to 2e-5.
+        hscale = float(hinv64.abs().max())
+        dh = float((hinv.double() - hinv64).abs().max())
+        dh_plain = float((hinv_ref.double() - hinv64).abs().max())
+        dh_pair = float((hinv - hinv_ref).abs().max())
+        ex = [float((a[fin].double() - x64[fin]).abs().max()) for a in (x, x_ref)]
+        cond = float(torch.linalg.cond(torch.linalg.inv(hinv64[fin])).max())
+        print(f"kernel vs plain chain {nlinks} B {B}: finite {int(fin.sum())}/{B}, "
+              f"max|dx| {float(dx.max()):.3e}; x vs f64 plain: kernel {ex[0]:.3e}, "
+              f"f32 plain {ex[1]:.3e}; Hinv vs f64 plain: kernel {dh / hscale:.3e}, "
+              f"f32 plain {dh_plain / hscale:.3e} of scale {hscale:.3e}; "
+              f"kernel vs f32 plain {dh_pair / hscale:.3e}; max cond(H) {cond:.3e}")
+        if not x_ok or dh > 2e-5 * hscale:
+            raise AssertionError(f"chain {nlinks} B {B}: kernel disagrees with its plain version")
+        if (nlinks, B) == cases[0]:
+            args = chord_kernel.pack(sc.topo, params, *states)
+            ms = cuda_ms(lambda: chord_kernel.launch(sc.topo, CFG, *args), reps=200)
+            wrap_ms = cuda_ms(lambda: chord_kernel.chord_bdf2(sc.topo, CFG, params, *states), 100)
+            plain_ms = cuda_ms(lambda: chord_kernel.chord_bdf2_reference(
+                sc.topo, CFG, params, *states), reps=100)
+            flops = lane_flops(sc.topo, CFG.fixed_iters) * B
+            nbytes = 4 * B * (6 * sc.topo.nr + sc.topo.nr + sc.topo.nr ** 2) + sum(
+                a.numel() * a.element_size() for a in args[6:])
+            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            record = {
+                "max_abs_err": float(dx.max()), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            }
+            print(f"chord_bdf2 at chain {nlinks}, B {B}: kernel {ms:.4f} ms, wrapper with layout "
+                  f"copies {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops / B:.0f} flops/lane, "
+                  f"{nbytes} bytes; bound {max(t_ops, t_bytes) * 1e3:.3f} us "
+                  f"({record['bound_by']}), kernel at {max(t_ops, t_bytes) / ms:.2%} of it")
+    return record
+
+
+def bench_inputs(nr, B, device, dtype):
+    """bench.py's inputs: seed 0, p0 = 0.003 N(0,1), targets U(-2, 2)."""
+    rng = np.random.default_rng(0)
+    p0 = torch.tensor(0.003 * rng.normal(size=(B, nr)), dtype=dtype, device=device)
+    targets = torch.tensor(rng.uniform(-2.0, 2.0, size=(B, 3)), dtype=dtype, device=device)
+    return p0, targets
+
+
+def mpc_solver(sc, nlinks, horizon, use_kernel=None):
+    task = mpc.PointPosTask(body=nlinks - 1, wp=1.0, wreg=1e-6, pscale=1e3)
+    obj = mpc.make_objective_batched(sc.topo, sc.force_fns, task, (0.5, 0.0, 0.0), horizon,
+                                     CFG, use_kernel=use_kernel)
+    return mpc.make_mpc_solver_batched(obj, iters=1, lr=0.05), obj
+
+
+def phase_main_path(device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
+    """bench.py:53-105 on the port; returns (kernel launches of the timed
+    solves, solves/s, finite_frac)."""
+    sc = scene_chain(nlinks).compile(dtype=torch.float32, device=device)
+    solve, _ = mpc_solver(sc, nlinks, horizon)
+    p0, targets = bench_inputs(sc.topo.nr, B, device, torch.float32)
+    s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
+               qdot=sc.state0.qdot.expand(B, -1).contiguous())
+
+    res = solve(sc.params, p0, s0, targets)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chord_kernel.chord_bdf2_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        res = solve(sc.params, p0, s0, targets)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    launches = chord_kernel.chord_bdf2_launches
+    dt = start.elapsed_time(end) / 1e3 / reps
+    if launches != (horizon - 1) * reps:
+        raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} solves, "
+                             f"want {horizon - 1} per solve")
+    finite = torch.isfinite(res.objective)
+    finite_frac = float(finite.float().mean())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path: {B / dt:.2f} solves/s ({dt * 1e3:.3f} ms per solve by CUDA events, "
+          f"{wall * 1e3:.3f} ms host clock), finite_frac {finite_frac:.4f}, "
+          f"kernel launches {launches // reps} per solve, peak memory {peak / 2**20:.1f} MiB")
+    if res.objective.shape != (B,) or res.p.shape != (B, sc.topo.nr):
+        raise AssertionError("main path: unexpected output shapes")
+    if finite_frac < 0.95:
+        raise AssertionError(f"main path: finite_frac {finite_frac} < 0.95")
+    if not torch.isfinite(res.p[finite]).all():
+        raise AssertionError("main path: non-finite update on a finite lane")
+
+    # where the time goes inside one solve (CUDA events around each phase)
+    step = integrators.make_bdf2_step_batched(sc.topo, (), CFG, differentiable=True)
+    params = {**sc.params, "tau": (1e3 * p0).requires_grad_(True)}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(2):  # the first pass warms the allocator; the second is timed
+        torch.cuda.synchronize()
+        ev[0].record()
+        s = step.bootstrap(params, integrators.bdf2_init(s0))
+        ev[1].record()
+        for _ in range(horizon - 1):
+            s = step.inner(params, s)
+        ev[2].record()
+        torch.autograd.grad(s.q.sum(), params["tau"])
+        ev[3].record()
+        torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    print(f"one solve by phase: bootstrap {split[0]:.3f} ms, {horizon - 1} inner steps "
+          f"(kernel route forward) {split[1]:.3f} ms, adjoint backward {split[2]:.3f} ms")
+
+    # The same solve on the op-level route, in float32 and in float64: the
+    # objective agrees to rtol 1e-3 on at least 99% of the lanes finite in
+    # both. The max over ~1000 lanes is not held: a few sensitive lanes
+    # drift by ~1e-3 over 50 steps in any float32 rollout (the float32
+    # op-level route against float64 too), and it is printed.
+    solve_plain, _ = mpc_solver(sc, nlinks, horizon, use_kernel=False)
+    sc64 = scene_chain(nlinks).compile(dtype=torch.float64, device=device)
+    solve64, _ = mpc_solver(sc64, nlinks, horizon, use_kernel=False)
+    chord_kernel.chord_bdf2_launches = 0
+    ref32 = solve_plain(sc.params, p0, s0, targets).objective
+    ref64 = solve64(sc64.params, p0.double(), State(q=s0.q.double(), qdot=s0.qdot.double()),
+                    targets.double()).objective
+    torch.cuda.synchronize()
+    if chord_kernel.chord_bdf2_launches != 0:
+        raise AssertionError("op-level route launched the kernel")
+
+    def compare(obj, ref, name):
+        fin, fin_ref = torch.isfinite(obj), torch.isfinite(ref)
+        agree = float((fin == fin_ref).float().mean())
+        both = fin & fin_ref
+        rel = (obj[both].double() - ref[both].double()).abs() / ref[both].double().abs()
+        within = float((rel <= 1e-3).double().mean())
+        q = torch.quantile(rel, torch.tensor([0.5, 0.99], dtype=rel.dtype, device=rel.device))
+        print(f"{name}: finite masks agree on {agree:.4f} of lanes; objective rel diff median "
+              f"{float(q[0]):.3e}, p99 {float(q[1]):.3e}, max {float(rel.max()):.3e}; "
+              f"{within:.4f} of {int(both.sum())} lanes within 1e-3")
+        return agree, within, float(rel.max())
+
+    checks = [compare(res.objective, ref32, "kernel route vs op-level f32"),
+              compare(res.objective, ref64, "kernel route vs op-level f64")]
+    compare(ref32, ref64, "op-level f32 vs op-level f64")
+    if any(agree < 0.99 or within < 0.99 for agree, within, _ in checks):
+        raise AssertionError("main path: kernel route and op-level route disagree")
+    return launches, B / dt, finite_frac
+
+
+def phase_small_reference(device="cuda"):
+    """A small solve on the card (f32, kernel route) against the same solve
+    on the CPU in float64 (the plain version, held to redmax_tpu by the
+    tests)."""
+    nlinks, horizon, B = 4, 5, 64
+    out = {}
+    for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
+        sc = scene_chain(nlinks).compile(dtype=dtype, device=dev)
+        solve, _ = mpc_solver(sc, nlinks, horizon)
+        p0, targets = bench_inputs(sc.topo.nr, B, dev, dtype)
+        s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
+                   qdot=sc.state0.qdot.expand(B, -1).contiguous())
+        out[dev, dtype] = solve(sc.params, p0, s0, targets).objective.double().cpu()
+    card, cpu = out[device, torch.float32], out["cpu", torch.float64]
+    err = float((card - cpu).abs().max() / cpu.abs().max())
+    print(f"small solve, card f32 vs CPU f64: max objective diff {err:.3e} of scale")
+    if not torch.isfinite(card).all() or err > 1e-3:
+        raise AssertionError("small solve on the card disagrees with the CPU float64 solve")
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"nvcc {nvcc if os.path.exists(nvcc) else 'missing'}; "
+          f"triton {'importable' if importlib.util.find_spec('triton') else 'missing'}")
+
+    t0 = time.perf_counter()
+    chord_kernel._build_lib()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    for line in chord_kernel.ptxas_report.splitlines():
+        if "registers" in line or "spill" in line or "stack frame" in line:
+            print("ptxas:", line.strip())
+
+    record = phase_kernel_vs_plain()
+    launches, rate, finite_frac = phase_main_path()
+    phase_small_reference()
+
+    kernels = [{
+        "name": "chord_bdf2", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:689",
+        "launches": launches, **record, "library_ms": None,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"main_path": {"solves_per_s": rate, "finite_frac": finite_frac,
+                                    "card": smi}}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

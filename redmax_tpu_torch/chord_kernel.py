@@ -1,0 +1,222 @@
+"""Fused BDF2 chord-Newton solve: the CUDA kernel, its plain PyTorch
+version, its build and its launch counter.
+
+The kernel (csrc/chord_bdf2.cu, per-lane body in csrc/chord_bdf2_lane.cuh)
+replaces redmax_tpu/pallas_step.py::_build_kernel of the JAX package, on its
+K1a branch: constant-S joints, no force closures, unguarded chord, shared
+physical params. Per lane it runs FK with the world-column J and Jdot, the
+joint and maximal forces, the BDF2 residual, the structured Newton matrix
+H = M + cK K~ + cD D~, an unpivoted Gauss-Jordan H^-1 and `fixed_iters`
+chord steps with growth/tol rejection, and writes x [B, nr] (NaN on rejected
+lanes) and H^-1 [B, nr, nr].
+
+What bounds it on an H100: per-lane f32 arithmetic. It moves
+4 * B * (6 nr + nr + nr^2) bytes (about 0.93 MB at B = 1024, nr = 12) and
+does on the order of 1e5 flops per lane, so the operation count, not the
+bytes, sets the least time. The first-cut design gives one thread to each
+lane, so the arithmetic runs without any cross-thread traffic and the
+struct-of-arrays [nr, B] layout makes every state read and write coalesced.
+What it leaves for later: at B = 1024 only 1024 threads run (a few dozen of
+the 132 SMs), and the per-lane J, Jdot, H and Gauss-Jordan rows (a few
+thousand floats) live in local memory rather than registers. A warp per lane
+or a thread per (lane, column) with shared memory is the next design.
+
+On a CUDA tensor chord_bdf2 launches the kernel (and raises if it cannot);
+on a CPU tensor it runs chord_bdf2_reference.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from redmax_tpu_torch import integrators
+from redmax_tpu_torch.joints import CONSTANT_S_TYPES
+from redmax_tpu_torch.types import JointType, Topology
+
+# Launches of the CUDA kernel since the counter was last set to 0.
+chord_bdf2_launches = 0
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+_SOURCES = ("chord_bdf2.cu", "chord_bdf2_lane.cuh")
+# (N, nr) shapes with an explicit template instantiation in chord_bdf2.cu.
+INSTANTIATED = ((12, 12), (4, 4))
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+ptxas_report = None  # nvcc -Xptxas -v output of the build this process loaded
+
+
+def supports(topo: Topology, force_fns: Tuple, cfg) -> bool:
+    """True when the kernel covers this scene's inner step exactly."""
+    return (
+        not force_fns
+        and all(JointType(t) in CONSTANT_S_TYPES for t in topo.jtype)
+        and cfg.fixed_iters > 0 and cfg.chord
+        and not cfg.guarded and not cfg.guard_last
+        and cfg.hessian == "structured" and cfg.linsolve == "gj"
+    )
+
+
+def chord_bdf2_reference(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1):
+    """The kernel's function in plain batched PyTorch: (x [B,nr], Hinv [B,nr,nr]).
+
+    The op-level chord solve (integrators.newton on residual_bdf2 with the
+    structured Newton matrix and the GJ inverse): same residual, same
+    matrix, same chord loop and rejection as the kernel, up to f32
+    reassociation.
+    """
+    theta = (params, q0, qd0, q1, qd1)
+    hess = integrators._hess_bdf2(topo, ())
+    x, info = integrators.newton(
+        lambda x: integrators.residual_bdf2(topo, (), params, x, q0, qd0, q1, qd1),
+        x0, cfg, jac_fn=lambda x: hess(theta, x),
+    )
+    return x, info["factor"]
+
+
+def _build_lib():
+    """Compile the kernel with nvcc into _build/ (keyed by a hash of the
+    sources) and load it. Raises when nvcc is missing or the build fails."""
+    global _lib, ptxas_report
+    if _lib is not None:
+        return _lib
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
+    so = os.path.join(_BUILD, f"chord_bdf2_{tag}.so")
+    log = so[:-3] + ".ptxas.txt"
+    if not os.path.exists(so):
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found: the chord kernel cannot be built")
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, "chord_bdf2.cu")]
+        out = subprocess.run(cmd, capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({out.returncode}):\n{out.stderr}")
+        with open(log, "w") as f:
+            f.write(out.stderr)
+        os.replace(tmp, so)
+    with open(log) as f:
+        ptxas_report = f.read()
+    lib = ctypes.CDLL(so)
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.chord_bdf2_launch.argtypes = [i, i, i] + [p] * 6 + [p, p] + [i, fl, fl, fl] + [p, p, p]
+    lib.chord_bdf2_launch.restype = i
+    _lib = lib
+    return lib
+
+
+@lru_cache(maxsize=None)
+def _topology_buffer(topo: Topology, device: torch.device):
+    """int32 [parent(N), jtype(N), doffs(N+1), dofj(nr), anc(N*N)] on device."""
+    doffs = np.concatenate([[0], np.cumsum(topo.ndof)])
+    buf = np.concatenate([
+        np.asarray(topo.parent), np.asarray(topo.jtype), doffs,
+        topo.dof_joint(), topo.ancestor_mask().reshape(-1),
+    ]).astype(np.int32)
+    return torch.as_tensor(buf, device=device)
+
+
+def _static_buffer(topo: Topology, params: Dict):
+    """f32 [E0_pj (16N), E0_ji (16N), I_i (6N), axes (9N), jsf (7 nr), bd (N),
+    g (3), h (1)] on the params' device. axes[j][:, d] is the d-th DOF's axis
+    (rotation axis for REVOLUTE, translation direction otherwise)."""
+    N = topo.njoints
+    dev = params["I_i"].device
+    axes = torch.zeros(N, 3, 3, dtype=torch.float32, device=dev)
+    for jt, members in topo.type_groups().items():
+        jp = params["joint"].get(str(jt), {})
+        mem = list(members)
+        if "axis" in jp:
+            axes[mem, :, 0] = jp["axis"].float()
+        elif "plane" in jp:
+            axes[mem, :, :2] = jp["plane"].float()
+        elif JointType(jt) == JointType.TRANSLATIONAL:
+            axes[mem] = torch.eye(3, device=dev)
+    jsf = torch.stack([params[k] for k in ("stiffness", "damping", "qrest", "qlimL",
+                                           "qlimU", "qlimK", "qlimD")])
+    parts = [params["E0_pj"], params["E0_ji"], params["I_i"], axes, jsf,
+             params["body_damping"], params["g"], params["h"].reshape(1)]
+    return torch.cat([p.reshape(-1).float() for p in parts])
+
+
+def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1):
+    """Batched fused BDF2 chord solve: (x [B,nr], Hinv [B,nr,nr]).
+
+    All state args are [B, nr]; params["tau"] may be [B, nr] or [nr]; every
+    other param is lane-shared. A CUDA tensor goes to the kernel (f32,
+    an instantiated (N, nr), else it raises; the wrapper makes the contiguous
+    [nr, B] copies the kernel reads); a CPU tensor goes to
+    chord_bdf2_reference.
+    """
+    integrators.split_batched_params(params)  # only tau may be per-lane
+    if x0.device.type == "cpu":
+        return chord_bdf2_reference(topo, cfg, params, x0, q0, qd0, q1, qd1)
+    if x0.device.type != "cuda":
+        raise ValueError(f"chord_bdf2: unsupported device {x0.device}")
+    if not supports(topo, (), cfg):
+        raise ValueError("chord_bdf2: scene/config not covered by the kernel")
+    N, nr = topo.njoints, topo.nr
+    if (N, nr) not in INSTANTIATED:
+        raise ValueError(f"chord_bdf2: no kernel instantiation for (N, nr) = {(N, nr)}")
+    B = x0.shape[0]
+    tau = params["tau"]
+    states = (x0, q0, qd0, q1, qd1)
+    for a in states + (tau,):
+        if a.device != x0.device or a.dtype != torch.float32:
+            raise ValueError("chord_bdf2: every input must be float32 on one CUDA device")
+    for a in states:
+        if a.shape != (B, nr):
+            raise ValueError(f"chord_bdf2: state of shape {tuple(a.shape)}, want {(B, nr)}")
+    if tau.shape not in ((B, nr), (nr,)):
+        raise ValueError(f"chord_bdf2: tau of shape {tuple(tau.shape)}")
+    if params["I_i"].device != x0.device:
+        raise ValueError("chord_bdf2: params and states must lie on one device")
+    args = pack(topo, params, x0, q0, qd0, q1, qd1)
+    x_out, h_out = launch(topo, cfg, *args)
+    return x_out.t(), h_out.reshape(nr, nr, B).permute(2, 0, 1)
+
+
+def pack(topo: Topology, params: Dict, x0, q0, qd0, q1, qd1):
+    """The kernel's inputs: the six per-lane tensors as contiguous
+    struct-of-arrays [nr, B] (neighbouring threads read neighbouring floats),
+    then the topology and lane-shared parameter buffers."""
+    B, nr = x0.shape
+    tau = params["tau"].expand(B, nr)
+    soa = [a.t().contiguous() for a in (x0, q0, qd0, q1, qd1, tau)]
+    return (*soa, _topology_buffer(topo, x0.device), _static_buffer(topo, params))
+
+
+def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f):
+    """Launch the kernel on the current stream on packed inputs (see pack);
+    returns (x [nr, B], Hinv [nr*nr, B]) and counts the launch."""
+    global chord_bdf2_launches
+    lib = _build_lib()
+    nr, B = x0.shape
+    x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
+    h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    err = lib.chord_bdf2_launch(
+        topo.njoints, nr, B, *(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau)),
+        topo_i.data_ptr(), stat_f.data_ptr(),
+        cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+        x_out.data_ptr(), h_out.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"chord_bdf2 kernel launch failed: CUDA error {err}")
+    chord_bdf2_launches += 1
+    return x_out, h_out

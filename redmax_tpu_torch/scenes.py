@@ -1,0 +1,66 @@
+"""Scene zoo: the scenes whose joints this package covers.
+
+``scene_chain`` is the MPC benchmark scene (a 12-link revolute chain by
+default); ``scene_00_serial_chain`` is the reference's scene 0, whose f64
+trajectory dump gates the BDF2 step. The other scenes of the JAX package's
+zoo are ROADMAP queue 1 item 12.
+"""
+
+import math
+
+import numpy as np
+
+from redmax_tpu_torch.scene import SceneBuilder, transl
+from redmax_tpu_torch.types import JointType
+
+
+def scene_00_serial_chain() -> SceneBuilder:
+    """scenesRedMax.m case 0: 5 cuboids, alternating revolute(y)/fixed."""
+    b = SceneBuilder(name="Simple serial chain")
+    b.Hexpected = {"bdf1": -1.2705398823489915e05, "bdf2": 2.6058008179021417e03}
+    for i in range(5):
+        body = b.body_cuboid(1.0, (10, 1, 1), E_ji=transl([5, 0, 0]))
+        E_pj = np.eye(4) if i == 0 else transl([10, 0, 0])
+        if i % 2 == 0:
+            b.joint(
+                JointType.REVOLUTE,
+                None if i == 0 else i - 1,
+                body,
+                E_pj=E_pj,
+                axis=(0, 1, 0),
+                q=[math.pi / 4],
+            )
+        else:
+            b.joint(JointType.FIXED, i - 1, body, E_pj=E_pj)
+    return b
+
+
+def scene_chain(
+    nlinks: int = 12,
+    link_len: float = 1.0,
+    density: float = 1.0,
+    stiffness: float = 0.0,
+    damping: float = 1.0,
+    h: float = 1e-2,
+    tEnd: float = 0.5,
+    grav=(0.0, 0.0, -980.0),
+) -> SceneBuilder:
+    """Parametric serial revolute chain (nlinks DOF), alternating y/z axes so
+    the chain moves in 3D — the MPC benchmark scene."""
+    b = SceneBuilder(name=f"chain-{nlinks}", h=h, tEnd=tEnd, grav=grav)
+    sides = (link_len, 0.1 * link_len, 0.1 * link_len)
+    for i in range(nlinks):
+        body = b.body_cuboid(density, sides, E_ji=transl([link_len / 2, 0, 0]))
+        axis = (0, 1, 0) if i % 2 == 0 else (0, 0, 1)
+        j = b.joint(
+            JointType.REVOLUTE,
+            None if i == 0 else i - 1,
+            body,
+            E_pj=np.eye(4) if i == 0 else transl([link_len, 0, 0]),
+            axis=axis,
+        )
+        if stiffness:
+            b.set_stiffness(j, stiffness)
+        if damping:
+            b.set_damping(j, damping)
+    return b

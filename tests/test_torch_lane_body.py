@@ -1,0 +1,121 @@
+"""CPU check of the CUDA kernel's lane body: csrc/chord_bdf2_lane.cuh is
+compiled with plain g++ behind a tiny extern "C" loop over lanes (no torch
+headers, built under a temporary directory) and held against the JAX
+package's numpy evaluation of the Pallas kernel body,
+pallas_step.chord_bdf2_dense(xp=np), on scene_chain(4) and scene_chain(12)
+(the two shapes the kernel is instantiated for) and on a scene with every
+constant-S joint type, a penalty limit and body damping, at the tolerances of
+tests/test_pallas_step.py (x 5e-6 abs, Hinv 2e-5 of scale). The packing of
+the kernel's inputs (chord_kernel.pack) is the wrapper's own. This build is
+a test only, never a route of the wrapper.
+"""
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from redmax_tpu import integrators as jint
+from redmax_tpu import pallas_step
+from redmax_tpu import scene as jscene
+from redmax_tpu.scenes import scene_chain as jchain
+from redmax_tpu.types import JointType as JJT
+from redmax_tpu_torch import chord_kernel, convert
+from redmax_tpu_torch import integrators as tint
+from test_torch_model import mixed_builder
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "redmax_tpu_torch", "csrc")
+LOOP = r"""
+#include "chord_bdf2_lane.cuh"
+extern "C" void chord_bdf2_cpu(int N, int B, const float* x0, const float* q0, const float* qd0,
+                               const float* q1, const float* qd1, const float* tau,
+                               const int* topo_i, const float* stat_f, int fixed_iters,
+                               float growth_reject, float tol_reject, float dx_clamp,
+                               float* x_out, float* hinv_out) {
+  const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
+  for (int lane = 0; lane < B; ++lane) {
+    if (N == 4)
+      chord::chord_bdf2_lane<4, 4>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg,
+                                   x_out, hinv_out);
+    else if (N == 6)
+      chord::chord_bdf2_lane<6, 8>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg,
+                                   x_out, hinv_out);
+    else
+      chord::chord_bdf2_lane<12, 12>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg,
+                                     x_out, hinv_out);
+  }
+}
+"""
+CFG_KW = dict(fixed_iters=3, predictor="quadratic", chord=True,
+              hessian="structured", linsolve="gj")
+
+
+@pytest.fixture(scope="module")
+def lane_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    d = tmp_path_factory.mktemp("lane_body")
+    src, so = d / "loop.cpp", d / "liblane.so"
+    src.write_text(LOOP)
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I", CSRC,
+                    "-o", str(so), str(src)], check=True)
+    lib = ctypes.CDLL(str(so))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.chord_bdf2_cpu.argtypes = [i, i] + [p] * 8 + [i, f, f, f, p, p]
+    lib.chord_bdf2_cpu.restype = None
+    return lib
+
+
+def _states(nr, B):
+    rng = np.random.default_rng(1)
+    q1 = (0.3 * rng.normal(size=(B, nr))).astype(np.float32)
+    qd1 = rng.normal(size=(B, nr)).astype(np.float32)
+    qd1[-1] = 1e6  # a lane that must be rejected
+    q0 = q1 - np.float32(0.01) * qd1
+    qd0 = qd1 + (0.05 * rng.normal(size=(B, nr))).astype(np.float32)
+    x0 = q1 + np.float32(0.01) * qd1
+    tau = (3.0 * rng.normal(size=(B, nr))).astype(np.float32)
+    return (x0, q0, qd0, q1, qd1), tau
+
+
+@pytest.mark.parametrize("scene", ["chain4", "chain12", "mixed"])
+def test_lane_body_matches_kernel_body(lane_lib, scene):
+    build = {"chain4": lambda: jchain(nlinks=4), "chain12": lambda: jchain(nlinks=12),
+             "mixed": lambda: mixed_builder(jscene, JJT)}
+    sc = build[scene]().compile(dtype=jnp.float32)
+    B, nr = 9, sc.topo.nr
+    states, tau = _states(nr, B)
+    jcfg = jint.NewtonConfig(**CFG_KW)
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(
+        sc.topo, jcfg, {**sc.params, "tau": jnp.asarray(tau)}, *states, xp=np)
+
+    topo = convert.topology_from_fields(**dataclasses.asdict(sc.topo))
+    params = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, sc.params),
+                                       "cpu", torch.float32)
+    packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
+                               *(torch.tensor(a) for a in states))
+    args = [np.ascontiguousarray(a.numpy()) for a in packed]
+    x_out = np.empty((nr, B), np.float32)
+    h_out = np.empty((nr * nr, B), np.float32)
+    cfg = tint.NewtonConfig(**CFG_KW)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    lane_lib.chord_bdf2_cpu(sc.topo.njoints, B, *(ptr(a) for a in args),
+                            cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+                            ptr(x_out), ptr(h_out))
+    x = x_out.T
+    hinv = h_out.reshape(nr, nr, B).transpose(2, 0, 1)
+
+    finite = np.isfinite(x_np).all(-1)
+    assert not finite[-1] and finite[:-1].all(), finite
+    np.testing.assert_array_equal(np.isfinite(x).all(-1), finite)
+    np.testing.assert_allclose(x[finite], x_np[finite], rtol=0, atol=5e-6)
+    scale = float(np.abs(hinv_np[finite]).max())
+    np.testing.assert_allclose(hinv[finite], hinv_np[finite], rtol=0, atol=2e-5 * scale)
