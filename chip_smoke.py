@@ -1,12 +1,12 @@
-"""Drive redmax_tpu_torch's main path on one NVIDIA GPU and check it.
+"""Drive redmax_tpu_torch's two paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure is an exception and a non-zero exit):
   1. card and toolchain: torch.cuda must be available;
-  2. build the chord kernel (csrc/) with nvcc for sm_90a, print the
-     -Xptxas -v register/spill report;
-  3. hold the kernel against its plain PyTorch version on the card
+  2. build both kernels (csrc/) with nvcc for sm_90a, side by side, and print
+     their -Xptxas -v register/spill reports;
+  3. hold the chord kernel against its plain PyTorch version on the card
      (scene_chain(12) at B = 1024 and the ragged B = 1000, scene_chain(4)):
      x within 5e-6 max(1, |x|) of the float32 plain version, H^-1 within
      2e-5 of scale of the plain version in float64; time both with CUDA
@@ -16,8 +16,23 @@ Phases (any failure is an exception and a non-zero exit):
      the launch count read around the timed solves; the same solve on the
      op-level route (float32 and float64) must agree; a small solve on the
      card must agree with the same solve on the CPU in float64;
-  5. print the kernels line, the card's name and power limit, and the
-     result line.
+  5. hold the dual-PGS kernel against its plain version on the card: random
+     well-posed QPs at (n, m) = (6, 8), B = 1024 and a ragged B = 1000 (x
+     within 2e-5, lambda within 2e-4 of scale), and the contact QPs of the
+     6-link floor chain at (6, 12) (m > n makes the dual singular, so x and
+     the primal objective are held by quantiles against the plain version in
+     float64, not lambda); time the launch, the wrapper and the plain
+     version, and compute the kernel's bound;
+  6. the contact-QP path: scene_floor_chain(6), B = 1024, f32, 20 linearly
+     implicit Euler steps with 40 PGS sweeps through make_euler_step_batched
+     and make_simulate on the kernel route, with the launch count read around
+     the timed rollouts; the same rollout on the op-level route (float32 and
+     float64) must agree; the last step's solution must be feasible; a small
+     rollout on the card must agree with the CPU in float64;
+  7. the equality branch: reference case 4 (loop closure, dense KKT), B = 64,
+     5 steps on the card against the CPU in float64, launching no kernel;
+  8. print the kernels line, the paths' lines, the card's name and power
+     limit, and the result line.
 """
 
 import importlib.util
@@ -31,8 +46,9 @@ import time
 import numpy as np
 import torch
 
-from redmax_tpu_torch import chord_kernel, integrators, mpc
-from redmax_tpu_torch.scenes import scene_chain
+from redmax_tpu_torch import chord_kernel, integrators, mpc, qp_kernel
+from redmax_tpu_torch.scenes import scene_chain, scene_floor_chain
+from redmax_tpu_torch.scenes_matlab import build_mscene
 from redmax_tpu_torch.types import State
 
 # H100 SXM peaks at its 700 W limit (NVIDIA data sheet): f32 outside the
@@ -294,6 +310,306 @@ def phase_small_reference(device="cuda"):
         raise AssertionError("small solve on the card disagrees with the CPU float64 solve")
 
 
+# ---------------------------------------------------------------------------
+# The dual-PGS kernel and the contact-QP Euler path
+# ---------------------------------------------------------------------------
+
+PGS_ITERS = 40
+PGS_REG = 1e-10
+
+
+def quantiles(v, qs=(0.5, 0.95, 0.99)):
+    v = v.double().flatten()
+    out = torch.quantile(v, torch.tensor(qs, dtype=v.dtype, device=v.device))
+    return [float(x) for x in out] + [float(v.max())]
+
+
+def random_qps(B, n, me, mi, mb, seed, device):
+    """Well-posed random QPs (H = Q Q^T + 3 I) with equality, inequality and
+    boxed rows, as tests/test_torch_qp.py makes them."""
+    rng = np.random.default_rng(seed)
+    m = me + mi + mb
+    Q = rng.normal(size=(B, n, n))
+    H = Q @ np.transpose(Q, (0, 2, 1)) + 3.0 * np.eye(n)
+    f, A, b = rng.normal(size=(B, n)), rng.normal(size=(B, m, n)), rng.normal(size=(B, m))
+    box = np.abs(rng.normal(size=(B, mb)))
+    lo = np.concatenate([np.full((B, me), -np.inf), np.zeros((B, mi)), -box], axis=1)
+    hi = np.concatenate([np.full((B, me + mi), np.inf), box], axis=1)
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in (H, f, A, b, lo, hi)]
+
+
+def floor_chain_states(sc, B, device, dtype, seed=0):
+    """benchmarks/bench_qp.py's states: q = q0 + 0.3 N(0,1), qdot = N(0,1)."""
+    rng = np.random.default_rng(seed)
+    q = sc.state0.q.cpu().numpy()[None] + 0.3 * rng.normal(size=(B, sc.topo.nr))
+    qd = rng.normal(size=(B, sc.topo.nr))
+    return State(q=torch.tensor(q, dtype=dtype, device=device),
+                 qdot=torch.tensor(qd, dtype=dtype, device=device))
+
+
+def contact_qps(sc, s):
+    """(H, f, A, b, lo, hi) of the Euler step at state s."""
+    H, f, (A, b, lo, hi, _) = integrators.euler_qp_system(
+        sc.topo, (), sc.constraint_fns, sc.params, s.q, s.qdot)
+    return H, f, A, b, lo, hi
+
+
+def dual_pgs_flops(n, m, iters):
+    """Floating-point operations of one lane of csrc/dual_pgs_lane.cuh, counted
+    from its loops (add, sub, mul, div, compare-and-select of the clip: one
+    each)."""
+    gj = n * (1 + 2 * n + 4 * n * (n - 1))
+    setup = 2 * n * n + 2 * n * n * m + 2 * n * m * m + m * (2 * n + 1)
+    sweeps = iters * m * (2 * m + 6)
+    return gj + setup + sweeps + n * (2 * m + 1)
+
+
+def phase_qp_kernel_vs_plain(device="cuda", B=1024):
+    """dual_pgs vs dual_pgs_reference on the card at both instantiated shapes;
+    returns the kernel record fields measured at the path's shape (6, 12)."""
+    # (a) well-posed random QPs at (6, 8): lambda is unique, so it is held too
+    for Bq in (B, B - 24):
+        qps = random_qps(Bq, 6, 1, 4, 3, seed=11, device=device)
+        x, lam = qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)
+        x_ref, lam_ref = qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(x).all() and torch.isfinite(lam).all()):
+            raise AssertionError(f"dual_pgs (6, 8) B {Bq}: non-finite output")
+        xs, ls = max(1.0, float(x_ref.abs().max())), max(1.0, float(lam_ref.abs().max()))
+        dx, dl = float((x - x_ref).abs().max()), float((lam - lam_ref).abs().max())
+        print(f"dual_pgs vs plain (6, 8) B {Bq}: max|dx| {dx:.3e} of scale {xs:.3e}, "
+              f"max|dlam| {dl:.3e} of scale {ls:.3e}")
+        if dx > 2e-5 * xs or dl > 2e-4 * ls:
+            raise AssertionError(f"dual_pgs (6, 8) B {Bq}: kernel disagrees with its plain version")
+
+    # (b) the path's contact QPs at (6, 12). D = A H^-1 A^T is singular
+    # (m > n), lambda is not unique and two f32 orders walk different iterate
+    # paths on lanes at an active-set boundary: x and the primal objective
+    # are held by quantiles against the plain version in float64.
+    sc = scene_floor_chain(6).compile(dtype=torch.float32, device=device)
+    qps = contact_qps(sc, floor_chain_states(sc, B, device, torch.float32))
+    n, m = qps[1].shape[1], qps[2].shape[1]
+    x, lam = qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)
+    x_ref, _ = qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG)
+    qps64 = [a.double() for a in qps]
+    x64, _ = qp_kernel.dual_pgs_reference(*qps64, iters=PGS_ITERS, reg=PGS_REG)
+    torch.cuda.synchronize()
+    fin, fin_ref = torch.isfinite(x).all(-1), torch.isfinite(x_ref).all(-1)
+    if not torch.equal(fin, fin_ref) or not torch.equal(fin, torch.isfinite(x64).all(-1)):
+        raise AssertionError("dual_pgs (6, 12): finite masks differ")
+    if fin.float().mean() < 0.99:
+        raise AssertionError(f"dual_pgs (6, 12): only {float(fin.float().mean())} finite")
+    H64, f64 = qps64[0][fin], qps64[1][fin]
+
+    def pobj(xv):
+        xv = xv[fin].double()
+        return 0.5 * torch.einsum("bi,bij,bj->b", xv, H64, xv) - torch.einsum("bi,bi->b", f64, xv)
+
+    o64 = pobj(x64)
+    gap = {name: (pobj(xv) - o64).abs() / (o64.abs() + 1e-9)
+           for name, xv in (("kernel", x), ("f32 plain", x_ref))}
+    xscale = max(1.0, float(x64[fin].abs().max()))
+    act_rows = float(torch.isinf(qps[5]).float().sum(-1).mean())
+    print(f"dual_pgs vs plain (6, 12) B {B}: finite {int(fin.sum())}/{B}, "
+          f"{act_rows:.2f} active rows per lane of {m}")
+    stats = {}
+    for name, g in gap.items():
+        p50, p95, p99, mx = quantiles(g)
+        within = float((g <= 1e-3).double().mean())
+        stats[name] = (p50, p95, within)
+        print(f"  primal objective gap to f64 plain, {name}: p50 {p50:.3e}, p95 {p95:.3e}, "
+              f"p99 {p99:.3e}, max {mx:.3e} (worst lane, not held); {within:.4f} within 1e-3")
+    for name, xv in (("kernel", x), ("f32 plain", x_ref)):
+        p50, p95, p99, mx = quantiles((xv[fin].double() - x64[fin]).abs().amax(-1) / xscale)
+        print(f"  max|dx| to f64 plain of scale {xscale:.3e}, {name}: p50 {p50:.3e}, "
+              f"p95 {p95:.3e}, p99 {p99:.3e}, max {mx:.3e}")
+    dxk = float((x[fin] - x_ref[fin]).abs().max())
+    k, pl = stats["kernel"], stats["f32 plain"]
+    if k[0] > 1e-5 or k[2] < 0.95:
+        raise AssertionError("dual_pgs (6, 12): primal objective gap to float64 too large")
+    # no worse than twice the f32 plain version's gap at the median and the
+    # 95% quantile (with a floor of f32 roundoff on the objective, 1e-6)
+    if k[0] > 2 * max(pl[0], 1e-6) or k[1] > 2 * max(pl[1], 1e-6):
+        raise AssertionError("dual_pgs (6, 12): kernel further from float64 than twice the "
+                             "float32 plain version")
+
+    packed = qp_kernel.pack(*qps)
+    ms = cuda_ms(lambda: qp_kernel.launch(*packed, PGS_ITERS, PGS_REG), reps=200)
+    wrap_ms = cuda_ms(lambda: qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG), reps=100)
+    plain_ms = cuda_ms(lambda: qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG),
+                       reps=5)
+    flops = dual_pgs_flops(n, m, PGS_ITERS) * B
+    nbytes = 4 * B * (n * n + n + m * n + 3 * m + n + m)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    print(f"dual_pgs at (6, 12), B {B}, {PGS_ITERS} sweeps: kernel {ms:.4f} ms, wrapper with "
+          f"layout copies {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops // B} flops/lane "
+          f"({t_ops * 1e3:.3f} us), {nbytes} bytes ({t_bytes * 1e3:.3f} us); bound "
+          f"{bound * 1e3:.3f} us, kernel at {bound / ms:.2%} of it; dependent chain "
+          f"{PGS_ITERS * m} row updates per lane, {ms * 1e6 / (PGS_ITERS * m):.1f} ns each")
+    return {"max_abs_err": dxk, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def lane_err(q, ref):
+    """Per-lane max |q - ref| over the scale of ref, on lanes finite in both."""
+    both = torch.isfinite(q).all(-1) & torch.isfinite(ref).all(-1)
+    scale = max(1.0, float(ref[both].abs().max()))
+    return (q[both].double() - ref[both].double()).abs().amax(-1) / scale, both
+
+
+def phase_euler_path(device="cuda", nlinks=6, B=1024, nsteps=20, reps=3):
+    """benchmarks/bench_qp.py's workload on the port; returns (kernel
+    launches of the timed rollouts, steps/s, finite_frac)."""
+    sc = scene_floor_chain(nlinks).compile(dtype=torch.float32, device=device)
+    s0 = floor_chain_states(sc, B, device, torch.float32)
+    step = integrators.make_euler_step_batched(sc.topo, (), sc.constraint_fns,
+                                               pgs_iters=PGS_ITERS, use_kernel=True)
+    sim = integrators.make_simulate(step, nsteps)
+    final = sim(sc.params, s0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qp_kernel.dual_pgs_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        final = sim(sc.params, s0)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    launches = qp_kernel.dual_pgs_launches
+    dt = start.elapsed_time(end) / 1e3 / reps
+    if launches != nsteps * reps:
+        raise AssertionError(f"dual_pgs launched {launches} times in {reps} rollouts, "
+                             f"want {nsteps} per rollout")
+    finite = torch.isfinite(final.q).all(-1) & torch.isfinite(final.qdot).all(-1)
+    finite_frac = float(finite.float().mean())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"euler path: {B * nsteps / dt:.1f} steps/s ({dt * 1e3:.3f} ms per {nsteps}-step rollout "
+          f"by CUDA events, {wall * 1e3:.3f} ms host clock), finite_frac {finite_frac:.4f}, "
+          f"kernel launches {launches // reps} per rollout, peak memory {peak / 2**20:.1f} MiB")
+    if final.q.shape != (B, sc.topo.nr) or finite_frac < 0.99:
+        raise AssertionError(f"euler path: shape {tuple(final.q.shape)}, finite_frac {finite_frac}")
+
+    # one step split into assembly (kinematics, Euler system, constraint rows)
+    # and the QP solve (layout copies + kernel), on the warm path
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ev[0].record()
+        qps = contact_qps(sc, s0)
+        ev[1].record()
+        qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)
+        ev[2].record()
+        torch.cuda.synchronize()
+    print(f"one step by phase: assembly {ev[0].elapsed_time(ev[1]):.3f} ms, "
+          f"QP solve (wrapper) {ev[1].elapsed_time(ev[2]):.3f} ms")
+
+    # The same rollout on the op-level route in float32 and float64. Final q
+    # within 1e-3 of scale of the float64 rollout on at least 95% of lanes;
+    # the worst lane sits on an active-set boundary and is printed, not held.
+    qp_kernel.dual_pgs_launches = 0
+    sim_op = integrators.make_simulate(integrators.make_euler_step_batched(
+        sc.topo, (), sc.constraint_fns, pgs_iters=PGS_ITERS, use_kernel=False), nsteps)
+    q32 = sim_op(sc.params, s0).q
+    sc64 = scene_floor_chain(nlinks).compile(dtype=torch.float64, device=device)
+    s64 = State(q=s0.q.double(), qdot=s0.qdot.double())
+    q64 = sim_op(sc64.params, s64).q
+    torch.cuda.synchronize()
+    if qp_kernel.dual_pgs_launches != 0:
+        raise AssertionError("op-level route launched the kernel")
+    within = {}
+    for name, a, ref in (("kernel route vs op-level f64", final.q, q64),
+                         ("kernel route vs op-level f32", final.q, q32),
+                         ("op-level f32 vs op-level f64", q32, q64)):
+        err, both = lane_err(a, ref)
+        p50, _, p99, mx = quantiles(err)
+        within[name] = float((err <= 1e-3).double().mean())
+        print(f"{name}: final q diff of scale median {p50:.3e}, p99 {p99:.3e}, max {mx:.3e}; "
+              f"{within[name]:.4f} of {int(both.sum())} lanes within 1e-3")
+    if within["kernel route vs op-level f64"] < 0.95:
+        raise AssertionError("euler path: kernel route and float64 op-level route disagree")
+
+    # Feasibility of the last step's solution on its active rows. A fixed
+    # number of dual sweeps leaves a primal violation of its own (it falls
+    # with the sweep count), so A x <= b + 1e-4 scale is held relative to
+    # the plain version in float64 at the same sweep count, lane by lane, on
+    # at least 95% of lanes, and absolutely at 1e-2 of scale.
+    s_last = integrators.make_simulate(step, nsteps - 1)(sc.params, s0)
+    qps = contact_qps(sc, s_last)
+    A, b, active = qps[2], qps[3], torch.isinf(qps[5])
+    scale = max(1.0, float(b[active].abs().max()))
+
+    def violation(x):
+        Ax = torch.einsum("bmn,bn->bm", A.double(), x.double())
+        return torch.where(active, Ax - b, torch.zeros_like(Ax)).amax(-1) / scale
+
+    qps64 = [a.double() for a in qps]
+    viol = {
+        "kernel": violation(qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)[0]),
+        "f64 plain": violation(qp_kernel.dual_pgs_reference(*qps64, PGS_ITERS, PGS_REG)[0]),
+        f"f64 plain at {10 * PGS_ITERS} sweeps":
+            violation(qp_kernel.dual_pgs_reference(*qps64, 10 * PGS_ITERS, PGS_REG)[0]),
+    }
+    fin = torch.isfinite(viol["kernel"]) & torch.isfinite(viol["f64 plain"])
+    print(f"last step feasibility: {int(active.sum())} active rows on "
+          f"{int(active.any(-1).sum())} lanes; violation max(A x - b) of scale {scale:.3e}:")
+    for name, v in viol.items():
+        p50, p95, p99, mx = quantiles(v[fin])
+        print(f"  {name}: median {p50:.3e}, p95 {p95:.3e}, p99 {p99:.3e}, max {mx:.3e}; "
+              f"{float((v[fin] <= 1e-4).double().mean()):.4f} of lanes within 1e-4")
+    as_plain = float((viol["kernel"][fin] <= viol["f64 plain"][fin] + 1e-4).double().mean())
+    print(f"  kernel within 1e-4 of the f64 plain version's violation on {as_plain:.4f} of lanes")
+    if as_plain < 0.95 or float(viol["kernel"][fin].max()) > 1e-2:
+        raise AssertionError("euler path: the last step's solution is less feasible than the "
+                             "plain version's")
+    return launches, B * nsteps / dt, finite_frac
+
+
+def rollout_q(scene, s0_of, device, dtype, nsteps, use_kernel=None):
+    sc = scene(dtype, device)
+    step = integrators.make_euler_step_batched(sc.topo, (), sc.constraint_fns,
+                                               pgs_iters=PGS_ITERS, use_kernel=use_kernel)
+    return integrators.make_simulate(step, nsteps)(sc.params, s0_of(sc, device, dtype)).q
+
+
+def phase_small_euler(device="cuda", B=64, nsteps=5):
+    """Small rollouts on the card in float32 against the CPU in float64: the
+    6-link floor chain on the kernel route, and the equality branch
+    (reference case 4, dense KKT), which must launch no kernel."""
+    floor = lambda dtype, dev: scene_floor_chain(6).compile(dtype=dtype, device=dev)
+    states = lambda sc, dev, dtype: floor_chain_states(sc, B, dev, dtype)
+    card = rollout_q(floor, states, device, torch.float32, nsteps)
+    cpu = rollout_q(floor, states, "cpu", torch.float64, nsteps)
+    err, both = lane_err(card.cpu(), cpu)
+    p50, _, p99, mx = quantiles(err)
+    print(f"small floor-chain rollout, card f32 vs CPU f64: final q diff of scale median "
+          f"{p50:.3e}, p99 {p99:.3e}, max {mx:.3e} over {int(both.sum())}/{B} lanes")
+    if int(both.sum()) != B or mx > 1e-3:
+        raise AssertionError("small rollout on the card disagrees with the CPU float64 rollout")
+
+    def loop_states(sc, dev, dtype):
+        rng = np.random.default_rng(3)
+        q = sc.state0.q.cpu().numpy()[None] + 0.05 * rng.normal(size=(B, sc.topo.nr))
+        qd = sc.state0.qdot.cpu().numpy()[None] + 0.1 * rng.normal(size=(B, sc.topo.nr))
+        return State(q=torch.tensor(q, dtype=dtype, device=dev),
+                     qdot=torch.tensor(qd, dtype=dtype, device=dev))
+
+    loop = lambda dtype, dev: build_mscene(4, dtype=dtype, device=dev)
+    qp_kernel.dual_pgs_launches = 0
+    card = rollout_q(loop, loop_states, device, torch.float32, nsteps)
+    cpu = rollout_q(loop, loop_states, "cpu", torch.float64, nsteps)
+    torch.cuda.synchronize()
+    if qp_kernel.dual_pgs_launches != 0:
+        raise AssertionError("the equality branch launched the dual-PGS kernel")
+    err, both = lane_err(card.cpu(), cpu)
+    print(f"equality branch (loop closure, KKT), card f32 vs CPU f64: final q diff of scale "
+          f"max {float(err.max()):.3e} over {int(both.sum())}/{B} lanes, 0 kernel launches")
+    if int(both.sum()) != B or float(err.max()) > 1e-4:
+        raise AssertionError("equality branch on the card disagrees with the CPU float64 rollout")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda is not available")
@@ -306,25 +622,40 @@ def main():
           f"triton {'importable' if importlib.util.find_spec('triton') else 'missing'}")
 
     t0 = time.perf_counter()
-    chord_kernel._build_lib()
+    for mod in (chord_kernel, qp_kernel):  # one nvcc per source, side by side
+        mod.BUILD.start()
+    for mod in (chord_kernel, qp_kernel):
+        mod._build_lib()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in chord_kernel.ptxas_report.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            print("ptxas:", line.strip())
+    for mod in (chord_kernel, qp_kernel):
+        for line in mod.BUILD.ptxas_report.splitlines():
+            if "Compiling" in line or "registers" in line or "spill" in line:
+                print(f"ptxas {mod.BUILD.name}:", line.strip())
 
     record = phase_kernel_vs_plain()
     launches, rate, finite_frac = phase_main_path()
     phase_small_reference()
+    qp_record = phase_qp_kernel_vs_plain()
+    qp_launches, step_rate, euler_finite = phase_euler_path()
+    phase_small_euler()
 
     kernels = [{
         "name": "chord_bdf2", "route": "cuda",
         "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
         "replaces": "redmax_tpu/pallas_step.py:689",
         "launches": launches, **record, "library_ms": None,
+    }, {
+        # library_ms: no single PyTorch call computes a dual-PGS solve
+        "name": "dual_pgs", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/dual_pgs.cu",
+        "replaces": "redmax_tpu/pallas_qp.py:40",
+        "launches": qp_launches, **qp_record, "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {"solves_per_s": rate, "finite_frac": finite_frac,
                                     "card": smi}}))
+    print(json.dumps({"euler_path": {"steps_per_s": step_rate, "finite_frac": euler_finite,
+                                     "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,33 +26,23 @@ on a CPU tensor it runs chord_bdf2_reference.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from functools import lru_cache
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from redmax_tpu_torch import integrators
+from redmax_tpu_torch import integrators, model
 from redmax_tpu_torch.joints import CONSTANT_S_TYPES
+from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.types import JointType, Topology
 
 # Launches of the CUDA kernel since the counter was last set to 0.
 chord_bdf2_launches = 0
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SOURCES = ("chord_bdf2.cu", "chord_bdf2_lane.cuh")
+BUILD = KernelBuild("chord_bdf2", ("chord_bdf2.cu", "chord_bdf2_lane.cuh"))
 # (N, nr) shapes with an explicit template instantiation in chord_bdf2.cu.
 INSTANTIATED = ((12, 12), (4, 4))
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib = None
-ptxas_report = None  # nvcc -Xptxas -v output of the build this process loaded
 
 
 def supports(topo: Topology, force_fns: Tuple, cfg) -> bool:
@@ -84,39 +74,14 @@ def chord_bdf2_reference(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1
 
 
 def _build_lib():
-    """Compile the kernel with nvcc into _build/ (keyed by a hash of the
-    sources) and load it. Raises when nvcc is missing or the build fails."""
-    global _lib, ptxas_report
-    if _lib is not None:
-        return _lib
-    h = hashlib.sha256()
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    tag = h.hexdigest()[:16]
-    so = os.path.join(_BUILD, f"chord_bdf2_{tag}.so")
-    log = so[:-3] + ".ptxas.txt"
-    if not os.path.exists(so):
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the chord kernel cannot be built")
-        os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, "chord_bdf2.cu")]
-        out = subprocess.run(cmd, capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({out.returncode}):\n{out.stderr}")
-        with open(log, "w") as f:
-            f.write(out.stderr)
-        os.replace(tmp, so)
-    with open(log) as f:
-        ptxas_report = f.read()
-    lib = ctypes.CDLL(so)
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.chord_bdf2_launch.argtypes = [i, i, i] + [p] * 6 + [p, p] + [i, fl, fl, fl] + [p, p, p]
-    lib.chord_bdf2_launch.restype = i
-    _lib = lib
+    """The kernel library, compiled with nvcc at first use (see kernel_build).
+    Raises when nvcc is missing or the build fails."""
+    first = BUILD.lib is None
+    lib = BUILD.load()
+    if first:
+        p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.chord_bdf2_launch.argtypes = [i, i, i] + [p] * 6 + [p, p] + [i, fl, fl, fl] + [p, p, p]
+        lib.chord_bdf2_launch.restype = i
     return lib
 
 
@@ -138,9 +103,8 @@ def _static_buffer(topo: Topology, params: Dict):
     N = topo.njoints
     dev = params["I_i"].device
     axes = torch.zeros(N, 3, 3, dtype=torch.float32, device=dev)
-    for jt, members in topo.type_groups().items():
+    for jt, mem, _ in model._index_tensors(topo, dev).groups:
         jp = params["joint"].get(str(jt), {})
-        mem = list(members)
         if "axis" in jp:
             axes[mem, :, 0] = jp["axis"].float()
         elif "plane" in jp:

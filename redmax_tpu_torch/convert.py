@@ -2,15 +2,18 @@
 
 The JAX package's SceneParams is a nested dict of arrays; handed over as
 numpy (``jax.tree_util.tree_map(np.asarray, sc.params)``) it becomes this
-package's SceneParams with the same layout. The Topology's tuple fields
-carry over as they are. Neither function imports the JAX package.
+package's SceneParams with the same layout, params["constraints"]
+included. The Topology's tuple fields carry over as they are, and the
+constraint objects are rebuilt from their class names and attributes. No
+function here imports the JAX package.
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 
+from redmax_tpu_torch import constraints
 from redmax_tpu_torch.types import Topology
 
 
@@ -31,3 +34,24 @@ def topology_from_fields(njoints, nr, parent, jtype, qstart, ndof) -> Topology:
         qstart=tuple(int(s) for s in qstart),
         ndof=tuple(int(d) for d in ndof),
     )
+
+
+_CONSTRAINT_FIELDS = {
+    "ConstraintLoop": ("bodyA", "bodyB"),
+    "ConstraintJointLimit": ("dof",),
+    "ConstraintFloor": ("body",),
+    "ConstraintMultQ": ("dofA", "dofB"),
+}
+
+
+def constraints_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tuple:
+    """constraint_fns from (class name, attribute dict) pairs, as
+    ``[(type(c).__name__, vars(c)) for c in sc.constraint_fns]`` gives them
+    for a JAX CompiledScene; the keys into params["constraints"] carry over."""
+    out = []
+    for name, attrs in fields:
+        if name not in _CONSTRAINT_FIELDS:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 13)")
+        cls = getattr(constraints, name)
+        out.append(cls(attrs["key"], *(int(attrs[k]) for k in _CONSTRAINT_FIELDS[name])))
+    return tuple(out)

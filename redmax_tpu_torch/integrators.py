@@ -1,5 +1,7 @@
-"""Implicit integrators: SDIRK2-bootstrapped BDF2 with fixed-iteration chord
-Newton, batch-first.
+"""Implicit integrators, batch-first: SDIRK2-bootstrapped BDF2 with
+fixed-iteration chord Newton, and the linearly implicit Euler step with hard
+constraints (dense KKT for equalities, dual projected Gauss-Seidel for
+inequalities).
 
 Semantics are those of the JAX package's integrators.py (and of the
 reference drivers):
@@ -10,6 +12,9 @@ reference drivers):
   * Fixed-iteration chord Newton: the structured Newton matrix is built and
     inverted once at the predictor, then `fixed_iters` full steps; lanes
     whose residual grew or went non-finite are poisoned to NaN.
+  * Linearly implicit Euler: Mrtilde qdot1 = frtilde with one-sidedly
+    implicit damping, constraint rows from constraints.assemble_constraints,
+    Baumgarte stabilization from params["baumgarte"][2].
 
 Every state tensor is [B, nr]; lanes step in lock-step and never mix.
 Ported here: the unguarded chord branch of `newton`. The damped Newton with
@@ -24,8 +29,13 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from redmax_tpu_torch.adjoint import implicit_solve_factored
+from redmax_tpu_torch.constraints import assemble_constraints
 from redmax_tpu_torch.linalg import make_solver
-from redmax_tpu_torch.model import assemble, reparam_all, structured_hessian
+from redmax_tpu_torch.model import (
+    assemble, forward_kinematics, jacobians, joint_space_force, joint_space_KD_diag,
+    maximal_force, reparam_all, structured_hessian,
+)
+from redmax_tpu_torch.qp import kkt_solve, qp_pgs_batched
 from redmax_tpu_torch.types import State, Topology
 
 SDIRK_ALPHA = (2.0 - math.sqrt(2.0)) / 2.0
@@ -369,13 +379,163 @@ def make_bdf2_step_batched(
 
 
 def make_simulate(step_fn: Callable, nsteps: int):
-    """Roll a BDF2 step function for nsteps: the SDIRK2 bootstrap once, then
-    nsteps - 1 inner steps. Returns the final Bdf2State."""
+    """Roll a step function for nsteps and return the final state. A step
+    function that exposes .bootstrap/.inner (BDF2) runs the SDIRK2 bootstrap
+    once, then nsteps - 1 inner steps; any other (Euler) is called nsteps
+    times."""
+    split = hasattr(step_fn, "bootstrap") and nsteps >= 1
 
-    def simulate(params: Dict, state0: Bdf2State) -> Bdf2State:
-        s = step_fn.bootstrap(params, state0)
-        for _ in range(nsteps - 1):
-            s = step_fn.inner(params, s)
+    def simulate(params: Dict, state0):
+        s = step_fn.bootstrap(params, state0) if split else state0
+        inner = step_fn.inner if split else step_fn
+        for _ in range(nsteps - 1 if split else nsteps):
+            s = inner(params, s)
         return s
 
     return simulate
+
+
+# ---------------------------------------------------------------------------
+# Linearly implicit (semi-implicit) Euler with constraints
+# ---------------------------------------------------------------------------
+
+
+def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
+    """Assemble the linearly implicit Euler system at batched (q0, qdot0):
+
+        Mrtilde qdot1 = frtilde
+        frtilde = Mr qdot0 + h (J^T (f0_m - Mm Jdot qdot0) + f0_r)
+        Mrtilde = Mr - h J^T Dm J - h Dr - h^2 Kr
+
+    f0 excludes the damping forces: damping is one-sidedly implicit, its
+    force is dropped and only D enters the left side. Kr and Dr are the
+    closed-form diagonals of model.joint_space_KD_diag (penalty limits
+    included), and without force closures Dm is the body damping alone and
+    Km is zero. Force closures raise (ROADMAP queue 1 item 10).
+
+    Returns a dict: kin, J, Jdot, phi, Mr [B,nr,nr], frtilde [B,nr],
+    Mrtilde [B,nr,nr].
+    """
+    if force_fns:
+        raise NotImplementedError("force closures are ROADMAP queue 1 item 10")
+    h = params["h"]
+    B = q0.shape[0]
+    kin = forward_kinematics(topo, params, q0, qdot0)
+    J, Jdot, phi = jacobians(topo, params, kin, qdot0)
+    Jt = J.transpose(-1, -2)
+
+    Kr, Dr = joint_space_KD_diag(topo, params, q0, qdot0)        # diagonals [B,nr]
+    f0_r = joint_space_force(topo, params, q0, qdot0) - Dr * qdot0
+
+    # maximal_force carries -bd*phi; adding it back leaves Coriolis + gravity
+    bd6 = params["body_damping"].repeat_interleave(6)            # Dm = -diag(bd6)
+    phif = phi.reshape(B, -1)
+    f0_m = maximal_force(topo, params, kin, phi).reshape(B, -1) + bd6 * phif
+
+    Ivec = params["I_i"].reshape(-1)
+    Mr = Jt @ (Ivec[:, None] * J)
+    Mr = 0.5 * (Mr + Mr.transpose(-1, -2))
+    frtilde = _mv(Mr, qdot0) + h * (_mv(Jt, f0_m - Ivec * _mv(Jdot, qdot0)) + f0_r)
+    Mrtilde = Mr + h * (Jt @ (bd6[:, None] * J)) - torch.diag_embed(h * Dr + h * h * Kr)
+    return {"kin": kin, "J": J, "Jdot": Jdot, "phi": phi,
+            "Mr": Mr, "frtilde": frtilde, "Mrtilde": Mrtilde}
+
+
+def euler_qp_system(topo, force_fns, constraint_fns, params, q0, qdot0):
+    """(Mrtilde, frtilde, qp) with qp = None for a scene without constraint
+    rows, else the stacked rows (A, b, lo, hi, me): the me equality rows
+    first with boxes (-inf, inf), then the inequality rows, an active one
+    with box (0, inf) and an inactive one masked to a zero row with
+    b = 0 and lo = hi = 0."""
+    sys = euler_system(topo, force_fns, params, q0, qdot0)
+    if not constraint_fns:
+        return sys["Mrtilde"], sys["frtilde"], None
+    rows = assemble_constraints(constraint_fns, params, topo, sys["kin"], sys["phi"],
+                                q0, qdot0, sys["J"])
+    B, dtype = q0.shape[0], q0.dtype
+    baum3 = params["baumgarte"][2]
+    act = rows["act"]
+    me, mi = rows["Geq"].shape[1], rows["Cin"].shape[1]
+    rhsG = -rows["geqdot"] - baum3 * rows["geq"]
+    rhsC = torch.where(act, -baum3 * rows["cin"], torch.zeros_like(rows["cin"]))
+    inf = q0.new_full((B, me), float("inf"))
+    zero = q0.new_zeros(B, mi)
+    A = torch.cat([rows["Geq"], rows["Cin"] * act.to(dtype)[..., None]], dim=1)
+    b = torch.cat([rhsG, rhsC], dim=1)
+    lo = torch.cat([-inf, zero], dim=1)
+    hi = torch.cat([inf, torch.where(act, float("inf"), 0.0).to(dtype)], dim=1)
+    return sys["Mrtilde"], sys["frtilde"], (A, b, lo, hi, me)
+
+
+def _make_euler_step(topo, force_fns, constraint_fns, ineq_solve: Callable):
+    """The Euler step around an inequality solve
+    ineq_solve(H, f, A, b, lo, hi) -> (x, lam)."""
+
+    def step(params: Dict, state: State) -> State:
+        q0, qdot0 = state.q, state.qdot
+        split_batched_params(params)  # only tau may be per-lane
+        Mrt, frt, qp = euler_qp_system(topo, force_fns, constraint_fns, params, q0, qdot0)
+        if qp is None:
+            qdot1 = torch.linalg.solve(Mrt, frt[..., None])[..., 0]
+        else:
+            A, b, lo, hi, me = qp
+            if A.shape[1] == me:          # pure equality: dense KKT
+                qdot1, _ = kkt_solve(Mrt, A, frt, b)
+            else:
+                qdot1, _ = ineq_solve(Mrt, frt, A, b, lo, hi)
+        q1 = q0 + params["h"] * qdot1
+        q1, qdot1 = reparam_all(topo, params, q1, qdot1)
+        return State(q=q1, qdot=qdot1, aux=state.aux)
+
+    return step
+
+
+def make_euler_step(
+    topo: Topology,
+    force_fns: Tuple = (),
+    constraint_fns: Tuple = (),
+    pgs_iters: int = 40,
+):
+    """One linearly implicit Euler step over [B, nr] states, op-level; the
+    system assembly is euler_system (docstring there).
+
+    Constraints: equality rows G qdot1 = -gdot - baum3 g via dense KKT;
+    with inequality rows in the scene, the dual PGS QP (qp.qp_pgs_batched)
+    over all rows. Baumgarte factor from params["baumgarte"][2].
+    """
+    return _make_euler_step(
+        topo, force_fns, constraint_fns,
+        lambda *system: qp_pgs_batched(*system, iters=pgs_iters))
+
+
+def make_euler_step_batched(
+    topo: Topology,
+    force_fns: Tuple = (),
+    constraint_fns: Tuple = (),
+    pgs_iters: int = 40,
+    use_kernel: bool = None,
+):
+    """The batched contact-QP tier: the Euler step with its inequality solve
+    on the fused dual-PGS kernel (qp_kernel.dual_pgs).
+
+    use_kernel: None = the kernel when the scene has inequality rows,
+    False = the op-level route (make_euler_step, qp.qp_pgs_batched),
+    True = require the kernel (raises for a scene without inequality rows).
+    On a CUDA tensor the kernel route launches the CUDA kernel (float32 and
+    an instantiated (nr, rows) shape, else it raises); on a CPU tensor it
+    runs the kernel's plain PyTorch version. Pure-equality scenes solve the
+    dense KKT system and launch nothing. Only tau may be per-lane
+    (split_batched_params).
+    """
+    from redmax_tpu_torch import qp_kernel
+
+    qualifies = any(c.n_ineq_m or c.n_ineq_r for c in constraint_fns)
+    if use_kernel is None:
+        use_kernel = qualifies
+    elif use_kernel and not qualifies:
+        raise ValueError("the scene has no inequality rows for the dual-PGS kernel")
+    if not use_kernel:
+        return make_euler_step(topo, force_fns, constraint_fns, pgs_iters)
+    return _make_euler_step(
+        topo, force_fns, constraint_fns,
+        lambda *system: qp_kernel.dual_pgs(*system, iters=pgs_iters))

@@ -13,6 +13,7 @@ every output carries the leading [B] lane dimension. Lanes never mix.
   * Assembly: M = J^T Mm J, fqvv = -J^T Mm Jdot qdot, f = fr + J^T fm + fqvv.
 """
 
+from functools import lru_cache
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
@@ -39,25 +40,55 @@ def _require_no_forces(force_fns: Tuple) -> None:
         raise NotImplementedError("force closures are ROADMAP queue 1 item 10")
 
 
+class _Index(NamedTuple):
+    """A topology's index tensors on one device (see _index_tensors)."""
+
+    groups: Tuple   # per joint type: (jt, members [G], q indices [G, d])
+    rounds: Tuple   # FK pointer-doubling schedule, [N+1] each
+    dofj: Any       # [nr] owning joint of each reduced DOF
+    col: Any        # [nr] flat (joint, dof) index into [N * MAX_NDOF]
+    anc: Any        # [N, nr] bool: joint of DOF r is body i's ancestor or i
+
+
+@lru_cache(maxsize=None)
+def _index_tensors(topo: Topology, device: torch.device) -> _Index:
+    """Built from the topology's numpy tables once per (topology, device), so
+    that the kinematics copy nothing from host to device after their first
+    call (each such copy blocks the host on the stream)."""
+    def T(a):
+        return torch.as_tensor(a, device=device)
+
+    groups = []
+    for jt, members in topo.type_groups().items():
+        d = NDOF[JointType(jt)]
+        idx = torch.as_tensor([[topo.qstart[m] + k for k in range(d)] for m in members],
+                              dtype=torch.long, device=device).reshape(len(members), d)
+        groups.append((jt, torch.as_tensor(members, dtype=torch.long, device=device), idx))
+    dofj = topo.dof_joint()
+    return _Index(
+        groups=tuple(groups),
+        rounds=tuple(T(ptr) for ptr in topo.doubling_rounds()),
+        dofj=T(dofj),
+        col=T(dofj * MAX_NDOF + topo.dof_index()),
+        anc=T(topo.ancestor_mask()[:, dofj] > 0),
+    )
+
+
 def forward_kinematics(topo: Topology, params: Dict, q, qdot) -> Kinematics:
     """Joint transforms and subspaces per type group, then the world chain."""
     B = q.shape[0]
     N = topo.njoints
     dtype, device = q.dtype, q.device
+    index = _index_tensors(topo, device)
     Q = torch.empty(B, N, 4, 4, dtype=dtype, device=device)
     S = torch.zeros(B, N, 6, MAX_NDOF, dtype=dtype, device=device)
     Sdot = torch.zeros(B, N, 6, MAX_NDOF, dtype=dtype, device=device)
-    for jt, members in topo.type_groups().items():
+    for jt, mem, idx in index.groups:
         jt_enum = JointType(jt)
         d = NDOF[jt_enum]
-        idx = torch.as_tensor(
-            [[topo.qstart[m] + k for k in range(d)] for m in members],
-            dtype=torch.long, device=device,
-        ).reshape(len(members), d)
         Qg, Sg, Sdotg = joint_QSSdot(
             jt_enum, q[:, idx], qdot[:, idx], joint_params_for(params, jt)
         )
-        mem = list(members)
         Q[:, mem] = Qg
         S[:, mem, :, :d] = Sg
         Sdot[:, mem, :, :d] = Sdotg
@@ -65,8 +96,8 @@ def forward_kinematics(topo: Topology, params: Dict, q, qdot) -> Kinematics:
     E_pj = params["E0_pj"] @ Q                                   # [B,N,4,4]
     eye = torch.eye(4, dtype=dtype, device=device).expand(B, 1, 4, 4)
     E_ext = torch.cat([E_pj, eye], dim=1)                        # node N = world
-    for ptr in topo.doubling_rounds():
-        E_ext = E_ext[:, torch.as_tensor(ptr, device=device)] @ E_ext
+    for ptr in index.rounds:
+        E_ext = E_ext[:, ptr] @ E_ext
     E_wj = E_ext[:, :N]
     E_wi = E_wj @ params["E0_ji"]
     return Kinematics(Q=Q, E_wj=E_wj, E_wi=E_wi, S=S, Sdot=Sdot)
@@ -76,12 +107,9 @@ def jacobians(topo: Topology, params: Dict, kin: Kinematics, qdot):
     """Dense J, Jdot [B, 6N, nr] plus body twists phi [B, N, 6]."""
     B = qdot.shape[0]
     N, nr = topo.njoints, topo.nr
-    dtype, device = qdot.dtype, qdot.device
-    dofj = torch.as_tensor(topo.dof_joint(), device=device)
-    # flat (joint, dof) index of each reduced column into [N * MAX_NDOF]
-    col = torch.as_tensor(topo.dof_joint() * MAX_NDOF + topo.dof_index(), device=device)
-    ancd = torch.as_tensor(topo.ancestor_mask()[:, topo.dof_joint()], dtype=dtype,
-                           device=device)                        # [N, nr]
+    index = _index_tensors(topo, qdot.device)
+    dofj, col = index.dofj, index.col
+    ancd = index.anc.to(qdot.dtype)                              # [N, nr]
 
     def cols(A):
         """[B,N,6,MAX_NDOF] -> the reduced columns [B,nr,6]."""
@@ -203,6 +231,25 @@ def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
     f = fr + (J.transpose(-1, -2) @ fm.reshape(B, -1, 1))[..., 0] + fqvv
     aux = {"kin": kin, "J": J, "Jdot": Jdot, "phi": phi, "fm": fm, "fr": fr}
     return M, f, aux
+
+
+def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
+    """Kinetic and potential energy (T [B], V [B]):
+      T = 1/2 sum_i phi_i^T M_i phi_i
+      V = -sum_i m_i g . p_wi + 1/2 k (q - qrest)^2 + limit penalties.
+    """
+    _require_no_forces(force_fns)
+    kin = forward_kinematics(topo, params, q, qdot)
+    _, _, phi = jacobians(topo, params, kin, qdot)
+    I = params["I_i"]
+    T = 0.5 * (phi * (I * phi)).sum((-1, -2))
+    V = -(I[:, 3] * (kin.E_wi[..., :3, 3] @ params["g"])).sum(-1)
+    dq = q - params["qrest"]
+    V = V + 0.5 * (params["stiffness"] * dq * dq).sum(-1)
+    dqL = (q < params["qlimL"]).to(q.dtype) * (params["qlimL"] - q)
+    dqU = (q > params["qlimU"]).to(q.dtype) * (params["qlimU"] - q)
+    V = V + 0.5 * (params["qlimK"] * (dqL * dqL + dqU * dqU)).sum(-1)
+    return T, V
 
 
 def reparam_all(topo: Topology, params: Dict, q, qdot):

@@ -5,18 +5,22 @@
 + SceneParams (a dict of tensors, in the JAX package's layout) + initial
 State — on which the dynamics run as plain functions of batched tensors.
 
-Forces, constraints, deformables and friction are not ported yet (ROADMAP
-queue 1 items 10 and 13-15); their builder methods raise.
+Constraints (loop closure, joint limit, floor contact, gear coupling) are
+kept as (object, params) pairs and compiled into ``constraint_fns`` plus
+``params["constraints"]``. Forces, deformables, the prescribed-motion and
+attach-point constraints and friction are not ported yet (ROADMAP queue 1
+items 10, 13 and 15); their SceneBuilder methods raise.
 """
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from redmax_tpu_torch import model
+from redmax_tpu_torch import constraints as con_mod
+from redmax_tpu_torch import integrators, model
 from redmax_tpu_torch.joints import require_supported
 from redmax_tpu_torch.types import NDOF, JointType, State, Topology
 
@@ -106,6 +110,7 @@ class SceneBuilder:
         self.grav = np.asarray(grav, dtype=np.float64)
         self.bodies: List[_BodySpec] = []
         self.joints: List[_JointSpec] = []
+        self.constraints: List[Tuple[Any, Dict[str, Any]]] = []  # (object, params)
         self.baumgarte = np.array([5.0, 5.0, 5.0])
         self.fric = False
         self.mu = np.array([0.6, 0.6])
@@ -201,8 +206,48 @@ class SceneBuilder:
     def deformable_spring(self, *a, **k):
         _not_ported("deformable springs", "10")
 
-    def constraint_loop(self, *a, **k):
-        _not_ported("constraints", "13")
+    def constraint_presc_joint(self, *a, **k):
+        _not_ported("prescribed-motion constraints", "13")
+
+    constraint_presc_joint_m = constraint_presc_body = constraint_presc_joint
+
+    # -- constraints -------------------------------------------------------
+    def _con_key(self) -> str:
+        return f"c{len(self.constraints)}"
+
+    def _dof(self, joint: int) -> int:
+        return sum(NDOF[self.joints[j].jtype] for j in range(joint))
+
+    def constraint_loop(self, bodyA, bodyB, xA, xB) -> None:
+        """Loop closure; body A's joint must be revolute (its axis defines
+        the basis of the two constrained directions)."""
+        axisA = self.joints[bodyA].params["axis"]
+        self.constraints.append((
+            con_mod.ConstraintLoop(self._con_key(), bodyA, bodyB),
+            {"xA": np.asarray(xA, dtype=np.float64), "xB": np.asarray(xB, dtype=np.float64),
+             "axisA": np.asarray(axisA, dtype=np.float64)},
+        ))
+
+    def constraint_joint_limit(self, joint: int, ql: float, qu: float) -> None:
+        self.constraints.append((
+            con_mod.ConstraintJointLimit(self._con_key(), self._dof(joint)),
+            {"ql": np.float64(ql), "qu": np.float64(qu)},
+        ))
+
+    def constraint_floor(self, body: int, E=None) -> None:
+        radius = self.bodies[body].radius
+        if radius is None:
+            raise ValueError("floor contact requires a sphere body")
+        self.constraints.append((
+            con_mod.ConstraintFloor(self._con_key(), body),
+            {"E": self._E(E), "radius": np.float64(radius)},
+        ))
+
+    def constraint_multq(self, jointA: int, jointB: int, factor: float) -> None:
+        self.constraints.append((
+            con_mod.ConstraintMultQ(self._con_key(), self._dof(jointA), self._dof(jointB)),
+            {"factor": np.float64(factor)},
+        ))
 
     # -- compile -----------------------------------------------------------
     def compile(self, dtype=torch.float64, device="cuda") -> "CompiledScene":
@@ -276,13 +321,15 @@ class SceneBuilder:
             "baumgarte": T(self.baumgarte),
             "mu": T(self.mu),
             "joint": jt_params,
-            "constraints": {},
+            "constraints": {obj.key: {k: T(v) for k, v in cp.items()}
+                            for obj, cp in self.constraints},
             "forces": {},
         }
         state0 = State(q=T(q0), qdot=T(qdot0), aux={})
         return CompiledScene(
             name=self.name, topo=topo, params=params, state0=state0,
-            force_fns=(), h=self.h, tEnd=self.tEnd, Hexpected=dict(self.Hexpected),
+            force_fns=(), constraint_fns=tuple(obj for obj, _ in self.constraints),
+            h=self.h, tEnd=self.tEnd, Hexpected=dict(self.Hexpected),
         )
 
 
@@ -293,6 +340,7 @@ class CompiledScene:
     params: Dict[str, Any]
     state0: State
     force_fns: tuple
+    constraint_fns: tuple
     h: float
     tEnd: float
     Hexpected: Dict[str, float]
@@ -304,3 +352,26 @@ class CompiledScene:
     def assemble(self, q, qdot):
         """(M [B,nr,nr], f [B,nr], aux) at batched (q, qdot) [B, nr]."""
         return model.assemble(self.topo, self.params, q, qdot, self.force_fns)
+
+    def energies(self, q, qdot):
+        """(T [B], V [B]) at batched (q, qdot) [B, nr]."""
+        return model.energies(self.topo, self.params, q, qdot, self.force_fns)
+
+    def make_step(self, integrator: str, cfg: Optional["integrators.NewtonConfig"] = None):
+        """A batched step function over [B, nr] states: "bdf2" or "euler"
+        (the op-level routes; the kernel routes are
+        integrators.make_bdf2_step_batched / make_euler_step_batched)."""
+        if integrator == "bdf2":
+            return integrators.make_bdf2_step(self.topo, self.force_fns,
+                                              cfg or integrators.NewtonConfig())
+        if integrator == "euler":
+            return integrators.make_euler_step(self.topo, self.force_fns, self.constraint_fns)
+        if integrator in ("bdf1", "euler_fric"):
+            _not_ported(f"the {integrator!r} step", "13" if integrator == "bdf1" else "15")
+        raise ValueError(integrator)
+
+    def initial_state(self, integrator: str, B: int = 1):
+        """state0 broadcast to B lanes, as the integrator's state type."""
+        s = State(q=self.state0.q.expand(B, -1).contiguous(),
+                  qdot=self.state0.qdot.expand(B, -1).contiguous(), aux={})
+        return integrators.bdf2_init(s) if integrator == "bdf2" else s

@@ -2,8 +2,9 @@
 
 ``scene_chain`` is the MPC benchmark scene (a 12-link revolute chain by
 default); ``scene_00_serial_chain`` is the reference's scene 0, whose f64
-trajectory dump gates the BDF2 step. The other scenes of the JAX package's
-zoo are ROADMAP queue 1 item 12.
+trajectory dump gates the BDF2 step; ``scene_floor_chain`` is the contact-QP
+benchmark scene (every joint limited, a floor sphere on every link). The
+other scenes of the JAX package's zoo are ROADMAP queue 1 item 12.
 """
 
 import math
@@ -63,4 +64,22 @@ def scene_chain(
             b.set_stiffness(j, stiffness)
         if damping:
             b.set_damping(j, damping)
+    return b
+
+
+def scene_floor_chain(nlinks: int = 6, h: float = 1e-2) -> SceneBuilder:
+    """Revolute chain (y axes, joint damping 1), every joint limited to
+    +-0.6 pi and a floor sphere (radius 0.1) fixed at the middle of every
+    link over a floor at z = -2: nlinks joint-limit rows plus nlinks floor
+    rows for the contact QP. Links (joints 2i) and spheres (2i+1) interleave."""
+    b = SceneBuilder(name=f"floor-chain-{nlinks}", h=h, tEnd=0.5, grav=(0.0, 0.0, -980.0))
+    for i in range(nlinks):
+        body = b.body_cuboid(1.0, (1.0, 0.1, 0.1), E_ji=transl([0.5, 0, 0]))
+        j = b.joint(JointType.REVOLUTE, None if i == 0 else 2 * (i - 1), body,
+                    E_pj=np.eye(4) if i == 0 else transl([1.0, 0, 0]), axis=(0, 1, 0))
+        b.set_damping(j, 1.0)
+        b.constraint_joint_limit(j, -0.6 * math.pi, 0.6 * math.pi)
+        s = b.body_sphere(0.1, 0.1)
+        b.joint(JointType.FIXED, j, s, E_pj=transl([0.5, 0, 0]))
+        b.constraint_floor(s, E=transl([0, 0, -2.0]))
     return b

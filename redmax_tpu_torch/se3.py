@@ -1,5 +1,5 @@
-"""Batched SE(3)/se(3) operations (the subset forward kinematics and the
-Jacobians use).
+"""Batched SE(3)/se(3) operations (the subset forward kinematics, the
+Jacobians and the constraint rows use).
 
 Conventions (those of the JAX package's se3.py):
 
@@ -67,6 +67,12 @@ def ad(phi):
     top = torch.cat([W, torch.zeros_like(W)], dim=-1)
     bottom = torch.cat([V, W], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def Gamma(r):
+    """(..., 3) -> (..., 3, 6) point-velocity matrix [hat(r)^T, I3]."""
+    I3 = torch.eye(3, dtype=r.dtype, device=r.device).expand(*r.shape[:-1], 3, 3)
+    return torch.cat([hat3(r).transpose(-1, -2), I3], dim=-1)
 
 
 def exp_so3(w):

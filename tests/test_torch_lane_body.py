@@ -1,4 +1,4 @@
-"""CPU check of the CUDA kernel's lane body: csrc/chord_bdf2_lane.cuh is
+"""CPU check of the CUDA kernels' lane bodies. csrc/chord_bdf2_lane.cuh is
 compiled with plain g++ behind a tiny extern "C" loop over lanes (no torch
 headers, built under a temporary directory) and held against the JAX
 package's numpy evaluation of the Pallas kernel body,
@@ -6,8 +6,16 @@ pallas_step.chord_bdf2_dense(xp=np), on scene_chain(4) and scene_chain(12)
 (the two shapes the kernel is instantiated for) and on a scene with every
 constant-S joint type, a penalty limit and body damping, at the tolerances of
 tests/test_pallas_step.py (x 5e-6 abs, Hinv 2e-5 of scale). The packing of
-the kernel's inputs (chord_kernel.pack) is the wrapper's own. This build is
-a test only, never a route of the wrapper.
+the kernel's inputs (chord_kernel.pack) is the wrapper's own.
+
+csrc/dual_pgs_lane.cuh is built the same way and held against
+pallas_qp.dual_pgs_dense(xp=np) at both instantiated shapes: (6, 8) on
+random QPs with equality, inequality and boxed rows and a lane whose H has a
+zero pivot (NaN must come out, not a bound), and (6, 12) on the physical
+systems of the 6-link floor chain (masked rows, infinite boxes), x at 2e-5
+and lambda at 2e-4 of scale; the inputs are packed by qp_kernel.pack.
+
+These builds are tests only, never a route of a wrapper.
 """
 
 import ctypes
@@ -27,9 +35,12 @@ from redmax_tpu import pallas_step
 from redmax_tpu import scene as jscene
 from redmax_tpu.scenes import scene_chain as jchain
 from redmax_tpu.types import JointType as JJT
-from redmax_tpu_torch import chord_kernel, convert
+from redmax_tpu import pallas_qp
+from redmax_tpu_torch import chord_kernel, convert, qp_kernel
 from redmax_tpu_torch import integrators as tint
+from redmax_tpu_torch.scenes import scene_floor_chain
 from test_torch_model import mixed_builder
+from test_torch_qp import mixed_qp
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "redmax_tpu_torch", "csrc")
@@ -54,20 +65,40 @@ extern "C" void chord_bdf2_cpu(int N, int B, const float* x0, const float* q0, c
   }
 }
 """
+QP_LOOP = r"""
+#include "dual_pgs_lane.cuh"
+extern "C" int dual_pgs_cpu(int n, int m, int B, const float* H, const float* f, const float* A,
+                            const float* b, const float* lo, const float* hi, int iters,
+                            float reg, float* x_out, float* lam_out) {
+  for (int lane = 0; lane < B; ++lane) {
+    if (n == 6 && m == 12)
+      qp::dual_pgs_lane<6, 12>(lane, B, H, f, A, b, lo, hi, iters, reg, x_out, lam_out);
+    else if (n == 6 && m == 8)
+      qp::dual_pgs_lane<6, 8>(lane, B, H, f, A, b, lo, hi, iters, reg, x_out, lam_out);
+    else
+      return -1;
+  }
+  return 0;
+}
+"""
 CFG_KW = dict(fixed_iters=3, predictor="quadratic", chord=True,
               hessian="structured", linsolve="gj")
 
 
-@pytest.fixture(scope="module")
-def lane_lib(tmp_path_factory):
+def _gxx_build(tmp_path_factory, name, source):
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
-    d = tmp_path_factory.mktemp("lane_body")
+    d = tmp_path_factory.mktemp(name)
     src, so = d / "loop.cpp", d / "liblane.so"
-    src.write_text(LOOP)
+    src.write_text(source)
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I", CSRC,
                     "-o", str(so), str(src)], check=True)
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def lane_lib(tmp_path_factory):
+    lib = _gxx_build(tmp_path_factory, "lane_body", LOOP)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.chord_bdf2_cpu.argtypes = [i, i] + [p] * 8 + [i, f, f, f, p, p]
     lib.chord_bdf2_cpu.restype = None
@@ -119,3 +150,61 @@ def test_lane_body_matches_kernel_body(lane_lib, scene):
     np.testing.assert_allclose(x[finite], x_np[finite], rtol=0, atol=5e-6)
     scale = float(np.abs(hinv_np[finite]).max())
     np.testing.assert_allclose(hinv[finite], hinv_np[finite], rtol=0, atol=2e-5 * scale)
+
+
+@pytest.fixture(scope="module")
+def qp_lane_lib(tmp_path_factory):
+    lib = _gxx_build(tmp_path_factory, "qp_lane_body", QP_LOOP)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dual_pgs_cpu.argtypes = [i, i, i] + [p] * 6 + [i, ctypes.c_float, p, p]
+    lib.dual_pgs_cpu.restype = i
+    return lib
+
+
+def floor_chain_systems(B, device="cpu", seed=0):
+    """The contact QPs of the 6-link floor chain (n = 6, m = 12) in float32
+    at states q0 + 0.3 N(0,1), qdot N(0,1): (H, f, A, b, lo, hi) tensors."""
+    sc = scene_floor_chain(6).compile(dtype=torch.float32, device=device)
+    rng = np.random.default_rng(seed)
+    q = sc.state0.q.cpu().numpy()[None] + 0.3 * rng.normal(size=(B, sc.topo.nr))
+    qd = rng.normal(size=(B, sc.topo.nr))
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    H, f, (A, b, lo, hi, _) = tint.euler_qp_system(
+        sc.topo, (), sc.constraint_fns, sc.params, f32(q), f32(qd))
+    return H, f, A, b, lo, hi
+
+
+@pytest.mark.parametrize("shape", [(6, 8), (6, 12)])
+def test_dual_pgs_lane_body_matches_kernel_body(qp_lane_lib, shape):
+    n, m = shape
+    if shape == (6, 8):
+        sys = list(mixed_qp(11, 9, 6, 1, 4, 3, np.float32))
+        sys[0][-1] = 1.0  # all-ones H: the second pivot is exactly 0
+        iters = 60
+    else:
+        sys = [a.numpy() for a in floor_chain_systems(64)]
+        iters = 40
+        hi = sys[5]
+        assert np.isinf(hi).any() and (hi == 0).any()  # active and masked rows
+    B = sys[1].shape[0]
+    assert (sys[1].shape[1], sys[2].shape[1]) == shape
+    x_np, lam_np = pallas_qp.dual_pgs_dense(*sys, iters=iters)
+
+    packed = [np.ascontiguousarray(a.numpy()) for a in
+              qp_kernel.pack(*(torch.tensor(a) for a in sys))]
+    x_out = np.empty((n, B), np.float32)
+    lam_out = np.empty((m, B), np.float32)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    rc = qp_lane_lib.dual_pgs_cpu(n, m, B, *(ptr(a) for a in packed), iters, 1e-10,
+                                  ptr(x_out), ptr(lam_out))
+    assert rc == 0
+    x, lam = x_out.T, lam_out.T
+
+    finite = np.isfinite(x_np).all(-1)
+    assert finite[:B - 1].all() and finite[-1] == (shape == (6, 12))
+    np.testing.assert_array_equal(np.isfinite(x).all(-1), finite)
+    np.testing.assert_array_equal(np.isnan(lam), np.isnan(lam_np))
+    xs = max(1.0, float(np.abs(x_np[finite]).max()))
+    ls = max(1.0, float(np.abs(lam_np[finite]).max()))
+    np.testing.assert_allclose(x[finite], x_np[finite], rtol=0, atol=2e-5 * xs)
+    np.testing.assert_allclose(lam[finite], lam_np[finite], rtol=0, atol=2e-4 * ls)

@@ -153,3 +153,19 @@ def test_kinematics_and_assembly_match(scene):
     for name, a, b in zip(["E_wi", "J", "Jdot", "phi", "M", "f", "H"],
                           [kin.E_wi, J, Jd, phi, M, f, H], ref):
         _close(a.numpy(), b, name)
+
+
+def test_index_tensors_are_cached_per_topology_and_device():
+    """The kinematics build their index tensors once per (topology, device):
+    a second call makes none anew (on a GPU each would be a blocking
+    host-to-device copy)."""
+    tc = tscenes.scene_chain(nlinks=4).compile(device="cpu")
+    q = torch.zeros(2, 4, dtype=torch.float64)
+    tmodel.assemble(tc.topo, tc.params, q, q)
+    misses = tmodel._index_tensors.cache_info().misses
+    index = tmodel._index_tensors(tc.topo, q.device)
+    tmodel.assemble(tc.topo, tc.params, q + 0.1, q)
+    tmodel.structured_hessian(tc.topo, tc.params, q, q, -0.3, -0.05)
+    assert tmodel._index_tensors.cache_info().misses == misses
+    assert tmodel._index_tensors(tc.topo, q.device) is index
+    assert index.anc.dtype == torch.bool and index.anc.shape == (4, 4)
