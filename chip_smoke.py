@@ -1,4 +1,4 @@
-"""Drive redmax_tpu_torch's two paths on one NVIDIA GPU and check them.
+"""Drive redmax_tpu_torch's three paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -31,7 +31,20 @@ Phases (any failure is an exception and a non-zero exit):
      rollout on the card must agree with the CPU in float64;
   7. the equality branch: reference case 4 (loop closure, dense KKT), B = 64,
      5 steps on the card against the CPU in float64, launching no kernel;
-  8. print the kernels line, the paths' lines, the card's name and power
+  8. hold the chord kernel with ground contacts against its plain version:
+     chain-ground-12 at B = 1024 and B = 1000 and chain-ground-4 at B = 1024,
+     on states taken from a contact rollout, with corners out of contact, in
+     static and in dynamic friction (counted and asserted); x and H^-1 by the
+     tolerances of phase 3 on at least 99% of lanes (a corner within roundoff
+     of a regime threshold may flip between two float32 orders), finite masks
+     equal, the worst lane printed; also with mu = 0, with a NaN lane, and
+     with a floor out of reach, which must give the result of the build
+     without contacts to float32 roundoff; time it and compute its bound beside phase 3's;
+  9. the contact path: benchmarks/bench_contact.py's differentiable-contact
+     MPC solve (chain-ground-12, kn 100, kt 0.1, kd 10, mu 0.5, floor 0.01
+     under the links, horizon 50, B = 1024, f32, one Adam step), with the
+     checks of phase 4;
+ 10. print the kernels line, the paths' lines, the card's name and power
      limit, and the result line.
 """
 
@@ -46,8 +59,8 @@ import time
 import numpy as np
 import torch
 
-from redmax_tpu_torch import chord_kernel, integrators, mpc, qp_kernel
-from redmax_tpu_torch.scenes import scene_chain, scene_floor_chain
+from redmax_tpu_torch import chord_kernel, forces, integrators, model, mpc, qp_kernel
+from redmax_tpu_torch.scenes import scene_chain, scene_chain_ground, scene_floor_chain
 from redmax_tpu_torch.scenes_matlab import build_mscene
 from redmax_tpu_torch.types import State
 
@@ -81,9 +94,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def lane_flops(topo, fixed_iters: int) -> int:
+def lane_flops(topo, fixed_iters: int, ncontacts: int = 0) -> int:
     """Floating-point operations of one lane of csrc/chord_bdf2_lane.cuh,
-    counted from its loops (add, sub, mul, div, sqrt, sin, cos: one each)."""
+    counted from its loops (add, sub, mul, div, sqrt, sin, cos: one each;
+    compares and selects none), with ncontacts ground contacts."""
     N, NR = topo.njoints, topo.nr
     anc = topo.ancestor_mask()[:, topo.dof_joint()]   # [N, NR] ancestor pairs
     P = int(anc.sum())
@@ -102,8 +116,12 @@ def lane_flops(topo, fixed_iters: int) -> int:
     gj = NR + 2 * NR * NR + 4 * NR * NR * (NR - 1)
     static = N * (frame_inv + adjoint) + NR * mat6
     step = qdot + residual + (2 * NR + 1) + 2 * NR * NR + NR
+    # ground_contact: R^T n once, then per corner the force (158) and, in the
+    # Hessian, the K/D row blocks and their Gamma^T contraction (418 more)
+    contact_force, contact_blocks = 15 + 8 * 158, 15 + 8 * (158 + 418)
+    contacts = ncontacts * (contact_blocks + fixed_iters * contact_force)
     return (static + qdot + fk + hessian + gj + fixed_iters * step
-            + (fixed_iters - 1) * fk)
+            + (fixed_iters - 1) * fk + contacts)
 
 
 def rand_states(nr, B, seed, device):
@@ -118,6 +136,29 @@ def rand_states(nr, B, seed, device):
     tau = 3.0 * rng.normal(size=(B, nr))
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
     return [t(a) for a in (x0, q0, qd0, q1, qd1)], t(tau)
+
+
+def time_chord_kernel(sc, params, states, max_abs_err, label):
+    """The kernel record fields at one scene's shapes: launch time, the
+    wrapper's with its layout copies, the plain version's, and the bound."""
+    B = states[0].shape[0]
+    fns = sc.force_fns
+    args = chord_kernel.pack(sc.topo, params, *states, fns)
+    ms = cuda_ms(lambda: chord_kernel.launch(sc.topo, CFG, *args), reps=200)
+    wrap_ms = cuda_ms(lambda: chord_kernel.chord_bdf2(sc.topo, CFG, params, *states, fns), 100)
+    plain_ms = cuda_ms(lambda: chord_kernel.chord_bdf2_reference(
+        sc.topo, CFG, params, *states, fns), reps=50)
+    flops = lane_flops(sc.topo, CFG.fixed_iters, len(fns)) * B
+    nbytes = 4 * B * (6 * sc.topo.nr + sc.topo.nr + sc.topo.nr ** 2) + sum(
+        a.numel() * a.element_size() for a in args[6:])
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    print(f"chord_bdf2 at {label}, {len(fns)} contacts, B {B}: kernel {ms:.4f} ms, wrapper with "
+          f"layout copies {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops / B:.0f} flops/lane, "
+          f"{nbytes} bytes; bound {bound * 1e3:.3f} us "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'}), kernel at {bound / ms:.2%} of it")
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def phase_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (4, 1024))):
@@ -160,24 +201,7 @@ def phase_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (4, 1024
         if not x_ok or dh > 2e-5 * hscale:
             raise AssertionError(f"chain {nlinks} B {B}: kernel disagrees with its plain version")
         if (nlinks, B) == cases[0]:
-            args = chord_kernel.pack(sc.topo, params, *states)
-            ms = cuda_ms(lambda: chord_kernel.launch(sc.topo, CFG, *args), reps=200)
-            wrap_ms = cuda_ms(lambda: chord_kernel.chord_bdf2(sc.topo, CFG, params, *states), 100)
-            plain_ms = cuda_ms(lambda: chord_kernel.chord_bdf2_reference(
-                sc.topo, CFG, params, *states), reps=100)
-            flops = lane_flops(sc.topo, CFG.fixed_iters) * B
-            nbytes = 4 * B * (6 * sc.topo.nr + sc.topo.nr + sc.topo.nr ** 2) + sum(
-                a.numel() * a.element_size() for a in args[6:])
-            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-            record = {
-                "max_abs_err": float(dx.max()), "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            }
-            print(f"chord_bdf2 at chain {nlinks}, B {B}: kernel {ms:.4f} ms, wrapper with layout "
-                  f"copies {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops / B:.0f} flops/lane, "
-                  f"{nbytes} bytes; bound {max(t_ops, t_bytes) * 1e3:.3f} us "
-                  f"({record['bound_by']}), kernel at {max(t_ops, t_bytes) / ms:.2%} of it")
+            record = time_chord_kernel(sc, params, states, float(dx.max()), f"chain {nlinks}")
     return record
 
 
@@ -189,18 +213,26 @@ def bench_inputs(nr, B, device, dtype):
     return p0, targets
 
 
-def mpc_solver(sc, nlinks, horizon, use_kernel=None):
-    task = mpc.PointPosTask(body=nlinks - 1, wp=1.0, wreg=1e-6, pscale=1e3)
+def chain_ground(nlinks, mu=0.5, floor_z=-0.06):
+    """benchmarks/bench_contact.py's scene: a contact on every link, the links'
+    bottom corners 0.01 above the floor."""
+    return scene_chain_ground(nlinks=nlinks, kn=100.0, kt=0.1, kd=10.0, mu=mu, h=1e-2,
+                              floor_z=floor_z)
+
+
+def mpc_solver(sc, horizon, use_kernel=None):
+    task = mpc.PointPosTask(body=sc.topo.njoints - 1, wp=1.0, wreg=1e-6, pscale=1e3)
     obj = mpc.make_objective_batched(sc.topo, sc.force_fns, task, (0.5, 0.0, 0.0), horizon,
                                      CFG, use_kernel=use_kernel)
     return mpc.make_mpc_solver_batched(obj, iters=1, lr=0.05), obj
 
 
-def phase_main_path(device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
-    """bench.py:53-105 on the port; returns (kernel launches of the timed
-    solves, solves/s, finite_frac)."""
-    sc = scene_chain(nlinks).compile(dtype=torch.float32, device=device)
-    solve, _ = mpc_solver(sc, nlinks, horizon)
+def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
+    """The batched MPC solve of bench.py:53-105 (scene = scene_chain) or of
+    benchmarks/bench_contact.py:44-105 (scene = chain_ground) on the port;
+    returns (kernel launches of the timed solves, solves/s, finite_frac)."""
+    sc = scene(nlinks).compile(dtype=torch.float32, device=device)
+    solve, _ = mpc_solver(sc, horizon)
     p0, targets = bench_inputs(sc.topo.nr, B, device, torch.float32)
     s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
                qdot=sc.state0.qdot.expand(B, -1).contiguous())
@@ -225,18 +257,18 @@ def phase_main_path(device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
     finite = torch.isfinite(res.objective)
     finite_frac = float(finite.float().mean())
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path: {B / dt:.2f} solves/s ({dt * 1e3:.3f} ms per solve by CUDA events, "
+    print(f"{name}: {B / dt:.2f} solves/s ({dt * 1e3:.3f} ms per solve by CUDA events, "
           f"{wall * 1e3:.3f} ms host clock), finite_frac {finite_frac:.4f}, "
           f"kernel launches {launches // reps} per solve, peak memory {peak / 2**20:.1f} MiB")
     if res.objective.shape != (B,) or res.p.shape != (B, sc.topo.nr):
-        raise AssertionError("main path: unexpected output shapes")
+        raise AssertionError(f"{name}: unexpected output shapes")
     if finite_frac < 0.95:
-        raise AssertionError(f"main path: finite_frac {finite_frac} < 0.95")
+        raise AssertionError(f"{name}: finite_frac {finite_frac} < 0.95")
     if not torch.isfinite(res.p[finite]).all():
-        raise AssertionError("main path: non-finite update on a finite lane")
+        raise AssertionError(f"{name}: non-finite update on a finite lane")
 
     # where the time goes inside one solve (CUDA events around each phase)
-    step = integrators.make_bdf2_step_batched(sc.topo, (), CFG, differentiable=True)
+    step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, differentiable=True)
     params = {**sc.params, "tau": (1e3 * p0).requires_grad_(True)}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     for _ in range(2):  # the first pass warms the allocator; the second is timed
@@ -251,7 +283,7 @@ def phase_main_path(device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
         ev[3].record()
         torch.cuda.synchronize()
     split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    print(f"one solve by phase: bootstrap {split[0]:.3f} ms, {horizon - 1} inner steps "
+    print(f"{name}, one solve by phase: bootstrap {split[0]:.3f} ms, {horizon - 1} inner steps "
           f"(kernel route forward) {split[1]:.3f} ms, adjoint backward {split[2]:.3f} ms")
 
     # The same solve on the op-level route, in float32 and in float64: the
@@ -259,9 +291,9 @@ def phase_main_path(device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
     # both. The max over ~1000 lanes is not held: a few sensitive lanes
     # drift by ~1e-3 over 50 steps in any float32 rollout (the float32
     # op-level route against float64 too), and it is printed.
-    solve_plain, _ = mpc_solver(sc, nlinks, horizon, use_kernel=False)
-    sc64 = scene_chain(nlinks).compile(dtype=torch.float64, device=device)
-    solve64, _ = mpc_solver(sc64, nlinks, horizon, use_kernel=False)
+    solve_plain, _ = mpc_solver(sc, horizon, use_kernel=False)
+    sc64 = scene(nlinks).compile(dtype=torch.float64, device=device)
+    solve64, _ = mpc_solver(sc64, horizon, use_kernel=False)
     chord_kernel.chord_bdf2_launches = 0
     ref32 = solve_plain(sc.params, p0, s0, targets).objective
     ref64 = solve64(sc64.params, p0.double(), State(q=s0.q.double(), qdot=s0.qdot.double()),
@@ -286,28 +318,29 @@ def phase_main_path(device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
               compare(res.objective, ref64, "kernel route vs op-level f64")]
     compare(ref32, ref64, "op-level f32 vs op-level f64")
     if any(agree < 0.99 or within < 0.99 for agree, within, _ in checks):
-        raise AssertionError("main path: kernel route and op-level route disagree")
+        raise AssertionError(f"{name}: kernel route and op-level route disagree")
     return launches, B / dt, finite_frac
 
 
-def phase_small_reference(device="cuda"):
+def phase_small_reference(name, scene, device="cuda"):
     """A small solve on the card (f32, kernel route) against the same solve
     on the CPU in float64 (the plain version, held to redmax_tpu by the
     tests)."""
     nlinks, horizon, B = 4, 5, 64
     out = {}
     for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
-        sc = scene_chain(nlinks).compile(dtype=dtype, device=dev)
-        solve, _ = mpc_solver(sc, nlinks, horizon)
+        sc = scene(nlinks).compile(dtype=dtype, device=dev)
+        solve, _ = mpc_solver(sc, horizon)
         p0, targets = bench_inputs(sc.topo.nr, B, dev, dtype)
         s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
                    qdot=sc.state0.qdot.expand(B, -1).contiguous())
         out[dev, dtype] = solve(sc.params, p0, s0, targets).objective.double().cpu()
     card, cpu = out[device, torch.float32], out["cpu", torch.float64]
     err = float((card - cpu).abs().max() / cpu.abs().max())
-    print(f"small solve, card f32 vs CPU f64: max objective diff {err:.3e} of scale")
+    print(f"{name}, small solve, card f32 vs CPU f64: max objective diff {err:.3e} of scale")
     if not torch.isfinite(card).all() or err > 1e-3:
-        raise AssertionError("small solve on the card disagrees with the CPU float64 solve")
+        raise AssertionError(f"{name}: small solve on the card disagrees with the CPU "
+                             "float64 solve")
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +643,146 @@ def phase_small_euler(device="cuda", B=64, nsteps=5):
         raise AssertionError("equality branch on the card disagrees with the CPU float64 rollout")
 
 
+# ---------------------------------------------------------------------------
+# The chord kernel with ground contacts
+# ---------------------------------------------------------------------------
+
+
+def contact_rollout_states(sc, B, device, nsteps=8, seed=1):
+    """Chord-solve inputs on the contact path: the scene rolled nsteps from
+    rest on the op-level route under the main path's torques
+    (tau = 1e3 * 0.003 N(0, 1)), then the next inner step's history and
+    predictor. Lanes the rollout rejected are replaced by lane 0's state."""
+    rng = np.random.default_rng(seed)
+    tau = torch.tensor(3.0 * rng.normal(size=(B, sc.topo.nr)), dtype=torch.float32, device=device)
+    params = {**sc.params, "tau": tau}
+    step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=False)
+    s = integrators.make_simulate(step, nsteps)(params, sc.initial_state("bdf2", B))
+    ok = (torch.isfinite(s.q) & torch.isfinite(s.qdot)).all(-1)
+    fix = lambda a: torch.where(ok[:, None], a, a[ok][:1])
+    q0, qd0, q1, qd1 = (fix(a) for a in (s.q_prev, s.qdot_prev, s.q, s.qdot))
+    h = float(sc.params["h"])
+    x0 = q1 + h * qd1 + 0.5 * h * (qd1 - qd0)
+    return [x0, q0, qd0, q1, qd1], params, int(ok.sum())
+
+
+def corner_census(sc64, states):
+    """Corner counts at the predictor: out of contact, static, dynamic, and
+    within 1e-6 (absolute, or relative for the friction cone) of a regime
+    threshold: d = 0, d = margin, mu |kn d| = kt |a|."""
+    x0, q0, _, q1, _ = (a.double() for a in states)
+    topo, p64, fns = sc64.topo, sc64.params, sc64.force_fns
+    h = p64["h"]
+    qd = (1.5 / h) * (x0 - (4 / 3) * q1 + (1 / 3) * q0)
+    kin = model.forward_kinematics(topo, p64, x0, qd)
+    _, _, phi = model.jacobians(topo, p64, kin, qd)
+    idx = forces.body_index(tuple(fn.body for fn in fns), x0.device)
+    s = forces.corner_state(kin.E_wi[:, idx], phi[:, idx], forces.stack_contact_params(fns, p64))
+    d, active = s["d"], s["active"] > 0
+    margin = h * s["vn"].abs() + h * h * torch.linalg.vector_norm(p64["g"])
+    fn_, ft_ = s["mu"] * (s["kn"] * d).abs(), s["kt"] / s["ainv"]
+    close = (d.abs() <= 1e-6) | ((d - margin).abs() <= 1e-6) | (
+        active & ((fn_ - ft_).abs() <= 1e-6 * torch.maximum(fn_, ft_)))
+    return {"corners": d.numel(), "out": int((~active).sum()), "static": int((s["sta"] > 0).sum()),
+            "dynamic": int((s["dyn"] > 0).sum()),
+            "near_margin_only": int((~active & (d <= margin)).sum()),
+            "within_1e-6_of_a_threshold": int(close.sum()),
+            "lanes_with_such_a_corner": int(close.flatten(1).any(-1).sum())}
+
+
+def compare_contact_kernel(sc, sc64, params, states, label, min_ok=0.99):
+    """Kernel against the f32 plain version (x) and the f64 plain version
+    (H^-1) lane by lane; returns (max |dx| over the lanes inside tolerance,
+    x of the kernel)."""
+    fns, B = sc.force_fns, states[0].shape[0]
+    x, hinv = chord_kernel.chord_bdf2(sc.topo, CFG, params, *states, fns)
+    x_ref, hinv_ref = chord_kernel.chord_bdf2_reference(sc.topo, CFG, params, *states, fns)
+    p64 = {**sc64.params, "tau": params["tau"].double()}
+    x64, hinv64 = chord_kernel.chord_bdf2_reference(
+        sc64.topo, CFG, p64, *(a.double() for a in states), sc64.force_fns)
+    torch.cuda.synchronize()
+    fin, fin_ref = torch.isfinite(x).all(-1), torch.isfinite(x_ref).all(-1)
+    both = fin & fin_ref
+    if not torch.equal(fin, fin_ref):
+        bad = (fin != fin_ref).nonzero().flatten().tolist()
+        raise AssertionError(f"{label}: finite masks differ on lanes {bad[:8]} ({len(bad)} lanes)")
+    if fin.float().mean() < 0.9:
+        raise AssertionError(f"{label}: only {float(fin.float().mean())} finite")
+    dx = ((x - x_ref).abs() / torch.clamp(x_ref.abs(), min=1.0)).amax(-1)
+    hscale = float(hinv64[both].abs().max())
+    dh = (hinv.double() - hinv64).abs().amax((-1, -2)) / hscale
+    dh_plain = (hinv_ref.double() - hinv64).abs().amax((-1, -2)) / hscale
+    ok = both & (dx <= 5e-6) & (dh <= 2e-5)
+    share = float(ok[both].float().mean())
+    worst = int(torch.where(both, dx, torch.zeros_like(dx)).argmax())
+    qx, qh = quantiles(dx[both]), quantiles(dh[both])
+    print(f"kernel vs plain {label}: finite {int(fin.sum())}/{B}, {share:.4f} of them inside "
+          f"tolerance; |dx|/max(1,|x|) p50 {qx[0]:.3e} p99 {qx[2]:.3e} max {qx[3]:.3e}; Hinv vs "
+          f"f64 plain of scale {hscale:.3e}: kernel p50 {qh[0]:.3e} p99 {qh[2]:.3e} max "
+          f"{qh[3]:.3e}, "
+          f"f32 plain max {float(dh_plain[both].max()):.3e}; worst lane {worst}: dx "
+          f"{float(dx[worst]):.3e}, kernel vs f64 "
+          f"{float((x[worst].double() - x64[worst]).abs().max()):.3e}, f32 plain vs f64 "
+          f"{float((x_ref[worst].double() - x64[worst]).abs().max()):.3e}")
+    if share < min_ok:
+        raise AssertionError(f"{label}: kernel disagrees with its plain version on "
+                             f"{1 - share:.4f} of lanes")
+    return float(dx[ok].max()), x
+
+
+def phase_contact_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (4, 1024))):
+    """The chord kernel with ground contacts against chord_bdf2_reference on
+    the card; returns the kernel record fields at the contact path's shapes
+    (the first case)."""
+    record = {}
+    for nlinks, B in cases:
+        sc = chain_ground(nlinks).compile(dtype=torch.float32, device=device)
+        sc64 = chain_ground(nlinks).compile(dtype=torch.float64, device=device)
+        states, params, kept = contact_rollout_states(sc, B, device)
+        census = corner_census(sc64, states)
+        print(f"contact states chain-ground-{nlinks} B {B}: {kept}/{B} lanes from the rollout; "
+              f"corners {json.dumps(census)}")
+        if min(census["out"], census["static"], census["dynamic"]) == 0:
+            raise AssertionError(f"chain-ground-{nlinks}: a contact regime is missing: {census}")
+        err, x = compare_contact_kernel(sc, sc64, params, states, f"chain-ground-{nlinks} B {B}")
+        if (nlinks, B) != cases[0]:
+            continue
+        record = time_chord_kernel(sc, params, states, err, f"chain-ground-{nlinks}")
+
+        # mu = 0 is data, not a build option
+        sc0 = chain_ground(nlinks, mu=0.0).compile(dtype=torch.float32, device=device)
+        sc0_64 = chain_ground(nlinks, mu=0.0).compile(dtype=torch.float64, device=device)
+        compare_contact_kernel(sc0, sc0_64, {**sc0.params, "tau": params["tau"]}, states,
+                               f"chain-ground-{nlinks} mu 0 B {B}")
+        # a NaN lane comes out NaN and leaves every other lane as it was
+        poisoned = [a.clone() for a in states]
+        poisoned[3][5] = float("nan")
+        xp, _ = chord_kernel.chord_bdf2(sc.topo, CFG, params, *poisoned, sc.force_fns)
+        keep = torch.ones(B, dtype=torch.bool, device=device)
+        keep[5] = False
+        if not torch.isnan(xp[5]).all() or not torch.equal(xp[keep].isnan(), x[keep].isnan()) \
+                or not torch.equal(torch.nan_to_num(xp[keep]), torch.nan_to_num(x[keep])):
+            raise AssertionError("a NaN lane did not stay NaN, or changed another lane")
+        # A floor no corner can reach adds exact zeros, so the build with the
+        # contact code must reproduce the C = 0 build (compiled without it)
+        # to float32 roundoff: nvcc contracts the two builds'
+        # common arithmetic into FMAs differently, so not bit for bit (the g++
+        # test of the lane body holds the exact zeros).
+        far = chain_ground(nlinks, floor_z=-50.0).compile(dtype=torch.float32, device=device)
+        far_params = {**far.params, "tau": params["tau"]}
+        xf, hf = chord_kernel.chord_bdf2(far.topo, CFG, far_params, *states, far.force_fns)
+        x0, h0 = chord_kernel.chord_bdf2(far.topo, CFG, far_params, *states)
+        fin0 = torch.isfinite(x0).all(-1)
+        dxf = float(((xf - x0).abs() / torch.clamp(x0.abs(), min=1.0))[fin0].max())
+        dhf = float((hf - h0).abs().max() / h0.abs().max())
+        print(f"chain-ground-{nlinks} B {B}: NaN lane kept, other lanes bit-equal; floor out of "
+              f"reach vs the build without contacts on {int(fin0.sum())} finite lanes: "
+              f"max|dx|/max(1,|x|) {dxf:.3e}, max|dHinv| {dhf:.3e} of scale")
+        if not torch.equal(fin0, torch.isfinite(xf).all(-1)) or dxf > 5e-6 or dhf > 2e-5:
+            raise AssertionError("contacts out of reach changed the C = 0 result")
+    return record
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda is not available")
@@ -633,17 +806,26 @@ def main():
                 print(f"ptxas {mod.BUILD.name}:", line.strip())
 
     record = phase_kernel_vs_plain()
-    launches, rate, finite_frac = phase_main_path()
-    phase_small_reference()
+    launches, rate, finite_frac = phase_mpc_path("main path", scene_chain)
+    phase_small_reference("main path", scene_chain)
     qp_record = phase_qp_kernel_vs_plain()
     qp_launches, step_rate, euler_finite = phase_euler_path()
     phase_small_euler()
+    contact_record = phase_contact_kernel_vs_plain()
+    contact_launches, contact_rate, contact_finite = phase_mpc_path("contact path", chain_ground)
+    phase_small_reference("contact path", chain_ground)
 
     kernels = [{
         "name": "chord_bdf2", "route": "cuda",
         "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
         "replaces": "redmax_tpu/pallas_step.py:689",
         "launches": launches, **record, "library_ms": None,
+    }, {
+        # the same kernel with 12 ground contacts, on the contact path
+        "name": "chord_bdf2[ground_contact]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:237",
+        "launches": contact_launches, **contact_record, "library_ms": None,
     }, {
         # library_ms: no single PyTorch call computes a dual-PGS solve
         "name": "dual_pgs", "route": "cuda",
@@ -656,6 +838,8 @@ def main():
                                     "card": smi}}))
     print(json.dumps({"euler_path": {"steps_per_s": step_rate, "finite_frac": euler_finite,
                                      "card": smi}}))
+    print(json.dumps({"contact_path": {"solves_per_s": contact_rate, "finite_frac": contact_finite,
+                                       "launches": contact_launches, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

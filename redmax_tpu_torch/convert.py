@@ -3,8 +3,9 @@
 The JAX package's SceneParams is a nested dict of arrays; handed over as
 numpy (``jax.tree_util.tree_map(np.asarray, sc.params)``) it becomes this
 package's SceneParams with the same layout, params["constraints"]
-included. The Topology's tuple fields carry over as they are, and the
-constraint objects are rebuilt from their class names and attributes. No
+and params["forces"] included. The Topology's tuple fields carry over as
+they are, and the constraint and force objects are rebuilt from their class
+names and attributes. No
 function here imports the JAX package.
 """
 
@@ -13,7 +14,7 @@ from typing import Any, Dict, Iterable, Tuple
 import numpy as np
 import torch
 
-from redmax_tpu_torch import constraints
+from redmax_tpu_torch import constraints, forces
 from redmax_tpu_torch.types import Topology
 
 
@@ -54,4 +55,20 @@ def constraints_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tup
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 13)")
         cls = getattr(constraints, name)
         out.append(cls(attrs["key"], *(int(attrs[k]) for k in _CONSTRAINT_FIELDS[name])))
+    return tuple(out)
+
+
+_FORCE_FIELDS = {"ForceGroundCuboid": ("body",)}
+
+
+def forces_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tuple:
+    """force_fns from (class name, attribute dict) pairs, as
+    ``[(type(f).__name__, vars(f)) for f in sc.force_fns]`` gives them for a
+    JAX CompiledScene; the keys into params["forces"] carry over."""
+    out = []
+    for name, attrs in fields:
+        if name not in _FORCE_FIELDS:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 10)")
+        cls = getattr(forces, name)
+        out.append(cls(attrs["key"], *(int(attrs[k]) for k in _FORCE_FIELDS[name])))
     return tuple(out)

@@ -1,17 +1,23 @@
-// Per-lane body of the fused BDF2 chord-Newton solve (K1a: constant-S
-// joints, no force closures, unguarded chord, lane-shared physical params).
+// Per-lane body of the fused BDF2 chord-Newton solve (K1a + K1c: constant-S
+// joints, penalty ground contact on cuboid corners as the only force closure,
+// unguarded chord, lane-shared physical params).
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
-// (its fk_and_J / joint_forces / maximal_forces / residual / hessian /
-// gj_inverse / chord loop), one lane at a time. Functions are
+// (its fk_and_J / joint_forces / maximal_forces / _ground_contact / residual /
+// hessian / gj_inverse / chord loop), one lane at a time. Functions are
 // __host__ __device__ so g++ can compile the same body for a CPU check; the
 // macros are defined empty when __CUDACC__ is absent.
 //
 // Layouts (all float32):
 //   per-lane state  [NR, B] struct-of-arrays: element r of lane b at r*B + b
-//   topo_i (int32)  parent[N] jtype[N] doffs[N+1] dofj[NR] anc[N*N]
+//   topo_i (int32)  parent[N] jtype[N] doffs[N+1] dofj[NR] anc[N*N] C cbody[C]
 //   stat_f          E0_pj[16N] E0_ji[16N] I_i[6N] axes[9N] jsf[7*NR] bd[N] g[3] h
+//                   cp[13*C]: per contact sides[3] kn kt kd mu xg[3] ng[3]
 //   outputs         x [NR, B] (NaN on rejected lanes), Hinv [NR*NR, B]
+// C ground contacts (C = 0: none), contact c on body cbody[c] against the
+// plane through xg with normal ng. The template flag CONTACTS = false compiles
+// the contact code out (for scenes with C = 0: the contact loops, even when
+// they run no iteration, cost the constant-S solve registers and time).
 #pragma once
 
 #ifndef __CUDACC__
@@ -142,6 +148,119 @@ CHORD_HD void local_force_blocks(const float* Ii, const float R[3][3], const flo
   for (int i = 0; i < 6; ++i) D[i][i] = D[i][i] - bd;
 }
 
+// Penalty ground contact on the 8 corners of one cuboid body
+// (pallas_step._ground_contact; force law of ForceGroundCuboid.m:54-153).
+// Per corner r, with depth d = n.(x_c - xg), corner velocity u = w x r + v
+// (body frame), normal speed vn and tangential velocity a (world frame):
+//   active = d <= 0,  static = mu |kn d| > kt |a|
+//   fW = active (-(kn d + kd vn) n) + sta (-kt a) + dyn (-mu kn d a/|a|)
+// and the body wrench gains [r x fb; fb], fb = R^T fW. The regimes are 0/1
+// masks that multiply, never branches, so a NaN state gives a NaN wrench;
+// |a|^2 is clamped at 1e-24 by a compare that keeps NaN.
+//
+// BLOCKS also adds the closed-form K = d(wrench)/d(xi) (E <- E exp(xi^)) and
+// D = d(wrench)/d(phi) to Kb, Db. World-frame A = dfW/dx_c = alpha n^T and
+// B = dfW/dv_c = ct I + cn n n^T + ca a a^T, so in the body frame
+//   P = R^T A R = pa nb^T,   Q = R^T B R = ct I + cn nb nb^T + ca ab ab^T
+//   K = Gamma^T [hat(fb) - P hat(r) - Q hat(u) | P],   D = Gamma^T [-Q hat(r) | Q]
+// with Gamma^T = [hat(r); I]. The normal spring and damper count in K, D for
+// a corner that can reach the floor within one step, d <= h |vn| + h^2 |g|
+// (the Newton matrix only: the residual keeps the exact force).
+template <bool BLOCKS>
+CHORD_HD void ground_contact(const Frame& E, const float* phi, const float* cp, float h,
+                             float gmag, float* wrench, float Kb[6][6], float Db[6][6]) {
+  const float kn = cp[3], kt = cp[4], kd = cp[5], mu = cp[6];
+  const float* xg = cp + 7;
+  const float* ng = cp + 10;
+  const float hf = mu > 0.0f ? 1.0f : 0.0f;
+  const float* w = phi;
+  const float* v = phi + 3;
+  float nb[3];
+  rt_vec(E.R, ng, nb);
+  for (int c = 0; c < 8; ++c) {
+    const float r[3] = {(c & 4 ? 0.5f : -0.5f) * cp[0], (c & 2 ? 0.5f : -0.5f) * cp[1],
+                        (c & 1 ? 0.5f : -0.5f) * cp[2]};
+    float d = 0.0f, u[3], vw[3], a[3], fW[3], fb[3], rxf[3];
+    for (int i = 0; i < 3; ++i) {
+      const float xc = E.p[i] + (E.R[i][0] * r[0] + E.R[i][1] * r[1] + E.R[i][2] * r[2]);
+      d = d + ng[i] * (xc - xg[i]);
+    }
+    const float active = d <= 0.0f ? 1.0f : 0.0f;
+    cross3(w, r, u);
+    for (int i = 0; i < 3; ++i) u[i] = u[i] + v[i];
+    for (int i = 0; i < 3; ++i) vw[i] = E.R[i][0] * u[0] + E.R[i][1] * u[1] + E.R[i][2] * u[2];
+    const float vn = ng[0] * vw[0] + ng[1] * vw[1] + ng[2] * vw[2];
+    for (int i = 0; i < 3; ++i) a[i] = vw[i] - vn * ng[i];
+    const float a2 = a[0] * a[0] + a[1] * a[1] + a[2] * a[2];
+    const float flow = a2 >= 1e-24f ? 1.0f : 0.0f;
+    const float anorm = sqrtf(a2 < 1e-24f ? 1e-24f : a2);
+    const float ainv = 1.0f / anorm;
+    const float st = mu * fabsf(kn * d) > kt * anorm ? 1.0f : 0.0f;
+    const float dyn = hf * (1.0f - st) * active;
+    const float sta = hf * st * active;
+    for (int i = 0; i < 3; ++i)
+      fW[i] = active * (-kn * d * ng[i] - kd * vn * ng[i]) + sta * (-kt * a[i]) +
+              dyn * (-mu * kn * d * a[i] * ainv);
+    rt_vec(E.R, fW, fb);
+    cross3(r, fb, rxf);
+    for (int i = 0; i < 3; ++i) {
+      wrench[i] = wrench[i] + rxf[i];
+      wrench[3 + i] = wrench[3 + i] + fb[i];
+    }
+    if constexpr (BLOCKS) {
+      const float margin = h * fabsf(vn) + h * h * gmag;
+      const float reach = (d - margin) <= 0.0f ? 1.0f : 0.0f;
+      const float act_h = active + (1.0f - active) * reach;
+      float alpha[3], pa[3], ab[3];
+      for (int i = 0; i < 3; ++i)
+        alpha[i] = act_h * (-kn) * ng[i] + dyn * (-mu * kn) * (a[i] * ainv);
+      rt_vec(E.R, alpha, pa);
+      rt_vec(E.R, a, ab);
+      const float cdyn = dyn * (-mu * kn) * d * ainv;
+      const float ct = sta * (-kt) + cdyn;
+      const float cn = act_h * (-kd) - ct;
+      const float ca = -(cdyn * flow) * (ainv * ainv);
+      // LK = [hat(fb) - P hat(r) - Q hat(u) | P], LD = [-Q hat(r) | Q], row by
+      // row: row i of M hat(x) is M_i x x.
+      float nbxr[3], LK[3][6], LD[3][6];
+      cross3(nb, r, nbxr);
+      for (int i = 0; i < 3; ++i) {
+        float Qi[3], Qixu[3], Qixr[3];
+        for (int j = 0; j < 3; ++j)
+          Qi[j] = (i == j ? ct : 0.0f) + cn * nb[i] * nb[j] + ca * ab[i] * ab[j];
+        cross3(Qi, u, Qixu);
+        cross3(Qi, r, Qixr);
+        for (int j = 0; j < 3; ++j) {
+          LK[i][j] = -pa[i] * nbxr[j] - Qixu[j];
+          LK[i][3 + j] = pa[i] * nb[j];
+          LD[i][j] = -Qixr[j];
+          LD[i][3 + j] = Qi[j];
+        }
+      }
+      LK[0][1] = LK[0][1] - fb[2];  // + hat(fb)
+      LK[0][2] = LK[0][2] + fb[1];
+      LK[1][0] = LK[1][0] + fb[2];
+      LK[1][2] = LK[1][2] - fb[0];
+      LK[2][0] = LK[2][0] - fb[1];
+      LK[2][1] = LK[2][1] + fb[0];
+      // Gamma^T L = [hat(r) L; L]: column j of hat(r) L is r x L[:, j]
+      for (int j = 0; j < 6; ++j) {
+        const float lk[3] = {LK[0][j], LK[1][j], LK[2][j]};
+        const float ld[3] = {LD[0][j], LD[1][j], LD[2][j]};
+        float rk[3], rd[3];
+        cross3(r, lk, rk);
+        cross3(r, ld, rd);
+        for (int i = 0; i < 3; ++i) {
+          Kb[i][j] = Kb[i][j] + rk[i];
+          Kb[3 + i][j] = Kb[3 + i][j] + lk[i];
+          Db[i][j] = Db[i][j] + rd[i];
+          Db[3 + i][j] = Db[3 + i][j] + ld[i];
+        }
+      }
+    }
+  }
+}
+
 // Lane-shared inputs, unpacked from topo_i / stat_f.
 template <int N, int NR>
 struct Shared {
@@ -158,6 +277,9 @@ struct Shared {
   const float* bd;
   const float* g;
   float h;
+  int ncontacts;
+  const int* cbody;  // [ncontacts] body of each ground contact
+  const float* cp;   // [ncontacts][13]
 
   CHORD_HD Shared(const int* topo_i, const float* stat_f) {
     parent = topo_i;
@@ -173,6 +295,9 @@ struct Shared {
     bd = jsf + 7 * NR;
     g = bd + N;
     h = g[3];
+    ncontacts = anc[N * N];
+    cbody = anc + N * N + 1;
+    cp = g + 4;
   }
   CHORD_HD float axis(int j, int a, int d) const { return axes[j * 9 + a * 3 + d]; }
   CHORD_HD bool is_anc(int i, int a) const { return anc[i * N + a] != 0; }
@@ -312,7 +437,7 @@ CHORD_HD void qdot_of(const History<NR>& hs, float h, const float* x, float* qd)
 
 // g(x) = J^T Mm J dqtmp - ch2 (fr + J^T (fm - Mm Jdot qd)), at x with
 // kinematics K (already evaluated at x).
-template <int N, int NR>
+template <int N, int NR, bool CONTACTS>
 CHORD_HD void residual(const Shared<N, NR>& sh, const History<NR>& hs, const float* x,
                        const float* qd, const Kin<N, NR>& K, float* g) {
   const float h = sh.h;
@@ -339,6 +464,11 @@ CHORD_HD void residual(const Shared<N, NR>& sh, const History<NR>& hs, const flo
     rt_vec(K.Ew[i].R, sh.g, Rtg);
     for (int k = 0; k < 3; ++k) fm[3 + k] = fm[3 + k] + Ii[3] * Rtg[k];
     for (int k = 0; k < 6; ++k) fm[k] = fm[k] - sh.bd[i] * K.phi[i][k];
+    if constexpr (CONTACTS)
+      for (int c = 0; c < sh.ncontacts; ++c)
+        if (sh.cbody[c] == i)
+          ground_contact<false>(K.Ew[i], K.phi[i], sh.cp + 13 * c, sh.h, 0.0f, fm, nullptr,
+                                nullptr);
     float Jdq[6] = {0, 0, 0, 0, 0, 0}, Jd_qd[6] = {0, 0, 0, 0, 0, 0};
     for (int r = 0; r < NR; ++r) {
       if (!sh.is_anc(i, sh.dofj[r])) continue;
@@ -360,7 +490,7 @@ CHORD_HD void residual(const Shared<N, NR>& sh, const History<NR>& hs, const flo
 }
 
 // Structured H = M + cK Kt + cD Dt at the iterate whose kinematics K holds.
-template <int N, int NR>
+template <int N, int NR, bool CONTACTS>
 CHORD_HD void hessian(const Shared<N, NR>& sh, const float* x, const Kin<N, NR>& K,
                       float H[NR][NR]) {
   const float h = sh.h;
@@ -372,6 +502,14 @@ CHORD_HD void hessian(const Shared<N, NR>& sh, const float* x, const Kin<N, NR>&
     const float* Ii = sh.Ii + 6 * i;
     float Kb[6][6], Db[6][6];
     local_force_blocks(Ii, K.Ew[i].R, K.phi[i], sh.bd[i], sh.g, Kb, Db);
+    if constexpr (CONTACTS) {
+      const float gmag = sqrtf(sh.g[0] * sh.g[0] + sh.g[1] * sh.g[1] + sh.g[2] * sh.g[2]);
+      for (int c = 0; c < sh.ncontacts; ++c) {
+        if (sh.cbody[c] != i) continue;
+        float wrench[6] = {0, 0, 0, 0, 0, 0};
+        ground_contact<true>(K.Ew[i], K.phi[i], sh.cp + 13 * c, h, gmag, wrench, Kb, Db);
+      }
+    }
     // Column s outer, so K J_s and D J_s are 6-vectors rather than [NR][6]
     // arrays (nvcc -O3 for sm_90a computed NaN from the [NR][6] form at
     // N = NR = 12; the order of the sums into each H[r][s] is unchanged).
@@ -436,7 +574,7 @@ struct ChordConfig {
 // One lane's fixed-iteration chord solve (integrators.newton semantics):
 // H and H^-1 at the predictor x0, then fixed_iters steps x -= H^-1 g(x),
 // rejection on a non-finite result or a residual that grew.
-template <int N, int NR>
+template <int N, int NR, bool CONTACTS = true>
 CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0s,
                               const float* qd0s, const float* q1s, const float* qd1s,
                               const float* taus, const int* topo_i, const float* stat_f,
@@ -461,14 +599,14 @@ CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0
     float H[NR][NR];
     qdot_of<NR>(hs, sh.h, x, qd);
     fk_and_J<N, NR>(sh, Sb, x, qd, K);
-    hessian<N, NR>(sh, x, K, H);
+    hessian<N, NR, CONTACTS>(sh, x, K, H);
     gj_inverse<NR>(H, Hinv);
   }
   float g0n = 0.0f, gln = 0.0f;
   for (int it = 0; it < cfg.fixed_iters; ++it) {
     qdot_of<NR>(hs, sh.h, x, qd);
     if (it > 0) fk_and_J<N, NR>(sh, Sb, x, qd, K);  // iteration 0 reuses the predictor's
-    residual<N, NR>(sh, hs, x, qd, K, g);
+    residual<N, NR, CONTACTS>(sh, hs, x, qd, K, g);
     float gg = 0.0f;
     for (int r = 0; r < NR; ++r) gg = gg + g[r] * g[r];
     const float gn = sqrtf(gg);

@@ -207,10 +207,15 @@ _LATER = {"I_i": 2, "g": 1, "h": 0, "body_damping": 1}
 
 def split_batched_params(params: Dict):
     """(shared, batched): split params into lane-shared leaves and the
-    per-lane [B, ...] leaves. Raises on per-lane leaves not yet ported."""
+    per-lane [B, ...] leaves. Raises on per-lane leaves not yet ported
+    (physical params and contact coefficients)."""
     for k, nd in _LATER.items():
         if params[k].ndim == nd + 1:
             raise NotImplementedError(f"per-lane {k!r} is ROADMAP K1f")
+    for key, fp in params.get("forces", {}).items():
+        for k in ("kn", "kt", "kd", "mu"):
+            if k in fp and fp[k].ndim:
+                raise NotImplementedError(f"per-lane contact {k!r} of {key!r} is ROADMAP K1f")
     shared = dict(params)
     batched = {k: shared.pop(k) for k, nd in _BATCHABLE.items() if params[k].ndim == nd + 1}
     return shared, batched
@@ -331,7 +336,8 @@ def make_bdf2_step_batched(
     differentiable=True wires the implicit-function VJP with the "reuse"
     backward: z = H^-T xbar from the H^-1 the kernel returned (the chord
     factor at the predictor), then one VJP of the op-level residual_bdf2 at
-    the detached solution. The kernel itself is never differentiated.
+    the detached solution (force closures included, through autograd). The
+    kernel itself is never differentiated.
     """
     from redmax_tpu_torch import chord_kernel
 
@@ -352,7 +358,7 @@ def make_bdf2_step_batched(
 
     def _kernel(theta, x0):
         params, q0, qd0, q1, qd1 = theta
-        return chord_kernel.chord_bdf2(topo, cfg, params, x0, q0, qd0, q1, qd1)
+        return chord_kernel.chord_bdf2(topo, cfg, params, x0, q0, qd0, q1, qd1, force_fns)
 
     def inner(params: Dict, s: Bdf2State) -> Bdf2State:
         q0, qd0 = s.q_prev, s.qdot_prev
@@ -411,13 +417,15 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
     force is dropped and only D enters the left side. Kr and Dr are the
     closed-form diagonals of model.joint_space_KD_diag (penalty limits
     included), and without force closures Dm is the body damping alone and
-    Km is zero. Force closures raise (ROADMAP queue 1 item 10).
+    Km is zero. Force closures raise (their Km/Dm in the Euler system are
+    ROADMAP queue 1 item 10).
 
     Returns a dict: kin, J, Jdot, phi, Mr [B,nr,nr], frtilde [B,nr],
     Mrtilde [B,nr,nr].
     """
     if force_fns:
-        raise NotImplementedError("force closures are ROADMAP queue 1 item 10")
+        raise NotImplementedError(
+            "force closures in the Euler system (their Km, Dm) are ROADMAP queue 1 item 10")
     h = params["h"]
     B = q0.shape[0]
     kin = forward_kinematics(topo, params, q0, qdot0)

@@ -11,6 +11,9 @@ every output carries the leading [B] lane dimension. Lanes never mix.
         J[i, r]  = anc(i, a) * Ad(E_i<-w) W[:, r]
         Jdot[i, r] = anc * Ad(E_i<-w) Wdot[:, r] - ad(phi_i) J[i, r]
   * Assembly: M = J^T Mm J, fqvv = -J^T Mm Jdot qdot, f = fr + J^T fm + fqvv.
+  * Force closures (forces.py) add to fm. All ground contacts of a scene are
+    evaluated in one batched pass, and their closed-form K/D blocks join the
+    per-body blocks of the structured Newton matrix.
 """
 
 from functools import lru_cache
@@ -18,7 +21,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from redmax_tpu_torch import se3
+from redmax_tpu_torch import forces, se3
 from redmax_tpu_torch.joints import joint_QSSdot
 from redmax_tpu_torch.types import MAX_NDOF, NDOF, JointType, Topology
 
@@ -35,9 +38,14 @@ def joint_params_for(params: Dict, jt: int) -> Dict:
     return params.get("joint", {}).get(str(int(jt)), {})
 
 
-def _require_no_forces(force_fns: Tuple) -> None:
-    if force_fns:
-        raise NotImplementedError("force closures are ROADMAP queue 1 item 10")
+def _ground_contacts(force_fns: Tuple) -> Tuple:
+    """The scene's ForceGroundCuboid closures; raises on any other closure
+    type (their K/D blocks are not ported: ROADMAP queue 1 item 10)."""
+    for fn in force_fns:
+        if not isinstance(fn, forces.ForceGroundCuboid):
+            raise NotImplementedError(
+                f"force closure {type(fn).__name__} is not ported yet (ROADMAP queue 1 item 10)")
+    return force_fns
 
 
 class _Index(NamedTuple):
@@ -191,20 +199,37 @@ def maximal_force(topo: Topology, params: Dict, kin: Kinematics, phi):
     return fcor + fgrav - params["body_damping"][:, None] * phi
 
 
+def closure_forces(topo: Topology, params: Dict, kin: Kinematics, phi, q, qdot,
+                   force_fns: Tuple):
+    """Sum of the registered force closures: (fr_cl [B, nr], fm_cl [B, N, 6])."""
+    gnd = _ground_contacts(force_fns)
+    fm = forces.ground_contact_wrenches(gnd, params, kin, phi) if gnd else torch.zeros_like(phi)
+    return torch.zeros_like(q), fm
+
+
 def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns: Tuple = ()):
     """Structured Newton matrix H = M + cK*K~ + cD*D~ [B, nr, nr].
 
     K~/D~ keep every term that does not differentiate the kinematic geometry:
     joint-space Kr/Dr, the local maximal force blocks contracted through a
-    frozen J, and the quadratic-velocity damping -2 J^T Mm Jdot.
+    frozen J, and the quadratic-velocity damping -2 J^T Mm Jdot. Ground
+    contacts add their closed-form per-body blocks
+    (forces.ground_contact_blocks) with the one-step proximity-margin
+    activation, hh = params["h"], gmag = |g|.
     """
-    _require_no_forces(force_fns)
+    gnd = _ground_contacts(force_fns)
     kin = forward_kinematics(topo, params, q, qdot)
     J, Jdot, phi = jacobians(topo, params, kin, qdot)
     B, N, nr = q.shape[0], topo.njoints, topo.nr
 
     Krd, Drd = joint_space_KD_diag(topo, params, q, qdot)
     Kmb, Dmb = local_force_blocks(topo, params, kin, phi)
+    if gnd:
+        idx = forces.body_index(tuple(fn.body for fn in gnd), q.device)
+        Kc, Dc = forces.ground_contact_blocks(
+            kin.E_wi[:, idx], phi[:, idx], forces.stack_contact_params(gnd, params),
+            params["h"], torch.linalg.vector_norm(params["g"]))
+        Kmb, Dmb = Kmb.index_add(1, idx, Kc), Dmb.index_add(1, idx, Dc)
     Jblk = J.reshape(B, N, 6, nr)
     Kt = torch.diag_embed(Krd) + torch.einsum("bnir,bnis->brs", Jblk, Kmb @ Jblk)
     Dt = torch.diag_embed(Drd) + torch.einsum("bnir,bnis->brs", Jblk, Dmb @ Jblk)
@@ -216,14 +241,20 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
 
 
 def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
-    """Full reduced assembly: (M [B,nr,nr], f [B,nr], aux dict)."""
-    _require_no_forces(force_fns)
+    """Full reduced assembly: (M [B,nr,nr], f [B,nr], aux dict).
+
+    force_fns: static tuple of force closures compiled from the scene's
+    force list (forces.py)."""
+    _ground_contacts(force_fns)  # raises before any work on an unported closure
     kin = forward_kinematics(topo, params, q, qdot)
     J, Jdot, phi = jacobians(topo, params, kin, qdot)
     B = q.shape[0]
 
     fr = joint_space_force(topo, params, q, qdot)
     fm = maximal_force(topo, params, kin, phi)
+    if force_fns:
+        fr_cl, fm_cl = closure_forces(topo, params, kin, phi, q, qdot, force_fns)
+        fr, fm = fr + fr_cl, fm + fm_cl
     MmJ = params["I_i"].reshape(-1)[:, None] * J                 # block-diag Mm
     MmJt = MmJ.transpose(-1, -2)
     M = MmJt @ J
@@ -236,9 +267,10 @@ def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
 def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
     """Kinetic and potential energy (T [B], V [B]):
       T = 1/2 sum_i phi_i^T M_i phi_i
-      V = -sum_i m_i g . p_wi + 1/2 k (q - qrest)^2 + limit penalties.
+      V = -sum_i m_i g . p_wi + 1/2 k (q - qrest)^2 + limit penalties
+        + force energies.
     """
-    _require_no_forces(force_fns)
+    gnd = _ground_contacts(force_fns)
     kin = forward_kinematics(topo, params, q, qdot)
     _, _, phi = jacobians(topo, params, kin, qdot)
     I = params["I_i"]
@@ -249,6 +281,8 @@ def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
     dqL = (q < params["qlimL"]).to(q.dtype) * (params["qlimL"] - q)
     dqU = (q > params["qlimU"]).to(q.dtype) * (params["qlimU"] - q)
     V = V + 0.5 * (params["qlimK"] * (dqL * dqL + dqU * dqU)).sum(-1)
+    if gnd:
+        V = V + forces.ground_contact_energy(gnd, params, kin)
     return T, V
 
 

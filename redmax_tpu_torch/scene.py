@@ -5,11 +5,13 @@
 + SceneParams (a dict of tensors, in the JAX package's layout) + initial
 State — on which the dynamics run as plain functions of batched tensors.
 
-Constraints (loop closure, joint limit, floor contact, gear coupling) are
-kept as (object, params) pairs and compiled into ``constraint_fns`` plus
-``params["constraints"]``. Forces, deformables, the prescribed-motion and
-attach-point constraints and friction are not ported yet (ROADMAP queue 1
-items 10, 13 and 15); their SceneBuilder methods raise.
+Constraints (loop closure, joint limit, floor contact, gear coupling) and
+forces (penalty ground contact) are kept as (object, params) pairs and
+compiled into ``constraint_fns`` / ``force_fns`` plus
+``params["constraints"]`` / ``params["forces"]``. The other forces,
+deformables, the prescribed-motion and attach-point constraints and friction
+are not ported yet (ROADMAP queue 1 items 10, 13 and 15); their SceneBuilder
+methods raise.
 """
 
 import math
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from redmax_tpu_torch import constraints as con_mod
+from redmax_tpu_torch import forces as forces_mod
 from redmax_tpu_torch import integrators, model
 from redmax_tpu_torch.joints import require_supported
 from redmax_tpu_torch.types import NDOF, JointType, State, Topology
@@ -111,6 +114,7 @@ class SceneBuilder:
         self.bodies: List[_BodySpec] = []
         self.joints: List[_JointSpec] = []
         self.constraints: List[Tuple[Any, Dict[str, Any]]] = []  # (object, params)
+        self.forces: List[Tuple[Any, Dict[str, Any]]] = []       # (object, params)
         self.baumgarte = np.array([5.0, 5.0, 5.0])
         self.fric = False
         self.mu = np.array([0.6, 0.6])
@@ -200,9 +204,6 @@ class SceneBuilder:
     def force_cable(self, *a, **k):
         _not_ported("ForceCable", "10")
 
-    def force_ground_cuboid(self, *a, **k):
-        _not_ported("ForceGroundCuboid", "10")
-
     def deformable_spring(self, *a, **k):
         _not_ported("deformable springs", "10")
 
@@ -210,6 +211,19 @@ class SceneBuilder:
         _not_ported("prescribed-motion constraints", "13")
 
     constraint_presc_joint_m = constraint_presc_body = constraint_presc_joint
+
+    # -- forces ------------------------------------------------------------
+    def force_ground_cuboid(self, body, E_ground=None, kn=1.0, kt=0.0, kd=0.0, mu=0.0) -> None:
+        """Penalty ground contact on the 8 corners of a cuboid body; the floor
+        is the z = 0 plane of E_ground (z-up)."""
+        sides = self.bodies[body].sides
+        if sides is None:
+            raise ValueError("ground contact requires a cuboid body")
+        self.forces.append((
+            forces_mod.ForceGroundCuboid(f"f{len(self.forces)}", body),
+            {"E": self._E(E_ground), "sides": sides, "kn": np.float64(kn),
+             "kt": np.float64(kt), "kd": np.float64(kd), "mu": np.float64(mu)},
+        ))
 
     # -- constraints -------------------------------------------------------
     def _con_key(self) -> str:
@@ -323,12 +337,13 @@ class SceneBuilder:
             "joint": jt_params,
             "constraints": {obj.key: {k: T(v) for k, v in cp.items()}
                             for obj, cp in self.constraints},
-            "forces": {},
+            "forces": {obj.key: {k: T(v) for k, v in fp.items()} for obj, fp in self.forces},
         }
         state0 = State(q=T(q0), qdot=T(qdot0), aux={})
         return CompiledScene(
             name=self.name, topo=topo, params=params, state0=state0,
-            force_fns=(), constraint_fns=tuple(obj for obj, _ in self.constraints),
+            force_fns=tuple(obj for obj, _ in self.forces),
+            constraint_fns=tuple(obj for obj, _ in self.constraints),
             h=self.h, tEnd=self.tEnd, Hexpected=dict(self.Hexpected),
         )
 

@@ -1,7 +1,9 @@
 """Scene zoo: the scenes whose joints this package covers.
 
 ``scene_chain`` is the MPC benchmark scene (a 12-link revolute chain by
-default); ``scene_00_serial_chain`` is the reference's scene 0, whose f64
+default) and ``scene_chain_ground`` the same chain with penalty ground
+contact on every link (the differentiable-contact MPC scene);
+``scene_00_serial_chain`` is the reference's scene 0, whose f64
 trajectory dump gates the BDF2 step; ``scene_floor_chain`` is the contact-QP
 benchmark scene (every joint limited, a floor sphere on every link). The
 other scenes of the JAX package's zoo are ROADMAP queue 1 item 12.
@@ -64,6 +66,38 @@ def scene_chain(
             b.set_stiffness(j, stiffness)
         if damping:
             b.set_damping(j, damping)
+    return b
+
+
+def scene_chain_ground(
+    nlinks: int = 12,
+    link_len: float = 1.0,
+    density: float = 1.0,
+    damping: float = 1.0,
+    h: float = 1e-2,
+    tEnd: float = 0.5,
+    floor_z: float = None,
+    kn: float = 1e4,
+    kt: float = 1e2,
+    kd: float = 3e1,
+    mu: float = 0.5,
+    contact_links=None,
+) -> SceneBuilder:
+    """scene_chain + penalty ground contact (ForceGroundCuboid) on every
+    link: the differentiable-contact MPC scene (the role of matlab-diff
+    scene 11, ForceGroundCuboid.m + scenesRedMax.m:290-311, composed with the
+    chain generator). The floor plane is z-up at floor_z (default: 1.5 link
+    lengths below the root, so a swinging chain strikes it mid-horizon).
+    contact_links limits contact to a subset of link indices (default: all)."""
+    b = scene_chain(nlinks=nlinks, link_len=link_len, density=density,
+                    damping=damping, h=h, tEnd=tEnd)
+    b.name = f"chain-ground-{nlinks}"
+    if floor_z is None:
+        floor_z = -1.5 * link_len
+    E_g = np.eye(4)
+    E_g[2, 3] = floor_z
+    for i in (range(nlinks) if contact_links is None else contact_links):
+        b.force_ground_cuboid(i, E_ground=E_g, kn=kn, kt=kt, kd=kd, mu=mu)
     return b
 
 

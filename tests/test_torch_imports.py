@@ -34,4 +34,4 @@ def test_no_jax_imports(path):
 def test_scan_covers_the_package():
     names = {os.path.basename(p) for p in FILES}
     assert {"chord_kernel.py", "integrators.py", "mpc.py", "chip_smoke.py", "qp_kernel.py",
-            "qp.py", "constraints.py", "scenes_matlab.py", "kernel_build.py"} <= names
+            "qp.py", "constraints.py", "scenes_matlab.py", "kernel_build.py", "forces.py"} <= names

@@ -15,6 +15,12 @@ zero pivot (NaN must come out, not a bound), and (6, 12) on the physical
 systems of the 6-link floor chain (masked rows, infinite boxes), x at 2e-5
 and lambda at 2e-4 of scale; the inputs are packed by qp_kernel.pack.
 
+With ground contacts (chain-ground-4 and chain-ground-12 at the contact-MPC
+workload's coefficients, states with corners out of contact, in static and in
+dynamic friction, mu = 0.5 and mu = 0) the lane body is held against
+chord_bdf2_dense(force_fns=...) at the same tolerances; a floor out of reach
+gives the C = 0 result bit for bit.
+
 These builds are tests only, never a route of a wrapper.
 """
 
@@ -34,11 +40,13 @@ from redmax_tpu import integrators as jint
 from redmax_tpu import pallas_step
 from redmax_tpu import scene as jscene
 from redmax_tpu.scenes import scene_chain as jchain
+from redmax_tpu.scenes import scene_chain_ground as jground
 from redmax_tpu.types import JointType as JJT
 from redmax_tpu import pallas_qp
 from redmax_tpu_torch import chord_kernel, convert, qp_kernel
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch.scenes import scene_floor_chain
+from test_torch_chord import BENCH_GROUND, contact_states, corner_regimes
 from test_torch_model import mixed_builder
 from test_torch_qp import mixed_qp
 
@@ -117,6 +125,32 @@ def _states(nr, B):
     return (x0, q0, qd0, q1, qd1), tau
 
 
+def _port(sc):
+    """The JAX scene's topology, float32 params and force closures in the port."""
+    topo = convert.topology_from_fields(**dataclasses.asdict(sc.topo))
+    params = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, sc.params),
+                                       "cpu", torch.float32)
+    fns = convert.forces_from_fields([(type(f).__name__, vars(f)) for f in sc.force_fns])
+    return topo, params, fns
+
+
+def _run_lane_lib(lane_lib, topo, params, tau, states, force_fns=()):
+    """(x [B, nr], Hinv [B, nr, nr]) of the g++ lane body on the wrapper's
+    own packing of the inputs."""
+    B, nr = states[0].shape
+    packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
+                               *(torch.tensor(a) for a in states), force_fns)
+    args = [np.ascontiguousarray(a.numpy()) for a in packed]
+    x_out = np.empty((nr, B), np.float32)
+    h_out = np.empty((nr * nr, B), np.float32)
+    cfg = tint.NewtonConfig(**CFG_KW)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    lane_lib.chord_bdf2_cpu(topo.njoints, B, *(ptr(a) for a in args),
+                            cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+                            ptr(x_out), ptr(h_out))
+    return x_out.T, h_out.reshape(nr, nr, B).transpose(2, 0, 1)
+
+
 @pytest.mark.parametrize("scene", ["chain4", "chain12", "mixed"])
 def test_lane_body_matches_kernel_body(lane_lib, scene):
     build = {"chain4": lambda: jchain(nlinks=4), "chain12": lambda: jchain(nlinks=12),
@@ -128,21 +162,8 @@ def test_lane_body_matches_kernel_body(lane_lib, scene):
     x_np, hinv_np = pallas_step.chord_bdf2_dense(
         sc.topo, jcfg, {**sc.params, "tau": jnp.asarray(tau)}, *states, xp=np)
 
-    topo = convert.topology_from_fields(**dataclasses.asdict(sc.topo))
-    params = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, sc.params),
-                                       "cpu", torch.float32)
-    packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
-                               *(torch.tensor(a) for a in states))
-    args = [np.ascontiguousarray(a.numpy()) for a in packed]
-    x_out = np.empty((nr, B), np.float32)
-    h_out = np.empty((nr * nr, B), np.float32)
-    cfg = tint.NewtonConfig(**CFG_KW)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    lane_lib.chord_bdf2_cpu(sc.topo.njoints, B, *(ptr(a) for a in args),
-                            cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
-                            ptr(x_out), ptr(h_out))
-    x = x_out.T
-    hinv = h_out.reshape(nr, nr, B).transpose(2, 0, 1)
+    topo, params, _ = _port(sc)
+    x, hinv = _run_lane_lib(lane_lib, topo, params, tau, states)
 
     finite = np.isfinite(x_np).all(-1)
     assert not finite[-1] and finite[:-1].all(), finite
@@ -150,6 +171,48 @@ def test_lane_body_matches_kernel_body(lane_lib, scene):
     np.testing.assert_allclose(x[finite], x_np[finite], rtol=0, atol=5e-6)
     scale = float(np.abs(hinv_np[finite]).max())
     np.testing.assert_allclose(hinv[finite], hinv_np[finite], rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("nlinks,mu", [(4, 0.5), (12, 0.5), (4, 0.0)])
+def test_lane_body_with_contacts_matches_kernel_body(lane_lib, nlinks, mu):
+    sc = jground(nlinks=nlinks, **{**BENCH_GROUND, "mu": mu}).compile(dtype=jnp.float32)
+    B, nr = 16, sc.topo.nr
+    states, tau = contact_states(nr, B)
+    jcfg = jint.NewtonConfig(**CFG_KW)
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(
+        sc.topo, jcfg, {**sc.params, "tau": jnp.asarray(tau)}, *states, xp=np,
+        force_fns=sc.force_fns)
+    topo, params, fns = _port(sc)
+    assert len(fns) == nlinks
+    qd_pred = 150.0 * (states[0] - (4 / 3) * states[3] + (1 / 3) * states[1])
+    out, sta, dyn = corner_regimes(topo, params, fns, states[0], qd_pred)
+    assert out > 0 and (sta > 0 and dyn > 0 if mu else sta == dyn == 0), (out, sta, dyn)
+
+    x, hinv = _run_lane_lib(lane_lib, topo, params, tau, states, fns)
+    finite = np.isfinite(x_np).all(-1)
+    assert finite.mean() >= 0.75, finite
+    np.testing.assert_array_equal(np.isfinite(x).all(-1), finite)
+    np.testing.assert_allclose(x[finite], x_np[finite], rtol=0, atol=5e-6)
+    scale = float(np.abs(hinv_np[finite]).max())
+    np.testing.assert_allclose(hinv[finite], hinv_np[finite], rtol=0, atol=2e-5 * scale)
+    # the contacts matter: without them the solution differs
+    x_free, _ = _run_lane_lib(lane_lib, topo, params, tau, states)
+    assert np.abs(x_free[finite] - x[finite]).max() > 1e-4
+
+
+def test_lane_body_floor_out_of_reach_equals_no_contacts(lane_lib):
+    """Contacts that no corner can reach within a step add exact zeros: x and
+    H^-1 equal the C = 0 result bit for bit. (The rejected lane moves at
+    1e6, so its margin reaches any floor: its x is NaN either way.)"""
+    sc = jground(nlinks=4, kn=100.0, kt=0.1, kd=10.0, mu=0.5, floor_z=-50.0).compile(
+        dtype=jnp.float32)
+    topo, params, fns = _port(sc)
+    states, tau = _states(sc.topo.nr, 9)
+    x, hinv = _run_lane_lib(lane_lib, topo, params, tau, states, fns)
+    x0, hinv0 = _run_lane_lib(lane_lib, topo, params, tau, states)
+    assert np.isnan(x[-1]).all() and np.isfinite(x[:-1]).all()
+    np.testing.assert_array_equal(x, x0)
+    np.testing.assert_array_equal(hinv[:-1], hinv0[:-1])
 
 
 @pytest.fixture(scope="module")
