@@ -1,4 +1,4 @@
-"""Drive redmax_tpu_torch's three paths on one NVIDIA GPU and check them.
+"""Drive redmax_tpu_torch's five paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -44,7 +44,23 @@ Phases (any failure is an exception and a non-zero exit):
      MPC solve (chain-ground-12, kn 100, kt 0.1, kd 10, mu 0.5, floor 0.01
      under the links, horizon 50, B = 1024, f32, one Adam step), with the
      checks of phase 4;
- 10. print the kernels line, the paths' lines, the card's name and power
+ 10. hold the chord kernel with springs against its plain version: the
+     spring chain (scene_spring_chain(12): a world-to-tip spring-damper, a
+     body-body spring-damper and a point-point coupler) at B = 1024 and
+     B = 1000, on states 8 steps into a rollout under the path's torques, by
+     the tolerances of phase 3, a NaN lane, and timed;
+ 11. hold the chord kernel with a cable against its plain version: scene 13
+     (a tension-only cable over two links to a stiff prismatic slider) at
+     B = 1024 on rollout states, with a census of lanes taut, slack and within
+     1e-6 L of the gate (those left out of the tolerance and counted); then
+     the same states with L raised so that every lane is slack; timed;
+ 12. the spring path: benchmarks/bench_spring_ab.py's spring-MPC solve
+     (spring chain, horizon 50, B = 1024, f32, one Adam step) with the checks
+     of phase 4, the small card-against-CPU solve at 12 links;
+ 13. the cable rollout: scene 13, B = 1024 lanes from its initial state plus
+     a seeded perturbation, 50 BDF2 steps on the kernel route (49 launches
+     per rollout), timed, against the float64 op-level rollout;
+ 14. print the kernels line, the paths' lines, the card's name and power
      limit, and the result line.
 """
 
@@ -60,7 +76,8 @@ import numpy as np
 import torch
 
 from redmax_tpu_torch import chord_kernel, forces, integrators, model, mpc, qp_kernel
-from redmax_tpu_torch.scenes import scene_chain, scene_chain_ground, scene_floor_chain
+from redmax_tpu_torch.scenes import (scene_13_cables, scene_chain, scene_chain_ground,
+                                     scene_floor_chain, scene_spring_chain)
 from redmax_tpu_torch.scenes_matlab import build_mscene
 from redmax_tpu_torch.types import State
 
@@ -94,14 +111,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def lane_flops(topo, fixed_iters: int, ncontacts: int = 0) -> int:
+def lane_flops(topo, fixed_iters: int, ncontacts: int = 0, springs=(), cables=()) -> int:
     """Floating-point operations of one lane of csrc/chord_bdf2_lane.cuh,
     counted from its loops (add, sub, mul, div, sqrt, sin, cos: one each;
-    compares and selects none), with ncontacts ground contacts."""
+    compares and selects none), with ncontacts ground contacts, springs as
+    (kind, b1, b2, tension) and cables as body tuples (chord_kernel's
+    closure_spec)."""
     N, NR = topo.njoints, topo.nr
     anc = topo.ancestor_mask()[:, topo.dof_joint()]   # [N, NR] ancestor pairs
     P = int(anc.sum())
     P2 = int((anc.sum(1) ** 2).sum())                 # (r, s) pairs per body
+    cols = anc.sum(1)                                 # columns of each body
     frame_mul, frame_inv, adjoint, mat6 = 63, 18, 27, 66
     q_local = sum(36 if t == 1 else (3 * (2 * d - 1) if d else 0)
                   for t, d in zip(topo.jtype, topo.ndof))
@@ -119,9 +139,35 @@ def lane_flops(topo, fixed_iters: int, ncontacts: int = 0) -> int:
     # ground_contact: R^T n once, then per corner the force (158) and, in the
     # Hessian, the K/D row blocks and their Gamma^T contraction (418 more)
     contact_force, contact_blocks = 15 + 8 * 158, 15 + 8 * (158 + 418)
-    contacts = ncontacts * (contact_blocks + fixed_iters * contact_force)
+    closures = ncontacts * (contact_blocks + fixed_iters * contact_force)
+    # springs and cables: a body point's state 45, its wrench 33 (F, R^T F,
+    # r x fb, the sums); pair_block 426 (+12 with hat(fb)); add_pair 66 per
+    # column of body c and 12 per (r, s) column pair of bodies b and c
+    point, wrench, block = 45, 33, 426
+
+    def add_pair(b, c):
+        return int(cols[c]) * 66 + int(cols[b] * cols[c]) * 12
+
+    pairs = 6 * N if (springs or cables) else 0      # fm += fcl in the residual
+    for kind, b1, b2, _ in springs:
+        ends = [b for b in (b1, b2) if b >= 0]
+        force = 6 + (37 if kind else 9)              # dx, dv and the law
+        blocks_law = 6 + (160 if kind else 9)        # with A = dfW/ddx, Bm = dfW/ddv
+        res = len(ends) * (point + wrench) + force
+        hes = len(ends) * (point + 18) + blocks_law + sum(
+            block + 1 + 12 * (e == f) + add_pair(ends[e], ends[f])
+            for e in range(len(ends)) for f in range(len(ends)))
+        pairs += fixed_iters * res + hes
+    for bodies in cables:
+        Pn, on = len(bodies), [b for b in bodies if b >= 0]
+        shared = len(on) * point + 23 * (Pn - 1) + 7 + 3 * Pn   # segments, tension, c_j
+        res = shared + len(on) * wrench
+        hes = shared + 14 * (Pn - 1) + 36 * Pn + len(on) * 18 + sum(
+            8 + 144 + block + 12 * (j == i) + add_pair(bj, bi)
+            for j, bj in enumerate(on) for i, bi in enumerate(on))
+        pairs += fixed_iters * res + hes
     return (static + qdot + fk + hessian + gj + fixed_iters * step
-            + (fixed_iters - 1) * fk + contacts)
+            + (fixed_iters - 1) * fk + closures + pairs)
 
 
 def rand_states(nr, B, seed, device):
@@ -148,12 +194,13 @@ def time_chord_kernel(sc, params, states, max_abs_err, label):
     wrap_ms = cuda_ms(lambda: chord_kernel.chord_bdf2(sc.topo, CFG, params, *states, fns), 100)
     plain_ms = cuda_ms(lambda: chord_kernel.chord_bdf2_reference(
         sc.topo, CFG, params, *states, fns), reps=50)
-    flops = lane_flops(sc.topo, CFG.fixed_iters, len(fns)) * B
+    contacts, springs, cables = chord_kernel.closure_spec(sc.topo, fns)
+    flops = lane_flops(sc.topo, CFG.fixed_iters, len(contacts), springs, cables) * B
     nbytes = 4 * B * (6 * sc.topo.nr + sc.topo.nr + sc.topo.nr ** 2) + sum(
-        a.numel() * a.element_size() for a in args[6:])
+        a.numel() * a.element_size() for a in args[6:8])
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
-    print(f"chord_bdf2 at {label}, {len(fns)} contacts, B {B}: kernel {ms:.4f} ms, wrapper with "
+    print(f"chord_bdf2 at {label}, {args[8]}, B {B}: kernel {ms:.4f} ms, wrapper with "
           f"layout copies {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops / B:.0f} flops/lane, "
           f"{nbytes} bytes; bound {bound * 1e3:.3f} us "
           f"({'operations' if t_ops >= t_bytes else 'bytes'}), kernel at {bound / ms:.2%} of it")
@@ -322,11 +369,10 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
     return launches, B / dt, finite_frac
 
 
-def phase_small_reference(name, scene, device="cuda"):
+def phase_small_reference(name, scene, device="cuda", nlinks=4, horizon=5, B=64):
     """A small solve on the card (f32, kernel route) against the same solve
     on the CPU in float64 (the plain version, held to redmax_tpu by the
     tests)."""
-    nlinks, horizon, B = 4, 5, 64
     out = {}
     for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
         sc = scene(nlinks).compile(dtype=dtype, device=dev)
@@ -648,16 +694,17 @@ def phase_small_euler(device="cuda", B=64, nsteps=5):
 # ---------------------------------------------------------------------------
 
 
-def contact_rollout_states(sc, B, device, nsteps=8, seed=1):
-    """Chord-solve inputs on the contact path: the scene rolled nsteps from
-    rest on the op-level route under the main path's torques
+def rollout_states(sc, B, device, nsteps=8, seed=1, s0=None):
+    """Chord-solve inputs on a path: the scene rolled nsteps from s0 (default:
+    rest) on the op-level route under the main path's torques
     (tau = 1e3 * 0.003 N(0, 1)), then the next inner step's history and
     predictor. Lanes the rollout rejected are replaced by lane 0's state."""
     rng = np.random.default_rng(seed)
     tau = torch.tensor(3.0 * rng.normal(size=(B, sc.topo.nr)), dtype=torch.float32, device=device)
     params = {**sc.params, "tau": tau}
     step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=False)
-    s = integrators.make_simulate(step, nsteps)(params, sc.initial_state("bdf2", B))
+    s0 = sc.initial_state("bdf2", B) if s0 is None else integrators.bdf2_init(s0)
+    s = integrators.make_simulate(step, nsteps)(params, s0)
     ok = (torch.isfinite(s.q) & torch.isfinite(s.qdot)).all(-1)
     fix = lambda a: torch.where(ok[:, None], a, a[ok][:1])
     q0, qd0, q1, qd1 = (fix(a) for a in (s.q_prev, s.qdot_prev, s.q, s.qdot))
@@ -690,10 +737,11 @@ def corner_census(sc64, states):
             "lanes_with_such_a_corner": int(close.flatten(1).any(-1).sum())}
 
 
-def compare_contact_kernel(sc, sc64, params, states, label, min_ok=0.99):
+def compare_kernel(sc, sc64, params, states, label, min_ok=0.99, exclude=None):
     """Kernel against the f32 plain version (x) and the f64 plain version
-    (H^-1) lane by lane; returns (max |dx| over the lanes inside tolerance,
-    x of the kernel)."""
+    (H^-1) lane by lane, on at least min_ok of the finite lanes that exclude
+    (a [B] mask) leaves in; returns (max |dx| over the lanes inside
+    tolerance, x of the kernel)."""
     fns, B = sc.force_fns, states[0].shape[0]
     x, hinv = chord_kernel.chord_bdf2(sc.topo, CFG, params, *states, fns)
     x_ref, hinv_ref = chord_kernel.chord_bdf2_reference(sc.topo, CFG, params, *states, fns)
@@ -712,11 +760,13 @@ def compare_contact_kernel(sc, sc64, params, states, label, min_ok=0.99):
     hscale = float(hinv64[both].abs().max())
     dh = (hinv.double() - hinv64).abs().amax((-1, -2)) / hscale
     dh_plain = (hinv_ref.double() - hinv64).abs().amax((-1, -2)) / hscale
-    ok = both & (dx <= 5e-6) & (dh <= 2e-5)
-    share = float(ok[both].float().mean())
+    held = both if exclude is None else both & ~exclude
+    ok = held & (dx <= 5e-6) & (dh <= 2e-5)
+    share = float(ok[held].float().mean())
     worst = int(torch.where(both, dx, torch.zeros_like(dx)).argmax())
     qx, qh = quantiles(dx[both]), quantiles(dh[both])
-    print(f"kernel vs plain {label}: finite {int(fin.sum())}/{B}, {share:.4f} of them inside "
+    print(f"kernel vs plain {label}: finite {int(fin.sum())}/{B}, {share:.4f} of the "
+          f"{int(held.sum())} held inside "
           f"tolerance; |dx|/max(1,|x|) p50 {qx[0]:.3e} p99 {qx[2]:.3e} max {qx[3]:.3e}; Hinv vs "
           f"f64 plain of scale {hscale:.3e}: kernel p50 {qh[0]:.3e} p99 {qh[2]:.3e} max "
           f"{qh[3]:.3e}, "
@@ -730,6 +780,19 @@ def compare_contact_kernel(sc, sc64, params, states, label, min_ok=0.99):
     return float(dx[ok].max()), x
 
 
+def check_nan_lane(sc, params, states, x):
+    """A NaN lane comes out NaN and leaves every other lane as it was."""
+    B = states[0].shape[0]
+    poisoned = [a.clone() for a in states]
+    poisoned[3][5] = float("nan")
+    xp, _ = chord_kernel.chord_bdf2(sc.topo, CFG, params, *poisoned, sc.force_fns)
+    keep = torch.ones(B, dtype=torch.bool, device=x.device)
+    keep[5] = False
+    if not torch.isnan(xp[5]).all() or not torch.equal(xp[keep].isnan(), x[keep].isnan()) \
+            or not torch.equal(torch.nan_to_num(xp[keep]), torch.nan_to_num(x[keep])):
+        raise AssertionError("a NaN lane did not stay NaN, or changed another lane")
+
+
 def phase_contact_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (4, 1024))):
     """The chord kernel with ground contacts against chord_bdf2_reference on
     the card; returns the kernel record fields at the contact path's shapes
@@ -738,13 +801,13 @@ def phase_contact_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), 
     for nlinks, B in cases:
         sc = chain_ground(nlinks).compile(dtype=torch.float32, device=device)
         sc64 = chain_ground(nlinks).compile(dtype=torch.float64, device=device)
-        states, params, kept = contact_rollout_states(sc, B, device)
+        states, params, kept = rollout_states(sc, B, device)
         census = corner_census(sc64, states)
         print(f"contact states chain-ground-{nlinks} B {B}: {kept}/{B} lanes from the rollout; "
               f"corners {json.dumps(census)}")
         if min(census["out"], census["static"], census["dynamic"]) == 0:
             raise AssertionError(f"chain-ground-{nlinks}: a contact regime is missing: {census}")
-        err, x = compare_contact_kernel(sc, sc64, params, states, f"chain-ground-{nlinks} B {B}")
+        err, x = compare_kernel(sc, sc64, params, states, f"chain-ground-{nlinks} B {B}")
         if (nlinks, B) != cases[0]:
             continue
         record = time_chord_kernel(sc, params, states, err, f"chain-ground-{nlinks}")
@@ -752,17 +815,9 @@ def phase_contact_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), 
         # mu = 0 is data, not a build option
         sc0 = chain_ground(nlinks, mu=0.0).compile(dtype=torch.float32, device=device)
         sc0_64 = chain_ground(nlinks, mu=0.0).compile(dtype=torch.float64, device=device)
-        compare_contact_kernel(sc0, sc0_64, {**sc0.params, "tau": params["tau"]}, states,
-                               f"chain-ground-{nlinks} mu 0 B {B}")
-        # a NaN lane comes out NaN and leaves every other lane as it was
-        poisoned = [a.clone() for a in states]
-        poisoned[3][5] = float("nan")
-        xp, _ = chord_kernel.chord_bdf2(sc.topo, CFG, params, *poisoned, sc.force_fns)
-        keep = torch.ones(B, dtype=torch.bool, device=device)
-        keep[5] = False
-        if not torch.isnan(xp[5]).all() or not torch.equal(xp[keep].isnan(), x[keep].isnan()) \
-                or not torch.equal(torch.nan_to_num(xp[keep]), torch.nan_to_num(x[keep])):
-            raise AssertionError("a NaN lane did not stay NaN, or changed another lane")
+        compare_kernel(sc0, sc0_64, {**sc0.params, "tau": params["tau"]}, states,
+                       f"chain-ground-{nlinks} mu 0 B {B}")
+        check_nan_lane(sc, params, states, x)
         # A floor no corner can reach adds exact zeros, so the build with the
         # contact code must reproduce the C = 0 build (compiled without it)
         # to float32 roundoff: nvcc contracts the two builds'
@@ -781,6 +836,154 @@ def phase_contact_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), 
         if not torch.equal(fin0, torch.isfinite(xf).all(-1)) or dxf > 5e-6 or dhf > 2e-5:
             raise AssertionError("contacts out of reach changed the C = 0 result")
     return record
+
+
+# ---------------------------------------------------------------------------
+# The chord kernel with springs and with a cable; the cable rollout
+# ---------------------------------------------------------------------------
+
+
+def phase_spring_kernel_vs_plain(device="cuda", cases=(1024, 1000)):
+    """The chord kernel with the spring chain's three springs against
+    chord_bdf2_reference on rollout states; returns the kernel record fields
+    at the spring path's shapes (the first case). As in phase 8, at least 99%
+    of the lanes: at some states of the 12-link spring chain the float32
+    plain version's own H^-1 is 2.2e-5 of scale from float64, just outside
+    2e-5 (a CPU rehearsal at B = 64), so a lane may fall outside on roundoff;
+    every lane is printed in the share."""
+    record = {}
+    sc = scene_spring_chain(12).compile(dtype=torch.float32, device=device)
+    sc64 = scene_spring_chain(12).compile(dtype=torch.float64, device=device)
+    for B in cases:
+        states, params, kept = rollout_states(sc, B, device)
+        print(f"spring states spring-chain-12 B {B}: {kept}/{B} lanes from the rollout")
+        err, x = compare_kernel(sc, sc64, params, states, f"spring-chain-12 B {B}")
+        if B != cases[0]:
+            continue
+        check_nan_lane(sc, params, states, x)
+        print(f"spring-chain-12 B {B}: NaN lane kept, other lanes bit-equal")
+        record = time_chord_kernel(sc, params, states, err, "spring-chain-12")
+    return record
+
+
+def cable_lengths(sc64, q):
+    """(l [B], L) of the scene's one cable at q, in float64."""
+    fn = sc64.force_fns[0]
+    fp = sc64.params["forces"][fn.key]
+    kin = model.forward_kinematics(sc64.topo, sc64.params, q, torch.zeros_like(q))
+    x, _, _, _ = forces.body_points(kin, None, fn.bodies, fp["xls"])
+    return torch.linalg.vector_norm(x[:, 1:] - x[:, :-1], dim=-1).sum(-1), float(fp["L"])
+
+
+def cable_states0(sc, B, device, dtype, seed=2):
+    """The cable path's lanes: scene 13's initial state, q + 0.05 N(0, 1),
+    qdot = 0.5 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    q = sc.state0.q.cpu().numpy()[None] + 0.05 * rng.normal(size=(B, sc.topo.nr))
+    qd = 0.5 * rng.normal(size=(B, sc.topo.nr))
+    return State(q=torch.tensor(q, dtype=dtype, device=device),
+                 qdot=torch.tensor(qd, dtype=dtype, device=device))
+
+
+def phase_cable_kernel_vs_plain(device="cuda", B=1024):
+    """The chord kernel with scene 13's cable against chord_bdf2_reference on
+    states 8 steps into the cable path's rollout; lanes within 1e-6 L of the
+    gate at the predictor (where two float32 orders may disagree on l > L)
+    are counted and left out of the tolerance. Then the same states with L
+    raised so that every lane is slack. Returns the kernel record fields."""
+    sc = scene_13_cables().compile(dtype=torch.float32, device=device)
+    sc64 = scene_13_cables().compile(dtype=torch.float64, device=device)
+    states, params, kept = rollout_states(sc, B, device,
+                                          s0=cable_states0(sc, B, device, torch.float32))
+    l, L = cable_lengths(sc64, states[0].double())
+    near = (l - L).abs() <= 1e-6 * L
+    census = {"taut": int((l > L).sum()), "slack": int((l <= L).sum()),
+              "within_1e-6_L_of_the_gate": int(near.sum())}
+    print(f"cable states scene-13 B {B}: {kept}/{B} lanes from the rollout; at the predictor "
+          f"{json.dumps(census)} (L {L:.6f}, l - L median {float((l - L).median()):.3e})")
+    if census["taut"] == 0:
+        raise AssertionError(f"scene 13: no lane has its cable taut: {census}")
+    err, x = compare_kernel(sc, sc64, params, states, f"scene-13 B {B}", exclude=near)
+    check_nan_lane(sc, params, states, x)
+    print(f"scene-13 B {B}: NaN lane kept, other lanes bit-equal")
+    record = time_chord_kernel(sc, params, states, err, "scene-13")
+
+    # L is data: raised above every lane's length, the cable goes slack
+    Ls = 2.0 * float(l.max())
+    slack = {**params, "forces": {"f0": {**params["forces"]["f0"],
+                                         "L": torch.tensor(Ls, device=device)}}}
+    sc64.params["forces"]["f0"]["L"] = torch.tensor(Ls, dtype=torch.float64, device=device)
+    if int((cable_lengths(sc64, states[0].double())[0] > Ls).sum()) != 0:
+        raise AssertionError("scene 13 with L raised: a lane is still taut")
+    compare_kernel(sc, sc64, slack, states, f"scene-13 slack B {B}")
+    return record
+
+
+def phase_cable_path(device="cuda", B=1024, nsteps=50, reps=3):
+    """Scene 13's cable rollout on the kernel route; returns (kernel launches
+    of the timed rollouts, steps/s, finite_frac)."""
+    sc = scene_13_cables().compile(dtype=torch.float32, device=device)
+    s0 = integrators.bdf2_init(cable_states0(sc, B, device, torch.float32))
+    sim = integrators.make_simulate(
+        integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=True), nsteps)
+    final = sim(sc.params, s0)  # warm-up
+    torch.cuda.synchronize()
+    chord_kernel.chord_bdf2_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        final = sim(sc.params, s0)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    launches = chord_kernel.chord_bdf2_launches
+    dt = start.elapsed_time(end) / 1e3 / reps
+    if launches != (nsteps - 1) * reps:
+        raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} rollouts, "
+                             f"want {nsteps - 1} per rollout")
+    finite = torch.isfinite(final.q).all(-1) & torch.isfinite(final.qdot).all(-1)
+    finite_frac = float(finite.float().mean())
+    print(f"cable path: {B * nsteps / dt:.1f} steps/s ({dt * 1e3:.3f} ms per {nsteps}-step "
+          f"rollout by CUDA events, {wall * 1e3:.3f} ms host clock), finite_frac "
+          f"{finite_frac:.4f}, kernel launches {launches // reps} per rollout")
+    if final.q.shape != (B, sc.topo.nr) or finite_frac < 0.95:
+        raise AssertionError(f"cable path: shape {tuple(final.q.shape)}, finite_frac {finite_frac}")
+    sc64 = scene_13_cables().compile(dtype=torch.float64, device=device)
+    l, L = cable_lengths(sc64, final.q[finite].double())
+    print(f"cable path, last step: {int((l > L).sum())} lanes taut, {int((l <= L).sum())} slack")
+
+    # where the time goes inside one rollout (CUDA events around each phase)
+    step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(2):  # the first pass warms the allocator; the second is timed
+        torch.cuda.synchronize()
+        ev[0].record()
+        s = step.bootstrap(sc.params, s0)
+        ev[1].record()
+        for _ in range(nsteps - 1):
+            s = step.inner(sc.params, s)
+        ev[2].record()
+        torch.cuda.synchronize()
+    print(f"cable path, one rollout by phase: bootstrap {ev[0].elapsed_time(ev[1]):.3f} ms, "
+          f"{nsteps - 1} inner steps (kernel route) {ev[1].elapsed_time(ev[2]):.3f} ms")
+
+    chord_kernel.chord_bdf2_launches = 0
+    sim64 = integrators.make_simulate(
+        integrators.make_bdf2_step_batched(sc64.topo, sc64.force_fns, CFG, use_kernel=False),
+        nsteps)
+    q64 = sim64(sc64.params, integrators.bdf2_init(cable_states0(sc, B, device, torch.float64))).q
+    torch.cuda.synchronize()
+    if chord_kernel.chord_bdf2_launches != 0:
+        raise AssertionError("op-level route launched the kernel")
+    err, both = lane_err(final.q, q64)
+    p50, _, p99, mx = quantiles(err)
+    within = float((err <= 1e-3).double().mean())
+    print(f"cable path vs op-level f64: final q diff of scale median {p50:.3e}, p99 {p99:.3e}, "
+          f"max {mx:.3e}; {within:.4f} of {int(both.sum())} lanes within 1e-3")
+    if within < 0.95:
+        raise AssertionError("cable path: kernel route and float64 op-level route disagree")
+    return launches, B * nsteps / dt, finite_frac
 
 
 def main():
@@ -814,6 +1017,12 @@ def main():
     contact_record = phase_contact_kernel_vs_plain()
     contact_launches, contact_rate, contact_finite = phase_mpc_path("contact path", chain_ground)
     phase_small_reference("contact path", chain_ground)
+    spring_record = phase_spring_kernel_vs_plain()
+    cable_record = phase_cable_kernel_vs_plain()
+    spring_launches, spring_rate, spring_finite = phase_mpc_path("spring path",
+                                                                 scene_spring_chain)
+    phase_small_reference("spring path", scene_spring_chain, nlinks=12)
+    cable_launches, cable_rate, cable_finite = phase_cable_path()
 
     kernels = [{
         "name": "chord_bdf2", "route": "cuda",
@@ -826,6 +1035,18 @@ def main():
         "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
         "replaces": "redmax_tpu/pallas_step.py:237",
         "launches": contact_launches, **contact_record, "library_ms": None,
+    }, {
+        # the same kernel with the spring chain's three springs, on the spring path
+        "name": "chord_bdf2[springs]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:401",
+        "launches": spring_launches, **spring_record, "library_ms": None,
+    }, {
+        # the same kernel with scene 13's cable, on the cable rollout
+        "name": "chord_bdf2[cable]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:561",
+        "launches": cable_launches, **cable_record, "library_ms": None,
     }, {
         # library_ms: no single PyTorch call computes a dual-PGS solve
         "name": "dual_pgs", "route": "cuda",
@@ -840,6 +1061,10 @@ def main():
                                      "card": smi}}))
     print(json.dumps({"contact_path": {"solves_per_s": contact_rate, "finite_frac": contact_finite,
                                        "launches": contact_launches, "card": smi}}))
+    print(json.dumps({"spring_path": {"solves_per_s": spring_rate, "finite_frac": spring_finite,
+                                      "launches": spring_launches, "card": smi}}))
+    print(json.dumps({"cable_path": {"steps_per_s": cable_rate, "finite_frac": cable_finite,
+                                     "launches": cable_launches, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

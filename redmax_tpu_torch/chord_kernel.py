@@ -3,15 +3,17 @@ version, its build and its launch counter.
 
 The kernel (csrc/chord_bdf2.cu, per-lane body in csrc/chord_bdf2_lane.cuh)
 replaces redmax_tpu/pallas_step.py::_build_kernel of the JAX package, on its
-K1a and K1c branches: constant-S joints, penalty ground contact
-(ForceGroundCuboid, pallas_step._ground_contact) as the only force closure,
-unguarded chord, shared physical params. Per lane it runs FK with the
-world-column J and Jdot, the joint and maximal forces with the contact
-wrenches, the BDF2 residual, the structured Newton matrix
-H = M + cK K~ + cD D~ with the contacts' closed-form K/D blocks under the
-proximity-margin activation, an unpivoted Gauss-Jordan H^-1 and
-`fixed_iters` chord steps with growth/tol rejection, and writes x [B, nr]
-(NaN on rejected lanes) and H^-1 [B, nr, nr].
+K1a, K1c, K1d and K1e branches: constant-S joints; penalty ground contact
+(ForceGroundCuboid, pallas_step._ground_contact); two-point springs
+(ForcePointPoint, ForceSpringDamper with tension_only, _spring_force) and
+tension-only cables (ForceCable, _cable_force); unguarded chord, shared
+physical params. Per lane it runs FK with the world-column J and Jdot, the
+joint and maximal forces with the closures' wrenches, the BDF2 residual, the
+structured Newton matrix H = M + cK K~ + cD D~ with the closures'
+closed-form K/D blocks (per contact body, and per pair of spring or cable
+points, the blocks coupling two bodies included), an unpivoted Gauss-Jordan
+H^-1 and `fixed_iters` chord steps with growth/tol rejection, and writes
+x [B, nr] (NaN on rejected lanes) and H^-1 [B, nr, nr].
 
 What bounds it on an H100: per-lane f32 arithmetic. It moves
 4 * B * (6 nr + nr + nr^2) bytes (about 0.93 MB at B = 1024, nr = 12) and
@@ -25,19 +27,25 @@ the 132 SMs), and the per-lane J, Jdot, H and Gauss-Jordan rows (a few
 thousand floats) live in local memory rather than registers. A warp per lane
 or a thread per (lane, column) with shared memory is the next design.
 
+The closure code is compiled in only where a scene has that kind of closure
+(a template bitmask: contacts, springs, cables), and only the (N, nr,
+closures) combinations the paths run are instantiated (INSTANTIATED): a
+scene that mixes ground contacts with springs or cables runs on the CPU
+(the plain version) but raises on the card.
+
 On a CUDA tensor chord_bdf2 launches the kernel (and raises if it cannot);
 on a CPU tensor it runs chord_bdf2_reference.
 """
 
 import ctypes
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from redmax_tpu_torch import integrators, model
-from redmax_tpu_torch.forces import ForceGroundCuboid
+from redmax_tpu_torch.forces import ForceCable, ForceGroundCuboid, ForcePointPoint, ForceSpringDamper
 from redmax_tpu_torch.joints import CONSTANT_S_TYPES
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.types import JointType, Topology
@@ -46,14 +54,37 @@ from redmax_tpu_torch.types import JointType, Topology
 chord_bdf2_launches = 0
 
 BUILD = KernelBuild("chord_bdf2", ("chord_bdf2.cu", "chord_bdf2_lane.cuh"))
-# (N, nr) shapes with an explicit template instantiation in chord_bdf2.cu.
-INSTANTIATED = ((12, 12), (4, 4))
+# The closure kinds a build compiles in (the FEAT template bitmask of
+# chord_bdf2.cu) and the (N, nr, kinds) with an explicit instantiation there.
+CONTACTS, SPRINGS, CABLES = 1, 2, 4
+INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
+                (12, 12, SPRINGS), (4, 3, CABLES))
+MAX_CABLE_POINTS = 8  # kMaxCablePoints of chord_bdf2_lane.cuh
+_CLOSURES = (ForceGroundCuboid, ForcePointPoint, ForceSpringDamper, ForceCable)
+
+
+class Closures(NamedTuple):
+    """The closure counts that the packed buffers hold (topo_i carries them
+    too, for the kernel)."""
+
+    contacts: int
+    springs: int
+    cables: int
+    cable_points: int
+
+    @property
+    def kinds(self) -> int:
+        return ((CONTACTS if self.contacts else 0) | (SPRINGS if self.springs else 0)
+                | (CABLES if self.cables else 0))
 
 
 def supports(topo: Topology, force_fns: Tuple, cfg) -> bool:
-    """True when the kernel covers this scene's inner step exactly."""
+    """True when the kernel's function covers this scene's inner step
+    exactly: ground contacts, springs and cables, constant-S joints, the
+    unguarded chord config. (On the card, only INSTANTIATED combinations
+    launch; the others raise.)"""
     return (
-        all(isinstance(fn, ForceGroundCuboid) for fn in force_fns)
+        all(type(fn) in _CLOSURES for fn in force_fns)
         and all(JointType(t) in CONSTANT_S_TYPES for t in topo.jtype)
         and cfg.fixed_iters > 0 and cfg.chord
         and not cfg.guarded and not cfg.guard_last
@@ -86,31 +117,73 @@ def _build_lib():
     lib = BUILD.load()
     if first:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.chord_bdf2_launch.argtypes = ([i, i, i, i] + [p] * 6 + [p, p] + [i, fl, fl, fl]
+        lib.chord_bdf2_launch.argtypes = ([i] * 7 + [p] * 6 + [p, p] + [i, fl, fl, fl]
                                           + [p, p, p])
         lib.chord_bdf2_launch.restype = i
     return lib
 
 
+def _split(force_fns: Tuple):
+    """(contacts, springs, cables), each in force_fns order (the order of
+    pallas_step._split_forces)."""
+    gnd = tuple(fn for fn in force_fns if isinstance(fn, ForceGroundCuboid))
+    spr = tuple(fn for fn in force_fns if isinstance(fn, (ForcePointPoint, ForceSpringDamper)))
+    cab = tuple(fn for fn in force_fns if isinstance(fn, ForceCable))
+    return gnd, spr, cab
+
+
+def closure_spec(topo: Topology, force_fns: Tuple) -> Tuple:
+    """The static closure spec: (contact bodies, springs as (kind, b1, b2,
+    tension) with kind 0 = point-point, 1 = spring-damper, cables as body
+    tuples). Raises on a body outside the scene or a cable the kernel cannot
+    hold."""
+    gnd, spr, cab = _split(force_fns)
+    N = topo.njoints
+    contacts = tuple(int(fn.body) for fn in gnd)
+    springs = tuple((int(isinstance(fn, ForceSpringDamper)), int(fn.body1), int(fn.body2),
+                     int(getattr(fn, "tension_only", False))) for fn in spr)
+    cables = tuple(tuple(int(b) for b in fn.bodies) for fn in cab)
+    if any(not 0 <= b < N for b in contacts):
+        raise ValueError(f"chord_bdf2: contact bodies {contacts} outside 0..{N - 1}")
+    if any(not -1 <= b < N for sp in springs for b in sp[1:3]) or \
+            any(not -1 <= b < N for c in cables for b in c):
+        raise ValueError(f"chord_bdf2: spring or cable bodies outside -1..{N - 1}")
+    if any(not 2 <= len(c) <= MAX_CABLE_POINTS for c in cables):
+        raise ValueError(f"chord_bdf2: a cable needs 2..{MAX_CABLE_POINTS} points")
+    return contacts, springs, cables
+
+
+def counts_of(spec: Tuple) -> Closures:
+    contacts, springs, cables = spec
+    return Closures(len(contacts), len(springs), len(cables), sum(len(c) for c in cables))
+
+
 @lru_cache(maxsize=None)
-def _topology_buffer(topo: Topology, contact_bodies: Tuple[int, ...], device: torch.device):
-    """int32 [parent(N), jtype(N), doffs(N+1), dofj(nr), anc(N*N), C,
-    contact_bodies(C)] on device."""
+def _topology_buffer(topo: Topology, spec: Tuple, device: torch.device):
+    """int32 [parent(N), jtype(N), doffs(N+1), dofj(nr), anc(N*N),
+    C, S, ncables, ncable_points, contact bodies(C), springs(4S: kind, b1,
+    b2, tension), cables(per cable P, bodies(P))] on device."""
+    contacts, springs, cables = spec
     doffs = np.concatenate([[0], np.cumsum(topo.ndof)])
     buf = np.concatenate([
         np.asarray(topo.parent), np.asarray(topo.jtype), doffs,
         topo.dof_joint(), topo.ancestor_mask().reshape(-1),
-        [len(contact_bodies)], np.asarray(contact_bodies, dtype=np.int64),
+        np.asarray(counts_of(spec)), np.asarray(contacts, dtype=np.int64),
+        np.asarray(springs, dtype=np.int64).reshape(-1),
+        np.asarray([v for c in cables for v in (len(c),) + c], dtype=np.int64),
     ]).astype(np.int32)
     return torch.as_tensor(buf, device=device)
 
 
 def _static_buffer(topo: Topology, params: Dict, force_fns: Tuple = ()):
     """f32 [E0_pj (16N), E0_ji (16N), I_i (6N), axes (9N), jsf (7 nr), bd (N),
-    g (3), h (1), cp (13 C)] on the params' device. axes[j][:, d] is the d-th
-    DOF's axis (rotation axis for REVOLUTE, translation direction otherwise).
-    cp holds one row per ground contact, in force_fns order: sides[3], kn, kt,
-    kd, mu, xg[3], ng[3] (the floor's origin and normal)."""
+    g (3), h (1), contacts (13 C), springs (9 S), cables (3 P + 3 each)] on
+    the params' device. axes[j][:, d] is the d-th DOF's axis (rotation axis
+    for REVOLUTE, translation direction otherwise). A contact row is sides[3],
+    kn, kt, kd, mu, xg[3], ng[3] (the floor's origin and normal); a spring
+    row xl1[3], xl2[3], k, d, L (L = 0 for a point-point spring); a cable
+    xls[3P], k, d, L (pallas_step._pack_contacts / _pack_springs /
+    _pack_cables)."""
     N = topo.njoints
     dev = params["I_i"].device
     axes = torch.zeros(N, 3, 3, dtype=torch.float32, device=dev)
@@ -126,10 +199,17 @@ def _static_buffer(topo: Topology, params: Dict, force_fns: Tuple = ()):
                                            "qlimU", "qlimK", "qlimD")])
     parts = [params["E0_pj"], params["E0_ji"], params["I_i"], axes, jsf,
              params["body_damping"], params["g"], params["h"].reshape(1)]
-    for fn in force_fns:
+    gnd, spr, cab = _split(force_fns)
+    for fn in gnd:
         fp = fn.p(params)
         parts += [fp["sides"], fp["kn"], fp["kt"], fp["kd"], fp["mu"],
                   fp["E"][:3, 3], fp["E"][:3, 2]]
+    for fn in spr:
+        fp = fn.p(params)
+        parts += [fp["xl1"], fp["xl2"], fp["k"], fp["d"], fp["L"] if "L" in fp else fp["k"] * 0]
+    for fn in cab:
+        fp = fn.p(params)
+        parts += [fp["xls"], fp["k"], fp["d"], fp["L"]]
     return torch.cat([p.reshape(-1).float() for p in parts])
 
 
@@ -139,10 +219,10 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
 
     All state args are [B, nr]; params["tau"] may be [B, nr] or [nr]; every
     other param is lane-shared. force_fns are the scene's force closures
-    (ground contacts only). A CUDA tensor goes to the kernel (f32, an
-    instantiated (N, nr), a scene the kernel covers, else it raises; the
-    wrapper makes the contiguous [nr, B] copies the kernel reads); a CPU
-    tensor goes to chord_bdf2_reference.
+    (ground contacts, springs, cables). A CUDA tensor goes to the kernel
+    (f32, an instantiated (N, nr, closure kinds), a scene the kernel covers,
+    else it raises; the wrapper makes the contiguous [nr, B] copies the
+    kernel reads); a CPU tensor goes to chord_bdf2_reference.
     """
     integrators.split_batched_params(params)  # only tau may be per-lane
     if x0.device.type == "cpu":
@@ -152,8 +232,10 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
     if not supports(topo, force_fns, cfg):
         raise ValueError("chord_bdf2: scene/config not covered by the kernel")
     N, nr = topo.njoints, topo.nr
-    if (N, nr) not in INSTANTIATED:
-        raise ValueError(f"chord_bdf2: no kernel instantiation for (N, nr) = {(N, nr)}")
+    kinds = counts_of(closure_spec(topo, force_fns)).kinds
+    if (N, nr, kinds) not in INSTANTIATED:
+        raise ValueError(f"chord_bdf2: no kernel instantiation for (N, nr, closure kinds) = "
+                         f"{(N, nr, kinds)}")
     B = x0.shape[0]
     tau = params["tau"]
     states = (x0, q0, qd0, q1, qd1)
@@ -175,33 +257,40 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
 def pack(topo: Topology, params: Dict, x0, q0, qd0, q1, qd1, force_fns: Tuple = ()):
     """The kernel's inputs: the six per-lane tensors as contiguous
     struct-of-arrays [nr, B] (neighbouring threads read neighbouring floats),
-    then the topology and lane-shared parameter buffers, each with the
-    ground contacts of force_fns at its end."""
+    the topology and lane-shared parameter buffers, each with the closures
+    of force_fns at its end, and their counts (Closures)."""
     B, nr = x0.shape
     tau = params["tau"].expand(B, nr)
     soa = [a.t().contiguous() for a in (x0, q0, qd0, q1, qd1, tau)]
-    bodies = tuple(int(fn.body) for fn in force_fns)
-    if any(not 0 <= b < topo.njoints for b in bodies):
-        raise ValueError(f"chord_bdf2: contact bodies {bodies} outside 0..{topo.njoints - 1}")
-    return (*soa, _topology_buffer(topo, bodies, x0.device),
-            _static_buffer(topo, params, force_fns))
+    spec = closure_spec(topo, force_fns)
+    return (*soa, _topology_buffer(topo, spec, x0.device),
+            _static_buffer(topo, params, force_fns), counts_of(spec))
 
 
-def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f):
+def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures) -> None:
+    """Raises unless both buffers have the sizes that the topology and the
+    closure counts give (pack's layouts)."""
+    N, nr = topo.njoints, topo.nr
+    C, S, ncab, npts = counts
+    n_topo = 3 * N + 1 + nr + N * N + 4 + C + 4 * S + ncab + npts
+    n_stat = 48 * N + 7 * nr + 4 + 13 * C + 9 * S + 3 * npts + 3 * ncab
+    if min(counts) < 0 or topo_i.numel() != n_topo or stat_f.numel() != n_stat:
+        raise ValueError(f"chord_bdf2: buffers of {topo_i.numel()} ints and {stat_f.numel()} "
+                         f"floats do not hold {counts} (want {n_topo} and {n_stat})")
+
+
+def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, counts: Closures):
     """Launch the kernel on the current stream on packed inputs (see pack);
     returns (x [nr, B], Hinv [nr*nr, B]) and counts the launch."""
     global chord_bdf2_launches
+    check_buffers(topo, topo_i, stat_f, counts)
     lib = _build_lib()
     nr, B = x0.shape
-    N = topo.njoints
-    ncontacts = topo_i.numel() - (3 * N + 2 + nr + N * N)
-    if ncontacts < 0 or stat_f.numel() != 48 * N + 7 * nr + 4 + 13 * ncontacts:
-        raise ValueError("chord_bdf2: topology and parameter buffers do not match the scene")
     x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
     h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     err = lib.chord_bdf2_launch(
-        N, nr, ncontacts, B, *(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau)),
+        topo.njoints, nr, *counts, B, *(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau)),
         topo_i.data_ptr(), stat_f.data_ptr(),
         cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
         x_out.data_ptr(), h_out.data_ptr(), stream,

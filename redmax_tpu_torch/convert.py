@@ -58,7 +58,13 @@ def constraints_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tup
     return tuple(out)
 
 
-_FORCE_FIELDS = {"ForceGroundCuboid": ("body",)}
+_FORCE_ARGS = {
+    "ForceGroundCuboid": lambda a: (int(a["body"]),),
+    "ForcePointPoint": lambda a: (int(a["body1"]), int(a["body2"])),
+    "ForceSpringDamper": lambda a: (int(a["body1"]), int(a["body2"]),
+                                    bool(a.get("tension_only", False))),
+    "ForceCable": lambda a: (tuple(int(b) for b in a["bodies"]),),
+}
 
 
 def forces_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tuple:
@@ -67,8 +73,7 @@ def forces_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tuple:
     JAX CompiledScene; the keys into params["forces"] carry over."""
     out = []
     for name, attrs in fields:
-        if name not in _FORCE_FIELDS:
+        if name not in _FORCE_ARGS:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 10)")
-        cls = getattr(forces, name)
-        out.append(cls(attrs["key"], *(int(attrs[k]) for k in _FORCE_FIELDS[name])))
+        out.append(getattr(forces, name)(attrs["key"], *_FORCE_ARGS[name](attrs)))
     return tuple(out)

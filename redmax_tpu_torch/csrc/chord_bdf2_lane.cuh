@@ -1,23 +1,32 @@
-// Per-lane body of the fused BDF2 chord-Newton solve (K1a + K1c: constant-S
-// joints, penalty ground contact on cuboid corners as the only force closure,
-// unguarded chord, lane-shared physical params).
+// Per-lane body of the fused BDF2 chord-Newton solve (K1a + K1c + K1d + K1e:
+// constant-S joints; penalty ground contact on cuboid corners, two-point
+// springs and multi-point tension-only cables as force closures; unguarded
+// chord, lane-shared physical params).
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
-// (its fk_and_J / joint_forces / maximal_forces / _ground_contact / residual /
-// hessian / gj_inverse / chord loop), one lane at a time. Functions are
+// (its fk_and_J / joint_forces / maximal_forces / _ground_contact /
+// _spring_force / _point_pair_blocks / _cable_force / residual / hessian /
+// add_pair / gj_inverse / chord loop), one lane at a time. Functions are
 // __host__ __device__ so g++ can compile the same body for a CPU check; the
 // macros are defined empty when __CUDACC__ is absent.
 //
 // Layouts (all float32):
 //   per-lane state  [NR, B] struct-of-arrays: element r of lane b at r*B + b
-//   topo_i (int32)  parent[N] jtype[N] doffs[N+1] dofj[NR] anc[N*N] C cbody[C]
+//   topo_i (int32)  parent[N] jtype[N] doffs[N+1] dofj[NR] anc[N*N]
+//                   C S NCAB NPTS cbody[C] spring[4*S] cable[NCAB + NPTS]
+//                   spring: kind (0 point-point, 1 spring-damper) b1 b2 tension
+//                   cable: P bodies[P]
 //   stat_f          E0_pj[16N] E0_ji[16N] I_i[6N] axes[9N] jsf[7*NR] bd[N] g[3] h
 //                   cp[13*C]: per contact sides[3] kn kt kd mu xg[3] ng[3]
+//                   sp[9*S]: per spring xl1[3] xl2[3] k d L (L = 0 for point-point)
+//                   cb: per cable xls[3P] k d L
 //   outputs         x [NR, B] (NaN on rejected lanes), Hinv [NR*NR, B]
-// C ground contacts (C = 0: none), contact c on body cbody[c] against the
-// plane through xg with normal ng. The template flag CONTACTS = false compiles
-// the contact code out (for scenes with C = 0: the contact loops, even when
-// they run no iteration, cost the constant-S solve registers and time).
+// C ground contacts, contact c on body cbody[c] against the plane through xg
+// with normal ng; S springs and NCAB cables of NPTS points in all (body -1: a
+// world point, its xl in world coordinates). The template bitmask FEAT
+// compiles in the code of each closure kind (kContacts, kSprings, kCables)
+// only where a scene has it: closure loops that run no iteration still cost
+// the constant-S solve registers and time.
 #pragma once
 
 #ifndef __CUDACC__
@@ -33,6 +42,10 @@ namespace chord {
 #define CHORD_HD __host__ __device__ __forceinline__
 
 enum JointKind { FIXED = 0, REVOLUTE = 1, PRISMATIC = 2, PLANAR = 3, TRANSLATIONAL = 4 };
+
+// Closure kinds of the FEAT bitmask, and the longest cable a lane holds.
+constexpr int kContacts = 1, kSprings = 2, kCables = 4, kAllClosures = 7;
+constexpr int kMaxCablePoints = 8;
 
 struct Frame {
   float R[3][3];
@@ -277,9 +290,13 @@ struct Shared {
   const float* bd;
   const float* g;
   float h;
-  int ncontacts;
+  int ncontacts, nsprings, ncables;
   const int* cbody;  // [ncontacts] body of each ground contact
+  const int* sspec;  // [nsprings][4] kind, b1, b2, tension
+  const int* cspec;  // per cable P, bodies[P]
   const float* cp;   // [ncontacts][13]
+  const float* sp;   // [nsprings][9]
+  const float* cb;   // per cable xls[3P], k, d, L
 
   CHORD_HD Shared(const int* topo_i, const float* stat_f) {
     parent = topo_i;
@@ -296,8 +313,14 @@ struct Shared {
     g = bd + N;
     h = g[3];
     ncontacts = anc[N * N];
-    cbody = anc + N * N + 1;
+    nsprings = anc[N * N + 1];
+    ncables = anc[N * N + 2];
+    cbody = anc + N * N + 4;
+    sspec = cbody + ncontacts;
+    cspec = sspec + 4 * nsprings;
     cp = g + 4;
+    sp = cp + 13 * ncontacts;
+    cb = sp + 9 * nsprings;
   }
   CHORD_HD float axis(int j, int a, int d) const { return axes[j * 9 + a * 3 + d]; }
   CHORD_HD bool is_anc(int i, int a) const { return anc[i * N + a] != 0; }
@@ -423,6 +446,293 @@ CHORD_HD void fk_and_J(const Shared<N, NR>& sh, const float Sb[NR][6], const flo
   }
 }
 
+// A point of a spring or cable closure at one iterate: body b (-1: a world
+// point, r then in world coordinates), body-frame point r, world position x
+// and velocity v, body-frame velocity u = w x r + v (pallas_step's
+// point_state). A world point has v = u = 0 and takes no wrench and no block.
+struct Point {
+  int b;
+  float r[3], x[3], v[3], u[3];
+};
+
+template <int N, int NR>
+CHORD_HD void point_state(const Kin<N, NR>& K, int b, const float* r, Point& P) {
+  P.b = b;
+  for (int i = 0; i < 3; ++i) {
+    P.r[i] = r[i];
+    P.x[i] = r[i];
+    P.v[i] = 0.0f;
+    P.u[i] = 0.0f;
+  }
+  if (b < 0) return;
+  const Frame& E = K.Ew[b];
+  const float* phi = K.phi[b];
+  cross3(phi, r, P.u);
+  for (int i = 0; i < 3; ++i) P.u[i] = P.u[i] + phi[3 + i];
+  for (int i = 0; i < 3; ++i) {
+    P.x[i] = E.p[i] + (E.R[i][0] * r[0] + E.R[i][1] * r[1] + E.R[i][2] * r[2]);
+    P.v[i] = E.R[i][0] * P.u[0] + E.R[i][1] * P.u[1] + E.R[i][2] * P.u[2];
+  }
+}
+
+// wrench[6] += [r x fb; fb] of the world force F at body point r, fb = R^T F.
+CHORD_HD void add_point_wrench(const Frame& E, const float* r, const float* F, float* wrench) {
+  float fb[3], rxf[3];
+  rt_vec(E.R, F, fb);
+  cross3(r, fb, rxf);
+  for (int i = 0; i < 3; ++i) {
+    wrench[i] = wrench[i] + rxf[i];
+    wrench[3 + i] = wrench[3 + i] + fb[i];
+  }
+}
+
+// Two-point spring (pallas_step._spring_force; ForcePointPoint.m:48-141,
+// ForceSpringGeneric.m:37-83 + ForceSpringDamper.m:62-72): the world force
+// fW on point 1 (-fW on point 2) from dx = x2 - x1, dv = v2 - v1,
+//   point-point (kind 0):   fW = k dx + d dv
+//   spring-damper (kind 1): l = |dx|, ldot = dx.dv / l,
+//                           fW = gate (k (l - L)/L + d ldot/L) dx / l
+// with gate = (l > L) when tension-only, else 1: a 0/1 mask that multiplies,
+// so a NaN length gives a NaN force. l = sqrt(max(l^2, 1e-24)) by a compare
+// that keeps NaN. BLOCKS also gives A = dfW/d(dx), Bm = dfW/d(dv) (world 3x3).
+template <bool BLOCKS>
+CHORD_HD void spring_force(const Point& p1, const Point& p2, const float* sp, int kind,
+                           int tension, float* fW, float A[3][3], float Bm[3][3]) {
+  const float k = sp[6], d = sp[7], L = sp[8];
+  float dx[3], dv[3];
+  for (int i = 0; i < 3; ++i) {
+    dx[i] = p2.x[i] - p1.x[i];
+    dv[i] = p2.v[i] - p1.v[i];
+  }
+  if (kind == 0) {
+    for (int i = 0; i < 3; ++i) fW[i] = k * dx[i] + d * dv[i];
+    if constexpr (BLOCKS)
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) {
+          A[i][j] = i == j ? k : 0.0f;
+          Bm[i][j] = i == j ? d : 0.0f;
+        }
+    return;
+  }
+  const float l2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
+  const float l = sqrtf(l2 < 1e-24f ? 1e-24f : l2);
+  const float linv = 1.0f / l;
+  float e[3];
+  for (int i = 0; i < 3; ++i) e[i] = dx[i] * linv;
+  const float ldot = (dx[0] * dv[0] + dx[1] * dv[1] + dx[2] * dv[2]) * linv;
+  const float fs = k * (l - L) / L + d * ldot / L;
+  const float gate = tension ? (l > L ? 1.0f : 0.0f) : 1.0f;
+  for (int i = 0; i < 3; ++i) fW[i] = gate * fs * linv * dx[i];
+  if constexpr (BLOCKS) {
+    float dfs[3];
+    for (int i = 0; i < 3; ++i) dfs[i] = (k / L) * e[i] + (d / L) * (dv[i] - ldot * e[i]) * linv;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        A[i][j] = gate * (fs * linv * ((i == j ? 1.0f : 0.0f) - e[i] * e[j]) + e[i] * dfs[j]);
+        Bm[i][j] = gate * (d / L) * e[i] * e[j];
+      }
+  }
+}
+
+// G = cK K + cD D for the wrench of body point j against the perturbation
+// of body point i (pallas_step._point_pair_blocks): with P = coef Rj^T A Ri,
+// Q = coef Rj^T Bm Ri (A = dF_j/dx_i, Bm = dF_j/dv_i, world 3x3),
+//   K = Gamma_j^T [same hat(fbj) - P hat(ri) - Q hat(ui) | P]
+//   D = Gamma_j^T [-Q hat(ri) | Q],   Gamma_j^T = [hat(rj); I],
+// built as Gamma_j^T [cK ML + cD DL | cK P + cD Q] one 3x6 row block at a
+// time (row a of M hat(x) is M_a x x).
+CHORD_HD void pair_block(const Frame& Ej, const Point& pj, const float* fbj, const Frame& Ei,
+                         const Point& pi, const float A[3][3], const float Bm[3][3], float coef,
+                         bool same, float cK, float cD, float G[6][6]) {
+  float L[3][6];
+  for (int a = 0; a < 3; ++a) {
+    // row a of P and Q: coef (Rj^T)_a A Ri = coef (sum_k Rj[k][a] A[k]) Ri
+    float ra[3], rb[3], P[3], Q[3], Pxr[3], Qxr[3], Qxu[3];
+    for (int m = 0; m < 3; ++m) {
+      ra[m] = coef * (Ej.R[0][a] * A[0][m] + Ej.R[1][a] * A[1][m] + Ej.R[2][a] * A[2][m]);
+      rb[m] = coef * (Ej.R[0][a] * Bm[0][m] + Ej.R[1][a] * Bm[1][m] + Ej.R[2][a] * Bm[2][m]);
+    }
+    for (int m = 0; m < 3; ++m) {
+      P[m] = ra[0] * Ei.R[0][m] + ra[1] * Ei.R[1][m] + ra[2] * Ei.R[2][m];
+      Q[m] = rb[0] * Ei.R[0][m] + rb[1] * Ei.R[1][m] + rb[2] * Ei.R[2][m];
+    }
+    cross3(P, pi.r, Pxr);
+    cross3(Q, pi.r, Qxr);
+    cross3(Q, pi.u, Qxu);
+    for (int m = 0; m < 3; ++m) {
+      L[a][m] = cK * (-Pxr[m] - Qxu[m]) + cD * (-Qxr[m]);
+      L[a][3 + m] = cK * P[m] + cD * Q[m];
+    }
+  }
+  if (same) {  // + cK hat(fbj)
+    L[0][1] = L[0][1] - cK * fbj[2];
+    L[0][2] = L[0][2] + cK * fbj[1];
+    L[1][0] = L[1][0] + cK * fbj[2];
+    L[1][2] = L[1][2] - cK * fbj[0];
+    L[2][0] = L[2][0] - cK * fbj[1];
+    L[2][1] = L[2][1] + cK * fbj[0];
+  }
+  for (int m = 0; m < 6; ++m) {
+    const float col[3] = {L[0][m], L[1][m], L[2][m]};
+    float rc[3];
+    cross3(pj.r, col, rc);
+    for (int a = 0; a < 3; ++a) {
+      G[a][m] = rc[a];
+      G[3 + a][m] = col[a];
+    }
+  }
+}
+
+// H[r][s] += J_b[r] . (G J_c[s]) over the columns of bodies b and c
+// (pallas_step's add_pair), column s outermost with 6-vector temporaries, as
+// in hessian().
+template <int N, int NR>
+CHORD_HD void add_pair(const Shared<N, NR>& sh, const Kin<N, NR>& K, int b, int c,
+                       const float G[6][6], float H[NR][NR]) {
+  for (int s = 0; s < NR; ++s) {
+    if (!sh.is_anc(c, sh.dofj[s])) continue;
+    float GJs[6];
+    mat6_vec(G, K.J[c][s], GJs);
+    for (int r = 0; r < NR; ++r) {
+      if (!sh.is_anc(b, sh.dofj[r])) continue;
+      float acc = 0.0f;
+      for (int k = 0; k < 6; ++k) acc = acc + K.J[b][r][k] * GJs[k];
+      H[r][s] = H[r][s] + acc;
+    }
+  }
+}
+
+// Every spring's wrenches into fcl (residual) or its pairwise blocks into H
+// (hessian): for endpoints e, f on bodies, dF_e/dx_f = s_e sig_f A with the
+// application signs s = (+1, -1) and the dx signs sig = (-1, +1).
+template <int N, int NR, bool BLOCKS>
+CHORD_HD void springs(const Shared<N, NR>& sh, const Kin<N, NR>& K, float fcl[N][6],
+                      float cK, float cD, float H[NR][NR]) {
+  for (int s = 0; s < sh.nsprings; ++s) {
+    const int* spec = sh.sspec + 4 * s;
+    const float* sp = sh.sp + 9 * s;
+    Point p[2];
+    point_state<N, NR>(K, spec[1], sp, p[0]);
+    point_state<N, NR>(K, spec[2], sp + 3, p[1]);
+    float fW[3], A[3][3], Bm[3][3];
+    spring_force<BLOCKS>(p[0], p[1], sp, spec[0], spec[3], fW, A, Bm);
+    for (int e = 0; e < 2; ++e) {
+      if (p[e].b < 0) continue;
+      const float se = e == 0 ? 1.0f : -1.0f;
+      const float F[3] = {se * fW[0], se * fW[1], se * fW[2]};
+      if constexpr (!BLOCKS) {
+        add_point_wrench(K.Ew[p[e].b], p[e].r, F, fcl[p[e].b]);
+      } else {
+        float fb[3];
+        rt_vec(K.Ew[p[e].b].R, F, fb);
+        for (int f = 0; f < 2; ++f) {
+          if (p[f].b < 0) continue;
+          float G[6][6];
+          pair_block(K.Ew[p[e].b], p[e], fb, K.Ew[p[f].b], p[f], A, Bm,
+                     se * (f == 0 ? -1.0f : 1.0f), e == f, cK, cD, G);
+          add_pair<N, NR>(sh, K, p[e].b, p[f].b, G, H);
+        }
+      }
+    }
+  }
+}
+
+// Every cable (pallas_step._cable_force; ForceCable.m:66-84,
+// ForceSpringMultiPointGeneric.m:28-95): segments s with u_s = dx_s / l_s,
+// l = sum l_s, ldot = sum u_s . dv_s, one tension
+// fs = gate (k (l - L)/L + d ldot/L), gate = (l > L), and point j takes
+// F_j = fs c_j, c_j = u_j [j < P-1] - u_{j-1} [j > 0]. BLOCKS adds, for every
+// pair of points (j, i) on bodies,
+//   A = dF_j/dx_i = c_j a_i^T + fs D_ji,   Bm = dF_j/dv_i = -gate (d/L) c_j c_i^T,
+//   a_i = gate (-(k/L) c_i + (d/L) (Pm_{i-1} dv_{i-1}/l_{i-1} - Pm_i dv_i/l_i)),
+//   D_ji = (Pm_j/l_j)(d_{i,j+1} - d_{i,j}) - (Pm_{j-1}/l_{j-1})(d_{i,j} - d_{i,j-1}),
+// Pm_s = I - u_s u_s^T (terms with a segment index outside 0..P-2 drop out).
+template <int N, int NR, bool BLOCKS>
+CHORD_HD void cables(const Shared<N, NR>& sh, const Kin<N, NR>& K, float fcl[N][6],
+                     float cK, float cD, float H[NR][NR]) {
+  const int* spec = sh.cspec;
+  const float* cb = sh.cb;
+  for (int ci = 0; ci < sh.ncables; ++ci) {
+    const int P = spec[0];
+    const int* bodies = spec + 1;
+    const float k = cb[3 * P], d = cb[3 * P + 1], L = cb[3 * P + 2];
+    Point pt[kMaxCablePoints];
+    for (int j = 0; j < P; ++j) point_state<N, NR>(K, bodies[j], cb + 3 * j, pt[j]);
+    float u[kMaxCablePoints][3], dv[kMaxCablePoints][3], linv[kMaxCablePoints];
+    float l = 0.0f, ldot = 0.0f;
+    for (int s = 0; s + 1 < P; ++s) {
+      float dx[3];
+      for (int i = 0; i < 3; ++i) {
+        dx[i] = pt[s + 1].x[i] - pt[s].x[i];
+        dv[s][i] = pt[s + 1].v[i] - pt[s].v[i];
+      }
+      const float l2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
+      const float ls = sqrtf(l2 < 1e-24f ? 1e-24f : l2);
+      linv[s] = 1.0f / ls;
+      for (int i = 0; i < 3; ++i) u[s][i] = dx[i] * linv[s];
+      l = l + ls;
+      ldot = ldot + (u[s][0] * dv[s][0] + u[s][1] * dv[s][1] + u[s][2] * dv[s][2]);
+    }
+    const float gate = l > L ? 1.0f : 0.0f;
+    const float fs = gate * (k * (l - L) / L + d * ldot / L);
+    float c[kMaxCablePoints][3];
+    for (int j = 0; j < P; ++j)
+      for (int i = 0; i < 3; ++i)
+        c[j][i] = (j < P - 1 ? u[j][i] : 0.0f) - (j > 0 ? u[j - 1][i] : 0.0f);
+    if constexpr (!BLOCKS) {
+      for (int j = 0; j < P; ++j) {
+        if (pt[j].b < 0) continue;
+        const float F[3] = {fs * c[j][0], fs * c[j][1], fs * c[j][2]};
+        add_point_wrench(K.Ew[pt[j].b], pt[j].r, F, fcl[pt[j].b]);
+      }
+    } else {
+      // w_s = Pm_s dv_s / l_s, then a_i
+      float w[kMaxCablePoints][3], a[kMaxCablePoints][3];
+      for (int s = 0; s + 1 < P; ++s) {
+        const float ud = u[s][0] * dv[s][0] + u[s][1] * dv[s][1] + u[s][2] * dv[s][2];
+        for (int i = 0; i < 3; ++i) w[s][i] = (dv[s][i] - u[s][i] * ud) * linv[s];
+      }
+      for (int j = 0; j < P; ++j)
+        for (int i = 0; i < 3; ++i) {
+          float ai = -gate * (k / L) * c[j][i];
+          if (j > 0) ai = ai + gate * (d / L) * w[j - 1][i];
+          if (j < P - 1) ai = ai - gate * (d / L) * w[j][i];
+          a[j][i] = ai;
+        }
+      for (int j = 0; j < P; ++j) {
+        if (pt[j].b < 0) continue;
+        const float F[3] = {fs * c[j][0], fs * c[j][1], fs * c[j][2]};
+        float fb[3];
+        rt_vec(K.Ew[pt[j].b].R, F, fb);
+        for (int i = 0; i < P; ++i) {
+          if (pt[i].b < 0) continue;
+          // D_ji = t1 Pm_j - t2 Pm_{j-1}
+          const float t1 = j < P - 1 ? ((i == j + 1 ? 1.0f : 0.0f) - (i == j ? 1.0f : 0.0f)) * linv[j]
+                                     : 0.0f;
+          const float t2 = j > 0 ? ((i == j ? 1.0f : 0.0f) - (i == j - 1 ? 1.0f : 0.0f)) * linv[j - 1]
+                                 : 0.0f;
+          float A[3][3], Bm[3][3];
+          for (int m = 0; m < 3; ++m)
+            for (int n = 0; n < 3; ++n) {
+              const float I = m == n ? 1.0f : 0.0f;
+              float Dmn = 0.0f;
+              if (j < P - 1) Dmn = Dmn + t1 * (I - u[j][m] * u[j][n]);
+              if (j > 0) Dmn = Dmn - t2 * (I - u[j - 1][m] * u[j - 1][n]);
+              A[m][n] = c[j][m] * a[i][n] + fs * Dmn;
+              Bm[m][n] = -gate * (d / L) * c[j][m] * c[i][n];
+            }
+          float G[6][6];
+          pair_block(K.Ew[pt[j].b], pt[j], fb, K.Ew[pt[i].b], pt[i], A, Bm, 1.0f, i == j, cK,
+                     cD, G);
+          add_pair<N, NR>(sh, K, pt[j].b, pt[i].b, G, H);
+        }
+      }
+    }
+    spec = spec + 1 + P;
+    cb = cb + 3 * P + 3;
+  }
+}
+
 // BDF2 inner-step history and the lane's torques.
 template <int NR>
 struct History {
@@ -436,10 +746,13 @@ CHORD_HD void qdot_of(const History<NR>& hs, float h, const float* x, float* qd)
 }
 
 // g(x) = J^T Mm J dqtmp - ch2 (fr + J^T (fm - Mm Jdot qd)), at x with
-// kinematics K (already evaluated at x).
-template <int N, int NR, bool CONTACTS>
+// kinematics K (already evaluated at x). The springs' and cables' wrenches are
+// gathered per body in fcl once, before the body loop.
+template <int N, int NR, int FEAT>
 CHORD_HD void residual(const Shared<N, NR>& sh, const History<NR>& hs, const float* x,
                        const float* qd, const Kin<N, NR>& K, float* g) {
+  constexpr bool CONTACTS = (FEAT & kContacts) != 0;
+  constexpr bool PAIRS = (FEAT & (kSprings | kCables)) != 0;
   const float h = sh.h;
   const float ch2 = (4.0f / 9.0f) * h * h;
   float dqt[NR], fr[NR];
@@ -455,6 +768,13 @@ CHORD_HD void residual(const Shared<N, NR>& sh, const History<NR>& hs, const flo
     fr[r] = f;
   }
   for (int r = 0; r < NR; ++r) g[r] = 0.0f;
+  float fcl[PAIRS ? N : 1][6];
+  if constexpr (PAIRS) {
+    for (int i = 0; i < N; ++i)
+      for (int k = 0; k < 6; ++k) fcl[i][k] = 0.0f;
+    if constexpr ((FEAT & kSprings) != 0) springs<N, NR, false>(sh, K, fcl, 0.0f, 0.0f, nullptr);
+    if constexpr ((FEAT & kCables) != 0) cables<N, NR, false>(sh, K, fcl, 0.0f, 0.0f, nullptr);
+  }
   for (int i = 0; i < N; ++i) {
     const float* Ii = sh.Ii + 6 * i;
     // maximal forces: ad(phi)^T (I phi) + [0; m R^T g] - bd phi
@@ -469,6 +789,8 @@ CHORD_HD void residual(const Shared<N, NR>& sh, const History<NR>& hs, const flo
         if (sh.cbody[c] == i)
           ground_contact<false>(K.Ew[i], K.phi[i], sh.cp + 13 * c, sh.h, 0.0f, fm, nullptr,
                                 nullptr);
+    if constexpr (PAIRS)
+      for (int k = 0; k < 6; ++k) fm[k] = fm[k] + fcl[i][k];
     float Jdq[6] = {0, 0, 0, 0, 0, 0}, Jd_qd[6] = {0, 0, 0, 0, 0, 0};
     for (int r = 0; r < NR; ++r) {
       if (!sh.is_anc(i, sh.dofj[r])) continue;
@@ -489,10 +811,13 @@ CHORD_HD void residual(const Shared<N, NR>& sh, const History<NR>& hs, const flo
   for (int r = 0; r < NR; ++r) g[r] = g[r] - ch2 * fr[r];
 }
 
-// Structured H = M + cK Kt + cD Dt at the iterate whose kinematics K holds.
-template <int N, int NR, bool CONTACTS>
+// Structured H = M + cK Kt + cD Dt at the iterate whose kinematics K holds;
+// the springs' and cables' pairwise blocks after the per-body loop, one
+// (b, c) block at a time.
+template <int N, int NR, int FEAT>
 CHORD_HD void hessian(const Shared<N, NR>& sh, const float* x, const Kin<N, NR>& K,
                       float H[NR][NR]) {
+  constexpr bool CONTACTS = (FEAT & kContacts) != 0;
   const float h = sh.h;
   const float cK = -(4.0f / 9.0f) * h * h;
   const float cD = -(2.0f / 3.0f) * h;
@@ -533,6 +858,8 @@ CHORD_HD void hessian(const Shared<N, NR>& sh, const float* x, const Kin<N, NR>&
       }
     }
   }
+  if constexpr ((FEAT & kSprings) != 0) springs<N, NR, true>(sh, K, nullptr, cK, cD, H);
+  if constexpr ((FEAT & kCables) != 0) cables<N, NR, true>(sh, K, nullptr, cK, cD, H);
   const float* jsf = sh.jsf;
   for (int r = 0; r < NR; ++r) {
     const float hit = (x[r] < jsf[3 * NR + r] ? 1.0f : 0.0f) + (x[r] > jsf[4 * NR + r] ? 1.0f : 0.0f);
@@ -574,7 +901,7 @@ struct ChordConfig {
 // One lane's fixed-iteration chord solve (integrators.newton semantics):
 // H and H^-1 at the predictor x0, then fixed_iters steps x -= H^-1 g(x),
 // rejection on a non-finite result or a residual that grew.
-template <int N, int NR, bool CONTACTS = true>
+template <int N, int NR, int FEAT = kAllClosures>
 CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0s,
                               const float* qd0s, const float* q1s, const float* qd1s,
                               const float* taus, const int* topo_i, const float* stat_f,
@@ -599,14 +926,14 @@ CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0
     float H[NR][NR];
     qdot_of<NR>(hs, sh.h, x, qd);
     fk_and_J<N, NR>(sh, Sb, x, qd, K);
-    hessian<N, NR, CONTACTS>(sh, x, K, H);
+    hessian<N, NR, FEAT>(sh, x, K, H);
     gj_inverse<NR>(H, Hinv);
   }
   float g0n = 0.0f, gln = 0.0f;
   for (int it = 0; it < cfg.fixed_iters; ++it) {
     qdot_of<NR>(hs, sh.h, x, qd);
     if (it > 0) fk_and_J<N, NR>(sh, Sb, x, qd, K);  // iteration 0 reuses the predictor's
-    residual<N, NR, CONTACTS>(sh, hs, x, qd, K, g);
+    residual<N, NR, FEAT>(sh, hs, x, qd, K, g);
     float gg = 0.0f;
     for (int r = 0; r < NR; ++r) gg = gg + g[r] * g[r];
     const float gn = sqrtf(gg);

@@ -1,4 +1,5 @@
-"""Force closures, batch-first: penalty ground contact.
+"""Force closures, batch-first: penalty ground contact, two-point springs
+and cables.
 
 A force is a closure with the JAX package's protocol,
 
@@ -6,24 +7,30 @@ A force is a closure with the JAX package's protocol,
 
 registered on the compiled scene, with its parameters in
 params["forces"][fn.key] and an .energy(params, kin, q, qdot) -> [B] for the
-energy certificates. Ported here: ForceGroundCuboid and the closed-form K/D
-blocks of its wrench (ground_contact_blocks), which the structured Newton
-matrix uses in place of autodiff. The other closures of the JAX package's
-forces.py raise (ROADMAP queue 1 item 10).
+energy certificates. Ported here: ForceGroundCuboid, ForcePointPoint,
+ForceSpringDamper (with tension_only) and ForceCable, each with the
+closed-form K/D blocks of its wrenches (ground_contact_blocks per contact
+body; pair_closure_blocks per pair of body points, cross-body blocks
+included), which the structured Newton matrix uses in place of autodiff.
+SpringDamperM, ForcePointDirection and ForceDeformableSegments raise
+(ROADMAP queue 1 item 10).
 
 A scene holds one closure per contacting body. ground_contact_wrenches,
 ground_contact_energy and stack_contact_params evaluate all of them in one
 pass over [B, C, 8, 3] corner tensors: model calls these, not the closures one
-by one, so a step costs the same few dozen launches whatever C is.
+by one, so a step costs the same few dozen launches whatever C is. The
+springs of one law are evaluated together over [B, S] the same way
+(pair_closure_wrenches / _energy / _blocks); a cable is one pass over its P
+points.
 
 Body points: a point r (body frame) on body b has world position
 x = E_wi[b] [r; 1] and world velocity R_wi[b] Gamma(r) phi[b]; a world force f
 at it is the body wrench Gamma(r)^T R^T f = [r x R^T f; R^T f].
 
-All contact branches are branchless 0/1 masks (comparisons, which carry no
-gradient), and the tangential speed is a where-guarded sqrt of the squared
-norm: the scenes rest with zero tangential velocity, where an unguarded norm
-has NaN gradients.
+All contact and tension branches are branchless 0/1 masks (comparisons,
+which carry no gradient), and the tangential speed and every spring or
+segment length are where-guarded sqrts of the squared norm: the scenes rest
+with zero tangential velocity, where an unguarded norm has NaN gradients.
 """
 
 from functools import lru_cache
@@ -48,24 +55,9 @@ def _not_ported(name: str):
     raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 10)")
 
 
-class ForcePointPoint(_ForceBase):
-    def __init__(self, *a, **k):
-        _not_ported("ForcePointPoint")
-
-
-class ForceSpringDamper(_ForceBase):
-    def __init__(self, *a, **k):
-        _not_ported("ForceSpringDamper")
-
-
 class SpringDamperM(_ForceBase):
     def __init__(self, *a, **k):
         _not_ported("SpringDamperM")
-
-
-class ForceCable(_ForceBase):
-    def __init__(self, *a, **k):
-        _not_ported("ForceCable")
 
 
 class ForcePointDirection(_ForceBase):
@@ -248,3 +240,323 @@ def ground_contact_blocks(E_wi_b, phi_b, fp, h=None, gmag=None):
     D = torch.cat([torch.cat([hr @ DL, hr @ Q], dim=-1),
                    torch.cat([DL, Q], dim=-1)], dim=-2).sum(-3)
     return K, D
+
+
+# ---------------------------------------------------------------------------
+# Two-point springs and cables
+# ---------------------------------------------------------------------------
+
+_L2_MIN = 1e-24  # clamp of a squared spring or segment length inside the sqrt
+
+
+@lru_cache(maxsize=None)
+def _mask(flags: Tuple[bool, ...], device):
+    """A static bool tuple as a tensor, built once per (flags, device)."""
+    return torch.tensor(flags, dtype=torch.bool, device=device)
+
+
+def body_points(kin, phi, bodies: Tuple[int, ...], xl):
+    """State of the points xl [P, 3] on the static bodies (-1: a world point,
+    with xl in world coordinates): world position x [B, P, 3] and, with phi,
+    world velocity v, body rotation R [B, P, 3, 3] and body-frame velocity
+    u = Gamma(xl) phi. On a world point v = 0, and R, u are body 0's: nothing
+    may use them there."""
+    idx = body_index(tuple(max(b, 0) for b in bodies), kin.E_wi.device)
+    E = kin.E_wi[:, idx]
+    R = E[..., :3, :3]
+    xle = xl.expand(E.shape[0], *xl.shape)
+    x = torch.einsum("bpij,bpj->bpi", R, xle) + E[..., :3, 3]
+    world = _mask(tuple(b < 0 for b in bodies), E.device)[:, None] if min(bodies) < 0 else None
+    if world is not None:
+        x = torch.where(world, xle, x)
+    if phi is None:
+        return x, None, R, None
+    ph = phi[:, idx]
+    u = torch.linalg.cross(ph[..., :3], xle) + ph[..., 3:]
+    v = torch.einsum("bpij,bpj->bpi", R, u)
+    if world is not None:
+        v = torch.where(world, torch.zeros_like(v), v)
+    return x, v, R, u
+
+
+def _point_wrenches(bodies, xl, R, F, N):
+    """fm [B, N, 6] of world forces F [B, P, 3] at the points xl [P, 3] of the
+    static bodies: [xl x fb; fb] with fb = R^T F on each body; world points
+    take none."""
+    fb = torch.einsum("bpji,bpj->bpi", R, F)
+    wr = torch.cat([torch.linalg.cross(xl.expand_as(fb), fb), fb], dim=-1)
+    if min(bodies) < 0:
+        wr = torch.where(_mask(tuple(b < 0 for b in bodies), F.device)[:, None],
+                         torch.zeros_like(wr), wr)
+    idx = body_index(tuple(max(b, 0) for b in bodies), F.device)
+    return F.new_zeros(F.shape[0], N, 6).index_add(1, idx, wr)
+
+
+def point_pair_blocks(Rj, rj, fbj, Ri, ri, ui, A, Bm, same):
+    """Closed-form wrench-derivative blocks (K, D) [..., 6, 6] between body
+    point j and body point i (pallas_step._point_pair_blocks): point j's
+    wrench W_j = Gamma_j^T R_j^T F_j with A = dF_j/dx_i, Bm = dF_j/dv_i
+    (world 3x3), under E_i <- E_i exp(xi^), phi_i <- phi_i + dphi:
+
+        K = Gamma_j^T [same hat(fb_j) - P hat(r_i) - Q hat(u_i) | P]
+        D = Gamma_j^T [-Q hat(r_i) | Q],   P = R_j^T A R_i, Q = R_j^T Bm R_i
+
+    with Gamma_j^T = [hat(r_j); I] and same = 1 where j and i are one point.
+    Every argument broadcasts over the leading dims."""
+    Rjt = Rj.transpose(-1, -2)
+    P = Rjt @ A @ Ri
+    Q = Rjt @ Bm @ Ri
+    hri = se3.hat3(ri)
+    ML = same[..., None, None] * se3.hat3(fbj) - P @ hri - Q @ se3.hat3(ui)
+    DL = -(Q @ hri)
+    hrj = se3.hat3(rj)
+    K = torch.cat([torch.cat([hrj @ ML, hrj @ P], dim=-1), torch.cat([ML, P], dim=-1)], dim=-2)
+    D = torch.cat([torch.cat([hrj @ DL, hrj @ Q], dim=-1), torch.cat([DL, Q], dim=-1)], dim=-2)
+    return K, D
+
+
+class _TwoPoint(_ForceBase):
+    """A spring between point xl1 of body1 and point xl2 of body2 (-1: a
+    world point, xl in world coordinates)."""
+
+    def __init__(self, key, body1: int, body2: int):
+        super().__init__(key)
+        self.body1 = body1
+        self.body2 = body2
+
+    def __call__(self, params, kin, J, phi, q, qdot):
+        return torch.zeros_like(q), pair_closure_wrenches((self,), params, kin, phi)
+
+    def energy(self, params, kin, q, qdot):
+        return pair_closure_energy((self,), params, kin)
+
+
+class ForcePointPoint(_TwoPoint):
+    """Zero-rest-length linear spring and damper between two body points.
+
+    Reference: ForcePointPoint.m:48-141:
+      fW = k (x2 - x1) + d (v2 - v1), applied +fW at point 1, -fW at point 2.
+    params: xl1 [3], xl2 [3], k, d. Energy 1/2 k |x2 - x1|^2.
+    """
+
+
+class ForceSpringDamper(_TwoPoint):
+    """Finite-rest-length strain spring and damper between two body points.
+
+    Reference: ForceSpringGeneric.m:37-83 with ForceSpringDamper.m:62-72:
+      l = |x2 - x1|, ldot = dx.dv / l, fs = k (l - L)/L + d ldot/L,
+      fW = (fs / l) dx at point 1, -fW at point 2,
+    gated by l > L (tension only) when tension_only. params: xl1, xl2, k, d,
+    L (the builder sets L = 0 to the initial distance). Energy
+    1/2 k ((l - L)/L)^2 L, gated the same way. l is the where-guarded
+    sqrt(max(l^2, 1e-24)), so autograd stays finite.
+    """
+
+    def __init__(self, key, body1: int, body2: int, tension_only: bool = False):
+        super().__init__(key, body1, body2)
+        self.tension_only = tension_only
+
+
+class ForceCable(_ForceBase):
+    """Tension-only spring routed through a sequence of body points.
+
+    Reference: ForceSpringMultiPointGeneric.m:28-95 with ForceCable.m:66-84:
+    l = sum_s |dx_s|, ldot = sum_s u_s . dv_s (u_s = dx_s / |dx_s|), one
+    tension fs = (l > L) (k (l - L)/L + d ldot/L), and point j takes the
+    world force fs c_j, c_j = u_j [j < P-1] - u_{j-1} [j > 0].
+    params: xls [P, 3], k, d, L (L = 0 -> the initial length).
+    """
+
+    def __init__(self, key, bodies):
+        super().__init__(key)
+        self.bodies = tuple(bodies)  # static body indices, -1 = world
+
+    def __call__(self, params, kin, J, phi, q, qdot):
+        return torch.zeros_like(q), pair_closure_wrenches((self,), params, kin, phi)
+
+    def energy(self, params, kin, q, qdot):
+        return pair_closure_energy((self,), params, kin)
+
+
+PAIR_CLOSURES = (ForcePointPoint, ForceSpringDamper, ForceCable)
+
+
+def _spring_groups(fns) -> Tuple:
+    """The two-point springs of fns by law (point-point, spring-damper), each
+    group in fns order; one group is one batched evaluation."""
+    pp = tuple(f for f in fns if isinstance(f, ForcePointPoint))
+    sd = tuple(f for f in fns if isinstance(f, ForceSpringDamper))
+    return tuple(g for g in (pp, sd) if g)
+
+
+def _spring_eval(fns, params, kin, phi, blocks: bool):
+    """One spring group over [B, S]: the endpoint states, stacked end-major
+    (bodies and xl [2S]: all first endpoints, then all second), the world
+    force fW [B, S, 3] on point 1 and, with blocks, A = dfW/d(dx),
+    Bm = dfW/d(dv) [B, S, 3, 3]."""
+    S = len(fns)
+    fps = [fn.p(params) for fn in fns]
+    bodies = tuple(fn.body1 for fn in fns) + tuple(fn.body2 for fn in fns)
+    xl = torch.stack([fp["xl1"] for fp in fps] + [fp["xl2"] for fp in fps])
+    x, v, R, u = body_points(kin, phi, bodies, xl)
+    dx, dv = x[:, S:] - x[:, :S], v[:, S:] - v[:, :S]
+    k, d = (torch.stack([fp[n] for fp in fps]) for n in ("k", "d"))
+    A = Bm = None
+    eye = torch.eye(3, dtype=dx.dtype, device=dx.device)
+    if isinstance(fns[0], ForcePointPoint):
+        fW = k[:, None] * dx + d[:, None] * dv
+        if blocks:
+            A = (k[:, None, None] * eye).expand(*dx.shape, 3)
+            Bm = (d[:, None, None] * eye).expand(*dx.shape, 3)
+    else:
+        L = torch.stack([fp["L"] for fp in fps])
+        l = torch.sqrt(torch.clamp((dx * dx).sum(-1), min=_L2_MIN))
+        linv = 1.0 / l
+        e = dx * linv[..., None]
+        ldot = (dx * dv).sum(-1) * linv
+        fs = k * (l - L) / L + d * ldot / L
+        gate = torch.ones_like(fs)
+        if any(fn.tension_only for fn in fns):
+            tension = _mask(tuple(bool(fn.tension_only) for fn in fns), dx.device)
+            gate = torch.where(tension, (l > L).to(dx.dtype), gate)
+        fW = (gate * fs * linv)[..., None] * dx
+        if blocks:
+            dfs = (k / L)[:, None] * e + (d / L)[:, None] * (dv - ldot[..., None] * e) * linv[..., None]
+            outer = e[..., :, None] * e[..., None, :]
+            A = gate[..., None, None] * ((fs * linv)[..., None, None] * (eye - outer)
+                                         + e[..., :, None] * dfs[..., None, :])
+            Bm = (gate * d / L)[..., None, None] * outer
+    return bodies, xl, R, u, fW, A, Bm
+
+
+def _cable_eval(fn, params, kin, phi, blocks: bool):
+    """One cable over [B]: the point states, the world forces F [B, P, 3]
+    and, with blocks, A = dF_j/dx_i and Bm = dF_j/dv_i [B, P, P, 3, 3]
+    (pallas_step._cable_force's closed forms, the shared tension coupling
+    every point pair)."""
+    fp = fn.p(params)
+    P = len(fn.bodies)
+    x, v, R, u = body_points(kin, phi, fn.bodies, fp["xls"])
+    dx, dv = x[:, 1:] - x[:, :-1], v[:, 1:] - v[:, :-1]
+    lk = torch.sqrt(torch.clamp((dx * dx).sum(-1), min=_L2_MIN))       # [B, P-1]
+    linv = 1.0 / lk
+    us = dx * linv[..., None]
+    l, ldot = lk.sum(-1), (us * dv).sum((-1, -2))
+    k, d, L = fp["k"], fp["d"], fp["L"]
+    gate = (l > L).to(dx.dtype)
+    fs = gate * (k * (l - L) / L + d * ldot / L)
+    z = torch.zeros_like(us[:, :1])
+    c = torch.cat([us, z], dim=1) - torch.cat([z, us], dim=1)          # [B, P, 3]
+    F = fs[:, None, None] * c
+    if not blocks:
+        return x, R, u, F, None, None
+    eye = torch.eye(3, dtype=dx.dtype, device=dx.device)
+    T = (eye - us[..., :, None] * us[..., None, :]) * linv[..., None, None]   # Pm_s / l_s
+    w = torch.einsum("bsij,bsj->bsi", T, dv)
+    a = gate[:, None, None] * (-(k / L) * c + (d / L) * (torch.cat([z, w], dim=1)
+                                                         - torch.cat([w, z], dim=1)))
+    Dji = torch.einsum("sji,nsab->njiab", _cable_coef(P, dx.dtype, dx.device), T)
+    A = c[:, :, None, :, None] * a[:, None, :, None, :] + fs[:, None, None, None, None] * Dji
+    Bm = -(gate * d / L)[:, None, None, None, None] * (c[:, :, None, :, None] * c[:, None, :, None, :])
+    return x, R, u, F, A, Bm
+
+
+@lru_cache(maxsize=None)
+def _cable_coef(P: int, dtype, device):
+    """coef [P-1, P, P] with D_ji = dc_j/dx_i = sum_s coef[s, j, i] Pm_s / l_s:
+    du_s/dx_i = (delta_{i,s+1} - delta_{i,s}) Pm_s / l_s, and c_j holds +u_j
+    (s = j) and -u_{j-1} (s = j - 1)."""
+    coef = torch.zeros(P - 1, P, P, dtype=dtype)
+    for s in range(P - 1):
+        for j, sign in ((s, 1.0), (s + 1, -1.0)):
+            coef[s, j, s + 1] += sign
+            coef[s, j, s] -= sign
+    return coef.to(device)
+
+
+def pair_closure_wrenches(fns: Sequence, params: Dict, kin, phi):
+    """fm_add [B, N, 6] of the springs and cables of fns."""
+    N = kin.E_wi.shape[1]
+    fm = torch.zeros_like(phi)
+    for grp in _spring_groups(fns):
+        bodies, xl, R, _, fW, _, _ = _spring_eval(grp, params, kin, phi, blocks=False)
+        fm = fm + _point_wrenches(bodies, xl, R, torch.cat([fW, -fW], dim=1), N)
+    for fn in fns:
+        if isinstance(fn, ForceCable):
+            _, R, _, F, _, _ = _cable_eval(fn, params, kin, phi, blocks=False)
+            fm = fm + _point_wrenches(fn.bodies, fn.p(params)["xls"], R, F, N)
+    return fm
+
+
+def pair_closure_energy(fns: Sequence, params: Dict, kin):
+    """Summed potential [B] of the springs and cables of fns."""
+    V = kin.E_wi.new_zeros(kin.E_wi.shape[0])
+    for fn in fns:
+        fp = fn.p(params)
+        if isinstance(fn, ForceCable):
+            x, _, _, _ = body_points(kin, None, fn.bodies, fp["xls"])
+            dx = x[:, 1:] - x[:, :-1]
+            l = torch.sqrt(torch.clamp((dx * dx).sum(-1), min=_L2_MIN)).sum(-1)
+        else:
+            x, _, _, _ = body_points(kin, None, (fn.body1, fn.body2),
+                                     torch.stack([fp["xl1"], fp["xl2"]]))
+            dx = x[:, 1] - x[:, 0]
+            if isinstance(fn, ForcePointPoint):
+                V = V + 0.5 * fp["k"] * (dx * dx).sum(-1)
+                continue
+            l = torch.sqrt(torch.clamp((dx * dx).sum(-1), min=_L2_MIN))
+        strain = (l - fp["L"]) / fp["L"]
+        Vf = 0.5 * fp["k"] * strain * strain * fp["L"]
+        if getattr(fn, "tension_only", True):   # a cable is always tension-only
+            Vf = torch.where(strain > 0, Vf, torch.zeros_like(Vf))
+        V = V + Vf
+    return V
+
+
+def pair_closure_blocks(fns: Sequence, params: Dict, kin, phi):
+    """Closed-form K, D [B, npairs, 6, 6] of the springs and cables of fns, one
+    block per (body point j, body point i) pair of a closure with both points
+    on bodies: d(wrench of j's body)/d(perturbation of i's body) under the
+    structured_hessian convention, cross-body blocks included. Returns
+    (K, D, bj, bi) with the static body tuples bj, bi [npairs], or None when
+    fns holds no such closure. They equal jacfwd of the closures (masks
+    frozen)."""
+    Ks, Ds, bj, bi = [], [], [], []
+    dev = phi.device
+    for grp in _spring_groups(fns):
+        S = len(grp)
+        bodies, xl, R, u, fW, A, Bm = _spring_eval(grp, params, kin, phi, blocks=True)
+        B = phi.shape[0]
+        R2, u2, xl2 = R.view(B, 2, S, 3, 3), u.view(B, 2, S, 3), xl.view(2, S, 3)
+        fb = torch.einsum("bepji,bepj->bepi", R2, torch.stack([fW, -fW], dim=1))
+        # F_1 = +fW, F_2 = -fW and dx = x_2 - x_1: dF_e/dx_c = s_e sig_c A
+        coef = torch.tensor([[-1.0, 1.0], [1.0, -1.0]], dtype=fW.dtype, device=dev)
+        same = torch.eye(2, dtype=fW.dtype, device=dev)[:, :, None]
+        K, D = point_pair_blocks(R2[:, :, None], xl2[:, None], fb[:, :, None], R2[:, None],
+                                 xl2[None], u2[:, None], coef[:, :, None, None, None] * A[:, None, None],
+                                 coef[:, :, None, None, None] * Bm[:, None, None], same)
+        Ks.append(K.reshape(B, 4 * S, 6, 6))
+        Ds.append(D.reshape(B, 4 * S, 6, 6))
+        ends = (bodies[:S], bodies[S:])
+        bj += [ends[e][s] for e in range(2) for c in range(2) for s in range(S)]
+        bi += [ends[c][s] for e in range(2) for c in range(2) for s in range(S)]
+    for fn in fns:
+        if not isinstance(fn, ForceCable):
+            continue
+        P = len(fn.bodies)
+        xls = fn.p(params)["xls"]
+        _, R, u, F, A, Bm = _cable_eval(fn, params, kin, phi, blocks=True)
+        fb = torch.einsum("bpji,bpj->bpi", R, F)
+        same = torch.eye(P, dtype=F.dtype, device=dev)
+        K, D = point_pair_blocks(R[:, :, None], xls[:, None], fb[:, :, None], R[:, None],
+                                 xls[None], u[:, None], A, Bm, same)
+        Ks.append(K.reshape(-1, P * P, 6, 6))
+        Ds.append(D.reshape(-1, P * P, 6, 6))
+        bj += [b for b in fn.bodies for _ in range(P)]
+        bi += [b for _ in range(P) for b in fn.bodies]
+    if not Ks:
+        return None
+    keep = tuple(p for p, (a, b) in enumerate(zip(bj, bi)) if a >= 0 and b >= 0)
+    sel = body_index(keep, dev)
+    K, D = torch.cat(Ks, dim=1)[:, sel], torch.cat(Ds, dim=1)[:, sel]
+    return K, D, tuple(bj[p] for p in keep), tuple(bi[p] for p in keep)

@@ -200,22 +200,25 @@ class Bdf2State(NamedTuple):
 
 # Per-lane physical parameters: a leaf with ndim == base + 1 carries a
 # leading [B] lane dim. Only the torque is per-lane on this path; the others
-# (the system-identification dimension) are ROADMAP K1f.
+# (the system-identification dimension: inertia, gravity, timestep, body
+# damping, contact, spring and cable coefficients) are ROADMAP K1f.
 _BATCHABLE = {"tau": 1}
 _LATER = {"I_i": 2, "g": 1, "h": 0, "body_damping": 1}
+_LATER_FORCE = {"kn": 0, "kt": 0, "kd": 0, "mu": 0, "E": 2, "sides": 1,
+                "k": 0, "d": 0, "L": 0, "xl1": 1, "xl2": 1, "xls": 2}
 
 
 def split_batched_params(params: Dict):
     """(shared, batched): split params into lane-shared leaves and the
     per-lane [B, ...] leaves. Raises on per-lane leaves not yet ported
-    (physical params and contact coefficients)."""
+    (physical params and closure coefficients)."""
     for k, nd in _LATER.items():
         if params[k].ndim == nd + 1:
             raise NotImplementedError(f"per-lane {k!r} is ROADMAP K1f")
     for key, fp in params.get("forces", {}).items():
-        for k in ("kn", "kt", "kd", "mu"):
-            if k in fp and fp[k].ndim:
-                raise NotImplementedError(f"per-lane contact {k!r} of {key!r} is ROADMAP K1f")
+        for k, nd in _LATER_FORCE.items():
+            if k in fp and fp[k].ndim > nd:
+                raise NotImplementedError(f"per-lane {k!r} of force {key!r} is ROADMAP K1f")
     shared = dict(params)
     batched = {k: shared.pop(k) for k, nd in _BATCHABLE.items() if params[k].ndim == nd + 1}
     return shared, batched

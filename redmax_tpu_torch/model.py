@@ -13,7 +13,8 @@ every output carries the leading [B] lane dimension. Lanes never mix.
   * Assembly: M = J^T Mm J, fqvv = -J^T Mm Jdot qdot, f = fr + J^T fm + fqvv.
   * Force closures (forces.py) add to fm. All ground contacts of a scene are
     evaluated in one batched pass, and their closed-form K/D blocks join the
-    per-body blocks of the structured Newton matrix.
+    per-body blocks of the structured Newton matrix; springs and cables add
+    closed-form blocks between pairs of bodies.
 """
 
 from functools import lru_cache
@@ -38,14 +39,16 @@ def joint_params_for(params: Dict, jt: int) -> Dict:
     return params.get("joint", {}).get(str(int(jt)), {})
 
 
-def _ground_contacts(force_fns: Tuple) -> Tuple:
-    """The scene's ForceGroundCuboid closures; raises on any other closure
-    type (their K/D blocks are not ported: ROADMAP queue 1 item 10)."""
+def _split_closures(force_fns: Tuple) -> Tuple[Tuple, Tuple]:
+    """(ground contacts, springs and cables) of the scene's closures, each in
+    force_fns order; raises on any other closure type (its K/D blocks are
+    not ported: ROADMAP queue 1 item 10)."""
     for fn in force_fns:
-        if not isinstance(fn, forces.ForceGroundCuboid):
+        if not isinstance(fn, (forces.ForceGroundCuboid,) + forces.PAIR_CLOSURES):
             raise NotImplementedError(
                 f"force closure {type(fn).__name__} is not ported yet (ROADMAP queue 1 item 10)")
-    return force_fns
+    gnd = tuple(fn for fn in force_fns if isinstance(fn, forces.ForceGroundCuboid))
+    return gnd, tuple(fn for fn in force_fns if isinstance(fn, forces.PAIR_CLOSURES))
 
 
 class _Index(NamedTuple):
@@ -202,8 +205,10 @@ def maximal_force(topo: Topology, params: Dict, kin: Kinematics, phi):
 def closure_forces(topo: Topology, params: Dict, kin: Kinematics, phi, q, qdot,
                    force_fns: Tuple):
     """Sum of the registered force closures: (fr_cl [B, nr], fm_cl [B, N, 6])."""
-    gnd = _ground_contacts(force_fns)
+    gnd, pair = _split_closures(force_fns)
     fm = forces.ground_contact_wrenches(gnd, params, kin, phi) if gnd else torch.zeros_like(phi)
+    if pair:
+        fm = fm + forces.pair_closure_wrenches(pair, params, kin, phi)
     return torch.zeros_like(q), fm
 
 
@@ -215,9 +220,12 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
     frozen J, and the quadratic-velocity damping -2 J^T Mm Jdot. Ground
     contacts add their closed-form per-body blocks
     (forces.ground_contact_blocks) with the one-step proximity-margin
-    activation, hh = params["h"], gmag = |g|.
+    activation, hh = params["h"], gmag = |g|. Springs and cables add
+    J_b^T K_bc J_c (and the same with D) for every pair of their body points
+    (forces.pair_closure_blocks), the blocks that couple two bodies
+    included: the JAX package's jacfwd Km, Dm in closed form.
     """
-    gnd = _ground_contacts(force_fns)
+    gnd, pair = _split_closures(force_fns)
     kin = forward_kinematics(topo, params, q, qdot)
     J, Jdot, phi = jacobians(topo, params, kin, qdot)
     B, N, nr = q.shape[0], topo.njoints, topo.nr
@@ -233,6 +241,11 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
     Jblk = J.reshape(B, N, 6, nr)
     Kt = torch.diag_embed(Krd) + torch.einsum("bnir,bnis->brs", Jblk, Kmb @ Jblk)
     Dt = torch.diag_embed(Drd) + torch.einsum("bnir,bnis->brs", Jblk, Dmb @ Jblk)
+    if pair:
+        Kp, Dp, bj, bi = forces.pair_closure_blocks(pair, params, kin, phi)
+        Jj, Ji = Jblk[:, forces.body_index(bj, q.device)], Jblk[:, forces.body_index(bi, q.device)]
+        Kt = Kt + torch.einsum("bpir,bpij,bpjs->brs", Jj, Kp, Ji)
+        Dt = Dt + torch.einsum("bpir,bpij,bpjs->brs", Jj, Dp, Ji)
 
     MmJ = params["I_i"].reshape(-1)[:, None] * J
     M = MmJ.transpose(-1, -2) @ J
@@ -245,7 +258,7 @@ def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
 
     force_fns: static tuple of force closures compiled from the scene's
     force list (forces.py)."""
-    _ground_contacts(force_fns)  # raises before any work on an unported closure
+    _split_closures(force_fns)  # raises before any work on an unported closure
     kin = forward_kinematics(topo, params, q, qdot)
     J, Jdot, phi = jacobians(topo, params, kin, qdot)
     B = q.shape[0]
@@ -270,7 +283,7 @@ def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
       V = -sum_i m_i g . p_wi + 1/2 k (q - qrest)^2 + limit penalties
         + force energies.
     """
-    gnd = _ground_contacts(force_fns)
+    gnd, pair = _split_closures(force_fns)
     kin = forward_kinematics(topo, params, q, qdot)
     _, _, phi = jacobians(topo, params, kin, qdot)
     I = params["I_i"]
@@ -283,6 +296,8 @@ def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
     V = V + 0.5 * (params["qlimK"] * (dqL * dqL + dqU * dqU)).sum(-1)
     if gnd:
         V = V + forces.ground_contact_energy(gnd, params, kin)
+    if pair:
+        V = V + forces.pair_closure_energy(pair, params, kin)
     return T, V
 
 

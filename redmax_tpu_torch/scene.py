@@ -6,12 +6,14 @@
 State — on which the dynamics run as plain functions of batched tensors.
 
 Constraints (loop closure, joint limit, floor contact, gear coupling) and
-forces (penalty ground contact) are kept as (object, params) pairs and
-compiled into ``constraint_fns`` / ``force_fns`` plus
-``params["constraints"]`` / ``params["forces"]``. The other forces,
-deformables, the prescribed-motion and attach-point constraints and friction
-are not ported yet (ROADMAP queue 1 items 10, 13 and 15); their SceneBuilder
-methods raise.
+forces (penalty ground contact, point-point springs, spring-dampers,
+cables) are kept as (object, params) pairs and compiled into
+``constraint_fns`` / ``force_fns`` plus ``params["constraints"]`` /
+``params["forces"]``; a spring-damper's or cable's rest length L = 0 is set
+at compile from the initial configuration. The other forces, deformables,
+the prescribed-motion and attach-point constraints and friction are not
+ported yet (ROADMAP queue 1 items 10, 13 and 15); their SceneBuilder methods
+raise.
 """
 
 import math
@@ -195,14 +197,11 @@ class SceneBuilder:
         self.joints[j].qlimD = d
 
     # -- not ported yet ----------------------------------------------------
-    def force_point_point(self, *a, **k):
-        _not_ported("ForcePointPoint", "10")
+    def force_spring_damper_m(self, *a, **k):
+        _not_ported("SpringDamperM", "10")
 
-    def force_spring_damper(self, *a, **k):
-        _not_ported("ForceSpringDamper", "10")
-
-    def force_cable(self, *a, **k):
-        _not_ported("ForceCable", "10")
+    def force_point_direction(self, *a, **k):
+        _not_ported("ForcePointDirection", "10")
 
     def deformable_spring(self, *a, **k):
         _not_ported("deformable springs", "10")
@@ -213,6 +212,9 @@ class SceneBuilder:
     constraint_presc_joint_m = constraint_presc_body = constraint_presc_joint
 
     # -- forces ------------------------------------------------------------
+    def _force_key(self) -> str:
+        return f"f{len(self.forces)}"
+
     def force_ground_cuboid(self, body, E_ground=None, kn=1.0, kt=0.0, kd=0.0, mu=0.0) -> None:
         """Penalty ground contact on the 8 corners of a cuboid body; the floor
         is the z = 0 plane of E_ground (z-up)."""
@@ -220,9 +222,37 @@ class SceneBuilder:
         if sides is None:
             raise ValueError("ground contact requires a cuboid body")
         self.forces.append((
-            forces_mod.ForceGroundCuboid(f"f{len(self.forces)}", body),
+            forces_mod.ForceGroundCuboid(self._force_key(), body),
             {"E": self._E(E_ground), "sides": sides, "kn": np.float64(kn),
              "kt": np.float64(kt), "kd": np.float64(kd), "mu": np.float64(mu)},
+        ))
+
+    def force_point_point(self, body1, body2, xl1, xl2, k, d=0.0) -> None:
+        """Zero-rest-length spring and damper between point xl1 of body1 and
+        point xl2 of body2 (body -1: a world point, xl in world coordinates)."""
+        self.forces.append((
+            forces_mod.ForcePointPoint(self._force_key(), body1, body2),
+            {"xl1": np.asarray(xl1, dtype=np.float64), "xl2": np.asarray(xl2, dtype=np.float64),
+             "k": np.float64(k), "d": np.float64(d)},
+        ))
+
+    def force_spring_damper(self, body1, body2, xl1, xl2, k, d=0.0, L=0.0) -> None:
+        """Strain spring and damper between two body points; L = 0 sets the
+        rest length to their distance in the initial configuration at compile
+        (ForceSpringDamper.init_, ForceSpringDamper.m:38-59)."""
+        self.forces.append((
+            forces_mod.ForceSpringDamper(self._force_key(), body1, body2),
+            {"xl1": np.asarray(xl1, dtype=np.float64), "xl2": np.asarray(xl2, dtype=np.float64),
+             "k": np.float64(k), "d": np.float64(d), "L": np.float64(L)},
+        ))
+
+    def force_cable(self, bodies, xls, k, d=0.0, L=0.0) -> None:
+        """Tension-only cable through the points xls [P, 3] of bodies; L = 0
+        sets the rest length to the summed segment lengths at compile."""
+        self.forces.append((
+            forces_mod.ForceCable(self._force_key(), bodies),
+            {"xls": np.asarray(xls, dtype=np.float64), "k": np.float64(k),
+             "d": np.float64(d), "L": np.float64(L)},
         ))
 
     # -- constraints -------------------------------------------------------
@@ -340,12 +370,39 @@ class SceneBuilder:
             "forces": {obj.key: {k: T(v) for k, v in fp.items()} for obj, fp in self.forces},
         }
         state0 = State(q=T(q0), qdot=T(qdot0), aux={})
+        self._init_rest_lengths(topo, params, state0, dtype)
         return CompiledScene(
             name=self.name, topo=topo, params=params, state0=state0,
             force_fns=tuple(obj for obj, _ in self.forces),
             constraint_fns=tuple(obj for obj, _ in self.constraints),
             h=self.h, tEnd=self.tEnd, Hexpected=dict(self.Hexpected),
         )
+
+
+    def _init_rest_lengths(self, topo, params, state0, dtype) -> None:
+        """L = 0 of a spring-damper or cable -> its length in the initial
+        configuration (ForceSpringDamper.init_ / ForceCable.init_, called
+        from Scene.init in the reference, Scene.m:117), from the body frames
+        in the compile dtype, as the JAX package computes it."""
+        auto = [(obj, fp) for obj, fp in self.forces
+                if isinstance(obj, (forces_mod.ForceSpringDamper, forces_mod.ForceCable))
+                and float(fp["L"]) == 0.0]
+        if not auto:
+            return
+        kin0 = model.forward_kinematics(topo, params, state0.q[None], state0.qdot[None])
+        E_wi = kin0.E_wi[0].cpu().numpy()
+
+        def world_pt(b, xl):
+            return np.asarray(xl) if b < 0 else E_wi[b, :3, :3] @ np.asarray(xl) + E_wi[b, :3, 3]
+
+        for obj, fp in auto:
+            if isinstance(obj, forces_mod.ForceCable):
+                pts = [world_pt(b, fp["xls"][i]) for i, b in enumerate(obj.bodies)]
+                L = sum(np.linalg.norm(pts[i + 1] - pts[i]) for i in range(len(pts) - 1))
+            else:
+                L = np.linalg.norm(world_pt(obj.body2, fp["xl2"]) - world_pt(obj.body1, fp["xl1"]))
+            params["forces"][obj.key]["L"] = torch.as_tensor(
+                L, dtype=dtype, device=params["forces"][obj.key]["k"].device)
 
 
 @dataclass

@@ -13,7 +13,12 @@ backward with redmax_tpu.
     corners out of contact, in static and in dynamic friction): the plain
     version against chord_bdf2_dense(force_fns=...) and JAX newton, an 8-step
     rollout through impact against the vmapped JAX fallback, and the kernel
-    route's backward on the ground scene.
+    route's backward on the ground scene;
+  * the same with springs (a point-point spring and a world spring-damper)
+    and with a cable: the plain version against chord_bdf2_dense and JAX
+    newton;
+  * the wrapper's packing: a buffer whose closure counts do not match its
+    contents is refused before any launch.
 """
 
 import dataclasses
@@ -36,6 +41,7 @@ from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch import model as tmodel
 from redmax_tpu_torch.types import State
 from test_torch_model import mixed_builder
+from test_torch_springs import jax_scene
 
 CFG_KW = dict(fixed_iters=3, predictor="quadratic", chord=True,
               hessian="structured", linsolve="gj")
@@ -191,8 +197,8 @@ def test_kernel_route_backward_matches_jax():
             return jint.residual_bdf2(sc.topo, (), {**sc.params, "tau": ti}, xi, a, b, c, d, {})
         return jax.vmap(one)(tau_b, a, b, c, d, jnp.asarray(xstar))
 
-    _, vjp = jax.vjp(res_b, *(jnp.asarray(a) for a in (tau, q0, qd0, q1, qd1)))
-    cots_ref = vjp(-z)
+    cots_ref = jax.jit(lambda z, *a: jax.vjp(res_b, *a)[1](-z))(
+        z, *(jnp.asarray(a) for a in (tau, q0, qd0, q1, qd1)))
 
     # Port: the kernel route's inner step, differentiated by autograd.
     step = tint.make_bdf2_step_batched(topo, (), TCFG, differentiable=True, use_kernel=True)
@@ -316,8 +322,8 @@ def test_contact_kernel_route_backward_matches_jax():
                                       xi, a, b, c, d, {})
         return jax.vmap(one)(tau_b, a, b, c, d, jnp.asarray(xstar))
 
-    _, vjp = jax.vjp(res_b, *(jnp.asarray(a) for a in (tau, q0, qd0, q1, qd1)))
-    cots_ref = vjp(-z)
+    cots_ref = jax.jit(lambda z, *a: jax.vjp(res_b, *a)[1](-z))(
+        z, *(jnp.asarray(a) for a in (tau, q0, qd0, q1, qd1)))
 
     step = tint.make_bdf2_step_batched(topo, fns, TCFG, differentiable=True, use_kernel=True)
     leaves = [torch.tensor(a, requires_grad=True) for a in (tau, q0, qd0, q1, qd1)]
@@ -333,13 +339,17 @@ def test_contact_kernel_route_backward_matches_jax():
 
 
 def test_kernel_route_refuses_what_the_kernel_does_not_cover():
-    """supports() takes ground contacts and nothing else; per-lane contact
-    coefficients raise (K1f)."""
+    """supports() takes ground contacts, springs and cables and nothing else;
+    per-lane contact or spring coefficients raise (K1f)."""
     tc_free = jchain(nlinks=4).compile(dtype=jnp.float32)
     topo, params = _port(tc_free, torch.float32)
     gnd = forces.ForceGroundCuboid("f0", 1)
+    spr = forces.ForceSpringDamper("f1", -1, 3, tension_only=True)
     assert chord_kernel.supports(topo, (), TCFG) and chord_kernel.supports(topo, (gnd,), TCFG)
+    assert chord_kernel.supports(topo, (spr, forces.ForceCable("f2", (0, 3))), TCFG)
     assert not chord_kernel.supports(topo, (gnd, object()), TCFG)
+    with pytest.raises(NotImplementedError, match="K1f"):
+        tint.split_batched_params({**params, "forces": {"f1": {"k": torch.ones(3)}}})
     with pytest.raises(ValueError):
         tint.make_bdf2_step_batched(topo, (object(),), TCFG, use_kernel=True)
     sc = jground(nlinks=4, **BENCH_GROUND).compile(dtype=jnp.float32)
@@ -347,3 +357,72 @@ def test_kernel_route_refuses_what_the_kernel_does_not_cover():
     lane = {**params["forces"]["f0"], "kn": torch.full((3,), 100.0)}
     with pytest.raises(NotImplementedError, match="K1f"):
         tint.split_batched_params({**params, "forces": {**params["forces"], "f0": lane}})
+
+
+PAIR_SCENES = {"springs": "spring3", "cable": "cable3"}
+
+
+@pytest.mark.parametrize("scene", list(PAIR_SCENES))
+def test_reference_with_springs_matches_kernel_body_f32(scene):
+    sc = jax_scene(PAIR_SCENES[scene], f32=True)
+    topo, params = _port(sc, torch.float32)
+    fns = _port_forces(sc)
+    states = _rand_states(sc.topo.nr, 8)
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(sc.topo, JCFG, sc.params, *states, xp=np,
+                                                 force_fns=sc.force_fns)
+    x, hinv = chord_kernel.chord_bdf2(topo, TCFG, params, *(torch.tensor(a) for a in states), fns)
+    assert np.isfinite(x_np).all()
+    np.testing.assert_allclose(x.numpy(), x_np, rtol=0, atol=5e-6)
+    scale = float(np.abs(hinv_np).max())
+    np.testing.assert_allclose(hinv.numpy(), hinv_np, rtol=0, atol=2e-5 * scale)
+    x0, _ = chord_kernel.chord_bdf2(topo, TCFG, params, *(torch.tensor(a) for a in states))
+    assert float((x0 - x).abs().max()) > 1e-4   # the closures act
+
+
+@pytest.mark.parametrize("scene", list(PAIR_SCENES))
+def test_reference_with_springs_matches_newton_f64(scene):
+    sc = jax_scene(PAIR_SCENES[scene])
+    topo, params = _port(sc, torch.float64)
+    fns = _port_forces(sc)
+    states = [a.astype(np.float64) for a in _rand_states(sc.topo.nr, 8)]
+    hess = jint._hess_bdf2(sc.topo, sc.force_fns)
+
+    def one(x0, q0, qd0, q1, qd1):
+        theta = (sc.params, q0, qd0, q1, qd1, {})
+        res = lambda x: jint.residual_bdf2(sc.topo, sc.force_fns, sc.params, x, q0, qd0, q1, qd1,
+                                           {})
+        x, info = jint.newton(res, x0, JCFG, jac_fn=lambda x: hess(theta, x))
+        return x, info["factor"]
+
+    x_ref, hinv_ref = jax.jit(jax.vmap(one))(*(jnp.asarray(a) for a in states))
+    x, hinv = chord_kernel.chord_bdf2_reference(topo, TCFG, params,
+                                                *(torch.tensor(a) for a in states), fns)
+    assert np.isfinite(np.asarray(x_ref)).all()
+    np.testing.assert_allclose(x.numpy(), np.asarray(x_ref), rtol=0, atol=1e-9)
+    scale = float(np.abs(np.asarray(hinv_ref)).max())
+    np.testing.assert_allclose(hinv.numpy(), np.asarray(hinv_ref), rtol=0, atol=1e-9 * scale)
+
+
+def test_check_buffers_rejects_mismatched_counts():
+    """launch checks both packed buffers against the closure counts before it
+    builds or launches anything: the counts of another scene, or a buffer one
+    entry short, raise on CPU tensors."""
+    sc = jground(nlinks=4, **BENCH_GROUND).compile(dtype=jnp.float32)
+    topo, params = _port(sc, torch.float32)
+    fns = _port_forces(sc)
+    states = [torch.tensor(a) for a in _rand_states(sc.topo.nr, 4)]
+    *_, topo_i, stat_f, counts = chord_kernel.pack(topo, params, *states, fns)
+    assert counts == chord_kernel.Closures(contacts=4, springs=0, cables=0, cable_points=0)
+    chord_kernel.check_buffers(topo, topo_i, stat_f, counts)
+    for bad in (counts._replace(contacts=3), counts._replace(springs=1),
+                counts._replace(cables=1, cable_points=2)):
+        with pytest.raises(ValueError, match="do not hold"):
+            chord_kernel.check_buffers(topo, topo_i, stat_f, bad)
+    with pytest.raises(ValueError, match="do not hold"):
+        chord_kernel.check_buffers(topo, topo_i, stat_f[:-1], counts)
+    with pytest.raises(ValueError, match="do not hold"):
+        chord_kernel.launch(topo, TCFG, *states, states[0], topo_i[:-1], stat_f, counts)
+    # the counts travel in topo_i too, where the kernel reads them
+    N, nr = topo.njoints, topo.nr
+    head = 3 * N + 1 + nr + N * N
+    assert topo_i[head:head + 4].tolist() == list(counts)

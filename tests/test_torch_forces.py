@@ -78,7 +78,7 @@ def test_force_and_energy_match(mu):
         V = [fn.energy(sc.params, kin_j, a, b) for fn in sc.force_fns]
         return jnp.stack(fm), jnp.stack(V)
 
-    fm_ref, V_ref = jax.vmap(jone)(jnp.asarray(q), jnp.asarray(qd))
+    fm_ref, V_ref = jax.jit(jax.vmap(jone))(jnp.asarray(q), jnp.asarray(qd))
     fm_sum = torch.zeros_like(phi)
     for c, fn in enumerate(fns):
         fr, fm = fn(params, kin, None, phi, tq, tqd)
@@ -110,7 +110,7 @@ def test_blocks_match(margin):
                for f in sc.force_fns]
         return jnp.stack([o[0] for o in out]), jnp.stack([o[1] for o in out])
 
-    K_ref, D_ref = jax.vmap(jone)(jnp.asarray(q), jnp.asarray(qd))
+    K_ref, D_ref = jax.jit(jax.vmap(jone))(jnp.asarray(q), jnp.asarray(qd))
     thg = tuple(torch.tensor(v, dtype=torch.float64) for v in hg)
     for c, fn in enumerate(fns):
         K, D = tforces.ground_contact_blocks(kin.E_wi[:, fn.body], phi[:, fn.body],
@@ -169,7 +169,7 @@ def test_assembly_hessian_energies_match(mu):
         T, V = jmodel.energies(sc.topo, sc.params, a, b, sc.force_fns)
         return M, f, aux["fm"], H, T, V
 
-    ref = jax.vmap(jone)(jnp.asarray(q), jnp.asarray(qd))
+    ref = jax.jit(jax.vmap(jone))(jnp.asarray(q), jnp.asarray(qd))
     tq, tqd = torch.tensor(q), torch.tensor(qd)
     M, f, aux = tmodel.assemble(topo, params, tq, tqd, fns)
     H = tmodel.structured_hessian(topo, params, tq, tqd, -0.3, -0.05, fns)
@@ -219,14 +219,13 @@ def test_scene_chain_ground_compile_matches():
 
 
 def test_closures_waiting_for_later_items_raise():
-    for name in ("ForcePointPoint", "ForceSpringDamper", "SpringDamperM", "ForceCable",
-                 "ForcePointDirection", "ForceDeformableSegments"):
+    for name in ("SpringDamperM", "ForcePointDirection", "ForceDeformableSegments"):
         with pytest.raises(NotImplementedError, match="item 10"):
             getattr(tforces, name)("f0", 0, 1)
     with pytest.raises(NotImplementedError, match="item 10"):
-        convert.forces_from_fields([("ForceCable", {"key": "f0"})])
+        convert.forces_from_fields([("SpringDamperM", {"key": "f0"})])
     with pytest.raises(NotImplementedError, match="item 10"):
-        tscene.SceneBuilder().force_cable((0, 1), np.zeros((2, 3)), 1.0)
+        tscene.SceneBuilder().force_spring_damper_m(0, 1, np.zeros(3), np.zeros(3), 1.0)
     with pytest.raises(NotImplementedError, match="item 10"):
         tmodel.assemble(None, {}, None, None, (object(),))
     b = tscene.SceneBuilder()

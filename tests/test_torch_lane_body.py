@@ -19,7 +19,10 @@ With ground contacts (chain-ground-4 and chain-ground-12 at the contact-MPC
 workload's coefficients, states with corners out of contact, in static and in
 dynamic friction, mu = 0.5 and mu = 0) the lane body is held against
 chord_bdf2_dense(force_fns=...) at the same tolerances; a floor out of reach
-gives the C = 0 result bit for bit.
+gives the C = 0 result bit for bit. So with springs (point-point,
+spring-damper, tension-only) and cables (taut, slack), in the card's own
+instantiations for the spring chain and scene 13; springs with k = d = 0 and a
+slack cable give the result without them bit for bit.
 
 These builds are tests only, never a route of a wrapper.
 """
@@ -39,6 +42,7 @@ import torch
 from redmax_tpu import integrators as jint
 from redmax_tpu import pallas_step
 from redmax_tpu import scene as jscene
+from redmax_tpu import scenes as jscenes
 from redmax_tpu.scenes import scene_chain as jchain
 from redmax_tpu.scenes import scene_chain_ground as jground
 from redmax_tpu.types import JointType as JJT
@@ -49,28 +53,34 @@ from redmax_tpu_torch.scenes import scene_floor_chain
 from test_torch_chord import BENCH_GROUND, contact_states, corner_regimes
 from test_torch_model import mixed_builder
 from test_torch_qp import mixed_qp
+from test_torch_springs import cable3, lengths, spring3, spring_chain_jax, tension_only
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "redmax_tpu_torch", "csrc")
 LOOP = r"""
 #include "chord_bdf2_lane.cuh"
-extern "C" void chord_bdf2_cpu(int N, int B, const float* x0, const float* q0, const float* qd0,
-                               const float* q1, const float* qd1, const float* tau,
-                               const int* topo_i, const float* stat_f, int fixed_iters,
-                               float growth_reject, float tol_reject, float dx_clamp,
-                               float* x_out, float* hinv_out) {
-  const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
-  for (int lane = 0; lane < B; ++lane) {
-    if (N == 4)
-      chord::chord_bdf2_lane<4, 4>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg,
-                                   x_out, hinv_out);
-    else if (N == 6)
-      chord::chord_bdf2_lane<6, 8>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg,
-                                   x_out, hinv_out);
-    else
-      chord::chord_bdf2_lane<12, 12>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg,
-                                     x_out, hinv_out);
+#define LANE(n, nr, f)                                                                    \
+  if (N == n && NR == nr && feat == f) {                                                  \
+    for (int lane = 0; lane < B; ++lane)                                                  \
+      chord::chord_bdf2_lane<n, nr, f>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, \
+                                       cfg, x_out, hinv_out);                             \
+    return 0;                                                                             \
   }
+// feat: the closure-kind bitmask of the build (7: every kind compiled in)
+extern "C" int chord_bdf2_cpu(int N, int NR, int feat, int B, const float* x0, const float* q0,
+                              const float* qd0, const float* q1, const float* qd1,
+                              const float* tau, const int* topo_i, const float* stat_f,
+                              int fixed_iters, float growth_reject, float tol_reject,
+                              float dx_clamp, float* x_out, float* hinv_out) {
+  const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
+  LANE(4, 4, 7)
+  LANE(6, 8, 7)
+  LANE(12, 12, 7)
+  LANE(3, 3, 7)
+  LANE(12, 12, 0)
+  LANE(12, 12, 2)
+  LANE(4, 3, 4)
+  return -1;
 }
 """
 QP_LOOP = r"""
@@ -108,8 +118,8 @@ def _gxx_build(tmp_path_factory, name, source):
 def lane_lib(tmp_path_factory):
     lib = _gxx_build(tmp_path_factory, "lane_body", LOOP)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.chord_bdf2_cpu.argtypes = [i, i] + [p] * 8 + [i, f, f, f, p, p]
-    lib.chord_bdf2_cpu.restype = None
+    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 8 + [i, f, f, f, p, p]
+    lib.chord_bdf2_cpu.restype = i
     return lib
 
 
@@ -134,20 +144,22 @@ def _port(sc):
     return topo, params, fns
 
 
-def _run_lane_lib(lane_lib, topo, params, tau, states, force_fns=()):
-    """(x [B, nr], Hinv [B, nr, nr]) of the g++ lane body on the wrapper's
-    own packing of the inputs."""
+def _run_lane_lib(lane_lib, topo, params, tau, states, force_fns=(), feat=7):
+    """(x [B, nr], Hinv [B, nr, nr]) of the g++ lane body (built with the
+    closure kinds feat) on the wrapper's own packing of the inputs."""
     B, nr = states[0].shape
     packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
                                *(torch.tensor(a) for a in states), force_fns)
-    args = [np.ascontiguousarray(a.numpy()) for a in packed]
+    chord_kernel.check_buffers(topo, *packed[6:])
+    args = [np.ascontiguousarray(a.numpy()) for a in packed[:8]]
     x_out = np.empty((nr, B), np.float32)
     h_out = np.empty((nr * nr, B), np.float32)
     cfg = tint.NewtonConfig(**CFG_KW)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    lane_lib.chord_bdf2_cpu(topo.njoints, B, *(ptr(a) for a in args),
-                            cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
-                            ptr(x_out), ptr(h_out))
+    rc = lane_lib.chord_bdf2_cpu(topo.njoints, nr, feat, B, *(ptr(a) for a in args),
+                                 cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject,
+                                 cfg.dx_clamp, ptr(x_out), ptr(h_out))
+    assert rc == 0, (topo.njoints, nr, feat)
     return x_out.T, h_out.reshape(nr, nr, B).transpose(2, 0, 1)
 
 
@@ -210,6 +222,89 @@ def test_lane_body_floor_out_of_reach_equals_no_contacts(lane_lib):
     states, tau = _states(sc.topo.nr, 9)
     x, hinv = _run_lane_lib(lane_lib, topo, params, tau, states, fns)
     x0, hinv0 = _run_lane_lib(lane_lib, topo, params, tau, states)
+    assert np.isnan(x[-1]).all() and np.isfinite(x[:-1]).all()
+    np.testing.assert_array_equal(x, x0)
+    np.testing.assert_array_equal(hinv[:-1], hinv0[:-1])
+
+
+def _closure_case(case, B=16):
+    """(JAX scene in f32, states, tau, feat) of a lane-body case with springs
+    or a cable; feat is the build's closure kinds: the card's own
+    instantiation where the card has one (the spring chain, scene 13), every
+    kind compiled in otherwise. The tension-only spring-damper gets the
+    median length of the lanes at the predictor as its rest length, so half
+    the lanes start taut and half slack."""
+    if case in ("spring3", "tension_only"):
+        sc, feat = spring3(jscene, JJT).compile(dtype=jnp.float32), 7
+    elif case == "spring_chain":
+        sc, feat = spring_chain_jax().compile(dtype=jnp.float32), chord_kernel.SPRINGS
+    elif case.startswith("cable3"):
+        sc = cable3(jscene, JJT, L=0.5 if case == "cable3_taut" else 50.0).compile(
+            dtype=jnp.float32)
+        feat = 7
+    else:
+        sc, feat = jscenes.scene_13_cables().compile(dtype=jnp.float32), chord_kernel.CABLES
+    states, tau = _states(sc.topo.nr, B)
+    if case == "scene13":   # about the scene's own configuration (links folded over)
+        q0 = np.asarray(sc.state0.q, np.float32)
+        states = tuple(a + q0 if i in (0, 1, 3) else a for i, a in enumerate(states))
+    if case == "tension_only":
+        sc = tension_only(sc)
+        topo, params, fns = _port(sc)
+        sc.params["forces"][fns[1].key]["L"] = jnp.asarray(
+            np.median(lengths(topo, params, fns[1], states[0])), jnp.float32)
+    return sc, states, tau, feat
+
+
+@pytest.mark.parametrize("case", ["spring3", "tension_only", "spring_chain", "cable3_taut",
+                                  "cable3_slack", "scene13"])
+def test_lane_body_with_springs_or_cable_matches_kernel_body(lane_lib, case):
+    """Springs (point-point and spring-damper, world and body endpoints, a
+    tension-only spring-damper half taut) and cables (taut, slack, scene 13's
+    cable over the prismatic slider) against chord_bdf2_dense(force_fns=...)
+    at the tolerances of tests/test_pallas_step.py; x of the 12-link spring
+    chain at 1e-5: at these states its stiff world spring amplifies f32
+    roundoff, and the oracle itself is 4.8e-6 from the f64 solve (the g++
+    build 4.8e-6 too, the f32 plain version 1.7e-5)."""
+    sc, states, tau, feat = _closure_case(case)
+    jcfg = jint.NewtonConfig(**CFG_KW)
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(
+        sc.topo, jcfg, {**sc.params, "tau": jnp.asarray(tau)}, *states, xp=np,
+        force_fns=sc.force_fns)
+    topo, params, fns = _port(sc)
+    assert [vars(f) for f in fns] == [vars(f) for f in sc.force_fns]
+    if case == "tension_only":
+        l = lengths(topo, params, fns[1], states[0])
+        assert 0 < (l > float(params["forces"][fns[1].key]["L"])).sum() < len(l)
+    x, hinv = _run_lane_lib(lane_lib, topo, params, tau, states, fns, feat)
+    finite = np.isfinite(x_np).all(-1)
+    assert not finite[-1] and finite[:-1].mean() >= 0.75, finite
+    np.testing.assert_array_equal(np.isfinite(x).all(-1), finite)
+    np.testing.assert_allclose(x[finite], x_np[finite], rtol=0,
+                               atol=1e-5 if case == "spring_chain" else 5e-6)
+    scale = float(np.abs(hinv_np[finite]).max())
+    np.testing.assert_allclose(hinv[finite], hinv_np[finite], rtol=0, atol=2e-5 * scale)
+    # the closures act (a slack cable adds exact zeros: the result without it)
+    x_free, hinv_free = _run_lane_lib(lane_lib, topo, params, tau, states, (), feat)
+    if case == "cable3_slack":
+        np.testing.assert_array_equal(x, x_free)
+        np.testing.assert_array_equal(hinv[:-1], hinv_free[:-1])
+    else:
+        assert np.abs(x_free[finite] - x[finite]).max() > 1e-4
+
+
+def test_lane_body_zero_springs_equal_no_springs(lane_lib):
+    """The spring chain with k = d = 0 on every spring, in the build with the
+    spring code (the card's), gives the result of the build without it bit
+    for bit: the springs add exact zeros."""
+    sc = spring_chain_jax().compile(dtype=jnp.float32)
+    topo, params, fns = _port(sc)
+    zero = {key: {**fp, "k": fp["k"] * 0, "d": fp["d"] * 0}
+            for key, fp in params["forces"].items()}
+    states, tau = _states(sc.topo.nr, 9)
+    x, hinv = _run_lane_lib(lane_lib, topo, {**params, "forces": zero}, tau, states, fns,
+                            chord_kernel.SPRINGS)
+    x0, hinv0 = _run_lane_lib(lane_lib, topo, params, tau, states, (), 0)
     assert np.isnan(x[-1]).all() and np.isfinite(x[:-1]).all()
     np.testing.assert_array_equal(x, x0)
     np.testing.assert_array_equal(hinv[:-1], hinv0[:-1])

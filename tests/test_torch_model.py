@@ -145,7 +145,7 @@ def test_kinematics_and_assembly_match(scene):
         H = jmodel.structured_hessian(sc.topo, sc.params, a, b, -0.3, -0.05)
         return kin.E_wi, J, Jd, phi, M, f, H
 
-    ref = jax.vmap(jone)(jnp.asarray(q), jnp.asarray(qd))
+    ref = jax.jit(jax.vmap(jone))(jnp.asarray(q), jnp.asarray(qd))
     kin = tmodel.forward_kinematics(topo, params, tq, tqd)
     J, Jd, phi = tmodel.jacobians(topo, params, kin, tqd)
     M, f, _ = tmodel.assemble(topo, params, tq, tqd)
