@@ -1,11 +1,12 @@
-"""Drive redmax_tpu_torch's five paths on one NVIDIA GPU and check them.
+"""Drive redmax_tpu_torch's eight paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure is an exception and a non-zero exit):
   1. card and toolchain: torch.cuda must be available;
-  2. build both kernels (csrc/) with nvcc for sm_90a, side by side, and print
-     their -Xptxas -v register/spill reports;
+  2. build the kernels (csrc/) with nvcc for sm_90a, one nvcc per library,
+     side by side (the chord kernel without and with the q-dependent joints,
+     and the dual PGS), and print their -Xptxas -v register/spill reports;
   3. hold the chord kernel against its plain PyTorch version on the card
      (scene_chain(12) at B = 1024 and the ragged B = 1000, scene_chain(4)):
      x within 5e-6 max(1, |x|) of the float32 plain version, H^-1 within
@@ -60,7 +61,23 @@ Phases (any failure is an exception and a non-zero exit):
  13. the cable rollout: scene 13, B = 1024 lanes from its initial state plus
      a seeded perturbation, 50 BDF2 steps on the kernel route (49 launches
      per rollout), timed, against the float64 op-level rollout;
- 14. print the kernels line, the paths' lines, the card's name and power
+ 14. hold the chord kernel with the q-dependent joints (the QDEP build)
+     against its plain version: the universal-6 chain at B = 1024 and
+     B = 1000, the spherical-4 chain and scene 9's FREE3D body at B = 1024,
+     on states 8 steps into a rollout under the path's torques, plus seeded
+     lanes whose exp-map rotations lie in the Taylor branch (s < 0.04), just
+     above it and near |w| = 1.5 pi (counted per branch); the tolerances of
+     phase 3 on at least 99% of lanes, a NaN lane, timed;
+ 15. the universal-6 path: benchmarks/qdep_ablation.py's uni6_kernel row (6
+     universal joints, nr = 12, horizon 50, B = 1024, f32, one Adam step)
+     with the checks of phase 4 and the post-step reparam timed in the split;
+ 16. the spherical-4 path: its sph4_kernel row (4 exp-map spherical joints),
+     the same;
+ 17. the FREE3D rollout: scene 9, B = 1024 lanes with the rotation drawn
+     uniformly in the ball of radius 1.45 pi, 50 BDF2 steps on the kernel
+     route (49 launches per rollout), timed, against the float64 op-level
+     rollout; the exp-map rescale must fire on the card in some lanes;
+ 18. print the kernels line, the paths' lines, the card's name and power
      limit, and the result line.
 """
 
@@ -76,8 +93,9 @@ import numpy as np
 import torch
 
 from redmax_tpu_torch import chord_kernel, forces, integrators, model, mpc, qp_kernel
-from redmax_tpu_torch.scenes import (scene_13_cables, scene_chain, scene_chain_ground,
-                                     scene_floor_chain, scene_spring_chain)
+from redmax_tpu_torch.scenes import (scene_09_free3d, scene_13_cables, scene_chain,
+                                     scene_chain_ground, scene_floor_chain, scene_qdep_chain,
+                                     scene_spring_chain)
 from redmax_tpu_torch.scenes_matlab import build_mscene
 from redmax_tpu_torch.types import State
 
@@ -111,30 +129,53 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# so3_exp_S per lane, on its closed-form branch (s >= 0.04; the Taylor
+# branch is cheaper): |w|^2 5, sqrt, sin, cos 3, c1, a, b, a', b' 21, sd 6,
+# W^2 12, Wd W and W Wd 108, R 36, S 36, Sd 99.
+SO3_EXP_S = 326
+
+
+def qdep_joint_flops(jt: int) -> int:
+    """qdep_joint of csrc/chord_bdf2_lane.cuh for one joint of type jt (5
+    UNIVERSAL, 6 SPHERICAL, 8 FREE3D): A0 = Ad(inv(E0_ji)) 45, then each
+    column and its derivative through A0 (put_column, 2 x 66)."""
+    put = 2 * 66
+    if jt == 5:   # sin, cos 4, R 6, Sdot column 3
+        return 45 + 4 + 6 + 3 + 2 * put
+    if jt == 6:
+        return 45 + SO3_EXP_S + 3 * put
+    # FREE3D: the rotation's columns, omega_b = Jr rdot 15, per translation
+    # column -(omega_b x R^T e_d) 12
+    return 45 + SO3_EXP_S + 3 * put + 15 + 3 * (12 + put)
+
+
 def lane_flops(topo, fixed_iters: int, ncontacts: int = 0, springs=(), cables=()) -> int:
     """Floating-point operations of one lane of csrc/chord_bdf2_lane.cuh,
     counted from its loops (add, sub, mul, div, sqrt, sin, cos: one each;
     compares and selects none), with ncontacts ground contacts, springs as
     (kind, b1, b2, tension) and cables as body tuples (chord_kernel's
-    closure_spec)."""
+    closure_spec). A scene with a q-dependent joint runs the QDEP build: its
+    joints' columns per iterate (qdep_joint_flops) instead of once, and the
+    Sbd term of every Wdot column."""
     N, NR = topo.njoints, topo.nr
     anc = topo.ancestor_mask()[:, topo.dof_joint()]   # [N, NR] ancestor pairs
     P = int(anc.sum())
     P2 = int((anc.sum(1) ** 2).sum())                 # (r, s) pairs per body
     cols = anc.sum(1)                                 # columns of each body
     frame_mul, frame_inv, adjoint, mat6 = 63, 18, 27, 66
-    q_local = sum(36 if t == 1 else (3 * (2 * d - 1) if d else 0)
-                  for t, d in zip(topo.jtype, topo.ndof))
+    qdep = [t in (5, 6, 8) for t in topo.jtype]
+    q_local = sum(qdep_joint_flops(t) if q else (36 if t == 1 else (3 * (2 * d - 1) if d else 0))
+                  for t, d, q in zip(topo.jtype, topo.ndof, qdep))
     fk = (q_local + sum(frame_mul * (2 if p < 0 else 3) for p in topo.parent)
           + NR * (adjoint + mat6)                      # W
           + N * (frame_inv + adjoint) + P * mat6 + P * 12   # J, phi
-          + NR * (adjoint + 30 + mat6)                 # Wdot
+          + NR * (adjoint + 30 + mat6 + (6 if any(qdep) else 0))  # Wdot (+ Sbd)
           + N * (frame_inv + adjoint) + P * (mat6 + 30 + 6))  # Jdot
     qdot = 6 * NR
     residual = 2 + 27 * NR + N * 99 + P * 36 + 2 * NR
     hessian = 3 + N * 90 + P * 2 * mat6 + P2 * 71 + 11 * NR
     gj = NR + 2 * NR * NR + 4 * NR * NR * (NR - 1)
-    static = N * (frame_inv + adjoint) + NR * mat6
+    static = sum((frame_inv + adjoint + d * mat6) for d, q in zip(topo.ndof, qdep) if not q)
     step = qdot + residual + (2 * NR + 1) + 2 * NR * NR + NR
     # ground_contact: R^T n once, then per corner the force (158) and, in the
     # Hessian, the K/D row blocks and their Gamma^T contraction (418 more)
@@ -275,9 +316,11 @@ def mpc_solver(sc, horizon, use_kernel=None):
 
 
 def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
-    """The batched MPC solve of bench.py:53-105 (scene = scene_chain) or of
-    benchmarks/bench_contact.py:44-105 (scene = chain_ground) on the port;
-    returns (kernel launches of the timed solves, solves/s, finite_frac)."""
+    """The batched MPC solve of bench.py:53-105 (scene = scene_chain), of
+    benchmarks/bench_contact.py:44-105 (scene = chain_ground),
+    bench_spring_ab.py:41-105 or qdep_ablation.py:68-102 (scene = uni6,
+    sph4) on the port; returns (kernel launches of the timed solves,
+    solves/s, finite_frac)."""
     sc = scene(nlinks).compile(dtype=torch.float32, device=device)
     solve, _ = mpc_solver(sc, horizon)
     p0, targets = bench_inputs(sc.topo.nr, B, device, torch.float32)
@@ -330,8 +373,19 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
         ev[3].record()
         torch.cuda.synchronize()
     split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    # the post-step reparam of the 49 inner steps, on the last state (with the
+    # autograd graph it builds inside a solve)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(horizon - 1):
+            model.reparam_all(sc.topo, params, s.q, s.qdot)
+        ev[1].record()
+        torch.cuda.synchronize()
     print(f"{name}, one solve by phase: bootstrap {split[0]:.3f} ms, {horizon - 1} inner steps "
-          f"(kernel route forward) {split[1]:.3f} ms, adjoint backward {split[2]:.3f} ms")
+          f"(kernel route forward) {split[1]:.3f} ms, adjoint backward {split[2]:.3f} ms; "
+          f"post-step reparam_all x {horizon - 1} (inside the inner steps) "
+          f"{ev[0].elapsed_time(ev[1]):.3f} ms")
 
     # The same solve on the op-level route, in float32 and in float64: the
     # objective agrees to rtol 1e-3 on at least 99% of the lanes finite in
@@ -986,6 +1040,183 @@ def phase_cable_path(device="cuda", B=1024, nsteps=50, reps=3):
     return launches, B * nsteps / dt, finite_frac
 
 
+# ---------------------------------------------------------------------------
+# The chord kernel with the q-dependent joints; the universal, spherical and
+# FREE3D paths
+# ---------------------------------------------------------------------------
+
+
+def uni6(n=6):
+    return scene_qdep_chain("universal", n)
+
+
+def sph4(n=4):
+    return scene_qdep_chain("spherical", n)
+
+
+def free3d(_n=1):
+    return scene_09_free3d()
+
+
+def exp_rotations(topo):
+    """[(DOF offset of the rotation)] of the scene's exp-map joints."""
+    return [topo.qstart[j] + (3 if t == 8 else 0) for j, t in enumerate(topo.jtype) if t in (6, 8)]
+
+
+def rotation_census(topo, x):
+    """Joint-lanes of the exp-map rotations at the predictor x, per branch of
+    so3_exp_S: Taylor (s < 0.04), just above (0.04 <= s < 0.05), the closed
+    form below 1.4 pi, near 1.5 pi (|w| >= 1.4 pi)."""
+    n = torch.cat([torch.linalg.vector_norm(x[:, o:o + 3].double(), dim=-1)
+                   for o in exp_rotations(topo)])
+    s = n * n
+    return {"taylor": int((s < 0.04).sum()), "just_above": int(((s >= 0.04) & (s < 0.05)).sum()),
+            "closed_form": int(((s >= 0.05) & (n < 1.4 * np.pi)).sum()),
+            "near_1.5pi": int((n >= 1.4 * np.pi).sum())}
+
+
+def seed_rotations(topo, h, states, lanes, seed):
+    """Set the exp-map rotations of the first `lanes` lanes (every joint) to
+    |w| cycling through the Taylor branch, just around s = 0.04 and around
+    1.5 pi, along seeded directions, turning at 0.1 rad/s (q0 = w - h v,
+    x0 = w + h v), so that the predictor stays in the seeded branch."""
+    rng = np.random.default_rng(seed)
+    norms = [0.0, 1e-4, 0.05, 0.15, 0.199, 0.2001, 0.21, 1.45 * np.pi, 1.5 * np.pi - 1e-3,
+             1.5 * np.pi + 1e-3, 1.55 * np.pi]
+    x0, q0, qd0, q1, qd1 = (a.clone() for a in states)
+    for o in exp_rotations(topo):
+        u, v = rng.normal(size=(lanes, 3)), 0.1 * rng.normal(size=(lanes, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        t = lambda a: torch.tensor(a, dtype=x0.dtype, device=x0.device)
+        w, v = t(u * np.resize(norms, lanes)[:, None]), t(v)
+        q1[:lanes, o:o + 3], q0[:lanes, o:o + 3], x0[:lanes, o:o + 3] = w, w - h * v, w + h * v
+        qd1[:lanes, o:o + 3], qd0[:lanes, o:o + 3] = v, v
+    return [x0, q0, qd0, q1, qd1]
+
+
+def phase_qdep_kernel_vs_plain(device="cuda"):
+    """The QDEP build against chord_bdf2_reference on the card (phase 14);
+    returns the kernel record fields of the three instantiations, by name."""
+    records = {}
+    cases = (("universal-6", uni6, 1024), ("universal-6", uni6, 1000),
+             ("spherical-4", sph4, 1024), ("free3d scene 9", free3d, 1024))
+    for label, scene, B in cases:
+        sc = scene().compile(dtype=torch.float32, device=device)
+        sc64 = scene().compile(dtype=torch.float64, device=device)
+        s0 = free3d_states0(sc, B, device, torch.float32) if scene is free3d else None
+        states, params, kept = rollout_states(sc, B, device, s0=s0)
+        if exp_rotations(sc.topo):
+            states = seed_rotations(sc.topo, float(sc.params["h"]), states, 64, seed=4)
+            census = rotation_census(sc.topo, states[0])
+            print(f"{label} B {B}: {kept}/{B} lanes from the rollout, 64 seeded; rotations at the "
+                  f"predictor per branch of so3_exp_S: {json.dumps(census)}")
+            if min(census.values()) == 0:
+                raise AssertionError(f"{label}: a branch of so3_exp_S is not driven: {census}")
+        else:
+            print(f"{label} B {B}: {kept}/{B} lanes from the rollout")
+        err, x = compare_kernel(sc, sc64, params, states, f"{label} B {B}")
+        if B != 1024:
+            continue
+        check_nan_lane(sc, params, states, x)
+        print(f"{label} B {B}: NaN lane kept, other lanes bit-equal")
+        records[label] = time_chord_kernel(sc, params, states, err, label)
+    return records
+
+
+def free3d_states0(sc, B, device, dtype, seed=3):
+    """The FREE3D path's lanes: scene 9's initial state with the rotation
+    drawn uniformly in the ball of radius 1.45 pi, qdot the scene's plus
+    0.5 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(B, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    q = np.tile(sc.state0.q.cpu().numpy(), (B, 1))
+    q[:, 3:6] = u * (1.45 * np.pi * rng.uniform(size=(B, 1)) ** (1.0 / 3.0))
+    qd = sc.state0.qdot.cpu().numpy()[None] + 0.5 * rng.normal(size=(B, sc.topo.nr))
+    return State(q=torch.tensor(q, dtype=dtype, device=device),
+                 qdot=torch.tensor(qd, dtype=dtype, device=device))
+
+
+def phase_free3d_path(device="cuda", B=1024, nsteps=50, reps=3):
+    """Scene 9's FREE3D rollout on the kernel route (phase 17); returns
+    (kernel launches of the timed rollouts, steps/s, finite_frac)."""
+    sc = free3d().compile(dtype=torch.float32, device=device)
+    s0 = integrators.bdf2_init(free3d_states0(sc, B, device, torch.float32))
+    step = integrators.make_bdf2_step_batched(sc.topo, (), CFG, use_kernel=True)
+    sim = integrators.make_simulate(step, nsteps)
+    final = sim(sc.params, s0)  # warm-up
+    torch.cuda.synchronize()
+    chord_kernel.chord_bdf2_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        final = sim(sc.params, s0)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    launches = chord_kernel.chord_bdf2_launches
+    dt = start.elapsed_time(end) / 1e3 / reps
+    if launches != (nsteps - 1) * reps:
+        raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} rollouts, "
+                             f"want {nsteps - 1} per rollout")
+    finite = torch.isfinite(final.q).all(-1) & torch.isfinite(final.qdot).all(-1)
+    finite_frac = float(finite.float().mean())
+    print(f"free3d path: {B * nsteps / dt:.1f} steps/s ({dt * 1e3:.3f} ms per {nsteps}-step "
+          f"rollout by CUDA events, {wall * 1e3:.3f} ms host clock), finite_frac "
+          f"{finite_frac:.4f}, kernel launches {launches // reps} per rollout")
+    if final.q.shape != (B, sc.topo.nr) or finite_frac < 0.95:
+        raise AssertionError(f"free3d path: shape {tuple(final.q.shape)}, "
+                             f"finite_frac {finite_frac}")
+
+    # where the rescale fired on the card: a step after which |w| fell by more
+    # than pi (from above 1.5 pi to 2 pi - |w|; a step moves |w| by about
+    # |omega| h otherwise, h = 0.05)
+    s, fired, nfired = step.bootstrap(sc.params, s0), None, 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(nsteps - 1):
+        n_prev = torch.linalg.vector_norm(s.q[:, 3:6], dim=-1)
+        s = step.inner(sc.params, s)
+        jump = n_prev - torch.linalg.vector_norm(s.q[:, 3:6], dim=-1) > np.pi
+        fired = jump if fired is None else fired | jump
+        nfired += int(jump.sum())
+    torch.cuda.synchronize()
+    print(f"free3d path: the exp-map rescale fired in {int(fired.sum())} of {B} lanes "
+          f"({nfired} lane-steps)")
+    if int(fired.sum()) == 0:
+        raise AssertionError("free3d path: the exp-map rescale never fired")
+    for _ in range(2):  # the first pass warms the allocator; the second is timed
+        torch.cuda.synchronize()
+        ev[0].record()
+        s = step.bootstrap(sc.params, s0)
+        ev[1].record()
+        for _ in range(nsteps - 1):
+            s = step.inner(sc.params, s)
+        ev[2].record()
+        torch.cuda.synchronize()
+    print(f"free3d path, one rollout by phase: bootstrap {ev[0].elapsed_time(ev[1]):.3f} ms, "
+          f"{nsteps - 1} inner steps (kernel route, reparam included) "
+          f"{ev[1].elapsed_time(ev[2]):.3f} ms")
+
+    chord_kernel.chord_bdf2_launches = 0
+    sc64 = free3d().compile(dtype=torch.float64, device=device)
+    sim64 = integrators.make_simulate(
+        integrators.make_bdf2_step_batched(sc64.topo, (), CFG, use_kernel=False), nsteps)
+    q64 = sim64(sc64.params, integrators.bdf2_init(free3d_states0(sc, B, device,
+                                                                  torch.float64))).q
+    torch.cuda.synchronize()
+    if chord_kernel.chord_bdf2_launches != 0:
+        raise AssertionError("op-level route launched the kernel")
+    err, both = lane_err(final.q, q64)
+    p50, _, p99, mx = quantiles(err)
+    within = float((err <= 1e-3).double().mean())
+    print(f"free3d path vs op-level f64: final q diff of scale median {p50:.3e}, p99 {p99:.3e}, "
+          f"max {mx:.3e}; {within:.4f} of {int(both.sum())} lanes within 1e-3")
+    if within < 0.95:
+        raise AssertionError("free3d path: kernel route and float64 op-level route disagree")
+    return launches, B * nsteps / dt, finite_frac
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda is not available")
@@ -998,15 +1229,17 @@ def main():
           f"triton {'importable' if importlib.util.find_spec('triton') else 'missing'}")
 
     t0 = time.perf_counter()
-    for mod in (chord_kernel, qp_kernel):  # one nvcc per source, side by side
-        mod.BUILD.start()
-    for mod in (chord_kernel, qp_kernel):
-        mod._build_lib()
+    builds = chord_kernel.BUILDS + (qp_kernel.BUILD,)
+    for build in builds:  # one nvcc per library, side by side
+        build.start()
+    chord_kernel._build_lib(qdep=False)
+    chord_kernel._build_lib(qdep=True)
+    qp_kernel._build_lib()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for mod in (chord_kernel, qp_kernel):
-        for line in mod.BUILD.ptxas_report.splitlines():
+    for build in builds:
+        for line in build.ptxas_report.splitlines():
             if "Compiling" in line or "registers" in line or "spill" in line:
-                print(f"ptxas {mod.BUILD.name}:", line.strip())
+                print(f"ptxas {build.name}:", line.strip())
 
     record = phase_kernel_vs_plain()
     launches, rate, finite_frac = phase_mpc_path("main path", scene_chain)
@@ -1023,6 +1256,12 @@ def main():
                                                                  scene_spring_chain)
     phase_small_reference("spring path", scene_spring_chain, nlinks=12)
     cable_launches, cable_rate, cable_finite = phase_cable_path()
+    qdep_records = phase_qdep_kernel_vs_plain()
+    uni_launches, uni_rate, uni_finite = phase_mpc_path("uni6 path", uni6, nlinks=6)
+    phase_small_reference("uni6 path", uni6, nlinks=6)
+    sph_launches, sph_rate, sph_finite = phase_mpc_path("sph4 path", sph4, nlinks=4)
+    phase_small_reference("sph4 path", sph4, nlinks=4)
+    free_launches, free_rate, free_finite = phase_free3d_path()
 
     kernels = [{
         "name": "chord_bdf2", "route": "cuda",
@@ -1048,6 +1287,24 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:561",
         "launches": cable_launches, **cable_record, "library_ms": None,
     }, {
+        # the QDEP build (K1b): universal-6 (6, 12), on the uni6 path
+        "name": "chord_bdf2[universal]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:907",
+        "launches": uni_launches, **qdep_records["universal-6"], "library_ms": None,
+    }, {
+        # the QDEP build: spherical-4 (4, 12), so3_exp_S, on the sph4 path
+        "name": "chord_bdf2[spherical]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:925",
+        "launches": sph_launches, **qdep_records["spherical-4"], "library_ms": None,
+    }, {
+        # the QDEP build: scene 9's FREE3D body (1, 6), on the FREE3D rollout
+        "name": "chord_bdf2[free3d]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:942",
+        "launches": free_launches, **qdep_records["free3d scene 9"], "library_ms": None,
+    }, {
         # library_ms: no single PyTorch call computes a dual-PGS solve
         "name": "dual_pgs", "route": "cuda",
         "source": "redmax_tpu_torch/csrc/dual_pgs.cu",
@@ -1065,6 +1322,12 @@ def main():
                                       "launches": spring_launches, "card": smi}}))
     print(json.dumps({"cable_path": {"steps_per_s": cable_rate, "finite_frac": cable_finite,
                                      "launches": cable_launches, "card": smi}}))
+    print(json.dumps({"uni6_path": {"solves_per_s": uni_rate, "finite_frac": uni_finite,
+                                    "launches": uni_launches, "card": smi}}))
+    print(json.dumps({"sph4_path": {"solves_per_s": sph_rate, "finite_frac": sph_finite,
+                                    "launches": sph_launches, "card": smi}}))
+    print(json.dumps({"free3d_path": {"steps_per_s": free_rate, "finite_frac": free_finite,
+                                      "launches": free_launches, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

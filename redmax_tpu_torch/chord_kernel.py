@@ -3,11 +3,15 @@ version, its build and its launch counter.
 
 The kernel (csrc/chord_bdf2.cu, per-lane body in csrc/chord_bdf2_lane.cuh)
 replaces redmax_tpu/pallas_step.py::_build_kernel of the JAX package, on its
-K1a, K1c, K1d and K1e branches: constant-S joints; penalty ground contact
-(ForceGroundCuboid, pallas_step._ground_contact); two-point springs
-(ForcePointPoint, ForceSpringDamper with tension_only, _spring_force) and
-tension-only cables (ForceCable, _cable_force); unguarded chord, shared
-physical params. Per lane it runs FK with the world-column J and Jdot, the
+K1a, K1b, K1c, K1d and K1e branches: constant-S joints and the q-dependent
+UNIVERSAL, exp-map SPHERICAL and FREE3D joints (S and Sdot per lane,
+pallas_step._so3_exp_S); penalty ground contact (ForceGroundCuboid,
+pallas_step._ground_contact); two-point springs (ForcePointPoint,
+ForceSpringDamper with tension_only, _spring_force) and tension-only cables
+(ForceCable, _cable_force); unguarded chord, shared physical params. The
+exp-map rescale after each step runs outside the kernel
+(model.reparam_all), as in the JAX package. FREE2D stays off the kernel (op
+level only). Per lane it runs FK with the world-column J and Jdot, the
 joint and maximal forces with the closures' wrenches, the BDF2 residual, the
 structured Newton matrix H = M + cK K~ + cD D~ with the closures'
 closed-form K/D blocks (per contact body, and per pair of spring or cable
@@ -27,11 +31,14 @@ the 132 SMs), and the per-lane J, Jdot, H and Gauss-Jordan rows (a few
 thousand floats) live in local memory rather than registers. A warp per lane
 or a thread per (lane, column) with shared memory is the next design.
 
-The closure code is compiled in only where a scene has that kind of closure
-(a template bitmask: contacts, springs, cables), and only the (N, nr,
-closures) combinations the paths run are instantiated (INSTANTIATED): a
-scene that mixes ground contacts with springs or cables runs on the CPU
-(the plain version) but raises on the card.
+The closure code is compiled in only where a scene has that kind of closure,
+and the q-dependent joint code only where a scene has such a joint (a
+template bitmask: contacts, springs, cables, QDEP), and only the (N, nr,
+kinds) combinations the paths run are instantiated (INSTANTIATED), in two
+libraries built side by side (BUILD without QDEP, BUILD_QDEP with it): a
+scene that mixes ground contacts with springs or cables, or a q-dependent
+joint with a closure, runs on the CPU (the plain version) but raises on the
+card.
 
 On a CUDA tensor chord_bdf2 launches the kernel (and raises if it cannot);
 on a CPU tensor it runs chord_bdf2_reference.
@@ -53,12 +60,20 @@ from redmax_tpu_torch.types import JointType, Topology
 # Launches of the CUDA kernel since the counter was last set to 0.
 chord_bdf2_launches = 0
 
-BUILD = KernelBuild("chord_bdf2", ("chord_bdf2.cu", "chord_bdf2_lane.cuh"))
-# The closure kinds a build compiles in (the FEAT template bitmask of
-# chord_bdf2.cu) and the (N, nr, kinds) with an explicit instantiation there.
-CONTACTS, SPRINGS, CABLES = 1, 2, 4
+_SOURCES = ("chord_bdf2.cu", "chord_bdf2_lane.cuh")
+BUILD = KernelBuild("chord_bdf2", _SOURCES)
+BUILD_QDEP = KernelBuild("chord_bdf2_qdep", _SOURCES, defines=("-DCHORD_QDEP_UNIT",))
+BUILDS = (BUILD, BUILD_QDEP)
+# The kinds a build compiles in (the FEAT template bitmask of chord_bdf2.cu:
+# closure kinds and the q-dependent joints) and the (N, nr, kinds) with an
+# explicit instantiation there.
+CONTACTS, SPRINGS, CABLES, QDEP = 1, 2, 4, 8
 INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
-                (12, 12, SPRINGS), (4, 3, CABLES))
+                (12, 12, SPRINGS), (4, 3, CABLES),
+                (6, 12, QDEP), (4, 12, QDEP), (1, 6, QDEP))
+# Joint types the kernel covers: FREE2D has no branch there (op level only).
+QDEP_KERNEL_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D)
+KERNEL_TYPES = CONSTANT_S_TYPES + QDEP_KERNEL_TYPES
 MAX_CABLE_POINTS = 8  # kMaxCablePoints of chord_bdf2_lane.cuh
 _CLOSURES = (ForceGroundCuboid, ForcePointPoint, ForceSpringDamper, ForceCable)
 
@@ -80,12 +95,12 @@ class Closures(NamedTuple):
 
 def supports(topo: Topology, force_fns: Tuple, cfg) -> bool:
     """True when the kernel's function covers this scene's inner step
-    exactly: ground contacts, springs and cables, constant-S joints, the
-    unguarded chord config. (On the card, only INSTANTIATED combinations
-    launch; the others raise.)"""
+    exactly: ground contacts, springs and cables, constant-S, UNIVERSAL,
+    SPHERICAL and FREE3D joints, the unguarded chord config. (On the card,
+    only INSTANTIATED combinations launch; the others raise.)"""
     return (
         all(type(fn) in _CLOSURES for fn in force_fns)
-        and all(JointType(t) in CONSTANT_S_TYPES for t in topo.jtype)
+        and all(JointType(t) in KERNEL_TYPES for t in topo.jtype)
         and cfg.fixed_iters > 0 and cfg.chord
         and not cfg.guarded and not cfg.guard_last
         and cfg.hessian == "structured" and cfg.linsolve == "gj"
@@ -110,14 +125,26 @@ def chord_bdf2_reference(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1
     return x, info["factor"]
 
 
-def _build_lib():
-    """The kernel library, compiled with nvcc at first use (see kernel_build).
-    Raises when nvcc is missing or the build fails."""
-    first = BUILD.lib is None
-    lib = BUILD.load()
+def has_qdep(topo: Topology) -> bool:
+    """True when a joint of the scene has a q-dependent S (the QDEP build)."""
+    return any(JointType(t) in QDEP_KERNEL_TYPES for t in topo.jtype)
+
+
+def kinds_of(topo: Topology, counts: Closures) -> int:
+    """The FEAT bitmask of the build that runs this scene."""
+    return counts.kinds | (QDEP if has_qdep(topo) else 0)
+
+
+def _build_lib(qdep: bool = False):
+    """The kernel library without (qdep False) or with the q-dependent joints,
+    compiled with nvcc at first use (see kernel_build). Raises when nvcc is
+    missing or the build fails."""
+    build = BUILD_QDEP if qdep else BUILD
+    first = build.lib is None
+    lib = build.load()
     if first:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.chord_bdf2_launch.argtypes = ([i] * 7 + [p] * 6 + [p, p] + [i, fl, fl, fl]
+        lib.chord_bdf2_launch.argtypes = ([i] * 8 + [p] * 6 + [p, p] + [i, fl, fl, fl]
                                           + [p, p, p])
         lib.chord_bdf2_launch.restype = i
     return lib
@@ -220,7 +247,7 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
     All state args are [B, nr]; params["tau"] may be [B, nr] or [nr]; every
     other param is lane-shared. force_fns are the scene's force closures
     (ground contacts, springs, cables). A CUDA tensor goes to the kernel
-    (f32, an instantiated (N, nr, closure kinds), a scene the kernel covers,
+    (f32, an instantiated (N, nr, kinds), a scene the kernel covers,
     else it raises; the wrapper makes the contiguous [nr, B] copies the
     kernel reads); a CPU tensor goes to chord_bdf2_reference.
     """
@@ -232,9 +259,9 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
     if not supports(topo, force_fns, cfg):
         raise ValueError("chord_bdf2: scene/config not covered by the kernel")
     N, nr = topo.njoints, topo.nr
-    kinds = counts_of(closure_spec(topo, force_fns)).kinds
+    kinds = kinds_of(topo, counts_of(closure_spec(topo, force_fns)))
     if (N, nr, kinds) not in INSTANTIATED:
-        raise ValueError(f"chord_bdf2: no kernel instantiation for (N, nr, closure kinds) = "
+        raise ValueError(f"chord_bdf2: no kernel instantiation for (N, nr, kinds) = "
                          f"{(N, nr, kinds)}")
     B = x0.shape[0]
     tau = params["tau"]
@@ -284,14 +311,15 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
     returns (x [nr, B], Hinv [nr*nr, B]) and counts the launch."""
     global chord_bdf2_launches
     check_buffers(topo, topo_i, stat_f, counts)
-    lib = _build_lib()
+    qdep = has_qdep(topo)
+    lib = _build_lib(qdep)
     nr, B = x0.shape
     x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
     h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     err = lib.chord_bdf2_launch(
-        topo.njoints, nr, *counts, B, *(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau)),
-        topo_i.data_ptr(), stat_f.data_ptr(),
+        topo.njoints, nr, int(qdep), *counts, B,
+        *(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau)), topo_i.data_ptr(), stat_f.data_ptr(),
         cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
         x_out.data_ptr(), h_out.data_ptr(), stream,
     )

@@ -1,9 +1,11 @@
 // Fused BDF2 chord-Newton solve for Hopper (sm_90a), one thread per lane.
-// Replaces redmax_tpu/pallas_step.py::_build_kernel (its K1a, K1c, K1d and
-// K1e branches: constant-S joints; penalty ground contact, two-point springs
-// and cables); the lane arithmetic is in chord_bdf2_lane.cuh. Built with nvcc
-// into a shared library with a plain C interface and loaded with ctypes
-// (chord_kernel.py).
+// Replaces redmax_tpu/pallas_step.py::_build_kernel (its K1a, K1b, K1c, K1d
+// and K1e branches: constant-S and q-dependent joints; penalty ground contact,
+// two-point springs and cables); the lane arithmetic is in
+// chord_bdf2_lane.cuh. Built with nvcc into a shared library with a plain C
+// interface and loaded with ctypes (chord_kernel.py): once as it stands (the
+// builds without the q-dependent joints) and once with -DCHORD_QDEP_UNIT (the
+// builds with them), two translation units that compile side by side.
 #include <cuda_runtime.h>
 
 #include "chord_bdf2_lane.cuh"
@@ -39,39 +41,47 @@ cudaError_t launch_kernel(int B, const float* x0, const float* q0, const float* 
 
 }  // namespace
 
-// Returns a cudaError_t (0 = launched), or -1 for an (N, NR, closure kinds)
-// without an instantiation. The counts are those topo_i holds; the kinds
-// present (a contact, a spring, a cable) pick the build, so a scene without
-// closures runs the build compiled without any closure code. Every pointer
+// Returns a cudaError_t (0 = launched), or -1 for an (N, NR, kinds) without an
+// instantiation in this unit. The counts are those topo_i holds; the kinds
+// present (a contact, a spring, a cable, a q-dependent joint: qdep != 0) pick
+// the build, so a scene without closures runs the build compiled without any
+// closure code. Every pointer
 // is device memory; the state buffers are struct-of-arrays [NR, B]; topo_i
 // and stat_f end with the closures (layouts in chord_bdf2_lane.cuh).
 // ncable_points only completes the counts: the kernel reads each cable's
 // points from topo_i.
-extern "C" int chord_bdf2_launch(int N, int NR, int ncontacts, int nsprings, int ncables,
-                                 int ncable_points, int B, const float* x0, const float* q0,
+extern "C" int chord_bdf2_launch(int N, int NR, int qdep, int ncontacts, int nsprings,
+                                 int ncables, int ncable_points, int B, const float* x0, const float* q0,
                                  const float* qd0, const float* q1, const float* qd1,
                                  const float* tau, const int* topo_i, const float* stat_f,
                                  int fixed_iters, float growth_reject, float tol_reject,
                                  float dx_clamp, float* x_out, float* hinv_out, void* stream) {
   using chord::kCables;
   using chord::kContacts;
+  using chord::kQdep;
   using chord::kSprings;
   (void)ncable_points;
   const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
   const int feat = (ncontacts > 0 ? kContacts : 0) | (nsprings > 0 ? kSprings : 0) |
-                   (ncables > 0 ? kCables : 0);
+                   (ncables > 0 ? kCables : 0) | (qdep != 0 ? kQdep : 0);
 #define CHORD_LAUNCH(n, nr, f)                                                                \
   if (N == n && NR == nr && feat == f)                                                        \
     return launch_kernel<n, nr, f>(B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg, x_out, \
                                    hinv_out, s);
+#ifdef CHORD_QDEP_UNIT
+  CHORD_LAUNCH(6, 12, kQdep)
+  CHORD_LAUNCH(4, 12, kQdep)
+  CHORD_LAUNCH(1, 6, kQdep)
+#else
   CHORD_LAUNCH(12, 12, 0)
   CHORD_LAUNCH(12, 12, kContacts)
   CHORD_LAUNCH(4, 4, 0)
   CHORD_LAUNCH(4, 4, kContacts)
   CHORD_LAUNCH(12, 12, kSprings)
   CHORD_LAUNCH(4, 3, kCables)
+#endif
 #undef CHORD_LAUNCH
   return -1;
 }

@@ -1,11 +1,12 @@
-// Per-lane body of the fused BDF2 chord-Newton solve (K1a + K1c + K1d + K1e:
-// constant-S joints; penalty ground contact on cuboid corners, two-point
-// springs and multi-point tension-only cables as force closures; unguarded
-// chord, lane-shared physical params).
+// Per-lane body of the fused BDF2 chord-Newton solve (K1a + K1b + K1c + K1d +
+// K1e: constant-S joints and the q-dependent UNIVERSAL, exp-map SPHERICAL and
+// FREE3D joints; penalty ground contact on cuboid corners, two-point springs
+// and multi-point tension-only cables as force closures; unguarded chord,
+// lane-shared physical params).
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
-// (its fk_and_J / joint_forces / maximal_forces / _ground_contact /
-// _spring_force / _point_pair_blocks / _cable_force / residual / hessian /
+// (its fk_and_J / _so3_exp_S / joint_forces / maximal_forces / _ground_contact
+// / _spring_force / _point_pair_blocks / _cable_force / residual / hessian /
 // add_pair / gj_inverse / chord loop), one lane at a time. Functions are
 // __host__ __device__ so g++ can compile the same body for a CPU check; the
 // macros are defined empty when __CUDACC__ is absent.
@@ -17,6 +18,7 @@
 //                   spring: kind (0 point-point, 1 spring-damper) b1 b2 tension
 //                   cable: P bodies[P]
 //   stat_f          E0_pj[16N] E0_ji[16N] I_i[6N] axes[9N] jsf[7*NR] bd[N] g[3] h
+//                   (axes rows are zero for the q-dependent joints)
 //                   cp[13*C]: per contact sides[3] kn kt kd mu xg[3] ng[3]
 //                   sp[9*S]: per spring xl1[3] xl2[3] k d L (L = 0 for point-point)
 //                   cb: per cable xls[3P] k d L
@@ -24,9 +26,9 @@
 // C ground contacts, contact c on body cbody[c] against the plane through xg
 // with normal ng; S springs and NCAB cables of NPTS points in all (body -1: a
 // world point, its xl in world coordinates). The template bitmask FEAT
-// compiles in the code of each closure kind (kContacts, kSprings, kCables)
-// only where a scene has it: closure loops that run no iteration still cost
-// the constant-S solve registers and time.
+// compiles in the code of each closure kind (kContacts, kSprings, kCables) and
+// of the q-dependent joints (kQdep) only where a scene has it: closure loops
+// that run no iteration still cost the constant-S solve registers and time.
 #pragma once
 
 #ifndef __CUDACC__
@@ -41,10 +43,14 @@ namespace chord {
 
 #define CHORD_HD __host__ __device__ __forceinline__
 
-enum JointKind { FIXED = 0, REVOLUTE = 1, PRISMATIC = 2, PLANAR = 3, TRANSLATIONAL = 4 };
+enum JointKind {
+  FIXED = 0, REVOLUTE = 1, PRISMATIC = 2, PLANAR = 3, TRANSLATIONAL = 4,
+  UNIVERSAL = 5, SPHERICAL = 6, FREE3D = 8
+};
 
-// Closure kinds of the FEAT bitmask, and the longest cable a lane holds.
-constexpr int kContacts = 1, kSprings = 2, kCables = 4, kAllClosures = 7;
+// Closure kinds and the q-dependent joints (kQdep) of the FEAT bitmask, and
+// the longest cable a lane holds.
+constexpr int kContacts = 1, kSprings = 2, kCables = 4, kAllClosures = 7, kQdep = 8;
 constexpr int kMaxCablePoints = 8;
 
 struct Frame {
@@ -335,11 +341,21 @@ struct Kin {
   float phi[N][6];
 };
 
+CHORD_HD bool is_qdep(int jt) { return jt == UNIVERSAL || jt == SPHERICAL || jt == FREE3D; }
+
 // Body-frame motion subspace columns Sb[r] = Ad(inv(E0_ji)) S_j[:, d]
-// (constant for these joint types).
-template <int N, int NR>
+// (constant for these joint types). The QDEP build leaves the q-dependent
+// joints' columns zero: fk_and_J fills them per iterate.
+template <int N, int NR, bool QDEP = false>
 CHORD_HD void static_subspace(const Shared<N, NR>& sh, float Sb[NR][6]) {
   for (int j = 0; j < N; ++j) {
+    if constexpr (QDEP) {
+      if (is_qdep(sh.jtype[j])) {
+        for (int r = sh.doffs[j]; r < sh.doffs[j + 1]; ++r)
+          for (int k = 0; k < 6; ++k) Sb[r][k] = 0.0f;
+        continue;
+      }
+    }
     Frame E0, E0inv;
     float A0[6][6];
     frame_from_E(sh.E0ji + 16 * j, E0);
@@ -358,9 +374,116 @@ CHORD_HD void static_subspace(const Shared<N, NR>& sh, float Sb[NR][6]) {
   }
 }
 
+// R = exp(hat(w)), the exp-map subspace S = Jr(w) (the SO(3) right Jacobian)
+// and Sd = (dS/dw) wd, per lane (pallas_step._so3_exp_S; JointSphericalExp.m
+// :49-91). With s = |w|^2, W = hat(w), t = sqrt(s):
+//   R = I + c1 W + a W^2,   S = I - a W + b W^2,
+//   Sd = -a' sd W - a Wd + b' sd W^2 + b (Wd W + W Wd),   sd = 2 w.wd,
+// c1 = sin t / t, a = (1 - cos t)/s, b = (t - sin t)/(s t), a' = da/ds,
+// b' = db/ds: even in t, each with its Taylor branch below s = 0.04. s is
+// clamped at 1e-12 by a compare that keeps NaN (fmaxf would not).
+CHORD_HD void so3_exp_S(const float* w, const float* wd, float R[3][3], float S[3][3],
+                        float Sd[3][3]) {
+  const float s = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+  const float sg = s < 1e-12f ? 1e-12f : s;
+  const float th = sqrtf(sg);
+  const float sn = sinf(th), cs = cosf(th);
+  const bool small = s < 0.04f;
+  const float c1 = small ? 1.0f - s / 6.0f + s * s / 120.0f : sn / th;
+  const float a = small ? 0.5f - s / 24.0f + s * s / 720.0f : (1.0f - cs) / sg;
+  const float b = small ? 1.0f / 6.0f - s / 120.0f + s * s / 5040.0f : (th - sn) / (sg * th);
+  const float ap = small ? -1.0f / 24.0f + s / 360.0f - s * s / 13440.0f
+                         : (th * sn * 0.5f - (1.0f - cs)) / (sg * sg);
+  const float bp = small ? -1.0f / 120.0f + s / 2520.0f - s * s / 120960.0f
+                         : ((1.0f - cs) * th - 3.0f * (th - sn)) / (2.0f * sg * sg * th);
+  const float sd = 2.0f * (w[0] * wd[0] + w[1] * wd[1] + w[2] * wd[2]);
+  float W[3][3], Wd[3][3];
+  hat(w, W);
+  hat(wd, Wd);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      const float eye = i == j ? 1.0f : 0.0f;
+      const float W2 = w[i] * w[j] - (i == j ? s : 0.0f);
+      float WdW = 0.0f, WWd = 0.0f;
+      for (int k = 0; k < 3; ++k) {
+        WdW = WdW + Wd[i][k] * W[k][j];
+        WWd = WWd + W[i][k] * Wd[k][j];
+      }
+      R[i][j] = eye + c1 * W[i][j] + a * W2;
+      S[i][j] = eye - a * W[i][j] + b * W2;
+      Sd[i][j] = -ap * sd * W[i][j] - a * Wd[i][j] + bp * sd * W2 + b * (WdW + WWd);
+    }
+}
+
+// One body-frame column and its time derivative: Sb = A0 col, Sbd = A0 dcol.
+CHORD_HD void put_column(const float A0[6][6], const float* col, const float* dcol, float* Sb,
+                         float* Sbd) {
+  mat6_vec(A0, col, Sb);
+  mat6_vec(A0, dcol, Sbd);
+}
+
+// Q and the per-lane columns Sb, Sbd of a q-dependent joint j at (x, qd)
+// (pallas_step fk_and_J, :907-967):
+//   UNIVERSAL  R = Rx(q0) Ry(q1); S = [c1, 0, s1; 0], [ey; 0]; only column 0
+//              moves, Sdot = [-s1, 0, c1; 0] qd1;
+//   SPHERICAL  R, S, Sdot of so3_exp_S;
+//   FREE3D     p = q[0:3], R of r = q[3:6]; translation columns [0; R^T e_d]
+//              with Sdot = [0; -hat(omega_b) R^T e_d], omega_b = Jr rdot;
+//              rotation columns those of SPHERICAL.
 template <int N, int NR>
-CHORD_HD void fk_and_J(const Shared<N, NR>& sh, const float Sb[NR][6], const float* x,
-                       const float* qd, Kin<N, NR>& K) {
+CHORD_HD void qdep_joint(const Shared<N, NR>& sh, int j, const float* x, const float* qd,
+                         Frame& Q, float Sb[NR][6], float Sbd[NR][6]) {
+  const int o = sh.doffs[j];
+  const int jt = sh.jtype[j];
+  Frame E0, E0inv;
+  float A0[6][6];
+  frame_from_E(sh.E0ji + 16 * j, E0);
+  frame_inv(E0, E0inv);
+  adjoint(E0inv, A0);
+  if (jt == UNIVERSAL) {
+    const float c0 = cosf(x[o]), s0 = sinf(x[o]);
+    const float c1 = cosf(x[o + 1]), s1 = sinf(x[o + 1]);
+    const float R[3][3] = {{c1, 0.0f, s1}, {s0 * s1, c0, -s0 * c1}, {-c0 * s1, s0, c0 * c1}};
+    for (int a = 0; a < 3; ++a)
+      for (int b = 0; b < 3; ++b) Q.R[a][b] = R[a][b];
+    const float qd1 = qd[o + 1];
+    const float col0[6] = {c1, 0.0f, s1, 0.0f, 0.0f, 0.0f};
+    const float dcol0[6] = {-s1 * qd1, 0.0f, c1 * qd1, 0.0f, 0.0f, 0.0f};
+    const float col1[6] = {0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const float zero[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    put_column(A0, col0, dcol0, Sb[o], Sbd[o]);
+    put_column(A0, col1, zero, Sb[o + 1], Sbd[o + 1]);
+    return;
+  }
+  const int ro = jt == FREE3D ? o + 3 : o;  // the rotation's DOFs
+  float S3[3][3], S3d[3][3];
+  so3_exp_S(x + ro, qd + ro, Q.R, S3, S3d);
+  for (int d = 0; d < 3; ++d) {
+    const float col[6] = {S3[0][d], S3[1][d], S3[2][d], 0.0f, 0.0f, 0.0f};
+    const float dcol[6] = {S3d[0][d], S3d[1][d], S3d[2][d], 0.0f, 0.0f, 0.0f};
+    put_column(A0, col, dcol, Sb[ro + d], Sbd[ro + d]);
+  }
+  if (jt == FREE3D) {
+    float om[3], Rte[3], omxR[3];
+    for (int i = 0; i < 3; ++i)
+      om[i] = S3[i][0] * qd[ro] + S3[i][1] * qd[ro + 1] + S3[i][2] * qd[ro + 2];
+    for (int d = 0; d < 3; ++d) {
+      for (int i = 0; i < 3; ++i) Rte[i] = Q.R[d][i];  // R^T e_d
+      cross3(om, Rte, omxR);
+      const float col[6] = {0.0f, 0.0f, 0.0f, Rte[0], Rte[1], Rte[2]};
+      const float dcol[6] = {0.0f, 0.0f, 0.0f, -omxR[0], -omxR[1], -omxR[2]};
+      put_column(A0, col, dcol, Sb[o + d], Sbd[o + d]);
+      Q.p[d] = x[o + d];
+    }
+  }
+}
+
+// FK, the world-column J and Jdot and the body twists at (x, qd). The QDEP
+// build fills the q-dependent joints' columns Sb and their derivatives Sbd
+// per iterate (Sbd is zero on the constant-S columns and unused elsewhere).
+template <int N, int NR, bool QDEP = false>
+CHORD_HD void fk_and_J(const Shared<N, NR>& sh, float Sb[NR][6], float (*Sbd)[6],
+                       const float* x, const float* qd, Kin<N, NR>& K) {
   Frame Ewj[N];
   for (int j = 0; j < N; ++j) {
     Frame Q, E0, Epj;
@@ -390,6 +513,9 @@ CHORD_HD void fk_and_J(const Shared<N, NR>& sh, const float Sb[NR][6], const flo
         for (int d = 1; d < nd; ++d) acc = acc + sh.axis(j, k, d) * x[o + d];
         Q.p[k] = acc;
       }
+    }
+    if constexpr (QDEP) {
+      if (is_qdep(jt)) qdep_joint<N, NR>(sh, j, x, qd, Q, Sb, Sbd);
     }
     frame_from_E(sh.E0pj + 16 * j, E0);
     frame_mul(E0, Q, Epj);
@@ -422,12 +548,14 @@ CHORD_HD void fk_and_J(const Shared<N, NR>& sh, const float Sb[NR][6], const flo
       K.phi[i][k] = acc;
     }
   }
-  // Wdot[r] = Ad(E_wi[a]) ad(phi_a) Sb[r]  (Sbdot = 0 for these types)
+  // Wdot[r] = Ad(E_wi[a]) (ad(phi_a) Sb[r] + Sbd[r])  (Sbd = 0 without QDEP)
   float Wd[NR][6];
   for (int r = 0; r < NR; ++r) {
     float Awb[6][6], inner[6];
     adjoint(K.Ew[sh.dofj[r]], Awb);
     ad_vec(K.phi[sh.dofj[r]], Sb[r], inner);
+    if constexpr (QDEP)
+      for (int k = 0; k < 6; ++k) inner[k] = inner[k] + Sbd[r][k];
     mat6_vec(Awb, inner, Wd[r]);
   }
   // Jdot[i][r] = Ad(inv(E_wi[i])) Wdot[r] - ad(phi_i) J[i][r]
@@ -906,6 +1034,7 @@ CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0
                               const float* qd0s, const float* q1s, const float* qd1s,
                               const float* taus, const int* topo_i, const float* stat_f,
                               ChordConfig cfg, float* x_out, float* hinv_out) {
+  constexpr bool QDEP = (FEAT & kQdep) != 0;
   const Shared<N, NR> sh(topo_i, stat_f);
   History<NR> hs;
   float x[NR], qd[NR], g[NR];
@@ -918,21 +1047,25 @@ CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0
     hs.tau[r] = taus[r * B + lane];
   }
   float Sb[NR][6];
-  static_subspace<N, NR>(sh, Sb);
+  static_subspace<N, NR, QDEP>(sh, Sb);
+  float Sbd[QDEP ? NR : 1][6];
+  if constexpr (QDEP)
+    for (int r = 0; r < NR; ++r)
+      for (int k = 0; k < 6; ++k) Sbd[r][k] = 0.0f;
 
   Kin<N, NR> K;
   float Hinv[NR][NR];
   {
     float H[NR][NR];
     qdot_of<NR>(hs, sh.h, x, qd);
-    fk_and_J<N, NR>(sh, Sb, x, qd, K);
+    fk_and_J<N, NR, QDEP>(sh, Sb, Sbd, x, qd, K);
     hessian<N, NR, FEAT>(sh, x, K, H);
     gj_inverse<NR>(H, Hinv);
   }
   float g0n = 0.0f, gln = 0.0f;
   for (int it = 0; it < cfg.fixed_iters; ++it) {
     qdot_of<NR>(hs, sh.h, x, qd);
-    if (it > 0) fk_and_J<N, NR>(sh, Sb, x, qd, K);  // iteration 0 reuses the predictor's
+    if (it > 0) fk_and_J<N, NR, QDEP>(sh, Sb, Sbd, x, qd, K);  // iteration 0: the predictor's
     residual<N, NR, FEAT>(sh, hs, x, qd, K, g);
     float gg = 0.0f;
     for (int r = 0; r < NR; ++r) gg = gg + g[r] * g[r];

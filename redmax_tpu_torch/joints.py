@@ -1,11 +1,20 @@
-"""Per-joint-type kernels for the constant-S joint types.
+"""Per-joint-type kernels, batch-first over [..., G, d].
 
-FIXED, REVOLUTE, PRISMATIC, PLANAR and TRANSLATIONAL have a motion subspace
-S that is constant in the joint frame, so Sdot = 0. Each type is given by its
-local transform Q(q) (child-joint frame wrt parent-joint frame) in closed
-form and its constant S. The q-dependent types (universal, spherical, free,
-spline, composite) are ROADMAP queue 1 item 11.
+Each type is given by its local transform Q(q) (child-joint frame wrt
+parent-joint frame), its motion subspace S(q) and Sdot = (dS/dq) qdot, all in
+closed form. FIXED, REVOLUTE, PRISMATIC, PLANAR and TRANSLATIONAL have a
+constant S (Sdot = 0). UNIVERSAL (R = Rx(q0) Ry(q1)), SPHERICAL (exp-map ball
+joint, R = exp(hat(q)), S = [Jr(q); 0] with Jr the SO(3) right Jacobian),
+FREE3D (translation q[0:3] then an exp-map ball joint q[3:6]) and FREE2D
+(planar x, y, theta) have an S that moves with q. The JAX package takes
+jax.jvp of S for their Sdot; here it is written out, each coefficient with
+the Taylor branch of the function it differentiates, so both agree to
+roundoff. SPHERICAL and FREE3D carry the post-step exp-map rescale
+(joint_reparam). FREE_ST, COMPOSITE_RP, the Euler-chart types and the
+spline joints are ROADMAP queue 1 item 11.
 """
+
+import math
 
 import torch
 
@@ -19,13 +28,18 @@ CONSTANT_S_TYPES = (
     JointType.PLANAR,
     JointType.TRANSLATIONAL,
 )
+# S(q) in closed form, per lane; FREE2D has no kernel branch (op level only).
+QDEP_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D, JointType.FREE2D)
+SUPPORTED_TYPES = CONSTANT_S_TYPES + QDEP_TYPES
+# Exp-map rotation DOFs of the joints with a post-step rescale: q[slice].
+EXP_ROTATION = {JointType.SPHERICAL: slice(0, 3), JointType.FREE3D: slice(3, 6)}
 
 
 def require_supported(jt: JointType) -> None:
-    if jt not in CONSTANT_S_TYPES:
+    if jt not in SUPPORTED_TYPES:
         raise NotImplementedError(
-            f"joint type {jt.name}: only the constant-S types are ported "
-            "(the q-dependent types are ROADMAP queue 1 item 11)"
+            f"joint type {jt.name} is not ported yet (FREE_ST, COMPOSITE_RP, the "
+            "Euler-chart and the spline joints are ROADMAP queue 1 item 11)"
         )
 
 
@@ -40,6 +54,10 @@ def _translation_E(p):
     return se3.make_E(I3, p)
 
 
+def _rotation_E(R):
+    return se3.make_E(R, torch.zeros(*R.shape[:-2], 3, dtype=R.dtype, device=R.device))
+
+
 def _Q_revolute(q, axis):
     """Rotation about the unit axis by q: R = c I + (1 - c) a a^T + s hat(a).
 
@@ -51,17 +69,172 @@ def _Q_revolute(q, axis):
     s = torch.sin(th)[..., None, None]
     aaT = axis[:, :, None] * axis[:, None, :]
     I3 = torch.eye(3, dtype=q.dtype, device=q.device)
-    R = c * I3 + (1.0 - c) * aaT + s * se3.hat3(axis)
-    return se3.make_E(R, torch.zeros(*R.shape[:-2], 3, dtype=q.dtype, device=q.device))
+    return _rotation_E(c * I3 + (1.0 - c) * aaT + s * se3.hat3(axis))
+
+
+def _cols(*cols):
+    """Columns [..., 6] -> S [..., 6, d]."""
+    return torch.stack(cols, dim=-1)
+
+
+def _sqrt_clamped(s):
+    """(sg, sqrt(sg)) with sg = max(s, 1e-12): the closed forms' argument."""
+    sg = torch.clamp(s, min=1e-12)
+    return sg, torch.sqrt(sg)
+
+
+def so3_right_jacobian(r):
+    """Jr(r) = I - a(s) W + b(s) W^2 [..., 3, 3], s = |r|^2, W = hat(r),
+    a = (1 - cos t)/t^2, b = (t - sin t)/t^3 (t = |r|), Taylor below s = 0.04:
+    the exp-map S (redmax_tpu/joints.py::so3_right_jacobian)."""
+    return _right_jacobian_and_dot(r, None)[0]
+
+
+def _right_jacobian_and_dot(r, rd):
+    """(Jr(r), dJr/dr . rd) [..., 3, 3]; the second is None without rd. The
+    derivative differentiates each branch of a and b: the closed forms'
+    a' = (t sin t / 2 - (1 - cos t)) / s^2,
+    b' = ((1 - cos t) t - 3 (t - sin t)) / (2 s^2 t) above s = 0.04, the
+    Taylor polynomials' own derivatives below (jax.jvp of the JAX S)."""
+    s = (r * r).sum(-1)
+    sg, th = _sqrt_clamped(s)
+    small = s < 0.04
+    sn, cs = torch.sin(th), torch.cos(th)
+    a = torch.where(small, 0.5 - s / 24.0 + s * s / 720.0, (1.0 - cs) / sg)
+    b = torch.where(small, 1.0 / 6.0 - s / 120.0 + s * s / 5040.0, (th - sn) / (sg * th))
+    W = se3.hat3(r)
+    W2 = W @ W
+    I3 = torch.eye(3, dtype=r.dtype, device=r.device)
+    Jr = I3 - a[..., None, None] * W + b[..., None, None] * W2
+    if rd is None:
+        return Jr, None
+    ap = torch.where(small, -1.0 / 24.0 + s / 360.0,
+                     (0.5 * th * sn - (1.0 - cs)) / (sg * sg))
+    bp = torch.where(small, -1.0 / 120.0 + s / 2520.0,
+                     ((1.0 - cs) * th - 3.0 * (th - sn)) / (2.0 * sg * sg * th))
+    sd = (2.0 * (r * rd).sum(-1))[..., None, None]
+    Wd = se3.hat3(rd)
+    dJr = (-(ap[..., None, None] * sd) * W - a[..., None, None] * Wd
+           + (bp[..., None, None] * sd) * W2 + b[..., None, None] * (Wd @ W + W @ Wd))
+    return Jr, dJr
+
+
+def so3_right_jacobian_inv(r):
+    """Jr(r)^-1 = I + W/2 + d(s) W^2, d = (1 - (t/2) cot(t/2)) / s, with the
+    Taylor d = 1/12 + s/720 + s^2/30240 + s^3/1209600 below s < 1 in float32
+    and s < 0.04 in float64 (the closed form cancels; float32 wants the wide
+    branch). Valid for t < 2 pi; the reparam keeps t <= 1.5 pi."""
+    s = (r * r).sum(-1)
+    sg, th = _sqrt_clamped(s)
+    half = 0.5 * th
+    small = s < (1.0 if r.dtype == torch.float32 else 0.04)
+    sn = torch.where(small, torch.ones_like(s), torch.sin(half))
+    d = torch.where(small, 1.0 / 12.0 + s / 720.0 + s * s / 30240.0 + s * s * s / 1209600.0,
+                    (1.0 - half * torch.cos(half) / sn) / sg)
+    W = se3.hat3(r)
+    I3 = torch.eye(3, dtype=r.dtype, device=r.device)
+    return I3 + 0.5 * W + d[..., None, None] * (W @ W)
+
+
+def exp_so3_and_dot(w, wd):
+    """(R, dR/dw . wd) [..., 3, 3] of se3.exp_so3: R = I + A W + C W^2 with
+    A = sin t / t, C = (1 - cos t)/t^2 (Taylor below t^2 = 1e-8), and
+    dR = A' sd W + A Wd + C' sd W^2 + C (Wd W + W Wd), sd = 2 w.wd."""
+    t = (w * w).sum(-1)
+    small = t < se3._T_SMALL
+    ts = torch.where(small, torch.ones_like(t), t)
+    th = torch.sqrt(ts)
+    sn, cs = torch.sin(th), torch.cos(th)
+    A = torch.where(small, 1.0 - t / 6.0 + t * t / 120.0, sn / th)
+    C = torch.where(small, 0.5 - t / 24.0 + t * t / 720.0, (1.0 - cs) / ts)
+    Ap = torch.where(small, -1.0 / 6.0 + t / 60.0, (th * cs - sn) / (2.0 * ts * th))
+    Cp = torch.where(small, -1.0 / 24.0 + t / 360.0, (0.5 * th * sn - (1.0 - cs)) / (ts * ts))
+    W, Wd = se3.hat3(w), se3.hat3(wd)
+    W2 = W @ W
+    sd = (2.0 * (w * wd).sum(-1))[..., None, None]
+    I3 = torch.eye(3, dtype=w.dtype, device=w.device)
+    R = I3 + A[..., None, None] * W + C[..., None, None] * W2
+    dR = ((Ap[..., None, None] * sd) * W + A[..., None, None] * Wd
+          + (Cp[..., None, None] * sd) * W2 + C[..., None, None] * (Wd @ W + W @ Wd))
+    return R, dR
+
+
+def _rot_cols(M):
+    """[..., 3, 3] -> the columns [M[:, k]; 0] as [..., 6, 3]."""
+    return torch.cat([M, torch.zeros_like(M)], dim=-2)
+
+
+def _universal(q, qdot):
+    """R = Rx(q0) Ry(q1); S = [[c1, 0, s1; 0], [ey; 0]]; only column 0 moves,
+    Sdot[:, 0] = [-s1, 0, c1; 0] qdot1 (redmax_tpu/joints.py::_S_universal)."""
+    c0, s0 = torch.cos(q[..., 0]), torch.sin(q[..., 0])
+    c1, s1 = torch.cos(q[..., 1]), torch.sin(q[..., 1])
+    z, one = torch.zeros_like(c0), torch.ones_like(c0)
+    R = torch.stack([
+        torch.stack([c1, z, s1], dim=-1),
+        torch.stack([s0 * s1, c0, -s0 * c1], dim=-1),
+        torch.stack([-c0 * s1, s0, c0 * c1], dim=-1),
+    ], dim=-2)
+    S = _cols(torch.stack([c1, z, s1, z, z, z], dim=-1), torch.stack([z, one, z, z, z, z], dim=-1))
+    qd1 = qdot[..., 1]
+    Sdot = _cols(torch.stack([-s1 * qd1, z, c1 * qd1, z, z, z], dim=-1),
+                 torch.stack([z, z, z, z, z, z], dim=-1))
+    return _rotation_E(R), S, Sdot
+
+
+def _spherical(q, qdot):
+    """R = exp(hat(q)), S = [Jr(q); 0], Sdot = [dJr; 0]."""
+    Jr, dJr = _right_jacobian_and_dot(q, qdot)
+    return _rotation_E(se3.exp_so3(q)), _rot_cols(Jr), _rot_cols(dJr)
+
+
+def _free3d(q, qdot):
+    """Q = [exp(hat(r)) | p], p = q[0:3], r = q[3:6]: translation columns
+    [0; R^T e_k] (Sdot: [0; dR^T e_k]), rotation columns those of SPHERICAL."""
+    r, rd = q[..., 3:6], qdot[..., 3:6]
+    R, dR = exp_so3_and_dot(r, rd)
+    Jr, dJr = _right_jacobian_and_dot(r, rd)
+    trans = torch.cat([torch.zeros_like(R), R.transpose(-1, -2)], dim=-2)
+    dtrans = torch.cat([torch.zeros_like(dR), dR.transpose(-1, -2)], dim=-2)
+    S = torch.cat([trans, _rot_cols(Jr)], dim=-1)
+    Sdot = torch.cat([dtrans, _rot_cols(dJr)], dim=-1)
+    return se3.make_E(R, q[..., 0:3]), S, Sdot
+
+
+def _free2d(q, qdot):
+    """Q = [Rz(th) | (x, y, 0)]: columns [0; Rz^T ex], [0; Rz^T ey], [ez; 0];
+    the first two turn with th: Sdot = d/dth of them times thdot."""
+    c, s = torch.cos(q[..., 2]), torch.sin(q[..., 2])
+    z, one = torch.zeros_like(c), torch.ones_like(c)
+    R = torch.stack([
+        torch.stack([c, -s, z], dim=-1),
+        torch.stack([s, c, z], dim=-1),
+        torch.stack([z, z, one], dim=-1),
+    ], dim=-2)
+    p = torch.stack([q[..., 0], q[..., 1], z], dim=-1)
+    S = _cols(torch.stack([z, z, z, c, -s, z], dim=-1), torch.stack([z, z, z, s, c, z], dim=-1),
+              torch.stack([z, z, one, z, z, z], dim=-1))
+    thd = qdot[..., 2]
+    Sdot = _cols(torch.stack([z, z, z, -s * thd, -c * thd, z], dim=-1),
+                 torch.stack([z, z, z, c * thd, -s * thd, z], dim=-1),
+                 torch.stack([z, z, z, z, z, z], dim=-1))
+    return se3.make_E(R, p), S, Sdot
+
+
+_QDEP = {JointType.UNIVERSAL: _universal, JointType.SPHERICAL: _spherical,
+         JointType.FREE3D: _free3d, JointType.FREE2D: _free2d}
 
 
 def joint_QSSdot(jt: JointType, q, qdot, params):
-    """(Q [..., G, 4, 4], S [G, 6, d], Sdot [G, 6, d]) for a group of G
-    joints of type jt; S is constant, so Sdot = 0.
+    """(Q [..., G, 4, 4], S, Sdot) for a group of G joints of type jt: S and
+    Sdot are [G, 6, d] for the constant-S types (Sdot = 0) and
+    [..., G, 6, d] for the q-dependent ones.
 
     q, qdot: [..., G, d] (leading batch dims); params: per-type arrays [G, ...].
     """
     require_supported(jt)
+    if jt in _QDEP:
+        return _QDEP[jt](q, qdot)
     G = q.shape[-2]
     dtype, device = q.dtype, q.device
     if jt == JointType.FIXED:
@@ -80,3 +253,31 @@ def joint_QSSdot(jt: JointType, q, qdot, params):
         I3 = torch.eye(3, dtype=dtype, device=device).expand(G, 3, 3)
         Q, S = _translation_E(q), torch.cat([torch.zeros_like(I3), I3], dim=-2)
     return Q, S, torch.zeros_like(S)
+
+
+def reparam_exp(w):
+    """If |w| > 1.5 pi, w -> (1 - 2 pi/|w|) w (the same rotation), applied
+    twice, branch-free; grad-safe at w = 0 (redmax_tpu/se3.py::reparam_exp)."""
+    def once(w):
+        n2 = (w * w).sum(-1, keepdim=True)
+        n = torch.sqrt(torch.where(n2 < 1.0, torch.ones_like(n2), n2))
+        return torch.where(n2 > (1.5 * math.pi) ** 2, (1.0 - 2.0 * math.pi / n) * w, w)
+
+    return once(once(w))
+
+
+def joint_reparam(jt: JointType, q, qdot):
+    """Post-step reparameterization of a group [..., G, d] of joints of type
+    jt: the exp-map rescale of SPHERICAL and FREE3D rotations, with
+    rdot_new = Jr(r_new)^-1 Jr(r) rdot (the same body angular velocity) on
+    the joints whose r changed; the identity for the other types."""
+    rot = EXP_ROTATION.get(jt)
+    if rot is None:
+        return q, qdot
+    r, rdot = q[..., rot], qdot[..., rot]
+    r_new = reparam_exp(r)
+    changed = ((r_new - r).abs() > 0).any(-1, keepdim=True)
+    w = (so3_right_jacobian(r) @ rdot[..., None])
+    rdot_new = torch.where(changed, (so3_right_jacobian_inv(r_new) @ w)[..., 0], rdot)
+    return (torch.cat([q[..., :rot.start], r_new, q[..., rot.stop:]], dim=-1),
+            torch.cat([qdot[..., :rot.start], rdot_new, qdot[..., rot.stop:]], dim=-1))

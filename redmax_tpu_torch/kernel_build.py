@@ -22,11 +22,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class KernelBuild:
-    """One kernel library: sources[0] is the .cu file, the rest its headers."""
+    """One kernel library: sources[0] is the .cu file, the rest its headers;
+    defines are extra nvcc flags (-D...) of this build."""
 
-    def __init__(self, name: str, sources: Sequence[str]):
+    def __init__(self, name: str, sources: Sequence[str], defines: Sequence[str] = ()):
         self.name = name
         self.sources = tuple(sources)
+        self.flags = NVCC_FLAGS + tuple(defines)
         self.lib = None
         self.ptxas_report = None  # nvcc -Xptxas -v output of the loaded build
         self._proc = None
@@ -38,7 +40,7 @@ class KernelBuild:
             for name in self.sources:
                 with open(os.path.join(CSRC, name), "rb") as f:
                     h.update(f.read())
-            h.update(" ".join(NVCC_FLAGS).encode())
+            h.update(" ".join(self.flags).encode())
             self._so = os.path.join(BUILD, f"{self.name}_{h.hexdigest()[:16]}.so")
         return self._so, self._so[:-3] + ".ptxas.txt", f"{self._so}.{os.getpid()}.tmp"
 
@@ -52,7 +54,7 @@ class KernelBuild:
         if not os.path.exists(nvcc):
             raise RuntimeError(f"nvcc not found: the {self.name} kernel cannot be built")
         os.makedirs(BUILD, exist_ok=True)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, self.sources[0])]
+        cmd = [nvcc, *self.flags, "-o", tmp, os.path.join(CSRC, self.sources[0])]
         self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True)
 

@@ -23,7 +23,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from redmax_tpu_torch import forces, se3
-from redmax_tpu_torch.joints import joint_QSSdot
+from redmax_tpu_torch.joints import EXP_ROTATION, joint_QSSdot, joint_reparam
 from redmax_tpu_torch.types import MAX_NDOF, NDOF, JointType, Topology
 
 
@@ -31,7 +31,7 @@ class Kinematics(NamedTuple):
     Q: Any        # [B,N,4,4] local joint transforms
     E_wj: Any     # [B,N,4,4] joint frames in world
     E_wi: Any     # [B,N,4,4] body frames in world
-    S: Any        # [B,N,6,MAX_NDOF] padded motion subspaces (joint frame)
+    S: Any        # [B,N,6,MAX_NDOF] padded motion subspaces (joint frame), per lane
     Sdot: Any     # [B,N,6,MAX_NDOF]
 
 
@@ -86,7 +86,9 @@ def _index_tensors(topo: Topology, device: torch.device) -> _Index:
 
 
 def forward_kinematics(topo: Topology, params: Dict, q, qdot) -> Kinematics:
-    """Joint transforms and subspaces per type group, then the world chain."""
+    """Joint transforms and subspaces per type group, then the world chain.
+    A constant-S group's [G, 6, d] columns broadcast over the lanes; a
+    q-dependent group fills its own per-lane [B, G, 6, d] columns."""
     B = q.shape[0]
     N = topo.njoints
     dtype, device = q.dtype, q.device
@@ -302,7 +304,20 @@ def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
 
 
 def reparam_all(topo: Topology, params: Dict, q, qdot):
-    """Post-step reparameterization: the identity for the constant-S joint
-    types (exp-map rescales and Euler chart switches come with queue 1
-    item 11)."""
+    """Post-step reparameterization (q, qdot) [B, nr] -> (q, qdot): per type
+    group, the exp-map rescale of SPHERICAL and FREE3D rotations
+    (joints.joint_reparam); the identity for a scene without them. The Euler
+    charts' switch raises (ROADMAP queue 1 item 11)."""
+    index = _index_tensors(topo, q.device)
+    for jt, _, idx in index.groups:
+        jt_enum = JointType(jt)
+        if jt_enum in (JointType.SPHERICAL_EULER, JointType.FREE3D_EULER):
+            raise NotImplementedError(
+                f"the Euler-chart switch of {jt_enum.name} is ROADMAP queue 1 item 11")
+        if jt_enum not in EXP_ROTATION:
+            continue
+        qg, qdg = joint_reparam(jt_enum, q[:, idx], qdot[:, idx])
+        flat = idx.reshape(-1)
+        q = q.index_copy(1, flat, qg.reshape(q.shape[0], -1))
+        qdot = qdot.index_copy(1, flat, qdg.reshape(q.shape[0], -1))
     return q, qdot
