@@ -1,12 +1,13 @@
-"""Drive redmax_tpu_torch's eight paths on one NVIDIA GPU and check them.
+"""Drive redmax_tpu_torch's paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure is an exception and a non-zero exit):
   1. card and toolchain: torch.cuda must be available;
   2. build the kernels (csrc/) with nvcc for sm_90a, one nvcc per library,
-     side by side (the chord kernel without and with the q-dependent joints,
-     and the dual PGS), and print their -Xptxas -v register/spill reports;
+     side by side (the chord kernel as it stands, with the q-dependent
+     joints and with per-lane params, and the dual PGS), and print their
+     -Xptxas -v register/spill reports;
   3. hold the chord kernel against its plain PyTorch version on the card
      (scene_chain(12) at B = 1024 and the ragged B = 1000, scene_chain(4)):
      x within 5e-6 max(1, |x|) of the float32 plain version, H^-1 within
@@ -77,7 +78,21 @@ Phases (any failure is an exception and a non-zero exit):
      uniformly in the ball of radius 1.45 pi, 50 BDF2 steps on the kernel
      route (49 launches per rollout), timed, against the float64 op-level
      rollout; the exp-map rescale must fire on the card in some lanes;
- 18. print the kernels line, the paths' lines, the card's name and power
+ 18. hold the PERLANE builds (K1f) against their plain version: per-lane
+     I_i, body damping, g, h and contact, spring and cable coefficients
+     (perlane_draws) on chain-ground-12 at B = 1024 and 1000, the spring
+     chain and scene 13, on rollout states under the same draws, by the
+     tolerances of phase 8; a NaN lane; lane-shared params broadcast into
+     the per-lane buffer against the builds without it; timed;
+ 19. the randomized contact path: phase 9's solve with per-lane I_i, h, g,
+     kn and mu (perlane_draws), with the checks of phase 4 and the small
+     card-against-CPU solve at 12 links;
+ 20. system identification: cotangents of that objective into the per-lane
+     I_i, h and every kn, kernel route against op-level route;
+ 21. 50-step rollouts of the spring chain and of scene 13 under the draws
+     of phase 18 on the kernel route (49 launches each), against the
+     float64 op-level rollouts;
+ 22. print the kernels line, the paths' lines, the card's name and power
      limit, and the result line.
 """
 
@@ -97,7 +112,7 @@ from redmax_tpu_torch.scenes import (scene_09_free3d, scene_13_cables, scene_cha
                                      scene_chain_ground, scene_floor_chain, scene_qdep_chain,
                                      scene_spring_chain)
 from redmax_tpu_torch.scenes_matlab import build_mscene
-from redmax_tpu_torch.types import State
+from redmax_tpu_torch.types import State, lanewise
 
 # H100 SXM peaks at its 700 W limit (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -238,7 +253,7 @@ def time_chord_kernel(sc, params, states, max_abs_err, label):
     contacts, springs, cables = chord_kernel.closure_spec(sc.topo, fns)
     flops = lane_flops(sc.topo, CFG.fixed_iters, len(contacts), springs, cables) * B
     nbytes = 4 * B * (6 * sc.topo.nr + sc.topo.nr + sc.topo.nr ** 2) + sum(
-        a.numel() * a.element_size() for a in args[6:8])
+        a.numel() * a.element_size() for a in (*args[6:8], args[9]) if a is not None)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
     print(f"chord_bdf2 at {label}, {args[8]}, B {B}: kernel {ms:.4f} ms, wrapper with "
@@ -315,19 +330,25 @@ def mpc_solver(sc, horizon, use_kernel=None):
     return mpc.make_mpc_solver_batched(obj, iters=1, lr=0.05), obj
 
 
-def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, reps=3):
+def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, reps=3,
+                   draws=None):
     """The batched MPC solve of bench.py:53-105 (scene = scene_chain), of
     benchmarks/bench_contact.py:44-105 (scene = chain_ground),
     bench_spring_ab.py:41-105 or qdep_ablation.py:68-102 (scene = uni6,
-    sph4) on the port; returns (kernel launches of the timed solves,
-    solves/s, finite_frac)."""
+    sph4) on the port, with the scene's params, or per lane as
+    draws(params, force_fns, B) gives them; returns (kernel launches of the
+    timed solves, solves/s, finite_frac)."""
     sc = scene(nlinks).compile(dtype=torch.float32, device=device)
+    sc64 = scene(nlinks).compile(dtype=torch.float64, device=device)
+    params, params64 = sc.params, sc64.params
+    if draws is not None:
+        params, params64 = (draws(c.params, c.force_fns, B) for c in (sc, sc64))
     solve, _ = mpc_solver(sc, horizon)
     p0, targets = bench_inputs(sc.topo.nr, B, device, torch.float32)
     s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
                qdot=sc.state0.qdot.expand(B, -1).contiguous())
 
-    res = solve(sc.params, p0, s0, targets)  # warm-up
+    res = solve(params, p0, s0, targets)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     chord_kernel.chord_bdf2_launches = 0
@@ -335,7 +356,7 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
     t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
-        res = solve(sc.params, p0, s0, targets)
+        res = solve(params, p0, s0, targets)
     end.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
@@ -359,7 +380,7 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
 
     # where the time goes inside one solve (CUDA events around each phase)
     step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, differentiable=True)
-    params = {**sc.params, "tau": (1e3 * p0).requires_grad_(True)}
+    params = {**params, "tau": (1e3 * p0).requires_grad_(True)}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     for _ in range(2):  # the first pass warms the allocator; the second is timed
         torch.cuda.synchronize()
@@ -393,11 +414,10 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
     # drift by ~1e-3 over 50 steps in any float32 rollout (the float32
     # op-level route against float64 too), and it is printed.
     solve_plain, _ = mpc_solver(sc, horizon, use_kernel=False)
-    sc64 = scene(nlinks).compile(dtype=torch.float64, device=device)
     solve64, _ = mpc_solver(sc64, horizon, use_kernel=False)
     chord_kernel.chord_bdf2_launches = 0
-    ref32 = solve_plain(sc.params, p0, s0, targets).objective
-    ref64 = solve64(sc64.params, p0.double(), State(q=s0.q.double(), qdot=s0.qdot.double()),
+    ref32 = solve_plain(params, p0, s0, targets).objective
+    ref64 = solve64(params64, p0.double(), State(q=s0.q.double(), qdot=s0.qdot.double()),
                     targets.double()).objective
     torch.cuda.synchronize()
     if chord_kernel.chord_bdf2_launches != 0:
@@ -410,9 +430,12 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
         rel = (obj[both].double() - ref[both].double()).abs() / ref[both].double().abs()
         within = float((rel <= 1e-3).double().mean())
         q = torch.quantile(rel, torch.tensor([0.5, 0.99], dtype=rel.dtype, device=rel.device))
+        top = torch.topk(rel, min(3, rel.numel()))
+        worst = ", ".join(f"lane {int(both.nonzero()[i])} {float(v):.3e}"
+                          for v, i in zip(top.values, top.indices))
         print(f"{name}: finite masks agree on {agree:.4f} of lanes; objective rel diff median "
               f"{float(q[0]):.3e}, p99 {float(q[1]):.3e}, max {float(rel.max()):.3e}; "
-              f"{within:.4f} of {int(both.sum())} lanes within 1e-3")
+              f"{within:.4f} of {int(both.sum())} lanes within 1e-3; worst: {worst}")
         return agree, within, float(rel.max())
 
     checks = [compare(res.objective, ref32, "kernel route vs op-level f32"),
@@ -423,18 +446,20 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
     return launches, B / dt, finite_frac
 
 
-def phase_small_reference(name, scene, device="cuda", nlinks=4, horizon=5, B=64):
+def phase_small_reference(name, scene, device="cuda", nlinks=4, horizon=5, B=64, draws=None):
     """A small solve on the card (f32, kernel route) against the same solve
     on the CPU in float64 (the plain version, held to redmax_tpu by the
-    tests)."""
+    tests), with per-lane params where draws gives them (as in
+    phase_mpc_path)."""
     out = {}
     for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
         sc = scene(nlinks).compile(dtype=dtype, device=dev)
+        params = sc.params if draws is None else draws(sc.params, sc.force_fns, B)
         solve, _ = mpc_solver(sc, horizon)
         p0, targets = bench_inputs(sc.topo.nr, B, dev, dtype)
         s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
                    qdot=sc.state0.qdot.expand(B, -1).contiguous())
-        out[dev, dtype] = solve(sc.params, p0, s0, targets).objective.double().cpu()
+        out[dev, dtype] = solve(params, p0, s0, targets).objective.double().cpu()
     card, cpu = out[device, torch.float32], out["cpu", torch.float64]
     err = float((card - cpu).abs().max() / cpu.abs().max())
     print(f"{name}, small solve, card f32 vs CPU f64: max objective diff {err:.3e} of scale")
@@ -748,21 +773,22 @@ def phase_small_euler(device="cuda", B=64, nsteps=5):
 # ---------------------------------------------------------------------------
 
 
-def rollout_states(sc, B, device, nsteps=8, seed=1, s0=None):
+def rollout_states(sc, B, device, nsteps=8, seed=1, s0=None, base=None):
     """Chord-solve inputs on a path: the scene rolled nsteps from s0 (default:
     rest) on the op-level route under the main path's torques
-    (tau = 1e3 * 0.003 N(0, 1)), then the next inner step's history and
-    predictor. Lanes the rollout rejected are replaced by lane 0's state."""
+    (tau = 1e3 * 0.003 N(0, 1)) and the scene's params (or base, per-lane
+    ones), then the next inner step's history and predictor. Lanes the
+    rollout rejected are replaced by lane 0's state."""
     rng = np.random.default_rng(seed)
     tau = torch.tensor(3.0 * rng.normal(size=(B, sc.topo.nr)), dtype=torch.float32, device=device)
-    params = {**sc.params, "tau": tau}
+    params = {**(sc.params if base is None else base), "tau": tau}
     step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=False)
     s0 = sc.initial_state("bdf2", B) if s0 is None else integrators.bdf2_init(s0)
     s = integrators.make_simulate(step, nsteps)(params, s0)
     ok = (torch.isfinite(s.q) & torch.isfinite(s.qdot)).all(-1)
     fix = lambda a: torch.where(ok[:, None], a, a[ok][:1])
     q0, qd0, q1, qd1 = (fix(a) for a in (s.q_prev, s.qdot_prev, s.q, s.qdot))
-    h = float(sc.params["h"])
+    h = lanewise(params["h"], 2)
     x0 = q1 + h * qd1 + 0.5 * h * (qd1 - qd0)
     return [x0, q0, qd0, q1, qd1], params, int(ok.sum())
 
@@ -795,11 +821,13 @@ def compare_kernel(sc, sc64, params, states, label, min_ok=0.99, exclude=None):
     """Kernel against the f32 plain version (x) and the f64 plain version
     (H^-1) lane by lane, on at least min_ok of the finite lanes that exclude
     (a [B] mask) leaves in; returns (max |dx| over the lanes inside
-    tolerance, x of the kernel)."""
+    tolerance, x of the kernel). Per-lane params (and tau) are held in both
+    plain versions as given."""
     fns, B = sc.force_fns, states[0].shape[0]
     x, hinv = chord_kernel.chord_bdf2(sc.topo, CFG, params, *states, fns)
     x_ref, hinv_ref = chord_kernel.chord_bdf2_reference(sc.topo, CFG, params, *states, fns)
-    p64 = {**sc64.params, "tau": params["tau"].double()}
+    _, lanes = integrators.split_batched_params(params)   # tau and any per-lane param
+    p64 = integrators.merge_batched_params(sc64.params, to64(lanes))
     x64, hinv64 = chord_kernel.chord_bdf2_reference(
         sc64.topo, CFG, p64, *(a.double() for a in states), sc64.force_fns)
     torch.cuda.synchronize()
@@ -1217,6 +1245,212 @@ def phase_free3d_path(device="cuda", B=1024, nsteps=50, reps=3):
     return launches, B * nsteps / dt, finite_frac
 
 
+# ---------------------------------------------------------------------------
+# Per-lane physical params (K1f): the PERLANE builds, the domain-randomized
+# contact path and the system-identification gradients
+# ---------------------------------------------------------------------------
+
+
+def to64(tree):
+    """A nested dict of tensors in float64."""
+    return {k: to64(v) if isinstance(v, dict) else v.double() for k, v in tree.items()}
+
+
+def perlane_draws(params, force_fns, B, seed=0, extra=False, shared=()):
+    """params with per-lane leaves, drawn as tests/test_pallas_step.py:818-844
+    draws them (U uniform on [0, 1), numpy seed, in params' dtype): I_i
+    (1 + 0.3U) [B, 1, 1], h (1 + 0.2U) [B], g (1 + 0.1U) [B, 1] and each
+    contact's kn (1 + 0.5U) and mu U [B]; with extra also body damping
+    (bd + 0.05)(1 + 0.5U) [B, N] (the scenes' bd is 0) and each spring's and
+    cable's k, d, L (1 + 0.3U) [B]. The leaves named in shared are drawn and
+    then left lane-shared."""
+    rng = np.random.default_rng(seed)
+    dt, dev = params["I_i"].dtype, params["I_i"].device
+    u = lambda *shape: torch.tensor(rng.uniform(size=shape), dtype=dt, device=dev)
+    p = {**params, "I_i": params["I_i"][None] * (1.0 + 0.3 * u(B, 1, 1)),
+         "h": params["h"] * (1 + 0.2 * u(B)), "g": params["g"][None] * (1 + 0.1 * u(B, 1))}
+    forces = {k: dict(v) for k, v in params.get("forces", {}).items()}
+    for fn in force_fns:
+        fp = forces[fn.key]
+        if "kn" in fp:
+            fp["kn"], fp["mu"] = fp["kn"] * (1 + 0.5 * u(B)), fp["mu"] * u(B)
+    if extra:
+        p["body_damping"] = (params["body_damping"] + 0.05)[None] * (1 + 0.5 * u(B, 1))
+        for fn in force_fns:
+            fp = forces[fn.key]
+            for c in ("k", "d", "L"):
+                if c in fp:
+                    fp[c] = fp[c] * (1 + 0.3 * u(B))
+    for fn in force_fns:
+        forces[fn.key].update({c: params["forces"][fn.key][c] for c in shared
+                               if c in forces[fn.key]})
+    p.update({k: params[k] for k in shared if k in params})
+    return {**p, "forces": forces}
+
+
+def draws_extra(params, force_fns, B):
+    """perlane_draws(extra=True); on the spring chain with h, k and L
+    lane-shared: its world spring (k = 2e3) under up to 1.2 h, 1.3 k or 1.3 L
+    makes the 3-iteration chord solve reject most lanes within 8 steps
+    under the spring path's torques, in every arithmetic (a CPU rehearsal
+    of rollout_states on the op-level route)."""
+    springs = any(isinstance(fn, forces.ForceSpringDamper) for fn in force_fns)
+    return perlane_draws(params, force_fns, B, extra=True,
+                         shared=("h", "k", "L") if springs else ())
+
+
+def phase_perlane_kernel_vs_plain(device="cuda", B=1024):
+    """The PERLANE builds (K1f) against chord_bdf2_reference on the card, on
+    perlane_draws(extra=True) and rollout states under them: chain-ground-12
+    at B = 1024 and 1000, the spring chain and scene 13 at 1024, by the
+    tolerances of phase 8 (on scene 13, lanes within 1e-6 L of the cable's
+    gate are counted and left out, as in phase 11). At B = 1024 also a NaN
+    lane, and lane-shared params broadcast into the per-lane buffer against
+    the build without it; timed. Returns the kernel record fields by name."""
+    records, B0 = {}, B
+    cases = (("chain-ground-12", lambda: chain_ground(12), B0, 8),
+             ("chain-ground-12", lambda: chain_ground(12), B0 - 24, 8),
+             ("spring-chain-12", lambda: scene_spring_chain(12), B0, 8),
+             ("scene-13", scene_13_cables, B0, 8))
+    for label, scene, B, nsteps in cases:
+        sc = scene().compile(dtype=torch.float32, device=device)
+        sc64 = scene().compile(dtype=torch.float64, device=device)
+        draws = draws_extra(sc.params, sc.force_fns, B)
+        s0 = cable_states0(sc, B, device, torch.float32) if label == "scene-13" else None
+        states, params, kept = rollout_states(sc, B, device, nsteps=nsteps, s0=s0, base=draws)
+        near = None
+        if label == "scene-13":
+            l, _ = cable_lengths(sc64, states[0].double())
+            L = params["forces"]["f0"]["L"].double()
+            near = (l - L).abs() <= 1e-6 * L
+            print(f"per-lane {label} B {B}: taut {int((l > L).sum())}, slack "
+                  f"{int((l <= L).sum())}, within 1e-6 L of the gate {int(near.sum())}")
+        print(f"per-lane states {label} B {B}: {kept}/{B} lanes from the rollout")
+        err, x = compare_kernel(sc, sc64, params, states, f"per-lane {label} B {B}", exclude=near)
+        if B != B0:
+            continue
+        check_nan_lane(sc, params, states, x)
+        # lane-shared params through the per-lane buffer: the build without it
+        shared = {**sc.params, "tau": params["tau"]}
+        xb, hb = chord_kernel.chord_bdf2(sc.topo, CFG, {**shared, "h": shared["h"].expand(B)},
+                                         *states, sc.force_fns)
+        x0, h0 = chord_kernel.chord_bdf2(sc.topo, CFG, shared, *states, sc.force_fns)
+        fin0 = torch.isfinite(x0).all(-1)
+        dxb = float(((xb - x0).abs() / torch.clamp(x0.abs(), min=1.0))[fin0].max())
+        dhb = float((hb - h0)[fin0].abs().max() / h0[fin0].abs().max())
+        print(f"per-lane {label} B {B}: NaN lane kept, other lanes bit-equal; shared params "
+              f"through the per-lane buffer vs the build without it on {int(fin0.sum())} finite "
+              f"lanes: max|dx|/max(1,|x|) {dxb:.3e}, max|dHinv| {dhb:.3e} of scale")
+        if not torch.equal(fin0, torch.isfinite(xb).all(-1)) or dxb > 5e-6 or dhb > 2e-5:
+            raise AssertionError(f"per-lane {label}: broadcast params changed the result")
+        records[label] = time_chord_kernel(sc, params, states, err, f"per-lane {label}")
+    return records
+
+
+def phase_perlane_rollout(label, scene, s0_of, device="cuda", B=1024, nsteps=50, min_finite=0.95):
+    """A BDF2 rollout on the kernel route under perlane_draws(extra=True), with
+    the launch count read around it; its final q against the float64
+    op-level rollout under the same draws (>= 95% of the lanes finite in both
+    within 1e-3 of scale). Returns (launches, finite_frac)."""
+    sc = scene().compile(dtype=torch.float32, device=device)
+    sc64 = scene().compile(dtype=torch.float64, device=device)
+    params = draws_extra(sc.params, sc.force_fns, B)
+    step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=True)
+    s0 = integrators.bdf2_init(s0_of(sc, B, device, torch.float32))
+    chord_kernel.chord_bdf2_launches = 0
+    final = integrators.make_simulate(step, nsteps)(params, s0)
+    torch.cuda.synchronize()
+    launches = chord_kernel.chord_bdf2_launches
+    if launches != nsteps - 1:
+        raise AssertionError(f"{label}: chord_bdf2 launched {launches} times, want {nsteps - 1}")
+    finite_frac = float((torch.isfinite(final.q).all(-1) & torch.isfinite(final.qdot).all(-1))
+                        .float().mean())
+    sim64 = integrators.make_simulate(integrators.make_bdf2_step_batched(
+        sc64.topo, sc64.force_fns, CFG, use_kernel=False), nsteps)
+    _, lanes = integrators.split_batched_params(params)
+    q64 = sim64(integrators.merge_batched_params(sc64.params, to64(lanes)),
+                integrators.bdf2_init(s0_of(sc, B, device, torch.float64))).q
+    err, both = lane_err(final.q, q64)
+    within = float((err <= 1e-3).double().mean())
+    print(f"{label}: {nsteps} steps, B {B}, launches {launches}, finite_frac {finite_frac:.4f}; "
+          f"vs op-level f64 final q diff of scale max {float(err.max()):.3e}, {within:.4f} of "
+          f"{int(both.sum())} lanes within 1e-3")
+    if finite_frac < min_finite or within < 0.95:
+        raise AssertionError(f"{label}: finite_frac {finite_frac} or agreement {within} too low")
+    return launches, finite_frac
+
+
+def spring_chain_states0(sc, B, device, dtype):
+    """The spring chain at rest, B lanes."""
+    return State(q=sc.state0.q.to(device, dtype).expand(B, -1).contiguous(),
+                 qdot=sc.state0.qdot.to(device, dtype).expand(B, -1).contiguous())
+
+
+def phase_sysid_grads(device="cuda", nlinks=12, horizon=5, B=1024):
+    """System identification through the randomized contact path's solve at
+    horizon 5: the cotangents of the summed objective into the per-lane I_i,
+    h and every contact's kn, from the kernel route (its factor-reusing
+    adjoint) against the op-level route, both in float32 on the card, lane
+    by lane within 5e-4 of scale (the bound of tests/test_pallas_step.py:
+    941-945; the scale is the lane's own for I_i and h, the contact's over
+    the lanes for kn) on >= 99% of the lanes finite in both. Through 50
+    float32 steps single lanes' cotangents grow by many decades and the two
+    routes drift apart by float32 chaos (a CPU rehearsal): the short
+    horizon holds the per-lane params' backward, not the rollout's chaos."""
+    sc = chain_ground(nlinks).compile(dtype=torch.float32, device=device)
+    params = perlane_draws(sc.params, sc.force_fns, B)
+    p0, targets = bench_inputs(sc.topo.nr, B, device, torch.float32)
+    s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
+               qdot=sc.state0.qdot.expand(B, -1).contiguous())
+    names = ["I_i", "h"] + [f"kn[{fn.key}]" for fn in sc.force_fns]
+    grads, finite = {}, {}
+    for use_kernel in (True, False):
+        _, obj = mpc_solver(sc, horizon, use_kernel=use_kernel)
+        leaves = [params["I_i"].clone().requires_grad_(True),
+                  params["h"].clone().requires_grad_(True)]
+        leaves += [params["forces"][fn.key]["kn"].clone().requires_grad_(True)
+                   for fn in sc.force_fns]
+        forces = {k: dict(v) for k, v in params["forces"].items()}
+        for fn, kn in zip(sc.force_fns, leaves[2:]):
+            forces[fn.key]["kn"] = kn
+        p = {**params, "I_i": leaves[0], "h": leaves[1], "forces": forces}
+        chord_kernel.chord_bdf2_launches = 0
+        with torch.enable_grad():
+            v = obj(p, p0, s0, targets)
+            fin = torch.isfinite(v)
+            g = torch.autograd.grad(torch.where(fin, v, torch.zeros_like(v)).sum(), leaves)
+        torch.cuda.synchronize()
+        if (chord_kernel.chord_bdf2_launches > 0) != use_kernel:
+            raise AssertionError("sysid: the routes launched the kernel wrongly")
+        grads[use_kernel] = [a.reshape(B, -1).double() for a in g]
+        finite[use_kernel] = fin
+    both = finite[True] & finite[False]
+    worst_share = 1.0
+    for name, gk, go in zip(names, grads[True], grads[False]):
+        ok_lanes = both & torch.isfinite(gk).all(-1) & torch.isfinite(go).all(-1)
+        # I_i and h: each lane's own scale; kn: the contact's largest over
+        # the lanes (a lane whose contact barely engages has a kn cotangent
+        # down to 1e-30, where a relative error is float32 cancellation)
+        if name.startswith("kn"):
+            scale = go[ok_lanes].abs().max().clamp(min=1e-30).expand(B)
+        else:
+            scale = go.abs().amax(-1).clamp(min=1e-30)
+        e = (gk - go).abs().amax(-1) / scale
+        share = float((e[ok_lanes] <= 5e-4).double().mean())
+        worst_share = min(worst_share, share)
+        p50, _, p99, mx = quantiles(e[ok_lanes])
+        if name in ("I_i", "h", f"kn[{sc.force_fns[0].key}]", f"kn[{sc.force_fns[-1].key}]"):
+            print(f"sysid cotangent {name}: scales {float(scale[ok_lanes].min()):.3e} to "
+                  f"{float(scale[ok_lanes].max()):.3e}; kernel vs op-level of scale "
+                  f"p50 {p50:.3e}, p99 {p99:.3e}, max {mx:.3e} (lane {int(e[ok_lanes].argmax())}); "
+                  f"{share:.4f} of {int(ok_lanes.sum())} lanes within 5e-4")
+    print(f"sysid: {len(names)} leaves, {int(both.sum())} lanes finite on both routes; the "
+          f"smallest share of lanes within 5e-4 over the leaves {worst_share:.4f}")
+    if worst_share < 0.99:
+        raise AssertionError("sysid: kernel-route cotangents disagree with the op-level route")
+    return worst_share
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda is not available")
@@ -1232,8 +1466,8 @@ def main():
     builds = chord_kernel.BUILDS + (qp_kernel.BUILD,)
     for build in builds:  # one nvcc per library, side by side
         build.start()
-    chord_kernel._build_lib(qdep=False)
-    chord_kernel._build_lib(qdep=True)
+    for build in chord_kernel.BUILDS:
+        chord_kernel._build_lib(build)
     qp_kernel._build_lib()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for build in builds:
@@ -1262,6 +1496,16 @@ def main():
     sph_launches, sph_rate, sph_finite = phase_mpc_path("sph4 path", sph4, nlinks=4)
     phase_small_reference("sph4 path", sph4, nlinks=4)
     free_launches, free_rate, free_finite = phase_free3d_path()
+    perlane_records = phase_perlane_kernel_vs_plain()
+    rand_launches, rand_rate, rand_finite = phase_mpc_path(
+        "randomized contact path", chain_ground, draws=perlane_draws)
+    phase_small_reference("randomized contact path", chain_ground, nlinks=12,
+                          draws=perlane_draws)
+    sysid_share = phase_sysid_grads()
+    pl_spring_launches, pl_spring_finite = phase_perlane_rollout(
+        "per-lane spring rollout", lambda: scene_spring_chain(12), spring_chain_states0)
+    pl_cable_launches, pl_cable_finite = phase_perlane_rollout(
+        "per-lane cable rollout", scene_13_cables, cable_states0)
 
     kernels = [{
         "name": "chord_bdf2", "route": "cuda",
@@ -1305,6 +1549,29 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:942",
         "launches": free_launches, **qdep_records["free3d scene 9"], "library_ms": None,
     }, {
+        # the PERLANE builds (K1f): chain-ground-12 (12, 12) with per-lane
+        # I_i, g, h, body damping and contact coefficients, on the randomized
+        # contact path
+        "name": "chord_bdf2[perlane_contacts]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:706",
+        "launches": rand_launches, **perlane_records["chain-ground-12"], "library_ms": None,
+    }, {
+        # the spring chain (12, 12) with per-lane spring coefficients, on the
+        # per-lane spring rollout
+        "name": "chord_bdf2[perlane_springs]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:706",
+        "launches": pl_spring_launches, **perlane_records["spring-chain-12"],
+        "library_ms": None,
+    }, {
+        # scene 13 (4, 3) with per-lane cable coefficients, on the per-lane
+        # cable rollout
+        "name": "chord_bdf2[perlane_cable]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "replaces": "redmax_tpu/pallas_step.py:706",
+        "launches": pl_cable_launches, **perlane_records["scene-13"], "library_ms": None,
+    }, {
         # library_ms: no single PyTorch call computes a dual-PGS solve
         "name": "dual_pgs", "route": "cuda",
         "source": "redmax_tpu_torch/csrc/dual_pgs.cu",
@@ -1328,6 +1595,12 @@ def main():
                                     "launches": sph_launches, "card": smi}}))
     print(json.dumps({"free3d_path": {"steps_per_s": free_rate, "finite_frac": free_finite,
                                       "launches": free_launches, "card": smi}}))
+    print(json.dumps({"randomized_contact_path": {
+        "solves_per_s": rand_rate, "finite_frac": rand_finite, "launches": rand_launches,
+        "sysid_share_within_5e-4": sysid_share, "card": smi}}))
+    print(json.dumps({"perlane_rollouts": {
+        "spring": {"launches": pl_spring_launches, "finite_frac": pl_spring_finite},
+        "cable": {"launches": pl_cable_launches, "finite_frac": pl_cable_finite}, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,15 @@ version, its build and its launch counter.
 
 The kernel (csrc/chord_bdf2.cu, per-lane body in csrc/chord_bdf2_lane.cuh)
 replaces redmax_tpu/pallas_step.py::_build_kernel of the JAX package, on its
-K1a, K1b, K1c, K1d and K1e branches: constant-S joints and the q-dependent
-UNIVERSAL, exp-map SPHERICAL and FREE3D joints (S and Sdot per lane,
-pallas_step._so3_exp_S); penalty ground contact (ForceGroundCuboid,
+K1a, K1b, K1c, K1d, K1e and K1f branches: constant-S joints and the
+q-dependent UNIVERSAL, exp-map SPHERICAL and FREE3D joints (S and Sdot per
+lane, pallas_step._so3_exp_S); penalty ground contact (ForceGroundCuboid,
 pallas_step._ground_contact); two-point springs (ForcePointPoint,
 ForceSpringDamper with tension_only, _spring_force) and tension-only cables
-(ForceCable, _cable_force); unguarded chord, shared physical params. The
+(ForceCable, _cable_force); unguarded chord; physical params lane-shared or
+per lane (I_i, body_damping, g, h and the closures' coefficients, the
+`perlane` reads of _build_kernel: each lane copies its own record of a
+lane-major [P, B] buffer and runs the same arithmetic on it). The
 exp-map rescale after each step runs outside the kernel
 (model.reparam_all), as in the JAX package. FREE2D stays off the kernel (op
 level only). Per lane it runs FK with the world-column J and Jdot, the
@@ -20,24 +23,27 @@ H^-1 and `fixed_iters` chord steps with growth/tol rejection, and writes
 x [B, nr] (NaN on rejected lanes) and H^-1 [B, nr, nr].
 
 What bounds it on an H100: per-lane f32 arithmetic. It moves
-4 * B * (6 nr + nr + nr^2) bytes (about 0.93 MB at B = 1024, nr = 12) and
-does on the order of 1e5 flops per lane (about twice that with a contact on
-every link), so the operation count, not the bytes, sets the least time. The
-first-cut design gives one thread to each lane, so the arithmetic runs
-without any cross-thread traffic and the struct-of-arrays [nr, B] layout
-makes every state read and write coalesced.
+4 * B * (6 nr + nr + nr^2) bytes (about 0.93 MB at B = 1024, nr = 12), plus
+4 * B * P with per-lane params (1.0 MB more for a contact on each of 12
+links), and does on the order of 1e5 flops per lane (about twice that with
+a contact on every link), so the operation count, not the bytes, sets the
+least time. The first-cut design gives one thread to each lane, so the
+arithmetic runs without any cross-thread traffic and the struct-of-arrays
+[nr, B] and [P, B] layouts make every state and record read coalesced.
 What it leaves for later: at B = 1024 only 1024 threads run (a few dozen of
 the 132 SMs), and the per-lane J, Jdot, H and Gauss-Jordan rows (a few
 thousand floats) live in local memory rather than registers. A warp per lane
 or a thread per (lane, column) with shared memory is the next design.
 
 The closure code is compiled in only where a scene has that kind of closure,
-and the q-dependent joint code only where a scene has such a joint (a
-template bitmask: contacts, springs, cables, QDEP), and only the (N, nr,
-kinds) combinations the paths run are instantiated (INSTANTIATED), in two
-libraries built side by side (BUILD without QDEP, BUILD_QDEP with it): a
-scene that mixes ground contacts with springs or cables, or a q-dependent
-joint with a closure, runs on the CPU (the plain version) but raises on the
+the q-dependent joint code only where a scene has such a joint and the
+per-lane record only where a param is per lane (a template bitmask:
+contacts, springs, cables, QDEP, PERLANE), and only the (N, nr, kinds)
+combinations the paths run are instantiated (INSTANTIATED), in three
+libraries built side by side (BUILD, BUILD_QDEP with QDEP, BUILD_PERLANE
+with PERLANE): a scene that mixes ground contacts with springs or cables, a
+q-dependent joint with a closure or per-lane params, or per-lane params
+without a closure, runs on the CPU (the plain version) but raises on the
 card.
 
 On a CUDA tensor chord_bdf2 launches the kernel (and raises if it cannot);
@@ -63,18 +69,22 @@ chord_bdf2_launches = 0
 _SOURCES = ("chord_bdf2.cu", "chord_bdf2_lane.cuh")
 BUILD = KernelBuild("chord_bdf2", _SOURCES)
 BUILD_QDEP = KernelBuild("chord_bdf2_qdep", _SOURCES, defines=("-DCHORD_QDEP_UNIT",))
-BUILDS = (BUILD, BUILD_QDEP)
+BUILD_PERLANE = KernelBuild("chord_bdf2_perlane", _SOURCES, defines=("-DCHORD_PERLANE_UNIT",))
+BUILDS = (BUILD, BUILD_QDEP, BUILD_PERLANE)
 # The kinds a build compiles in (the FEAT template bitmask of chord_bdf2.cu:
-# closure kinds and the q-dependent joints) and the (N, nr, kinds) with an
-# explicit instantiation there.
-CONTACTS, SPRINGS, CABLES, QDEP = 1, 2, 4, 8
+# closure kinds, the q-dependent joints, per-lane params) and the (N, nr,
+# kinds) with an explicit instantiation there.
+CONTACTS, SPRINGS, CABLES, QDEP, PERLANE = 1, 2, 4, 8, 16
 INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
                 (12, 12, SPRINGS), (4, 3, CABLES),
-                (6, 12, QDEP), (4, 12, QDEP), (1, 6, QDEP))
+                (6, 12, QDEP), (4, 12, QDEP), (1, 6, QDEP),
+                (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS | PERLANE),
+                (4, 3, CABLES | PERLANE))
 # Joint types the kernel covers: FREE2D has no branch there (op level only).
 QDEP_KERNEL_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D)
 KERNEL_TYPES = CONSTANT_S_TYPES + QDEP_KERNEL_TYPES
 MAX_CABLE_POINTS = 8  # kMaxCablePoints of chord_bdf2_lane.cuh
+MAX_LANE_RECORD = 512  # kMaxLaneRecord: floats of one lane's per-lane record
 _CLOSURES = (ForceGroundCuboid, ForcePointPoint, ForceSpringDamper, ForceCable)
 
 
@@ -130,21 +140,30 @@ def has_qdep(topo: Topology) -> bool:
     return any(JointType(t) in QDEP_KERNEL_TYPES for t in topo.jtype)
 
 
-def kinds_of(topo: Topology, counts: Closures) -> int:
+def has_perlane(params: Dict) -> bool:
+    """True when a physical param (anything but tau) is per lane: the
+    PERLANE build, which reads each lane's own record."""
+    return bool(set(integrators.split_batched_params(params)[1]) - {"tau"})
+
+
+def kinds_of(topo: Topology, counts: Closures, perlane: bool = False) -> int:
     """The FEAT bitmask of the build that runs this scene."""
-    return counts.kinds | (QDEP if has_qdep(topo) else 0)
+    return counts.kinds | (QDEP if has_qdep(topo) else 0) | (PERLANE if perlane else 0)
 
 
-def _build_lib(qdep: bool = False):
-    """The kernel library without (qdep False) or with the q-dependent joints,
-    compiled with nvcc at first use (see kernel_build). Raises when nvcc is
-    missing or the build fails."""
-    build = BUILD_QDEP if qdep else BUILD
+def build_of(kinds: int) -> KernelBuild:
+    """The library that holds the builds of these kinds."""
+    return BUILD_QDEP if kinds & QDEP else BUILD_PERLANE if kinds & PERLANE else BUILD
+
+
+def _build_lib(build: KernelBuild):
+    """The kernel library of build, compiled with nvcc at first use (see
+    kernel_build). Raises when nvcc is missing or the build fails."""
     first = build.lib is None
     lib = build.load()
     if first:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.chord_bdf2_launch.argtypes = ([i] * 8 + [p] * 6 + [p, p] + [i, fl, fl, fl]
+        lib.chord_bdf2_launch.argtypes = ([i] * 9 + [p] * 6 + [p, p, p] + [i, fl, fl, fl]
                                           + [p, p, p])
         lib.chord_bdf2_launch.restype = i
     return lib
@@ -202,15 +221,47 @@ def _topology_buffer(topo: Topology, spec: Tuple, device: torch.device):
     return torch.as_tensor(buf, device=device)
 
 
+def _record_parts(topo: Topology, params: Dict, force_fns: Tuple):
+    """The params that may be per lane, in the order of the per-lane record,
+    each as (tensor, floats per lane): I_i (6N), bd (N), g (3), h (1), then
+    per contact sides[3], kn, kt, kd, mu, xg[3], ng[3] (the floor's origin and
+    normal), per spring xl1[3], xl2[3], k, d, L (L = 0 for a point-point
+    spring), per cable xls[3P], k, d, L (pallas_step._pack_contacts /
+    _pack_springs / _pack_cables and their _lane packers). A tensor is its
+    lane-shared value or carries a leading [B]."""
+    N = topo.njoints
+    parts = [(params["I_i"], 6 * N), (params["body_damping"], N), (params["g"], 3),
+             (params["h"], 1)]
+    gnd, spr, cab = _split(force_fns)
+    for fn in gnd:
+        fp = fn.p(params)
+        parts += [(fp["sides"], 3), (fp["kn"], 1), (fp["kt"], 1), (fp["kd"], 1), (fp["mu"], 1),
+                  (fp["E"][:3, 3], 3), (fp["E"][:3, 2], 3)]
+    for fn in spr:
+        fp = fn.p(params)
+        L = fp["L"] if "L" in fp else fp["k"] * 0
+        parts += [(fp["xl1"], 3), (fp["xl2"], 3), (fp["k"], 1), (fp["d"], 1), (L, 1)]
+    for fn in cab:
+        fp = fn.p(params)
+        parts += [(fp["xls"], fp["xls"].numel()), (fp["k"], 1), (fp["d"], 1), (fp["L"], 1)]
+    return parts
+
+
+def _lane_buffer(topo: Topology, params: Dict, force_fns: Tuple, B: int):
+    """f32 [P, B]: every lane's record (_record_parts), lane-major, so that
+    neighbouring threads read neighbouring floats; lane-shared values are
+    broadcast into it (pallas_step._pack_*_lane)."""
+    cols = [v.reshape(-1, n).expand(B, n) for v, n in _record_parts(topo, params, force_fns)]
+    return torch.cat(cols, dim=1).float().t().contiguous()
+
+
 def _static_buffer(topo: Topology, params: Dict, force_fns: Tuple = ()):
     """f32 [E0_pj (16N), E0_ji (16N), I_i (6N), axes (9N), jsf (7 nr), bd (N),
     g (3), h (1), contacts (13 C), springs (9 S), cables (3 P + 3 each)] on
-    the params' device. axes[j][:, d] is the d-th DOF's axis (rotation axis
-    for REVOLUTE, translation direction otherwise). A contact row is sides[3],
-    kn, kt, kd, mu, xg[3], ng[3] (the floor's origin and normal); a spring
-    row xl1[3], xl2[3], k, d, L (L = 0 for a point-point spring); a cable
-    xls[3P], k, d, L (pallas_step._pack_contacts / _pack_springs /
-    _pack_cables)."""
+    the params' device (the record fields in _record_parts' layout; of a
+    per-lane param, lane 0's value, which a PERLANE build does not read).
+    axes[j][:, d] is the d-th DOF's axis (rotation axis for REVOLUTE,
+    translation direction otherwise)."""
     N = topo.njoints
     dev = params["I_i"].device
     axes = torch.zeros(N, 3, 3, dtype=torch.float32, device=dev)
@@ -224,19 +275,8 @@ def _static_buffer(topo: Topology, params: Dict, force_fns: Tuple = ()):
             axes[mem] = torch.eye(3, device=dev)
     jsf = torch.stack([params[k] for k in ("stiffness", "damping", "qrest", "qlimL",
                                            "qlimU", "qlimK", "qlimD")])
-    parts = [params["E0_pj"], params["E0_ji"], params["I_i"], axes, jsf,
-             params["body_damping"], params["g"], params["h"].reshape(1)]
-    gnd, spr, cab = _split(force_fns)
-    for fn in gnd:
-        fp = fn.p(params)
-        parts += [fp["sides"], fp["kn"], fp["kt"], fp["kd"], fp["mu"],
-                  fp["E"][:3, 3], fp["E"][:3, 2]]
-    for fn in spr:
-        fp = fn.p(params)
-        parts += [fp["xl1"], fp["xl2"], fp["k"], fp["d"], fp["L"] if "L" in fp else fp["k"] * 0]
-    for fn in cab:
-        fp = fn.p(params)
-        parts += [fp["xls"], fp["k"], fp["d"], fp["L"]]
+    rec = [v.reshape(-1, n)[0] for v, n in _record_parts(topo, params, force_fns)]
+    parts = [params["E0_pj"], params["E0_ji"], rec[0], axes, jsf, *rec[1:]]
     return torch.cat([p.reshape(-1).float() for p in parts])
 
 
@@ -244,14 +284,15 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
                force_fns: Tuple = ()):
     """Batched fused BDF2 chord solve: (x [B,nr], Hinv [B,nr,nr]).
 
-    All state args are [B, nr]; params["tau"] may be [B, nr] or [nr]; every
-    other param is lane-shared. force_fns are the scene's force closures
-    (ground contacts, springs, cables). A CUDA tensor goes to the kernel
-    (f32, an instantiated (N, nr, kinds), a scene the kernel covers,
-    else it raises; the wrapper makes the contiguous [nr, B] copies the
-    kernel reads); a CPU tensor goes to chord_bdf2_reference.
+    All state args are [B, nr]; params["tau"] may be [B, nr] or [nr], and
+    I_i, body_damping, g, h and the closures' kn, kt, kd, mu, k, d, L may
+    be per lane (integrators.split_batched_params). force_fns are the
+    scene's force closures (ground contacts, springs, cables). A CUDA tensor
+    goes to the kernel (f32, an instantiated (N, nr, kinds), a scene the
+    kernel covers, else it raises; the wrapper makes the contiguous [nr, B]
+    copies the kernel reads, and with per-lane params the [P, B] record
+    buffer); a CPU tensor goes to chord_bdf2_reference.
     """
-    integrators.split_batched_params(params)  # only tau may be per-lane
     if x0.device.type == "cpu":
         return chord_bdf2_reference(topo, cfg, params, x0, q0, qd0, q1, qd1, force_fns)
     if x0.device.type != "cuda":
@@ -259,7 +300,7 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
     if not supports(topo, force_fns, cfg):
         raise ValueError("chord_bdf2: scene/config not covered by the kernel")
     N, nr = topo.njoints, topo.nr
-    kinds = kinds_of(topo, counts_of(closure_spec(topo, force_fns)))
+    kinds = kinds_of(topo, counts_of(closure_spec(topo, force_fns)), has_perlane(params))
     if (N, nr, kinds) not in INSTANTIATED:
         raise ValueError(f"chord_bdf2: no kernel instantiation for (N, nr, kinds) = "
                          f"{(N, nr, kinds)}")
@@ -285,45 +326,57 @@ def pack(topo: Topology, params: Dict, x0, q0, qd0, q1, qd1, force_fns: Tuple = 
     """The kernel's inputs: the six per-lane tensors as contiguous
     struct-of-arrays [nr, B] (neighbouring threads read neighbouring floats),
     the topology and lane-shared parameter buffers, each with the closures
-    of force_fns at its end, and their counts (Closures)."""
+    of force_fns at its end, their counts (Closures), and the per-lane
+    record buffer [P, B] (None when every physical param is lane-shared)."""
     B, nr = x0.shape
     tau = params["tau"].expand(B, nr)
     soa = [a.t().contiguous() for a in (x0, q0, qd0, q1, qd1, tau)]
     spec = closure_spec(topo, force_fns)
+    lane_f = _lane_buffer(topo, params, force_fns, B) if has_perlane(params) else None
     return (*soa, _topology_buffer(topo, spec, x0.device),
-            _static_buffer(topo, params, force_fns), counts_of(spec))
+            _static_buffer(topo, params, force_fns), counts_of(spec), lane_f)
 
 
-def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures) -> None:
-    """Raises unless both buffers have the sizes that the topology and the
-    closure counts give (pack's layouts)."""
+def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures, lane_f=None) -> None:
+    """Raises unless the buffers have the sizes that the topology and the
+    closure counts give (pack's layouts): lane_f, where given, [P, B] with
+    P at most MAX_LANE_RECORD."""
     N, nr = topo.njoints, topo.nr
     C, S, ncab, npts = counts
     n_topo = 3 * N + 1 + nr + N * N + 4 + C + 4 * S + ncab + npts
-    n_stat = 48 * N + 7 * nr + 4 + 13 * C + 9 * S + 3 * npts + 3 * ncab
+    n_rec = 7 * N + 4 + 13 * C + 9 * S + 3 * npts + 3 * ncab
+    n_stat = 41 * N + 7 * nr + n_rec
     if min(counts) < 0 or topo_i.numel() != n_topo or stat_f.numel() != n_stat:
         raise ValueError(f"chord_bdf2: buffers of {topo_i.numel()} ints and {stat_f.numel()} "
                          f"floats do not hold {counts} (want {n_topo} and {n_stat})")
+    if lane_f is not None and (lane_f.dim() != 2 or lane_f.shape[0] != n_rec
+                               or n_rec > MAX_LANE_RECORD):
+        raise ValueError(f"chord_bdf2: a per-lane buffer of shape {tuple(lane_f.shape)} does not "
+                         f"hold {counts} (want {n_rec} rows, at most {MAX_LANE_RECORD})")
 
 
-def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, counts: Closures):
+def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, counts: Closures,
+           lane_f=None):
     """Launch the kernel on the current stream on packed inputs (see pack);
     returns (x [nr, B], Hinv [nr*nr, B]) and counts the launch."""
     global chord_bdf2_launches
-    check_buffers(topo, topo_i, stat_f, counts)
-    qdep = has_qdep(topo)
-    lib = _build_lib(qdep)
+    check_buffers(topo, topo_i, stat_f, counts, lane_f)
     nr, B = x0.shape
+    if lane_f is not None and lane_f.shape[1] != B:
+        raise ValueError(f"chord_bdf2: a per-lane buffer of {lane_f.shape[1]} lanes for {B}")
+    kinds = kinds_of(topo, counts, lane_f is not None)
+    lib = _build_lib(build_of(kinds))
     x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
     h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     err = lib.chord_bdf2_launch(
-        topo.njoints, nr, int(qdep), *counts, B,
+        topo.njoints, nr, int(bool(kinds & QDEP)), int(lane_f is not None), *counts, B,
         *(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau)), topo_i.data_ptr(), stat_f.data_ptr(),
+        None if lane_f is None else lane_f.data_ptr(),
         cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
         x_out.data_ptr(), h_out.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"chord_bdf2 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"chord_bdf2 kernel launch failed: error {err}")
     chord_bdf2_launches += 1
     return x_out, h_out

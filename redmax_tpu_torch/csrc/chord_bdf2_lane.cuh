@@ -1,8 +1,8 @@
 // Per-lane body of the fused BDF2 chord-Newton solve (K1a + K1b + K1c + K1d +
-// K1e: constant-S joints and the q-dependent UNIVERSAL, exp-map SPHERICAL and
-// FREE3D joints; penalty ground contact on cuboid corners, two-point springs
-// and multi-point tension-only cables as force closures; unguarded chord,
-// lane-shared physical params).
+// K1e + K1f: constant-S joints and the q-dependent UNIVERSAL, exp-map
+// SPHERICAL and FREE3D joints; penalty ground contact on cuboid corners,
+// two-point springs and multi-point tension-only cables as force closures;
+// unguarded chord; physical params lane-shared or per lane).
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
 // (its fk_and_J / _so3_exp_S / joint_forces / maximal_forces / _ground_contact
@@ -22,13 +22,19 @@
 //                   cp[13*C]: per contact sides[3] kn kt kd mu xg[3] ng[3]
 //                   sp[9*S]: per spring xl1[3] xl2[3] k d L (L = 0 for point-point)
 //                   cb: per cable xls[3P] k d L
+//   lane_f          (kPerlane builds) the per-lane record [P, B], lane-major:
+//                   I_i[6N] bd[N] g[3] h cp[13*C] sp[9*S] cb[3*NPTS + 3*NCAB],
+//                   P = 7N + 4 + 13C + 9S + 3 NPTS + 3 NCAB <= kMaxLaneRecord,
+//                   each field in the layout of stat_f; these builds read
+//                   these fields from lane_f and ignore them in stat_f
 //   outputs         x [NR, B] (NaN on rejected lanes), Hinv [NR*NR, B]
 // C ground contacts, contact c on body cbody[c] against the plane through xg
 // with normal ng; S springs and NCAB cables of NPTS points in all (body -1: a
 // world point, its xl in world coordinates). The template bitmask FEAT
-// compiles in the code of each closure kind (kContacts, kSprings, kCables) and
-// of the q-dependent joints (kQdep) only where a scene has it: closure loops
-// that run no iteration still cost the constant-S solve registers and time.
+// compiles in the code of each closure kind (kContacts, kSprings, kCables), of
+// the q-dependent joints (kQdep) and of the per-lane record (kPerlane) only
+// where a scene has it: closure loops that run no iteration still cost the
+// constant-S solve registers and time.
 #pragma once
 
 #ifndef __CUDACC__
@@ -48,10 +54,13 @@ enum JointKind {
   UNIVERSAL = 5, SPHERICAL = 6, FREE3D = 8
 };
 
-// Closure kinds and the q-dependent joints (kQdep) of the FEAT bitmask, and
-// the longest cable a lane holds.
-constexpr int kContacts = 1, kSprings = 2, kCables = 4, kAllClosures = 7, kQdep = 8;
+// Closure kinds, the q-dependent joints (kQdep) and the per-lane physical
+// params (kPerlane) of the FEAT bitmask; the longest cable a lane holds and
+// the longest per-lane record.
+constexpr int kContacts = 1, kSprings = 2, kCables = 4, kAllClosures = 7, kQdep = 8,
+              kPerlane = 16;
 constexpr int kMaxCablePoints = 8;
+constexpr int kMaxLaneRecord = 512;
 
 struct Frame {
   float R[3][3];
@@ -280,7 +289,8 @@ CHORD_HD void ground_contact(const Frame& E, const float* phi, const float* cp, 
   }
 }
 
-// Lane-shared inputs, unpacked from topo_i / stat_f.
+// Lane-shared inputs, unpacked from topo_i / stat_f; read_lane points the
+// physical params at one lane's own record instead (kPerlane builds).
 template <int N, int NR>
 struct Shared {
   const int* parent;
@@ -324,6 +334,23 @@ struct Shared {
     cbody = anc + N * N + 4;
     sspec = cbody + ncontacts;
     cspec = sspec + 4 * nsprings;
+    cp = g + 4;
+    sp = cp + 13 * ncontacts;
+    cb = sp + 9 * nsprings;
+  }
+  // Floats in one lane's record of lane_f (the layout above).
+  CHORD_HD int lane_record_size() const {
+    return 7 * N + 4 + 13 * ncontacts + 9 * nsprings + 3 * anc[N * N + 3] + 3 * ncables;
+  }
+  // Copy lane `lane` of the [P, B] record into rec and read Ii, bd, g, h,
+  // cp, sp and cb from there: the lane arithmetic stays as it is.
+  CHORD_HD void read_lane(const float* lane_f, int lane, int B, float* rec) {
+    const int P = lane_record_size();
+    for (int k = 0; k < P; ++k) rec[k] = lane_f[k * B + lane];
+    Ii = rec;
+    bd = Ii + 6 * N;
+    g = bd + N;
+    h = g[3];
     cp = g + 4;
     sp = cp + 13 * ncontacts;
     cb = sp + 9 * nsprings;
@@ -1028,14 +1055,22 @@ struct ChordConfig {
 
 // One lane's fixed-iteration chord solve (integrators.newton semantics):
 // H and H^-1 at the predictor x0, then fixed_iters steps x -= H^-1 g(x),
-// rejection on a non-finite result or a residual that grew.
+// rejection on a non-finite result or a residual that grew. A kPerlane build
+// reads the lane's physical params from lane_f (unused otherwise).
 template <int N, int NR, int FEAT = kAllClosures>
 CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0s,
                               const float* qd0s, const float* q1s, const float* qd1s,
                               const float* taus, const int* topo_i, const float* stat_f,
-                              ChordConfig cfg, float* x_out, float* hinv_out) {
+                              ChordConfig cfg, float* x_out, float* hinv_out,
+                              const float* lane_f = nullptr) {
   constexpr bool QDEP = (FEAT & kQdep) != 0;
-  const Shared<N, NR> sh(topo_i, stat_f);
+  constexpr bool PERLANE = (FEAT & kPerlane) != 0;
+  Shared<N, NR> sh(topo_i, stat_f);
+  float rec[PERLANE ? kMaxLaneRecord : 1];
+  if constexpr (PERLANE)
+    sh.read_lane(lane_f, lane, B, rec);
+  else
+    (void)rec;
   History<NR> hs;
   float x[NR], qd[NR], g[NR];
   for (int r = 0; r < NR; ++r) {

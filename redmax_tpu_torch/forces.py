@@ -39,6 +39,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from redmax_tpu_torch import se3
+from redmax_tpu_torch.types import lanewise
 
 
 class _ForceBase:
@@ -172,10 +173,19 @@ class ForceGroundCuboid(_ForceBase):
         return _energy(kin.E_wi[:, self.body], self.p(params))
 
 
+def stack_coefs(fps: Sequence[Dict], key: str):
+    """One scalar coefficient of several closures: [n], or [B, n] where any of
+    them is per lane [B] (the others broadcast), so that it lines up with
+    [B, n, ...] closure tensors."""
+    return torch.stack(torch.broadcast_tensors(*(fp[key] for fp in fps)), dim=-1)
+
+
 def stack_contact_params(fns: Sequence[ForceGroundCuboid], params: Dict) -> Dict:
-    """The closures' parameters stacked along a leading [C] dim."""
+    """The closures' parameters stacked by contact: E [C, 4, 4], sides [C, 3],
+    and kn, kt, kd, mu [C], or [B, C] where any is per lane."""
     fps = [fn.p(params) for fn in fns]
-    return {k: torch.stack([fp[k] for fp in fps]) for k in ("E", "sides", "kn", "kt", "kd", "mu")}
+    out = {k: torch.stack([fp[k] for fp in fps]) for k in ("E", "sides")}
+    return {**out, **{k: stack_coefs(fps, k) for k in ("kn", "kt", "kd", "mu")}}
 
 
 def ground_contact_wrenches(fns: Sequence[ForceGroundCuboid], params: Dict, kin, phi):
@@ -400,16 +410,16 @@ def _spring_eval(fns, params, kin, phi, blocks: bool):
     xl = torch.stack([fp["xl1"] for fp in fps] + [fp["xl2"] for fp in fps])
     x, v, R, u = body_points(kin, phi, bodies, xl)
     dx, dv = x[:, S:] - x[:, :S], v[:, S:] - v[:, :S]
-    k, d = (torch.stack([fp[n] for fp in fps]) for n in ("k", "d"))
+    k, d = stack_coefs(fps, "k"), stack_coefs(fps, "d")           # [S] or [B, S]
     A = Bm = None
     eye = torch.eye(3, dtype=dx.dtype, device=dx.device)
     if isinstance(fns[0], ForcePointPoint):
-        fW = k[:, None] * dx + d[:, None] * dv
+        fW = k[..., None] * dx + d[..., None] * dv
         if blocks:
-            A = (k[:, None, None] * eye).expand(*dx.shape, 3)
-            Bm = (d[:, None, None] * eye).expand(*dx.shape, 3)
+            A = (k[..., None, None] * eye).expand(*dx.shape, 3)
+            Bm = (d[..., None, None] * eye).expand(*dx.shape, 3)
     else:
-        L = torch.stack([fp["L"] for fp in fps])
+        L = stack_coefs(fps, "L")
         l = torch.sqrt(torch.clamp((dx * dx).sum(-1), min=_L2_MIN))
         linv = 1.0 / l
         e = dx * linv[..., None]
@@ -421,7 +431,7 @@ def _spring_eval(fns, params, kin, phi, blocks: bool):
             gate = torch.where(tension, (l > L).to(dx.dtype), gate)
         fW = (gate * fs * linv)[..., None] * dx
         if blocks:
-            dfs = (k / L)[:, None] * e + (d / L)[:, None] * (dv - ldot[..., None] * e) * linv[..., None]
+            dfs = (k / L)[..., None] * e + (d / L)[..., None] * (dv - ldot[..., None] * e) * linv[..., None]
             outer = e[..., :, None] * e[..., None, :]
             A = gate[..., None, None] * ((fs * linv)[..., None, None] * (eye - outer)
                                          + e[..., :, None] * dfs[..., None, :])
@@ -453,8 +463,8 @@ def _cable_eval(fn, params, kin, phi, blocks: bool):
     eye = torch.eye(3, dtype=dx.dtype, device=dx.device)
     T = (eye - us[..., :, None] * us[..., None, :]) * linv[..., None, None]   # Pm_s / l_s
     w = torch.einsum("bsij,bsj->bsi", T, dv)
-    a = gate[:, None, None] * (-(k / L) * c + (d / L) * (torch.cat([z, w], dim=1)
-                                                         - torch.cat([w, z], dim=1)))
+    a = gate[:, None, None] * (-lanewise(k / L, 3) * c + lanewise(d / L, 3) * (
+        torch.cat([z, w], dim=1) - torch.cat([w, z], dim=1)))
     Dji = torch.einsum("sji,nsab->njiab", _cable_coef(P, dx.dtype, dx.device), T)
     A = c[:, :, None, :, None] * a[:, None, :, None, :] + fs[:, None, None, None, None] * Dji
     Bm = -(gate * d / L)[:, None, None, None, None] * (c[:, :, None, :, None] * c[:, None, :, None, :])

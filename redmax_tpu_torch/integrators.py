@@ -33,10 +33,10 @@ from redmax_tpu_torch.constraints import assemble_constraints
 from redmax_tpu_torch.linalg import make_solver
 from redmax_tpu_torch.model import (
     assemble, forward_kinematics, jacobians, joint_space_force, joint_space_KD_diag,
-    maximal_force, reparam_all, structured_hessian,
+    mass_diag, maximal_force, reparam_all, structured_hessian,
 )
 from redmax_tpu_torch.qp import kkt_solve, qp_pgs_batched
-from redmax_tpu_torch.types import State, Topology
+from redmax_tpu_torch.types import State, Topology, lanewise
 
 SDIRK_ALPHA = (2.0 - math.sqrt(2.0)) / 2.0
 
@@ -118,7 +118,7 @@ def _mv(M, v):
 
 
 def residual_sdirk2a(topo, force_fns, params: Dict, qa, q0, qdot0):
-    ah = SDIRK_ALPHA * params["h"]
+    ah = SDIRK_ALPHA * lanewise(params["h"], 2)
     dqtmp = qa - q0 - ah * qdot0
     qdota = (qa - q0) / ah
     M, f = _Mf(topo, force_fns, params, qa, qdota)
@@ -127,7 +127,7 @@ def residual_sdirk2a(topo, force_fns, params: Dict, qa, q0, qdot0):
 
 def residual_sdirk2b(topo, force_fns, params: Dict, q1, q0, qdot0, qdota):
     a = SDIRK_ALPHA
-    h = params["h"]
+    h = lanewise(params["h"], 2)
     ah = a * h
     dqtmp = q1 - q0 - (2 * a - 1) * h * qdot0 - 2 * (1 - a) * h * qdota
     qdot1 = (q1 - q0 - (1 - a) * h * qdota) / ah
@@ -136,7 +136,7 @@ def residual_sdirk2b(topo, force_fns, params: Dict, q1, q0, qdot0, qdota):
 
 
 def residual_bdf2(topo, force_fns, params: Dict, q2, q0, qdot0, q1, qdot1):
-    h = params["h"]
+    h = lanewise(params["h"], 2)
     dqtmp = q2 - (4 / 3) * q1 + (1 / 3) * q0 - (8 / 9) * h * qdot1 + (2 / 9) * h * qdot0
     qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
     M, f = _Mf(topo, force_fns, params, q2, qdot2)
@@ -144,7 +144,8 @@ def residual_bdf2(topo, force_fns, params: Dict, q2, q0, qdot0, q1, qdot1):
 
 
 # ---------------------------------------------------------------------------
-# Structured Newton matrices (see model.structured_hessian)
+# Structured Newton matrices (see model.structured_hessian; cK and cD are
+# scalars or per lane [B], as h is)
 # ---------------------------------------------------------------------------
 
 
@@ -153,7 +154,7 @@ def _hess_sdirk2a(topo, force_fns):
         params, q0, qdot0 = theta
         ah = SDIRK_ALPHA * params["h"]
         return structured_hessian(
-            topo, params, qa, (qa - q0) / ah, -ah * ah, -ah, force_fns
+            topo, params, qa, (qa - q0) / lanewise(ah, 2), -ah * ah, -ah, force_fns
         )
 
     return hess
@@ -164,7 +165,8 @@ def _hess_sdirk2b(topo, force_fns):
         params, q0, qdot0, qdota = theta
         a = SDIRK_ALPHA
         ah = a * params["h"]
-        qdot1 = (q1 - q0 - (1 - a) * params["h"] * qdota) / ah
+        h2 = lanewise(params["h"], 2)
+        qdot1 = (q1 - q0 - (1 - a) * h2 * qdota) / (a * h2)
         return structured_hessian(topo, params, q1, qdot1, -ah * ah, -ah, force_fns)
 
     return hess
@@ -174,7 +176,7 @@ def _hess_bdf2(topo, force_fns):
     def hess(theta, q2):
         params, q0, qdot0, q1, qdot1 = theta
         h = params["h"]
-        qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
+        qdot2 = (3 / (2 * lanewise(h, 2))) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
         return structured_hessian(
             topo, params, q2, qdot2, -(4 / 9) * h * h, -(2 / 3) * h, force_fns
         )
@@ -198,30 +200,49 @@ class Bdf2State(NamedTuple):
     aux: Dict = {}
 
 
-# Per-lane physical parameters: a leaf with ndim == base + 1 carries a
-# leading [B] lane dim. Only the torque is per-lane on this path; the others
-# (the system-identification dimension: inertia, gravity, timestep, body
-# damping, contact, spring and cable coefficients) are ROADMAP K1f.
-_BATCHABLE = {"tau": 1}
-_LATER = {"I_i": 2, "g": 1, "h": 0, "body_damping": 1}
-_LATER_FORCE = {"kn": 0, "kt": 0, "kd": 0, "mu": 0, "E": 2, "sides": 1,
-                "k": 0, "d": 0, "L": 0, "xl1": 1, "xl2": 1, "xls": 2}
+# Per-lane physical parameters (the JAX package's semantics): any of these
+# params may carry a leading [B] lane dim, the scenario-sampling /
+# system-identification dimension (domain-randomized inertia, timestep,
+# gravity, contact, spring and cable coefficients). The base (lane-shared)
+# ndim is listed; a leaf with ndim == base + 1 is per lane. The batch-first
+# op-level code broadcasts such a leaf against the lanes.
+_BATCHABLE = {"tau": 1, "I_i": 2, "g": 1, "h": 0, "body_damping": 1}
+# Scalar per-force coefficients that may be [B] (params["forces"][key][p]).
+_FORCE_BATCHABLE = ("kn", "kt", "kd", "mu", "k", "d", "L")
 
 
 def split_batched_params(params: Dict):
     """(shared, batched): split params into lane-shared leaves and the
-    per-lane [B, ...] leaves. Raises on per-lane leaves not yet ported
-    (physical params and closure coefficients)."""
-    for k, nd in _LATER.items():
-        if params[k].ndim == nd + 1:
-            raise NotImplementedError(f"per-lane {k!r} is ROADMAP K1f")
-    for key, fp in params.get("forces", {}).items():
-        for k, nd in _LATER_FORCE.items():
-            if k in fp and fp[k].ndim > nd:
-                raise NotImplementedError(f"per-lane {k!r} of force {key!r} is ROADMAP K1f")
+    per-lane [B, ...] leaves declared in _BATCHABLE / _FORCE_BATCHABLE
+    (batched["forces"][key] holds a force's per-lane coefficients)."""
     shared = dict(params)
-    batched = {k: shared.pop(k) for k, nd in _BATCHABLE.items() if params[k].ndim == nd + 1}
+    batched = {}
+    for k, nd in _BATCHABLE.items():
+        v = params.get(k)
+        if v is not None and v.ndim == nd + 1:
+            batched[k] = shared.pop(k)
+    bf, sf = {}, {}
+    for key, fp in params.get("forces", {}).items():
+        bsub = {p: v for p, v in fp.items() if p in _FORCE_BATCHABLE and v.ndim == 1}
+        sf[key] = {p: v for p, v in fp.items() if p not in bsub}
+        if bsub:
+            bf[key] = bsub
+    if bf:
+        batched["forces"], shared["forces"] = bf, sf
     return shared, batched
+
+
+def merge_batched_params(shared: Dict, batched: Dict) -> Dict:
+    """The inverse of split_batched_params: params from (shared, per-lane
+    leaves). Batch-first, the per-lane leaves keep their [B] dim (the JAX
+    package merges one lane's slice under vmap)."""
+    out = {**shared, **{k: v for k, v in batched.items() if k != "forces"}}
+    if "forces" in batched:
+        f = dict(shared.get("forces", {}))
+        for key, sub in batched["forces"].items():
+            f[key] = {**f.get(key, {}), **sub}
+        out["forces"] = f
+    return out
 
 
 def _newton_factored(cfg, res_theta_fn, hess_fn):
@@ -279,26 +300,25 @@ def make_bdf2_step(
     res = {"a": _res_a, "b": _res_b, "2": _res_2}
 
     def _solve(key, theta, x0):
-        split_batched_params(theta[0])
         if differentiable:
             return implicit_solve_factored(res[key], nf[key], solve_T, theta, x0)
         return nf[key](theta, x0)[0]
 
     def bootstrap(params: Dict, s: Bdf2State) -> Bdf2State:
         q0, qdot0 = s.q, s.qdot
-        ah = SDIRK_ALPHA * params["h"]
+        h = lanewise(params["h"], 2)
+        ah = SDIRK_ALPHA * h
         qa = _solve("a", (params, q0, qdot0), q0 + ah * qdot0)
         qdota = (qa - q0) / ah
-        q1 = _solve("b", (params, q0, qdot0, qdota),
-                    qa + (1 - SDIRK_ALPHA) * params["h"] * qdota)
-        qdot1 = (q1 - q0 - (1 - SDIRK_ALPHA) * params["h"] * qdota) / ah
+        q1 = _solve("b", (params, q0, qdot0, qdota), qa + (1 - SDIRK_ALPHA) * h * qdota)
+        qdot1 = (q1 - q0 - (1 - SDIRK_ALPHA) * h * qdota) / ah
         return _reparam(topo, params, Bdf2State(
             q=q1, qdot=qdot1, q_prev=q0, qdot_prev=qdot0, k=s.k + 1, aux=s.aux))
 
     def inner(params: Dict, s: Bdf2State) -> Bdf2State:
         q0, qdot0 = s.q_prev, s.qdot_prev
         q1, qdot1 = s.q, s.qdot
-        h = params["h"]
+        h = lanewise(params["h"], 2)
         guess = q1 + h * qdot1
         if cfg.predictor == "quadratic":
             guess = guess + 0.5 * h * (qdot1 - qdot0)
@@ -366,7 +386,7 @@ def make_bdf2_step_batched(
     def inner(params: Dict, s: Bdf2State) -> Bdf2State:
         q0, qd0 = s.q_prev, s.qdot_prev
         q1, qd1 = s.q, s.qdot
-        h = params["h"]
+        h = lanewise(params["h"], 2)
         guess = q1 + h * qd1
         if cfg.predictor == "quadratic":
             guess = guess + 0.5 * h * (qd1 - qd0)
@@ -420,8 +440,8 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
     force is dropped and only D enters the left side. Kr and Dr are the
     closed-form diagonals of model.joint_space_KD_diag (penalty limits
     included), and without force closures Dm is the body damping alone and
-    Km is zero. Force closures raise (their Km/Dm in the Euler system are
-    ROADMAP queue 1 item 10).
+    Km is zero. h, I_i, g and body_damping may be per lane. Force closures
+    raise (their Km/Dm in the Euler system are ROADMAP queue 1 item 10).
 
     Returns a dict: kin, J, Jdot, phi, Mr [B,nr,nr], frtilde [B,nr],
     Mrtilde [B,nr,nr].
@@ -429,7 +449,7 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
     if force_fns:
         raise NotImplementedError(
             "force closures in the Euler system (their Km, Dm) are ROADMAP queue 1 item 10")
-    h = params["h"]
+    h, h3 = lanewise(params["h"], 2), lanewise(params["h"], 3)
     B = q0.shape[0]
     kin = forward_kinematics(topo, params, q0, qdot0)
     J, Jdot, phi = jacobians(topo, params, kin, qdot0)
@@ -439,15 +459,15 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
     f0_r = joint_space_force(topo, params, q0, qdot0) - Dr * qdot0
 
     # maximal_force carries -bd*phi; adding it back leaves Coriolis + gravity
-    bd6 = params["body_damping"].repeat_interleave(6)            # Dm = -diag(bd6)
+    bd6 = params["body_damping"].repeat_interleave(6, dim=-1)    # Dm = -diag(bd6)
     phif = phi.reshape(B, -1)
     f0_m = maximal_force(topo, params, kin, phi).reshape(B, -1) + bd6 * phif
 
-    Ivec = params["I_i"].reshape(-1)
-    Mr = Jt @ (Ivec[:, None] * J)
+    Ivec = mass_diag(params["I_i"])                              # [(B,) 6N, 1]
+    Mr = Jt @ (Ivec * J)
     Mr = 0.5 * (Mr + Mr.transpose(-1, -2))
-    frtilde = _mv(Mr, qdot0) + h * (_mv(Jt, f0_m - Ivec * _mv(Jdot, qdot0)) + f0_r)
-    Mrtilde = Mr + h * (Jt @ (bd6[:, None] * J)) - torch.diag_embed(h * Dr + h * h * Kr)
+    frtilde = _mv(Mr, qdot0) + h * (_mv(Jt, f0_m - Ivec[..., 0] * _mv(Jdot, qdot0)) + f0_r)
+    Mrtilde = Mr + h3 * (Jt @ (bd6[..., None] * J)) - torch.diag_embed(h * Dr + h * h * Kr)
     return {"kin": kin, "J": J, "Jdot": Jdot, "phi": phi,
             "Mr": Mr, "frtilde": frtilde, "Mrtilde": Mrtilde}
 
@@ -484,7 +504,6 @@ def _make_euler_step(topo, force_fns, constraint_fns, ineq_solve: Callable):
 
     def step(params: Dict, state: State) -> State:
         q0, qdot0 = state.q, state.qdot
-        split_batched_params(params)  # only tau may be per-lane
         Mrt, frt, qp = euler_qp_system(topo, force_fns, constraint_fns, params, q0, qdot0)
         if qp is None:
             qdot1 = torch.linalg.solve(Mrt, frt[..., None])[..., 0]
@@ -494,7 +513,7 @@ def _make_euler_step(topo, force_fns, constraint_fns, ineq_solve: Callable):
                 qdot1, _ = kkt_solve(Mrt, A, frt, b)
             else:
                 qdot1, _ = ineq_solve(Mrt, frt, A, b, lo, hi)
-        q1 = q0 + params["h"] * qdot1
+        q1 = q0 + lanewise(params["h"], 2) * qdot1
         q1, qdot1 = reparam_all(topo, params, q1, qdot1)
         return State(q=q1, qdot=qdot1, aux=state.aux)
 
@@ -535,8 +554,9 @@ def make_euler_step_batched(
     On a CUDA tensor the kernel route launches the CUDA kernel (float32 and
     an instantiated (nr, rows) shape, else it raises); on a CPU tensor it
     runs the kernel's plain PyTorch version. Pure-equality scenes solve the
-    dense KKT system and launch nothing. Only tau may be per-lane
-    (split_batched_params).
+    dense KKT system and launch nothing. tau, h, I_i, g and body_damping
+    may be per lane (split_batched_params); the kernel's inputs are per lane
+    already.
     """
     from redmax_tpu_torch import qp_kernel
 

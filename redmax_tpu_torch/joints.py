@@ -59,17 +59,15 @@ def _rotation_E(R):
 
 
 def _Q_revolute(q, axis):
-    """Rotation about the unit axis by q: R = c I + (1 - c) a a^T + s hat(a).
+    """Rotation about the axis by q: R = exp(hat(a q)) (JointRevolute.m:29).
 
-    Closed form (the fused kernel's, pallas_step.py fk_and_J); the axis is
-    unit-normalised at scene build time. Smooth everywhere, including q = 0.
+    The axis is unit-normalised at scene build time, where this equals the
+    fused kernel's closed form c I + (1 - c) a a^T + s hat(a); the
+    exponential itself, as the JAX package takes it, also gives its gradient
+    into the axis (params["joint"]), the component along a included. Smooth
+    everywhere, including q = 0.
     """
-    th = q[..., 0]
-    c = torch.cos(th)[..., None, None]
-    s = torch.sin(th)[..., None, None]
-    aaT = axis[:, :, None] * axis[:, None, :]
-    I3 = torch.eye(3, dtype=q.dtype, device=q.device)
-    return _rotation_E(c * I3 + (1.0 - c) * aaT + s * se3.hat3(axis))
+    return _rotation_E(se3.exp_so3(axis * q))
 
 
 def _cols(*cols):

@@ -1,8 +1,9 @@
 """Kinematics and dynamics assembly, batch-first.
 
-Every function takes a static Topology, a SceneParams dict (lane-shared
-tensors, except tau, which may be [B, nr]) and batched (q, qdot) [B, nr];
-every output carries the leading [B] lane dimension. Lanes never mix.
+Every function takes a static Topology, a SceneParams dict and batched
+(q, qdot) [B, nr]; every output carries the leading [B] lane dimension.
+Lanes never mix. tau, I_i, body_damping, g, h and the force coefficients may
+be per lane (types.SceneParams): they broadcast against the lane dim.
 
   * Forward kinematics: local joint transforms per type group, then the
     world chain by static pointer doubling (O(log depth) batched 4x4 rounds).
@@ -24,7 +25,7 @@ import torch
 
 from redmax_tpu_torch import forces, se3
 from redmax_tpu_torch.joints import EXP_ROTATION, joint_QSSdot, joint_reparam
-from redmax_tpu_torch.types import MAX_NDOF, NDOF, JointType, Topology
+from redmax_tpu_torch.types import MAX_NDOF, NDOF, JointType, Topology, lanewise
 
 
 class Kinematics(NamedTuple):
@@ -174,11 +175,11 @@ def local_force_blocks(topo: Topology, params: Dict, kin: Kinematics, phi):
       D[0:3, 0:3] = hat(Irot w) - hat(w) Irot,  D[3:6, 0:3] = m hat(v),
       D[3:6, 3:6] = -m hat(w),  minus bd on the diagonal.
     """
-    I = params["I_i"]                                            # [N,6]
-    Irot = I[:, :3]
-    m = I[:, 3][:, None, None]
+    I = params["I_i"]                                            # [(B,) N, 6]
+    Irot = I[..., :3]
+    m = I[..., 3, None, None]
     w, v = phi[..., :3], phi[..., 3:]
-    Rtg = torch.einsum("bnji,j->bni", kin.E_wi[..., :3, :3], params["g"])
+    Rtg = _gravity_body(kin, params["g"])
     Z = torch.zeros_like(se3.hat3(w))
     K = torch.cat([
         torch.cat([Z, Z], dim=-1),
@@ -186,12 +187,23 @@ def local_force_blocks(topo: Topology, params: Dict, kin: Kinematics, phi):
     ], dim=-2)
     hw = se3.hat3(w)
     D = torch.cat([
-        torch.cat([se3.hat3(Irot * w) - hw * Irot[:, None, :], Z], dim=-1),
+        torch.cat([se3.hat3(Irot * w) - hw * Irot[..., None, :], Z], dim=-1),
         torch.cat([m * se3.hat3(v), -m * hw], dim=-1),
     ], dim=-2)
     bd = params["body_damping"]
-    D = D - bd[:, None, None] * torch.eye(6, dtype=phi.dtype, device=phi.device)
+    D = D - bd[..., None, None] * torch.eye(6, dtype=phi.dtype, device=phi.device)
     return K, D
+
+
+def _gravity_body(kin: Kinematics, g):
+    """R_wi^T g [B, N, 3]: gravity [3] or per lane [B, 3] in each body frame."""
+    R = kin.E_wi[..., :3, :3]
+    return torch.einsum("bnji,bj->bni", R, g.expand(R.shape[0], 3))
+
+
+def mass_diag(I):
+    """The block-diagonal Mm as a column [(B,) 6N, 1] from I_i [(B,) N, 6]."""
+    return I.flatten(-2)[..., None]
 
 
 def maximal_force(topo: Topology, params: Dict, kin: Kinematics, phi):
@@ -199,9 +211,9 @@ def maximal_force(topo: Topology, params: Dict, kin: Kinematics, phi):
     body damping."""
     I = params["I_i"]
     fcor = torch.einsum("bnji,bnj->bni", se3.ad(phi), I * phi)   # ad(phi)^T (M phi)
-    grav_i = torch.einsum("bnji,j->bni", kin.E_wi[..., :3, :3], params["g"])
-    fgrav = torch.cat([torch.zeros_like(grav_i), I[:, 3][:, None] * grav_i], dim=-1)
-    return fcor + fgrav - params["body_damping"][:, None] * phi
+    grav_i = _gravity_body(kin, params["g"])
+    fgrav = torch.cat([torch.zeros_like(grav_i), I[..., 3, None] * grav_i], dim=-1)
+    return fcor + fgrav - params["body_damping"][..., None] * phi
 
 
 def closure_forces(topo: Topology, params: Dict, kin: Kinematics, phi, q, qdot,
@@ -222,7 +234,8 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
     frozen J, and the quadratic-velocity damping -2 J^T Mm Jdot. Ground
     contacts add their closed-form per-body blocks
     (forces.ground_contact_blocks) with the one-step proximity-margin
-    activation, hh = params["h"], gmag = |g|. Springs and cables add
+    activation, hh = params["h"], gmag = |g| (per lane where those are). cK
+    and cD are scalars or per lane [B]. Springs and cables add
     J_b^T K_bc J_c (and the same with D) for every pair of their body points
     (forces.pair_closure_blocks), the blocks that couple two bodies
     included: the JAX package's jacfwd Km, Dm in closed form.
@@ -238,7 +251,7 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
         idx = forces.body_index(tuple(fn.body for fn in gnd), q.device)
         Kc, Dc = forces.ground_contact_blocks(
             kin.E_wi[:, idx], phi[:, idx], forces.stack_contact_params(gnd, params),
-            params["h"], torch.linalg.vector_norm(params["g"]))
+            lanewise(params["h"], 3), lanewise(torch.linalg.vector_norm(params["g"], dim=-1), 3))
         Kmb, Dmb = Kmb.index_add(1, idx, Kc), Dmb.index_add(1, idx, Dc)
     Jblk = J.reshape(B, N, 6, nr)
     Kt = torch.diag_embed(Krd) + torch.einsum("bnir,bnis->brs", Jblk, Kmb @ Jblk)
@@ -249,10 +262,10 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
         Kt = Kt + torch.einsum("bpir,bpij,bpjs->brs", Jj, Kp, Ji)
         Dt = Dt + torch.einsum("bpir,bpij,bpjs->brs", Jj, Dp, Ji)
 
-    MmJ = params["I_i"].reshape(-1)[:, None] * J
+    MmJ = mass_diag(params["I_i"]) * J
     M = MmJ.transpose(-1, -2) @ J
     Dt = Dt - 2.0 * (MmJ.transpose(-1, -2) @ Jdot)
-    return M + cK * Kt + cD * Dt
+    return M + lanewise(cK, 3) * Kt + lanewise(cD, 3) * Dt
 
 
 def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
@@ -270,7 +283,7 @@ def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
     if force_fns:
         fr_cl, fm_cl = closure_forces(topo, params, kin, phi, q, qdot, force_fns)
         fr, fm = fr + fr_cl, fm + fm_cl
-    MmJ = params["I_i"].reshape(-1)[:, None] * J                 # block-diag Mm
+    MmJ = mass_diag(params["I_i"]) * J
     MmJt = MmJ.transpose(-1, -2)
     M = MmJt @ J
     fqvv = -(MmJt @ (Jdot @ qdot[..., None]))[..., 0]
@@ -290,7 +303,7 @@ def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
     _, _, phi = jacobians(topo, params, kin, qdot)
     I = params["I_i"]
     T = 0.5 * (phi * (I * phi)).sum((-1, -2))
-    V = -(I[:, 3] * (kin.E_wi[..., :3, 3] @ params["g"])).sum(-1)
+    V = -(I[..., 3] * (kin.E_wi[..., :3, 3] * params["g"][..., None, :]).sum(-1)).sum(-1)
     dq = q - params["qrest"]
     V = V + 0.5 * (params["stiffness"] * dq * dq).sum(-1)
     dqL = (q < params["qlimL"]).to(q.dtype) * (params["qlimL"] - q)

@@ -144,10 +144,22 @@ class State:
 #     "body_damping": [N]    viscous body damping
 #     "g":       [3]         gravity
 #     "h":       []          timestep
-#     "stiffness", "damping", "qrest", "tau": [nr]  (tau may be [B, nr])
+#     "stiffness", "damping", "qrest", "tau": [nr]
 #     "qlimL", "qlimU", "qlimK", "qlimD": [nr]  penalty joint limits
 #     "baumgarte": [3], "mu": [2]
 #     "joint": { str(JointType): per-type param array [G, ...] }  (e.g. axes)
 #     "constraints": {}, "forces": {}
 #   }
+#
+# On the batched paths tau, I_i, body_damping, g and h, and the scalar
+# coefficients kn, kt, kd, mu, k, d, L of params["forces"], may carry a
+# leading [B] lane dim (one more dim than above): the per-lane
+# (domain-randomized, system-identification) parameters.
 SceneParams = Dict[str, Any]
+
+
+def lanewise(v, ndim: int):
+    """A scalar param against a batch-first tensor of ndim dims: a lane-shared
+    0-d v as it is, a per-lane [B] v as [B, 1, ...] (ndim dims): [B, 1]
+    against [B, nr] states, [B, 1, 1] against [B, nr, nr] matrices."""
+    return v.reshape(v.shape + (1,) * (ndim - 1)) if getattr(v, "ndim", 0) == 1 else v

@@ -339,8 +339,10 @@ def test_contact_kernel_route_backward_matches_jax():
 
 
 def test_kernel_route_refuses_what_the_kernel_does_not_cover():
-    """supports() takes ground contacts, springs and cables and nothing else;
-    per-lane contact or spring coefficients raise (K1f)."""
+    """supports() takes ground contacts, springs and cables and nothing else.
+    Per-lane contact or spring coefficients (which once raised) are split
+    out as per lane and pick the PERLANE build, instantiated only for the
+    shapes the card runs (a CUDA tensor of another shape raises)."""
     tc_free = jchain(nlinks=4).compile(dtype=jnp.float32)
     topo, params = _port(tc_free, torch.float32)
     gnd = forces.ForceGroundCuboid("f0", 1)
@@ -348,15 +350,21 @@ def test_kernel_route_refuses_what_the_kernel_does_not_cover():
     assert chord_kernel.supports(topo, (), TCFG) and chord_kernel.supports(topo, (gnd,), TCFG)
     assert chord_kernel.supports(topo, (spr, forces.ForceCable("f2", (0, 3))), TCFG)
     assert not chord_kernel.supports(topo, (gnd, object()), TCFG)
-    with pytest.raises(NotImplementedError, match="K1f"):
-        tint.split_batched_params({**params, "forces": {"f1": {"k": torch.ones(3)}}})
+    _, lane = tint.split_batched_params({**params, "forces": {"f1": {"k": torch.ones(3)}}})
+    assert set(lane["forces"]["f1"]) == {"k"}
     with pytest.raises(ValueError):
         tint.make_bdf2_step_batched(topo, (object(),), TCFG, use_kernel=True)
     sc = jground(nlinks=4, **BENCH_GROUND).compile(dtype=jnp.float32)
     topo, params = _port(sc, torch.float32)
     lane = {**params["forces"]["f0"], "kn": torch.full((3,), 100.0)}
-    with pytest.raises(NotImplementedError, match="K1f"):
-        tint.split_batched_params({**params, "forces": {**params["forces"], "f0": lane}})
+    perlane = {**params, "forces": {**params["forces"], "f0": lane}}
+    assert chord_kernel.has_perlane(perlane) and not chord_kernel.has_perlane(params)
+    counts = chord_kernel.counts_of(chord_kernel.closure_spec(topo, _port_forces(sc)))
+    kinds = chord_kernel.kinds_of(topo, counts, perlane=True)
+    assert kinds == chord_kernel.CONTACTS | chord_kernel.PERLANE
+    assert chord_kernel.build_of(kinds) is chord_kernel.BUILD_PERLANE
+    assert (4, 4, kinds) not in chord_kernel.INSTANTIATED
+    assert (12, 12, kinds) in chord_kernel.INSTANTIATED
 
 
 PAIR_SCENES = {"springs": "spring3", "cable": "cable3"}
@@ -411,7 +419,8 @@ def test_check_buffers_rejects_mismatched_counts():
     topo, params = _port(sc, torch.float32)
     fns = _port_forces(sc)
     states = [torch.tensor(a) for a in _rand_states(sc.topo.nr, 4)]
-    *_, topo_i, stat_f, counts = chord_kernel.pack(topo, params, *states, fns)
+    *_, topo_i, stat_f, counts, lane_f = chord_kernel.pack(topo, params, *states, fns)
+    assert lane_f is None
     assert counts == chord_kernel.Closures(contacts=4, springs=0, cables=0, cable_points=0)
     chord_kernel.check_buffers(topo, topo_i, stat_f, counts)
     for bad in (counts._replace(contacts=3), counts._replace(springs=1),
@@ -426,3 +435,11 @@ def test_check_buffers_rejects_mismatched_counts():
     N, nr = topo.njoints, topo.nr
     head = 3 * N + 1 + nr + N * N
     assert topo_i[head:head + 4].tolist() == list(counts)
+    # per-lane kn: a [7N + 4 + 13C, B] record buffer, held to the counts too
+    fp = params["forces"]["f0"]
+    perlane = {**params, "forces": {**params["forces"], "f0": {**fp, "kn": fp["kn"].expand(4)}}}
+    *_, lane_f = chord_kernel.pack(topo, perlane, *states, fns)
+    assert lane_f.shape == (7 * N + 4 + 13 * 4, 4)
+    chord_kernel.check_buffers(topo, topo_i, stat_f, counts, lane_f)
+    with pytest.raises(ValueError, match="does not hold"):
+        chord_kernel.check_buffers(topo, topo_i, stat_f, counts, lane_f[:-1])

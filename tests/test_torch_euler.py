@@ -60,7 +60,7 @@ def test_euler_batched_matches_jax(scene, use_kernel):
 
 def test_kernel_route_selection():
     """use_kernel=True needs inequality rows; None picks the kernel route
-    only for scenes that have them."""
+    only for scenes that have them. A per-lane h is taken (it once raised)."""
     loop = build_mscene(4, device="cpu")
     with pytest.raises(ValueError, match="inequality"):
         tint.make_euler_step_batched(loop.topo, (), loop.constraint_fns, use_kernel=True)
@@ -71,8 +71,9 @@ def test_kernel_route_selection():
     # an unconstrained scene solves Mrtilde qdot1 = frtilde directly
     free = tint.make_euler_step(loop.topo)(loop.params, s0)
     assert torch.isfinite(free.q).all() and not torch.allclose(free.q, a.q)
-    with pytest.raises(NotImplementedError, match="K1f"):
-        loop.make_step("euler")({**loop.params, "h": loop.params["h"].expand(2)}, s0)
+    # a per-lane h [B] (each lane's the shared one here) steps as the shared h
+    c = loop.make_step("euler")({**loop.params, "h": loop.params["h"].expand(2)}, s0)
+    torch.testing.assert_close(c.q, b.q, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("sid", [4, 6, 7])

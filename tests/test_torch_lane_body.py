@@ -22,7 +22,10 @@ chord_bdf2_dense(force_fns=...) at the same tolerances; a floor out of reach
 gives the C = 0 result bit for bit. So with springs (point-point,
 spring-damper, tension-only) and cables (taut, slack), in the card's own
 instantiations for the spring chain and scene 13; springs with k = d = 0 and a
-slack cable give the result without them bit for bit.
+slack cable give the result without them bit for bit. With per-lane physical
+params the lane body is held against chord_bdf2_dense with its perlane reads,
+and in the card's per-lane builds lane-shared values in the per-lane buffer
+give the build without it bit for bit, and a NaN lane stays in its lane.
 
 These builds are tests only, never a route of a wrapper.
 """
@@ -52,6 +55,7 @@ from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch.scenes import scene_floor_chain
 from test_torch_chord import BENCH_GROUND, contact_states, corner_regimes
 from test_torch_model import mixed_builder
+from test_torch_perlane import perlane_params
 from test_torch_qp import mixed_qp
 from test_torch_springs import cable3, lengths, spring3, spring_chain_jax, tension_only
 
@@ -63,23 +67,29 @@ LOOP = r"""
   if (N == n && NR == nr && feat == f) {                                                  \
     for (int lane = 0; lane < B; ++lane)                                                  \
       chord::chord_bdf2_lane<n, nr, f>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, \
-                                       cfg, x_out, hinv_out);                             \
+                                       cfg, x_out, hinv_out, lane_f);                     \
     return 0;                                                                             \
   }
-// feat: the closure-kind bitmask of the build (7: every kind compiled in)
+// feat: the kinds bitmask of the build (7: every closure kind compiled in;
+// 16: the per-lane record lane_f)
 extern "C" int chord_bdf2_cpu(int N, int NR, int feat, int B, const float* x0, const float* q0,
                               const float* qd0, const float* q1, const float* qd1,
                               const float* tau, const int* topo_i, const float* stat_f,
-                              int fixed_iters, float growth_reject, float tol_reject,
-                              float dx_clamp, float* x_out, float* hinv_out) {
+                              const float* lane_f, int fixed_iters, float growth_reject,
+                              float tol_reject, float dx_clamp, float* x_out, float* hinv_out) {
   const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
   LANE(4, 4, 7)
   LANE(6, 8, 7)
   LANE(12, 12, 7)
   LANE(3, 3, 7)
   LANE(12, 12, 0)
+  LANE(12, 12, 1)
   LANE(12, 12, 2)
   LANE(4, 3, 4)
+  LANE(3, 3, 23)
+  LANE(12, 12, 17)
+  LANE(12, 12, 18)
+  LANE(4, 3, 20)
   return -1;
 }
 """
@@ -118,7 +128,7 @@ def _gxx_build(tmp_path_factory, name, source):
 def lane_lib(tmp_path_factory):
     lib = _gxx_build(tmp_path_factory, "lane_body", LOOP)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 8 + [i, f, f, f, p, p]
+    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 9 + [i, f, f, f, p, p]
     lib.chord_bdf2_cpu.restype = i
     return lib
 
@@ -146,16 +156,19 @@ def _port(sc):
 
 def _run_lane_lib(lane_lib, topo, params, tau, states, force_fns=(), feat=7):
     """(x [B, nr], Hinv [B, nr, nr]) of the g++ lane body (built with the
-    closure kinds feat) on the wrapper's own packing of the inputs."""
+    kinds feat) on the wrapper's own packing of the inputs (with per-lane
+    params, the per-lane record buffer too)."""
     B, nr = states[0].shape
     packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
                                *(torch.tensor(a) for a in states), force_fns)
     chord_kernel.check_buffers(topo, *packed[6:])
+    assert (packed[-1] is not None) == bool(feat & chord_kernel.PERLANE)
     args = [np.ascontiguousarray(a.numpy()) for a in packed[:8]]
+    args.append(None if packed[-1] is None else np.ascontiguousarray(packed[-1].numpy()))
     x_out = np.empty((nr, B), np.float32)
     h_out = np.empty((nr * nr, B), np.float32)
     cfg = tint.NewtonConfig(**CFG_KW)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    ptr = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
     rc = lane_lib.chord_bdf2_cpu(topo.njoints, nr, feat, B, *(ptr(a) for a in args),
                                  cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject,
                                  cfg.dx_clamp, ptr(x_out), ptr(h_out))
@@ -308,6 +321,76 @@ def test_lane_body_zero_springs_equal_no_springs(lane_lib):
     assert np.isnan(x[-1]).all() and np.isfinite(x[:-1]).all()
     np.testing.assert_array_equal(x, x0)
     np.testing.assert_array_equal(hinv[:-1], hinv0[:-1])
+
+
+def _perlane_case(case, B=16):
+    """(JAX scene in f32, per-lane params, tau, states, the build of the
+    per-lane case): chain-ground-12 at the contact-MPC workload's
+    coefficients on contact states and scene 13 (the card's builds), the
+    3-link spring scene and the 12-link spring chain (the card's build) on
+    the states of _closure_case."""
+    if case == "contacts":
+        sc = jground(nlinks=12, **BENCH_GROUND).compile(dtype=jnp.float32)
+        states, feat = contact_states(sc.topo.nr, B)[0], chord_kernel.CONTACTS
+    else:
+        name = {"springs": "spring3", "spring_chain": "spring_chain", "cable": "scene13"}[case]
+        sc, states, _, feat = _closure_case(name, B)
+    pn = perlane_params(sc.params, sc.force_fns, B)
+    tau = pn.pop("tau").astype(np.float32)
+    return sc, pn, tau, states, feat | chord_kernel.PERLANE
+
+
+@pytest.mark.parametrize("case", ["contacts", "springs", "cable"])
+def test_lane_body_perlane_matches_kernel_body(lane_lib, case):
+    """The kPerlane lane body on per-lane I_i, body damping, g, h and closure
+    coefficients (test_torch_perlane.perlane_params) against
+    chord_bdf2_dense(xp=np) with its perlane reads, at the tolerances of the
+    builds without them: with contacts and with a cable in the card's
+    builds (12,12, contacts) and (4,3, cables), with springs on the 3-link
+    spring scene in the build with every kind. (On the 12-link spring chain
+    these draws put some lanes on chord steps of many radians, where any two
+    float32 evaluations, the JAX package's numpy oracle and its own op-level
+    solve included, differ far beyond these tolerances: that build is held
+    by the next test.)"""
+    sc, pn, tau, states, feat = _perlane_case(case)
+    pj = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), pn)
+    assert {"I_i", "gh", "bd"} <= pallas_step._perlane_keys(pj, sc.force_fns)
+    jcfg = jint.NewtonConfig(**CFG_KW)
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(
+        sc.topo, jcfg, {**pj, "tau": jnp.asarray(tau)}, *states, xp=np, force_fns=sc.force_fns)
+    topo, _, fns = _port(sc)
+    params = convert.params_from_numpy(pn, "cpu", torch.float32)
+    x, hinv = _run_lane_lib(lane_lib, topo, params, tau, states, fns, feat)
+    finite = np.isfinite(x_np).all(-1)
+    assert finite.mean() >= 0.75, finite
+    np.testing.assert_array_equal(np.isfinite(x).all(-1), finite)
+    np.testing.assert_allclose(x[finite], x_np[finite], rtol=0, atol=5e-6)
+    scale = float(np.abs(hinv_np[finite]).max())
+    np.testing.assert_allclose(hinv[finite], hinv_np[finite], rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("case", ["contacts", "spring_chain", "cable"])
+def test_lane_body_perlane_buffer_keeps_lanes_apart(lane_lib, case):
+    """In the card's three per-lane builds: lane-shared values broadcast into
+    the per-lane buffer give the build without it bit for bit (every field
+    read at its offset), and a lane whose h is NaN comes out NaN and leaves
+    every other lane bit-equal."""
+    sc, pn, tau, states, feat = _perlane_case(case)
+    B = states[0].shape[0]
+    topo, shared, fns = _port(sc)
+    broadcast = {**shared, "h": shared["h"].expand(B)}
+    xb, hb = _run_lane_lib(lane_lib, topo, broadcast, tau, states, fns, feat)
+    x0, h0 = _run_lane_lib(lane_lib, topo, shared, tau, states, fns, feat & ~chord_kernel.PERLANE)
+    np.testing.assert_array_equal(xb, x0)
+    np.testing.assert_array_equal(hb, h0)
+    params = convert.params_from_numpy(pn, "cpu", torch.float32)
+    x, _ = _run_lane_lib(lane_lib, topo, params, tau, states, fns, feat)
+    assert np.isfinite(x).all(-1).mean() >= 0.5
+    params["h"][3] = float("nan")
+    xn, _ = _run_lane_lib(lane_lib, topo, params, tau, states, fns, feat)
+    keep = np.arange(B) != 3
+    assert np.isnan(xn[3]).all()
+    np.testing.assert_array_equal(xn[keep], x[keep])
 
 
 @pytest.fixture(scope="module")

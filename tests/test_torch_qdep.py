@@ -42,14 +42,14 @@ LOOP = r"""
   if (N == n && NR == nr && feat == f) {                                                  \
     for (int lane = 0; lane < B; ++lane)                                                  \
       chord::chord_bdf2_lane<n, nr, f>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, \
-                                       cfg, x_out, hinv_out);                             \
+                                       cfg, x_out, hinv_out, lane_f);                     \
     return 0;                                                                             \
   }
 extern "C" int chord_bdf2_cpu(int N, int NR, int feat, int B, const float* x0, const float* q0,
                               const float* qd0, const float* q1, const float* qd1,
                               const float* tau, const int* topo_i, const float* stat_f,
-                              int fixed_iters, float growth_reject, float tol_reject,
-                              float dx_clamp, float* x_out, float* hinv_out) {
+                              const float* lane_f, int fixed_iters, float growth_reject,
+                              float tol_reject, float dx_clamp, float* x_out, float* hinv_out) {
   const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
   LANE(6, 12, 8)
   LANE(4, 12, 8)
@@ -76,7 +76,7 @@ def qdep_lib(tmp_path_factory):
 
     lib = _gxx_build(tmp_path_factory, "qdep_lane_body", LOOP)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 8 + [i, f, f, f, p, p]
+    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 9 + [i, f, f, f, p, p]
     lib.chord_bdf2_cpu.restype = i
     return lib
 
