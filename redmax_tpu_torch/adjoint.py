@@ -6,30 +6,54 @@ incoming cotangent xbar,
     thetabar = -(dg/dtheta)^T H^{-T} xbar,   H = dg/dx
 
 i.e. one transposed linear solve per step plus one VJP of the residual in
-theta. ``implicit_solve_factored`` runs the forward solve with gradients off
-and reuses the factor the forward solve built (chord: H^-1 at the predictor)
-for the transposed solve, the reference's LU reuse (TaskBDF1.m:66). The
-Newton iteration itself is never differentiated.
+theta. The forward solve runs with gradients off and the Newton iteration
+itself is never differentiated. Two forms, as in the JAX package:
+
+  * ``implicit_solve_factored`` reuses the factor the forward solve built
+    (chord: H^-1 at the predictor) for the transposed solve, the reference's
+    LU reuse (TaskBDF1.m:66);
+  * ``implicit_solve`` builds H at the solution x* in the backward pass (a
+    structured matrix, or the exact Jacobian of the residual) and solves
+    against it.
 """
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 
-class _ImplicitSolveFactored(torch.autograd.Function):
+def batched_jacobian(res_fn: Callable, x):
+    """The exact per-lane Jacobian dg/dx [B, n, n] of a lane-separable
+    batched residual g = res_fn(x) [B, n] at x [B, n]: one reverse pass per
+    row over g[:, i].sum() (lanes do not mix, so the sum's gradient is each
+    lane's row). Enables grad locally on a detached x; returns a detached H."""
+    n = x.shape[-1]
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        g = res_fn(xg)
+        rows = [torch.autograd.grad(g[:, i].sum(), xg, retain_graph=i < n - 1)[0]
+                for i in range(n)]
+    return torch.stack(rows, dim=-2).detach()
+
+
+class _ImplicitSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, res_fn, newton_factored_fn, solve_T_fn, params, paths, x0, *tensors):
-        theta = _theta(params, paths, tensors)
-        x, F = newton_factored_fn(theta, x0)
-        ctx.res_fn, ctx.solve_T_fn, ctx.params, ctx.paths = res_fn, solve_T_fn, params, paths
-        ctx.save_for_backward(x, F, *tensors)
+    def forward(ctx, res_fn, solve_fn, backsolve_fn, params, paths, x0, *tensors):
+        x, F = solve_fn(_theta(params, paths, tensors), x0)
+        # a factor may be one tensor, a tuple (LU, pivots) or None
+        factor = () if F is None else tuple(F) if isinstance(F, tuple) else (F,)
+        ctx.res_fn, ctx.backsolve_fn, ctx.params, ctx.paths = res_fn, backsolve_fn, params, paths
+        ctx.nfactor, ctx.factor_is_tuple = len(factor), isinstance(F, tuple)
+        ctx.save_for_backward(x, *factor, *tensors)
         return x
 
     @staticmethod
     def backward(ctx, xbar):
-        x, F, *tensors = ctx.saved_tensors
-        z = ctx.solve_T_fn(F, xbar)
+        x, *rest = ctx.saved_tensors
+        factor, tensors = rest[:ctx.nfactor], rest[ctx.nfactor:]
+        F = tuple(factor) if ctx.factor_is_tuple else (factor[0] if factor else None)
+        theta = _theta(ctx.params, ctx.paths, [t.detach() for t in tensors])
+        z = ctx.backsolve_fn(theta, x.detach(), F, xbar)
         need = ctx.needs_input_grad[6:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n) for t, n in zip(tensors, need)]
@@ -68,27 +92,60 @@ def _theta(params, paths, tensors):
     return (params, *tensors[k:])
 
 
-def implicit_solve_factored(
-    res_fn: Callable,
-    newton_factored_fn: Callable,
-    solve_T_factor_fn: Callable,
-    theta: Any,
-    x0,
-):
-    """Solve res_fn(theta, x) = 0 with the implicit-function VJP, reusing the
-    forward factorization in the backward pass.
+def implicit_solve_custom(res_fn: Callable, solve_fn: Callable, backsolve_fn: Callable,
+                          theta: Any, x0):
+    """Solve res_fn(theta, x) = 0 with the implicit-function VJP.
 
     theta = (params, *state tensors): params is a nested SceneParams dict
     whose tensor leaves that require grad, at any depth, are differentiated
     (tau on the MPC path; inertia, gravity, timestep and the force and joint
     coefficients for system identification); every state tensor is
     differentiated.
-    newton_factored_fn: (theta, x0) -> (x*, F), F the live factorization.
-    solve_T_factor_fn: (F, xbar) -> H^-T xbar.
+    solve_fn: (theta, x0) -> (x*, F), F a factor the backward may reuse (a
+    tensor, a tuple of tensors, or None).
+    backsolve_fn: (theta, x*, F, xbar) -> z = H^-T xbar, with theta's
+    tensors detached.
     """
     params, *states = theta
     found = _grad_leaves(params)
     paths, leaves = tuple(p for p, _ in found), [v for _, v in found]
-    return _ImplicitSolveFactored.apply(
-        res_fn, newton_factored_fn, solve_T_factor_fn, params, paths, x0, *leaves, *states,
-    )
+    return _ImplicitSolve.apply(res_fn, solve_fn, backsolve_fn, params, paths, x0,
+                                *leaves, *states)
+
+
+def implicit_solve_factored(res_fn: Callable, newton_factored_fn: Callable,
+                            solve_T_factor_fn: Callable, theta: Any, x0):
+    """implicit_solve_custom that reuses the forward factorization:
+    newton_factored_fn: (theta, x0) -> (x*, F), F the live factorization;
+    solve_T_factor_fn: (F, xbar) -> H^-T xbar."""
+    return implicit_solve_custom(
+        res_fn, newton_factored_fn, lambda theta, x, F, xbar: solve_T_factor_fn(F, xbar),
+        theta, x0)
+
+
+def implicit_solve(res_fn: Callable, newton_fn: Callable, hess_fn: Optional[Callable],
+                   solve_T_fn: Optional[Callable], theta: Any, x0):
+    """implicit_solve_custom that builds H at the solution in the backward.
+
+    newton_fn: (fn: x -> g, jac_or_None, x0) -> x*, the inner solver.
+    hess_fn: optional (theta, x) -> H used for the backward transposed
+        solve; None -> the exact Jacobian of res_fn (batched_jacobian).
+    solve_T_fn: optional (H, xbar) -> H^-T xbar; None ->
+        torch.linalg.solve(H^T, xbar).
+    """
+
+    def solve(theta, x0):
+        jac = (lambda x: hess_fn(theta, x)) if hess_fn is not None else None
+        return newton_fn(lambda x: res_fn(theta, x), jac, x0), None
+
+    def backsolve(theta, x, _F, xbar):
+        if hess_fn is None:
+            H = batched_jacobian(lambda xx: res_fn(theta, xx), x)
+        else:
+            H = hess_fn(theta, x)
+        xbar = xbar.to(H.dtype)
+        if solve_T_fn is not None:
+            return solve_T_fn(H, xbar)
+        return torch.linalg.solve_ex(H.transpose(-1, -2), xbar[..., None])[0][..., 0]
+
+    return implicit_solve_custom(res_fn, solve, backsolve, theta, x0)

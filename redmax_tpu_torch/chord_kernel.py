@@ -3,13 +3,16 @@ version, its build and its launch counter.
 
 The kernel (csrc/chord_bdf2.cu, per-lane body in csrc/chord_bdf2_lane.cuh)
 replaces redmax_tpu/pallas_step.py::_build_kernel of the JAX package, on its
-K1a, K1b, K1c, K1d, K1e and K1f branches: constant-S joints and the
+K1a, K1b, K1c, K1d, K1e, K1f and K1g branches: constant-S joints and the
 q-dependent UNIVERSAL, exp-map SPHERICAL and FREE3D joints (S and Sdot per
 lane, pallas_step._so3_exp_S); penalty ground contact (ForceGroundCuboid,
 pallas_step._ground_contact); two-point springs (ForcePointPoint,
 ForceSpringDamper with tension_only, _spring_force) and tension-only cables
-(ForceCable, _cable_force); unguarded chord; physical params lane-shared or
-per lane (I_i, body_damping, g, h and the closures' coefficients, the
+(ForceCable, _cable_force); every fixed-iteration solve mode (unguarded
+chord, and K1g, the robust modes: H re-built at every iterate with
+chord=False, the full / half / stay-put guard at every iteration or on the
+last one only); physical params lane-shared or per lane (I_i,
+body_damping, g, h and the closures' coefficients, the
 `perlane` reads of _build_kernel: each lane copies its own record of a
 lane-major [P, B] buffer and runs the same arithmetic on it). The
 exp-map rescale after each step runs outside the kernel
@@ -19,8 +22,8 @@ joint and maximal forces with the closures' wrenches, the BDF2 residual, the
 structured Newton matrix H = M + cK K~ + cD D~ with the closures'
 closed-form K/D blocks (per contact body, and per pair of spring or cable
 points, the blocks coupling two bodies included), an unpivoted Gauss-Jordan
-H^-1 and `fixed_iters` chord steps with growth/tol rejection, and writes
-x [B, nr] (NaN on rejected lanes) and H^-1 [B, nr, nr].
+H^-1 and `fixed_iters` Newton steps with growth/tol/stall rejection, and
+writes x [B, nr] (NaN on rejected lanes) and the last H^-1 built [B, nr, nr].
 
 What bounds it on an H100: per-lane f32 arithmetic. It moves
 4 * B * (6 nr + nr + nr^2) bytes (about 0.93 MB at B = 1024, nr = 12), plus
@@ -36,15 +39,17 @@ thousand floats) live in local memory rather than registers. A warp per lane
 or a thread per (lane, column) with shared memory is the next design.
 
 The closure code is compiled in only where a scene has that kind of closure,
-the q-dependent joint code only where a scene has such a joint and the
-per-lane record only where a param is per lane (a template bitmask:
-contacts, springs, cables, QDEP, PERLANE), and only the (N, nr, kinds)
-combinations the paths run are instantiated (INSTANTIATED), in three
-libraries built side by side (BUILD, BUILD_QDEP with QDEP, BUILD_PERLANE
-with PERLANE): a scene that mixes ground contacts with springs or cables, a
-q-dependent joint with a closure or per-lane params, or per-lane params
-without a closure, runs on the CPU (the plain version) but raises on the
-card.
+the q-dependent joint code only where a scene has such a joint, the
+per-lane record only where a param is per lane and the robust modes only
+where the config asks for one (a template bitmask: contacts, springs,
+cables, QDEP, PERLANE, ROBUST), and only the (N, nr, kinds) combinations
+the paths run are instantiated (INSTANTIATED), in four libraries built side
+by side (BUILD, BUILD_QDEP with QDEP, BUILD_PERLANE with PERLANE,
+BUILD_ROBUST with ROBUST): a scene that mixes ground contacts with springs
+or cables, a q-dependent joint with a closure or per-lane params, per-lane
+params without a closure, or a robust mode at another shape than (12, 12)
+with or without contacts, runs on the CPU (the plain version) but raises
+on the card.
 
 On a CUDA tensor chord_bdf2 launches the kernel (and raises if it cannot);
 on a CPU tensor it runs chord_bdf2_reference.
@@ -70,16 +75,18 @@ _SOURCES = ("chord_bdf2.cu", "chord_bdf2_lane.cuh")
 BUILD = KernelBuild("chord_bdf2", _SOURCES)
 BUILD_QDEP = KernelBuild("chord_bdf2_qdep", _SOURCES, defines=("-DCHORD_QDEP_UNIT",))
 BUILD_PERLANE = KernelBuild("chord_bdf2_perlane", _SOURCES, defines=("-DCHORD_PERLANE_UNIT",))
-BUILDS = (BUILD, BUILD_QDEP, BUILD_PERLANE)
+BUILD_ROBUST = KernelBuild("chord_bdf2_robust", _SOURCES, defines=("-DCHORD_ROBUST_UNIT",))
+BUILDS = (BUILD, BUILD_QDEP, BUILD_PERLANE, BUILD_ROBUST)
 # The kinds a build compiles in (the FEAT template bitmask of chord_bdf2.cu:
-# closure kinds, the q-dependent joints, per-lane params) and the (N, nr,
-# kinds) with an explicit instantiation there.
-CONTACTS, SPRINGS, CABLES, QDEP, PERLANE = 1, 2, 4, 8, 16
+# closure kinds, the q-dependent joints, per-lane params, the robust solve
+# modes) and the (N, nr, kinds) with an explicit instantiation there.
+CONTACTS, SPRINGS, CABLES, QDEP, PERLANE, ROBUST = 1, 2, 4, 8, 16, 32
 INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
                 (12, 12, SPRINGS), (4, 3, CABLES),
                 (6, 12, QDEP), (4, 12, QDEP), (1, 6, QDEP),
                 (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS | PERLANE),
-                (4, 3, CABLES | PERLANE))
+                (4, 3, CABLES | PERLANE),
+                (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST))
 # Joint types the kernel covers: FREE2D has no branch there (op level only).
 QDEP_KERNEL_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D)
 KERNEL_TYPES = CONSTANT_S_TYPES + QDEP_KERNEL_TYPES
@@ -106,33 +113,43 @@ class Closures(NamedTuple):
 def supports(topo: Topology, force_fns: Tuple, cfg) -> bool:
     """True when the kernel's function covers this scene's inner step
     exactly: ground contacts, springs and cables, constant-S, UNIVERSAL,
-    SPHERICAL and FREE3D joints, the unguarded chord config. (On the card,
-    only INSTANTIATED combinations launch; the others raise.)"""
+    SPHERICAL and FREE3D joints, any fixed-iteration config with the
+    structured matrix and the GJ solver (the JAX package's `qualifies`:
+    chord or not, guarded, guard_last). (On the card, only INSTANTIATED
+    combinations launch; the others raise.)"""
     return (
         all(type(fn) in _CLOSURES for fn in force_fns)
         and all(JointType(t) in KERNEL_TYPES for t in topo.jtype)
-        and cfg.fixed_iters > 0 and cfg.chord
-        and not cfg.guarded and not cfg.guard_last
+        and cfg.fixed_iters > 0
         and cfg.hessian == "structured" and cfg.linsolve == "gj"
     )
 
 
+def is_robust(cfg) -> bool:
+    """True for a config that needs the ROBUST build: a guard, or H
+    re-built at every iterate."""
+    return bool(cfg.guarded or cfg.guard_last or not cfg.chord)
+
+
 def chord_bdf2_reference(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
-                         force_fns: Tuple = ()):
+                         force_fns: Tuple = (), info: Dict = None):
     """The kernel's function in plain batched PyTorch: (x [B,nr], Hinv [B,nr,nr]).
 
-    The op-level chord solve (integrators.newton on residual_bdf2 with the
-    structured Newton matrix and the GJ inverse): same residual, same
-    matrix, same chord loop and rejection as the kernel, up to f32
-    reassociation.
+    The op-level fixed-iteration solve (integrators.newton on residual_bdf2
+    with the structured Newton matrix and the GJ inverse): same residual,
+    same matrix, same iterations, guards and rejection as the kernel, up to
+    f32 reassociation. info, where given, receives newton's info (with a
+    guard, "steps": each lane's guarded steps, 1 full, 0.5 half, 0 stay put).
     """
     theta = (params, q0, qd0, q1, qd1)
     hess = integrators._hess_bdf2(topo, force_fns)
-    x, info = integrators.newton(
+    x, out = integrators.newton(
         lambda x: integrators.residual_bdf2(topo, force_fns, params, x, q0, qd0, q1, qd1),
         x0, cfg, jac_fn=lambda x: hess(theta, x),
     )
-    return x, info["factor"]
+    if info is not None:
+        info.update(out)
+    return x, out["factor"]
 
 
 def has_qdep(topo: Topology) -> bool:
@@ -146,14 +163,21 @@ def has_perlane(params: Dict) -> bool:
     return bool(set(integrators.split_batched_params(params)[1]) - {"tau"})
 
 
-def kinds_of(topo: Topology, counts: Closures, perlane: bool = False) -> int:
-    """The FEAT bitmask of the build that runs this scene."""
-    return counts.kinds | (QDEP if has_qdep(topo) else 0) | (PERLANE if perlane else 0)
+def kinds_of(topo: Topology, counts: Closures, perlane: bool = False,
+             robust: bool = False) -> int:
+    """The FEAT bitmask of the build that runs this scene (robust: a config
+    for which is_robust holds)."""
+    return (counts.kinds | (QDEP if has_qdep(topo) else 0) | (PERLANE if perlane else 0)
+            | (ROBUST if robust else 0))
 
 
 def build_of(kinds: int) -> KernelBuild:
     """The library that holds the builds of these kinds."""
-    return BUILD_QDEP if kinds & QDEP else BUILD_PERLANE if kinds & PERLANE else BUILD
+    if kinds & QDEP:
+        return BUILD_QDEP
+    if kinds & PERLANE:
+        return BUILD_PERLANE
+    return BUILD_ROBUST if kinds & ROBUST else BUILD
 
 
 def _build_lib(build: KernelBuild):
@@ -164,7 +188,7 @@ def _build_lib(build: KernelBuild):
     if first:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.chord_bdf2_launch.argtypes = ([i] * 9 + [p] * 6 + [p, p, p] + [i, fl, fl, fl]
-                                          + [p, p, p])
+                                          + [i, i, i] + [p, p, p])
         lib.chord_bdf2_launch.restype = i
     return lib
 
@@ -299,8 +323,11 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
         raise ValueError(f"chord_bdf2: unsupported device {x0.device}")
     if not supports(topo, force_fns, cfg):
         raise ValueError("chord_bdf2: scene/config not covered by the kernel")
+    if cfg.guard_last and (not cfg.chord or cfg.guarded):
+        raise ValueError("guard_last requires chord=True, guarded=False")
     N, nr = topo.njoints, topo.nr
-    kinds = kinds_of(topo, counts_of(closure_spec(topo, force_fns)), has_perlane(params))
+    kinds = kinds_of(topo, counts_of(closure_spec(topo, force_fns)), has_perlane(params),
+                     is_robust(cfg))
     if (N, nr, kinds) not in INSTANTIATED:
         raise ValueError(f"chord_bdf2: no kernel instantiation for (N, nr, kinds) = "
                          f"{(N, nr, kinds)}")
@@ -355,6 +382,12 @@ def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures, lane_f=None)
                          f"hold {counts} (want {n_rec} rows, at most {MAX_LANE_RECORD})")
 
 
+# chord_bdf2_launch's own error codes (any other is a cudaError_t)
+_LAUNCH_ERRORS = {-1: "no instantiation of (N, nr, kinds) in this library",
+                  -2: "per-lane record longer than kMaxLaneRecord",
+                  -3: "a robust solve mode in a library without kRobust"}
+
+
 def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, counts: Closures,
            lane_f=None):
     """Launch the kernel on the current stream on packed inputs (see pack);
@@ -364,7 +397,7 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
     nr, B = x0.shape
     if lane_f is not None and lane_f.shape[1] != B:
         raise ValueError(f"chord_bdf2: a per-lane buffer of {lane_f.shape[1]} lanes for {B}")
-    kinds = kinds_of(topo, counts, lane_f is not None)
+    kinds = kinds_of(topo, counts, lane_f is not None, is_robust(cfg))
     lib = _build_lib(build_of(kinds))
     x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
     h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
@@ -374,9 +407,11 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
         *(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau)), topo_i.data_ptr(), stat_f.data_ptr(),
         None if lane_f is None else lane_f.data_ptr(),
         cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+        int(cfg.guarded), int(cfg.guard_last), int(cfg.chord),
         x_out.data_ptr(), h_out.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"chord_bdf2 kernel launch failed: error {err}")
+        why = _LAUNCH_ERRORS.get(err, "CUDA error")
+        raise RuntimeError(f"chord_bdf2 kernel launch failed: error {err} ({why})")
     chord_bdf2_launches += 1
     return x_out, h_out

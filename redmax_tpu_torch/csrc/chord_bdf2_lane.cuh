@@ -1,13 +1,15 @@
 // Per-lane body of the fused BDF2 chord-Newton solve (K1a + K1b + K1c + K1d +
-// K1e + K1f: constant-S joints and the q-dependent UNIVERSAL, exp-map
+// K1e + K1f + K1g: constant-S joints and the q-dependent UNIVERSAL, exp-map
 // SPHERICAL and FREE3D joints; penalty ground contact on cuboid corners,
 // two-point springs and multi-point tension-only cables as force closures;
-// unguarded chord; physical params lane-shared or per lane).
+// unguarded chord, and the robust modes: H re-built at every iterate, the
+// full / half / stay-put guard at every iteration or on the last one only;
+// physical params lane-shared or per lane).
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
 // (its fk_and_J / _so3_exp_S / joint_forces / maximal_forces / _ground_contact
 // / _spring_force / _point_pair_blocks / _cable_force / residual / hessian /
-// add_pair / gj_inverse / chord loop), one lane at a time. Functions are
+// add_pair / gj_inverse / fixed-iteration loop), one lane at a time. Functions are
 // __host__ __device__ so g++ can compile the same body for a CPU check; the
 // macros are defined empty when __CUDACC__ is absent.
 //
@@ -32,9 +34,10 @@
 // with normal ng; S springs and NCAB cables of NPTS points in all (body -1: a
 // world point, its xl in world coordinates). The template bitmask FEAT
 // compiles in the code of each closure kind (kContacts, kSprings, kCables), of
-// the q-dependent joints (kQdep) and of the per-lane record (kPerlane) only
-// where a scene has it: closure loops that run no iteration still cost the
-// constant-S solve registers and time.
+// the q-dependent joints (kQdep), of the per-lane record (kPerlane) and of
+// the robust solve modes (kRobust) only where a scene or config has it:
+// closure loops that run no iteration still cost the constant-S solve
+// registers and time.
 #pragma once
 
 #ifndef __CUDACC__
@@ -48,17 +51,22 @@
 namespace chord {
 
 #define CHORD_HD __host__ __device__ __forceinline__
+#ifdef __CUDACC__
+#define CHORD_NO_UNROLL _Pragma("unroll 1")
+#else
+#define CHORD_NO_UNROLL
+#endif
 
 enum JointKind {
   FIXED = 0, REVOLUTE = 1, PRISMATIC = 2, PLANAR = 3, TRANSLATIONAL = 4,
   UNIVERSAL = 5, SPHERICAL = 6, FREE3D = 8
 };
 
-// Closure kinds, the q-dependent joints (kQdep) and the per-lane physical
-// params (kPerlane) of the FEAT bitmask; the longest cable a lane holds and
-// the longest per-lane record.
+// Closure kinds, the q-dependent joints (kQdep), the per-lane physical
+// params (kPerlane) and the robust solve modes (kRobust) of the FEAT bitmask;
+// the longest cable a lane holds and the longest per-lane record.
 constexpr int kContacts = 1, kSprings = 2, kCables = 4, kAllClosures = 7, kQdep = 8,
-              kPerlane = 16;
+              kPerlane = 16, kRobust = 32;
 constexpr int kMaxCablePoints = 8;
 constexpr int kMaxLaneRecord = 512;
 
@@ -1053,6 +1061,48 @@ struct ChordConfig {
   float dx_clamp;       // 0 disables
 };
 
+// The solve mode a kRobust build reads (integrators.NewtonConfig's flags):
+// guarded, guard_last (chord only, unguarded otherwise), chord (0: H re-built
+// at every iterate). Builds without kRobust run unguarded chord and ignore it.
+struct RobustConfig {
+  int guarded;
+  int guard_last;
+  int chord;
+};
+
+template <int NR>
+CHORD_HD float norm_of(const float* v) {
+  float vv = 0.0f;
+  for (int r = 0; r < NR; ++r) vv = vv + v[r] * v[r];
+  return sqrtf(vv);
+}
+
+// dx = Hinv g, scaled to |dx| <= dx_clamp where the clamp is on.
+template <int NR>
+CHORD_HD void newton_step(const float Hinv[NR][NR], const float* g, float dx_clamp, float* dx) {
+  for (int r = 0; r < NR; ++r) {
+    float acc = 0.0f;
+    for (int s = 0; s < NR; ++s) acc = acc + Hinv[r][s] * g[s];
+    dx[r] = acc;
+  }
+  if (dx_clamp != 0.0f) {
+    float dd = 0.0f;
+    for (int r = 0; r < NR; ++r) dd = dd + dx[r] * dx[r];
+    const float scale = fminf(1.0f, dx_clamp / fmaxf(sqrtf(dd), 1e-30f));
+    for (int r = 0; r < NR; ++r) dx[r] = dx[r] * scale;
+  }
+}
+
+// The joints' static motion subspaces Sb, and Sbd (d/dt of the q-dependent
+// ones, which fk_and_J fills) zeroed.
+template <int N, int NR, bool QDEP>
+CHORD_HD void subspaces(const Shared<N, NR>& sh, float Sb[NR][6], float (*Sbd)[6]) {
+  static_subspace<N, NR, QDEP>(sh, Sb);
+  if constexpr (QDEP)
+    for (int r = 0; r < NR; ++r)
+      for (int k = 0; k < 6; ++k) Sbd[r][k] = 0.0f;
+}
+
 // One lane's fixed-iteration chord solve (integrators.newton semantics):
 // H and H^-1 at the predictor x0, then fixed_iters steps x -= H^-1 g(x),
 // rejection on a non-finite result or a residual that grew. A kPerlane build
@@ -1082,11 +1132,8 @@ CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0
     hs.tau[r] = taus[r * B + lane];
   }
   float Sb[NR][6];
-  static_subspace<N, NR, QDEP>(sh, Sb);
   float Sbd[QDEP ? NR : 1][6];
-  if constexpr (QDEP)
-    for (int r = 0; r < NR; ++r)
-      for (int k = 0; k < 6; ++k) Sbd[r][k] = 0.0f;
+  subspaces<N, NR, QDEP>(sh, Sb, Sbd);
 
   Kin<N, NR> K;
   float Hinv[NR][NR];
@@ -1124,6 +1171,109 @@ CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0
   bool finite = finitef(gln);
   for (int r = 0; r < NR; ++r) finite = finite && finitef(x[r]);
   bool diverged = !finite;
+  if (cfg.growth_reject != 0.0f) diverged = diverged || (gln > cfg.growth_reject * g0n);
+  if (cfg.tol_reject != 0.0f) diverged = diverged || (gln > cfg.tol_reject);
+  for (int r = 0; r < NR; ++r) x_out[r * B + lane] = diverged ? NAN : x[r];
+  for (int r = 0; r < NR; ++r)
+    for (int s = 0; s < NR; ++s) hinv_out[(r * NR + s) * B + lane] = Hinv[r][s];
+}
+
+// The same solve in the mode rc names (the kRobust builds; integrators.newton
+// semantics): chord=False re-builds H and H^-1 at every iterate; a guarded
+// iteration (every one, or with guard_last the last one only) takes the full
+// step if |g| did not grow there, else the half step if it did not grow
+// there, else stays put (a non-finite trial compares false, so it counts as
+// grown), and carries the accepted iterate's g and |g|. A lane that stayed
+// put is rejected when its solve never halved |g|. The loops are written so
+// that FK, the residual, H and GJ each have one call site: nvcc inlines every
+// site, and the sites of a loop over the trials would otherwise multiply the
+// build's code and compile time. The lane load and the rejection repeat
+// chord_bdf2_lane's: as helpers of both, any one of them moved the
+// <4,4,contacts> build from 242 to 240 registers under nvcc -O3.
+template <int N, int NR, int FEAT>
+CHORD_HD void chord_bdf2_lane_robust(int lane, int B, const float* x0s, const float* q0s,
+                                     const float* qd0s, const float* q1s, const float* qd1s,
+                                     const float* taus, const int* topo_i, const float* stat_f,
+                                     ChordConfig cfg, RobustConfig rc, float* x_out,
+                                     float* hinv_out) {
+  constexpr bool QDEP = (FEAT & kQdep) != 0;
+  static_assert((FEAT & kRobust) != 0 && (FEAT & kPerlane) == 0,
+                "the robust solve runs in the kRobust builds, with lane-shared params");
+  Shared<N, NR> sh(topo_i, stat_f);
+  History<NR> hs;
+  float x[NR], g[NR];
+  for (int r = 0; r < NR; ++r) {
+    x[r] = x0s[r * B + lane];
+    hs.q0[r] = q0s[r * B + lane];
+    hs.qd0[r] = qd0s[r * B + lane];
+    hs.q1[r] = q1s[r * B + lane];
+    hs.qd1[r] = qd1s[r * B + lane];
+    hs.tau[r] = taus[r * B + lane];
+  }
+  float Sb[NR][6];
+  float Sbd[QDEP ? NR : 1][6];
+  subspaces<N, NR, QDEP>(sh, Sb, Sbd);
+
+  Kin<N, NR> K;
+  float Hinv[NR][NR], dx[NR], xt[2][NR], gt[2][NR], gtn[2];
+  float g0n = 0.0f, gln = 0.0f, gn = 0.0f;
+  bool have_g = false, stayput = false;
+  CHORD_NO_UNROLL
+  for (int it = 0; it < cfg.fixed_iters; ++it) {
+    const bool guard = rc.guarded != 0 || (rc.guard_last != 0 && it == cfg.fixed_iters - 1);
+    const bool rebuild = it == 0 || rc.chord == 0;  // H at the predictor, or at every iterate
+    // e = 0: the kinematics at x, g there unless an accepted trial carried
+    // it, and H^-1 there where it is rebuilt; e = 1, 2: the full and the
+    // half trial of a guarded iteration
+    CHORD_NO_UNROLL
+    for (int e = have_g && !rebuild ? 1 : 0; e < (guard ? 3 : 1); ++e) {
+      if (e == 1) newton_step<NR>(Hinv, g, cfg.dx_clamp, dx);
+      float* xe = e == 0 ? x : xt[e - 1];
+      float* ge = e == 0 ? g : gt[e - 1];
+      if (e > 0)
+        for (int r = 0; r < NR; ++r) xe[r] = x[r] - (e == 1 ? dx[r] : 0.5f * dx[r]);
+      float qd[NR];
+      qdot_of<NR>(hs, sh.h, xe, qd);
+      fk_and_J<N, NR, QDEP>(sh, Sb, Sbd, xe, qd, K);
+      if (e > 0 || !have_g) {
+        residual<N, NR, FEAT>(sh, hs, xe, qd, K, ge);
+        const float n = norm_of<NR>(ge);
+        if (e > 0) {
+          gtn[e - 1] = n;
+          continue;
+        }
+        gn = n;
+      }
+      if (rebuild) {
+        float H[NR][NR];
+        hessian<N, NR, FEAT>(sh, x, K, H);
+        gj_inverse<NR>(H, Hinv);
+      }
+    }
+    if (it == 0) g0n = gn;
+    if (!guard) {
+      newton_step<NR>(Hinv, g, cfg.dx_clamp, dx);
+      gln = gn;  // residual at the pre-update iterate
+      for (int r = 0; r < NR; ++r) x[r] = x[r] - dx[r];
+      have_g = false;
+      continue;
+    }
+    const int pick = gtn[0] <= gn ? 0 : (gtn[1] <= gn ? 1 : -1);
+    if (pick >= 0) {
+      for (int r = 0; r < NR; ++r) {
+        x[r] = xt[pick][r];
+        g[r] = gt[pick][r];
+      }
+      gn = gtn[pick];
+    } else {
+      stayput = true;
+    }
+    gln = gn;  // g tracks the accepted iterate
+    have_g = true;
+  }
+  bool finite = finitef(gln);
+  for (int r = 0; r < NR; ++r) finite = finite && finitef(x[r]);
+  bool diverged = !finite || (stayput && gln > 0.5f * g0n);
   if (cfg.growth_reject != 0.0f) diverged = diverged || (gln > cfg.growth_reject * g0n);
   if (cfg.tol_reject != 0.0f) diverged = diverged || (gln > cfg.tol_reject);
   for (int r = 0; r < NR; ++r) x_out[r * B + lane] = diverged ? NAN : x[r];

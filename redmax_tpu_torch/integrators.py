@@ -9,17 +9,17 @@ reference drivers):
   * SDIRK2 bootstrap with alpha = (2 - sqrt(2))/2, two substeps, then BDF2
     g = M (q2 - 4/3 q1 + 1/3 q0 - 8/9 h qdot1 + 2/9 h qdot0) - 4/9 h^2 f
     (driverRedMaxBDF2.m:64-293).
-  * Fixed-iteration chord Newton: the structured Newton matrix is built and
-    inverted once at the predictor, then `fixed_iters` full steps; lanes
-    whose residual grew or went non-finite are poisoned to NaN.
+  * Newton, every mode of NewtonConfig: the reference's damped Newton with
+    backtracking line search (fixed_iters=0), and fixed-iteration chord
+    (Newton matrix built once at the predictor), re-evaluated (chord=False),
+    guarded and guard_last solves, with the exact or the structured Newton
+    matrix and an LU or Gauss-Jordan solver;
+    lanes whose residual grew or went non-finite are poisoned to NaN.
   * Linearly implicit Euler: Mrtilde qdot1 = frtilde with one-sidedly
     implicit damping, constraint rows from constraints.assemble_constraints,
     Baumgarte stabilization from params["baumgarte"][2].
 
 Every state tensor is [B, nr]; lanes step in lock-step and never mix.
-Ported here: the unguarded chord branch of `newton`. The damped Newton with
-line search, `guarded`, `guard_last`, `chord=False`, the "exact" Hessian and
-the "lu" / "gj_pivot" solvers raise (ROADMAP).
 """
 
 import math
@@ -28,7 +28,9 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from redmax_tpu_torch.adjoint import implicit_solve_factored
+from redmax_tpu_torch.adjoint import (
+    batched_jacobian, implicit_solve, implicit_solve_custom, implicit_solve_factored,
+)
 from redmax_tpu_torch.constraints import assemble_constraints
 from redmax_tpu_torch.linalg import make_solver
 from redmax_tpu_torch.model import (
@@ -52,8 +54,8 @@ class NewtonConfig:
     ls_max: int = 20
     fixed_iters: int = 0     # >0 enables fixed-iteration mode
     chord: bool = False      # Newton matrix built once, at the predictor
-    hessian: str = "exact"   # "structured" is the ported mode
-    linsolve: str = "lu"     # "gj" is the ported solver
+    hessian: str = "exact"   # "exact" (Jacobian of the residual) or "structured"
+    linsolve: str = "lu"     # "lu", "gj" or "gj_pivot"
     predictor: str = "linear"  # BDF2 guess: "linear" or "quadratic"
     dx_clamp: float = 0.0    # per-lane step-norm clamp (0 = off)
     guarded: bool = False
@@ -63,20 +65,46 @@ class NewtonConfig:
     adjoint_reuse_factor: bool = True
 
 
-def newton(res_fn: Callable, x0, cfg: NewtonConfig, jac_fn: Callable = None):
-    """Fixed-iteration, unguarded chord Newton over batched x0 [B, nr].
+def _norm(v):
+    return torch.linalg.vector_norm(v, dim=-1)
 
-    res_fn: x [B, nr] -> g [B, nr]; jac_fn: x -> H [B, nr, nr] (the
-    structured Newton matrix). Returns (x, info) with info["factor"] the
-    chord factor H^-1 at the predictor and info["diverged"] the [B] mask of
-    rejected (NaN-poisoned) lanes.
+
+def _where(mask, a, b):
+    """Per-lane select of [B, n] rows (mask [B])."""
+    return torch.where(mask[..., None], a, b)
+
+
+def newton(res_fn: Callable, x0, cfg: NewtonConfig, jac_fn: Callable = None):
+    """Newton over batched x0 [B, nr], every branch of the JAX package's
+    newton lane by lane.
+
+    res_fn: x [B, nr] -> g [B, nr], lane-separable; jac_fn: x -> H
+    [B, nr, nr], the Newton matrix (None: the exact Jacobian of res_fn).
+    Returns (x, info): info["diverged"] is the [B] mask of rejected lanes
+    and info["iters"] the iterations taken.
+
+    fixed_iters > 0: full steps x -= F^-1 g with F factored at the predictor
+    (chord) or at every iterate (chord=False); guarded: at every iteration a
+    full step if it did not grow |g|, else a half step if that did not, else
+    stay put; guard_last: plain chord iterations, then one guarded one.
+    Rejected (NaN-poisoned) lanes: a non-finite result, a residual that grew
+    by more than growth_reject (or exceeds tol_reject), or a guarded lane
+    that stayed put and never halved its residual. info["factor"] is the last
+    factor built; with a guard, info["steps"] [B, k] holds each guarded
+    iteration's step (1 full, 0.5 half, 0 stay put).
+
+    fixed_iters == 0: the reference's damped Newton, per lane until
+    |g| < tol, iter_max (0: 10 nr) iterations or |dx| > dx_max (which stops
+    the lane where it is, without poisoning it), each step -H^-1 g by
+    torch.linalg.solve whatever linsolve says, then up to ls_max halvings
+    until 0.5|g|^2 decreases (an exhausted search keeps its last trial).
     """
-    if cfg.fixed_iters <= 0:
-        raise NotImplementedError("damped Newton with line search (fixed_iters=0) is a ROADMAP item")
-    if cfg.guarded or cfg.guard_last or not cfg.chord:
-        raise NotImplementedError("guarded / guard_last / chord=False solves are ROADMAP K1g")
     if jac_fn is None:
-        raise NotImplementedError("the exact (jacfwd) Newton matrix is a ROADMAP item")
+        jac_fn = lambda x: batched_jacobian(res_fn, x)
+    if cfg.fixed_iters <= 0:
+        return _newton_line_search(res_fn, x0, cfg, jac_fn)
+    if cfg.guard_last and (not cfg.chord or cfg.guarded):
+        raise ValueError("guard_last requires chord=True, guarded=False")
     factor, solve, _ = make_solver(cfg.linsolve)
 
     def clamp(dx):
@@ -85,22 +113,105 @@ def newton(res_fn: Callable, x0, cfg: NewtonConfig, jac_fn: Callable = None):
         nrm = torch.linalg.vector_norm(dx, dim=-1, keepdim=True)
         return dx * torch.clamp(cfg.dx_clamp / torch.clamp(nrm, min=1e-30), max=1.0)
 
-    F = factor(jac_fn(x0))
+    def guarded_step(x, g, gn, F):
+        """One guarded iteration from (x, g(x), |g|): the accepted (x, g,
+        |g|) and the step taken [B] (1, 0.5 or 0)."""
+        dx = clamp(solve(F, g))
+        g_full = res_fn(x - dx)
+        gfn = _norm(g_full)
+        ok_full = gfn <= gn  # NaN-safe: a non-finite trial counts as grown
+        x_half = x - 0.5 * dx
+        g_half = res_fn(x_half)
+        ghn = _norm(g_half)
+        ok_half = ghn <= gn
+        x = _where(ok_full, x - dx, _where(ok_half, x_half, x))
+        g = _where(ok_full, g_full, _where(ok_half, g_half, g))
+        gn = torch.where(ok_full, gfn, torch.where(ok_half, ghn, gn))
+        step = torch.where(ok_full, 1.0, torch.where(ok_half, 0.5, 0.0))
+        return x, g, gn, step
+
     x = x0
-    g0n = None
-    for _ in range(cfg.fixed_iters):
+    g0n = gln = None
+    steps = []
+    F = factor(jac_fn(x0))
+    if cfg.guarded:
         g = res_fn(x)
-        gn = torch.linalg.vector_norm(g, dim=-1)
-        g0n = gn if g0n is None else g0n
-        gln = gn  # residual at the PRE-update iterate (one iteration stale)
-        x = x - clamp(solve(F, g))
+        gn = g0n = _norm(g)
+        for it in range(cfg.fixed_iters):
+            if not cfg.chord and it > 0:
+                F = factor(jac_fn(x))
+            x, g, gn, step = guarded_step(x, g, gn, F)
+            steps.append(step)
+        gln = gn  # exact: g tracks the final iterate
+    else:
+        plain = cfg.fixed_iters - (1 if cfg.guard_last else 0)
+        for it in range(plain):
+            g = res_fn(x)
+            gn = _norm(g)
+            g0n = gn if g0n is None else g0n
+            gln = gn  # residual at the PRE-update iterate (one iteration stale)
+            if not cfg.chord and it > 0:
+                F = factor(jac_fn(x))
+            x = x - clamp(solve(F, g))
+        if cfg.guard_last:
+            g = res_fn(x)
+            gn = _norm(g)
+            g0n = gn if g0n is None else g0n
+            x, _, gln, step = guarded_step(x, g, gn, F)
+            steps.append(step)
     diverged = ~torch.isfinite(x).all(dim=-1) | ~torch.isfinite(gln)
+    if steps:
+        # a lane that stayed put is rejected only when its solve never
+        # halved the residual
+        stayput = (torch.stack(steps, dim=-1) == 0).any(dim=-1)
+        diverged = diverged | (stayput & (gln > 0.5 * g0n))
     if cfg.growth_reject:
         diverged = diverged | (gln > cfg.growth_reject * g0n)
     if cfg.tol_reject:
         diverged = diverged | (gln > cfg.tol_reject)
-    x = torch.where(diverged[..., None], torch.full_like(x, float("nan")), x)
-    return x, {"iters": cfg.fixed_iters, "diverged": diverged, "factor": F}
+    x = _where(diverged, torch.full_like(x, float("nan")), x)
+    info = {"iters": cfg.fixed_iters, "diverged": diverged, "factor": F}
+    if steps:
+        info["steps"] = torch.stack(steps, dim=-1)
+    return x, info
+
+
+def _newton_line_search(res_fn, x0, cfg: NewtonConfig, jac_fn):
+    """fixed_iters == 0 (newton's docstring): per-lane done masks; a lane
+    that is done keeps its state while the others iterate."""
+    iter_max = cfg.iter_max if cfg.iter_max > 0 else 10 * x0.shape[-1]
+    B = x0.shape[0]
+    x, g = x0, res_fn(x0)
+    done = _norm(g) < cfg.tol
+    it = torch.zeros(B, dtype=torch.int64, device=x0.device)
+    diverged = torch.zeros(B, dtype=torch.bool, device=x0.device)
+    while not bool(done.all()):
+        dx = -torch.linalg.solve_ex(jac_fn(x), g[..., None])[0][..., 0]
+        div = _norm(dx) > cfg.dx_max
+        f0 = 0.5 * (g * g).sum(-1)
+        # backtracking: alpha = 1, 1/2, ... until f decreases (lanes that
+        # diverged or are done skip it)
+        alpha = torch.ones_like(f0)
+        x_ls, g_ls = x, g
+        stop = div | done
+        for j in range(max(cfg.ls_max, 1)):
+            if bool(stop.all()):
+                break
+            x_try = x + alpha[..., None] * dx
+            g_try = res_fn(x_try)
+            accept = 0.5 * (g_try * g_try).sum(-1) < f0
+            active = ~stop
+            x_ls, g_ls = _where(active, x_try, x_ls), _where(active, g_try, g_ls)
+            end = accept | (j + 1 >= cfg.ls_max)
+            alpha = torch.where(active & ~end, 0.5 * alpha, alpha)
+            stop = stop | (active & end)
+        x_new, g_new = _where(div, x, x_ls), _where(div, g, g_ls)
+        done_new = div | (_norm(g_new) < cfg.tol) | (it + 1 >= iter_max)
+        x, g = _where(done, x, x_new), _where(done, g, g_new)
+        it = torch.where(done, it, it + 1)
+        diverged = diverged | (~done & div)
+        done = done | done_new
+    return x, {"iters": it, "diverged": diverged}
 
 
 # ---------------------------------------------------------------------------
@@ -247,14 +358,24 @@ def merge_batched_params(shared: Dict, batched: Dict) -> Dict:
 
 def _newton_factored(cfg, res_theta_fn, hess_fn):
     """(theta, x0) -> (x*, factor): the forward solve implicit_solve_factored
-    wraps."""
+    wraps (factor None for the line search, which builds no reusable one)."""
 
     def run(theta, x0):
         jac = (lambda x: hess_fn(theta, x)) if hess_fn else None
         x, info = newton(lambda x: res_theta_fn(theta, x), x0, cfg, jac_fn=jac)
-        return x, info["factor"]
+        return x, info.get("factor")
 
     return run
+
+
+def _make_solve_T(cfg: NewtonConfig):
+    """(H, xbar) -> H^-T xbar for the backward of implicit_solve, matching
+    cfg.linsolve: None for "lu" (implicit_solve then takes
+    torch.linalg.solve(H^T, .)); the GJ inverse otherwise."""
+    if cfg.linsolve == "lu":
+        return None
+    factor, _, solve_T = make_solver(cfg.linsolve)
+    return lambda H, xbar: solve_T(factor(H), xbar)
 
 
 def _reparam(topo, params, s: Bdf2State) -> Bdf2State:
@@ -271,16 +392,21 @@ def make_bdf2_step(
     """One batched BDF2 step with SDIRK2 bootstrap at k=0.
 
     differentiable=True routes each solve through implicit_solve_factored
-    (the adjoint reuses the forward chord factor). Exposes .bootstrap and
-    .inner, the two phases make_simulate runs.
+    (the adjoint reuses the forward factor) for a fixed-iteration config
+    with adjoint_reuse_factor, else through implicit_solve (the backward
+    builds H at the solution: structured or exact, as cfg.hessian says).
+    Exposes .bootstrap and .inner, the two phases make_simulate runs.
     """
-    if differentiable and not cfg.adjoint_reuse_factor:
-        raise NotImplementedError("the non-reusing adjoint (implicit_solve) is a ROADMAP item")
     structured = cfg.hessian == "structured"
     hess_a = _hess_sdirk2a(topo, force_fns) if structured else None
     hess_b = _hess_sdirk2b(topo, force_fns) if structured else None
     hess_2 = _hess_bdf2(topo, force_fns) if structured else None
     _, _, solve_T = make_solver(cfg.linsolve)
+    factored = cfg.fixed_iters > 0 and cfg.adjoint_reuse_factor
+    solve_T_H = _make_solve_T(cfg)
+
+    def newton_fn(fn, jac, x0):
+        return newton(fn, x0, cfg, jac_fn=jac)[0]
 
     def _res_a(theta, qa):
         params, q0, qdot0 = theta
@@ -298,11 +424,14 @@ def make_bdf2_step(
           "b": _newton_factored(cfg, _res_b, hess_b),
           "2": _newton_factored(cfg, _res_2, hess_2)}
     res = {"a": _res_a, "b": _res_b, "2": _res_2}
+    hess = {"a": hess_a, "b": hess_b, "2": hess_2}
 
     def _solve(key, theta, x0):
-        if differentiable:
+        if not differentiable:
+            return nf[key](theta, x0)[0]
+        if factored:
             return implicit_solve_factored(res[key], nf[key], solve_T, theta, x0)
-        return nf[key](theta, x0)[0]
+        return implicit_solve(res[key], newton_fn, hess[key], solve_T_H, theta, x0)
 
     def bootstrap(params: Dict, s: Bdf2State) -> Bdf2State:
         q0, qdot0 = s.q, s.qdot
@@ -346,21 +475,30 @@ def make_bdf2_step_batched(
     cfg: NewtonConfig = NewtonConfig(),
     differentiable: bool = False,
     use_kernel: bool = None,
+    backward: str = "reuse",
 ):
     """Batched BDF2 step over [B, nr] states, with the inner chord solve on
     the fused chord kernel (chord_kernel.chord_bdf2) when the scene and
-    config qualify.
+    config qualify (any fixed-iteration mode with the structured matrix and
+    the GJ solver: chord, chord=False, guarded, guard_last).
 
     use_kernel: None = the kernel when supported, False = the op-level
     route (make_bdf2_step), True = require the kernel (raises if
     unsupported). On a CUDA tensor the kernel route launches the CUDA
     kernel; on a CPU tensor it runs the kernel's plain PyTorch version.
 
-    differentiable=True wires the implicit-function VJP with the "reuse"
-    backward: z = H^-T xbar from the H^-1 the kernel returned (the chord
-    factor at the predictor), then one VJP of the op-level residual_bdf2 at
-    the detached solution (force closures included, through autograd). The
-    kernel itself is never differentiated.
+    differentiable=True wires the implicit-function VJP on the kernel route:
+    z = H^-T xbar, then one VJP of the op-level residual_bdf2 at the
+    detached solution (force closures included, through autograd); the
+    kernel itself is never differentiated. backward picks H:
+      "reuse"   the H^-1 the kernel returned (the chord factor at the
+                predictor; the last one built for chord=False);
+      "refresh" the structured H rebuilt at the solution x*;
+      "exact"   the exact Jacobian of the residual at x*;
+    the last two solve by the GJ inverse. The op-level route has no such
+    choice (its escape hatch is cfg.hessian="exact" with
+    adjoint_reuse_factor=False): a differentiable op-level step with another
+    backward than "reuse" raises ValueError, as does an unknown backward.
     """
     from redmax_tpu_torch import chord_kernel
 
@@ -369,11 +507,18 @@ def make_bdf2_step_batched(
         use_kernel = qualifies
     elif use_kernel and not qualifies:
         raise ValueError("scene/config not supported by the chord kernel")
+    if backward not in ("reuse", "refresh", "exact"):
+        raise ValueError(f"backward={backward!r}")
+    if differentiable and backward != "reuse" and not use_kernel:
+        raise ValueError(f"backward={backward!r} only applies to the kernel route; this "
+                         "scene/config takes the op-level route (use cfg.hessian='exact' "
+                         "with adjoint_reuse_factor=False there)")
 
     base = make_bdf2_step(topo, force_fns, cfg, differentiable=differentiable)
     if not use_kernel:
         return base
-    _, _, solve_T = make_solver(cfg.linsolve)
+    factor, _, solve_T = make_solver(cfg.linsolve)
+    hess_2 = _hess_bdf2(topo, force_fns)
 
     def _res2(theta, x):
         params, q0, qd0, q1, qd1 = theta
@@ -381,7 +526,18 @@ def make_bdf2_step_batched(
 
     def _kernel(theta, x0):
         params, q0, qd0, q1, qd1 = theta
-        return chord_kernel.chord_bdf2(topo, cfg, params, x0, q0, qd0, q1, qd1, force_fns)
+        x, hinv = chord_kernel.chord_bdf2(topo, cfg, params, x0, q0, qd0, q1, qd1, force_fns)
+        return x, hinv if backward == "reuse" else None
+
+    def _z(theta, x, hinv, xbar):
+        """z = H^-T xbar per lane, H as `backward` says."""
+        if backward == "reuse":
+            return solve_T(hinv, xbar)
+        if backward == "refresh":
+            H = hess_2(theta, x)
+        else:
+            H = batched_jacobian(lambda xx: _res2(theta, xx), x)
+        return solve_T(factor(H), xbar.to(H.dtype))
 
     def inner(params: Dict, s: Bdf2State) -> Bdf2State:
         q0, qd0 = s.q_prev, s.qdot_prev
@@ -392,7 +548,7 @@ def make_bdf2_step_batched(
             guess = guess + 0.5 * h * (qd1 - qd0)
         theta = (params, q0, qd0, q1, qd1)
         if differentiable:
-            q2 = implicit_solve_factored(_res2, _kernel, solve_T, theta, guess)
+            q2 = implicit_solve_custom(_res2, _kernel, _z, theta, guess)
         else:
             q2 = _kernel(theta, guess)[0]
         qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)

@@ -38,12 +38,15 @@ def make_rollout_batched(
     nsteps: int,
     cfg: Optional[integrators.NewtonConfig] = None,
     use_kernel: bool = None,
+    backward: str = "reuse",
 ):
     """(params, tau [B,nr] or [nr], state0 [B,...]) -> final batched State,
-    differentiable in tau through the factor-reusing adjoint."""
+    differentiable in tau through the implicit-function adjoint
+    (integrators.make_bdf2_step_batched; backward picks its H on the kernel
+    route)."""
     cfg = cfg or integrators.NewtonConfig()
     step = integrators.make_bdf2_step_batched(
-        topo, force_fns, cfg, differentiable=True, use_kernel=use_kernel
+        topo, force_fns, cfg, differentiable=True, use_kernel=use_kernel, backward=backward
     )
     sim = integrators.make_simulate(step, nsteps)
 
@@ -62,9 +65,10 @@ def make_objective_batched(
     nsteps: int,
     cfg: Optional[integrators.NewtonConfig] = None,
     use_kernel: bool = None,
+    backward: str = "reuse",
 ):
     """(params, P [B,nr], state0 [B,...], x_targets [B,3]) -> objectives [B]."""
-    rollout = make_rollout_batched(topo, force_fns, nsteps, cfg, use_kernel)
+    rollout = make_rollout_batched(topo, force_fns, nsteps, cfg, use_kernel, backward)
 
     def objective(params: Dict, P, state0: State, x_targets):
         final = rollout(params, task.pscale * P, state0)

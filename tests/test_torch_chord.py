@@ -443,3 +443,41 @@ def test_check_buffers_rejects_mismatched_counts():
     chord_kernel.check_buffers(topo, topo_i, stat_f, counts, lane_f)
     with pytest.raises(ValueError, match="does not hold"):
         chord_kernel.check_buffers(topo, topo_i, stat_f, counts, lane_f[:-1])
+
+
+def test_robust_configs_pick_the_robust_build():
+    """supports() takes what the JAX package's kernel route takes: any
+    fixed-iteration config with the structured matrix and GJ, guarded,
+    guard_last and chord=False included. Those modes add the ROBUST bit and
+    pick the fourth library, instantiated at (12, 12) with and without
+    contacts; unguarded chord never picks it. On the CPU the wrapper runs the
+    plain version in the same mode."""
+    sc = jground(nlinks=4, **BENCH_GROUND).compile(dtype=jnp.float32)
+    topo, params = _port(sc, torch.float32)
+    fns = _port_forces(sc)
+    counts = chord_kernel.counts_of(chord_kernel.closure_spec(topo, fns))
+    for mode in (dict(guarded=True), dict(guard_last=True), dict(chord=False),
+                 dict(guarded=True, chord=False)):
+        cfg = tint.NewtonConfig(**{**CFG_KW, **mode})
+        assert chord_kernel.supports(topo, fns, cfg) and chord_kernel.is_robust(cfg)
+        kinds = chord_kernel.kinds_of(topo, counts, robust=chord_kernel.is_robust(cfg))
+        assert kinds == chord_kernel.CONTACTS | chord_kernel.ROBUST
+        assert chord_kernel.build_of(kinds) is chord_kernel.BUILD_ROBUST
+    assert not chord_kernel.is_robust(TCFG)
+    assert chord_kernel.build_of(chord_kernel.kinds_of(topo, counts)) is chord_kernel.BUILD
+    for bad in (dict(fixed_iters=0), dict(linsolve="lu"), dict(hessian="exact")):
+        assert not chord_kernel.supports(topo, fns, tint.NewtonConfig(**{**CFG_KW, **bad}))
+    assert {(12, 12, chord_kernel.ROBUST), (12, 12, chord_kernel.CONTACTS | chord_kernel.ROBUST)} \
+        <= set(chord_kernel.INSTANTIATED)
+    assert (4, 4, chord_kernel.CONTACTS | chord_kernel.ROBUST) not in chord_kernel.INSTANTIATED
+
+    cfg = tint.NewtonConfig(**{**CFG_KW, "guarded": True})
+    states, tau = contact_states(topo.nr, 4)
+    args = (topo, cfg, {**params, "tau": torch.tensor(tau)}, *(torch.tensor(a) for a in states))
+    x, hinv = chord_kernel.chord_bdf2(*args, fns)
+    x_ref, hinv_ref = chord_kernel.chord_bdf2_reference(*args, fns)
+    assert torch.equal(x, x_ref) and torch.equal(hinv, hinv_ref)
+    with pytest.raises(ValueError):
+        chord_kernel.chord_bdf2(topo, tint.NewtonConfig(**{**CFG_KW, "guard_last": True,
+                                                            "chord": False}),
+                                *args[2:], fns)

@@ -37,8 +37,10 @@ def test_bdf2_per_step_vs_ref_scene0(use_kernel):
 
 
 def test_step_dispatch_and_unported_modes():
-    """step() bootstraps at k = 0 and runs the inner step after; solver
-    modes that are not ported raise instead of running something else."""
+    """step() bootstraps at k = 0 and runs the inner step after; the solver
+    modes that once raised (guarded, guard_last, chord=False, the line
+    search, LU) now run and give a finite step, and guard_last outside
+    unguarded chord raises."""
     sc = scene_00_serial_chain().compile(device="cpu")
     s0 = tint.bdf2_init(State(q=sc.state0.q[None], qdot=sc.state0.qdot[None]))
     step = tint.make_bdf2_step_batched(sc.topo, (), CFG)
@@ -48,8 +50,11 @@ def test_step_dispatch_and_unported_modes():
     torch.testing.assert_close(s1.q, step.bootstrap(sc.params, s0).q, rtol=0, atol=0)
     torch.testing.assert_close(s2.q_prev, s1.q, rtol=0, atol=0)
     assert torch.isfinite(s2.q).all()
-    for bad in (dict(guarded=True), dict(guard_last=True), dict(chord=False),
-                dict(fixed_iters=0), dict(linsolve="lu")):
-        cfg = tint.NewtonConfig(**{**CFG.__dict__, **bad})
-        with pytest.raises(NotImplementedError):
-            tint.make_bdf2_step(sc.topo, (), cfg).bootstrap(sc.params, s0)
+    for mode in (dict(guarded=True), dict(guard_last=True), dict(chord=False),
+                 dict(fixed_iters=0), dict(linsolve="lu")):
+        cfg = tint.NewtonConfig(**{**CFG.__dict__, **mode})
+        s = tint.make_bdf2_step(sc.topo, (), cfg).bootstrap(sc.params, s0)
+        torch.testing.assert_close(s.q, s1.q, rtol=0, atol=1e-8)
+    with pytest.raises(ValueError):
+        cfg = tint.NewtonConfig(**{**CFG.__dict__, "guard_last": True, "chord": False})
+        tint.make_bdf2_step(sc.topo, (), cfg).bootstrap(sc.params, s0)

@@ -63,21 +63,35 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "redmax_tpu_torch", "csrc")
 LOOP = r"""
 #include "chord_bdf2_lane.cuh"
+template <int n, int nr, int f>
+void run_lane(int lane, int B, const float* x0, const float* q0, const float* qd0,
+              const float* q1, const float* qd1, const float* tau, const int* topo_i,
+              const float* stat_f, const float* lane_f, chord::ChordConfig cfg,
+              chord::RobustConfig rc, float* x_out, float* hinv_out) {
+  if constexpr ((f & chord::kRobust) != 0)
+    chord::chord_bdf2_lane_robust<n, nr, f>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f,
+                                            cfg, rc, x_out, hinv_out);
+  else
+    chord::chord_bdf2_lane<n, nr, f>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg,
+                                     x_out, hinv_out, lane_f);
+}
 #define LANE(n, nr, f)                                                                    \
   if (N == n && NR == nr && feat == f) {                                                  \
     for (int lane = 0; lane < B; ++lane)                                                  \
-      chord::chord_bdf2_lane<n, nr, f>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, \
-                                       cfg, x_out, hinv_out, lane_f);                     \
+      run_lane<n, nr, f>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, \
+                         rc, x_out, hinv_out);                                            \
     return 0;                                                                             \
   }
 // feat: the kinds bitmask of the build (7: every closure kind compiled in;
-// 16: the per-lane record lane_f)
+// 16: the per-lane record lane_f; 32: the robust solve modes)
 extern "C" int chord_bdf2_cpu(int N, int NR, int feat, int B, const float* x0, const float* q0,
                               const float* qd0, const float* q1, const float* qd1,
                               const float* tau, const int* topo_i, const float* stat_f,
                               const float* lane_f, int fixed_iters, float growth_reject,
-                              float tol_reject, float dx_clamp, float* x_out, float* hinv_out) {
+                              float tol_reject, float dx_clamp, int guarded, int guard_last,
+                              int chord_mode, float* x_out, float* hinv_out) {
   const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
+  const chord::RobustConfig rc{guarded, guard_last, chord_mode};
   LANE(4, 4, 7)
   LANE(6, 8, 7)
   LANE(12, 12, 7)
@@ -90,6 +104,9 @@ extern "C" int chord_bdf2_cpu(int N, int NR, int feat, int B, const float* x0, c
   LANE(12, 12, 17)
   LANE(12, 12, 18)
   LANE(4, 3, 20)
+  LANE(12, 12, 32)
+  LANE(12, 12, 33)
+  LANE(3, 3, 39)
   return -1;
 }
 """
@@ -128,7 +145,7 @@ def _gxx_build(tmp_path_factory, name, source):
 def lane_lib(tmp_path_factory):
     lib = _gxx_build(tmp_path_factory, "lane_body", LOOP)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 9 + [i, f, f, f, p, p]
+    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 9 + [i, f, f, f, i, i, i, p, p]
     lib.chord_bdf2_cpu.restype = i
     return lib
 
@@ -154,10 +171,10 @@ def _port(sc):
     return topo, params, fns
 
 
-def _run_lane_lib(lane_lib, topo, params, tau, states, force_fns=(), feat=7):
+def _run_lane_lib(lane_lib, topo, params, tau, states, force_fns=(), feat=7, cfg_kw=CFG_KW):
     """(x [B, nr], Hinv [B, nr, nr]) of the g++ lane body (built with the
-    kinds feat) on the wrapper's own packing of the inputs (with per-lane
-    params, the per-lane record buffer too)."""
+    kinds feat) in the solve mode of cfg_kw, on the wrapper's own packing of
+    the inputs (with per-lane params, the per-lane record buffer too)."""
     B, nr = states[0].shape
     packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
                                *(torch.tensor(a) for a in states), force_fns)
@@ -167,11 +184,12 @@ def _run_lane_lib(lane_lib, topo, params, tau, states, force_fns=(), feat=7):
     args.append(None if packed[-1] is None else np.ascontiguousarray(packed[-1].numpy()))
     x_out = np.empty((nr, B), np.float32)
     h_out = np.empty((nr * nr, B), np.float32)
-    cfg = tint.NewtonConfig(**CFG_KW)
+    cfg = tint.NewtonConfig(**cfg_kw)
     ptr = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
     rc = lane_lib.chord_bdf2_cpu(topo.njoints, nr, feat, B, *(ptr(a) for a in args),
                                  cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject,
-                                 cfg.dx_clamp, ptr(x_out), ptr(h_out))
+                                 cfg.dx_clamp, int(cfg.guarded), int(cfg.guard_last),
+                                 int(cfg.chord), ptr(x_out), ptr(h_out))
     assert rc == 0, (topo.njoints, nr, feat)
     return x_out.T, h_out.reshape(nr, nr, B).transpose(2, 0, 1)
 
@@ -391,6 +409,97 @@ def test_lane_body_perlane_buffer_keeps_lanes_apart(lane_lib, case):
     keep = np.arange(B) != 3
     assert np.isnan(xn[3]).all()
     np.testing.assert_array_equal(xn[keep], x[keep])
+
+
+ROBUST_MODES = {
+    "guarded": dict(CFG_KW, guarded=True),
+    "guard_last": dict(CFG_KW, guard_last=True),
+    "rehess": dict(CFG_KW, chord=False),
+    "guarded_rehess": dict(CFG_KW, guarded=True, chord=False),
+}
+
+
+def _robust_case(case, B=24):
+    """(JAX scene in f32, states, tau, feat) of a robust-mode case: the card's
+    builds (12,12, robust) on the 12-link chain and (12,12, contacts |
+    robust) on chain-ground-12 at the contact-MPC coefficients, and the
+    ground scene of tests/test_pallas_step.py (chain-ground-3, kn 1e3) in the
+    build with every closure kind; the torques of about half the lanes
+    scaled up (10x, 300x, 100x) so that the guard takes half steps and stays
+    put on some lanes (on chain-12 over 3B lanes, where a lane that stays put
+    and is kept is rarer)."""
+    if case == "chain12":
+        sc, feat, up = jchain(nlinks=12).compile(dtype=jnp.float32), chord_kernel.ROBUST, 10.0
+        B = 3 * B
+        states, tau = _states(sc.topo.nr, B)
+    elif case == "ground12":
+        sc = jground(nlinks=12, **BENCH_GROUND).compile(dtype=jnp.float32)
+        feat, up = chord_kernel.CONTACTS | chord_kernel.ROBUST, 300.0
+        states, tau = contact_states(sc.topo.nr, B)
+    else:
+        sc = jground(nlinks=3, floor_z=-0.02, kn=1e3, kt=50.0, kd=10.0, mu=0.5).compile(
+            dtype=jnp.float32)
+        feat, up = 7 | chord_kernel.ROBUST, 100.0
+        states, tau = _states(sc.topo.nr, B)
+    lanes = np.random.default_rng(7).choice([1.0, up], size=(B, 1)).astype(np.float32)
+    return sc, states, tau * lanes, feat
+
+
+@pytest.mark.parametrize("mode", list(ROBUST_MODES))
+@pytest.mark.parametrize("case", ["chain12", "ground12", "ground3"])
+def test_lane_body_robust_modes_match_kernel_body(lane_lib, case, mode):
+    """The kRobust lane body in each robust mode against
+    chord_bdf2_dense(xp=np) with the same config (the port of
+    tests/test_pallas_step.py::test_robust_solve_modes_match_newton): the
+    finite masks equal, x at 5e-6 (1e-5 on the stiff ground scene, that
+    test's own tolerance) and H^-1 (the last one built) at 2e-5 of scale on
+    every lane that float32 determines, that is where the oracle
+    lies within 1e-3 max(1, |x|) of the port's plain version in float64 (at
+    these torques a few lanes end far from any root, where two float32
+    evaluations part, each as far from float64; at least 3/4 of the finite
+    lanes are held); the guard's branches each fire on some held lane (a
+    census from the float64 plain version's steps)."""
+    sc, states, tau, feat = _robust_case(case)
+    kw = ROBUST_MODES[mode]
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(
+        sc.topo, jint.NewtonConfig(**kw), {**sc.params, "tau": jnp.asarray(tau)}, *states,
+        xp=np, force_fns=sc.force_fns)
+    topo, params, fns = _port(sc)
+    x, hinv = _run_lane_lib(lane_lib, topo, params, tau, states, fns, feat, kw)
+    info = {}
+    p64 = jax.tree_util.tree_map(lambda a: a.double(), {**params, "tau": torch.tensor(tau)})
+    x64, _ = chord_kernel.chord_bdf2_reference(
+        topo, tint.NewtonConfig(**kw), p64, *(torch.tensor(a).double() for a in states), fns,
+        info=info)
+    finite = np.isfinite(x_np).all(-1)
+    assert finite.mean() >= 0.5, finite
+    np.testing.assert_array_equal(np.isfinite(x).all(-1), finite)
+    x64 = x64.numpy()
+    held = finite & (np.abs(x_np - x64) <= 1e-3 * np.maximum(1.0, np.abs(x64))).all(-1)
+    assert held.sum() >= 0.75 * finite.sum(), (held.sum(), finite.sum())
+    if "steps" in info:
+        # lanes on which each branch of the guard fired, among the lanes held
+        steps = info["steps"].numpy()
+        census = {s: int(((steps == s).any(-1) & held).sum()) for s in (1.0, 0.5, 0.0)}
+        assert min(census.values()) > 0, census
+    # the stiff ground scene (kn 1e3) at test_robust_solve_modes_match_newton's 1e-5
+    np.testing.assert_allclose(x[held], x_np[held], rtol=0,
+                               atol=1e-5 if case == "ground3" else 5e-6)
+    scale = float(np.abs(hinv_np[held]).max())
+    np.testing.assert_allclose(hinv[held], hinv_np[held], rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("case", ["chain12", "ground12"])
+def test_lane_body_robust_build_in_chord_mode_equals_plain_build(lane_lib, case):
+    """The card's robust builds run unguarded chord through the code of the
+    builds without kRobust: bit for bit the same x and H^-1."""
+    sc, states, tau, feat = _robust_case(case)
+    topo, params, fns = _port(sc)
+    x, hinv = _run_lane_lib(lane_lib, topo, params, tau, states, fns, feat)
+    x0, hinv0 = _run_lane_lib(lane_lib, topo, params, tau, states, fns,
+                              feat & ~chord_kernel.ROBUST)
+    np.testing.assert_array_equal(x, x0)
+    np.testing.assert_array_equal(hinv, hinv0)
 
 
 @pytest.fixture(scope="module")

@@ -49,7 +49,10 @@ extern "C" int chord_bdf2_cpu(int N, int NR, int feat, int B, const float* x0, c
                               const float* qd0, const float* q1, const float* qd1,
                               const float* tau, const int* topo_i, const float* stat_f,
                               const float* lane_f, int fixed_iters, float growth_reject,
-                              float tol_reject, float dx_clamp, float* x_out, float* hinv_out) {
+                              float tol_reject, float dx_clamp, int guarded, int guard_last,
+                              int chord_mode, float* x_out, float* hinv_out) {
+  // the solve-mode flags of test_torch_lane_body's loop (unguarded chord here)
+  (void)guarded, (void)guard_last, (void)chord_mode;
   const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
   LANE(6, 12, 8)
   LANE(4, 12, 8)
@@ -76,7 +79,7 @@ def qdep_lib(tmp_path_factory):
 
     lib = _gxx_build(tmp_path_factory, "qdep_lane_body", LOOP)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 9 + [i, f, f, f, p, p]
+    lib.chord_bdf2_cpu.argtypes = [i, i, i, i] + [p] * 9 + [i, f, f, f, i, i, i, p, p]
     lib.chord_bdf2_cpu.restype = i
     return lib
 
