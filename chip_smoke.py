@@ -5,17 +5,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure is an exception and a non-zero exit):
   1. card and toolchain: torch.cuda must be available;
   2. build the kernels (csrc/) with nvcc for sm_90a, one nvcc per library,
-     side by side (the chord kernel as it stands, with the q-dependent
-     joints, with per-lane params and with the robust solve modes, and the
-     dual PGS), and print their -Xptxas -v register/spill reports;
+     side by side (the chord kernel's thread-per-lane design as it stands,
+     with the q-dependent joints, with per-lane params and with the robust
+     solve modes, its cooperative design, and the dual PGS), and print their
+     -Xptxas -v register/spill reports and the cooperative design's layout
+     (lanes a block, shared memory a block);
   3. hold the chord kernel against its plain PyTorch version on the card
-     (scene_chain(12) at B = 1024 and the ragged B = 1000, scene_chain(4)):
-     x within 5e-6 max(1, |x|) of the float32 plain version, H^-1 within
-     2e-5 of scale of the plain version in float64; time both with CUDA
-     events, and compute the kernel's bound;
+     (scene_chain(12) at B = 1024, 1000 and 997, scene_chain(4); the
+     wrapper runs the cooperative design there, one launch a call): x within
+     5e-6 max(1, |x|) of the float32 plain version, H^-1 within 2e-5 of
+     scale of the plain version in float64; time the kernel, the
+     thread-per-lane build of the same shape (in turns, in this run) and the
+     plain version with CUDA events, and compute the kernel's bound;
   4. the main path: bench.py's batched MPC solve (12-link chain, horizon 50,
      B = 1024, f32, one Adam step) through mpc.make_mpc_solver_batched, with
-     the launch count read around the timed solves; the same solve on the
+     the launch count of the cooperative design read around the timed
+     solves (49 a solve, none of the other design); the same solve on the
      op-level route (float32 and float64) must agree; a small solve on the
      card must agree with the same solve on the CPU in float64;
   5. hold the dual-PGS kernel against its plain version on the card: random
@@ -34,18 +39,19 @@ Phases (any failure is an exception and a non-zero exit):
   7. the equality branch: reference case 4 (loop closure, dense KKT), B = 64,
      5 steps on the card against the CPU in float64, launching no kernel;
   8. hold the chord kernel with ground contacts against its plain version:
-     chain-ground-12 at B = 1024 and B = 1000 and chain-ground-4 at B = 1024,
+     chain-ground-12 at B = 1024, 1000 and 997 and chain-ground-4 at B = 1024,
      on states taken from a contact rollout, with corners out of contact, in
      static and in dynamic friction (counted and asserted); x and H^-1 by the
      tolerances of phase 3 on at least 99% of lanes (a corner within roundoff
      of a regime threshold may flip between two float32 orders), finite masks
      equal, the worst lane printed; also with mu = 0, with a NaN lane, and
      with a floor out of reach, which must give the result of the build
-     without contacts to float32 roundoff; time it and compute its bound beside phase 3's;
+     without contacts to float32 roundoff; time it beside the thread-per-lane
+     build as in phase 3, and compute its bound;
   9. the contact path: benchmarks/bench_contact.py's differentiable-contact
      MPC solve (chain-ground-12, kn 100, kt 0.1, kd 10, mu 0.5, floor 0.01
      under the links, horizon 50, B = 1024, f32, one Adam step), with the
-     checks of phase 4;
+     checks of phase 4 (the cooperative design's 49 launches a solve);
  10. hold the chord kernel with springs against its plain version: the
      spring chain (scene_spring_chain(12): a world-to-tip spring-damper, a
      body-body spring-damper and a point-point coupler) at B = 1024 and
@@ -111,11 +117,22 @@ Phases (any failure is an exception and a non-zero exit):
      exact on the chain-12 solve at sigma = 3, rate and finite_frac, the
      cosine and norm ratio of dObjective/dP against exact (horizon 5), and
      refresh against the op-level route without factor reuse;
- 25. print the kernels line, the paths' lines (robust_path and
-     backward_modes among them), the card's name and power limit, and the
-     result line.
+ 25. where the cooperative kernel's time goes: its probe build (the same
+     source with -DCHORD_COOP_PROBE, each phase's clock64() cycles summed on
+     each warp) on phase 3's chain-12 and phase 8's chain-ground-12 inputs
+     at B = 1024, cycles a lane by phase, and the probe build's own time;
+ 26. print the kernels line (chord_bdf2 and chord_bdf2[ground_contact]
+     with the design, threads a lane, lanes a block and the thread-per-lane
+     build's time of this run), the paths' lines (robust_path,
+     backward_modes and coop_phases among them), the card's name and power
+     limit, and the result line.
+
+Every MPC path reads the launch counter of the chord kernel design the
+wrapper routes it to (design_of) and requires none of the other; the
+rollouts, all on the thread-per-lane design, count both designs' launches.
 """
 
+import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -129,6 +146,7 @@ import numpy as np
 import torch
 
 from redmax_tpu_torch import chord_kernel, forces, integrators, model, mpc, qp_kernel
+from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.scenes import (scene_09_free3d, scene_13_cables, scene_chain,
                                      scene_chain_ground, scene_floor_chain, scene_qdep_chain,
                                      scene_spring_chain)
@@ -141,6 +159,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 CFG = integrators.NewtonConfig(fixed_iters=3, predictor="quadratic", chord=True,
                                hessian="structured", linsolve="gj")
+# The cooperative chord kernel built again with its phase probe: a
+# measurement only, never a route of the wrapper.
+COOP_PROBE = KernelBuild("chord_bdf2_coop_probe", chord_kernel.BUILD_COOP.sources,
+                         defines=("-DCHORD_COOP_PROBE",))
 
 
 def nvidia_smi_line() -> str:
@@ -163,6 +185,28 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_launches() -> None:
+    """Set the chord kernel's launch counters (both designs) to 0."""
+    chord_kernel.chord_bdf2_launches = chord_kernel.chord_bdf2_coop_launches = 0
+
+
+def launches_of(design=None) -> int:
+    """Chord kernel launches since reset_launches: of one design
+    ("cooperative" or "thread_per_lane"), or of both (None)."""
+    coop, lane = chord_kernel.chord_bdf2_coop_launches, chord_kernel.chord_bdf2_launches
+    return {"cooperative": coop, "thread_per_lane": lane, None: coop + lane}[design]
+
+
+def design_of(sc, params, cfg=CFG) -> str:
+    """The chord kernel design the wrapper routes this scene, params and
+    solve mode to."""
+    counts = chord_kernel.counts_of(chord_kernel.closure_spec(sc.topo, sc.force_fns))
+    kinds = chord_kernel.kinds_of(sc.topo, counts, chord_kernel.has_perlane(params),
+                                  chord_kernel.is_robust(cfg))
+    build = chord_kernel.library_of(sc.topo.njoints, sc.topo.nr, kinds)
+    return "cooperative" if build is chord_kernel.BUILD_COOP else "thread_per_lane"
 
 
 # so3_exp_S per lane, on its closed-form branch (s >= 0.04; the Taylor
@@ -287,11 +331,27 @@ def rand_states(nr, B, seed, device):
 def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG):
     """The kernel record fields at one scene's shapes in the solve mode of
     cfg: launch time, the wrapper's with its layout copies, the plain
-    version's, and the bound."""
+    version's, and the bound. Where the wrapper runs the cooperative design,
+    also the thread-per-lane build of the same shape, timed in turns with it
+    (cooperative, thread-per-lane, thread-per-lane, cooperative), and the
+    cooperative design's layout."""
     B = states[0].shape[0]
     fns = sc.force_fns
     args = chord_kernel.pack(sc.topo, params, *states, fns)
+    coop = design_of(sc, params, cfg) == "cooperative"
     ms = cuda_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)
+    design = {}
+    if coop:
+        prev = lambda: chord_kernel.launch(sc.topo, cfg, *args, thread_per_lane=True)
+        prev_ms = (cuda_ms(prev, reps=200) + cuda_ms(prev, reps=200)) / 2
+        ms = (ms + cuda_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)) / 2
+        lib = chord_kernel._build_lib(chord_kernel.BUILD_COOP)
+        design = {"design": "warp_per_lane", "threads_per_lane": 32,
+                  "lanes_per_block": lib.chord_bdf2_coop_lanes_per_block(),
+                  "prev_design": "thread_per_lane", "prev_design_ms": prev_ms}
+        print(f"chord_bdf2 at {label}, B {B}: cooperative (a warp a lane, "
+              f"{design['lanes_per_block']} lanes a block) {ms:.4f} ms, thread-per-lane "
+              f"{prev_ms:.4f} ms (in turns, this run): {prev_ms / ms:.2f}x")
     wrap_ms = cuda_ms(lambda: chord_kernel.chord_bdf2(sc.topo, cfg, params, *states, fns), 100)
     plain_ms = cuda_ms(lambda: chord_kernel.chord_bdf2_reference(
         sc.topo, cfg, params, *states, fns), reps=50)
@@ -308,11 +368,12 @@ def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG):
           f"{nbytes} bytes; bound {bound * 1e3:.3f} us "
           f"({'operations' if t_ops >= t_bytes else 'bytes'}), kernel at {bound / ms:.2%} of it")
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", **design}
 
 
-def phase_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (4, 1024))):
-    """Kernel vs chord_bdf2_reference on the card; returns the kernel record
+def phase_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (12, 997), (4, 1024))):
+    """Kernel vs chord_bdf2_reference on the card (the cooperative design,
+    B = 997 leaving the last block partial); returns the kernel record
     fields measured at the main path's shapes (the first case)."""
     record = {}
     for nlinks, B in cases:
@@ -320,7 +381,11 @@ def phase_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (4, 1024
         sc64 = scene_chain(nlinks).compile(dtype=torch.float64, device=device)
         states, tau = rand_states(sc.topo.nr, B, seed=1, device=device)
         params = {**sc.params, "tau": tau}
+        reset_launches()
         x, hinv = chord_kernel.chord_bdf2(sc.topo, CFG, params, *states)
+        if launches_of("cooperative") != 1 or launches_of() != 1:
+            raise AssertionError(f"chain {nlinks}: the wrapper did not launch the cooperative "
+                                 "design once")
         x_ref, hinv_ref = chord_kernel.chord_bdf2_reference(sc.topo, CFG, params, *states)
         x64, hinv64 = chord_kernel.chord_bdf2_reference(
             sc64.topo, CFG, {**sc64.params, "tau": tau.double()}, *(a.double() for a in states))
@@ -378,15 +443,16 @@ def mpc_solver(sc, horizon, use_kernel=None, cfg=CFG, backward="reuse"):
     return mpc.make_mpc_solver_batched(obj, iters=1, lr=0.05), obj
 
 
-def timed_solves(solve, args, horizon, reps):
+def timed_solves(solve, args, horizon, reps, design):
     """reps calls of the MPC solve solve(*args) after a warm one, the launch
-    count set to 0 before them and checked after (horizon - 1 a solve):
-    (launches, seconds per solve by CUDA events, by the host clock, the last
-    result). Resets the peak-memory count before them."""
+    counts set to 0 before them and checked after (horizon - 1 a solve on
+    design's counter, none on the other's): (launches, seconds per solve by
+    CUDA events, by the host clock, the last result). Resets the
+    peak-memory count before them."""
     res = solve(*args)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    chord_kernel.chord_bdf2_launches = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
@@ -395,15 +461,16 @@ def timed_solves(solve, args, horizon, reps):
     end.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
-    launches = chord_kernel.chord_bdf2_launches
-    if launches != (horizon - 1) * reps:
-        raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} solves, "
-                             f"want {horizon - 1} per solve")
+    launches = launches_of(design)
+    if launches != (horizon - 1) * reps or launches_of() != launches:
+        raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} solves on its "
+                             f"{design} design ({launches_of()} in all), want {horizon - 1} "
+                             "per solve")
     return launches, start.elapsed_time(end) / 1e3 / reps, wall, res
 
 
 def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, reps=3,
-                   draws=None, cfg=CFG, sigma=3.0, min_finite=0.95):
+                   draws=None, cfg=CFG, sigma=3.0, min_finite=0.95, design=None):
     """The batched MPC solve of bench.py:53-105 (scene = scene_chain), of
     benchmarks/bench_contact.py:44-105 (scene = chain_ground),
     bench_spring_ab.py:41-105 or qdep_ablation.py:68-102 (scene = uni6,
@@ -412,7 +479,8 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
     (robust_mode.py:40-140 runs guard_last, guarded3 and chord=False) at
     the torque scale sigma; returns (kernel launches of the timed solves,
     solves/s, finite_frac). min_finite None holds the finite share to the
-    op-level routes' (the masks agree on 99% of lanes) instead of a floor."""
+    op-level routes' (the masks agree on 99% of lanes) instead of a floor.
+    design, where given, is the chord kernel design the path must run on."""
     sc = scene(nlinks).compile(dtype=torch.float32, device=device)
     sc64 = scene(nlinks).compile(dtype=torch.float64, device=device)
     params, params64 = sc.params, sc64.params
@@ -423,13 +491,18 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
     s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
                qdot=sc.state0.qdot.expand(B, -1).contiguous())
 
-    launches, dt, wall, res = timed_solves(solve, (params, p0, s0, targets), horizon, reps)
+    routed = design_of(sc, params, cfg)
+    if design is not None and routed != design:
+        raise AssertionError(f"{name}: routed to the {routed} design, want {design}")
+    launches, dt, wall, res = timed_solves(solve, (params, p0, s0, targets), horizon, reps,
+                                           routed)
     finite = torch.isfinite(res.objective)
     finite_frac = float(finite.float().mean())
     peak = torch.cuda.max_memory_allocated()
     print(f"{name}: {B / dt:.2f} solves/s ({dt * 1e3:.3f} ms per solve by CUDA events, "
           f"{wall * 1e3:.3f} ms host clock), finite_frac {finite_frac:.4f}, "
-          f"kernel launches {launches // reps} per solve, peak memory {peak / 2**20:.1f} MiB")
+          f"kernel launches {launches // reps} per solve ({routed} design), "
+          f"peak memory {peak / 2**20:.1f} MiB")
     if res.objective.shape != (B,) or res.p.shape != (B, sc.topo.nr):
         raise AssertionError(f"{name}: unexpected output shapes")
     if min_finite is not None and finite_frac < min_finite:
@@ -474,12 +547,12 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
     # op-level route against float64 too), and it is printed.
     solve_plain, _ = mpc_solver(sc, horizon, use_kernel=False, cfg=cfg)
     solve64, _ = mpc_solver(sc64, horizon, use_kernel=False, cfg=cfg)
-    chord_kernel.chord_bdf2_launches = 0
+    reset_launches()
     ref32 = solve_plain(params, p0, s0, targets).objective
     ref64 = solve64(params64, p0.double(), State(q=s0.q.double(), qdot=s0.qdot.double()),
                     targets.double()).objective
     torch.cuda.synchronize()
-    if chord_kernel.chord_bdf2_launches != 0:
+    if launches_of() != 0:
         raise AssertionError("op-level route launched the kernel")
 
     def compare(obj, ref, name):
@@ -993,9 +1066,11 @@ def check_nan_lane(sc, params, states, x, cfg=CFG):
         raise AssertionError("a NaN lane did not stay NaN, or changed another lane")
 
 
-def phase_contact_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (4, 1024))):
+def phase_contact_kernel_vs_plain(device="cuda",
+                                  cases=((12, 1024), (12, 1000), (12, 997), (4, 1024))):
     """The chord kernel with ground contacts against chord_bdf2_reference on
-    the card; returns the kernel record fields at the contact path's shapes
+    the card (the cooperative design, B = 997 leaving the last block
+    partial); returns the kernel record fields at the contact path's shapes
     (the first case)."""
     record = {}
     for nlinks, B in cases:
@@ -1007,6 +1082,8 @@ def phase_contact_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), 
               f"corners {json.dumps(census)}")
         if min(census["out"], census["static"], census["dynamic"]) == 0:
             raise AssertionError(f"chain-ground-{nlinks}: a contact regime is missing: {census}")
+        if design_of(sc, params) != "cooperative":
+            raise AssertionError(f"chain-ground-{nlinks}: not routed to the cooperative design")
         err, x = compare_kernel(sc, sc64, params, states, f"chain-ground-{nlinks} B {B}")
         if (nlinks, B) != cases[0]:
             continue
@@ -1128,7 +1205,7 @@ def phase_cable_path(device="cuda", B=1024, nsteps=50, reps=3):
         integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=True), nsteps)
     final = sim(sc.params, s0)  # warm-up
     torch.cuda.synchronize()
-    chord_kernel.chord_bdf2_launches = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
@@ -1137,7 +1214,7 @@ def phase_cable_path(device="cuda", B=1024, nsteps=50, reps=3):
     end.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
-    launches = chord_kernel.chord_bdf2_launches
+    launches = launches_of()
     dt = start.elapsed_time(end) / 1e3 / reps
     if launches != (nsteps - 1) * reps:
         raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} rollouts, "
@@ -1168,13 +1245,13 @@ def phase_cable_path(device="cuda", B=1024, nsteps=50, reps=3):
     print(f"cable path, one rollout by phase: bootstrap {ev[0].elapsed_time(ev[1]):.3f} ms, "
           f"{nsteps - 1} inner steps (kernel route) {ev[1].elapsed_time(ev[2]):.3f} ms")
 
-    chord_kernel.chord_bdf2_launches = 0
+    reset_launches()
     sim64 = integrators.make_simulate(
         integrators.make_bdf2_step_batched(sc64.topo, sc64.force_fns, CFG, use_kernel=False),
         nsteps)
     q64 = sim64(sc64.params, integrators.bdf2_init(cable_states0(sc, B, device, torch.float64))).q
     torch.cuda.synchronize()
-    if chord_kernel.chord_bdf2_launches != 0:
+    if launches_of() != 0:
         raise AssertionError("op-level route launched the kernel")
     err, both = lane_err(final.q, q64)
     p50, _, p99, mx = quantiles(err)
@@ -1292,7 +1369,7 @@ def phase_free3d_path(device="cuda", B=1024, nsteps=50, reps=3):
     sim = integrators.make_simulate(step, nsteps)
     final = sim(sc.params, s0)  # warm-up
     torch.cuda.synchronize()
-    chord_kernel.chord_bdf2_launches = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
@@ -1301,7 +1378,7 @@ def phase_free3d_path(device="cuda", B=1024, nsteps=50, reps=3):
     end.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
-    launches = chord_kernel.chord_bdf2_launches
+    launches = launches_of()
     dt = start.elapsed_time(end) / 1e3 / reps
     if launches != (nsteps - 1) * reps:
         raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} rollouts, "
@@ -1344,14 +1421,14 @@ def phase_free3d_path(device="cuda", B=1024, nsteps=50, reps=3):
           f"{nsteps - 1} inner steps (kernel route, reparam included) "
           f"{ev[1].elapsed_time(ev[2]):.3f} ms")
 
-    chord_kernel.chord_bdf2_launches = 0
+    reset_launches()
     sc64 = free3d().compile(dtype=torch.float64, device=device)
     sim64 = integrators.make_simulate(
         integrators.make_bdf2_step_batched(sc64.topo, (), CFG, use_kernel=False), nsteps)
     q64 = sim64(sc64.params, integrators.bdf2_init(free3d_states0(sc, B, device,
                                                                   torch.float64))).q
     torch.cuda.synchronize()
-    if chord_kernel.chord_bdf2_launches != 0:
+    if launches_of() != 0:
         raise AssertionError("op-level route launched the kernel")
     err, both = lane_err(final.q, q64)
     p50, _, p99, mx = quantiles(err)
@@ -1475,10 +1552,10 @@ def phase_perlane_rollout(label, scene, s0_of, device="cuda", B=1024, nsteps=50,
     params = draws_extra(sc.params, sc.force_fns, B)
     step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=True)
     s0 = integrators.bdf2_init(s0_of(sc, B, device, torch.float32))
-    chord_kernel.chord_bdf2_launches = 0
+    reset_launches()
     final = integrators.make_simulate(step, nsteps)(params, s0)
     torch.cuda.synchronize()
-    launches = chord_kernel.chord_bdf2_launches
+    launches = launches_of()
     if launches != nsteps - 1:
         raise AssertionError(f"{label}: chord_bdf2 launched {launches} times, want {nsteps - 1}")
     finite_frac = float((torch.isfinite(final.q).all(-1) & torch.isfinite(final.qdot).all(-1))
@@ -1532,13 +1609,13 @@ def phase_sysid_grads(device="cuda", nlinks=12, horizon=5, B=1024):
         for fn, kn in zip(sc.force_fns, leaves[2:]):
             forces[fn.key]["kn"] = kn
         p = {**params, "I_i": leaves[0], "h": leaves[1], "forces": forces}
-        chord_kernel.chord_bdf2_launches = 0
+        reset_launches()
         with torch.enable_grad():
             v = obj(p, p0, s0, targets)
             fin = torch.isfinite(v)
             g = torch.autograd.grad(torch.where(fin, v, torch.zeros_like(v)).sum(), leaves)
         torch.cuda.synchronize()
-        if (chord_kernel.chord_bdf2_launches > 0) != use_kernel:
+        if (launches_of() > 0) != use_kernel:
             raise AssertionError("sysid: the routes launched the kernel wrongly")
         grads[use_kernel] = [a.reshape(B, -1).double() for a in g]
         finite[use_kernel] = fin
@@ -1645,7 +1722,8 @@ def time_solves(sc, cfg, sigma, device="cuda", B=1024, horizon=50, reps=3, backw
     p0, targets = bench_inputs(sc.topo.nr, B, device, torch.float32, sigma)
     s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
                qdot=sc.state0.qdot.expand(B, -1).contiguous())
-    launches, dt, _, res = timed_solves(solve, (sc.params, p0, s0, targets), horizon, reps)
+    launches, dt, _, res = timed_solves(solve, (sc.params, p0, s0, targets), horizon, reps,
+                                        design_of(sc, sc.params, cfg))
     finite = torch.isfinite(res.objective)
     if res.objective.shape != (B,) or not torch.isfinite(res.p[finite]).all():
         raise AssertionError("unexpected shapes, or a non-finite update on a finite lane")
@@ -1739,6 +1817,79 @@ def phase_backward_modes(device="cuda", B=1024, horizon=50, grad_horizon=5):
     return out
 
 
+def phase_build():
+    """Build every kernel library, one nvcc each, side by side; print their
+    ptxas reports and the cooperative design's layout."""
+    t0 = time.perf_counter()
+    builds = chord_kernel.BUILDS + (qp_kernel.BUILD, COOP_PROBE)
+    for build in builds:  # one nvcc per library, side by side
+        build.start()
+    for build in chord_kernel.BUILDS:
+        chord_kernel._build_lib(build)
+    qp_kernel._build_lib()
+    COOP_PROBE.load()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    for build in builds:
+        for line in build.ptxas_report.splitlines():
+            if "Compiling" in line or "registers" in line or "spill" in line:
+                print(f"ptxas {build.name}:", line.strip())
+    coop = chord_kernel.BUILD_COOP.lib
+    print(f"chord_bdf2_coop layout: {coop.chord_bdf2_coop_lanes_per_block()} lanes (warps) a "
+          f"block; dynamic shared memory a block: (12, 12) "
+          f"{coop.chord_bdf2_coop_smem_bytes(12, 12)} bytes, (4, 4) "
+          f"{coop.chord_bdf2_coop_smem_bytes(4, 4)} bytes")
+
+
+def phase_coop_probe(device="cuda", B=1024):
+    """Where the cooperative kernel's time goes: its probe build on phase 3's
+    chain-12 inputs and phase 8's chain-ground-12 ones, the cycles of the
+    last of 52 launches (two warm, 50 timed); returns {scene:
+    {"total_cycles", "probe_ms", phase: mean cycles a lane}}. The probe's
+    clock reads cost time of their own, so its ms is printed, to be read
+    beside the kernel's of phases 3 and 8."""
+    lib = COOP_PROBE.load()
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.chord_bdf2_coop_launch.argtypes = [i] * 4 + [p] * 8 + [i, fl, fl, fl] + [p] * 4
+    lib.chord_bdf2_coop_launch.restype = i
+    lib.chord_bdf2_coop_phases.restype = i
+    lib.chord_bdf2_coop_phase_name.argtypes = [i]
+    lib.chord_bdf2_coop_phase_name.restype = ctypes.c_char_p
+    names = [lib.chord_bdf2_coop_phase_name(k).decode()
+             for k in range(lib.chord_bdf2_coop_phases())]
+    sc = scene_chain(12).compile(dtype=torch.float32, device=device)
+    states, tau = rand_states(sc.topo.nr, B, seed=1, device=device)
+    scg = chain_ground(12).compile(dtype=torch.float32, device=device)
+    gstates, gparams, _ = rollout_states(scg, B, device)
+    out = {}
+    for label, scene, params, st in (("chain-12", sc, {**sc.params, "tau": tau}, states),
+                                     ("chain-ground-12", scg, gparams, gstates)):
+        args = chord_kernel.pack(scene.topo, params, *st, scene.force_fns)
+        nr = scene.topo.nr
+        x_out = torch.empty(nr, B, device=device)
+        h_out = torch.empty(nr * nr, B, device=device)
+        probe = torch.zeros(B, len(names), dtype=torch.int64, device=device)
+
+        def launch():
+            err = lib.chord_bdf2_coop_launch(
+                scene.topo.njoints, nr, args[8].contacts, B, *(a.data_ptr() for a in args[:8]),
+                CFG.fixed_iters, CFG.growth_reject, CFG.tol_reject, CFG.dx_clamp,
+                x_out.data_ptr(), h_out.data_ptr(), probe.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"chord_bdf2_coop_probe launch failed: error {err}")
+
+        probe_ms = cuda_ms(launch, reps=50)
+        torch.cuda.synchronize()
+        cycles = probe.double().mean(0).tolist()
+        total = sum(cycles)
+        out[label] = {"total_cycles": total, "probe_ms": probe_ms,
+                      **{n: c for n, c in zip(names, cycles)}}
+        top = sorted(zip(names, cycles), key=lambda nc: -nc[1])
+        print(f"coop probe {label}, B {B}: {total:.0f} cycles a lane (probe build {probe_ms:.4f} "
+              "ms); by phase: " + ", ".join(f"{n} {c:.0f} ({c / total:.1%})" for n, c in top))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda is not available")
@@ -1750,27 +1901,17 @@ def main():
           f"nvcc {nvcc if os.path.exists(nvcc) else 'missing'}; "
           f"triton {'importable' if importlib.util.find_spec('triton') else 'missing'}")
 
-    t0 = time.perf_counter()
-    builds = chord_kernel.BUILDS + (qp_kernel.BUILD,)
-    for build in builds:  # one nvcc per library, side by side
-        build.start()
-    for build in chord_kernel.BUILDS:
-        chord_kernel._build_lib(build)
-    qp_kernel._build_lib()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
-    for build in builds:
-        for line in build.ptxas_report.splitlines():
-            if "Compiling" in line or "registers" in line or "spill" in line:
-                print(f"ptxas {build.name}:", line.strip())
+    phase_build()
 
     record = phase_kernel_vs_plain()
-    launches, rate, finite_frac = phase_mpc_path("main path", scene_chain)
+    launches, rate, finite_frac = phase_mpc_path("main path", scene_chain, design="cooperative")
     phase_small_reference("main path", scene_chain)
     qp_record = phase_qp_kernel_vs_plain()
     qp_launches, step_rate, euler_finite = phase_euler_path()
     phase_small_euler()
     contact_record = phase_contact_kernel_vs_plain()
-    contact_launches, contact_rate, contact_finite = phase_mpc_path("contact path", chain_ground)
+    contact_launches, contact_rate, contact_finite = phase_mpc_path("contact path", chain_ground,
+                                                                    design="cooperative")
     phase_small_reference("contact path", chain_ground)
     spring_record = phase_spring_kernel_vs_plain()
     cable_record = phase_cable_kernel_vs_plain()
@@ -1797,16 +1938,19 @@ def main():
     robust_records = phase_robust_kernel_vs_plain()
     robust_paths = phase_robust_paths()
     backward_modes = phase_backward_modes()
+    coop_phases = phase_coop_probe()
 
     kernels = [{
+        # the cooperative design (a warp a lane), on the main path; the
+        # thread-per-lane build of the same shape timed in turns with it
         "name": "chord_bdf2", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:689",
         "launches": launches, **record, "library_ms": None,
     }, {
-        # the same kernel with 12 ground contacts, on the contact path
+        # the same design with 12 ground contacts, on the contact path
         "name": "chord_bdf2[ground_contact]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:237",
         "launches": contact_launches, **contact_record, "library_ms": None,
     }, {
@@ -1926,6 +2070,7 @@ def main():
         **{name: {"launches": l, "solves_per_s": r, "finite_frac": f}
            for name, (l, r, f) in robust_paths.items()}, "card": smi}}))
     print(json.dumps({"backward_modes": {**backward_modes, "card": smi}}))
+    print(json.dumps({"coop_phases": {**coop_phases, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

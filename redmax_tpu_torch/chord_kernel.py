@@ -1,9 +1,9 @@
 """Fused BDF2 chord-Newton solve: the CUDA kernel, its plain PyTorch
 version, its build and its launch counter.
 
-The kernel (csrc/chord_bdf2.cu, per-lane body in csrc/chord_bdf2_lane.cuh)
-replaces redmax_tpu/pallas_step.py::_build_kernel of the JAX package, on its
-K1a, K1b, K1c, K1d, K1e, K1f and K1g branches: constant-S joints and the
+The kernel (in two designs, below) replaces
+redmax_tpu/pallas_step.py::_build_kernel of the JAX package, on its K1a,
+K1b, K1c, K1d, K1e, K1f and K1g branches: constant-S joints and the
 q-dependent UNIVERSAL, exp-map SPHERICAL and FREE3D joints (S and Sdot per
 lane, pallas_step._so3_exp_S); penalty ground contact (ForceGroundCuboid,
 pallas_step._ground_contact); two-point springs (ForcePointPoint,
@@ -30,13 +30,20 @@ What bounds it on an H100: per-lane f32 arithmetic. It moves
 4 * B * P with per-lane params (1.0 MB more for a contact on each of 12
 links), and does on the order of 1e5 flops per lane (about twice that with
 a contact on every link), so the operation count, not the bytes, sets the
-least time. The first-cut design gives one thread to each lane, so the
-arithmetic runs without any cross-thread traffic and the struct-of-arrays
-[nr, B] and [P, B] layouts make every state and record read coalesced.
-What it leaves for later: at B = 1024 only 1024 threads run (a few dozen of
-the 132 SMs), and the per-lane J, Jdot, H and Gauss-Jordan rows (a few
-thousand floats) live in local memory rather than registers. A warp per lane
-or a thread per (lane, column) with shared memory is the next design.
+least time. Two designs:
+- cooperative (csrc/chord_bdf2_coop.cu, body csrc/chord_bdf2_coop.cuh), on
+  the unguarded chord builds with lane-shared params and no closure but
+  ground contact, at the (N, nr) the main and contact paths run
+  (COOP_INSTANTIATED): one warp per lane, 8 lanes a block, the lane's
+  frames, J, Jdot, the per-body K/D blocks, H, the Gauss-Jordan rows and
+  H^-1 in shared memory, each phase of the solve split over the warp's 32
+  threads;
+- thread per lane (csrc/chord_bdf2.cu, body csrc/chord_bdf2_lane.cuh), on
+  every other build: one thread per lane in blocks of 32, the arithmetic in
+  order on that thread, J, Jdot, H and the Gauss-Jordan rows in local
+  memory. Its builds at the COOP_INSTANTIATED shapes stay in its library
+  only to be timed against the cooperative design (launch(...,
+  thread_per_lane=True)): no wrapper route reaches them.
 
 The closure code is compiled in only where a scene has that kind of closure,
 the q-dependent joint code only where a scene has such a joint, the
@@ -45,14 +52,16 @@ where the config asks for one (a template bitmask: contacts, springs,
 cables, QDEP, PERLANE, ROBUST), and only the (N, nr, kinds) combinations
 the paths run are instantiated (INSTANTIATED), in four libraries built side
 by side (BUILD, BUILD_QDEP with QDEP, BUILD_PERLANE with PERLANE,
-BUILD_ROBUST with ROBUST): a scene that mixes ground contacts with springs
+BUILD_ROBUST with ROBUST), and the cooperative design in a fifth
+(BUILD_COOP): a scene that mixes ground contacts with springs
 or cables, a q-dependent joint with a closure or per-lane params, per-lane
 params without a closure, or a robust mode at another shape than (12, 12)
 with or without contacts, runs on the CPU (the plain version) but raises
 on the card.
 
-On a CUDA tensor chord_bdf2 launches the kernel (and raises if it cannot);
-on a CPU tensor it runs chord_bdf2_reference.
+On a CUDA tensor chord_bdf2 launches the kernel of its design (and raises if
+it cannot, with no fallback to the other); on a CPU tensor it runs
+chord_bdf2_reference.
 """
 
 import ctypes
@@ -68,15 +77,19 @@ from redmax_tpu_torch.joints import CONSTANT_S_TYPES
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.types import JointType, Topology
 
-# Launches of the CUDA kernel since the counter was last set to 0.
+# Launches of the CUDA kernel since the counter was last set to 0: the
+# thread-per-lane design, and the cooperative one.
 chord_bdf2_launches = 0
+chord_bdf2_coop_launches = 0
 
 _SOURCES = ("chord_bdf2.cu", "chord_bdf2_lane.cuh")
 BUILD = KernelBuild("chord_bdf2", _SOURCES)
 BUILD_QDEP = KernelBuild("chord_bdf2_qdep", _SOURCES, defines=("-DCHORD_QDEP_UNIT",))
 BUILD_PERLANE = KernelBuild("chord_bdf2_perlane", _SOURCES, defines=("-DCHORD_PERLANE_UNIT",))
 BUILD_ROBUST = KernelBuild("chord_bdf2_robust", _SOURCES, defines=("-DCHORD_ROBUST_UNIT",))
-BUILDS = (BUILD, BUILD_QDEP, BUILD_PERLANE, BUILD_ROBUST)
+BUILD_COOP = KernelBuild("chord_bdf2_coop", ("chord_bdf2_coop.cu", "chord_bdf2_coop.cuh",
+                                              "chord_bdf2_lane.cuh"))
+BUILDS = (BUILD, BUILD_QDEP, BUILD_PERLANE, BUILD_ROBUST, BUILD_COOP)
 # The kinds a build compiles in (the FEAT template bitmask of chord_bdf2.cu:
 # closure kinds, the q-dependent joints, per-lane params, the robust solve
 # modes) and the (N, nr, kinds) with an explicit instantiation there.
@@ -87,6 +100,8 @@ INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
                 (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS | PERLANE),
                 (4, 3, CABLES | PERLANE),
                 (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST))
+# The (N, nr, kinds) that run on the cooperative design (BUILD_COOP).
+COOP_INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS))
 # Joint types the kernel covers: FREE2D has no branch there (op level only).
 QDEP_KERNEL_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D)
 KERNEL_TYPES = CONSTANT_S_TYPES + QDEP_KERNEL_TYPES
@@ -180,6 +195,15 @@ def build_of(kinds: int) -> KernelBuild:
     return BUILD_ROBUST if kinds & ROBUST else BUILD
 
 
+def library_of(N: int, nr: int, kinds: int, thread_per_lane: bool = False) -> KernelBuild:
+    """The library that launches (N, nr, kinds): the cooperative design's
+    where it has the build, else the thread-per-lane library of these kinds
+    (thread_per_lane: that one in any case, to time it against the other)."""
+    if not thread_per_lane and (N, nr, kinds) in COOP_INSTANTIATED:
+        return BUILD_COOP
+    return build_of(kinds)
+
+
 def _build_lib(build: KernelBuild):
     """The kernel library of build, compiled with nvcc at first use (see
     kernel_build). Raises when nvcc is missing or the build fails."""
@@ -187,9 +211,16 @@ def _build_lib(build: KernelBuild):
     lib = build.load()
     if first:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.chord_bdf2_launch.argtypes = ([i] * 9 + [p] * 6 + [p, p, p] + [i, fl, fl, fl]
-                                          + [i, i, i] + [p, p, p])
-        lib.chord_bdf2_launch.restype = i
+        if build is BUILD_COOP:
+            lib.chord_bdf2_coop_launch.argtypes = [i] * 4 + [p] * 8 + [i, fl, fl, fl] + [p] * 4
+            lib.chord_bdf2_coop_launch.restype = i
+            lib.chord_bdf2_coop_lanes_per_block.restype = i
+            lib.chord_bdf2_coop_smem_bytes.argtypes = [i, i]
+            lib.chord_bdf2_coop_smem_bytes.restype = ctypes.c_long
+        else:
+            lib.chord_bdf2_launch.argtypes = ([i] * 9 + [p] * 6 + [p, p, p] + [i, fl, fl, fl]
+                                              + [i, i, i] + [p, p, p])
+            lib.chord_bdf2_launch.restype = i
     return lib
 
 
@@ -382,36 +413,53 @@ def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures, lane_f=None)
                          f"hold {counts} (want {n_rec} rows, at most {MAX_LANE_RECORD})")
 
 
-# chord_bdf2_launch's own error codes (any other is a cudaError_t)
+# chord_bdf2_launch's and chord_bdf2_coop_launch's own error codes (any
+# other is a cudaError_t)
 _LAUNCH_ERRORS = {-1: "no instantiation of (N, nr, kinds) in this library",
                   -2: "per-lane record longer than kMaxLaneRecord",
-                  -3: "a robust solve mode in a library without kRobust"}
+                  -3: "a robust solve mode in a library without kRobust",
+                  -4: "fixed_iters < 1"}
 
 
 def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, counts: Closures,
-           lane_f=None):
+           lane_f=None, thread_per_lane: bool = False):
     """Launch the kernel on the current stream on packed inputs (see pack);
-    returns (x [nr, B], Hinv [nr*nr, B]) and counts the launch."""
-    global chord_bdf2_launches
+    returns (x [nr, B], Hinv [nr*nr, B]) and counts the launch on its
+    design's counter. The design is library_of's: thread_per_lane runs the
+    thread-per-lane build even where the cooperative design has one (only to
+    time the two against each other)."""
+    global chord_bdf2_launches, chord_bdf2_coop_launches
     check_buffers(topo, topo_i, stat_f, counts, lane_f)
     nr, B = x0.shape
     if lane_f is not None and lane_f.shape[1] != B:
         raise ValueError(f"chord_bdf2: a per-lane buffer of {lane_f.shape[1]} lanes for {B}")
     kinds = kinds_of(topo, counts, lane_f is not None, is_robust(cfg))
-    lib = _build_lib(build_of(kinds))
+    build = library_of(topo.njoints, nr, kinds, thread_per_lane)
+    lib = _build_lib(build)
     x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
     h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
-    err = lib.chord_bdf2_launch(
-        topo.njoints, nr, int(bool(kinds & QDEP)), int(lane_f is not None), *counts, B,
-        *(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau)), topo_i.data_ptr(), stat_f.data_ptr(),
-        None if lane_f is None else lane_f.data_ptr(),
-        cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
-        int(cfg.guarded), int(cfg.guard_last), int(cfg.chord),
-        x_out.data_ptr(), h_out.data_ptr(), stream,
-    )
+    states = tuple(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau))
+    if build is BUILD_COOP:
+        err = lib.chord_bdf2_coop_launch(
+            topo.njoints, nr, counts.contacts, B, *states, topo_i.data_ptr(), stat_f.data_ptr(),
+            cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+            x_out.data_ptr(), h_out.data_ptr(), None, stream,
+        )
+    else:
+        err = lib.chord_bdf2_launch(
+            topo.njoints, nr, int(bool(kinds & QDEP)), int(lane_f is not None), *counts, B,
+            *states, topo_i.data_ptr(), stat_f.data_ptr(),
+            None if lane_f is None else lane_f.data_ptr(),
+            cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+            int(cfg.guarded), int(cfg.guard_last), int(cfg.chord),
+            x_out.data_ptr(), h_out.data_ptr(), stream,
+        )
     if err != 0:
         why = _LAUNCH_ERRORS.get(err, "CUDA error")
-        raise RuntimeError(f"chord_bdf2 kernel launch failed: error {err} ({why})")
-    chord_bdf2_launches += 1
+        raise RuntimeError(f"{build.name} kernel launch failed: error {err} ({why})")
+    if build is BUILD_COOP:
+        chord_bdf2_coop_launches += 1
+    else:
+        chord_bdf2_launches += 1
     return x_out, h_out

@@ -1,0 +1,651 @@
+// Cooperative body of the fused BDF2 chord-Newton solve: one warp per lane,
+// every value that crosses a phase in the lane's record in shared memory.
+//
+// Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
+// (:689-1320) on its constant-S, lane-shared-params, unguarded-chord
+// branches, without closures (K1a) and with penalty ground contact (K1c,
+// _ground_contact :237-345). The other branches (springs, cables, the
+// q-dependent joints, per-lane params, the robust modes) stay on the
+// thread-per-lane body of chord_bdf2_lane.cuh, whose helpers (Frame,
+// frame_mul, frame_inv, adjoint, mat6_vec, ad_vec, adT_vec, rt_vec,
+// local_force_blocks, ground_contact, Shared, ChordConfig) this file calls
+// as they are. Every sum runs in the thread-per-lane body's order, so the
+// two give the same result bit for bit wherever the compiler contracts the
+// same multiply-adds (always under g++, which contracts none).
+//
+// What bounds it on an H100: per-lane f32 arithmetic, about 1.4e5 flops a
+// lane at N = nr = 12 (2.4e5 with a contact on every link), against 0.9 KB
+// of state in and out. The thread-per-lane body issues those flops one
+// after another on one thread, with J, H and the Gauss-Jordan rows in local
+// memory. Here the 32 threads of a warp split each phase of the solve over
+// its parallel width, with __syncwarp() between phases:
+//   setup      per body: parent, column mask, ground contacts; per column:
+//              the lane's history and the body-frame subspace column Sb[r];
+//              then per body: its (body, column) pairs
+//   joints     per column: qdot, the BDF2 increment, the joint forces; on
+//              the next threads, per joint: E_pj = E0_pj Q(q) (a root's is
+//              its world frame)
+//   FK         down the tree, E_wj = E_wj[parent] E_pj, a row of every
+//              frame a thread (a chain's row kept in registers); per body:
+//              E_wi and Ad(inv(E_wi)), and on the next threads per column:
+//              W[r]
+//   J, Jdot    per (body, column) pair that moves: J; per body: phi; per
+//              column: Wdot[r]; per pair: Jdot
+//   forces     per body: the maximal force with the body's own ground
+//              contacts and, at the predictor, its closed-form K/D blocks
+//              (the contact force and its blocks in one ground_contact
+//              call); then the body's w = I J dq - ch2 (f - I Jdot qdot)
+//   residual   per column: g[r] = sum over bodies of J_r . w
+//   H          per pair: cK K J_s + cD D J_s and J_s I; per (r, s):
+//              H[r][s], summed over the bodies in hessian's order, plus the
+//              joint terms on the diagonal
+//   GJ         one pivot at a time, each row of the elimination a thread,
+//              from one [NR][2NR] buffer into the other
+//   step       per column: dx = H^-1 g (thread 0: |g|); x -= dx, clamped
+//   write-out  per column x (NaN on a rejected lane), per (r, s) H^-1.
+// The warps of an SM share its shared-memory pipe, which counts accesses,
+// not bytes: so a phase reads its operands into registers as 16- or 8-byte
+// accesses (copy_f) where the layout allows, and stores its results last
+// (nvcc cannot tell the record's arrays apart, so a store between two loads
+// would order them). Each phase is a function of (tid, the lane's record)
+// that reads only what earlier phases wrote, so g++ runs the same phases on
+// the CPU one tid after another, in either order
+// (tests/test_torch_coop_body.py). The chord loop and the rejection are
+// uniform across the warp (one lane). Tensor cores have no place here:
+// their only f32 type, TF32, keeps about three digits, and H^-1 is held at
+// 2e-5 of scale.
+#pragma once
+
+#include "chord_bdf2_lane.cuh"
+
+namespace chord {
+namespace coop {
+
+constexpr int kWarp = 32;  // threads a lane
+
+// The phases of a solve, for run(phase, f): the probe build of
+// chord_bdf2_coop.cu adds each phase's cycles to its slot (kPhaseNames).
+enum Phase {
+  kSetup, kPairs, kJoints, kTree, kFrames, kJacobian, kTwists, kWdot, kJdot, kForcesBlocks,
+  kForces, kNewtonTerms, kNewtonMatrix, kGaussJordan, kResidual, kStepDx, kStepUpdate,
+  kWriteOut, kPhases
+};
+constexpr const char* kPhaseNames[kPhases] = {
+    "setup", "pairs", "joints", "fk_tree", "body_frames", "jacobian", "twists",
+    "world_columns_dot", "jacobian_dot", "body_forces_blocks", "body_forces", "newton_terms",
+    "newton_matrix", "gj_pivot", "residual_columns", "step_dx", "step_update", "write_out"};
+
+// NF floats from src to dst: on the card as 16-byte accesses where NF is a
+// multiple of 4, else 8-byte ones where it is even, so both sides must be
+// aligned to that (the lane record's arrays are 16-byte aligned, and the
+// rows read here start at multiples of their access; registers are
+// declared alignas(16)).
+template <int NF>
+CHORD_HD void copy_f(float* __restrict__ dst, const float* __restrict__ src) {
+#ifdef __CUDA_ARCH__
+  if constexpr (NF % 4 == 0) {
+    for (int k = 0; k < NF / 4; ++k)
+      reinterpret_cast<float4*>(dst)[k] = reinterpret_cast<const float4*>(src)[k];
+  } else if constexpr (NF % 2 == 0) {
+    for (int k = 0; k < NF / 2; ++k)
+      reinterpret_cast<float2*>(dst)[k] = reinterpret_cast<const float2*>(src)[k];
+  } else {
+    for (int k = 0; k < NF; ++k) dst[k] = src[k];
+  }
+#else
+  for (int k = 0; k < NF; ++k) dst[k] = src[k];
+#endif
+}
+
+CHORD_HD void copy_frame(Frame& dst, const Frame& src) { copy_f<12>(&dst.R[0][0], &src.R[0][0]); }
+
+// One lane's record: the topology it reads in inner loops, the iterate and
+// its history, the kinematics, the residual's and Newton matrix's terms.
+template <int N, int NR>
+struct alignas(16) Lane {
+  static_assert(NR <= 32, "a column mask is one 32-bit word");
+  alignas(16) Frame Epj[N];  // joint frames in their parent
+  alignas(16) Frame Ewj[N];  // joint frames in the world
+  alignas(16) Frame Ew[N];   // body frames in the world
+  alignas(16) float Abw[N][6][6];  // Ad(inv(E_wi))
+  alignas(16) float Kb[N][6][6];   // each body's closed-form K/D blocks
+  alignas(16) float Db[N][6][6];
+  alignas(16) float M[2][NR][2 * NR];  // Gauss-Jordan [H | I], pivot k reads M[k & 1]
+  alignas(16) float J[N][NR][6];
+  alignas(16) float Jd[N][NR][6];
+  alignas(16) float KD[N][NR][6];  // cK K J_s + cD D J_s
+  alignas(16) float IJ[N][NR][6];  // J_s I
+  alignas(16) float Sb[NR][6];
+  alignas(16) float W[NR][6];
+  alignas(16) float Wd[NR][6];
+  alignas(16) float phi[N][6];
+  alignas(16) float w[N][6];
+  alignas(16) float g[NR];
+  float x[NR], q0[NR], qd0[NR], q1[NR], qd1[NR], tau[NR];
+  float qd[NR], dqt[NR], fr[NR], dx[NR];
+  float g0n, gln;  // |g| at the predictor, at the last pre-update iterate
+  int parent[N], dofj[NR];
+  int ncontacts[N];   // ground contacts on each body
+  unsigned cols[N];   // bit r set: column r moves body i (anc(i, dofj[r]))
+  int pairs[N * NR];  // i * NR + r of each (body, column) that moves, by i, r
+  int npairs;
+
+  CHORD_HD bool moves(int i, int r) const { return ((cols[i] >> r) & 1u) != 0; }
+  CHORD_HD float hinv(int r, int s) const { return M[NR & 1][r][NR + s]; }
+};
+
+// Each body's parent, column mask and ground contacts, the lane's history,
+// and the body-frame subspace columns Sb[r] = Ad(inv(E0_ji)) S_j[:, d]
+// (static_subspace, a column a thread).
+template <int N, int NR>
+CHORD_HD void setup(int t, const Shared<N, NR>& sh, Lane<N, NR>& L, int lane, int B,
+                    const float* x0s, const float* q0s, const float* qd0s, const float* q1s,
+                    const float* qd1s, const float* taus) {
+  if (t < N) {
+    L.parent[t] = sh.parent[t];
+    unsigned m = 0u;
+    for (int r = 0; r < NR; ++r)
+      if (sh.is_anc(t, sh.dofj[r])) m |= 1u << r;
+    L.cols[t] = m;
+    int n = 0;
+    for (int c = 0; c < sh.ncontacts; ++c) n += sh.cbody[c] == t ? 1 : 0;
+    L.ncontacts[t] = n;
+  }
+  if (t < NR) {
+    const int r = t;
+    L.dofj[r] = sh.dofj[r];
+    L.x[r] = x0s[r * B + lane];
+    L.q0[r] = q0s[r * B + lane];
+    L.qd0[r] = qd0s[r * B + lane];
+    L.q1[r] = q1s[r * B + lane];
+    L.qd1[r] = qd1s[r * B + lane];
+    L.tau[r] = taus[r * B + lane];
+    const int j = sh.dofj[r];
+    const int d = r - sh.doffs[j];
+    Frame E0, E0inv;
+    float A0[6][6], Sj[6];
+    frame_from_E(sh.E0ji + 16 * j, E0);
+    frame_inv(E0, E0inv);
+    adjoint(E0inv, A0);
+    const bool rot = sh.jtype[j] == REVOLUTE;
+    for (int a = 0; a < 3; ++a) {
+      Sj[a] = rot ? sh.axis(j, a, d) : 0.0f;
+      Sj[3 + a] = rot ? 0.0f : sh.axis(j, a, d);
+    }
+    mat6_vec(A0, Sj, L.Sb[r]);
+  }
+}
+
+// The (body, column) pairs that move, body by body: each body's thread
+// writes its own after the columns of the bodies before it.
+template <int N, int NR>
+CHORD_HD void setup_pairs(int t, Lane<N, NR>& L) {
+  if (t >= N) return;
+  int at = 0;
+  for (int i = 0; i < t; ++i)
+    for (int r = 0; r < NR; ++r) at += L.moves(i, r) ? 1 : 0;
+  for (int r = 0; r < NR; ++r)
+    if (L.moves(t, r)) L.pairs[at++] = t * NR + r;
+  if (t == N - 1) L.npairs = at;
+}
+
+// qdot at x, the BDF2 increment dq and the joint forces (spring, damper,
+// penalty limits) of column r (residual's first loop).
+template <int N, int NR>
+CHORD_HD void joint_terms(int r, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  const float h = sh.h;
+  const float* jsf = sh.jsf;
+  const float x = L.x[r];
+  const float qd = (1.5f / h) * (x - (4.0f / 3.0f) * L.q1[r] + (1.0f / 3.0f) * L.q0[r]);
+  L.qd[r] = qd;
+  L.dqt[r] = x - (4.0f / 3.0f) * L.q1[r] + (1.0f / 3.0f) * L.q0[r] -
+             (8.0f / 9.0f) * h * L.qd1[r] + (2.0f / 9.0f) * h * L.qd0[r];
+  float f = L.tau[r] + jsf[r] * (jsf[2 * NR + r] - x) - jsf[NR + r] * qd;
+  const float hl = x < jsf[3 * NR + r] ? 1.0f : 0.0f;
+  const float hu = x > jsf[4 * NR + r] ? 1.0f : 0.0f;
+  f = f + hl * (jsf[5 * NR + r] * (jsf[3 * NR + r] - x) - jsf[6 * NR + r] * qd);
+  f = f + hu * (jsf[5 * NR + r] * (jsf[4 * NR + r] - x) - jsf[6 * NR + r] * qd);
+  L.fr[r] = f;
+}
+
+// E_pj = E0_pj Q(q) of constant-S joint j (fk_and_J's joint loop); a root
+// joint's is its world frame E_wj.
+template <int N, int NR>
+CHORD_HD void fk_local(int j, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  const int o = sh.doffs[j];
+  const int jt = sh.jtype[j];
+  Frame Q, E0;
+  alignas(16) Frame Epj;
+  for (int a = 0; a < 3; ++a) {
+    for (int b = 0; b < 3; ++b) Q.R[a][b] = a == b ? 1.0f : 0.0f;
+    Q.p[a] = 0.0f;
+  }
+  if (jt == REVOLUTE) {
+    const float c = cosf(L.x[o]), s = sinf(L.x[o]);
+    const float a0 = sh.axis(j, 0, 0), a1 = sh.axis(j, 1, 0), a2 = sh.axis(j, 2, 0);
+    const float omc = 1.0f - c;
+    Q.R[0][0] = c + omc * a0 * a0;
+    Q.R[0][1] = omc * a0 * a1 - s * a2;
+    Q.R[0][2] = omc * a0 * a2 + s * a1;
+    Q.R[1][0] = omc * a1 * a0 + s * a2;
+    Q.R[1][1] = c + omc * a1 * a1;
+    Q.R[1][2] = omc * a1 * a2 - s * a0;
+    Q.R[2][0] = omc * a2 * a0 - s * a1;
+    Q.R[2][1] = omc * a2 * a1 + s * a0;
+    Q.R[2][2] = c + omc * a2 * a2;
+  } else if (jt == PRISMATIC || jt == PLANAR || jt == TRANSLATIONAL) {
+    const int nd = sh.doffs[j + 1] - o;
+    for (int k = 0; k < 3; ++k) {
+      float acc = sh.axis(j, k, 0) * L.x[o];
+      for (int d = 1; d < nd; ++d) acc = acc + sh.axis(j, k, d) * L.x[o + d];
+      Q.p[k] = acc;
+    }
+  }
+  frame_from_E(sh.E0pj + 16 * j, E0);
+  frame_mul(E0, Q, Epj);
+  copy_frame(L.parent[j] < 0 ? L.Ewj[j] : L.Epj[j], Epj);
+}
+
+// Each column's terms (a column a thread) and each joint's E_pj (a joint a
+// thread, on the threads after the columns'): one phase, as neither reads
+// the other.
+template <int N, int NR>
+CHORD_HD void joints(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  for (int e = t; e < NR + N; e += kWarp) {
+    if (e < NR)
+      joint_terms<N, NR>(e, sh, L);
+    else
+      fk_local<N, NR>(e - NR, sh, L);
+  }
+}
+
+// E_wj = E_wj[parent] E_pj down the tree in joint order (parents precede
+// children; joint 0 is a root), row a of every frame on thread a < 3: row a
+// of a product needs row a of its left factor only (frame_mul's sums), so
+// each thread walks the tree alone, a chain's row staying in registers from
+// one joint to the next, and the next E_pj is read before this one's row is
+// stored.
+template <int N, int NR>
+CHORD_HD void fk_tree(int t, Lane<N, NR>& L) {
+  if (t >= 3) return;
+  const int a = t;
+  alignas(16) Frame P, next;
+  float A[4], row[4] = {L.Ewj[0].R[a][0], L.Ewj[0].R[a][1], L.Ewj[0].R[a][2], L.Ewj[0].p[a]};
+  copy_frame(next, L.Epj[N > 1 ? 1 : 0]);
+  for (int j = 1; j < N; ++j) {
+    P = next;
+    if (j + 1 < N) copy_frame(next, L.Epj[j + 1]);
+    const int p = L.parent[j];
+    const Frame& F = L.Ewj[p < 0 ? j : p];
+    for (int b = 0; b < 3; ++b) A[b] = p == j - 1 ? row[b] : F.R[a][b];
+    A[3] = p == j - 1 ? row[3] : F.p[a];
+    if (p < 0) {
+      for (int b = 0; b < 4; ++b) row[b] = A[b];
+      continue;
+    }
+    for (int b = 0; b < 3; ++b)
+      row[b] = A[0] * P.R[0][b] + A[1] * P.R[1][b] + A[2] * P.R[2][b];
+    row[3] = A[3] + (A[0] * P.p[0] + A[1] * P.p[1] + A[2] * P.p[2]);
+    for (int b = 0; b < 3; ++b) L.Ewj[j].R[a][b] = row[b];
+    L.Ewj[j].p[a] = row[3];
+  }
+}
+
+// Body frames E_wi = E_wj E0_ji and Ad(inv(E_wi)), a body a thread; on the
+// threads after the bodies', W[r] = Ad(E_wi[dofj[r]]) Sb[r], each with its
+// own product E_wj E0_ji of that body (the same arithmetic).
+template <int N, int NR>
+CHORD_HD void body_frames(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  for (int e = t; e < N + NR; e += kWarp) {
+    const int i = e < N ? e : L.dofj[e - N];
+    alignas(16) Frame Ewj, Ew;
+    alignas(16) float A[6][6];
+    Frame E0, Einv;
+    copy_frame(Ewj, L.Ewj[i]);
+    frame_from_E(sh.E0ji + 16 * i, E0);
+    frame_mul(Ewj, E0, Ew);
+    if (e < N) {
+      frame_inv(Ew, Einv);
+      adjoint(Einv, A);
+      copy_frame(L.Ew[i], Ew);
+      copy_f<36>(&L.Abw[i][0][0], &A[0][0]);
+    } else {
+      alignas(16) float Sb[6], W[6];
+      copy_f<6>(Sb, L.Sb[e - N]);
+      adjoint(Ew, A);
+      mat6_vec(A, Sb, W);
+      copy_f<6>(L.W[e - N], W);
+    }
+  }
+}
+
+// J[i][r] = Ad(inv(E_wi)) W[r] where column r moves body i
+template <int N, int NR>
+CHORD_HD void jacobian(int t, Lane<N, NR>& L) {
+  for (int e = t; e < L.npairs; e += kWarp) {
+    const int i = L.pairs[e] / NR, r = L.pairs[e] % NR;
+    alignas(16) float A[6][6], W[6], J[6];
+    copy_f<36>(&A[0][0], &L.Abw[i][0][0]);
+    copy_f<6>(W, L.W[r]);
+    mat6_vec(A, W, J);
+    copy_f<6>(L.J[i][r], J);
+  }
+}
+
+// phi_i = sum_r J[i][r] qdot[r], a body a thread
+template <int N, int NR>
+CHORD_HD void twists(int t, Lane<N, NR>& L) {
+  if (t >= N) return;
+  alignas(16) float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, Jr[6];
+  for (int r = 0; r < NR; ++r) {
+    if (!L.moves(t, r)) continue;
+    copy_f<6>(Jr, L.J[t][r]);
+    const float qd = L.qd[r];
+    for (int k = 0; k < 6; ++k) acc[k] = acc[k] + Jr[k] * qd;
+  }
+  copy_f<6>(L.phi[t], acc);
+}
+
+// Wdot[r] = Ad(E_wi[a]) ad(phi_a) Sb[r], a = dofj[r]
+template <int N, int NR>
+CHORD_HD void world_columns_dot(int t, Lane<N, NR>& L) {
+  if (t >= NR) return;
+  const int a = L.dofj[t];
+  alignas(16) Frame Ew;
+  alignas(16) float phi[6], Sb[6], Wd[6];
+  float A[6][6], inner[6];
+  copy_frame(Ew, L.Ew[a]);
+  copy_f<6>(phi, L.phi[a]);
+  copy_f<6>(Sb, L.Sb[t]);
+  adjoint(Ew, A);
+  ad_vec(phi, Sb, inner);
+  mat6_vec(A, inner, Wd);
+  copy_f<6>(L.Wd[t], Wd);
+}
+
+// Jdot[i][r] = Ad(inv(E_wi)) Wdot[r] - ad(phi_i) J[i][r]
+template <int N, int NR>
+CHORD_HD void jacobian_dot(int t, Lane<N, NR>& L) {
+  for (int e = t; e < L.npairs; e += kWarp) {
+    const int i = L.pairs[e] / NR, r = L.pairs[e] % NR;
+    alignas(16) float A[6][6], Wd[6], phi[6], J[6], Jd[6];
+    float t1[6], t2[6];
+    copy_f<36>(&A[0][0], &L.Abw[i][0][0]);
+    copy_f<6>(Wd, L.Wd[r]);
+    copy_f<6>(phi, L.phi[i]);
+    copy_f<6>(J, L.J[i][r]);
+    mat6_vec(A, Wd, t1);
+    ad_vec(phi, J, t2);
+    for (int k = 0; k < 6; ++k) Jd[k] = t1[k] - t2[k];
+    copy_f<6>(L.Jd[i][r], Jd);
+  }
+}
+
+// The index of body i's k-th ground contact (k < its count).
+template <int N, int NR>
+CHORD_HD int nth_contact(const Shared<N, NR>& sh, int i, int k) {
+  for (int c = 0; c < sh.ncontacts; ++c)
+    if (sh.cbody[c] == i && k-- == 0) return c;
+  return -1;
+}
+
+// Each body's maximal force f = ad(phi)^T (I phi) + [0; m R^T g] - bd phi
+// with its own ground contacts, and its residual term
+// w = I (J dq) - ch2 (f - I (Jdot qdot)); BLOCKS also writes its
+// closed-form K/D blocks (local_force_blocks and the contacts' blocks, the
+// contact force and its blocks from one ground_contact call). Every body's
+// thread takes its k-th contact at the same call site, so the warp runs
+// them side by side rather than one body after another (a loop over the
+// scene's contacts with a test for the body would diverge there).
+template <int N, int NR, int FEAT, bool BLOCKS>
+CHORD_HD void body_forces(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  constexpr bool CONTACTS = (FEAT & kContacts) != 0;
+  if (t >= N) return;
+  const int i = t;
+  const float* Ii = sh.Ii + 6 * i;
+  alignas(16) Frame E;
+  alignas(16) float phi[6];
+  float Iphi[6], fm[6], Rtg[3];
+  copy_frame(E, L.Ew[i]);
+  copy_f<6>(phi, L.phi[i]);
+  for (int k = 0; k < 6; ++k) Iphi[k] = Ii[k] * phi[k];
+  adT_vec(phi, Iphi, fm);
+  rt_vec(E.R, sh.g, Rtg);
+  for (int k = 0; k < 3; ++k) fm[3 + k] = fm[3 + k] + Ii[3] * Rtg[k];
+  for (int k = 0; k < 6; ++k) fm[k] = fm[k] - sh.bd[i] * phi[k];
+  if constexpr (BLOCKS) {
+    alignas(16) float Kb[6][6], Db[6][6];
+    local_force_blocks(Ii, E.R, phi, sh.bd[i], sh.g, Kb, Db);
+    if constexpr (CONTACTS) {
+      const float gmag = sqrtf(sh.g[0] * sh.g[0] + sh.g[1] * sh.g[1] + sh.g[2] * sh.g[2]);
+      for (int k = 0; k < L.ncontacts[i]; ++k)
+        ground_contact<true>(E, phi, sh.cp + 13 * nth_contact(sh, i, k), sh.h, gmag, fm, Kb, Db);
+    }
+    copy_f<36>(&L.Kb[i][0][0], &Kb[0][0]);
+    copy_f<36>(&L.Db[i][0][0], &Db[0][0]);
+  } else if constexpr (CONTACTS) {
+    for (int k = 0; k < L.ncontacts[i]; ++k)
+      ground_contact<false>(E, phi, sh.cp + 13 * nth_contact(sh, i, k), sh.h, 0.0f, fm, nullptr,
+                            nullptr);
+  }
+  const float ch2 = (4.0f / 9.0f) * sh.h * sh.h;
+  alignas(16) float Jr[6], Jdr[6], w[6];
+  float Jdq[6] = {0, 0, 0, 0, 0, 0}, Jd_qd[6] = {0, 0, 0, 0, 0, 0};
+  for (int r = 0; r < NR; ++r) {
+    if (!L.moves(i, r)) continue;
+    copy_f<6>(Jr, L.J[i][r]);
+    copy_f<6>(Jdr, L.Jd[i][r]);
+    const float dq = L.dqt[r], qd = L.qd[r];
+    for (int k = 0; k < 6; ++k) {
+      Jdq[k] = Jdq[k] + Jr[k] * dq;
+      Jd_qd[k] = Jd_qd[k] + Jdr[k] * qd;
+    }
+  }
+  for (int k = 0; k < 6; ++k) w[k] = Ii[k] * Jdq[k] - ch2 * (fm[k] - Ii[k] * Jd_qd[k]);
+  copy_f<6>(L.w[i], w);
+}
+
+// g[r] = sum_i J[i][r] . w[i] - ch2 fr[r]
+template <int N, int NR>
+CHORD_HD void residual_columns(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  if (t >= NR) return;
+  const int r = t;
+  const float ch2 = (4.0f / 9.0f) * sh.h * sh.h;
+  alignas(16) float Jr[6], w[6];
+  float acc = 0.0f;
+  for (int i = 0; i < N; ++i) {
+    if (!L.moves(i, r)) continue;
+    copy_f<6>(Jr, L.J[i][r]);
+    copy_f<6>(w, L.w[i]);
+    for (int k = 0; k < 6; ++k) acc = acc + Jr[k] * w[k];
+  }
+  L.g[r] = acc - ch2 * L.fr[r];
+}
+
+// KD[i][s] = cK K J_s + cD D J_s and IJ[i][s] = J_s I of body i: the
+// factors of hessian's kd, m_rs and qvv.
+template <int N, int NR>
+CHORD_HD void newton_terms(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  const float h = sh.h;
+  const float cK = -(4.0f / 9.0f) * h * h;
+  const float cD = -(2.0f / 3.0f) * h;
+  for (int e = t; e < L.npairs; e += kWarp) {
+    const int i = L.pairs[e] / NR, s = L.pairs[e] % NR;
+    const float* Ii = sh.Ii + 6 * i;
+    alignas(16) float Kb[6][6], Db[6][6], Js[6], KD[6], IJ[6];
+    float KJs[6], DJs[6];
+    copy_f<36>(&Kb[0][0], &L.Kb[i][0][0]);
+    copy_f<36>(&Db[0][0], &L.Db[i][0][0]);
+    copy_f<6>(Js, L.J[i][s]);
+    mat6_vec(Kb, Js, KJs);
+    mat6_vec(Db, Js, DJs);
+    for (int k = 0; k < 6; ++k) {
+      KD[k] = cK * KJs[k] + cD * DJs[k];
+      IJ[k] = Js[k] * Ii[k];
+    }
+    copy_f<6>(L.KD[i][s], KD);
+    copy_f<6>(L.IJ[i][s], IJ);
+  }
+}
+
+// H[r][s] = sum over bodies of m_rs + kd + cD (-2) qvv (hessian's terms:
+// J_r I . J_s, J_r . KD_s, J_r I . Jdot_s, in its order) plus the joint
+// terms on the diagonal, into the left half of M[0], the identity into its
+// right half. The (r, s) go to the threads by m = max(r, s) (item q of
+// m^2 <= q < (m + 1)^2), so the threads of one pass share most of their
+// bodies (in a chain, the bodies from m's on): the warp runs a body's sums
+// where any of its threads needs them.
+template <int N, int NR>
+CHORD_HD void newton_matrix(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  const float h = sh.h;
+  const float cK = -(4.0f / 9.0f) * h * h;
+  const float cD = -(2.0f / 3.0f) * h;
+  const float* jsf = sh.jsf;
+  for (int q = t; q < NR * NR; q += kWarp) {
+    int m = static_cast<int>(sqrtf(static_cast<float>(q)));
+    m = (m + 1) * (m + 1) <= q ? m + 1 : (m * m > q ? m - 1 : m);
+    const int o = q - m * m;
+    const int r = o <= m ? m : o - m - 1, s = o <= m ? o : m;
+    float acc = 0.0f;
+    for (int i = 0; i < N; ++i) {
+      if (!L.moves(i, r) || !L.moves(i, s)) continue;
+      alignas(16) float Jr[6], IJr[6], Js[6], KDs[6], Jds[6];
+      copy_f<6>(Jr, L.J[i][r]);
+      copy_f<6>(IJr, L.IJ[i][r]);
+      copy_f<6>(Js, L.J[i][s]);
+      copy_f<6>(KDs, L.KD[i][s]);
+      copy_f<6>(Jds, L.Jd[i][s]);
+      float m_rs = 0.0f, kd = 0.0f, qvv = 0.0f;
+      for (int k = 0; k < 6; ++k) {
+        m_rs = m_rs + IJr[k] * Js[k];
+        kd = kd + Jr[k] * KDs[k];
+        qvv = qvv + IJr[k] * Jds[k];
+      }
+      acc = acc + m_rs + kd + cD * (-2.0f) * qvv;
+    }
+    if (r == s) {
+      const float x = L.x[r];
+      const float hit = (x < jsf[3 * NR + r] ? 1.0f : 0.0f) + (x > jsf[4 * NR + r] ? 1.0f : 0.0f);
+      const float Krd = -jsf[r] - hit * jsf[5 * NR + r];
+      const float Drd = -jsf[NR + r] - hit * jsf[6 * NR + r];
+      acc = acc + cK * Krd + cD * Drd;
+    }
+    L.M[0][r][s] = acc;
+    L.M[0][r][NR + s] = r == s ? 1.0f : 0.0f;
+  }
+}
+
+// Pivot k of the unpivoted Gauss-Jordan inverse (gj_inverse), from M[k & 1]
+// into M[(k + 1) & 1], a row a thread: the pivot row scaled by 1 / M[k][k],
+// every other row less M[i][k] times it. Columns at or left of k are never
+// read again, so what lands there is of no account; each row goes whole, as
+// wide accesses.
+template <int N, int NR>
+CHORD_HD void gj_pivot(int t, Lane<N, NR>& L, int k) {
+  if (t >= NR) return;
+  const float(*src)[2 * NR] = L.M[k & 1];
+  alignas(16) float row[2 * NR], prow[2 * NR];
+  copy_f<2 * NR>(row, src[t]);
+  copy_f<2 * NR>(prow, src[k]);
+  const float inv_p = 1.0f / src[k][k];
+  const float fac = src[t][k];
+  for (int j = 0; j < 2 * NR; ++j) {
+    const float pk = prow[j] * inv_p;
+    row[j] = t == k ? pk : row[j] - fac * pk;
+  }
+  copy_f<2 * NR>(L.M[(k + 1) & 1][t], row);
+}
+
+// dx = H^-1 g; thread 0 records |g| (g0n at the predictor).
+template <int N, int NR>
+CHORD_HD void step_dx(int t, Lane<N, NR>& L, int it) {
+  alignas(16) float g[NR];
+  copy_f<NR>(g, L.g);
+  if (t < NR) {
+    alignas(16) float hrow[NR];
+    copy_f<NR>(hrow, &L.M[NR & 1][t][NR]);
+    float acc = 0.0f;
+    for (int s = 0; s < NR; ++s) acc = acc + hrow[s] * g[s];
+    L.dx[t] = acc;
+  }
+  if (t == 0) {
+    float gg = 0.0f;
+    for (int r = 0; r < NR; ++r) gg = gg + g[r] * g[r];
+    const float gn = sqrtf(gg);
+    if (it == 0) L.g0n = gn;
+    L.gln = gn;  // residual at the pre-update iterate
+  }
+}
+
+// x -= dx, dx scaled to |dx| <= dx_clamp where the clamp is on.
+template <int N, int NR>
+CHORD_HD void step_update(int t, Lane<N, NR>& L, float dx_clamp) {
+  if (t >= NR) return;
+  float d = L.dx[t];
+  if (dx_clamp != 0.0f) {
+    float dd = 0.0f;
+    for (int r = 0; r < NR; ++r) dd = dd + L.dx[r] * L.dx[r];
+    const float scale = fminf(1.0f, dx_clamp / fmaxf(sqrtf(dd), 1e-30f));
+    d = d * scale;
+  }
+  L.x[t] = L.x[t] - d;
+}
+
+// Rejection (non-finite, residual grown past growth_reject, or above
+// tol_reject) and the write-out: x [NR, B] (NaN on a rejected lane), H^-1
+// [NR * NR, B].
+template <int N, int NR>
+CHORD_HD void write_out(int t, const Lane<N, NR>& L, ChordConfig cfg, int lane, int B,
+                        float* x_out, float* hinv_out) {
+  bool finite = finitef(L.gln);
+  for (int r = 0; r < NR; ++r) finite = finite && finitef(L.x[r]);
+  bool diverged = !finite;
+  if (cfg.growth_reject != 0.0f) diverged = diverged || (L.gln > cfg.growth_reject * L.g0n);
+  if (cfg.tol_reject != 0.0f) diverged = diverged || (L.gln > cfg.tol_reject);
+  if (t < NR) x_out[t * B + lane] = diverged ? NAN : L.x[t];
+  for (int e = t; e < NR * NR; e += kWarp) hinv_out[e * B + lane] = L.hinv(e / NR, e % NR);
+}
+
+// One lane's fixed-iteration chord solve (chord_bdf2_lane's semantics): H
+// and H^-1 at the predictor x0, then fixed_iters steps x -= H^-1 g(x), the
+// rejection, the write-out. run(phase, f) runs the phase f(tid) on every
+// thread of the lane and waits for all of them (on the card f(lane id) and
+// __syncwarp(); on the CPU every tid in turn). fixed_iters >= 1.
+template <int N, int NR, int FEAT, class Run>
+CHORD_HD void solve(const Run& run, Lane<N, NR>& L, int lane, int B, const float* x0s,
+                    const float* q0s, const float* qd0s, const float* q1s, const float* qd1s,
+                    const float* taus, const int* topo_i, const float* stat_f, ChordConfig cfg,
+                    float* x_out, float* hinv_out) {
+  static_assert((FEAT & ~kContacts) == 0,
+                "the cooperative body runs no closure but ground contact, and the chord mode "
+                "with lane-shared params only");
+  const Shared<N, NR> sh(topo_i, stat_f);
+  run(kSetup, [&](int t) { setup<N, NR>(t, sh, L, lane, B, x0s, q0s, qd0s, q1s, qd1s, taus); });
+  run(kPairs, [&](int t) { setup_pairs<N, NR>(t, L); });
+  CHORD_NO_UNROLL
+  for (int it = 0; it < cfg.fixed_iters; ++it) {
+    run(kJoints, [&](int t) { joints<N, NR>(t, sh, L); });
+    run(kTree, [&](int t) { fk_tree<N, NR>(t, L); });
+    run(kFrames, [&](int t) { body_frames<N, NR>(t, sh, L); });
+    run(kJacobian, [&](int t) { jacobian<N, NR>(t, L); });
+    run(kTwists, [&](int t) { twists<N, NR>(t, L); });
+    run(kWdot, [&](int t) { world_columns_dot<N, NR>(t, L); });
+    run(kJdot, [&](int t) { jacobian_dot<N, NR>(t, L); });
+    if (it == 0) {  // H and H^-1 at the predictor
+      run(kForcesBlocks, [&](int t) { body_forces<N, NR, FEAT, true>(t, sh, L); });
+      run(kNewtonTerms, [&](int t) { newton_terms<N, NR>(t, sh, L); });
+      run(kNewtonMatrix, [&](int t) { newton_matrix<N, NR>(t, sh, L); });
+      CHORD_NO_UNROLL
+      for (int k = 0; k < NR; ++k) run(kGaussJordan, [&](int t) { gj_pivot<N, NR>(t, L, k); });
+    } else {
+      run(kForces, [&](int t) { body_forces<N, NR, FEAT, false>(t, sh, L); });
+    }
+    run(kResidual, [&](int t) { residual_columns<N, NR>(t, sh, L); });
+    run(kStepDx, [&](int t) { step_dx<N, NR>(t, L, it); });
+    run(kStepUpdate, [&](int t) { step_update<N, NR>(t, L, cfg.dx_clamp); });
+  }
+  run(kWriteOut, [&](int t) { write_out<N, NR>(t, L, cfg, lane, B, x_out, hinv_out); });
+}
+
+}  // namespace coop
+}  // namespace chord
