@@ -7,16 +7,19 @@ Phases (any failure is an exception and a non-zero exit):
   2. build the kernels (csrc/) with nvcc for sm_90a, one nvcc per library,
      side by side (the chord kernel's thread-per-lane design as it stands,
      with the q-dependent joints, with per-lane params and with the robust
-     solve modes, its cooperative design, and the dual PGS), and print their
-     -Xptxas -v register/spill reports and the cooperative design's layout
-     (lanes a block, shared memory a block);
+     solve modes, its cooperative design, and the dual PGS), and print each
+     library's build time, their -Xptxas -v register/spill reports and the
+     cooperative design's layout (lanes a block, shared memory a block of
+     each of its builds);
   3. hold the chord kernel against its plain PyTorch version on the card
      (scene_chain(12) at B = 1024, 1000 and 997, scene_chain(4); the
      wrapper runs the cooperative design there, one launch a call): x within
      5e-6 max(1, |x|) of the float32 plain version, H^-1 within 2e-5 of
-     scale of the plain version in float64; time the kernel, the
-     thread-per-lane build of the same shape (in turns, in this run) and the
-     plain version with CUDA events, and compute the kernel's bound;
+     scale of the plain version in float64; time the kernel and the
+     thread-per-lane build of the same shape (in turns, in this run; each
+     200 launches in a CUDA graph, so that the wrapper's host work does not
+     set the rate) and the plain version with CUDA events, and compute the
+     kernel's bound;
   4. the main path: bench.py's batched MPC solve (12-link chain, horizon 50,
      B = 1024, f32, one Adam step) through mpc.make_mpc_solver_batched, with
      the launch count of the cooperative design read around the timed
@@ -86,13 +89,16 @@ Phases (any failure is an exception and a non-zero exit):
      rollout; the exp-map rescale must fire on the card in some lanes;
  18. hold the PERLANE builds (K1f) against their plain version: per-lane
      I_i, body damping, g, h and contact, spring and cable coefficients
-     (perlane_draws) on chain-ground-12 at B = 1024 and 1000, the spring
+     (perlane_draws) on chain-ground-12 at B = 1024, 1000 and 997, the spring
      chain and scene 13, on rollout states under the same draws, by the
      tolerances of phase 8; a NaN lane; lane-shared params broadcast into
-     the per-lane buffer against the builds without it; timed;
+     the per-lane buffer against the builds without it; timed (the
+     chain-ground-12 build on the cooperative design, in turns with its
+     thread-per-lane build, as in phase 3);
  19. the randomized contact path: phase 9's solve with per-lane I_i, h, g,
-     kn and mu (perlane_draws), with the checks of phase 4 and the small
-     card-against-CPU solve at 12 links;
+     kn and mu (perlane_draws), with the checks of phase 4 (the cooperative
+     design's 49 launches a solve) and the small card-against-CPU solve at
+     12 links;
  20. system identification: cotangents of that objective into the per-lane
      I_i, h and every kn, kernel route against op-level route;
  21. 50-step rollouts of the spring chain and of scene 13 under the draws
@@ -100,32 +106,36 @@ Phases (any failure is an exception and a non-zero exit):
      float64 op-level rollouts;
  22. hold the ROBUST builds (K1g) against their plain version in each of
      guarded, guard_last, chord=False and guarded chord=False: chain-12 at
-     B = 1024 and 1000 on states 8 steps into a sigma = 6 rollout and
+     B = 1024, 1000 and 997 on states 8 steps into a sigma = 6 rollout and
      chain-ground-12 at B = 1024 on contact-rollout states, by phase 3's
      tolerances on at least 99% of lanes with the finite masks equal on at
      least 99%, and with no allowance on the lanes where the plain version
      took a half step or stayed put; a census of full, half and stay-put
      steps (each taken); with chord=False, the kernel's H^-1 nearer the last
      iterate's than the predictor's wherever the two differ; a NaN lane;
-     timed with the bound of lane_flops for the mode;
+     timed with the bound of lane_flops for the mode (the cooperative
+     design, in turns with its thread-per-lane build, as in phase 3);
  23. the robust paths of benchmarks/robust_mode.py: guard_last and guarded3
      on chain-12 and on the contact scene, chord=False on the contact scene,
-     at sigma = 3, each with the checks of phase 4 and the small
-     card-against-CPU solve (12 links); chord3, guard_last and guarded3 on
-     chain-12 at sigma = 6, rate and finite_frac;
+     at sigma = 3, each with the checks of phase 4 (the cooperative
+     design's 49 launches a solve) and the small card-against-CPU solve (12
+     links); chord3, guard_last and guarded3 on chain-12 at sigma = 6, rate
+     and finite_frac;
  24. the backward modes of benchmarks/backward_ab.py: reuse, refresh and
      exact on the chain-12 solve at sigma = 3, rate and finite_frac, the
      cosine and norm ratio of dObjective/dP against exact (horizon 5), and
      refresh against the op-level route without factor reuse;
  25. where the cooperative kernel's time goes: its probe build (the same
      source with -DCHORD_COOP_PROBE, each phase's clock64() cycles summed on
-     each warp) on phase 3's chain-12 and phase 8's chain-ground-12 inputs
-     at B = 1024, cycles a lane by phase, and the probe build's own time;
- 26. print the kernels line (chord_bdf2 and chord_bdf2[ground_contact]
-     with the design, threads a lane, lanes a block and the thread-per-lane
-     build's time of this run), the paths' lines (robust_path,
-     backward_modes and coop_phases among them), the card's name and power
-     limit, and the result line.
+     each warp) on phase 3's chain-12 and phase 8's chain-ground-12 inputs,
+     phase 22's chain-ground-12 inputs in the guarded mode and phase 18's
+     per-lane chain-ground-12 inputs, at B = 1024, cycles a lane by phase,
+     and the probe build's own time;
+ 26. print the kernels line (every row with its design, threads a lane and
+     lanes a block; the cooperative rows with the thread-per-lane build's
+     time of this run), the paths' lines (robust_path, backward_modes and
+     coop_phases among them), the card's name and power limit, and the
+     result line.
 
 Every MPC path reads the launch counter of the chord kernel design the
 wrapper routes it to (design_of) and requires none of the other; the
@@ -137,6 +147,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -182,6 +193,28 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls captured in one CUDA graph,
+    so that no host time falls between the launches (a kernel shorter than
+    the wrapper's host work a call would otherwise be timed at that work's
+    rate): one warm call, two warm replays, one timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -330,21 +363,24 @@ def rand_states(nr, B, seed, device):
 
 def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG):
     """The kernel record fields at one scene's shapes in the solve mode of
-    cfg: launch time, the wrapper's with its layout copies, the plain
-    version's, and the bound. Where the wrapper runs the cooperative design,
-    also the thread-per-lane build of the same shape, timed in turns with it
-    (cooperative, thread-per-lane, thread-per-lane, cooperative), and the
-    cooperative design's layout."""
+    cfg: launch time (device time of 200 launches in a CUDA graph,
+    graph_ms; and events_ms, CUDA events over 200 back-to-back launches,
+    the way earlier runs timed it), the wrapper's with its layout copies,
+    the plain version's, and the bound. Where the wrapper runs the
+    cooperative design, also the thread-per-lane build of the same shape,
+    timed in turns with it (cooperative, thread-per-lane, thread-per-lane,
+    cooperative), and the cooperative design's layout."""
     B = states[0].shape[0]
     fns = sc.force_fns
     args = chord_kernel.pack(sc.topo, params, *states, fns)
     coop = design_of(sc, params, cfg) == "cooperative"
-    ms = cuda_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)
-    design = {}
+    ms = graph_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)
+    events_ms = cuda_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)
+    design = {"design": "thread_per_lane", "threads_per_lane": 1, "lanes_per_block": 32}
     if coop:
         prev = lambda: chord_kernel.launch(sc.topo, cfg, *args, thread_per_lane=True)
-        prev_ms = (cuda_ms(prev, reps=200) + cuda_ms(prev, reps=200)) / 2
-        ms = (ms + cuda_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)) / 2
+        prev_ms = (graph_ms(prev, reps=200) + graph_ms(prev, reps=200)) / 2
+        ms = (ms + graph_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)) / 2
         lib = chord_kernel._build_lib(chord_kernel.BUILD_COOP)
         design = {"design": "warp_per_lane", "threads_per_lane": 32,
                   "lanes_per_block": lib.chord_bdf2_coop_lanes_per_block(),
@@ -362,13 +398,14 @@ def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG):
         a.numel() * a.element_size() for a in (*args[6:8], args[9]) if a is not None)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
-    print(f"chord_bdf2[{mode_of(cfg)}] at {label}, {args[8]}, B {B}: kernel {ms:.4f} ms, "
-          f"wrapper with "
+    print(f"chord_bdf2[{mode_of(cfg)}] at {label}, {args[8]}, B {B}: kernel {ms:.4f} ms "
+          f"(CUDA events over back-to-back launches {events_ms:.4f} ms), wrapper with "
           f"layout copies {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops / B:.0f} flops/lane, "
           f"{nbytes} bytes; bound {bound * 1e3:.3f} us "
           f"({'operations' if t_ops >= t_bytes else 'bytes'}), kernel at {bound / ms:.2%} of it")
-    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", **design}
+    return {"max_abs_err": max_abs_err, "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **design}
 
 
 def phase_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (12, 997), (4, 1024))):
@@ -743,7 +780,8 @@ def phase_qp_kernel_vs_plain(device="cuda", B=1024):
           f"{bound * 1e3:.3f} us, kernel at {bound / ms:.2%} of it; dependent chain "
           f"{PGS_ITERS * m} row updates per lane, {ms * 1e6 / (PGS_ITERS * m):.1f} ns each")
     return {"max_abs_err": dxk, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "design": "thread_per_lane", "threads_per_lane": 1, "lanes_per_block": 32}
 
 
 def lane_err(q, ref):
@@ -1497,7 +1535,8 @@ def draws_extra(params, force_fns, B):
 def phase_perlane_kernel_vs_plain(device="cuda", B=1024):
     """The PERLANE builds (K1f) against chord_bdf2_reference on the card, on
     perlane_draws(extra=True) and rollout states under them: chain-ground-12
-    at B = 1024 and 1000, the spring chain and scene 13 at 1024, by the
+    at B = 1024, 1000 and 997 (the cooperative design's last block partial),
+    the spring chain and scene 13 at 1024, by the
     tolerances of phase 8 (on scene 13, lanes within 1e-6 L of the cable's
     gate are counted and left out, as in phase 11). At B = 1024 also a NaN
     lane, and lane-shared params broadcast into the per-lane buffer against
@@ -1505,6 +1544,7 @@ def phase_perlane_kernel_vs_plain(device="cuda", B=1024):
     records, B0 = {}, B
     cases = (("chain-ground-12", lambda: chain_ground(12), B0, 8),
              ("chain-ground-12", lambda: chain_ground(12), B0 - 24, 8),
+             ("chain-ground-12", lambda: chain_ground(12), B0 - 27, 8),
              ("spring-chain-12", lambda: scene_spring_chain(12), B0, 8),
              ("scene-13", scene_13_cables, B0, 8))
     for label, scene, B, nsteps in cases:
@@ -1659,7 +1699,8 @@ ROBUST = {
 }
 
 
-def phase_robust_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000)), B_contact=1024):
+def phase_robust_kernel_vs_plain(device="cuda", cases=((12, 1024), (12, 1000), (12, 997)),
+                                 B_contact=1024):
     """The ROBUST builds (K1g) against chord_bdf2_reference in each of
     guarded, guard_last, chord=False and guarded chord=False: chain-12 on
     states 8 steps into a sigma = 6 rollout (cases: (links, B)) and
@@ -1747,7 +1788,7 @@ def phase_robust_paths(device="cuda", B=1024, horizon=50):
         t0 = time.perf_counter()
         out[name + " sigma 3"] = phase_mpc_path(f"robust path {name}", scene, device, B=B,
                                                 horizon=horizon, cfg=ROBUST[mode],
-                                                min_finite=floor)
+                                                min_finite=floor, design="cooperative")
         phase_small_reference(f"robust path {name}", scene, device, nlinks=12, cfg=ROBUST[mode],
                               rejects_ok=floor is None)
         print(f"robust path {name}: {time.perf_counter() - t0:.1f} s")
@@ -1817,6 +1858,28 @@ def phase_backward_modes(device="cuda", B=1024, horizon=50, grad_horizon=5):
     return out
 
 
+def ptxas_kernels(report: str):
+    """(kernel, registers, frame bytes, spill store bytes, spill load bytes)
+    of each kernel in an nvcc -Xptxas -v report, the kernel named by its
+    template arguments (<N,NR,FEAT>, <N,M>)."""
+    out, name, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']*)'", line)
+        if m:
+            name = "<" + ",".join(re.findall(r"Li(\d+)E", m.group(1))) + ">"
+            frame = (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *frame))
+            name = None
+    return out
+
+
 def phase_build():
     """Build every kernel library, one nvcc each, side by side; print their
     ptxas reports and the cooperative design's layout."""
@@ -1824,33 +1887,40 @@ def phase_build():
     builds = chord_kernel.BUILDS + (qp_kernel.BUILD, COOP_PROBE)
     for build in builds:  # one nvcc per library, side by side
         build.start()
+    done = {}
+    while len(done) < len(builds):  # each nvcc's time, read to 0.1 s
+        done.update({b.name: time.perf_counter() - t0 for b in builds
+                     if b.name not in done and not b.compiling()})
+        time.sleep(0.1)
     for build in chord_kernel.BUILDS:
         chord_kernel._build_lib(build)
     qp_kernel._build_lib()
     COOP_PROBE.load()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
+    print(f"build: {time.perf_counter() - t0:.1f} s; nvcc of each library (side by side, s): "
+          + ", ".join(f"{n} {s:.1f}" for n, s in done.items()))
     for build in builds:
-        for line in build.ptxas_report.splitlines():
-            if "Compiling" in line or "registers" in line or "spill" in line:
-                print(f"ptxas {build.name}:", line.strip())
+        for kernel, regs, frame, stores, loads in ptxas_kernels(build.ptxas_report):
+            print(f"ptxas {build.name} {kernel}: {regs} registers, {frame}-byte frame, "
+                  f"spill stores/loads {stores}/{loads}")
     coop = chord_kernel.BUILD_COOP.lib
     print(f"chord_bdf2_coop layout: {coop.chord_bdf2_coop_lanes_per_block()} lanes (warps) a "
-          f"block; dynamic shared memory a block: (12, 12) "
-          f"{coop.chord_bdf2_coop_smem_bytes(12, 12)} bytes, (4, 4) "
-          f"{coop.chord_bdf2_coop_smem_bytes(4, 4)} bytes")
+          "block; dynamic shared memory a block: " + ", ".join(
+              f"{(N, nr, kinds)} {coop.chord_bdf2_coop_smem_bytes(N, nr, kinds)} bytes"
+              for N, nr, kinds in chord_kernel.COOP_INSTANTIATED))
 
 
 def phase_coop_probe(device="cuda", B=1024):
     """Where the cooperative kernel's time goes: its probe build on phase 3's
-    chain-12 inputs and phase 8's chain-ground-12 ones, the cycles of the
-    last of 52 launches (two warm, 50 timed); returns {scene:
-    {"total_cycles", "probe_ms", phase: mean cycles a lane}}. The probe's
-    clock reads cost time of their own, so its ms is printed, to be read
-    beside the kernel's of phases 3 and 8."""
+    chain-12 inputs, phase 8's chain-ground-12 ones, phase 22's
+    chain-ground-12 ones in the guarded mode and phase 18's per-lane
+    chain-ground-12 ones, the cycles of the last of 52 launches (two warm,
+    50 timed); returns {case: {"total_cycles", "probe_ms", phase: mean
+    cycles a lane}}. The probe's clock reads cost time of their own, so its
+    ms is printed, to be read beside the kernel's of phases 3, 8, 18 and
+    22."""
     lib = COOP_PROBE.load()
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.chord_bdf2_coop_launch.argtypes = [i] * 4 + [p] * 8 + [i, fl, fl, fl] + [p] * 4
-    lib.chord_bdf2_coop_launch.restype = i
+    i = ctypes.c_int
+    chord_kernel.set_coop_argtypes(lib)
     lib.chord_bdf2_coop_phases.restype = i
     lib.chord_bdf2_coop_phase_name.argtypes = [i]
     lib.chord_bdf2_coop_phase_name.restype = ctypes.c_char_p
@@ -1860,19 +1930,32 @@ def phase_coop_probe(device="cuda", B=1024):
     states, tau = rand_states(sc.topo.nr, B, seed=1, device=device)
     scg = chain_ground(12).compile(dtype=torch.float32, device=device)
     gstates, gparams, _ = rollout_states(scg, B, device)
+    pstates, pparams, _ = rollout_states(scg, B, device, base=draws_extra(scg.params,
+                                                                          scg.force_fns, B))
     out = {}
-    for label, scene, params, st in (("chain-12", sc, {**sc.params, "tau": tau}, states),
-                                     ("chain-ground-12", scg, gparams, gstates)):
+    for label, scene, params, st, cfg in (
+            ("chain-12", sc, {**sc.params, "tau": tau}, states, CFG),
+            ("chain-ground-12", scg, gparams, gstates, CFG),
+            ("chain-ground-12 guarded", scg, gparams, gstates, ROBUST["guarded"]),
+            ("chain-ground-12 per-lane", scg, pparams, pstates, CFG)):
+        if design_of(scene, params, cfg) != "cooperative":
+            raise AssertionError(f"coop probe {label}: not a build of the cooperative design")
         args = chord_kernel.pack(scene.topo, params, *st, scene.force_fns)
         nr = scene.topo.nr
         x_out = torch.empty(nr, B, device=device)
         h_out = torch.empty(nr * nr, B, device=device)
         probe = torch.zeros(B, len(names), dtype=torch.int64, device=device)
 
+        kinds = chord_kernel.kinds_of(scene.topo, args[8], args[9] is not None,
+                                      chord_kernel.is_robust(cfg))
+
         def launch():
+            lane_f = args[9]
             err = lib.chord_bdf2_coop_launch(
-                scene.topo.njoints, nr, args[8].contacts, B, *(a.data_ptr() for a in args[:8]),
-                CFG.fixed_iters, CFG.growth_reject, CFG.tol_reject, CFG.dx_clamp,
+                scene.topo.njoints, nr, kinds, args[8].contacts, B,
+                *(a.data_ptr() for a in args[:8]), None if lane_f is None else lane_f.data_ptr(),
+                cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+                int(cfg.guarded), int(cfg.guard_last), int(cfg.chord),
                 x_out.data_ptr(), h_out.data_ptr(), probe.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
             if err != 0:
@@ -1927,7 +2010,7 @@ def main():
     free_launches, free_rate, free_finite = phase_free3d_path()
     perlane_records = phase_perlane_kernel_vs_plain()
     rand_launches, rand_rate, rand_finite = phase_mpc_path(
-        "randomized contact path", chain_ground, draws=perlane_draws)
+        "randomized contact path", chain_ground, draws=perlane_draws, design="cooperative")
     phase_small_reference("randomized contact path", chain_ground, nlinks=12,
                           draws=perlane_draws)
     sysid_share = phase_sysid_grads()
@@ -1984,16 +2067,17 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:942",
         "launches": free_launches, **qdep_records["free3d scene 9"], "library_ms": None,
     }, {
-        # the PERLANE builds (K1f): chain-ground-12 (12, 12) with per-lane
+        # the per-lane params (K1f): chain-ground-12 (12, 12) with per-lane
         # I_i, g, h, body damping and contact coefficients, on the randomized
-        # contact path
+        # contact path (the cooperative design; the thread-per-lane PERLANE
+        # build timed in turns with it)
         "name": "chord_bdf2[perlane_contacts]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:706",
         "launches": rand_launches, **perlane_records["chain-ground-12"], "library_ms": None,
     }, {
-        # the spring chain (12, 12) with per-lane spring coefficients, on the
-        # per-lane spring rollout
+        # the PERLANE builds: the spring chain (12, 12) with per-lane spring
+        # coefficients, on the per-lane spring rollout
         "name": "chord_bdf2[perlane_springs]", "route": "cuda",
         "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
         "replaces": "redmax_tpu/pallas_step.py:706",
@@ -2007,17 +2091,19 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:706",
         "launches": pl_cable_launches, **perlane_records["scene-13"], "library_ms": None,
     }, {
-        # the ROBUST build (K1g): chain-12 (12, 12) in the guarded mode (full,
-        # half and stay-put trials at every iteration), on the guarded3 path
+        # the robust modes (K1g), on the cooperative design (the
+        # thread-per-lane ROBUST builds timed in turns with it): chain-12
+        # (12, 12) in the guarded mode (full, half and stay-put trials at
+        # every iteration), on the guarded3 path
         "name": "chord_bdf2[guarded]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:1226",
         "launches": robust_paths["chain-12 guarded3 sigma 3"][0], **robust_records["guarded"],
         "library_ms": None,
     }, {
         # chain-12 with one guarded last iteration, on the guard_last path
         "name": "chord_bdf2[guard_last]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:1276",
         "launches": robust_paths["chain-12 guard_last sigma 3"][0],
         **robust_records["guard_last"], "library_ms": None,
@@ -2025,14 +2111,14 @@ def main():
         # chain-ground-12 (12, 12, contacts) with H re-built at every iterate,
         # on the contact chord=False path
         "name": "chord_bdf2[rehess]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:1264",
         "launches": robust_paths["contact chord=False sigma 3"][0], **robust_records["rehess"],
         "library_ms": None,
     }, {
         # chain-ground-12 in the guarded mode, on the contact guarded3 path
         "name": "chord_bdf2[guarded_contacts]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:1226",
         "launches": robust_paths["contact guarded3 sigma 3"][0],
         **robust_records["guarded_contacts"], "library_ms": None,

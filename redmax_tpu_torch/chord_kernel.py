@@ -32,17 +32,19 @@ links), and does on the order of 1e5 flops per lane (about twice that with
 a contact on every link), so the operation count, not the bytes, sets the
 least time. Two designs:
 - cooperative (csrc/chord_bdf2_coop.cu, body csrc/chord_bdf2_coop.cuh), on
-  the unguarded chord builds with lane-shared params and no closure but
-  ground contact, at the (N, nr) the main and contact paths run
-  (COOP_INSTANTIATED): one warp per lane, 8 lanes a block, the lane's
-  frames, J, Jdot, the per-body K/D blocks, H, the Gauss-Jordan rows and
-  H^-1 in shared memory, each phase of the solve split over the warp's 32
-  threads;
+  the builds without springs, cables or q-dependent joints that the paths
+  run (COOP_INSTANTIATED): unguarded chord with lane-shared params at
+  (12, 12) and (4, 4), with and without ground contacts; per-lane params
+  with contacts at (12, 12); the robust modes at (12, 12), with and without
+  contacts. One warp per lane, 8 lanes a block, the lane's frames, J, Jdot,
+  the per-body K/D blocks, H, the Gauss-Jordan rows and H^-1 (and the
+  guard's trials, or the lane's params) in shared memory, each phase of the
+  solve split over the warp's 32 threads;
 - thread per lane (csrc/chord_bdf2.cu, body csrc/chord_bdf2_lane.cuh), on
   every other build: one thread per lane in blocks of 32, the arithmetic in
   order on that thread, J, Jdot, H and the Gauss-Jordan rows in local
-  memory. Its builds at the COOP_INSTANTIATED shapes stay in its library
-  only to be timed against the cooperative design (launch(...,
+  memory. Its builds at the COOP_INSTANTIATED shapes and kinds stay in its
+  libraries only to be timed against the cooperative design (launch(...,
   thread_per_lane=True)): no wrapper route reaches them.
 
 The closure code is compiled in only where a scene has that kind of closure,
@@ -101,7 +103,9 @@ INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
                 (4, 3, CABLES | PERLANE),
                 (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST))
 # The (N, nr, kinds) that run on the cooperative design (BUILD_COOP).
-COOP_INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS))
+COOP_INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
+                     (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST),
+                     (12, 12, CONTACTS | PERLANE))
 # Joint types the kernel covers: FREE2D has no branch there (op level only).
 QDEP_KERNEL_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D)
 KERNEL_TYPES = CONSTANT_S_TYPES + QDEP_KERNEL_TYPES
@@ -212,16 +216,24 @@ def _build_lib(build: KernelBuild):
     if first:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if build is BUILD_COOP:
-            lib.chord_bdf2_coop_launch.argtypes = [i] * 4 + [p] * 8 + [i, fl, fl, fl] + [p] * 4
-            lib.chord_bdf2_coop_launch.restype = i
+            set_coop_argtypes(lib)
             lib.chord_bdf2_coop_lanes_per_block.restype = i
-            lib.chord_bdf2_coop_smem_bytes.argtypes = [i, i]
+            lib.chord_bdf2_coop_smem_bytes.argtypes = [i, i, i]
             lib.chord_bdf2_coop_smem_bytes.restype = ctypes.c_long
         else:
             lib.chord_bdf2_launch.argtypes = ([i] * 9 + [p] * 6 + [p, p, p] + [i, fl, fl, fl]
                                               + [i, i, i] + [p, p, p])
             lib.chord_bdf2_launch.restype = i
     return lib
+
+
+def set_coop_argtypes(lib) -> None:
+    """The argument types of chord_bdf2_coop_launch in lib (the cooperative
+    library, or its probe build)."""
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.chord_bdf2_coop_launch.argtypes = ([i] * 5 + [p] * 9 + [i, fl, fl, fl, i, i, i]
+                                           + [p] * 4)
+    lib.chord_bdf2_coop_launch.restype = i
 
 
 def _split(force_fns: Tuple):
@@ -417,7 +429,7 @@ def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures, lane_f=None)
 # other is a cudaError_t)
 _LAUNCH_ERRORS = {-1: "no instantiation of (N, nr, kinds) in this library",
                   -2: "per-lane record longer than kMaxLaneRecord",
-                  -3: "a robust solve mode in a library without kRobust",
+                  -3: "a robust solve mode in a build without kRobust",
                   -4: "fixed_iters < 1"}
 
 
@@ -440,19 +452,19 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
     h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     states = tuple(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau))
+    lane_ptr = None if lane_f is None else lane_f.data_ptr()
+    solver = (cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+              int(cfg.guarded), int(cfg.guard_last), int(cfg.chord))
     if build is BUILD_COOP:
         err = lib.chord_bdf2_coop_launch(
-            topo.njoints, nr, counts.contacts, B, *states, topo_i.data_ptr(), stat_f.data_ptr(),
-            cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+            topo.njoints, nr, kinds, counts.contacts, B, *states,
+            topo_i.data_ptr(), stat_f.data_ptr(), lane_ptr, *solver,
             x_out.data_ptr(), h_out.data_ptr(), None, stream,
         )
     else:
         err = lib.chord_bdf2_launch(
             topo.njoints, nr, int(bool(kinds & QDEP)), int(lane_f is not None), *counts, B,
-            *states, topo_i.data_ptr(), stat_f.data_ptr(),
-            None if lane_f is None else lane_f.data_ptr(),
-            cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
-            int(cfg.guarded), int(cfg.guard_last), int(cfg.chord),
+            *states, topo_i.data_ptr(), stat_f.data_ptr(), lane_ptr, *solver,
             x_out.data_ptr(), h_out.data_ptr(), stream,
         )
     if err != 0:

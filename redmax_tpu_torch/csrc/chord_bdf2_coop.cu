@@ -1,22 +1,25 @@
 // Fused BDF2 chord-Newton solve for Hopper (sm_90a), one warp per lane: the
 // cooperative design of redmax_tpu/pallas_step.py::_build_kernel's K1a
 // (constant-S joints, no closures) and K1c (penalty ground contact)
-// branches in the unguarded chord mode with lane-shared params, at the
-// (N, NR) the paths run: (12, 12) and (4, 4), with and without contacts.
-// The phases and what bounds the kernel are in chord_bdf2_coop.cuh; every
-// other build stays on the thread-per-lane kernel (chord_bdf2.cu).
+// branches, in the unguarded chord mode with lane-shared params at the
+// (N, NR) the paths run, (12, 12) and (4, 4) with and without contacts;
+// with per-lane params (K1f) at (12, 12) with contacts; and in the robust
+// modes (K1g) at (12, 12) with and without contacts. The phases and what
+// bounds the kernel are in chord_bdf2_coop.cuh; every other build stays on
+// the thread-per-lane kernel (chord_bdf2.cu).
 //
 // Layout: kLanes lanes a block, lane b on warp b % kLanes of block
-// b / kLanes, each warp's Lane record in the block's dynamic shared memory
+// b / kLanes, each warp's record in the block's dynamic shared memory
 // (25,792 bytes a lane at (12, 12), so 206,336 a block: above the 48 KB
-// that needs no opt-in, under the 227 KB a block may have). At B = 1024
-// that is 128 blocks of 256 threads on the card's 132 SMs, one block and 8
-// warps an SM (1024 lanes need 8 an SM whatever the layout). A warp whose
-// lane is past B returns at once; no phase waits on another warp (no
-// block-wide barrier). Built with nvcc into a shared library with a plain C
-// interface and loaded with ctypes (chord_kernel.py); built again with
-// -DCHORD_COOP_PROBE, it also counts each phase's cycles (chip_smoke.py's
-// probe phase).
+// that needs no opt-in, under the 227 KB a block may have; a robust build's
+// record holds its trials too, a per-lane build's the lane's params, 222,720
+// bytes a block). At B = 1024 that is 128 blocks of 256 threads on the
+// card's 132 SMs, one block and 8 warps an SM (1024 lanes need 8 an SM
+// whatever the layout). A warp whose lane is past B returns at once; no
+// phase waits on another warp (no block-wide barrier). Built with nvcc into
+// a shared library with a plain C interface and loaded with ctypes
+// (chord_kernel.py); built again with -DCHORD_COOP_PROBE, it also counts
+// each phase's cycles (chip_smoke.py's probe phase).
 #include <cuda_runtime.h>
 
 #include "chord_bdf2_coop.cuh"
@@ -52,9 +55,9 @@ struct WarpRun {
   }
 };
 
-template <int N, int NR>
+template <int N, int NR, int FEAT>
 constexpr size_t smem_bytes() {
-  return sizeof(chord::coop::Lane<N, NR>) * kLanes;
+  return sizeof(chord::coop::LaneOf<N, NR, FEAT>) * kLanes;
 }
 
 template <int N, int NR, int FEAT>
@@ -63,10 +66,11 @@ chord_bdf2_coop_kernel(int B, const float* __restrict__ x0, const float* __restr
                        const float* __restrict__ qd0, const float* __restrict__ q1,
                        const float* __restrict__ qd1, const float* __restrict__ tau,
                        const int* __restrict__ topo_i, const float* __restrict__ stat_f,
-                       chord::ChordConfig cfg, float* __restrict__ x_out,
+                       const float* __restrict__ lane_f, chord::ChordConfig cfg,
+                       chord::RobustConfig rc, float* __restrict__ x_out,
                        float* __restrict__ hinv_out, long long* __restrict__ probe) {
   extern __shared__ __align__(16) unsigned char coop_smem[];
-  using Lane = chord::coop::Lane<N, NR>;
+  using Lane = chord::coop::LaneOf<N, NR, FEAT>;
   const int warp = threadIdx.x / chord::coop::kWarp;
   const int lane = blockIdx.x * kLanes + warp;
   if (lane >= B) return;
@@ -79,8 +83,8 @@ chord_bdf2_coop_kernel(int B, const float* __restrict__ x0, const float* __restr
   (void)probe;
   const WarpRun run{t};
 #endif
-  chord::coop::solve<N, NR, FEAT>(run, L, lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f,
-                                  cfg, x_out, hinv_out);
+  chord::coop::solve<N, NR, FEAT>(run, L, lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg,
+                                  x_out, hinv_out, lane_f, rc);
 #ifdef CHORD_COOP_PROBE
   if (t == 0)
     for (int k = 0; k < chord::coop::kPhases; ++k)
@@ -91,54 +95,70 @@ chord_bdf2_coop_kernel(int B, const float* __restrict__ x0, const float* __restr
 template <int N, int NR, int FEAT>
 cudaError_t launch_kernel(int B, const float* x0, const float* q0, const float* qd0,
                           const float* q1, const float* qd1, const float* tau, const int* topo_i,
-                          const float* stat_f, chord::ChordConfig cfg, float* x_out,
-                          float* hinv_out, long long* probe, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<N, NR>();
+                          const float* stat_f, const float* lane_f, chord::ChordConfig cfg,
+                          chord::RobustConfig rc, float* x_out, float* hinv_out,
+                          long long* probe, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<N, NR, FEAT>();
   const cudaError_t err = cudaFuncSetAttribute(chord_bdf2_coop_kernel<N, NR, FEAT>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (B + kLanes - 1) / kLanes;
   chord_bdf2_coop_kernel<N, NR, FEAT><<<blocks, kThreads, smem, stream>>>(
-      B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg, x_out, hinv_out, probe);
+      B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, rc, x_out, hinv_out, probe);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 = launched), -1 for an (N, NR, contacts) without
-// an instantiation here, or -4 for fixed_iters < 1. ncontacts is the count
-// topo_i holds: any contact picks the build with the contact code. Every
-// pointer is device memory; the state buffers are struct-of-arrays [NR, B],
-// topo_i and stat_f as chord_bdf2_launch reads them (chord_bdf2_lane.cuh).
-// probe ([B, kPhases] int64: each lane's cycles by phase) is written by the
-// probe build only; the wrapper's build takes null.
-extern "C" int chord_bdf2_coop_launch(int N, int NR, int ncontacts, int B, const float* x0,
-                                      const float* q0, const float* qd0, const float* q1,
-                                      const float* qd1, const float* tau, const int* topo_i,
-                                      const float* stat_f, int fixed_iters, float growth_reject,
-                                      float tol_reject, float dx_clamp, float* x_out,
+// Returns a cudaError_t (0 = launched), -1 for an (N, NR, kinds) without
+// an instantiation here, -2 for a per-lane record longer than
+// kMaxLaneRecord, -3 for a robust solve mode (guarded, guard_last or
+// chord_mode == 0) in a build without kRobust, or -4 for fixed_iters < 1.
+// kinds is the build's FEAT bitmask as the wrapper routed it
+// (chord_kernel.kinds_of); ncontacts the count topo_i holds. A kPerlane
+// build reads the lane's params from lane_f ([P, B]); a kRobust build runs
+// the mode (guarded, guard_last, chord_mode). Every pointer is device
+// memory; the state buffers are struct-of-arrays [NR, B], topo_i, stat_f
+// and lane_f as chord_bdf2_launch reads them (chord_bdf2_lane.cuh). probe
+// ([B, kPhases] int64: each lane's cycles by phase) is written by the probe
+// build only; the wrapper's build takes null.
+extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, int B,
+                                      const float* x0, const float* q0, const float* qd0,
+                                      const float* q1, const float* qd1, const float* tau,
+                                      const int* topo_i, const float* stat_f,
+                                      const float* lane_f, int fixed_iters,
+                                      float growth_reject, float tol_reject, float dx_clamp,
+                                      int guarded, int guard_last, int chord_mode, float* x_out,
                                       float* hinv_out, long long* probe, void* stream) {
   using chord::kContacts;
+  using chord::kPerlane;
+  using chord::kRobust;
   const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
+  const chord::RobustConfig rc{guarded, guard_last, chord_mode};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
   if (fixed_iters < 1) return -4;
-  const int feat = ncontacts > 0 ? kContacts : 0;
-#define COOP_LAUNCH(n, nr, f)                                                                    \
-  if (N == n && NR == nr && feat == (f))                                                         \
-    return launch_kernel<n, nr, f>(B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, cfg, x_out, \
-                                   hinv_out, probe, s);
+  if ((kinds & kPerlane) != 0 && 7 * N + 4 + 13 * ncontacts > chord::kMaxLaneRecord) return -2;
+  if ((kinds & kRobust) == 0 && (guarded != 0 || guard_last != 0 || chord_mode == 0)) return -3;
+#define COOP_LAUNCH(n, nr, f)                                                                 \
+  if (N == n && NR == nr && kinds == (f))                                                     \
+    return launch_kernel<n, nr, f>(B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, \
+                                   rc, x_out, hinv_out, probe, s);
   COOP_LAUNCH(12, 12, 0)
   COOP_LAUNCH(12, 12, kContacts)
   COOP_LAUNCH(4, 4, 0)
   COOP_LAUNCH(4, 4, kContacts)
+  COOP_LAUNCH(12, 12, kRobust)
+  COOP_LAUNCH(12, 12, kContacts | kRobust)
+  COOP_LAUNCH(12, 12, kContacts | kPerlane)
 #undef COOP_LAUNCH
   return -1;
 }
 
-// Lanes a block, and a block's dynamic shared memory at (N, NR) in bytes
-// (-1 for a shape without an instantiation); the phases of the probe's slots.
+// Lanes a block, and a block's dynamic shared memory at (N, NR) with the
+// kinds feat (chord_kernel's bitmask) in bytes (-1 for a build without an
+// instantiation); the phases of the probe's slots.
 extern "C" int chord_bdf2_coop_lanes_per_block() { return kLanes; }
 
 extern "C" int chord_bdf2_coop_phases() { return chord::coop::kPhases; }
@@ -147,8 +167,19 @@ extern "C" const char* chord_bdf2_coop_phase_name(int phase) {
   return phase >= 0 && phase < chord::coop::kPhases ? chord::coop::kPhaseNames[phase] : "";
 }
 
-extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR) {
-  if (N == 12 && NR == 12) return static_cast<long>(smem_bytes<12, 12>());
-  if (N == 4 && NR == 4) return static_cast<long>(smem_bytes<4, 4>());
+extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR, int feat) {
+  using chord::kContacts;
+  using chord::kPerlane;
+  using chord::kRobust;
+#define COOP_SMEM(n, nr, f) \
+  if (N == n && NR == nr && feat == (f)) return static_cast<long>(smem_bytes<n, nr, f>());
+  COOP_SMEM(12, 12, 0)
+  COOP_SMEM(12, 12, kContacts)
+  COOP_SMEM(4, 4, 0)
+  COOP_SMEM(4, 4, kContacts)
+  COOP_SMEM(12, 12, kRobust)
+  COOP_SMEM(12, 12, kContacts | kRobust)
+  COOP_SMEM(12, 12, kContacts | kPerlane)
+#undef COOP_SMEM
   return -1;
 }

@@ -2,29 +2,34 @@
 // every value that crosses a phase in the lane's record in shared memory.
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
-// (:689-1320) on its constant-S, lane-shared-params, unguarded-chord
-// branches, without closures (K1a) and with penalty ground contact (K1c,
-// _ground_contact :237-345). The other branches (springs, cables, the
-// q-dependent joints, per-lane params, the robust modes) stay on the
-// thread-per-lane body of chord_bdf2_lane.cuh, whose helpers (Frame,
-// frame_mul, frame_inv, adjoint, mat6_vec, ad_vec, adT_vec, rt_vec,
-// local_force_blocks, ground_contact, Shared, ChordConfig) this file calls
-// as they are. Every sum runs in the thread-per-lane body's order, so the
-// two give the same result bit for bit wherever the compiler contracts the
+// (:689-1320) on its constant-S branches without closures (K1a) and with
+// penalty ground contact (K1c, _ground_contact :237-345): in the unguarded
+// chord mode with lane-shared params, with per-lane params (K1f, the
+// perlane reads :706-712, :767-841: kPerlane) and in the robust modes
+// (K1g, :1220-1313: kRobust), all in one solve loop. The other branches
+// (springs, cables, the q-dependent joints) stay on the thread-per-lane
+// body of chord_bdf2_lane.cuh, whose helpers (Frame, frame_mul, frame_inv,
+// adjoint, mat6_vec, ad_vec, adT_vec, rt_vec, local_force_blocks,
+// ground_contact, Shared, ChordConfig, RobustConfig) this file calls as
+// they are. Every sum runs in the thread-per-lane body's order, so the two
+// give the same result bit for bit wherever the compiler contracts the
 // same multiply-adds (always under g++, which contracts none).
 //
 // What bounds it on an H100: per-lane f32 arithmetic, about 1.4e5 flops a
-// lane at N = nr = 12 (2.4e5 with a contact on every link), against 0.9 KB
-// of state in and out. The thread-per-lane body issues those flops one
-// after another on one thread, with J, H and the Gauss-Jordan rows in local
-// memory. Here the 32 threads of a warp split each phase of the solve over
-// its parallel width, with __syncwarp() between phases:
+// lane at N = nr = 12 (2.4e5 with a contact on every link, 4.0e5 guarded),
+// against 0.9 KB of state in and out (1 KB more with per-lane params). The
+// thread-per-lane body issues those flops one after another on one thread,
+// with J, H and the Gauss-Jordan rows in local memory. Here the 32 threads
+// of a warp split each phase of the solve over its parallel width, with
+// __syncwarp() between phases:
+//   record     (kPerlane) per float of the lane's record of lane_f: copied
+//              into the lane record, which the params are then read from
 //   setup      per body: parent, column mask, ground contacts; per column:
 //              the lane's history and the body-frame subspace column Sb[r];
 //              then per body: its (body, column) pairs
 //   joints     per column: qdot, the BDF2 increment, the joint forces; on
 //              the next threads, per joint: E_pj = E0_pj Q(q) (a root's is
-//              its world frame)
+//              its world frame), at the iterate the solve names
 //   FK         down the tree, E_wj = E_wj[parent] E_pj, a row of every
 //              frame a thread (a chain's row kept in registers); per body:
 //              E_wi and Ad(inv(E_wi)), and on the next threads per column:
@@ -32,7 +37,7 @@
 //   J, Jdot    per (body, column) pair that moves: J; per body: phi; per
 //              column: Wdot[r]; per pair: Jdot
 //   forces     per body: the maximal force with the body's own ground
-//              contacts and, at the predictor, its closed-form K/D blocks
+//              contacts and, where H is built, its closed-form K/D blocks
 //              (the contact force and its blocks in one ground_contact
 //              call); then the body's w = I J dq - ch2 (f - I Jdot qdot)
 //   residual   per column: g[r] = sum over bodies of J_r . w
@@ -42,6 +47,9 @@
 //   GJ         one pivot at a time, each row of the elimination a thread,
 //              from one [NR][2NR] buffer into the other
 //   step       per column: dx = H^-1 g (thread 0: |g|); x -= dx, clamped
+//   trials     (kRobust) per column: the full or the half trial iterate;
+//              thread 0: both trials' |g| and the guard's pick; per column:
+//              the accepted trial's x and g
 //   write-out  per column x (NaN on a rejected lane), per (r, s) H^-1.
 // The warps of an SM share its shared-memory pipe, which counts accesses,
 // not bytes: so a phase reads its operands into registers as 16- or 8-byte
@@ -50,11 +58,15 @@
 // would order them). Each phase is a function of (tid, the lane's record)
 // that reads only what earlier phases wrote, so g++ runs the same phases on
 // the CPU one tid after another, in either order
-// (tests/test_torch_coop_body.py). The chord loop and the rejection are
-// uniform across the warp (one lane). Tensor cores have no place here:
-// their only f32 type, TF32, keeps about three digits, and H^-1 is held at
-// 2e-5 of scale.
+// (tests/test_torch_coop_body.py, tests/test_torch_coop_robust.py). The
+// loops and every decision of the solve (the guard's pick included) are
+// uniform across the warp (one lane): each thread reads them from the
+// record after the barrier. Tensor cores have no place here: their only
+// f32 type, TF32, keeps about three digits, and H^-1 is held at 2e-5 of
+// scale.
 #pragma once
+
+#include <type_traits>
 
 #include "chord_bdf2_lane.cuh"
 
@@ -66,14 +78,15 @@ constexpr int kWarp = 32;  // threads a lane
 // The phases of a solve, for run(phase, f): the probe build of
 // chord_bdf2_coop.cu adds each phase's cycles to its slot (kPhaseNames).
 enum Phase {
-  kSetup, kPairs, kJoints, kTree, kFrames, kJacobian, kTwists, kWdot, kJdot, kForcesBlocks,
-  kForces, kNewtonTerms, kNewtonMatrix, kGaussJordan, kResidual, kStepDx, kStepUpdate,
-  kWriteOut, kPhases
+  kLaneRecord, kSetup, kPairs, kJoints, kTree, kFrames, kJacobian, kTwists, kWdot, kJdot,
+  kForcesBlocks, kForces, kNewtonTerms, kNewtonMatrix, kGaussJordan, kResidual, kStepDx,
+  kStepUpdate, kTrial, kGuardPick, kGuardAccept, kWriteOut, kPhases
 };
 constexpr const char* kPhaseNames[kPhases] = {
-    "setup", "pairs", "joints", "fk_tree", "body_frames", "jacobian", "twists",
+    "lane_record", "setup", "pairs", "joints", "fk_tree", "body_frames", "jacobian", "twists",
     "world_columns_dot", "jacobian_dot", "body_forces_blocks", "body_forces", "newton_terms",
-    "newton_matrix", "gj_pivot", "residual_columns", "step_dx", "step_update", "write_out"};
+    "newton_matrix", "gj_pivot", "residual_columns", "step_dx", "step_update", "trial",
+    "guard_pick", "guard_accept", "write_out"};
 
 // NF floats from src to dst: on the card as 16-byte accesses where NF is a
 // multiple of 4, else 8-byte ones where it is even, so both sides must be
@@ -134,6 +147,40 @@ struct alignas(16) Lane {
   CHORD_HD float hinv(int r, int s) const { return M[NR & 1][r][NR + s]; }
 };
 
+// The record of a kRobust build: the full and the half trial iterate, their
+// residuals and |g|, and the guard's pick (0 full, 1 half, -1 stay put).
+template <int N, int NR>
+struct alignas(16) LaneRobust : Lane<N, NR> {
+  alignas(16) float xt[2][NR];
+  alignas(16) float gt[2][NR];
+  float gtn[2];
+  int pick;
+};
+
+// The record of a kPerlane build: the lane's record of lane_f, which its
+// Shared reads the physical params from.
+template <int N, int NR>
+struct alignas(16) LanePerlane : Lane<N, NR> {
+  alignas(16) float rec[kMaxLaneRecord];
+};
+
+// The record of a build of kinds FEAT: the fields of the robust modes or of
+// the per-lane params only where FEAT has them, so the other builds keep
+// their record.
+template <int N, int NR, int FEAT>
+using LaneOf = std::conditional_t<
+    (FEAT & kRobust) != 0, LaneRobust<N, NR>,
+    std::conditional_t<(FEAT & kPerlane) != 0, LanePerlane<N, NR>, Lane<N, NR>>>;
+
+// Lane `lane` of the [P, B] per-lane buffer into the record, a float a
+// thread.
+template <int N, int NR>
+CHORD_HD void lane_record(int t, const Shared<N, NR>& sh, LanePerlane<N, NR>& L,
+                          const float* lane_f, int lane, int B) {
+  const int P = sh.lane_record_size();
+  for (int k = t; k < P; k += kWarp) L.rec[k] = lane_f[k * B + lane];
+}
+
 // Each body's parent, column mask and ground contacts, the lane's history,
 // and the body-frame subspace columns Sb[r] = Ad(inv(E0_ji)) S_j[:, d]
 // (static_subspace, a column a thread).
@@ -189,13 +236,13 @@ CHORD_HD void setup_pairs(int t, Lane<N, NR>& L) {
   if (t == N - 1) L.npairs = at;
 }
 
-// qdot at x, the BDF2 increment dq and the joint forces (spring, damper,
-// penalty limits) of column r (residual's first loop).
+// qdot at the iterate xe, the BDF2 increment dq and the joint forces
+// (spring, damper, penalty limits) of column r (residual's first loop).
 template <int N, int NR>
-CHORD_HD void joint_terms(int r, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+CHORD_HD void joint_terms(int r, const Shared<N, NR>& sh, Lane<N, NR>& L, const float* xe) {
   const float h = sh.h;
   const float* jsf = sh.jsf;
-  const float x = L.x[r];
+  const float x = xe[r];
   const float qd = (1.5f / h) * (x - (4.0f / 3.0f) * L.q1[r] + (1.0f / 3.0f) * L.q0[r]);
   L.qd[r] = qd;
   L.dqt[r] = x - (4.0f / 3.0f) * L.q1[r] + (1.0f / 3.0f) * L.q0[r] -
@@ -208,10 +255,10 @@ CHORD_HD void joint_terms(int r, const Shared<N, NR>& sh, Lane<N, NR>& L) {
   L.fr[r] = f;
 }
 
-// E_pj = E0_pj Q(q) of constant-S joint j (fk_and_J's joint loop); a root
-// joint's is its world frame E_wj.
+// E_pj = E0_pj Q(q) of constant-S joint j at the iterate xe (fk_and_J's
+// joint loop); a root joint's is its world frame E_wj.
 template <int N, int NR>
-CHORD_HD void fk_local(int j, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+CHORD_HD void fk_local(int j, const Shared<N, NR>& sh, Lane<N, NR>& L, const float* xe) {
   const int o = sh.doffs[j];
   const int jt = sh.jtype[j];
   Frame Q, E0;
@@ -221,7 +268,7 @@ CHORD_HD void fk_local(int j, const Shared<N, NR>& sh, Lane<N, NR>& L) {
     Q.p[a] = 0.0f;
   }
   if (jt == REVOLUTE) {
-    const float c = cosf(L.x[o]), s = sinf(L.x[o]);
+    const float c = cosf(xe[o]), s = sinf(xe[o]);
     const float a0 = sh.axis(j, 0, 0), a1 = sh.axis(j, 1, 0), a2 = sh.axis(j, 2, 0);
     const float omc = 1.0f - c;
     Q.R[0][0] = c + omc * a0 * a0;
@@ -236,8 +283,8 @@ CHORD_HD void fk_local(int j, const Shared<N, NR>& sh, Lane<N, NR>& L) {
   } else if (jt == PRISMATIC || jt == PLANAR || jt == TRANSLATIONAL) {
     const int nd = sh.doffs[j + 1] - o;
     for (int k = 0; k < 3; ++k) {
-      float acc = sh.axis(j, k, 0) * L.x[o];
-      for (int d = 1; d < nd; ++d) acc = acc + sh.axis(j, k, d) * L.x[o + d];
+      float acc = sh.axis(j, k, 0) * xe[o];
+      for (int d = 1; d < nd; ++d) acc = acc + sh.axis(j, k, d) * xe[o + d];
       Q.p[k] = acc;
     }
   }
@@ -247,15 +294,15 @@ CHORD_HD void fk_local(int j, const Shared<N, NR>& sh, Lane<N, NR>& L) {
 }
 
 // Each column's terms (a column a thread) and each joint's E_pj (a joint a
-// thread, on the threads after the columns'): one phase, as neither reads
-// the other.
+// thread, on the threads after the columns'), at the iterate xe (the
+// record's x, or a trial): one phase, as neither reads the other.
 template <int N, int NR>
-CHORD_HD void joints(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+CHORD_HD void joints(int t, const Shared<N, NR>& sh, Lane<N, NR>& L, const float* xe) {
   for (int e = t; e < NR + N; e += kWarp) {
     if (e < NR)
-      joint_terms<N, NR>(e, sh, L);
+      joint_terms<N, NR>(e, sh, L, xe);
     else
-      fk_local<N, NR>(e - NR, sh, L);
+      fk_local<N, NR>(e - NR, sh, L, xe);
   }
 }
 
@@ -445,9 +492,10 @@ CHORD_HD void body_forces(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
   copy_f<6>(L.w[i], w);
 }
 
-// g[r] = sum_i J[i][r] . w[i] - ch2 fr[r]
+// g[r] = sum_i J[i][r] . w[i] - ch2 fr[r], into g (the record's g, or a
+// trial's)
 template <int N, int NR>
-CHORD_HD void residual_columns(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+CHORD_HD void residual_columns(int t, const Shared<N, NR>& sh, Lane<N, NR>& L, float* g) {
   if (t >= NR) return;
   const int r = t;
   const float ch2 = (4.0f / 9.0f) * sh.h * sh.h;
@@ -459,7 +507,7 @@ CHORD_HD void residual_columns(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
     copy_f<6>(w, L.w[i]);
     for (int k = 0; k < 6; ++k) acc = acc + Jr[k] * w[k];
   }
-  L.g[r] = acc - ch2 * L.fr[r];
+  g[r] = acc - ch2 * L.fr[r];
 }
 
 // KD[i][s] = cK K J_s + cD D J_s and IJ[i][s] = J_s I of body i: the
@@ -577,10 +625,9 @@ CHORD_HD void step_dx(int t, Lane<N, NR>& L, int it) {
   }
 }
 
-// x -= dx, dx scaled to |dx| <= dx_clamp where the clamp is on.
+// dx[t] scaled to |dx| <= dx_clamp where the clamp is on (newton_step's).
 template <int N, int NR>
-CHORD_HD void step_update(int t, Lane<N, NR>& L, float dx_clamp) {
-  if (t >= NR) return;
+CHORD_HD float clamped_dx(int t, const Lane<N, NR>& L, float dx_clamp) {
   float d = L.dx[t];
   if (dx_clamp != 0.0f) {
     float dd = 0.0f;
@@ -588,63 +635,190 @@ CHORD_HD void step_update(int t, Lane<N, NR>& L, float dx_clamp) {
     const float scale = fminf(1.0f, dx_clamp / fmaxf(sqrtf(dd), 1e-30f));
     d = d * scale;
   }
-  L.x[t] = L.x[t] - d;
+  return d;
+}
+
+// x -= dx, dx scaled to |dx| <= dx_clamp where the clamp is on.
+template <int N, int NR>
+CHORD_HD void step_update(int t, Lane<N, NR>& L, float dx_clamp) {
+  if (t >= NR) return;
+  L.x[t] = L.x[t] - clamped_dx<N, NR>(t, L, dx_clamp);
+}
+
+// Trial e of a guarded iteration (1 the full step, 2 the half step) from
+// the dx of step_dx: xt[e - 1] = x - dx or x - dx / 2, dx clamped as in
+// step_update.
+template <int N, int NR>
+CHORD_HD void trial(int t, LaneRobust<N, NR>& L, int e, float dx_clamp) {
+  if (t >= NR) return;
+  const float d = clamped_dx<N, NR>(t, L, dx_clamp);
+  L.xt[e - 1][t] = L.x[t] - (e == 1 ? d : 0.5f * d);
+}
+
+// Thread 0: |g| of both trials and the guard's pick, the full step if |g|
+// did not grow there, else the half step if it did not grow there, else
+// stay put (a non-finite |g| compares false: grown). gln is |g| at the
+// iterate (step_dx's).
+template <int N, int NR>
+CHORD_HD void guard_pick(int t, LaneRobust<N, NR>& L) {
+  if (t != 0) return;
+  float n[2];
+  for (int e = 0; e < 2; ++e) {
+    float vv = 0.0f;
+    for (int r = 0; r < NR; ++r) vv = vv + L.gt[e][r] * L.gt[e][r];
+    n[e] = sqrtf(vv);
+  }
+  const float gn = L.gln;
+  L.gtn[0] = n[0];
+  L.gtn[1] = n[1];
+  L.pick = n[0] <= gn ? 0 : (n[1] <= gn ? 1 : -1);
+}
+
+// The accepted trial: its x, and its g and |g| carried (not recomputed at
+// the new iterate).
+template <int N, int NR>
+CHORD_HD void guard_accept(int t, LaneRobust<N, NR>& L, int pick) {
+  if (t >= NR) return;
+  L.x[t] = L.xt[pick][t];
+  L.g[t] = L.gt[pick][t];
+  if (t == 0) L.gln = L.gtn[pick];
 }
 
 // Rejection (non-finite, residual grown past growth_reject, or above
-// tol_reject) and the write-out: x [NR, B] (NaN on a rejected lane), H^-1
-// [NR * NR, B].
+// tol_reject; with stayput, a guard that stayed put and never halved |g|)
+// and the write-out: x [NR, B] (NaN on a rejected lane), H^-1 [NR * NR, B].
 template <int N, int NR>
 CHORD_HD void write_out(int t, const Lane<N, NR>& L, ChordConfig cfg, int lane, int B,
-                        float* x_out, float* hinv_out) {
+                        float* x_out, float* hinv_out, bool stayput = false) {
   bool finite = finitef(L.gln);
   for (int r = 0; r < NR; ++r) finite = finite && finitef(L.x[r]);
-  bool diverged = !finite;
+  bool diverged = !finite || (stayput && L.gln > 0.5f * L.g0n);
   if (cfg.growth_reject != 0.0f) diverged = diverged || (L.gln > cfg.growth_reject * L.g0n);
   if (cfg.tol_reject != 0.0f) diverged = diverged || (L.gln > cfg.tol_reject);
   if (t < NR) x_out[t * B + lane] = diverged ? NAN : L.x[t];
   for (int e = t; e < NR * NR; e += kWarp) hinv_out[e * B + lane] = L.hinv(e / NR, e % NR);
 }
 
-// One lane's fixed-iteration chord solve (chord_bdf2_lane's semantics): H
-// and H^-1 at the predictor x0, then fixed_iters steps x -= H^-1 g(x), the
-// rejection, the write-out. run(phase, f) runs the phase f(tid) on every
-// thread of the lane and waits for all of them (on the card f(lane id) and
-// __syncwarp(); on the CPU every tid in turn). fixed_iters >= 1.
+// The lane's params: lane-shared from topo_i / stat_f or, in a kPerlane
+// build, read from the lane's record, which a phase first copies from
+// lane_f (Shared::read_lane's layout).
 template <int N, int NR, int FEAT, class Run>
-CHORD_HD void solve(const Run& run, Lane<N, NR>& L, int lane, int B, const float* x0s,
+CHORD_HD Shared<N, NR> lane_params(const Run& run, LaneOf<N, NR, FEAT>& L, const int* topo_i,
+                                   const float* stat_f, const float* lane_f, int lane, int B) {
+  Shared<N, NR> sh(topo_i, stat_f);
+  if constexpr ((FEAT & kPerlane) != 0) {
+    run(kLaneRecord, [&](int t) { lane_record<N, NR>(t, sh, L, lane_f, lane, B); });
+    sh.use_record(L.rec);
+  } else {
+    (void)run, (void)L, (void)lane_f, (void)lane, (void)B;
+  }
+  return sh;
+}
+
+// The kinematic phases at the iterate xe: the joints' terms and E_pj, FK,
+// J, the twists, Wdot and Jdot.
+template <int N, int NR, class Run>
+CHORD_HD void kinematics(const Run& run, const Shared<N, NR>& sh, Lane<N, NR>& L,
+                         const float* xe) {
+  run(kJoints, [&](int t) { joints<N, NR>(t, sh, L, xe); });
+  run(kTree, [&](int t) { fk_tree<N, NR>(t, L); });
+  run(kFrames, [&](int t) { body_frames<N, NR>(t, sh, L); });
+  run(kJacobian, [&](int t) { jacobian<N, NR>(t, L); });
+  run(kTwists, [&](int t) { twists<N, NR>(t, L); });
+  run(kWdot, [&](int t) { world_columns_dot<N, NR>(t, L); });
+  run(kJdot, [&](int t) { jacobian_dot<N, NR>(t, L); });
+}
+
+// The forces, w and the K/D blocks at the kinematics' iterate, then H and
+// H^-1 there (newton_matrix's joint terms at the record's x).
+template <int N, int NR, int FEAT, class Run>
+CHORD_HD void newton_inverse(const Run& run, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+  run(kForcesBlocks, [&](int t) { body_forces<N, NR, FEAT, true>(t, sh, L); });
+  run(kNewtonTerms, [&](int t) { newton_terms<N, NR>(t, sh, L); });
+  run(kNewtonMatrix, [&](int t) { newton_matrix<N, NR>(t, sh, L); });
+  CHORD_NO_UNROLL
+  for (int k = 0; k < NR; ++k) run(kGaussJordan, [&](int t) { gj_pivot<N, NR>(t, L, k); });
+}
+
+// One lane's fixed-iteration solve: H and H^-1 at the predictor x0, then
+// fixed_iters steps x -= H^-1 g(x), the rejection, the write-out
+// (chord_bdf2_lane's semantics). A kPerlane build reads the lane's physical
+// params from lane_f. A kRobust build runs the mode rc names
+// (chord_bdf2_lane_robust's semantics): chord=False re-builds H and H^-1 at
+// x at every iterate; a guarded iteration (every one, or with guard_last the
+// last one only) evaluates the residual at the full and at the half trial
+// and takes the first at which |g| did not grow, or stays put, carrying the
+// accepted trial's g and |g|; a lane that stayed put is rejected when its
+// solve never halved |g|. The other builds run the chord mode whatever rc
+// says (the launcher sends a robust mode to a kRobust build only). The
+// evaluations e of an iteration (0: the kinematics at x, g there unless a
+// trial carried it, H^-1 there where it is rebuilt; 1, 2: the trials) run
+// in one loop with the iterate chosen at run time, so each phase has one
+// call site (every run(phase, f) is inlined, and a site per trial would
+// multiply the build's code and compile time); without kRobust the loop is
+// evaluation 0 alone. run(phase, f) runs the phase f(tid) on every thread of
+// the lane and waits for all of them (on the card f(lane id) and
+// __syncwarp(); on the CPU every tid in turn). Every decision is the warp's:
+// the loop bounds from the config, the pick from the record.
+// fixed_iters >= 1.
+template <int N, int NR, int FEAT, class Run>
+CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, const float* x0s,
                     const float* q0s, const float* qd0s, const float* q1s, const float* qd1s,
                     const float* taus, const int* topo_i, const float* stat_f, ChordConfig cfg,
-                    float* x_out, float* hinv_out) {
-  static_assert((FEAT & ~kContacts) == 0,
-                "the cooperative body runs no closure but ground contact, and the chord mode "
-                "with lane-shared params only");
-  const Shared<N, NR> sh(topo_i, stat_f);
+                    float* x_out, float* hinv_out, const float* lane_f = nullptr,
+                    RobustConfig rc = RobustConfig{0, 0, 1}) {
+  constexpr bool ROBUST = (FEAT & kRobust) != 0;
+  static_assert((FEAT & ~(kContacts | kPerlane | kRobust)) == 0 &&
+                    (FEAT & (kPerlane | kRobust)) != (kPerlane | kRobust),
+                "the cooperative solve runs no closure but ground contact, with per-lane "
+                "params or the robust modes, not both");
+  const Shared<N, NR> sh = lane_params<N, NR, FEAT>(run, L, topo_i, stat_f, lane_f, lane, B);
   run(kSetup, [&](int t) { setup<N, NR>(t, sh, L, lane, B, x0s, q0s, qd0s, q1s, qd1s, taus); });
   run(kPairs, [&](int t) { setup_pairs<N, NR>(t, L); });
+  bool have_g = false, stayput = false;
   CHORD_NO_UNROLL
   for (int it = 0; it < cfg.fixed_iters; ++it) {
-    run(kJoints, [&](int t) { joints<N, NR>(t, sh, L); });
-    run(kTree, [&](int t) { fk_tree<N, NR>(t, L); });
-    run(kFrames, [&](int t) { body_frames<N, NR>(t, sh, L); });
-    run(kJacobian, [&](int t) { jacobian<N, NR>(t, L); });
-    run(kTwists, [&](int t) { twists<N, NR>(t, L); });
-    run(kWdot, [&](int t) { world_columns_dot<N, NR>(t, L); });
-    run(kJdot, [&](int t) { jacobian_dot<N, NR>(t, L); });
-    if (it == 0) {  // H and H^-1 at the predictor
-      run(kForcesBlocks, [&](int t) { body_forces<N, NR, FEAT, true>(t, sh, L); });
-      run(kNewtonTerms, [&](int t) { newton_terms<N, NR>(t, sh, L); });
-      run(kNewtonMatrix, [&](int t) { newton_matrix<N, NR>(t, sh, L); });
-      CHORD_NO_UNROLL
-      for (int k = 0; k < NR; ++k) run(kGaussJordan, [&](int t) { gj_pivot<N, NR>(t, L, k); });
-    } else {
-      run(kForces, [&](int t) { body_forces<N, NR, FEAT, false>(t, sh, L); });
+    const bool guard =
+        ROBUST && (rc.guarded != 0 || (rc.guard_last != 0 && it == cfg.fixed_iters - 1));
+    // H at the predictor, or at every iterate
+    const bool rebuild = it == 0 || (ROBUST && rc.chord == 0);
+    CHORD_NO_UNROLL
+    for (int e = have_g && !rebuild ? 1 : 0; e < (guard ? 3 : 1); ++e) {
+      const float* xe = L.x;
+      float* ge = L.g;
+      if constexpr (ROBUST) {
+        if (e == 1) run(kStepDx, [&](int t) { step_dx<N, NR>(t, L, it); });
+        if (e > 0) {
+          run(kTrial, [&](int t) { trial<N, NR>(t, L, e, cfg.dx_clamp); });
+          xe = L.xt[e - 1];
+          ge = L.gt[e - 1];
+        }
+      }
+      kinematics<N, NR>(run, sh, L, xe);
+      if (e == 0 && rebuild) {  // H and H^-1 at x
+        newton_inverse<N, NR, FEAT>(run, sh, L);
+      } else {
+        run(kForces, [&](int t) { body_forces<N, NR, FEAT, false>(t, sh, L); });
+      }
+      if (e > 0 || !have_g) run(kResidual, [&](int t) { residual_columns<N, NR>(t, sh, L, ge); });
     }
-    run(kResidual, [&](int t) { residual_columns<N, NR>(t, sh, L); });
-    run(kStepDx, [&](int t) { step_dx<N, NR>(t, L, it); });
-    run(kStepUpdate, [&](int t) { step_update<N, NR>(t, L, cfg.dx_clamp); });
+    if (!guard) {
+      run(kStepDx, [&](int t) { step_dx<N, NR>(t, L, it); });
+      run(kStepUpdate, [&](int t) { step_update<N, NR>(t, L, cfg.dx_clamp); });
+      have_g = false;
+      continue;
+    }
+    if constexpr (ROBUST) {
+      run(kGuardPick, [&](int t) { guard_pick<N, NR>(t, L); });
+      const int pick = L.pick;
+      if (pick >= 0)
+        run(kGuardAccept, [&](int t) { guard_accept<N, NR>(t, L, pick); });
+      else
+        stayput = true;
+      have_g = true;
+    }
   }
-  run(kWriteOut, [&](int t) { write_out<N, NR>(t, L, cfg, lane, B, x_out, hinv_out); });
+  run(kWriteOut, [&](int t) { write_out<N, NR>(t, L, cfg, lane, B, x_out, hinv_out, stayput); });
 }
 
 }  // namespace coop

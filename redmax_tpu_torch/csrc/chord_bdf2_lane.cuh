@@ -355,6 +355,11 @@ struct Shared {
   CHORD_HD void read_lane(const float* lane_f, int lane, int B, float* rec) {
     const int P = lane_record_size();
     for (int k = 0; k < P; ++k) rec[k] = lane_f[k * B + lane];
+    use_record(rec);
+  }
+  // Read Ii, bd, g, h, cp, sp and cb from rec, one lane's record (the
+  // layout of lane_f above).
+  CHORD_HD void use_record(const float* rec) {
     Ii = rec;
     bd = Ii + 6 * N;
     g = bd + N;

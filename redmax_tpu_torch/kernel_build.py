@@ -58,6 +58,10 @@ class KernelBuild:
         self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True)
 
+    def compiling(self) -> bool:
+        """True while a started nvcc has not exited."""
+        return self._proc is not None and self._proc.poll() is None
+
     def load(self) -> ctypes.CDLL:
         """The loaded library, built first if need be. Raises when the build
         fails."""

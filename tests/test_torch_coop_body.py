@@ -21,9 +21,11 @@ the tree and the forest the cooperative body gives the thread-per-lane
 body's result (chord_bdf2_lane.cuh, built in the same g++ unit) bit for
 bit: it sums in the same order, and g++ contracts no multiply-add.
 
-The wrapper routes the four shapes of the cooperative design to its
-library, and a failed build or launch there raises without falling back to
-the thread-per-lane library.
+The wrapper routes the seven builds of the cooperative design (the four
+chord shapes, the two robust ones and the per-lane contact one) to its
+library and passes each its solve mode and per-lane buffer, and a failed
+build or launch there raises without falling back to the thread-per-lane
+library.
 
 These builds are tests only, never a route of a wrapper.
 """
@@ -317,14 +319,48 @@ def test_coop_body_nan_lane_stays_in_its_lane(coop_lib, scene):
     np.testing.assert_array_equal(hinvp[keep], hinv[keep])
 
 
+C, R, PL = chord_kernel.CONTACTS, chord_kernel.ROBUST, chord_kernel.PERLANE
+# A launch of each cooperative build: (scene, solve mode, per-lane h), and
+# the (N, nr, kinds) it runs.
+COOP_CASES = {
+    "chain-12": ("chain-12", "chord", False, (12, 12, 0)),
+    "chain-ground-12": ("chain-ground-12", "chord", False, (12, 12, C)),
+    "chain-4": ("chain-4", "chord", False, (4, 4, 0)),
+    "chain-ground-4": ("chain-ground-4", "chord", False, (4, 4, C)),
+    "chain-12-guarded": ("chain-12", "guarded", False, (12, 12, R)),
+    "chain-12-guard_last": ("chain-12", "guard_last", False, (12, 12, R)),
+    "chain-ground-12-rehess": ("chain-ground-12", "rehess", False, (12, 12, C | R)),
+    "chain-ground-12-guarded_rehess": ("chain-ground-12", "guarded_rehess", False,
+                                       (12, 12, C | R)),
+    "chain-ground-12-perlane": ("chain-ground-12", "chord", True, (12, 12, C | PL)),
+}
+MODES = {"chord": CFG_KW, "guarded": dict(CFG_KW, guarded=True),
+         "guard_last": dict(CFG_KW, guard_last=True), "rehess": dict(CFG_KW, chord=False),
+         "guarded_rehess": dict(CFG_KW, guarded=True, chord=False)}
+
+
+def _coop_launch_case(case, B=4):
+    """(topo, cfg, the packed inputs) of one launch of COOP_CASES[case]."""
+    scene, mode, perlane, _ = COOP_CASES[case]
+    sc = jax_scene(scene)
+    topo, params, fns = _port(sc)
+    if perlane:
+        params = {**params, "h": params["h"] * (1 + 0.1 * torch.arange(B))}
+    states, tau = contact_states(sc.topo.nr, B)
+    packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
+                               *(torch.tensor(a) for a in states), fns)
+    return topo, tint.NewtonConfig(**MODES[mode]), packed
+
+
 def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
-    """The unguarded chord builds with lane-shared params at (12, 12) and
-    (4, 4), with and without contacts, go to the cooperative library; the
-    thread-per-lane library keeps them only for an explicit call, and every
-    other build stays where it was."""
-    C = chord_kernel.CONTACTS
-    assert set(chord_kernel.COOP_INSTANTIATED) == {(12, 12, 0), (12, 12, C), (4, 4, 0),
-                                                   (4, 4, C)}
+    """The builds without springs, cables or q-dependent joints that the
+    paths run go to the cooperative library: the unguarded chord builds
+    with lane-shared params at (12, 12) and (4, 4), with and without
+    contacts, the robust builds at (12, 12), with and without contacts, and
+    the per-lane build with contacts at (12, 12); the thread-per-lane
+    libraries keep them only for an explicit call, and every other build
+    stays where it was."""
+    assert set(chord_kernel.COOP_INSTANTIATED) == {c[3] for c in COOP_CASES.values()}
     assert set(chord_kernel.COOP_INSTANTIATED) <= set(chord_kernel.INSTANTIATED)
     assert chord_kernel.BUILD_COOP in chord_kernel.BUILDS
     for N, nr, kinds in chord_kernel.INSTANTIATED:
@@ -333,21 +369,58 @@ def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
         assert chord_kernel.library_of(N, nr, kinds) is want
         assert chord_kernel.library_of(N, nr, kinds, thread_per_lane=True) \
             is chord_kernel.build_of(kinds)
-    # robust modes and per-lane params at the same shapes keep their libraries
-    assert chord_kernel.library_of(12, 12, C | chord_kernel.ROBUST) is chord_kernel.BUILD_ROBUST
-    assert chord_kernel.library_of(12, 12, C | chord_kernel.PERLANE) is chord_kernel.BUILD_PERLANE
+    # springs, cables and per-lane params without contacts keep their
+    # libraries, and so does a robust mode at (4, 4) or with per-lane params
+    # (neither has a build on the card)
+    S = chord_kernel.SPRINGS
+    assert chord_kernel.library_of(12, 12, S | PL) is chord_kernel.BUILD_PERLANE
+    assert chord_kernel.library_of(4, 3, chord_kernel.CABLES | PL) is chord_kernel.BUILD_PERLANE
+    assert chord_kernel.library_of(12, 12, S) is chord_kernel.BUILD
+    assert chord_kernel.library_of(4, 4, C | R) is chord_kernel.BUILD_ROBUST
+    assert chord_kernel.library_of(12, 12, C | PL | R) is chord_kernel.BUILD_PERLANE
 
 
-@pytest.mark.parametrize("fault", ["build", "launch"])
+@pytest.mark.parametrize("case", list(COOP_CASES))
+def test_wrapper_launches_the_cooperative_build(monkeypatch, case):
+    """launch sends each cooperative build's inputs to chord_bdf2_coop_launch
+    with the kinds it routed them by, its contact count, its per-lane buffer
+    and its solve mode (guarded, guard_last, chord), and counts the launch on
+    the cooperative counter only."""
+    topo, cfg, packed = _coop_launch_case(case)
+    seen = []
+    lib = types.SimpleNamespace(chord_bdf2_coop_launch=lambda *a: seen.append(a) or 0)
+    monkeypatch.setattr(chord_kernel, "_build_lib",
+                        lambda b: lib if b is chord_kernel.BUILD_COOP else None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+    before = (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches)
+    kinds = chord_kernel.kinds_of(topo, packed[8], packed[9] is not None,
+                                  chord_kernel.is_robust(cfg))
+    assert (topo.njoints, topo.nr, kinds) == COOP_CASES[case][3]
+    chord_kernel.launch(topo, cfg, *packed)
+    assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == \
+        (before[0], before[1] + 1)
+    (a,) = seen
+    lane_f = packed[9]
+    assert a[:5] == (topo.njoints, topo.nr, kinds, packed[8].contacts, 4)
+    assert a[5:11] == tuple(t.data_ptr() for t in packed[:6])
+    assert a[13] == (None if lane_f is None else lane_f.data_ptr())
+    assert a[14:21] == (cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+                        int(cfg.guarded), int(cfg.guard_last), int(cfg.chord))
+
+
+@pytest.mark.parametrize("fault", ["build", "launch", "build-chain-12-guarded",
+                                   "launch-chain-12-guarded", "build-chain-ground-12-rehess",
+                                   "launch-chain-ground-12-rehess",
+                                   "build-chain-ground-12-perlane",
+                                   "launch-chain-ground-12-perlane"])
 def test_failed_coop_build_or_launch_raises_without_fallback(monkeypatch, fault):
     """A cooperative build that fails, or a launch that returns an error,
     raises: the thread-per-lane library is never loaded and no counter
-    moves."""
-    sc = jax_scene("chain-ground-4")
-    topo, params, fns = _port(sc)
-    states, tau = contact_states(sc.topo.nr, 4)
-    packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
-                               *(torch.tensor(a) for a in states), fns)
+    moves (on chain-ground-4, and on each of the robust and per-lane
+    cooperative builds)."""
+    fault, _, case = fault.partition("-")
+    topo, cfg, packed = _coop_launch_case(case or "chain-ground-4")
 
     def no_fallback(*_):
         raise AssertionError("fell back to the thread-per-lane library")
@@ -366,5 +439,5 @@ def test_failed_coop_build_or_launch_raises_without_fallback(monkeypatch, fault)
                             lambda *a: types.SimpleNamespace(cuda_stream=0))
     before = (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches)
     with pytest.raises(RuntimeError, match="nvcc failed" if fault == "build" else "error 700"):
-        chord_kernel.launch(topo, tint.NewtonConfig(**CFG_KW), *packed)
+        chord_kernel.launch(topo, cfg, *packed)
     assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == before
