@@ -57,9 +57,11 @@ Phases (any failure is an exception and a non-zero exit):
      checks of phase 4 (the cooperative design's 49 launches a solve);
  10. hold the chord kernel with springs against its plain version: the
      spring chain (scene_spring_chain(12): a world-to-tip spring-damper, a
-     body-body spring-damper and a point-point coupler) at B = 1024 and
-     B = 1000, on states 8 steps into a rollout under the path's torques, by
-     the tolerances of phase 3, a NaN lane, and timed;
+     body-body spring-damper and a point-point coupler) at B = 1024, 1000
+     and 997 (the cooperative design, its last block partial), on states 8
+     steps into a rollout under the path's torques, by the tolerances of
+     phase 3 on at least 99% of lanes, a NaN lane, and timed in turns with
+     its thread-per-lane build, as in phase 3;
  11. hold the chord kernel with a cable against its plain version: scene 13
      (a tension-only cable over two links to a stiff prismatic slider) at
      B = 1024 on rollout states, with a census of lanes taut, slack and within
@@ -67,7 +69,8 @@ Phases (any failure is an exception and a non-zero exit):
      the same states with L raised so that every lane is slack; timed;
  12. the spring path: benchmarks/bench_spring_ab.py's spring-MPC solve
      (spring chain, horizon 50, B = 1024, f32, one Adam step) with the checks
-     of phase 4, the small card-against-CPU solve at 12 links;
+     of phase 4 (the cooperative design's 49 launches a solve), the small
+     card-against-CPU solve at 12 links;
  13. the cable rollout: scene 13, B = 1024 lanes from its initial state plus
      a seeded perturbation, 50 BDF2 steps on the kernel route (49 launches
      per rollout), timed, against the float64 op-level rollout;
@@ -93,8 +96,8 @@ Phases (any failure is an exception and a non-zero exit):
      chain and scene 13, on rollout states under the same draws, by the
      tolerances of phase 8; a NaN lane; lane-shared params broadcast into
      the per-lane buffer against the builds without it; timed (the
-     chain-ground-12 build on the cooperative design, in turns with its
-     thread-per-lane build, as in phase 3);
+     chain-ground-12 and spring-chain builds on the cooperative design, in
+     turns with their thread-per-lane builds, as in phase 3);
  19. the randomized contact path: phase 9's solve with per-lane I_i, h, g,
      kn and mu (perlane_draws), with the checks of phase 4 (the cooperative
      design's 49 launches a solve) and the small card-against-CPU solve at
@@ -102,8 +105,9 @@ Phases (any failure is an exception and a non-zero exit):
  20. system identification: cotangents of that objective into the per-lane
      I_i, h and every kn, kernel route against op-level route;
  21. 50-step rollouts of the spring chain and of scene 13 under the draws
-     of phase 18 on the kernel route (49 launches each), against the
-     float64 op-level rollouts;
+     of phase 18 on the kernel route (49 launches each, the spring chain's
+     on the cooperative design, scene 13's on the thread-per-lane one, none
+     on the other), against the float64 op-level rollouts;
  22. hold the ROBUST builds (K1g) against their plain version in each of
      guarded, guard_last, chord=False and guarded chord=False: chain-12 at
      B = 1024, 1000 and 997 on states 8 steps into a sigma = 6 rollout and
@@ -128,18 +132,20 @@ Phases (any failure is an exception and a non-zero exit):
  25. where the cooperative kernel's time goes: its probe build (the same
      source with -DCHORD_COOP_PROBE, each phase's clock64() cycles summed on
      each warp) on phase 3's chain-12 and phase 8's chain-ground-12 inputs,
-     phase 22's chain-ground-12 inputs in the guarded mode and phase 18's
-     per-lane chain-ground-12 inputs, at B = 1024, cycles a lane by phase,
-     and the probe build's own time;
+     phase 22's chain-ground-12 inputs in the guarded mode, phase 18's
+     per-lane chain-ground-12 inputs, phase 10's spring-chain inputs and
+     phase 18's per-lane spring-chain inputs, at B = 1024, cycles a lane by
+     phase, and the probe build's own time;
  26. print the kernels line (every row with its design, threads a lane and
      lanes a block; the cooperative rows with the thread-per-lane build's
      time of this run), the paths' lines (robust_path, backward_modes and
      coop_phases among them), the card's name and power limit, and the
      result line.
 
-Every MPC path reads the launch counter of the chord kernel design the
-wrapper routes it to (design_of) and requires none of the other; the
-rollouts, all on the thread-per-lane design, count both designs' launches.
+Every MPC path and the per-lane rollouts read the launch counter of the
+chord kernel design the wrapper routes them to (design_of) and require none
+of the other; the other rollouts, on the thread-per-lane design, count both
+designs' launches.
 """
 
 import ctypes
@@ -234,11 +240,12 @@ def launches_of(design=None) -> int:
 
 def design_of(sc, params, cfg=CFG) -> str:
     """The chord kernel design the wrapper routes this scene, params and
-    solve mode to."""
+    solve mode to (the thread-per-lane one for more springs than the
+    cooperative record holds, chord_kernel.MAX_COOP_SPRINGS)."""
     counts = chord_kernel.counts_of(chord_kernel.closure_spec(sc.topo, sc.force_fns))
     kinds = chord_kernel.kinds_of(sc.topo, counts, chord_kernel.has_perlane(params),
                                   chord_kernel.is_robust(cfg))
-    build = chord_kernel.library_of(sc.topo.njoints, sc.topo.nr, kinds)
+    build = chord_kernel.library_of(sc.topo.njoints, sc.topo.nr, kinds, springs=counts.springs)
     return "cooperative" if build is chord_kernel.BUILD_COOP else "thread_per_lane"
 
 
@@ -1158,20 +1165,23 @@ def phase_contact_kernel_vs_plain(device="cuda",
 # ---------------------------------------------------------------------------
 
 
-def phase_spring_kernel_vs_plain(device="cuda", cases=(1024, 1000)):
+def phase_spring_kernel_vs_plain(device="cuda", cases=(1024, 1000, 997)):
     """The chord kernel with the spring chain's three springs against
-    chord_bdf2_reference on rollout states; returns the kernel record fields
-    at the spring path's shapes (the first case). As in phase 8, at least 99%
-    of the lanes: at some states of the 12-link spring chain the float32
-    plain version's own H^-1 is 2.2e-5 of scale from float64, just outside
-    2e-5 (a CPU rehearsal at B = 64), so a lane may fall outside on roundoff;
-    every lane is printed in the share."""
+    chord_bdf2_reference on rollout states (the cooperative design, B = 997
+    leaving the last block partial); returns the kernel record fields at the
+    spring path's shapes (the first case). As in phase 8, at least 99% of
+    the lanes: at some states of the 12-link spring chain the float32 plain
+    version's own H^-1 is 2.2e-5 of scale from float64, just outside 2e-5 (a
+    CPU rehearsal at B = 64), so a lane may fall outside on roundoff; every
+    lane is printed in the share."""
     record = {}
     sc = scene_spring_chain(12).compile(dtype=torch.float32, device=device)
     sc64 = scene_spring_chain(12).compile(dtype=torch.float64, device=device)
     for B in cases:
         states, params, kept = rollout_states(sc, B, device)
         print(f"spring states spring-chain-12 B {B}: {kept}/{B} lanes from the rollout")
+        if design_of(sc, params) != "cooperative":
+            raise AssertionError("spring-chain-12: not routed to the cooperative design")
         err, x = compare_kernel(sc, sc64, params, states, f"spring-chain-12 B {B}")
         if B != cases[0]:
             continue
@@ -1560,7 +1570,11 @@ def phase_perlane_kernel_vs_plain(device="cuda", B=1024):
             near = (l - L).abs() <= 1e-6 * L
             print(f"per-lane {label} B {B}: taut {int((l > L).sum())}, slack "
                   f"{int((l <= L).sum())}, within 1e-6 L of the gate {int(near.sum())}")
-        print(f"per-lane states {label} B {B}: {kept}/{B} lanes from the rollout")
+        want = "thread_per_lane" if label == "scene-13" else "cooperative"
+        print(f"per-lane states {label} B {B}: {kept}/{B} lanes from the rollout "
+              f"({design_of(sc, params)} design)")
+        if design_of(sc, params) != want:
+            raise AssertionError(f"per-lane {label}: not routed to the {want} design")
         err, x = compare_kernel(sc, sc64, params, states, f"per-lane {label} B {B}", exclude=near)
         if B != B0:
             continue
@@ -1582,22 +1596,29 @@ def phase_perlane_kernel_vs_plain(device="cuda", B=1024):
     return records
 
 
-def phase_perlane_rollout(label, scene, s0_of, device="cuda", B=1024, nsteps=50, min_finite=0.95):
+def phase_perlane_rollout(label, scene, s0_of, design, device="cuda", B=1024, nsteps=50,
+                          min_finite=0.95):
     """A BDF2 rollout on the kernel route under perlane_draws(extra=True), with
-    the launch count read around it; its final q against the float64
-    op-level rollout under the same draws (>= 95% of the lanes finite in both
-    within 1e-3 of scale). Returns (launches, finite_frac)."""
+    the launch count of the chord kernel design it must run on (design, which
+    design_of must give) read around it, none of the other; its final q
+    against the float64 op-level rollout under the same draws (>= 95% of the
+    lanes finite in both within 1e-3 of scale). Returns (launches,
+    finite_frac)."""
     sc = scene().compile(dtype=torch.float32, device=device)
     sc64 = scene().compile(dtype=torch.float64, device=device)
     params = draws_extra(sc.params, sc.force_fns, B)
+    if design_of(sc, params) != design:
+        raise AssertionError(f"{label}: routed to the {design_of(sc, params)} design, want "
+                             f"{design}")
     step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG, use_kernel=True)
     s0 = integrators.bdf2_init(s0_of(sc, B, device, torch.float32))
     reset_launches()
     final = integrators.make_simulate(step, nsteps)(params, s0)
     torch.cuda.synchronize()
-    launches = launches_of()
-    if launches != nsteps - 1:
-        raise AssertionError(f"{label}: chord_bdf2 launched {launches} times, want {nsteps - 1}")
+    launches = launches_of(design)
+    if launches != nsteps - 1 or launches_of() != launches:
+        raise AssertionError(f"{label}: chord_bdf2 launched {launches} times on its {design} "
+                             f"design ({launches_of()} in all), want {nsteps - 1}")
     finite_frac = float((torch.isfinite(final.q).all(-1) & torch.isfinite(final.qdot).all(-1))
                         .float().mean())
     sim64 = integrators.make_simulate(integrators.make_bdf2_step_batched(
@@ -1607,7 +1628,8 @@ def phase_perlane_rollout(label, scene, s0_of, device="cuda", B=1024, nsteps=50,
                 integrators.bdf2_init(s0_of(sc, B, device, torch.float64))).q
     err, both = lane_err(final.q, q64)
     within = float((err <= 1e-3).double().mean())
-    print(f"{label}: {nsteps} steps, B {B}, launches {launches}, finite_frac {finite_frac:.4f}; "
+    print(f"{label}: {nsteps} steps, B {B}, launches {launches} ({design} design), "
+          f"finite_frac {finite_frac:.4f}; "
           f"vs op-level f64 final q diff of scale max {float(err.max()):.3e}, {within:.4f} of "
           f"{int(both.sum())} lanes within 1e-3")
     if finite_frac < min_finite or within < 0.95:
@@ -1912,12 +1934,13 @@ def phase_build():
 def phase_coop_probe(device="cuda", B=1024):
     """Where the cooperative kernel's time goes: its probe build on phase 3's
     chain-12 inputs, phase 8's chain-ground-12 ones, phase 22's
-    chain-ground-12 ones in the guarded mode and phase 18's per-lane
-    chain-ground-12 ones, the cycles of the last of 52 launches (two warm,
-    50 timed); returns {case: {"total_cycles", "probe_ms", phase: mean
+    chain-ground-12 ones in the guarded mode, phase 18's per-lane
+    chain-ground-12 ones, phase 10's spring-chain ones and phase 18's
+    per-lane spring-chain ones, the cycles of the last of 52 launches (two
+    warm, 50 timed); returns {case: {"total_cycles", "probe_ms", phase: mean
     cycles a lane}}. The probe's clock reads cost time of their own, so its
-    ms is printed, to be read beside the kernel's of phases 3, 8, 18 and
-    22."""
+    ms is printed, to be read beside the kernel's of phases 3, 8, 10, 18
+    and 22."""
     lib = COOP_PROBE.load()
     i = ctypes.c_int
     chord_kernel.set_coop_argtypes(lib)
@@ -1932,12 +1955,18 @@ def phase_coop_probe(device="cuda", B=1024):
     gstates, gparams, _ = rollout_states(scg, B, device)
     pstates, pparams, _ = rollout_states(scg, B, device, base=draws_extra(scg.params,
                                                                           scg.force_fns, B))
+    scs = scene_spring_chain(12).compile(dtype=torch.float32, device=device)
+    sstates, sparams, _ = rollout_states(scs, B, device)
+    spstates, spparams, _ = rollout_states(scs, B, device, base=draws_extra(scs.params,
+                                                                            scs.force_fns, B))
     out = {}
     for label, scene, params, st, cfg in (
             ("chain-12", sc, {**sc.params, "tau": tau}, states, CFG),
             ("chain-ground-12", scg, gparams, gstates, CFG),
             ("chain-ground-12 guarded", scg, gparams, gstates, ROBUST["guarded"]),
-            ("chain-ground-12 per-lane", scg, pparams, pstates, CFG)):
+            ("chain-ground-12 per-lane", scg, pparams, pstates, CFG),
+            ("spring-chain-12", scs, sparams, sstates, CFG),
+            ("spring-chain-12 per-lane", scs, spparams, spstates, CFG)):
         if design_of(scene, params, cfg) != "cooperative":
             raise AssertionError(f"coop probe {label}: not a build of the cooperative design")
         args = chord_kernel.pack(scene.topo, params, *st, scene.force_fns)
@@ -1952,7 +1981,7 @@ def phase_coop_probe(device="cuda", B=1024):
         def launch():
             lane_f = args[9]
             err = lib.chord_bdf2_coop_launch(
-                scene.topo.njoints, nr, kinds, args[8].contacts, B,
+                scene.topo.njoints, nr, kinds, *args[8], B,
                 *(a.data_ptr() for a in args[:8]), None if lane_f is None else lane_f.data_ptr(),
                 cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
                 int(cfg.guarded), int(cfg.guard_last), int(cfg.chord),
@@ -1999,7 +2028,8 @@ def main():
     spring_record = phase_spring_kernel_vs_plain()
     cable_record = phase_cable_kernel_vs_plain()
     spring_launches, spring_rate, spring_finite = phase_mpc_path("spring path",
-                                                                 scene_spring_chain)
+                                                                 scene_spring_chain,
+                                                                 design="cooperative")
     phase_small_reference("spring path", scene_spring_chain, nlinks=12)
     cable_launches, cable_rate, cable_finite = phase_cable_path()
     qdep_records = phase_qdep_kernel_vs_plain()
@@ -2015,9 +2045,10 @@ def main():
                           draws=perlane_draws)
     sysid_share = phase_sysid_grads()
     pl_spring_launches, pl_spring_finite = phase_perlane_rollout(
-        "per-lane spring rollout", lambda: scene_spring_chain(12), spring_chain_states0)
+        "per-lane spring rollout", lambda: scene_spring_chain(12), spring_chain_states0,
+        "cooperative")
     pl_cable_launches, pl_cable_finite = phase_perlane_rollout(
-        "per-lane cable rollout", scene_13_cables, cable_states0)
+        "per-lane cable rollout", scene_13_cables, cable_states0, "thread_per_lane")
     robust_records = phase_robust_kernel_vs_plain()
     robust_paths = phase_robust_paths()
     backward_modes = phase_backward_modes()
@@ -2037,9 +2068,10 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:237",
         "launches": contact_launches, **contact_record, "library_ms": None,
     }, {
-        # the same kernel with the spring chain's three springs, on the spring path
+        # the same design with the spring chain's three springs, on the
+        # spring path (the thread-per-lane build timed in turns with it)
         "name": "chord_bdf2[springs]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:401",
         "launches": spring_launches, **spring_record, "library_ms": None,
     }, {
@@ -2076,10 +2108,11 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:706",
         "launches": rand_launches, **perlane_records["chain-ground-12"], "library_ms": None,
     }, {
-        # the PERLANE builds: the spring chain (12, 12) with per-lane spring
-        # coefficients, on the per-lane spring rollout
+        # the spring chain (12, 12) with per-lane params and spring
+        # coefficients, on the per-lane spring rollout (the cooperative
+        # design; the thread-per-lane PERLANE build timed in turns with it)
         "name": "chord_bdf2[perlane_springs]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:706",
         "launches": pl_spring_launches, **perlane_records["spring-chain-12"],
         "library_ms": None,

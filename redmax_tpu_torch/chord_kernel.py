@@ -32,20 +32,24 @@ links), and does on the order of 1e5 flops per lane (about twice that with
 a contact on every link), so the operation count, not the bytes, sets the
 least time. Two designs:
 - cooperative (csrc/chord_bdf2_coop.cu, body csrc/chord_bdf2_coop.cuh), on
-  the builds without springs, cables or q-dependent joints that the paths
-  run (COOP_INSTANTIATED): unguarded chord with lane-shared params at
-  (12, 12) and (4, 4), with and without ground contacts; per-lane params
-  with contacts at (12, 12); the robust modes at (12, 12), with and without
-  contacts. One warp per lane, 8 lanes a block, the lane's frames, J, Jdot,
-  the per-body K/D blocks, H, the Gauss-Jordan rows and H^-1 (and the
-  guard's trials, or the lane's params) in shared memory, each phase of the
-  solve split over the warp's 32 threads;
+  the builds without cables or q-dependent joints that the paths run
+  (COOP_INSTANTIATED): unguarded chord with lane-shared params at (12, 12)
+  and (4, 4), with and without ground contacts, and at (12, 12) with
+  springs; per-lane params at (12, 12) with contacts and with springs; the
+  robust modes at (12, 12), with and without contacts. One warp per lane,
+  8 lanes a block, the lane's frames, J, Jdot, the per-body K/D blocks, H,
+  the Gauss-Jordan rows and H^-1 (and the guard's trials, the springs'
+  endpoint states and pair blocks, or the lane's params) in shared memory,
+  each phase of the solve split over the warp's 32 threads. Its spring
+  builds hold at most MAX_COOP_SPRINGS springs: library_of sends a scene
+  with more to the thread-per-lane design;
 - thread per lane (csrc/chord_bdf2.cu, body csrc/chord_bdf2_lane.cuh), on
   every other build: one thread per lane in blocks of 32, the arithmetic in
   order on that thread, J, Jdot, H and the Gauss-Jordan rows in local
   memory. Its builds at the COOP_INSTANTIATED shapes and kinds stay in its
-  libraries only to be timed against the cooperative design (launch(...,
-  thread_per_lane=True)): no wrapper route reaches them.
+  libraries to be timed against the cooperative design (launch(...,
+  thread_per_lane=True)); no wrapper route reaches them but that of a scene
+  with more springs than MAX_COOP_SPRINGS.
 
 The closure code is compiled in only where a scene has that kind of closure,
 the q-dependent joint code only where a scene has such a joint, the
@@ -105,7 +109,10 @@ INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
 # The (N, nr, kinds) that run on the cooperative design (BUILD_COOP).
 COOP_INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
                      (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST),
-                     (12, 12, CONTACTS | PERLANE))
+                     (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS), (12, 12, SPRINGS | PERLANE))
+# The most springs the cooperative design's spring builds hold
+# (kCoopSprings of csrc/chord_bdf2_coop.cuh).
+MAX_COOP_SPRINGS = 3
 # Joint types the kernel covers: FREE2D has no branch there (op level only).
 QDEP_KERNEL_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D)
 KERNEL_TYPES = CONSTANT_S_TYPES + QDEP_KERNEL_TYPES
@@ -199,11 +206,15 @@ def build_of(kinds: int) -> KernelBuild:
     return BUILD_ROBUST if kinds & ROBUST else BUILD
 
 
-def library_of(N: int, nr: int, kinds: int, thread_per_lane: bool = False) -> KernelBuild:
-    """The library that launches (N, nr, kinds): the cooperative design's
-    where it has the build, else the thread-per-lane library of these kinds
-    (thread_per_lane: that one in any case, to time it against the other)."""
-    if not thread_per_lane and (N, nr, kinds) in COOP_INSTANTIATED:
+def library_of(N: int, nr: int, kinds: int, thread_per_lane: bool = False,
+               springs: int = 0) -> KernelBuild:
+    """The library that launches (N, nr, kinds) with this many springs: the
+    cooperative design's where it has the build and its record holds the
+    springs (at most MAX_COOP_SPRINGS), else the thread-per-lane library of
+    these kinds (thread_per_lane: that one in any case, to time it against
+    the other)."""
+    if not thread_per_lane and (N, nr, kinds) in COOP_INSTANTIATED \
+            and springs <= MAX_COOP_SPRINGS:
         return BUILD_COOP
     return build_of(kinds)
 
@@ -231,7 +242,7 @@ def set_coop_argtypes(lib) -> None:
     """The argument types of chord_bdf2_coop_launch in lib (the cooperative
     library, or its probe build)."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.chord_bdf2_coop_launch.argtypes = ([i] * 5 + [p] * 9 + [i, fl, fl, fl, i, i, i]
+    lib.chord_bdf2_coop_launch.argtypes = ([i] * 8 + [p] * 9 + [i, fl, fl, fl, i, i, i]
                                            + [p] * 4)
     lib.chord_bdf2_coop_launch.restype = i
 
@@ -430,7 +441,8 @@ def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures, lane_f=None)
 _LAUNCH_ERRORS = {-1: "no instantiation of (N, nr, kinds) in this library",
                   -2: "per-lane record longer than kMaxLaneRecord",
                   -3: "a robust solve mode in a build without kRobust",
-                  -4: "fixed_iters < 1"}
+                  -4: "fixed_iters < 1",
+                  -5: "more springs than the cooperative build's record holds"}
 
 
 def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, counts: Closures,
@@ -439,14 +451,15 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
     returns (x [nr, B], Hinv [nr*nr, B]) and counts the launch on its
     design's counter. The design is library_of's: thread_per_lane runs the
     thread-per-lane build even where the cooperative design has one (only to
-    time the two against each other)."""
+    time the two against each other; a scene with more springs than
+    MAX_COOP_SPRINGS runs there by library_of's rule)."""
     global chord_bdf2_launches, chord_bdf2_coop_launches
     check_buffers(topo, topo_i, stat_f, counts, lane_f)
     nr, B = x0.shape
     if lane_f is not None and lane_f.shape[1] != B:
         raise ValueError(f"chord_bdf2: a per-lane buffer of {lane_f.shape[1]} lanes for {B}")
     kinds = kinds_of(topo, counts, lane_f is not None, is_robust(cfg))
-    build = library_of(topo.njoints, nr, kinds, thread_per_lane)
+    build = library_of(topo.njoints, nr, kinds, thread_per_lane, counts.springs)
     lib = _build_lib(build)
     x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
     h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
@@ -457,7 +470,7 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
               int(cfg.guarded), int(cfg.guard_last), int(cfg.chord))
     if build is BUILD_COOP:
         err = lib.chord_bdf2_coop_launch(
-            topo.njoints, nr, kinds, counts.contacts, B, *states,
+            topo.njoints, nr, kinds, *counts, B, *states,
             topo_i.data_ptr(), stat_f.data_ptr(), lane_ptr, *solver,
             x_out.data_ptr(), h_out.data_ptr(), None, stream,
         )

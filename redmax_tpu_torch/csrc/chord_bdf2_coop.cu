@@ -1,21 +1,26 @@
 // Fused BDF2 chord-Newton solve for Hopper (sm_90a), one warp per lane: the
 // cooperative design of redmax_tpu/pallas_step.py::_build_kernel's K1a
-// (constant-S joints, no closures) and K1c (penalty ground contact)
-// branches, in the unguarded chord mode with lane-shared params at the
-// (N, NR) the paths run, (12, 12) and (4, 4) with and without contacts;
-// with per-lane params (K1f) at (12, 12) with contacts; and in the robust
-// modes (K1g) at (12, 12) with and without contacts. The phases and what
-// bounds the kernel are in chord_bdf2_coop.cuh; every other build stays on
-// the thread-per-lane kernel (chord_bdf2.cu).
+// (constant-S joints, no closures), K1c (penalty ground contact) and K1d
+// (two-point springs) branches, in the unguarded chord mode with lane-shared
+// params at the (N, NR) the paths run, (12, 12) and (4, 4) with and without
+// contacts, (12, 12) with springs; with per-lane params (K1f) at (12, 12)
+// with contacts and with springs; and in the robust modes (K1g) at (12, 12)
+// with and without contacts. The phases and what bounds the kernel are in
+// chord_bdf2_coop.cuh; every other build (cables, the q-dependent joints,
+// more springs than kCoopSprings) stays on the thread-per-lane kernel
+// (chord_bdf2.cu).
 //
 // Layout: kLanes lanes a block, lane b on warp b % kLanes of block
 // b / kLanes, each warp's record in the block's dynamic shared memory
 // (25,792 bytes a lane at (12, 12), so 206,336 a block: above the 48 KB
 // that needs no opt-in, under the 227 KB a block may have; a robust build's
 // record holds its trials too, a per-lane build's the lane's params, 222,720
-// bytes a block). At B = 1024 that is 128 blocks of 256 threads on the
-// card's 132 SMs, one block and 8 warps an SM (1024 lanes need 8 an SM
-// whatever the layout). A warp whose lane is past B returns at once; no
+// bytes a block with contacts; a spring build's its springs' states and pair
+// blocks, 226,176 bytes a block, 229,888 with per-lane params; a spring
+// build's G J_s share the storage of the K/D blocks, which no phase reads
+// by then). At B = 1024 that is 128 blocks of 256 threads on the card's 132
+// SMs, one block and 8 warps an SM (1024 lanes need 8 an SM whatever the
+// layout). A warp whose lane is past B returns at once; no
 // phase waits on another warp (no block-wide barrier). Built with nvcc into
 // a shared library with a plain C interface and loaded with ctypes
 // (chord_kernel.py); built again with -DCHORD_COOP_PROBE, it also counts
@@ -112,19 +117,22 @@ cudaError_t launch_kernel(int B, const float* x0, const float* q0, const float* 
 }  // namespace
 
 // Returns a cudaError_t (0 = launched), -1 for an (N, NR, kinds) without
-// an instantiation here, -2 for a per-lane record longer than
-// kMaxLaneRecord, -3 for a robust solve mode (guarded, guard_last or
-// chord_mode == 0) in a build without kRobust, or -4 for fixed_iters < 1.
+// an instantiation here, -2 for a per-lane record (7N + 4 + 13 ncontacts +
+// 9 nsprings + 3 ncable_points + 3 ncables floats) longer than the build's
+// (coop_record_floats), -3 for a robust solve mode (guarded, guard_last or
+// chord_mode == 0) in a build without kRobust, -4 for fixed_iters < 1, or
+// -5 for more springs than a kSprings build's record holds (kCoopSprings).
 // kinds is the build's FEAT bitmask as the wrapper routed it
-// (chord_kernel.kinds_of); ncontacts the count topo_i holds. A kPerlane
+// (chord_kernel.kinds_of); the counts are those topo_i holds. A kPerlane
 // build reads the lane's params from lane_f ([P, B]); a kRobust build runs
 // the mode (guarded, guard_last, chord_mode). Every pointer is device
 // memory; the state buffers are struct-of-arrays [NR, B], topo_i, stat_f
 // and lane_f as chord_bdf2_launch reads them (chord_bdf2_lane.cuh). probe
 // ([B, kPhases] int64: each lane's cycles by phase) is written by the probe
 // build only; the wrapper's build takes null.
-extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, int B,
-                                      const float* x0, const float* q0, const float* qd0,
+extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, int nsprings,
+                                      int ncables, int ncable_points, int B, const float* x0,
+                                      const float* q0, const float* qd0,
                                       const float* q1, const float* qd1, const float* tau,
                                       const int* topo_i, const float* stat_f,
                                       const float* lane_f, int fixed_iters,
@@ -134,17 +142,21 @@ extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, i
   using chord::kContacts;
   using chord::kPerlane;
   using chord::kRobust;
+  using chord::kSprings;
   const chord::ChordConfig cfg{fixed_iters, growth_reject, tol_reject, dx_clamp};
   const chord::RobustConfig rc{guarded, guard_last, chord_mode};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int record = 7 * N + 4 + 13 * ncontacts + 9 * nsprings + 3 * ncable_points + 3 * ncables;
   if (B <= 0) return 0;
   if (fixed_iters < 1) return -4;
-  if ((kinds & kPerlane) != 0 && 7 * N + 4 + 13 * ncontacts > chord::kMaxLaneRecord) return -2;
   if ((kinds & kRobust) == 0 && (guarded != 0 || guard_last != 0 || chord_mode == 0)) return -3;
 #define COOP_LAUNCH(n, nr, f)                                                                 \
-  if (N == n && NR == nr && kinds == (f))                                                     \
+  if (N == n && NR == nr && kinds == (f)) {                                                   \
+    if (((f) & kSprings) != 0 && nsprings > chord::coop::kCoopSprings) return -5;             \
+    if (((f) & kPerlane) != 0 && record > chord::coop::coop_record_floats<n, f>()) return -2; \
     return launch_kernel<n, nr, f>(B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, \
-                                   rc, x_out, hinv_out, probe, s);
+                                   rc, x_out, hinv_out, probe, s);                            \
+  }
   COOP_LAUNCH(12, 12, 0)
   COOP_LAUNCH(12, 12, kContacts)
   COOP_LAUNCH(4, 4, 0)
@@ -152,6 +164,8 @@ extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, i
   COOP_LAUNCH(12, 12, kRobust)
   COOP_LAUNCH(12, 12, kContacts | kRobust)
   COOP_LAUNCH(12, 12, kContacts | kPerlane)
+  COOP_LAUNCH(12, 12, kSprings)
+  COOP_LAUNCH(12, 12, kSprings | kPerlane)
 #undef COOP_LAUNCH
   return -1;
 }
@@ -171,6 +185,7 @@ extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR, int feat) {
   using chord::kContacts;
   using chord::kPerlane;
   using chord::kRobust;
+  using chord::kSprings;
 #define COOP_SMEM(n, nr, f) \
   if (N == n && NR == nr && feat == (f)) return static_cast<long>(smem_bytes<n, nr, f>());
   COOP_SMEM(12, 12, 0)
@@ -180,6 +195,8 @@ extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR, int feat) {
   COOP_SMEM(12, 12, kRobust)
   COOP_SMEM(12, 12, kContacts | kRobust)
   COOP_SMEM(12, 12, kContacts | kPerlane)
+  COOP_SMEM(12, 12, kSprings)
+  COOP_SMEM(12, 12, kSprings | kPerlane)
 #undef COOP_SMEM
   return -1;
 }

@@ -2,22 +2,26 @@
 // every value that crosses a phase in the lane's record in shared memory.
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
-// (:689-1320) on its constant-S branches without closures (K1a) and with
-// penalty ground contact (K1c, _ground_contact :237-345): in the unguarded
-// chord mode with lane-shared params, with per-lane params (K1f, the
-// perlane reads :706-712, :767-841: kPerlane) and in the robust modes
-// (K1g, :1220-1313: kRobust), all in one solve loop. The other branches
-// (springs, cables, the q-dependent joints) stay on the thread-per-lane
-// body of chord_bdf2_lane.cuh, whose helpers (Frame, frame_mul, frame_inv,
-// adjoint, mat6_vec, ad_vec, adT_vec, rt_vec, local_force_blocks,
-// ground_contact, Shared, ChordConfig, RobustConfig) this file calls as
-// they are. Every sum runs in the thread-per-lane body's order, so the two
-// give the same result bit for bit wherever the compiler contracts the
-// same multiply-adds (always under g++, which contracts none).
+// (:689-1320) on its constant-S branches without closures (K1a), with
+// penalty ground contact (K1c, _ground_contact :237-345) and with two-point
+// springs (K1d, _spring_force :401, _point_pair_blocks :516 and their terms
+// of residual and hessian): in the unguarded chord mode with lane-shared
+// params, with per-lane params (K1f, the perlane reads :706-712, :767-841:
+// kPerlane, with contacts or with springs) and in the robust modes (K1g,
+// :1220-1313: kRobust), all in one solve loop. The other branches (cables,
+// the q-dependent joints) stay on the thread-per-lane body of
+// chord_bdf2_lane.cuh, whose helpers (Frame, frame_mul, frame_inv, adjoint,
+// mat6_vec, ad_vec, adT_vec, rt_vec, local_force_blocks, ground_contact,
+// Point, add_point_wrench, spring_force, pair_block, Shared, ChordConfig,
+// RobustConfig) this file calls as they are. Every sum runs in the
+// thread-per-lane body's order, so the two give the same result bit for
+// bit wherever the compiler contracts the same multiply-adds (always under
+// g++, which contracts none).
 //
 // What bounds it on an H100: per-lane f32 arithmetic, about 1.4e5 flops a
-// lane at N = nr = 12 (2.4e5 with a contact on every link, 4.0e5 guarded),
-// against 0.9 KB of state in and out (1 KB more with per-lane params). The
+// lane at N = nr = 12 (2.4e5 with a contact on every link, 1.6e5 with the
+// spring chain's three springs, 4.0e5 guarded), against 0.9 KB of state in
+// and out (0.5-1 KB more with per-lane params). The
 // thread-per-lane body issues those flops one after another on one thread,
 // with J, H and the Gauss-Jordan rows in local memory. Here the 32 threads
 // of a warp split each phase of the solve over its parallel width, with
@@ -36,14 +40,20 @@
 //              W[r]
 //   J, Jdot    per (body, column) pair that moves: J; per body: phi; per
 //              column: Wdot[r]; per pair: Jdot
+//   springs    (kSprings) per (spring, endpoint): the endpoint's state; per
+//              spring: its world force fW (and, where H is built, A =
+//              dfW/d(dx) and Bm = dfW/d(dv)), the force on each endpoint
 //   forces     per body: the maximal force with the body's own ground
 //              contacts and, where H is built, its closed-form K/D blocks
 //              (the contact force and its blocks in one ground_contact
-//              call); then the body's w = I J dq - ch2 (f - I Jdot qdot)
+//              call), then the wrenches of the spring endpoints on it; then
+//              the body's w = I J dq - ch2 (f - I Jdot qdot)
 //   residual   per column: g[r] = sum over bodies of J_r . w
-//   H          per pair: cK K J_s + cD D J_s and J_s I; per (r, s):
-//              H[r][s], summed over the bodies in hessian's order, plus the
-//              joint terms on the diagonal
+//   H          per pair: cK K J_s + cD D J_s and J_s I; (kSprings) per pair
+//              block (spring, e, f) with both endpoints on bodies: G, then
+//              per (block, column s): G J_s; per (r, s): H[r][s], summed
+//              over the bodies, then over the blocks, in hessian's order,
+//              plus the joint terms on the diagonal
 //   GJ         one pivot at a time, each row of the elimination a thread,
 //              from one [NR][2NR] buffer into the other
 //   step       per column: dx = H^-1 g (thread 0: |g|); x -= dx, clamped
@@ -79,12 +89,14 @@ constexpr int kWarp = 32;  // threads a lane
 // chord_bdf2_coop.cu adds each phase's cycles to its slot (kPhaseNames).
 enum Phase {
   kLaneRecord, kSetup, kPairs, kJoints, kTree, kFrames, kJacobian, kTwists, kWdot, kJdot,
-  kForcesBlocks, kForces, kNewtonTerms, kNewtonMatrix, kGaussJordan, kResidual, kStepDx,
-  kStepUpdate, kTrial, kGuardPick, kGuardAccept, kWriteOut, kPhases
+  kSpringPoints, kSpringForces, kForcesBlocks, kForces, kNewtonTerms, kSpringBlocks,
+  kSpringColumns, kNewtonMatrix, kGaussJordan, kResidual, kStepDx, kStepUpdate, kTrial,
+  kGuardPick, kGuardAccept, kWriteOut, kPhases
 };
 constexpr const char* kPhaseNames[kPhases] = {
     "lane_record", "setup", "pairs", "joints", "fk_tree", "body_frames", "jacobian", "twists",
-    "world_columns_dot", "jacobian_dot", "body_forces_blocks", "body_forces", "newton_terms",
+    "world_columns_dot", "jacobian_dot", "spring_points", "spring_forces",
+    "body_forces_blocks", "body_forces", "newton_terms", "spring_blocks", "spring_columns",
     "newton_matrix", "gj_pivot", "residual_columns", "step_dx", "step_update", "trial",
     "guard_pick", "guard_accept", "write_out"};
 
@@ -121,8 +133,13 @@ struct alignas(16) Lane {
   alignas(16) Frame Ewj[N];  // joint frames in the world
   alignas(16) Frame Ew[N];   // body frames in the world
   alignas(16) float Abw[N][6][6];  // Ad(inv(E_wi))
-  alignas(16) float Kb[N][6][6];   // each body's closed-form K/D blocks
-  alignas(16) float Db[N][6][6];
+  // Each body's closed-form K/D blocks (KDb[0] K, KDb[1] D), from
+  // body_forces to newton_terms; a kSprings build then keeps G J_s of its
+  // pair blocks there (GJ, read by newton_matrix), as many blocks as fit.
+  union {
+    alignas(16) float KDb[2][N][6][6];
+    alignas(16) float GJ[2 * N * 6 / NR][NR][6];
+  };
   alignas(16) float M[2][NR][2 * NR];  // Gauss-Jordan [H | I], pivot k reads M[k & 1]
   alignas(16) float J[N][NR][6];
   alignas(16) float Jd[N][NR][6];
@@ -157,26 +174,63 @@ struct alignas(16) LaneRobust : Lane<N, NR> {
   int pick;
 };
 
-// The record of a kPerlane build: the lane's record of lane_f, which its
-// Shared reads the physical params from.
+// The springs a kSprings build's record holds, and their pair blocks (a
+// block for each ordered pair of endpoints on bodies: four a spring at
+// most).
+constexpr int kCoopSprings = 3;
+constexpr int kCoopBlocks = 4 * kCoopSprings;
+
+// The record of a kSprings build: each endpoint's state at the iterate and
+// the world force on it, each spring's A = dfW/d(dx) and Bm = dfW/d(dv)
+// where H is built, and each pair block (spring, e, f) with both endpoints
+// on bodies, in hessian's order: its bodies and G = cK K + cD D (G J_s goes
+// to the base record's GJ).
 template <int N, int NR>
-struct alignas(16) LanePerlane : Lane<N, NR> {
-  alignas(16) float rec[kMaxLaneRecord];
+struct alignas(16) LaneSprings : Lane<N, NR> {
+  static_assert(kCoopBlocks * NR <= 2 * N * 6, "G J_s of every block fits in the K/D blocks");
+  alignas(16) float G[kCoopBlocks][6][6];
+  float F[kCoopSprings][2][3];  // the world force on endpoint e, +fW on 0, -fW on 1
+  float A[kCoopSprings][3][3];
+  float Bm[kCoopSprings][3][3];
+  Point pt[kCoopSprings][2];
+  int blk[kCoopBlocks];       // 4 s + 2 e + f
+  int blkb[kCoopBlocks][2];   // the bodies of endpoints e and f
+  int nblocks;
 };
 
-// The record of a build of kinds FEAT: the fields of the robust modes or of
-// the per-lane params only where FEAT has them, so the other builds keep
-// their record.
+// Floats of the per-lane record a kPerlane build holds: kMaxLaneRecord; in a
+// kSprings build, the fields its scenes have (I_i, bd, g, h and
+// kCoopSprings springs: 7N + 4 + 9 kCoopSprings, to a multiple of 4), so
+// that the record and the springs' fields fit a block's shared memory.
+template <int N, int FEAT>
+constexpr int coop_record_floats() {
+  return (FEAT & kSprings) != 0 ? (7 * N + 4 + 9 * kCoopSprings + 3) / 4 * 4 : kMaxLaneRecord;
+}
+
+// The record of a kPerlane build: the lane's record of lane_f (P floats at
+// most), which its Shared reads the physical params from.
+template <class Base, int P>
+struct alignas(16) LanePerlane : Base {
+  alignas(16) float rec[P];
+};
+
+// The record of a build of kinds FEAT: the fields of the robust modes, of
+// the springs or of the per-lane params only where FEAT has them, so the
+// other builds keep their record.
+template <int N, int NR, int FEAT>
+using LaneBase = std::conditional_t<(FEAT & kSprings) != 0, LaneSprings<N, NR>, Lane<N, NR>>;
 template <int N, int NR, int FEAT>
 using LaneOf = std::conditional_t<
     (FEAT & kRobust) != 0, LaneRobust<N, NR>,
-    std::conditional_t<(FEAT & kPerlane) != 0, LanePerlane<N, NR>, Lane<N, NR>>>;
+    std::conditional_t<(FEAT & kPerlane) != 0,
+                       LanePerlane<LaneBase<N, NR, FEAT>, coop_record_floats<N, FEAT>()>,
+                       LaneBase<N, NR, FEAT>>>;
 
 // Lane `lane` of the [P, B] per-lane buffer into the record, a float a
 // thread.
-template <int N, int NR>
-CHORD_HD void lane_record(int t, const Shared<N, NR>& sh, LanePerlane<N, NR>& L,
-                          const float* lane_f, int lane, int B) {
+template <int N, int NR, class Rec>
+CHORD_HD void lane_record(int t, const Shared<N, NR>& sh, Rec& L, const float* lane_f, int lane,
+                          int B) {
   const int P = sh.lane_record_size();
   for (int k = t; k < P; k += kWarp) L.rec[k] = lane_f[k * B + lane];
 }
@@ -234,6 +288,31 @@ CHORD_HD void setup_pairs(int t, Lane<N, NR>& L) {
   for (int r = 0; r < NR; ++r)
     if (L.moves(t, r)) L.pairs[at++] = t * NR + r;
   if (t == N - 1) L.npairs = at;
+}
+
+// The pair blocks of each spring, spring by spring: each spring's thread
+// writes its own, (e, f) over its endpoints on bodies, after the blocks of
+// the springs before it.
+template <int N, int NR>
+CHORD_HD void setup_springs(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& L) {
+  if (t > 0 && t >= sh.nsprings) return;
+  int at = 0;
+  for (int s = 0; s < t; ++s) {
+    const int n = (sh.sspec[4 * s + 1] >= 0 ? 1 : 0) + (sh.sspec[4 * s + 2] >= 0 ? 1 : 0);
+    at += n * n;
+  }
+  for (int e = 0; e < 2 && t < sh.nsprings; ++e) {
+    const int b = sh.sspec[4 * t + 1 + e];
+    for (int f = 0; f < 2 && b >= 0; ++f) {
+      const int c = sh.sspec[4 * t + 1 + f];
+      if (c < 0) continue;
+      L.blk[at] = 4 * t + 2 * e + f;
+      L.blkb[at][0] = b;
+      L.blkb[at][1] = c;
+      ++at;
+    }
+  }
+  if (t == (sh.nsprings > 0 ? sh.nsprings - 1 : 0)) L.nblocks = at;
 }
 
 // qdot at the iterate xe, the BDF2 increment dq and the joint forces
@@ -428,6 +507,109 @@ CHORD_HD void jacobian_dot(int t, Lane<N, NR>& L) {
   }
 }
 
+// The state of endpoint e of spring s at the record's Ew and phi
+// (point_state's arithmetic), a (spring, endpoint) a thread.
+template <int N, int NR>
+CHORD_HD void spring_points(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& L) {
+  if (t >= 2 * sh.nsprings) return;
+  const int s = t / 2, e = t % 2;
+  const int b = sh.sspec[4 * s + 1 + e];
+  const float* sp = sh.sp + 9 * s + 3 * e;
+  const float r[3] = {sp[0], sp[1], sp[2]};
+  Point P;
+  P.b = b;
+  for (int i = 0; i < 3; ++i) {
+    P.r[i] = r[i];
+    P.x[i] = r[i];
+    P.v[i] = 0.0f;
+    P.u[i] = 0.0f;
+  }
+  if (b >= 0) {
+    alignas(16) Frame E;
+    alignas(16) float phi[6];
+    copy_frame(E, L.Ew[b]);
+    copy_f<6>(phi, L.phi[b]);
+    cross3(phi, r, P.u);
+    for (int i = 0; i < 3; ++i) P.u[i] = P.u[i] + phi[3 + i];
+    for (int i = 0; i < 3; ++i) {
+      P.x[i] = E.p[i] + (E.R[i][0] * r[0] + E.R[i][1] * r[1] + E.R[i][2] * r[2]);
+      P.v[i] = E.R[i][0] * P.u[0] + E.R[i][1] * P.u[1] + E.R[i][2] * P.u[2];
+    }
+  }
+  L.pt[s][e] = P;
+}
+
+// Spring s's world force fW (spring_force), the force on each endpoint
+// (+fW on 0, -fW on 1) and, where H is built (blocks), A and Bm; a spring a
+// thread.
+template <int N, int NR>
+CHORD_HD void spring_forces(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& L, bool blocks) {
+  if (t >= sh.nsprings) return;
+  const int* spec = sh.sspec + 4 * t;
+  const Point p1 = L.pt[t][0], p2 = L.pt[t][1];
+  float fW[3], A[3][3], Bm[3][3];
+  if (blocks)
+    spring_force<true>(p1, p2, sh.sp + 9 * t, spec[0], spec[3], fW, A, Bm);
+  else
+    spring_force<false>(p1, p2, sh.sp + 9 * t, spec[0], spec[3], fW, A, Bm);
+  for (int e = 0; e < 2; ++e) {
+    const float se = e == 0 ? 1.0f : -1.0f;
+    for (int i = 0; i < 3; ++i) L.F[t][e][i] = se * fW[i];
+  }
+  if (!blocks) return;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      L.A[t][i][j] = A[i][j];
+      L.Bm[t][i][j] = Bm[i][j];
+    }
+}
+
+// G of pair block k (spring s, endpoint e's wrench against endpoint f's
+// perturbation, pair_block with dF_e/dx_f = s_e sig_f A: the application
+// signs s = (+1, -1), the dx signs sig = (-1, +1)), a block a thread.
+template <int N, int NR>
+CHORD_HD void spring_blocks(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& L) {
+  if (t >= L.nblocks) return;
+  const int code = L.blk[t];
+  const int s = code / 4, e = (code / 2) % 2, f = code % 2;
+  const float h = sh.h;
+  const float cK = -(4.0f / 9.0f) * h * h;
+  const float cD = -(2.0f / 3.0f) * h;
+  const float se = e == 0 ? 1.0f : -1.0f;
+  alignas(16) Frame Eb, Ec;
+  alignas(16) float G[6][6];
+  copy_frame(Eb, L.Ew[L.blkb[t][0]]);
+  copy_frame(Ec, L.Ew[L.blkb[t][1]]);
+  const Point pe = L.pt[s][e], pf = L.pt[s][f];
+  float A[3][3], Bm[3][3], F[3], fb[3];
+  for (int i = 0; i < 3; ++i) {
+    F[i] = L.F[s][e][i];
+    for (int j = 0; j < 3; ++j) {
+      A[i][j] = L.A[s][i][j];
+      Bm[i][j] = L.Bm[s][i][j];
+    }
+  }
+  rt_vec(Eb.R, F, fb);
+  pair_block(Eb, pe, fb, Ec, pf, A, Bm, se * (f == 0 ? -1.0f : 1.0f), e == f, cK, cD, G);
+  copy_f<36>(&L.G[t][0][0], &G[0][0]);
+}
+
+// GJ[k][s] = G_k J_c[s] of each pair block k (bodies b, c) and column s that
+// moves body c (add_pair's), a (block, column) a thread, into the K/D
+// blocks' storage (newton_terms has read them).
+template <int N, int NR>
+CHORD_HD void spring_columns(int t, LaneSprings<N, NR>& L) {
+  for (int q = t; q < L.nblocks * NR; q += kWarp) {
+    const int k = q / NR, s = q % NR, c = L.blkb[k][1];
+    if (!L.moves(c, s)) continue;
+    alignas(16) float G[6][6], Js[6], GJs[6];
+    copy_f<36>(&G[0][0], &L.G[k][0][0]);
+    copy_f<6>(Js, L.J[c][s]);
+    mat6_vec(G, Js, GJs);
+    copy_f<6>(L.GJ[k][s], GJs);
+  }
+}
+
 // The index of body i's k-th ground contact (k < its count).
 template <int N, int NR>
 CHORD_HD int nth_contact(const Shared<N, NR>& sh, int i, int k) {
@@ -437,7 +619,9 @@ CHORD_HD int nth_contact(const Shared<N, NR>& sh, int i, int k) {
 }
 
 // Each body's maximal force f = ad(phi)^T (I phi) + [0; m R^T g] - bd phi
-// with its own ground contacts, and its residual term
+// with its own ground contacts and (kSprings) the wrenches of the spring
+// endpoints on it, summed from zero in (spring, endpoint) order as the
+// residual gathers them, and its residual term
 // w = I (J dq) - ch2 (f - I (Jdot qdot)); BLOCKS also writes its
 // closed-form K/D blocks (local_force_blocks and the contacts' blocks, the
 // contact force and its blocks from one ground_contact call). Every body's
@@ -445,7 +629,7 @@ CHORD_HD int nth_contact(const Shared<N, NR>& sh, int i, int k) {
 // them side by side rather than one body after another (a loop over the
 // scene's contacts with a test for the body would diverge there).
 template <int N, int NR, int FEAT, bool BLOCKS>
-CHORD_HD void body_forces(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+CHORD_HD void body_forces(int t, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>& L) {
   constexpr bool CONTACTS = (FEAT & kContacts) != 0;
   if (t >= N) return;
   const int i = t;
@@ -468,12 +652,20 @@ CHORD_HD void body_forces(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
       for (int k = 0; k < L.ncontacts[i]; ++k)
         ground_contact<true>(E, phi, sh.cp + 13 * nth_contact(sh, i, k), sh.h, gmag, fm, Kb, Db);
     }
-    copy_f<36>(&L.Kb[i][0][0], &Kb[0][0]);
-    copy_f<36>(&L.Db[i][0][0], &Db[0][0]);
+    copy_f<36>(&L.KDb[0][i][0][0], &Kb[0][0]);
+    copy_f<36>(&L.KDb[1][i][0][0], &Db[0][0]);
   } else if constexpr (CONTACTS) {
     for (int k = 0; k < L.ncontacts[i]; ++k)
       ground_contact<false>(E, phi, sh.cp + 13 * nth_contact(sh, i, k), sh.h, 0.0f, fm, nullptr,
                             nullptr);
+  }
+  if constexpr ((FEAT & kSprings) != 0) {
+    float fcl[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int s = 0; s < sh.nsprings; ++s)
+      for (int e = 0; e < 2; ++e)
+        if (sh.sspec[4 * s + 1 + e] == i)
+          add_point_wrench(E, sh.sp + 9 * s + 3 * e, L.F[s][e], fcl);
+    for (int k = 0; k < 6; ++k) fm[k] = fm[k] + fcl[k];
   }
   const float ch2 = (4.0f / 9.0f) * sh.h * sh.h;
   alignas(16) float Jr[6], Jdr[6], w[6];
@@ -522,8 +714,8 @@ CHORD_HD void newton_terms(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
     const float* Ii = sh.Ii + 6 * i;
     alignas(16) float Kb[6][6], Db[6][6], Js[6], KD[6], IJ[6];
     float KJs[6], DJs[6];
-    copy_f<36>(&Kb[0][0], &L.Kb[i][0][0]);
-    copy_f<36>(&Db[0][0], &L.Db[i][0][0]);
+    copy_f<36>(&Kb[0][0], &L.KDb[0][i][0][0]);
+    copy_f<36>(&Db[0][0], &L.KDb[1][i][0][0]);
     copy_f<6>(Js, L.J[i][s]);
     mat6_vec(Kb, Js, KJs);
     mat6_vec(Db, Js, DJs);
@@ -537,14 +729,16 @@ CHORD_HD void newton_terms(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
 }
 
 // H[r][s] = sum over bodies of m_rs + kd + cD (-2) qvv (hessian's terms:
-// J_r I . J_s, J_r . KD_s, J_r I . Jdot_s, in its order) plus the joint
+// J_r I . J_s, J_r . KD_s, J_r I . Jdot_s, in its order), then (kSprings)
+// over the pair blocks k (bodies b, c) of J_b[r] . GJ[k][s] where r moves b
+// and s moves c (add_pair's), plus the joint
 // terms on the diagonal, into the left half of M[0], the identity into its
 // right half. The (r, s) go to the threads by m = max(r, s) (item q of
 // m^2 <= q < (m + 1)^2), so the threads of one pass share most of their
 // bodies (in a chain, the bodies from m's on): the warp runs a body's sums
 // where any of its threads needs them.
-template <int N, int NR>
-CHORD_HD void newton_matrix(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+template <int N, int NR, int FEAT>
+CHORD_HD void newton_matrix(int t, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>& L) {
   const float h = sh.h;
   const float cK = -(4.0f / 9.0f) * h * h;
   const float cD = -(2.0f / 3.0f) * h;
@@ -570,6 +764,18 @@ CHORD_HD void newton_matrix(int t, const Shared<N, NR>& sh, Lane<N, NR>& L) {
         qvv = qvv + IJr[k] * Jds[k];
       }
       acc = acc + m_rs + kd + cD * (-2.0f) * qvv;
+    }
+    if constexpr ((FEAT & kSprings) != 0) {
+      for (int k = 0; k < L.nblocks; ++k) {
+        const int b = L.blkb[k][0], c = L.blkb[k][1];
+        if (!L.moves(b, r) || !L.moves(c, s)) continue;
+        alignas(16) float Jr[6], GJs[6];
+        copy_f<6>(Jr, L.J[b][r]);
+        copy_f<6>(GJs, L.GJ[k][s]);
+        float a = 0.0f;
+        for (int m = 0; m < 6; ++m) a = a + Jr[m] * GJs[m];
+        acc = acc + a;
+      }
     }
     if (r == s) {
       const float x = L.x[r];
@@ -729,13 +935,27 @@ CHORD_HD void kinematics(const Run& run, const Shared<N, NR>& sh, Lane<N, NR>& L
   run(kJdot, [&](int t) { jacobian_dot<N, NR>(t, L); });
 }
 
-// The forces, w and the K/D blocks at the kinematics' iterate, then H and
-// H^-1 there (newton_matrix's joint terms at the record's x).
+// The endpoint states and forces of the springs at the kinematics' iterate
+// (with A and Bm where H is built: blocks).
+template <int N, int NR, class Run>
+CHORD_HD void spring_state(const Run& run, const Shared<N, NR>& sh, LaneSprings<N, NR>& L,
+                           bool blocks) {
+  run(kSpringPoints, [&](int t) { spring_points<N, NR>(t, sh, L); });
+  run(kSpringForces, [&](int t) { spring_forces<N, NR>(t, sh, L, blocks); });
+}
+
+// The forces, w and the K/D blocks at the kinematics' iterate (and the
+// springs' pair blocks there), then H and H^-1 there (newton_matrix's joint
+// terms at the record's x).
 template <int N, int NR, int FEAT, class Run>
-CHORD_HD void newton_inverse(const Run& run, const Shared<N, NR>& sh, Lane<N, NR>& L) {
+CHORD_HD void newton_inverse(const Run& run, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>& L) {
   run(kForcesBlocks, [&](int t) { body_forces<N, NR, FEAT, true>(t, sh, L); });
   run(kNewtonTerms, [&](int t) { newton_terms<N, NR>(t, sh, L); });
-  run(kNewtonMatrix, [&](int t) { newton_matrix<N, NR>(t, sh, L); });
+  if constexpr ((FEAT & kSprings) != 0) {
+    run(kSpringBlocks, [&](int t) { spring_blocks<N, NR>(t, sh, L); });
+    run(kSpringColumns, [&](int t) { spring_columns<N, NR>(t, L); });
+  }
+  run(kNewtonMatrix, [&](int t) { newton_matrix<N, NR, FEAT>(t, sh, L); });
   CHORD_NO_UNROLL
   for (int k = 0; k < NR; ++k) run(kGaussJordan, [&](int t) { gj_pivot<N, NR>(t, L, k); });
 }
@@ -743,7 +963,9 @@ CHORD_HD void newton_inverse(const Run& run, const Shared<N, NR>& sh, Lane<N, NR
 // One lane's fixed-iteration solve: H and H^-1 at the predictor x0, then
 // fixed_iters steps x -= H^-1 g(x), the rejection, the write-out
 // (chord_bdf2_lane's semantics). A kPerlane build reads the lane's physical
-// params from lane_f. A kRobust build runs the mode rc names
+// params from lane_f. A kSprings build evaluates its springs after the
+// kinematics of each iterate (their states and forces; their pair blocks
+// where H is built). A kRobust build runs the mode rc names
 // (chord_bdf2_lane_robust's semantics): chord=False re-builds H and H^-1 at
 // x at every iterate; a guarded iteration (every one, or with guard_last the
 // last one only) evaluates the residual at the full and at the half trial
@@ -768,13 +990,19 @@ CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, con
                     float* x_out, float* hinv_out, const float* lane_f = nullptr,
                     RobustConfig rc = RobustConfig{0, 0, 1}) {
   constexpr bool ROBUST = (FEAT & kRobust) != 0;
-  static_assert((FEAT & ~(kContacts | kPerlane | kRobust)) == 0 &&
-                    (FEAT & (kPerlane | kRobust)) != (kPerlane | kRobust),
+  constexpr bool SPRINGS = (FEAT & kSprings) != 0;
+  static_assert(((FEAT & ~(kContacts | kPerlane | kRobust)) == 0 &&
+                 (FEAT & (kPerlane | kRobust)) != (kPerlane | kRobust)) ||
+                    FEAT == kSprings || FEAT == (kSprings | kPerlane),
                 "the cooperative solve runs no closure but ground contact, with per-lane "
-                "params or the robust modes, not both");
+                "params or the robust modes, not both; or springs alone, with lane-shared or "
+                "per-lane params");
   const Shared<N, NR> sh = lane_params<N, NR, FEAT>(run, L, topo_i, stat_f, lane_f, lane, B);
   run(kSetup, [&](int t) { setup<N, NR>(t, sh, L, lane, B, x0s, q0s, qd0s, q1s, qd1s, taus); });
-  run(kPairs, [&](int t) { setup_pairs<N, NR>(t, L); });
+  run(kPairs, [&](int t) {
+    setup_pairs<N, NR>(t, L);
+    if constexpr (SPRINGS) setup_springs<N, NR>(t, sh, L);
+  });
   bool have_g = false, stayput = false;
   CHORD_NO_UNROLL
   for (int it = 0; it < cfg.fixed_iters; ++it) {
@@ -795,6 +1023,7 @@ CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, con
         }
       }
       kinematics<N, NR>(run, sh, L, xe);
+      if constexpr (SPRINGS) spring_state<N, NR>(run, sh, L, e == 0 && rebuild);
       if (e == 0 && rebuild) {  // H and H^-1 at x
         newton_inverse<N, NR, FEAT>(run, sh, L);
       } else {

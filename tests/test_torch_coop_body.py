@@ -21,11 +21,13 @@ the tree and the forest the cooperative body gives the thread-per-lane
 body's result (chord_bdf2_lane.cuh, built in the same g++ unit) bit for
 bit: it sums in the same order, and g++ contracts no multiply-add.
 
-The wrapper routes the seven builds of the cooperative design (the four
-chord shapes, the two robust ones and the per-lane contact one) to its
-library and passes each its solve mode and per-lane buffer, and a failed
-build or launch there raises without falling back to the thread-per-lane
-library.
+The wrapper routes the nine builds of the cooperative design (the four
+chord shapes, the two robust ones, the per-lane contact one and the spring
+chain's with lane-shared and with per-lane params) to its library and
+passes each its closure counts, solve mode and per-lane buffer; a scene
+with more springs than that design's record holds goes to the
+thread-per-lane library by rule, and a failed build or launch there raises
+without falling back to the thread-per-lane library.
 
 These builds are tests only, never a route of a wrapper.
 """
@@ -51,6 +53,7 @@ from redmax_tpu_torch import integrators as tint
 from test_torch_chord import BENCH_GROUND, contact_states, corner_regimes
 from test_torch_lane_body import CFG_KW, _gxx_build, _port, _states
 from test_torch_model import mixed_builder
+from test_torch_springs import spring_chain_jax
 
 LOOP = r"""
 #include <cstring>
@@ -149,6 +152,12 @@ def jax_scene(name, mu=0.5, floor_z=BENCH_GROUND["floor_z"]):
         return jtree(depth=3, branch=2).compile(dtype=jnp.float32)
     if name == "forest-4":
         return forest_builder().compile(dtype=jnp.float32)
+    if name == "spring-chain-12":
+        return spring_chain_jax().compile(dtype=jnp.float32)
+    if name == "spring-chain-12-plus":  # a fourth spring: more than the cooperative record holds
+        b = spring_chain_jax()
+        b.force_point_point(-1, 6, xl1=(3.0, 0.0, 1.0), xl2=(0.5, 0, 0), k=20.0, d=1.0)
+        return b.compile(dtype=jnp.float32)
     nlinks = int(name.split("-")[-1])
     if name.startswith("chain-ground"):
         return jground(nlinks=nlinks, **{**BENCH_GROUND, "mu": mu, "floor_z": floor_z}).compile(
@@ -319,7 +328,7 @@ def test_coop_body_nan_lane_stays_in_its_lane(coop_lib, scene):
     np.testing.assert_array_equal(hinvp[keep], hinv[keep])
 
 
-C, R, PL = chord_kernel.CONTACTS, chord_kernel.ROBUST, chord_kernel.PERLANE
+C, R, PL, S = chord_kernel.CONTACTS, chord_kernel.ROBUST, chord_kernel.PERLANE, chord_kernel.SPRINGS
 # A launch of each cooperative build: (scene, solve mode, per-lane h), and
 # the (N, nr, kinds) it runs.
 COOP_CASES = {
@@ -333,6 +342,8 @@ COOP_CASES = {
     "chain-ground-12-guarded_rehess": ("chain-ground-12", "guarded_rehess", False,
                                        (12, 12, C | R)),
     "chain-ground-12-perlane": ("chain-ground-12", "chord", True, (12, 12, C | PL)),
+    "spring-chain-12": ("spring-chain-12", "chord", False, (12, 12, S)),
+    "spring-chain-12-perlane": ("spring-chain-12", "chord", True, (12, 12, S | PL)),
 }
 MODES = {"chord": CFG_KW, "guarded": dict(CFG_KW, guarded=True),
          "guard_last": dict(CFG_KW, guard_last=True), "rehess": dict(CFG_KW, chord=False),
@@ -353,13 +364,14 @@ def _coop_launch_case(case, B=4):
 
 
 def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
-    """The builds without springs, cables or q-dependent joints that the
-    paths run go to the cooperative library: the unguarded chord builds
-    with lane-shared params at (12, 12) and (4, 4), with and without
-    contacts, the robust builds at (12, 12), with and without contacts, and
-    the per-lane build with contacts at (12, 12); the thread-per-lane
-    libraries keep them only for an explicit call, and every other build
-    stays where it was."""
+    """The builds without cables or q-dependent joints that the paths run go
+    to the cooperative library: the unguarded chord builds with lane-shared
+    params at (12, 12) and (4, 4), with and without contacts, the robust
+    builds at (12, 12), with and without contacts, the per-lane build with
+    contacts at (12, 12) and the spring builds at (12, 12) with and without
+    per-lane params (up to MAX_COOP_SPRINGS springs); the thread-per-lane
+    libraries keep them for an explicit call and for more springs, and every
+    other build stays where it was."""
     assert set(chord_kernel.COOP_INSTANTIATED) == {c[3] for c in COOP_CASES.values()}
     assert set(chord_kernel.COOP_INSTANTIATED) <= set(chord_kernel.INSTANTIATED)
     assert chord_kernel.BUILD_COOP in chord_kernel.BUILDS
@@ -369,13 +381,15 @@ def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
         assert chord_kernel.library_of(N, nr, kinds) is want
         assert chord_kernel.library_of(N, nr, kinds, thread_per_lane=True) \
             is chord_kernel.build_of(kinds)
-    # springs, cables and per-lane params without contacts keep their
-    # libraries, and so does a robust mode at (4, 4) or with per-lane params
-    # (neither has a build on the card)
-    S = chord_kernel.SPRINGS
-    assert chord_kernel.library_of(12, 12, S | PL) is chord_kernel.BUILD_PERLANE
+    # springs up to MAX_COOP_SPRINGS go to the cooperative library, more to
+    # the thread-per-lane one; cables keep their libraries, and so does a
+    # robust mode at (4, 4) or with per-lane params (neither has a build on
+    # the card)
+    most = chord_kernel.MAX_COOP_SPRINGS
+    for kinds, lane in ((S, chord_kernel.BUILD), (S | PL, chord_kernel.BUILD_PERLANE)):
+        assert chord_kernel.library_of(12, 12, kinds, springs=most) is chord_kernel.BUILD_COOP
+        assert chord_kernel.library_of(12, 12, kinds, springs=most + 1) is lane
     assert chord_kernel.library_of(4, 3, chord_kernel.CABLES | PL) is chord_kernel.BUILD_PERLANE
-    assert chord_kernel.library_of(12, 12, S) is chord_kernel.BUILD
     assert chord_kernel.library_of(4, 4, C | R) is chord_kernel.BUILD_ROBUST
     assert chord_kernel.library_of(12, 12, C | PL | R) is chord_kernel.BUILD_PERLANE
 
@@ -383,9 +397,10 @@ def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
 @pytest.mark.parametrize("case", list(COOP_CASES))
 def test_wrapper_launches_the_cooperative_build(monkeypatch, case):
     """launch sends each cooperative build's inputs to chord_bdf2_coop_launch
-    with the kinds it routed them by, its contact count, its per-lane buffer
-    and its solve mode (guarded, guard_last, chord), and counts the launch on
-    the cooperative counter only."""
+    with the kinds it routed them by, its closure counts (contacts, springs,
+    cables, cable points), its per-lane buffer and its solve mode (guarded,
+    guard_last, chord), and counts the launch on the cooperative counter
+    only."""
     topo, cfg, packed = _coop_launch_case(case)
     seen = []
     lib = types.SimpleNamespace(chord_bdf2_coop_launch=lambda *a: seen.append(a) or 0)
@@ -402,10 +417,10 @@ def test_wrapper_launches_the_cooperative_build(monkeypatch, case):
         (before[0], before[1] + 1)
     (a,) = seen
     lane_f = packed[9]
-    assert a[:5] == (topo.njoints, topo.nr, kinds, packed[8].contacts, 4)
-    assert a[5:11] == tuple(t.data_ptr() for t in packed[:6])
-    assert a[13] == (None if lane_f is None else lane_f.data_ptr())
-    assert a[14:21] == (cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+    assert a[:8] == (topo.njoints, topo.nr, kinds, *packed[8], 4)
+    assert a[8:14] == tuple(t.data_ptr() for t in packed[:6])
+    assert a[16] == (None if lane_f is None else lane_f.data_ptr())
+    assert a[17:24] == (cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
                         int(cfg.guarded), int(cfg.guard_last), int(cfg.chord))
 
 
@@ -413,11 +428,14 @@ def test_wrapper_launches_the_cooperative_build(monkeypatch, case):
                                    "launch-chain-12-guarded", "build-chain-ground-12-rehess",
                                    "launch-chain-ground-12-rehess",
                                    "build-chain-ground-12-perlane",
-                                   "launch-chain-ground-12-perlane"])
+                                   "launch-chain-ground-12-perlane",
+                                   "build-spring-chain-12", "launch-spring-chain-12",
+                                   "build-spring-chain-12-perlane",
+                                   "launch-spring-chain-12-perlane"])
 def test_failed_coop_build_or_launch_raises_without_fallback(monkeypatch, fault):
     """A cooperative build that fails, or a launch that returns an error,
     raises: the thread-per-lane library is never loaded and no counter
-    moves (on chain-ground-4, and on each of the robust and per-lane
+    moves (on chain-ground-4, and on each of the robust, per-lane and spring
     cooperative builds)."""
     fault, _, case = fault.partition("-")
     topo, cfg, packed = _coop_launch_case(case or "chain-ground-4")
@@ -441,3 +459,46 @@ def test_failed_coop_build_or_launch_raises_without_fallback(monkeypatch, fault)
     with pytest.raises(RuntimeError, match="nvcc failed" if fault == "build" else "error 700"):
         chord_kernel.launch(topo, cfg, *packed)
     assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == before
+
+
+@pytest.mark.parametrize("perlane", [False, True])
+def test_wrapper_routes_more_springs_than_the_record_holds_to_thread_per_lane(monkeypatch,
+                                                                              perlane):
+    """The spring chain with a fourth spring (MAX_COOP_SPRINGS is 3), with
+    lane-shared and with per-lane params: library_of's rule on the spring
+    count sends it to the thread-per-lane library before any launch (the
+    cooperative library is never loaded), launch passes that library its
+    counts and counts the launch on its counter, and chip_smoke.design_of
+    reports the thread-per-lane design there and the cooperative one for
+    the spring chain itself."""
+    import chip_smoke
+
+    B = 4
+    for name, want in (("spring-chain-12", "cooperative"),
+                       ("spring-chain-12-plus", "thread_per_lane")):
+        topo, params, fns = _port(jax_scene(name))
+        if perlane:
+            params = {**params, "h": params["h"] * (1 + 0.1 * torch.arange(B))}
+        sc = types.SimpleNamespace(topo=topo, force_fns=fns)
+        assert chip_smoke.design_of(sc, params) == want
+    assert len(fns) == chord_kernel.MAX_COOP_SPRINGS + 1
+    states, tau = contact_states(topo.nr, B)
+    packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
+                               *(torch.tensor(a) for a in states), fns)
+    lane_build = chord_kernel.BUILD_PERLANE if perlane else chord_kernel.BUILD
+    seen = []
+    lib = types.SimpleNamespace(chord_bdf2_launch=lambda *a: seen.append(a) or 0)
+
+    def only_thread_per_lane(b):
+        assert b is lane_build, b.name
+        return lib
+
+    monkeypatch.setattr(chord_kernel, "_build_lib", only_thread_per_lane)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+    before = (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches)
+    chord_kernel.launch(topo, tint.NewtonConfig(**CFG_KW), *packed)
+    assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == \
+        (before[0] + 1, before[1])
+    (a,) = seen
+    assert a[:9] == (12, 12, 0, int(perlane), 0, 4, 0, 0, B)
