@@ -5,12 +5,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure is an exception and a non-zero exit):
   1. card and toolchain: torch.cuda must be available;
   2. build the kernels (csrc/) with nvcc for sm_90a, one nvcc per library,
-     side by side (the chord kernel's thread-per-lane design as it stands,
-     with the q-dependent joints, with per-lane params and with the robust
-     solve modes, its cooperative design, and the dual PGS), and print each
-     library's build time, their -Xptxas -v register/spill reports and the
-     cooperative design's layout (lanes a block, shared memory a block of
-     each of its builds);
+     side by side (the chord kernel's fixed libraries: the thread-per-lane
+     design as it stands, with the q-dependent joints, with per-lane params
+     and with the robust solve modes, its cooperative design, and the dual
+     PGS; and the builds made for one shape that the phases below launch:
+     the cooperative K1b builds, the default-route cases of phase 26 and
+     uni6's probe build, each picked by the shape rule before anything is
+     built), and print each library's build time, their -Xptxas -v
+     register/spill reports and each cooperative build's layout (lanes a
+     block, shared memory a block);
   3. hold the chord kernel against its plain PyTorch version on the card
      (scene_chain(12) at B = 1024, 1000 and 997, scene_chain(4); the
      wrapper runs the cooperative design there, one launch a call): x within
@@ -31,8 +34,9 @@ Phases (any failure is an exception and a non-zero exit):
      within 2e-5, lambda within 2e-4 of scale), and the contact QPs of the
      6-link floor chain at (6, 12) (m > n makes the dual singular, so x and
      the primal objective are held by quantiles against the plain version in
-     float64, not lambda); time the launch, the wrapper and the plain
-     version, and compute the kernel's bound;
+     float64, not lambda); time the launch (200 launches in a CUDA graph,
+     and CUDA events over 200 back-to-back launches), the wrapper and the
+     plain version, and compute the kernel's bound;
   6. the contact-QP path: scene_floor_chain(6), B = 1024, f32, 20 linearly
      implicit Euler steps with 40 PGS sweeps through make_euler_step_batched
      and make_simulate on the kernel route, with the launch count read around
@@ -74,8 +78,10 @@ Phases (any failure is an exception and a non-zero exit):
  13. the cable rollout: scene 13, B = 1024 lanes from its initial state plus
      a seeded perturbation, 50 BDF2 steps on the kernel route (49 launches
      per rollout), timed, against the float64 op-level rollout;
- 14. hold the chord kernel with the q-dependent joints (the QDEP build)
-     against its plain version: the universal-6 chain at B = 1024 and
+ 14. hold the chord kernel with the q-dependent joints (K1b: the
+     cooperative QDEP builds made for their shapes, timed in turns with the
+     thread-per-lane QDEP builds) against its plain version: the
+     universal-6 chain at B = 1024 and
      B = 1000, the spherical-4 chain and scene 9's FREE3D body at B = 1024,
      on states 8 steps into a rollout under the path's torques, plus seeded
      lanes whose exp-map rotations lie in the Taylor branch (s < 0.04), just
@@ -83,7 +89,8 @@ Phases (any failure is an exception and a non-zero exit):
      phase 3 on at least 99% of lanes, a NaN lane, timed;
  15. the universal-6 path: benchmarks/qdep_ablation.py's uni6_kernel row (6
      universal joints, nr = 12, horizon 50, B = 1024, f32, one Adam step)
-     with the checks of phase 4 and the post-step reparam timed in the split;
+     with the checks of phase 4 (the cooperative design's 49 launches a
+     solve) and the post-step reparam timed in the split;
  16. the spherical-4 path: its sph4_kernel row (4 exp-map spherical joints),
      the same;
  17. the FREE3D rollout: scene 9, B = 1024 lanes with the rotation drawn
@@ -133,10 +140,22 @@ Phases (any failure is an exception and a non-zero exit):
      source with -DCHORD_COOP_PROBE, each phase's clock64() cycles summed on
      each warp) on phase 3's chain-12 and phase 8's chain-ground-12 inputs,
      phase 22's chain-ground-12 inputs in the guarded mode, phase 18's
-     per-lane chain-ground-12 inputs, phase 10's spring-chain inputs and
-     phase 18's per-lane spring-chain inputs, at B = 1024, cycles a lane by
-     phase, and the probe build's own time;
- 26. print the kernels line (every row with its design, threads a lane and
+     per-lane chain-ground-12 inputs, phase 10's spring-chain inputs,
+     phase 18's per-lane spring-chain inputs and phase 14's universal-6
+     inputs (its own probe build), at B = 1024, cycles a lane by phase, and
+     the probe build's own time;
+ 26. the default route (use_kernel=None) at shapes and kind mixes that no
+     fixed library holds, at B = 1024 and a ragged 1000: scene 0 (5, 3),
+     scene 12 (2, 2, springs), scene_chain(8) with lane-shared and with
+     per-lane params, chain-ground-6 with a spring-damper (contacts and
+     springs), a universal chain with a contact
+     on each link, the randomized contact solve in guarded3 (per-lane
+     params and a robust mode) and reference case 6's Euler rollout on
+     dual_pgs (n = 2): each case's design, its build's nvcc seconds and
+     ptxas line, a short rollout on the route with its launch count, the
+     kernel against its plain version (compare_kernel's tolerances and
+     shares; the QP's x and lambda, and its rollout against float64), timed;
+ 27. print the kernels line (every row with its design, threads a lane and
      lanes a block; the cooperative rows with the thread-per-lane build's
      time of this run), the paths' lines (robust_path, backward_modes and
      coop_phases among them), the card's name and power limit, and the
@@ -150,6 +169,7 @@ designs' launches.
 
 import ctypes
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -164,7 +184,8 @@ import torch
 
 from redmax_tpu_torch import chord_kernel, forces, integrators, model, mpc, qp_kernel
 from redmax_tpu_torch.kernel_build import KernelBuild
-from redmax_tpu_torch.scenes import (scene_09_free3d, scene_13_cables, scene_chain,
+from redmax_tpu_torch.scenes import (scene_00_serial_chain, scene_09_free3d,
+                                     scene_12_spring_damper, scene_13_cables, scene_chain,
                                      scene_chain_ground, scene_floor_chain, scene_qdep_chain,
                                      scene_spring_chain)
 from redmax_tpu_torch.scenes_matlab import build_mscene
@@ -240,13 +261,10 @@ def launches_of(design=None) -> int:
 
 def design_of(sc, params, cfg=CFG) -> str:
     """The chord kernel design the wrapper routes this scene, params and
-    solve mode to (the thread-per-lane one for more springs than the
-    cooperative record holds, chord_kernel.MAX_COOP_SPRINGS)."""
-    counts = chord_kernel.counts_of(chord_kernel.closure_spec(sc.topo, sc.force_fns))
-    kinds = chord_kernel.kinds_of(sc.topo, counts, chord_kernel.has_perlane(params),
-                                  chord_kernel.is_robust(cfg))
-    build = chord_kernel.library_of(sc.topo.njoints, sc.topo.nr, kinds, springs=counts.springs)
-    return "cooperative" if build is chord_kernel.BUILD_COOP else "thread_per_lane"
+    solve mode to (chord_kernel.scene_build's shape rule, decided before
+    anything is built)."""
+    build = chord_kernel.scene_build(sc.topo, sc.force_fns, params, cfg)
+    return "cooperative" if chord_kernel.is_coop(build) else "thread_per_lane"
 
 
 # so3_exp_S per lane, on its closed-form branch (s >= 0.04; the Taylor
@@ -388,9 +406,12 @@ def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG):
         prev = lambda: chord_kernel.launch(sc.topo, cfg, *args, thread_per_lane=True)
         prev_ms = (graph_ms(prev, reps=200) + graph_ms(prev, reps=200)) / 2
         ms = (ms + graph_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)) / 2
-        lib = chord_kernel._build_lib(chord_kernel.BUILD_COOP)
+        lib = chord_kernel._build_lib(chord_kernel.scene_build(sc.topo, fns, params, cfg))
+        kinds = chord_kernel.kinds_of(sc.topo, args[8], args[9] is not None,
+                                      chord_kernel.is_robust(cfg))
         design = {"design": "warp_per_lane", "threads_per_lane": 32,
-                  "lanes_per_block": lib.chord_bdf2_coop_lanes_per_block(),
+                  "lanes_per_block": lib.chord_bdf2_coop_lanes_per_block(
+                      sc.topo.njoints, sc.topo.nr, kinds),
                   "prev_design": "thread_per_lane", "prev_design_ms": prev_ms}
         print(f"chord_bdf2 at {label}, B {B}: cooperative (a warp a lane, "
               f"{design['lanes_per_block']} lanes a block) {ms:.4f} ms, thread-per-lane "
@@ -772,8 +793,19 @@ def phase_qp_kernel_vs_plain(device="cuda", B=1024):
         raise AssertionError("dual_pgs (6, 12): kernel further from float64 than twice the "
                              "float32 plain version")
 
+    return time_qp_kernel(qps, dxk, "(6, 12)")
+
+
+def time_qp_kernel(qps, max_abs_err, label):
+    """The kernel record fields of dual_pgs on the QPs qps: launch time (200
+    launches in a CUDA graph, graph_ms; and events_ms, CUDA events over 200
+    back-to-back launches, the only timing before), the wrapper's with its
+    layout copies, the plain version's, and the bound."""
+    B, n = qps[1].shape
+    m = qps[2].shape[1]
     packed = qp_kernel.pack(*qps)
-    ms = cuda_ms(lambda: qp_kernel.launch(*packed, PGS_ITERS, PGS_REG), reps=200)
+    ms = graph_ms(lambda: qp_kernel.launch(*packed, PGS_ITERS, PGS_REG), reps=200)
+    events_ms = cuda_ms(lambda: qp_kernel.launch(*packed, PGS_ITERS, PGS_REG), reps=200)
     wrap_ms = cuda_ms(lambda: qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG), reps=100)
     plain_ms = cuda_ms(lambda: qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG),
                        reps=5)
@@ -781,13 +813,14 @@ def phase_qp_kernel_vs_plain(device="cuda", B=1024):
     nbytes = 4 * B * (n * n + n + m * n + 3 * m + n + m)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
-    print(f"dual_pgs at (6, 12), B {B}, {PGS_ITERS} sweeps: kernel {ms:.4f} ms, wrapper with "
+    print(f"dual_pgs at {label} {(n, m)}, B {B}, {PGS_ITERS} sweeps: kernel {ms:.4f} ms (CUDA "
+          f"events over back-to-back launches {events_ms:.4f} ms), wrapper with "
           f"layout copies {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops // B} flops/lane "
           f"({t_ops * 1e3:.3f} us), {nbytes} bytes ({t_bytes * 1e3:.3f} us); bound "
           f"{bound * 1e3:.3f} us, kernel at {bound / ms:.2%} of it; dependent chain "
           f"{PGS_ITERS * m} row updates per lane, {ms * 1e6 / (PGS_ITERS * m):.1f} ns each")
-    return {"max_abs_err": dxk, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    return {"max_abs_err": max_abs_err, "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "design": "thread_per_lane", "threads_per_lane": 1, "lanes_per_block": 32}
 
 
@@ -1880,6 +1913,161 @@ def phase_backward_modes(device="cuda", B=1024, horizon=50, grad_horizon=5):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The default route at the shapes and kind mixes no fixed library holds
+# ---------------------------------------------------------------------------
+
+
+def chain_ground_spring(n=6):
+    """Ground contacts mixed with a spring: chain-ground-6 (chain_ground's
+    contacts) with a spring-damper from a world point above the root to the
+    tip."""
+    b = scene_chain_ground(nlinks=n, kn=100.0, kt=0.1, kd=10.0, mu=0.5, h=1e-2, floor_z=-0.06)
+    b.name = f"chain-ground-{n}-spring"
+    b.force_spring_damper(-1, n - 1, [0.0, 0.0, 3.0], [0.5, 0.0, 0.0], k=200.0, d=2.0)
+    return b
+
+
+def universal_ground(n=3):
+    """A q-dependent joint with a closure: the universal chain of
+    scene_qdep_chain with chain_ground's contact on every link (the links'
+    bottom faces 0.01 above the floor)."""
+    b = scene_qdep_chain("universal", n)
+    b.name = f"universal-{n}-ground"
+    E_g = np.eye(4)
+    E_g[2, 3] = -0.06
+    for i in range(n):
+        b.force_ground_cuboid(i, E_ground=E_g, kn=100.0, kt=0.1, kd=10.0, mu=0.5)
+    return b
+
+
+# (label, scene builder, solve mode, per-lane draws or None, the TPU kernel
+# branch it runs) of the chord cases of phase 26: shapes and kind mixes
+# that no fixed library holds, each on the build the shape rule picks
+DEFAULT_ROUTE = (
+    ("scene 0", scene_00_serial_chain, CFG, None, "redmax_tpu/pallas_step.py:689"),
+    ("scene 12", scene_12_spring_damper, CFG, None, "redmax_tpu/pallas_step.py:401"),
+    ("chain-8", lambda: scene_chain(8), CFG, None, "redmax_tpu/pallas_step.py:689"),
+    ("per-lane chain-8", lambda: scene_chain(8), CFG, perlane_draws,
+     "redmax_tpu/pallas_step.py:706"),
+    ("chain-ground-6 + spring", chain_ground_spring, CFG, None,
+     "redmax_tpu/pallas_step.py:237"),
+    ("universal-3 + ground", universal_ground, CFG, None, "redmax_tpu/pallas_step.py:907"),
+    ("randomized chain-ground-12 guarded3", lambda: chain_ground(12), ROBUST["guarded"],
+     perlane_draws, "redmax_tpu/pallas_step.py:1226"),
+)
+
+
+def mscene6_states(sc, B, device, dtype, seed=5):
+    """Reference case 6's lanes: the limited joint at U(-1.2, 1.2) (its
+    limits are +-pi/4, so about a third of the lanes start past one), the
+    root at N(0, 0.3), qdot N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    q = np.stack([0.3 * rng.normal(size=B), rng.uniform(-1.2, 1.2, size=B)], axis=1)
+    qd = rng.normal(size=(B, 2))
+    return State(q=torch.tensor(q, dtype=dtype, device=device),
+                 qdot=torch.tensor(qd, dtype=dtype, device=device))
+
+
+def build_line(build) -> str:
+    """The nvcc seconds of phase 2 and the ptxas line of a build."""
+    regs = "; ".join(f"{k}: {r} registers, {fr}-byte frame, spill stores/loads {st}/{ld}"
+                     for k, r, fr, st, ld in ptxas_kernels(build.ptxas_report or ""))
+    return f"{build.name} (nvcc {NVCC_SECONDS.get(build.name, float('nan')):.1f} s; {regs})"
+
+
+def phase_default_route(device="cuda", Bs=(1024, 1000), nsteps=4):
+    """The default route (make_bdf2_step_batched and make_euler_step_batched
+    with use_kernel=None) on the card at shapes and kind mixes no fixed
+    library holds (DEFAULT_ROUTE, and reference case 6's QP on dual_pgs),
+    at B = 1024 and a ragged 1000: the design each case takes (the shape
+    rule, before any build), its build's nvcc seconds and ptxas line; an
+    nsteps rollout through the default route, launching the routed design
+    nsteps - 1 times and the other never; the kernel against its plain
+    version by compare_kernel's tolerances and shares on states 8 steps
+    into a rollout (the QP: x within 2e-5 and lambda within 2e-4 of scale
+    of the plain version, and the rollout within 1e-3 of scale of the
+    float64 op-level rollout on 95% of lanes); timed at B = 1024. Returns
+    the kernel records by label (with launches: those of the B = 1024
+    rollout)."""
+    t0 = time.perf_counter()
+    records = {}
+    for label, make, cfg, draws, _ in DEFAULT_ROUTE:
+        for B in Bs:
+            sc = make().compile(dtype=torch.float32, device=device)
+            sc64 = make().compile(dtype=torch.float64, device=device)
+            base = None if draws is None else draws(sc.params, sc.force_fns, B)
+            params0 = sc.params if base is None else base
+            if not chord_kernel.supports(sc.topo, sc.force_fns, cfg):
+                raise AssertionError(f"{label}: the default route does not take the kernel")
+            routed = design_of(sc, params0, cfg)
+            build = chord_kernel.scene_build(sc.topo, sc.force_fns, params0, cfg)
+            states, params, kept = rollout_states(sc, B, device, base=base)
+            step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, cfg)
+            s0 = integrators.bdf2_init(State(q=states[3], qdot=states[4]))
+            reset_launches()
+            final = integrators.make_simulate(step, nsteps)(params, s0)
+            torch.cuda.synchronize()
+            launches = launches_of(routed)
+            finite = float((torch.isfinite(final.q).all(-1)).float().mean())
+            print(f"default route {label} (N, nr) = {(sc.topo.njoints, sc.topo.nr)}, B {B}: "
+                  f"{routed} design, {build_line(build)}; {kept}/{B} lanes from the rollout; "
+                  f"{nsteps}-step rollout: {launches} launches, finite {finite:.4f}")
+            if launches != nsteps - 1 or launches_of() != launches:
+                raise AssertionError(f"{label}: {launches} launches of the {routed} design "
+                                     f"({launches_of()} in all), want {nsteps - 1}")
+            if finite < 0.9:
+                raise AssertionError(f"{label}: the default-route rollout kept {finite} finite")
+            robust = chord_kernel.is_robust(cfg)
+            err, x = compare_kernel(sc, sc64, params, states, f"default route {label} B {B}",
+                                    cfg=cfg, mask_ok=0.99 if robust else 1.0)
+            if B == Bs[0]:
+                records[label] = {**time_chord_kernel(sc, params, states, err, label, cfg),
+                                  "launches": launches}
+
+    # reference case 6: the joint-limit QP, (n, m) = (2, rows)
+    for B in Bs:
+        sc = build_mscene(6, dtype=torch.float32, device=device)
+        sc64 = build_mscene(6, dtype=torch.float64, device=device)
+        s0 = mscene6_states(sc, B, device, torch.float32)
+        qps = contact_qps(sc, s0)
+        n, m = qps[1].shape[1], qps[2].shape[1]
+        build = qp_kernel.build_for(n, m)
+        x, lam = qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)
+        x_ref, lam_ref = qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG)
+        torch.cuda.synchronize()
+        active = float(torch.isinf(qps[5]).any(-1).float().mean())
+        xs, ls = max(1.0, float(x_ref.abs().max())), max(1.0, float(lam_ref.abs().max()))
+        dx, dl = float((x - x_ref).abs().max()), float((lam - lam_ref).abs().max())
+        print(f"default route mscene 6 QP {(n, m)}, B {B}: {build_line(build)}; {active:.4f} of "
+              f"lanes with an active limit; max|dx| {dx:.3e} of scale {xs:.3e}, max|dlam| "
+              f"{dl:.3e} of scale {ls:.3e}")
+        if not (torch.isfinite(x).all() and torch.isfinite(lam).all()) or active == 0:
+            raise AssertionError("mscene 6 QP: non-finite output, or no active limit")
+        if dx > 2e-5 * xs or dl > 2e-4 * ls:
+            raise AssertionError("mscene 6 QP: kernel disagrees with its plain version")
+        step = integrators.make_euler_step_batched(sc.topo, (), sc.constraint_fns)
+        qp_kernel.dual_pgs_launches = 0
+        q = integrators.make_simulate(step, 20)(sc.params, s0).q
+        torch.cuda.synchronize()
+        launches = qp_kernel.dual_pgs_launches
+        q64 = integrators.make_simulate(
+            integrators.make_euler_step_batched(sc64.topo, (), sc64.constraint_fns,
+                                                use_kernel=False), 20)(
+            sc64.params, mscene6_states(sc64, B, device, torch.float64)).q
+        errq, both = lane_err(q, q64)
+        within = float((errq <= 1e-3).double().mean()) * float(both.double().mean())
+        print(f"default route mscene 6 Euler rollout, B {B}: {launches} dual_pgs launches in 20 "
+              f"steps; final q vs f64 op-level: {within:.4f} of lanes within 1e-3 of scale, "
+              f"max {float(errq.max()):.3e}")
+        if launches != 20 or within < 0.95:
+            raise AssertionError("mscene 6 rollout: wrong launch count, or off the f64 rollout")
+        if B == Bs[0]:
+            records["mscene 6"] = {**time_qp_kernel(qps, dx, "mscene 6"), "launches": launches}
+    print(f"default-route phase: {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def ptxas_kernels(report: str):
     """(kernel, registers, frame bytes, spill store bytes, spill load bytes)
     of each kernel in an nvcc -Xptxas -v report, the kernel named by its
@@ -1902,11 +2090,50 @@ def ptxas_kernels(report: str):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def probe_build(build):
+    """The cooperative build `build` again with its phase probe
+    (-DCHORD_COOP_PROBE): COOP_PROBE for the fixed library."""
+    if build is chord_kernel.BUILD_COOP:
+        return COOP_PROBE
+    return KernelBuild(build.name + "_probe", build.sources,
+                       defines=build.defines + ("-DCHORD_COOP_PROBE",))
+
+
+# The K1b paths' scenes (uni6, sph4 and scene 9's FREE3D body)
+QDEP_SCENES = (("universal-6", lambda: uni6()), ("spherical-4", lambda: sph4()),
+               ("free3d scene 9", lambda: free3d()))
+# nvcc seconds of each library of phase 2, by name
+NVCC_SECONDS = {}
+
+
+def on_demand_builds():
+    """The builds made for one scene (chord_kernel.build_for,
+    qp_kernel.build_for) that the phases launch, by the shape rule on each
+    case's scene, params and solve mode (nothing is built to decide): the
+    K1b paths' and the default-route cases' (phase 26); and the cooperative
+    probe build of uni6 (phase 25)."""
+    out = []
+    cases = [(make, CFG, None) for _, make in QDEP_SCENES] + [c[1:4] for c in DEFAULT_ROUTE]
+    for make, cfg, draws in cases:
+        sc = make().compile(dtype=torch.float32, device="cpu")
+        params = sc.params if draws is None else draws(sc.params, sc.force_fns, 4)
+        out.append(chord_kernel.scene_build(sc.topo, sc.force_fns, params, cfg))
+    out.append(probe_build(out[0]))
+    sc = build_mscene(6, dtype=torch.float32, device="cpu")
+    n, m = contact_qps(sc, mscene6_states(sc, 1, "cpu", torch.float32))[2].shape[1:][::-1]
+    out.append(qp_kernel.build_for(n, m))
+    fixed = set(chord_kernel.BUILDS) | {qp_kernel.BUILD, COOP_PROBE}
+    return tuple(dict.fromkeys(b for b in out if b not in fixed))
+
+
 def phase_build():
-    """Build every kernel library, one nvcc each, side by side; print their
-    ptxas reports and the cooperative design's layout."""
+    """Build every kernel library, one nvcc each, side by side: the fixed
+    libraries and the builds that the phases make for one scene; print
+    their ptxas reports and the cooperative design's layout."""
     t0 = time.perf_counter()
-    builds = chord_kernel.BUILDS + (qp_kernel.BUILD, COOP_PROBE)
+    fixed = chord_kernel.BUILDS + (qp_kernel.BUILD, COOP_PROBE)
+    builds = fixed + on_demand_builds()
     for build in builds:  # one nvcc per library, side by side
         build.start()
     done = {}
@@ -1914,41 +2141,54 @@ def phase_build():
         done.update({b.name: time.perf_counter() - t0 for b in builds
                      if b.name not in done and not b.compiling()})
         time.sleep(0.1)
-    for build in chord_kernel.BUILDS:
-        chord_kernel._build_lib(build)
-    qp_kernel._build_lib()
-    COOP_PROBE.load()
+    NVCC_SECONDS.update(done)
+    coop_builds = []
+    for build in builds:
+        if build.sources[0] == "dual_pgs.cu":
+            qp_kernel._build_lib(build)
+        elif build.name.endswith("_probe"):
+            build.load()
+        else:
+            chord_kernel._build_lib(build)
+            if chord_kernel.is_coop(build):
+                coop_builds.append(build)
     print(f"build: {time.perf_counter() - t0:.1f} s; nvcc of each library (side by side, s): "
           + ", ".join(f"{n} {s:.1f}" for n, s in done.items()))
     for build in builds:
         for kernel, regs, frame, stores, loads in ptxas_kernels(build.ptxas_report):
             print(f"ptxas {build.name} {kernel}: {regs} registers, {frame}-byte frame, "
                   f"spill stores/loads {stores}/{loads}")
-    coop = chord_kernel.BUILD_COOP.lib
-    print(f"chord_bdf2_coop layout: {coop.chord_bdf2_coop_lanes_per_block()} lanes (warps) a "
-          "block; dynamic shared memory a block: " + ", ".join(
-              f"{(N, nr, kinds)} {coop.chord_bdf2_coop_smem_bytes(N, nr, kinds)} bytes"
-              for N, nr, kinds in chord_kernel.COOP_INSTANTIATED))
+    for build in coop_builds:
+        keys = chord_kernel.COOP_INSTANTIATED if build is chord_kernel.BUILD_COOP else [
+            tuple(int(d.split("=")[1]) for d in build.defines[1:4])]
+        print(f"{build.name} layout: lanes (warps) a block and dynamic shared memory a block: "
+              + ", ".join(f"{key} {build.lib.chord_bdf2_coop_lanes_per_block(*key)} lanes, "
+                          f"{build.lib.chord_bdf2_coop_smem_bytes(*key)} bytes" for key in keys))
 
 
 def phase_coop_probe(device="cuda", B=1024):
     """Where the cooperative kernel's time goes: its probe build on phase 3's
     chain-12 inputs, phase 8's chain-ground-12 ones, phase 22's
     chain-ground-12 ones in the guarded mode, phase 18's per-lane
-    chain-ground-12 ones, phase 10's spring-chain ones and phase 18's
-    per-lane spring-chain ones, the cycles of the last of 52 launches (two
+    chain-ground-12 ones, phase 10's spring-chain ones, phase 18's
+    per-lane spring-chain ones and the universal-6 chain's (the K1b build,
+    its probe built for it), the cycles of the last of 52 launches (two
     warm, 50 timed); returns {case: {"total_cycles", "probe_ms", phase: mean
     cycles a lane}}. The probe's clock reads cost time of their own, so its
     ms is printed, to be read beside the kernel's of phases 3, 8, 10, 18
     and 22."""
-    lib = COOP_PROBE.load()
     i = ctypes.c_int
-    chord_kernel.set_coop_argtypes(lib)
-    lib.chord_bdf2_coop_phases.restype = i
-    lib.chord_bdf2_coop_phase_name.argtypes = [i]
-    lib.chord_bdf2_coop_phase_name.restype = ctypes.c_char_p
-    names = [lib.chord_bdf2_coop_phase_name(k).decode()
-             for k in range(lib.chord_bdf2_coop_phases())]
+
+    def probe_lib(scene, params, cfg):
+        lib = probe_build(chord_kernel.scene_build(scene.topo, scene.force_fns, params,
+                                                   cfg)).load()
+        chord_kernel.set_coop_argtypes(lib)
+        lib.chord_bdf2_coop_phases.restype = i
+        lib.chord_bdf2_coop_phase_name.argtypes = [i]
+        lib.chord_bdf2_coop_phase_name.restype = ctypes.c_char_p
+        return lib, [lib.chord_bdf2_coop_phase_name(k).decode()
+                     for k in range(lib.chord_bdf2_coop_phases())]
+
     sc = scene_chain(12).compile(dtype=torch.float32, device=device)
     states, tau = rand_states(sc.topo.nr, B, seed=1, device=device)
     scg = chain_ground(12).compile(dtype=torch.float32, device=device)
@@ -1959,6 +2199,8 @@ def phase_coop_probe(device="cuda", B=1024):
     sstates, sparams, _ = rollout_states(scs, B, device)
     spstates, spparams, _ = rollout_states(scs, B, device, base=draws_extra(scs.params,
                                                                             scs.force_fns, B))
+    scu = uni6().compile(dtype=torch.float32, device=device)
+    ustates, uparams, _ = rollout_states(scu, B, device)
     out = {}
     for label, scene, params, st, cfg in (
             ("chain-12", sc, {**sc.params, "tau": tau}, states, CFG),
@@ -1966,9 +2208,11 @@ def phase_coop_probe(device="cuda", B=1024):
             ("chain-ground-12 guarded", scg, gparams, gstates, ROBUST["guarded"]),
             ("chain-ground-12 per-lane", scg, pparams, pstates, CFG),
             ("spring-chain-12", scs, sparams, sstates, CFG),
-            ("spring-chain-12 per-lane", scs, spparams, spstates, CFG)):
+            ("spring-chain-12 per-lane", scs, spparams, spstates, CFG),
+            ("universal-6", scu, uparams, ustates, CFG)):
         if design_of(scene, params, cfg) != "cooperative":
             raise AssertionError(f"coop probe {label}: not a build of the cooperative design")
+        lib, names = probe_lib(scene, params, cfg)
         args = chord_kernel.pack(scene.topo, params, *st, scene.force_fns)
         nr = scene.topo.nr
         x_out = torch.empty(nr, B, device=device)
@@ -2002,6 +2246,12 @@ def phase_coop_probe(device="cuda", B=1024):
     return out
 
 
+def source_of(record) -> str:
+    """The source file of a chord kernel record's design."""
+    return "redmax_tpu_torch/csrc/" + (
+        "chord_bdf2_coop.cu" if record["design"] == "warp_per_lane" else "chord_bdf2.cu")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda is not available")
@@ -2033,9 +2283,11 @@ def main():
     phase_small_reference("spring path", scene_spring_chain, nlinks=12)
     cable_launches, cable_rate, cable_finite = phase_cable_path()
     qdep_records = phase_qdep_kernel_vs_plain()
-    uni_launches, uni_rate, uni_finite = phase_mpc_path("uni6 path", uni6, nlinks=6)
+    uni_launches, uni_rate, uni_finite = phase_mpc_path("uni6 path", uni6, nlinks=6,
+                                                        design="cooperative")
     phase_small_reference("uni6 path", uni6, nlinks=6)
-    sph_launches, sph_rate, sph_finite = phase_mpc_path("sph4 path", sph4, nlinks=4)
+    sph_launches, sph_rate, sph_finite = phase_mpc_path("sph4 path", sph4, nlinks=4,
+                                                        design="cooperative")
     phase_small_reference("sph4 path", sph4, nlinks=4)
     free_launches, free_rate, free_finite = phase_free3d_path()
     perlane_records = phase_perlane_kernel_vs_plain()
@@ -2053,6 +2305,7 @@ def main():
     robust_paths = phase_robust_paths()
     backward_modes = phase_backward_modes()
     coop_phases = phase_coop_probe()
+    default_records = phase_default_route()
 
     kernels = [{
         # the cooperative design (a warp a lane), on the main path; the
@@ -2081,21 +2334,23 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:561",
         "launches": cable_launches, **cable_record, "library_ms": None,
     }, {
-        # the QDEP build (K1b): universal-6 (6, 12), on the uni6 path
+        # the QDEP build (K1b), cooperative (a build made for the shape; the
+        # thread-per-lane QDEP build timed in turns with it): universal-6
+        # (6, 12), on the uni6 path
         "name": "chord_bdf2[universal]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": source_of(qdep_records["universal-6"]),
         "replaces": "redmax_tpu/pallas_step.py:907",
         "launches": uni_launches, **qdep_records["universal-6"], "library_ms": None,
     }, {
-        # the QDEP build: spherical-4 (4, 12), so3_exp_S, on the sph4 path
+        # spherical-4 (4, 12), so3_exp_S, on the sph4 path
         "name": "chord_bdf2[spherical]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": source_of(qdep_records["spherical-4"]),
         "replaces": "redmax_tpu/pallas_step.py:925",
         "launches": sph_launches, **qdep_records["spherical-4"], "library_ms": None,
     }, {
-        # the QDEP build: scene 9's FREE3D body (1, 6), on the FREE3D rollout
+        # scene 9's FREE3D body (1, 6), on the FREE3D rollout
         "name": "chord_bdf2[free3d]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": source_of(qdep_records["free3d scene 9"]),
         "replaces": "redmax_tpu/pallas_step.py:942",
         "launches": free_launches, **qdep_records["free3d scene 9"], "library_ms": None,
     }, {
@@ -2161,6 +2416,17 @@ def main():
         "source": "redmax_tpu_torch/csrc/dual_pgs.cu",
         "replaces": "redmax_tpu/pallas_qp.py:40",
         "launches": qp_launches, **qp_record, "library_ms": None,
+    }] + [{
+        # the default route at shapes and kind mixes no fixed library holds
+        # (phase 26), each on the build made for it; launches: its rollout's
+        "name": f"chord_bdf2[default_route {label}]", "route": "cuda",
+        "source": source_of(default_records[label]), "replaces": replaces,
+        **default_records[label], "library_ms": None,
+    } for label, _, _, _, replaces in DEFAULT_ROUTE] + [{
+        "name": "dual_pgs[default_route mscene 6]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/dual_pgs.cu",
+        "replaces": "redmax_tpu/pallas_qp.py:40",
+        **default_records["mscene 6"], "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {"solves_per_s": rate, "finite_frac": finite_frac,

@@ -30,44 +30,45 @@ What bounds it on an H100: per-lane f32 arithmetic. It moves
 4 * B * P with per-lane params (1.0 MB more for a contact on each of 12
 links), and does on the order of 1e5 flops per lane (about twice that with
 a contact on every link), so the operation count, not the bytes, sets the
-least time. Two designs:
+least time. Two designs, chosen by a rule on the shape and kinds before
+anything is built (takes_coop):
 - cooperative (csrc/chord_bdf2_coop.cu, body csrc/chord_bdf2_coop.cuh), on
-  the builds without cables or q-dependent joints that the paths run
-  (COOP_INSTANTIATED): unguarded chord with lane-shared params at (12, 12)
-  and (4, 4), with and without ground contacts, and at (12, 12) with
-  springs; per-lane params at (12, 12) with contacts and with springs; the
-  robust modes at (12, 12), with and without contacts. One warp per lane,
-  8 lanes a block, the lane's frames, J, Jdot, the per-body K/D blocks, H,
-  the Gauss-Jordan rows and H^-1 (and the guard's trials, the springs'
-  endpoint states and pair blocks, or the lane's params) in shared memory,
-  each phase of the solve split over the warp's 32 threads. Its spring
-  builds hold at most MAX_COOP_SPRINGS springs: library_of sends a scene
-  with more to the thread-per-lane design;
+  every build whose kind mix its body takes (COOP_KINDS: no closure, ground
+  contacts, springs (at most MAX_COOP_SPRINGS, nr <= N), with lane-shared
+  or per-lane params, the robust modes without per-lane params or springs,
+  or the q-dependent joints alone, K1b) and whose lane record fits a
+  block's shared memory (coop_record_bytes; N, nr <= 32). One warp per
+  lane, COOP_LANES lanes a block or fewer where the record is larger
+  (coop_lanes), the lane's frames, J, Jdot, the per-body K/D blocks, H, the
+  Gauss-Jordan rows and H^-1 (and the guard's trials, the springs' endpoint
+  states and pair blocks, the q-dependent columns' time derivatives, or
+  the lane's params) in shared memory, each phase of the solve split over
+  the warp's 32 threads;
 - thread per lane (csrc/chord_bdf2.cu, body csrc/chord_bdf2_lane.cuh), on
-  every other build: one thread per lane in blocks of 32, the arithmetic in
+  every other build (cables, a q-dependent joint with a closure, per-lane
+  params, a robust mode or FREE3D alone, more springs than the cooperative
+  record holds): one thread per lane in blocks of 32, the arithmetic in
   order on that thread, J, Jdot, H and the Gauss-Jordan rows in local
-  memory. Its builds at the COOP_INSTANTIATED shapes and kinds stay in its
+  memory. Its builds at the cooperative shapes and kinds stay in its
   libraries to be timed against the cooperative design (launch(...,
-  thread_per_lane=True)); no wrapper route reaches them but that of a scene
-  with more springs than MAX_COOP_SPRINGS.
+  thread_per_lane=True)).
 
 The closure code is compiled in only where a scene has that kind of closure,
 the q-dependent joint code only where a scene has such a joint, the
 per-lane record only where a param is per lane and the robust modes only
 where the config asks for one (a template bitmask: contacts, springs,
-cables, QDEP, PERLANE, ROBUST), and only the (N, nr, kinds) combinations
-the paths run are instantiated (INSTANTIATED), in four libraries built side
-by side (BUILD, BUILD_QDEP with QDEP, BUILD_PERLANE with PERLANE,
-BUILD_ROBUST with ROBUST), and the cooperative design in a fifth
-(BUILD_COOP): a scene that mixes ground contacts with springs
-or cables, a q-dependent joint with a closure or per-lane params, per-lane
-params without a closure, or a robust mode at another shape than (12, 12)
-with or without contacts, runs on the CPU (the plain version) but raises
-on the card.
+cables, QDEP, PERLANE, ROBUST). The (N, nr, kinds) the paths run are
+instantiated up front (INSTANTIATED, COOP_INSTANTIATED) in five fixed
+libraries built side by side (BUILD, BUILD_QDEP with QDEP, BUILD_PERLANE
+with PERLANE, BUILD_ROBUST with ROBUST, and the cooperative BUILD_COOP);
+any other (N, nr, kinds) that supports() admits is built for its scene at
+its first launch (build_for: one nvcc unit of that one build, its per-lane
+record and cable sized from the scene, cached under _build/ by a hash of
+its sources and defines), as the JAX package builds a kernel per scene.
 
 On a CUDA tensor chord_bdf2 launches the kernel of its design (and raises if
-it cannot, with no fallback to the other); on a CPU tensor it runs
-chord_bdf2_reference.
+it cannot build or launch it, with the key in the message and no fallback
+to the other design); on a CPU tensor it runs chord_bdf2_reference.
 """
 
 import ctypes
@@ -106,18 +107,34 @@ INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
                 (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS | PERLANE),
                 (4, 3, CABLES | PERLANE),
                 (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST))
-# The (N, nr, kinds) that run on the cooperative design (BUILD_COOP).
+# The (N, nr, kinds) of the cooperative design's fixed library (BUILD_COOP).
 COOP_INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
                      (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST),
                      (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS), (12, 12, SPRINGS | PERLANE))
+# The kind mixes the cooperative body takes (the static_assert of
+# coop::solve): no closure or ground contacts, with per-lane params or the
+# robust modes (not both); springs, lane-shared or per lane; the q-dependent
+# joints alone.
+COOP_KINDS = (0, CONTACTS, PERLANE, ROBUST, CONTACTS | PERLANE, CONTACTS | ROBUST,
+              SPRINGS, SPRINGS | PERLANE, QDEP)
 # The most springs the cooperative design's spring builds hold
 # (kCoopSprings of csrc/chord_bdf2_coop.cuh).
 MAX_COOP_SPRINGS = 3
+# Lanes (warps) a block of the cooperative design where the record fits
+# (the fixed library's), and the dynamic shared memory a block may have
+# on sm_90. setup gives a body or a column a thread without a stride and a
+# column mask is one 32-bit word, so the design takes N, nr <= 32.
+COOP_LANES = 8
+SMEM_PER_BLOCK = 232_448
+MAX_COOP_WIDTH = 32
 # Joint types the kernel covers: FREE2D has no branch there (op level only).
 QDEP_KERNEL_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D)
 KERNEL_TYPES = CONSTANT_S_TYPES + QDEP_KERNEL_TYPES
-MAX_CABLE_POINTS = 8  # kMaxCablePoints of chord_bdf2_lane.cuh
-MAX_LANE_RECORD = 512  # kMaxLaneRecord: floats of one lane's per-lane record
+# kMaxCablePoints and kMaxLaneRecord (floats of one lane's per-lane record)
+# of the fixed libraries (chord_bdf2_lane.cuh); a build made for one scene
+# sizes them from the scene.
+MAX_CABLE_POINTS = 8
+MAX_LANE_RECORD = 512
 _CLOSURES = (ForceGroundCuboid, ForcePointPoint, ForceSpringDamper, ForceCable)
 
 
@@ -137,12 +154,12 @@ class Closures(NamedTuple):
 
 
 def supports(topo: Topology, force_fns: Tuple, cfg) -> bool:
-    """True when the kernel's function covers this scene's inner step
-    exactly: ground contacts, springs and cables, constant-S, UNIVERSAL,
-    SPHERICAL and FREE3D joints, any fixed-iteration config with the
-    structured matrix and the GJ solver (the JAX package's `qualifies`:
-    chord or not, guarded, guard_last). (On the card, only INSTANTIATED
-    combinations launch; the others raise.)"""
+    """True when the kernel covers this scene's inner step exactly, and so
+    runs it on the card: ground contacts, springs and cables, constant-S,
+    UNIVERSAL, SPHERICAL and FREE3D joints, any fixed-iteration config with
+    the structured matrix and the GJ solver (the JAX package's `qualifies`:
+    chord or not, guarded, guard_last), any shape (a build made for the
+    scene at its first launch where no fixed library has it)."""
     return (
         all(type(fn) in _CLOSURES for fn in force_fns)
         and all(JointType(t) in KERNEL_TYPES for t in topo.jtype)
@@ -198,7 +215,8 @@ def kinds_of(topo: Topology, counts: Closures, perlane: bool = False,
 
 
 def build_of(kinds: int) -> KernelBuild:
-    """The library that holds the builds of these kinds."""
+    """The fixed thread-per-lane library that holds the builds of these
+    kinds."""
     if kinds & QDEP:
         return BUILD_QDEP
     if kinds & PERLANE:
@@ -206,17 +224,150 @@ def build_of(kinds: int) -> KernelBuild:
     return BUILD_ROBUST if kinds & ROBUST else BUILD
 
 
+def record_floats(counts: Closures, N: int) -> int:
+    """Floats of one lane's per-lane record (pack's lane buffer rows)."""
+    C, S, ncab, npts = counts
+    return 7 * N + 4 + 13 * C + 9 * S + 3 * npts + 3 * ncab
+
+
+def coop_record_floats(N: int, kinds: int, record: int = MAX_LANE_RECORD) -> int:
+    """Floats of the per-lane record a cooperative PERLANE build holds
+    (coop_record_floats of chord_bdf2_coop.cuh): a spring build's fields
+    for MAX_COOP_SPRINGS springs, to a multiple of 4; else record, the
+    build's kMaxLaneRecord."""
+    if kinds & SPRINGS:
+        return (7 * N + 4 + 9 * MAX_COOP_SPRINGS + 3) // 4 * 4
+    return record
+
+
+def _layout(fields) -> int:
+    """sizeof a struct of (bytes, alignment) fields in order, aligned to
+    16 (the cooperative records are alignas(16))."""
+    at = 0
+    for size, align in fields:
+        at = -(-at // align) * align + size
+    return -(-at // 16) * 16
+
+
+def coop_record_bytes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD) -> int:
+    """sizeof(coop::LaneOf<N, nr, kinds>) of csrc/chord_bdf2_coop.cuh, its
+    per-lane record (PERLANE) of `record` floats: one lane's share of a
+    block's shared memory. Each field as (bytes, alignment), a derived
+    record's fields after its base's (whose size is a multiple of 16)."""
+    f, a = 4, 16
+    frames = [(48 * N, a)] * 3
+    union = max(2 * N * 36, (12 * N // nr) * nr * 6) * f
+    lane = _layout(frames + [(36 * N * f, a), (union, a), (4 * nr * nr * f, a)]
+                   + [(6 * N * nr * f, a)] * 4 + [(6 * nr * f, a)] * 3
+                   + [(6 * N * f, a)] * 2 + [(nr * f, a)] + [(nr * f, f)] * 10
+                   + [(f, f)] * 2 + [(N * f, f), (nr * f, f)] + [(N * f, f)] * 2
+                   + [(N * nr * f, f), (f, f)])
+    if kinds & ROBUST:
+        return _layout([(lane, a), (2 * nr * f, a), (2 * nr * f, a), (2 * f, f), (f, f)])
+    if kinds & SPRINGS:
+        blocks = 4 * MAX_COOP_SPRINGS
+        point = 13 * f  # int b, float r[3], x[3], v[3], u[3]
+        base = _layout([(lane, a), (blocks * 36 * f, a), (MAX_COOP_SPRINGS * 6 * f, f),
+                        (MAX_COOP_SPRINGS * 9 * f, f), (MAX_COOP_SPRINGS * 9 * f, f),
+                        (MAX_COOP_SPRINGS * 2 * point, f), (blocks * f, f),
+                        (2 * blocks * f, f), (f, f)])
+    elif kinds & QDEP:
+        base = _layout([(lane, a), (6 * nr * f, a)])
+    else:
+        base = lane
+    if kinds & PERLANE:
+        return _layout([(base, a), (coop_record_floats(N, kinds, record) * f, a)])
+    return base
+
+
+def coop_lanes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD) -> int:
+    """Lanes a block of a cooperative build: the most of COOP_LANES, 4, 2,
+    1 whose records fit SMEM_PER_BLOCK (0: not even one)."""
+    size = coop_record_bytes(N, nr, kinds, record)
+    return next((n for n in (COOP_LANES, 4, 2, 1) if n * size <= SMEM_PER_BLOCK), 0)
+
+
+def _round4(record: int) -> int:
+    return max(4, -(-record // 4) * 4)
+
+
+def takes_coop(N: int, nr: int, kinds: int, springs: int = 0, record: int = 0) -> bool:
+    """The shape rule: True when the cooperative design runs (N, nr,
+    kinds) with this many springs and a per-lane record of this many floats
+    (0 without): its body takes the kind mix (COOP_KINDS; springs at most
+    MAX_COOP_SPRINGS, their G J_s fitting the K/D blocks' storage: nr <= N,
+    a per-lane spring record within coop_record_floats), N and nr are at
+    most MAX_COOP_WIDTH, and at least one lane's record fits a block."""
+    if kinds not in COOP_KINDS or max(N, nr) > MAX_COOP_WIDTH:
+        return False
+    if kinds & SPRINGS and (springs > MAX_COOP_SPRINGS or nr > N
+                            or record > coop_record_floats(N, kinds)):
+        return False
+    return coop_lanes(N, nr, kinds, _round4(record)) > 0
+
+
+def is_coop(build: KernelBuild) -> bool:
+    """True for a build of the cooperative design."""
+    return build.sources[0] == "chord_bdf2_coop.cu"
+
+
+_COOP_SOURCES = ("chord_bdf2_coop.cu", "chord_bdf2_coop.cuh", "chord_bdf2_lane.cuh")
+
+
+def build_for(coop: bool, N: int, nr: int, kinds: int, record: int = 0,
+              cable_points: int = 0) -> KernelBuild:
+    """The build of one (N, nr, kinds) made for a scene: one nvcc unit
+    (-DCHORD_ONE) of the cooperative design (coop, with coop_lanes lanes a
+    block) or of the thread-per-lane one, its per-lane record (PERLANE) of
+    `record` floats and its longest cable (CABLES) of `cable_points` points.
+    One KernelBuild a key, compiled at its first launch into _build/ and
+    cached there by a hash of its sources and defines."""
+    return _build_for(bool(coop), N, nr, kinds, record, cable_points)
+
+
+@lru_cache(maxsize=None)
+def _build_for(coop, N, nr, kinds, record, cable_points) -> KernelBuild:
+    defines = [f"-DCHORD_ONE", f"-DCHORD_N={N}", f"-DCHORD_NR={nr}", f"-DCHORD_FEAT={kinds}"]
+    name = f"chord_bdf2_{'coop' if coop else 'lane'}_{N}_{nr}_{kinds}"
+    if kinds & PERLANE:
+        defines.append(f"-DCHORD_MAX_RECORD={record}")
+        name += f"_r{record}"
+    if kinds & CABLES:
+        defines.append(f"-DCHORD_MAX_CABLE_POINTS={cable_points}")
+        name += f"_c{cable_points}"
+    if coop:
+        defines.append(f"-DCOOP_LANES={coop_lanes(N, nr, kinds, record)}")
+    return KernelBuild(name, _COOP_SOURCES if coop else _SOURCES, defines)
+
+
 def library_of(N: int, nr: int, kinds: int, thread_per_lane: bool = False,
-               springs: int = 0) -> KernelBuild:
-    """The library that launches (N, nr, kinds) with this many springs: the
-    cooperative design's where it has the build and its record holds the
-    springs (at most MAX_COOP_SPRINGS), else the thread-per-lane library of
-    these kinds (thread_per_lane: that one in any case, to time it against
-    the other)."""
-    if not thread_per_lane and (N, nr, kinds) in COOP_INSTANTIATED \
-            and springs <= MAX_COOP_SPRINGS:
-        return BUILD_COOP
-    return build_of(kinds)
+               springs: int = 0, record: int = 0, cable_points: int = 0) -> KernelBuild:
+    """The build that launches (N, nr, kinds) with this many springs, a
+    per-lane record of this many floats (0 without) and this many cable
+    points: the cooperative design where takes_coop holds, else the
+    thread-per-lane one (thread_per_lane: that one in any case, to time it
+    against the other); in either, its fixed library where that holds the
+    key, else the build made for it (build_for)."""
+    if not thread_per_lane and takes_coop(N, nr, kinds, springs, record):
+        if (N, nr, kinds) in COOP_INSTANTIATED and record <= coop_record_floats(N, kinds):
+            return BUILD_COOP
+        return build_for(True, N, nr, kinds, _round4(record) if kinds & PERLANE else 0)
+    if (N, nr, kinds) in INSTANTIATED and record <= MAX_LANE_RECORD \
+            and cable_points <= MAX_CABLE_POINTS:
+        return build_of(kinds)
+    return build_for(False, N, nr, kinds, _round4(record) if kinds & PERLANE else 0,
+                     max(2, cable_points) if kinds & CABLES else 0)
+
+
+def scene_build(topo: Topology, force_fns: Tuple, params: Dict, cfg,
+                thread_per_lane: bool = False) -> KernelBuild:
+    """The build that chord_bdf2 launches for this scene, params and
+    config on the card (library_of's), decided before anything is built."""
+    counts = counts_of(closure_spec(topo, force_fns))
+    perlane = has_perlane(params)
+    kinds = kinds_of(topo, counts, perlane, is_robust(cfg))
+    return library_of(topo.njoints, topo.nr, kinds, thread_per_lane, counts.springs,
+                      record_floats(counts, topo.njoints) if perlane else 0, counts.cable_points)
 
 
 def _build_lib(build: KernelBuild):
@@ -226,10 +377,11 @@ def _build_lib(build: KernelBuild):
     lib = build.load()
     if first:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if build is BUILD_COOP:
+        if is_coop(build):
             set_coop_argtypes(lib)
+            for fn in (lib.chord_bdf2_coop_lanes_per_block, lib.chord_bdf2_coop_smem_bytes):
+                fn.argtypes = [i, i, i]
             lib.chord_bdf2_coop_lanes_per_block.restype = i
-            lib.chord_bdf2_coop_smem_bytes.argtypes = [i, i, i]
             lib.chord_bdf2_coop_smem_bytes.restype = ctypes.c_long
         else:
             lib.chord_bdf2_launch.argtypes = ([i] * 9 + [p] * 6 + [p, p, p] + [i, fl, fl, fl]
@@ -272,8 +424,8 @@ def closure_spec(topo: Topology, force_fns: Tuple) -> Tuple:
     if any(not -1 <= b < N for sp in springs for b in sp[1:3]) or \
             any(not -1 <= b < N for c in cables for b in c):
         raise ValueError(f"chord_bdf2: spring or cable bodies outside -1..{N - 1}")
-    if any(not 2 <= len(c) <= MAX_CABLE_POINTS for c in cables):
-        raise ValueError(f"chord_bdf2: a cable needs 2..{MAX_CABLE_POINTS} points")
+    if any(len(c) < 2 for c in cables):
+        raise ValueError("chord_bdf2: a cable needs at least 2 points")
     return contacts, springs, cables
 
 
@@ -366,10 +518,11 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
     I_i, body_damping, g, h and the closures' kn, kt, kd, mu, k, d, L may
     be per lane (integrators.split_batched_params). force_fns are the
     scene's force closures (ground contacts, springs, cables). A CUDA tensor
-    goes to the kernel (f32, an instantiated (N, nr, kinds), a scene the
-    kernel covers, else it raises; the wrapper makes the contiguous [nr, B]
-    copies the kernel reads, and with per-lane params the [P, B] record
-    buffer); a CPU tensor goes to chord_bdf2_reference.
+    goes to the kernel (f32, a scene the kernel covers, else it raises; a
+    shape no fixed library holds is built at its first launch; the wrapper
+    makes the contiguous [nr, B] copies the kernel reads, and with per-lane
+    params the [P, B] record buffer); a CPU tensor goes to
+    chord_bdf2_reference.
     """
     if x0.device.type == "cpu":
         return chord_bdf2_reference(topo, cfg, params, x0, q0, qd0, q1, qd1, force_fns)
@@ -379,12 +532,7 @@ def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,
         raise ValueError("chord_bdf2: scene/config not covered by the kernel")
     if cfg.guard_last and (not cfg.chord or cfg.guarded):
         raise ValueError("guard_last requires chord=True, guarded=False")
-    N, nr = topo.njoints, topo.nr
-    kinds = kinds_of(topo, counts_of(closure_spec(topo, force_fns)), has_perlane(params),
-                     is_robust(cfg))
-    if (N, nr, kinds) not in INSTANTIATED:
-        raise ValueError(f"chord_bdf2: no kernel instantiation for (N, nr, kinds) = "
-                         f"{(N, nr, kinds)}")
+    nr = topo.nr
     B = x0.shape[0]
     tau = params["tau"]
     states = (x0, q0, qd0, q1, qd1)
@@ -420,26 +568,24 @@ def pack(topo: Topology, params: Dict, x0, q0, qd0, q1, qd1, force_fns: Tuple = 
 
 def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures, lane_f=None) -> None:
     """Raises unless the buffers have the sizes that the topology and the
-    closure counts give (pack's layouts): lane_f, where given, [P, B] with
-    P at most MAX_LANE_RECORD."""
+    closure counts give (pack's layouts): lane_f, where given, [P, B]."""
     N, nr = topo.njoints, topo.nr
     C, S, ncab, npts = counts
     n_topo = 3 * N + 1 + nr + N * N + 4 + C + 4 * S + ncab + npts
-    n_rec = 7 * N + 4 + 13 * C + 9 * S + 3 * npts + 3 * ncab
+    n_rec = record_floats(counts, N)
     n_stat = 41 * N + 7 * nr + n_rec
     if min(counts) < 0 or topo_i.numel() != n_topo or stat_f.numel() != n_stat:
         raise ValueError(f"chord_bdf2: buffers of {topo_i.numel()} ints and {stat_f.numel()} "
                          f"floats do not hold {counts} (want {n_topo} and {n_stat})")
-    if lane_f is not None and (lane_f.dim() != 2 or lane_f.shape[0] != n_rec
-                               or n_rec > MAX_LANE_RECORD):
+    if lane_f is not None and (lane_f.dim() != 2 or lane_f.shape[0] != n_rec):
         raise ValueError(f"chord_bdf2: a per-lane buffer of shape {tuple(lane_f.shape)} does not "
-                         f"hold {counts} (want {n_rec} rows, at most {MAX_LANE_RECORD})")
+                         f"hold {counts} (want {n_rec} rows)")
 
 
 # chord_bdf2_launch's and chord_bdf2_coop_launch's own error codes (any
 # other is a cudaError_t)
 _LAUNCH_ERRORS = {-1: "no instantiation of (N, nr, kinds) in this library",
-                  -2: "per-lane record longer than kMaxLaneRecord",
+                  -2: "per-lane record longer than the build's",
                   -3: "a robust solve mode in a build without kRobust",
                   -4: "fixed_iters < 1",
                   -5: "more springs than the cooperative build's record holds"}
@@ -449,17 +595,19 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
            lane_f=None, thread_per_lane: bool = False):
     """Launch the kernel on the current stream on packed inputs (see pack);
     returns (x [nr, B], Hinv [nr*nr, B]) and counts the launch on its
-    design's counter. The design is library_of's: thread_per_lane runs the
-    thread-per-lane build even where the cooperative design has one (only to
-    time the two against each other; a scene with more springs than
-    MAX_COOP_SPRINGS runs there by library_of's rule)."""
+    design's counter. The design and build are library_of's: thread_per_lane
+    runs the thread-per-lane build even where the cooperative design takes
+    the shape (only to time the two against each other)."""
     global chord_bdf2_launches, chord_bdf2_coop_launches
     check_buffers(topo, topo_i, stat_f, counts, lane_f)
     nr, B = x0.shape
     if lane_f is not None and lane_f.shape[1] != B:
         raise ValueError(f"chord_bdf2: a per-lane buffer of {lane_f.shape[1]} lanes for {B}")
     kinds = kinds_of(topo, counts, lane_f is not None, is_robust(cfg))
-    build = library_of(topo.njoints, nr, kinds, thread_per_lane, counts.springs)
+    key = (topo.njoints, nr, kinds)
+    build = library_of(*key, thread_per_lane, counts.springs,
+                       0 if lane_f is None else lane_f.shape[0], counts.cable_points)
+    coop = is_coop(build)
     lib = _build_lib(build)
     x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
     h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
@@ -468,7 +616,7 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
     lane_ptr = None if lane_f is None else lane_f.data_ptr()
     solver = (cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
               int(cfg.guarded), int(cfg.guard_last), int(cfg.chord))
-    if build is BUILD_COOP:
+    if coop:
         err = lib.chord_bdf2_coop_launch(
             topo.njoints, nr, kinds, *counts, B, *states,
             topo_i.data_ptr(), stat_f.data_ptr(), lane_ptr, *solver,
@@ -482,8 +630,9 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
         )
     if err != 0:
         why = _LAUNCH_ERRORS.get(err, "CUDA error")
-        raise RuntimeError(f"{build.name} kernel launch failed: error {err} ({why})")
-    if build is BUILD_COOP:
+        raise RuntimeError(f"{build.name} kernel launch failed for (N, nr, kinds) = {key}: "
+                           f"error {err} ({why})")
+    if coop:
         chord_bdf2_coop_launches += 1
     else:
         chord_bdf2_launches += 1

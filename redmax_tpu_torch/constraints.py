@@ -18,8 +18,8 @@ Per-constraint parameters (lane-shared) live in params["constraints"][key].
 
 Ported: ConstraintLoop, ConstraintJointLimit, ConstraintFloor,
 ConstraintMultQ. The prescribed-motion and attach-point constraints need
-the time-dependent scene hook and the deformables; they raise (the rest of
-ROADMAP queue 1 item 13).
+the time-dependent scene hook and the deformables; they raise (not ported
+yet).
 """
 
 from typing import Dict, Tuple
@@ -156,9 +156,13 @@ class ConstraintMultQ(_ConstraintBase):
         return C, g, torch.zeros_like(g)
 
 
+# What a constraint that is not ported names in its error.
+PORTED = "the port's constraints are the loop closure, joint limit, floor and angle coupling"
+
+
 def _later(name: str):
     def init(self, *a, **k):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 13)")
+        raise NotImplementedError(f"{name} is not ported yet ({PORTED})")
 
     return type(name, (_ConstraintBase,), {"__init__": init})
 

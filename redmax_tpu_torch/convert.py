@@ -52,7 +52,7 @@ def constraints_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tup
     out = []
     for name, attrs in fields:
         if name not in _CONSTRAINT_FIELDS:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 13)")
+            raise NotImplementedError(f"{name} is not ported yet ({constraints.PORTED})")
         cls = getattr(constraints, name)
         out.append(cls(attrs["key"], *(int(attrs[k]) for k in _CONSTRAINT_FIELDS[name])))
     return tuple(out)
@@ -74,6 +74,6 @@ def forces_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tuple:
     out = []
     for name, attrs in fields:
         if name not in _FORCE_ARGS:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 10)")
+            raise NotImplementedError(f"{name} is not ported yet ({forces.PORTED})")
         out.append(getattr(forces, name)(attrs["key"], *_FORCE_ARGS[name](attrs)))
     return tuple(out)

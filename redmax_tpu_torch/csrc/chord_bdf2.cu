@@ -9,8 +9,12 @@
 // once with -DCHORD_QDEP_UNIT (the builds with the q-dependent joints), once
 // with -DCHORD_PERLANE_UNIT (the builds with per-lane params) and once with
 // -DCHORD_ROBUST_UNIT (the builds with the robust modes), four translation
-// units that compile side by side. The robust modes branch per thread (one
-// lane each), so a guarded lane's trials cost no other lane anything.
+// units that compile side by side; and, for any other scene, once with
+// -DCHORD_ONE -DCHORD_N=n -DCHORD_NR=nr -DCHORD_FEAT=kinds (and, where the
+// kinds have them, -DCHORD_MAX_RECORD and -DCHORD_MAX_CABLE_POINTS sized
+// from the scene): a unit of that one build, made at its first launch. The
+// robust modes branch per thread (one lane each), so a guarded lane's
+// trials cost no other lane anything.
 #include <cuda_runtime.h>
 
 #include "chord_bdf2_lane.cuh"
@@ -66,16 +70,34 @@ chord_bdf2_robust_kernel(int B, const float* __restrict__ x0, const float* __res
                                              cfg, rc, x_out, hinv_out);
 }
 
+// The builds with both: the robust modes on each lane's record in lane_f.
+template <int N, int NR, int FEAT>
+__global__ void __launch_bounds__(kThreads)
+chord_bdf2_robust_perlane_kernel(int B, const float* __restrict__ x0,
+                                 const float* __restrict__ q0, const float* __restrict__ qd0,
+                                 const float* __restrict__ q1, const float* __restrict__ qd1,
+                                 const float* __restrict__ tau, const int* __restrict__ topo_i,
+                                 const float* __restrict__ stat_f,
+                                 const float* __restrict__ lane_f, chord::ChordConfig cfg,
+                                 chord::RobustConfig rc, float* __restrict__ x_out,
+                                 float* __restrict__ hinv_out) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  chord::chord_bdf2_lane_robust<N, NR, FEAT>(lane, B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f,
+                                             cfg, rc, x_out, hinv_out, lane_f);
+}
+
 template <int N, int NR, int FEAT>
 cudaError_t launch_kernel(int B, const float* x0, const float* q0, const float* qd0,
                           const float* q1, const float* qd1, const float* tau, const int* topo_i,
                           const float* stat_f, const float* lane_f, chord::ChordConfig cfg,
                           chord::RobustConfig rc, float* x_out, float* hinv_out,
                           cudaStream_t stream) {
-  static_assert((FEAT & chord::kPerlane) == 0 || (FEAT & chord::kRobust) == 0,
-                "no build has both per-lane params and the robust modes");
   const int blocks = (B + kThreads - 1) / kThreads;
-  if constexpr ((FEAT & chord::kPerlane) != 0)
+  if constexpr ((FEAT & chord::kPerlane) != 0 && (FEAT & chord::kRobust) != 0)
+    chord_bdf2_robust_perlane_kernel<N, NR, FEAT><<<blocks, kThreads, 0, stream>>>(
+        B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, rc, x_out, hinv_out);
+  else if constexpr ((FEAT & chord::kPerlane) != 0)
     chord_bdf2_perlane_kernel<N, NR, FEAT><<<blocks, kThreads, 0, stream>>>(
         B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, x_out, hinv_out);
   else if constexpr ((FEAT & chord::kRobust) != 0)
@@ -92,7 +114,8 @@ cudaError_t launch_kernel(int B, const float* x0, const float* q0, const float* 
 // Returns a cudaError_t (0 = launched), -1 for an (N, NR, kinds) without an
 // instantiation in this unit, -2 for a per-lane record longer than
 // kMaxLaneRecord, or -3 for a robust solve mode (guarded, guard_last or
-// chord == 0) in a unit without kRobust. The counts are those topo_i holds;
+// chord == 0) in a fixed unit without kRobust (a CHORD_ONE unit answers -1
+// to kinds other than its own). The counts are those topo_i holds;
 // the kinds present (a contact, a spring, a cable, a q-dependent joint:
 // qdep != 0, per-lane params: perlane != 0, a robust mode) pick the build, so
 // a scene without closures runs the build compiled without any closure code. Every pointer is device memory; the state
@@ -118,7 +141,7 @@ extern "C" int chord_bdf2_launch(int N, int NR, int qdep, int perlane, int ncont
   const bool robust = guarded != 0 || guard_last != 0 || chord_mode == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
-#if !defined(CHORD_ROBUST_UNIT)
+#if !defined(CHORD_ROBUST_UNIT) && !defined(CHORD_ONE)
   if (robust) return -3;
 #endif
   if (perlane != 0 && 7 * N + 4 + 13 * ncontacts + 9 * nsprings + 3 * ncable_points +
@@ -131,7 +154,9 @@ extern "C" int chord_bdf2_launch(int N, int NR, int qdep, int perlane, int ncont
   if (N == n && NR == nr && feat == (f))                                                       \
     return launch_kernel<n, nr, f>(B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, \
                                    rc, x_out, hinv_out, s);
-#if defined(CHORD_QDEP_UNIT)
+#if defined(CHORD_ONE)
+  CHORD_LAUNCH(CHORD_N, CHORD_NR, CHORD_FEAT)
+#elif defined(CHORD_QDEP_UNIT)
   CHORD_LAUNCH(6, 12, kQdep)
   CHORD_LAUNCH(4, 12, kQdep)
   CHORD_LAUNCH(1, 6, kQdep)

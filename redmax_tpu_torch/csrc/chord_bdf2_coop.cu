@@ -6,8 +6,13 @@
 // contacts, (12, 12) with springs; with per-lane params (K1f) at (12, 12)
 // with contacts and with springs; and in the robust modes (K1g) at (12, 12)
 // with and without contacts. The phases and what bounds the kernel are in
-// chord_bdf2_coop.cuh; every other build (cables, the q-dependent joints,
-// more springs than kCoopSprings) stays on the thread-per-lane kernel
+// chord_bdf2_coop.cuh. Built with -DCHORD_ONE -DCHORD_N=n -DCHORD_NR=nr
+// -DCHORD_FEAT=kinds -DCOOP_LANES=l (and -DCHORD_MAX_RECORD with per-lane
+// params), the unit holds that one build, with l lanes a block: any other
+// shape and mix the body takes (the q-dependent joints alone among them,
+// K1b), made at its first launch. Every other build (cables, the
+// q-dependent joints with a closure, more springs than kCoopSprings, a
+// record that does not fit a block) stays on the thread-per-lane kernel
 // (chord_bdf2.cu).
 //
 // Layout: kLanes lanes a block, lane b on warp b % kLanes of block
@@ -31,7 +36,11 @@
 
 namespace {
 
-constexpr int kLanes = 8;  // lanes (warps) a block
+#ifdef COOP_LANES
+constexpr int kLanes = COOP_LANES;  // lanes (warps) a block
+#else
+constexpr int kLanes = 8;
+#endif
 constexpr int kThreads = kLanes * chord::coop::kWarp;
 
 // A phase on one thread of the lane's warp, then the warp's barrier (which
@@ -157,6 +166,9 @@ extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, i
     return launch_kernel<n, nr, f>(B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, \
                                    rc, x_out, hinv_out, probe, s);                            \
   }
+#if defined(CHORD_ONE)
+  COOP_LAUNCH(CHORD_N, CHORD_NR, CHORD_FEAT)
+#else
   COOP_LAUNCH(12, 12, 0)
   COOP_LAUNCH(12, 12, kContacts)
   COOP_LAUNCH(4, 4, 0)
@@ -166,21 +178,21 @@ extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, i
   COOP_LAUNCH(12, 12, kContacts | kPerlane)
   COOP_LAUNCH(12, 12, kSprings)
   COOP_LAUNCH(12, 12, kSprings | kPerlane)
+#endif
 #undef COOP_LAUNCH
   return -1;
 }
 
-// Lanes a block, and a block's dynamic shared memory at (N, NR) with the
-// kinds feat (chord_kernel's bitmask) in bytes (-1 for a build without an
-// instantiation); the phases of the probe's slots.
-extern "C" int chord_bdf2_coop_lanes_per_block() { return kLanes; }
-
+// The phases of the probe's slots.
 extern "C" int chord_bdf2_coop_phases() { return chord::coop::kPhases; }
 
 extern "C" const char* chord_bdf2_coop_phase_name(int phase) {
   return phase >= 0 && phase < chord::coop::kPhases ? chord::coop::kPhaseNames[phase] : "";
 }
 
+// A block's dynamic shared memory at (N, NR) with the kinds feat
+// (chord_kernel's bitmask) in bytes, and its lanes a block, of this unit's
+// build of them (-1 for a build without an instantiation here).
 extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR, int feat) {
   using chord::kContacts;
   using chord::kPerlane;
@@ -188,6 +200,9 @@ extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR, int feat) {
   using chord::kSprings;
 #define COOP_SMEM(n, nr, f) \
   if (N == n && NR == nr && feat == (f)) return static_cast<long>(smem_bytes<n, nr, f>());
+#if defined(CHORD_ONE)
+  COOP_SMEM(CHORD_N, CHORD_NR, CHORD_FEAT)
+#else
   COOP_SMEM(12, 12, 0)
   COOP_SMEM(12, 12, kContacts)
   COOP_SMEM(4, 4, 0)
@@ -197,6 +212,11 @@ extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR, int feat) {
   COOP_SMEM(12, 12, kContacts | kPerlane)
   COOP_SMEM(12, 12, kSprings)
   COOP_SMEM(12, 12, kSprings | kPerlane)
+#endif
 #undef COOP_SMEM
   return -1;
+}
+
+extern "C" int chord_bdf2_coop_lanes_per_block(int N, int NR, int feat) {
+  return chord_bdf2_coop_smem_bytes(N, NR, feat) < 0 ? -1 : kLanes;
 }

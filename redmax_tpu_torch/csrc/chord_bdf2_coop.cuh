@@ -8,12 +8,15 @@
 // of residual and hessian): in the unguarded chord mode with lane-shared
 // params, with per-lane params (K1f, the perlane reads :706-712, :767-841:
 // kPerlane, with contacts or with springs) and in the robust modes (K1g,
-// :1220-1313: kRobust), all in one solve loop. The other branches (cables,
-// the q-dependent joints) stay on the thread-per-lane body of
-// chord_bdf2_lane.cuh, whose helpers (Frame, frame_mul, frame_inv, adjoint,
-// mat6_vec, ad_vec, adT_vec, rt_vec, local_force_blocks, ground_contact,
-// Point, add_point_wrench, spring_force, pair_block, Shared, ChordConfig,
-// RobustConfig) this file calls as they are. Every sum runs in the
+// :1220-1313: kRobust); and on its q-dependent branch without closures (K1b:
+// S(q) and Sdot of the UNIVERSAL, exp-map SPHERICAL and FREE3D joints, FK
+// :907-967, _so3_exp_S :348-398: kQdep), all in one solve loop. The other
+// branches (cables, the q-dependent joints with a closure) stay on the
+// thread-per-lane body of chord_bdf2_lane.cuh, whose helpers (Frame,
+// frame_mul, frame_inv, adjoint, mat6_vec, ad_vec, adT_vec, rt_vec,
+// local_force_blocks, ground_contact, Point, add_point_wrench,
+// spring_force, pair_block, qdep_joint, Shared, ChordConfig, RobustConfig)
+// this file calls as they are. Every sum runs in the
 // thread-per-lane body's order, so the two give the same result bit for
 // bit wherever the compiler contracts the same multiply-adds (always under
 // g++, which contracts none).
@@ -34,12 +37,14 @@
 //   joints     per column: qdot, the BDF2 increment, the joint forces; on
 //              the next threads, per joint: E_pj = E0_pj Q(q) (a root's is
 //              its world frame), at the iterate the solve names
+//   qdep joints (kQdep) per q-dependent joint: Q(q), E_pj and its columns
+//              Sb[r] and their time derivatives Sbd[r] at the iterate's qdot
 //   FK         down the tree, E_wj = E_wj[parent] E_pj, a row of every
 //              frame a thread (a chain's row kept in registers); per body:
 //              E_wi and Ad(inv(E_wi)), and on the next threads per column:
 //              W[r]
 //   J, Jdot    per (body, column) pair that moves: J; per body: phi; per
-//              column: Wdot[r]; per pair: Jdot
+//              column: Wdot[r] (with Sbd[r] under kQdep); per pair: Jdot
 //   springs    (kSprings) per (spring, endpoint): the endpoint's state; per
 //              spring: its world force fW (and, where H is built, A =
 //              dfW/d(dx) and Bm = dfW/d(dv)), the force on each endpoint
@@ -91,14 +96,14 @@ enum Phase {
   kLaneRecord, kSetup, kPairs, kJoints, kTree, kFrames, kJacobian, kTwists, kWdot, kJdot,
   kSpringPoints, kSpringForces, kForcesBlocks, kForces, kNewtonTerms, kSpringBlocks,
   kSpringColumns, kNewtonMatrix, kGaussJordan, kResidual, kStepDx, kStepUpdate, kTrial,
-  kGuardPick, kGuardAccept, kWriteOut, kPhases
+  kGuardPick, kGuardAccept, kWriteOut, kQdepJoints, kPhases
 };
 constexpr const char* kPhaseNames[kPhases] = {
     "lane_record", "setup", "pairs", "joints", "fk_tree", "body_frames", "jacobian", "twists",
     "world_columns_dot", "jacobian_dot", "spring_points", "spring_forces",
     "body_forces_blocks", "body_forces", "newton_terms", "spring_blocks", "spring_columns",
     "newton_matrix", "gj_pivot", "residual_columns", "step_dx", "step_update", "trial",
-    "guard_pick", "guard_accept", "write_out"};
+    "guard_pick", "guard_accept", "write_out", "qdep_joints"};
 
 // NF floats from src to dst: on the card as 16-byte accesses where NF is a
 // multiple of 4, else 8-byte ones where it is even, so both sides must be
@@ -198,6 +203,14 @@ struct alignas(16) LaneSprings : Lane<N, NR> {
   int nblocks;
 };
 
+// The record of a kQdep build: the time derivative Sbd[r] of each
+// body-frame column (zero on the constant-S ones), and Sb[r] per iterate on
+// the q-dependent joints' columns.
+template <int N, int NR>
+struct alignas(16) LaneQdep : Lane<N, NR> {
+  alignas(16) float Sbd[NR][6];
+};
+
 // Floats of the per-lane record a kPerlane build holds: kMaxLaneRecord; in a
 // kSprings build, the fields its scenes have (I_i, bd, g, h and
 // kCoopSprings springs: 7N + 4 + 9 kCoopSprings, to a multiple of 4), so
@@ -218,7 +231,9 @@ struct alignas(16) LanePerlane : Base {
 // the springs or of the per-lane params only where FEAT has them, so the
 // other builds keep their record.
 template <int N, int NR, int FEAT>
-using LaneBase = std::conditional_t<(FEAT & kSprings) != 0, LaneSprings<N, NR>, Lane<N, NR>>;
+using LaneBase = std::conditional_t<
+    (FEAT & kSprings) != 0, LaneSprings<N, NR>,
+    std::conditional_t<(FEAT & kQdep) != 0, LaneQdep<N, NR>, Lane<N, NR>>>;
 template <int N, int NR, int FEAT>
 using LaneOf = std::conditional_t<
     (FEAT & kRobust) != 0, LaneRobust<N, NR>,
@@ -275,6 +290,14 @@ CHORD_HD void setup(int t, const Shared<N, NR>& sh, Lane<N, NR>& L, int lane, in
     }
     mat6_vec(A0, Sj, L.Sb[r]);
   }
+}
+
+// Sbd[r] = 0 of every column, a column a thread (kQdep): qdep_joints
+// overwrites the q-dependent joints' at every iterate.
+template <int N, int NR>
+CHORD_HD void setup_qdep(int t, LaneQdep<N, NR>& L) {
+  if (t >= NR) return;
+  for (int k = 0; k < 6; ++k) L.Sbd[t][k] = 0.0f;
 }
 
 // The (body, column) pairs that move, body by body: each body's thread
@@ -374,15 +397,36 @@ CHORD_HD void fk_local(int j, const Shared<N, NR>& sh, Lane<N, NR>& L, const flo
 
 // Each column's terms (a column a thread) and each joint's E_pj (a joint a
 // thread, on the threads after the columns'), at the iterate xe (the
-// record's x, or a trial): one phase, as neither reads the other.
-template <int N, int NR>
+// record's x, or a trial): one phase, as neither reads the other. With
+// QDEP the q-dependent joints are left to qdep_joints, which reads qdot.
+template <int N, int NR, bool QDEP = false>
 CHORD_HD void joints(int t, const Shared<N, NR>& sh, Lane<N, NR>& L, const float* xe) {
   for (int e = t; e < NR + N; e += kWarp) {
     if (e < NR)
       joint_terms<N, NR>(e, sh, L, xe);
-    else
+    else if (!QDEP || !is_qdep(sh.jtype[e - NR]))
       fk_local<N, NR>(e - NR, sh, L, xe);
   }
+}
+
+// Q(q) of q-dependent joint j = t at the iterate xe, with its columns Sb[r]
+// and their time derivatives Sbd[r] at the record's qdot (qdep_joint, as
+// fk_and_J calls it), and E_pj = E0_pj Q (a root joint's is its world
+// frame); a joint a thread.
+template <int N, int NR>
+CHORD_HD void qdep_joints(int t, const Shared<N, NR>& sh, LaneQdep<N, NR>& L, const float* xe) {
+  if (t >= N || !is_qdep(sh.jtype[t])) return;
+  const int j = t;
+  Frame Q, E0;
+  alignas(16) Frame Epj;
+  for (int a = 0; a < 3; ++a) {
+    for (int b = 0; b < 3; ++b) Q.R[a][b] = a == b ? 1.0f : 0.0f;
+    Q.p[a] = 0.0f;
+  }
+  qdep_joint<N, NR>(sh, j, xe, L.qd, Q, L.Sb, L.Sbd);
+  frame_from_E(sh.E0pj + 16 * j, E0);
+  frame_mul(E0, Q, Epj);
+  copy_frame(L.parent[j] < 0 ? L.Ewj[j] : L.Epj[j], Epj);
 }
 
 // E_wj = E_wj[parent] E_pj down the tree in joint order (parents precede
@@ -472,9 +516,10 @@ CHORD_HD void twists(int t, Lane<N, NR>& L) {
   copy_f<6>(L.phi[t], acc);
 }
 
-// Wdot[r] = Ad(E_wi[a]) ad(phi_a) Sb[r], a = dofj[r]
-template <int N, int NR>
-CHORD_HD void world_columns_dot(int t, Lane<N, NR>& L) {
+// Wdot[r] = Ad(E_wi[a]) (ad(phi_a) Sb[r] + Sbd[r]), a = dofj[r] (the Sbd
+// term under kQdep only)
+template <int N, int NR, int FEAT = 0>
+CHORD_HD void world_columns_dot(int t, LaneOf<N, NR, FEAT>& L) {
   if (t >= NR) return;
   const int a = L.dofj[t];
   alignas(16) Frame Ew;
@@ -485,6 +530,11 @@ CHORD_HD void world_columns_dot(int t, Lane<N, NR>& L) {
   copy_f<6>(Sb, L.Sb[t]);
   adjoint(Ew, A);
   ad_vec(phi, Sb, inner);
+  if constexpr ((FEAT & kQdep) != 0) {
+    alignas(16) float Sbd[6];
+    copy_f<6>(Sbd, L.Sbd[t]);
+    for (int k = 0; k < 6; ++k) inner[k] = inner[k] + Sbd[k];
+  }
   mat6_vec(A, inner, Wd);
   copy_f<6>(L.Wd[t], Wd);
 }
@@ -921,17 +971,20 @@ CHORD_HD Shared<N, NR> lane_params(const Run& run, LaneOf<N, NR, FEAT>& L, const
   return sh;
 }
 
-// The kinematic phases at the iterate xe: the joints' terms and E_pj, FK,
-// J, the twists, Wdot and Jdot.
-template <int N, int NR, class Run>
-CHORD_HD void kinematics(const Run& run, const Shared<N, NR>& sh, Lane<N, NR>& L,
+// The kinematic phases at the iterate xe: the joints' terms and E_pj (and,
+// under kQdep, the q-dependent joints' E_pj, S and Sdot), FK, J, the
+// twists, Wdot and Jdot.
+template <int N, int NR, int FEAT, class Run>
+CHORD_HD void kinematics(const Run& run, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>& L,
                          const float* xe) {
-  run(kJoints, [&](int t) { joints<N, NR>(t, sh, L, xe); });
+  constexpr bool QDEP = (FEAT & kQdep) != 0;
+  run(kJoints, [&](int t) { joints<N, NR, QDEP>(t, sh, L, xe); });
+  if constexpr (QDEP) run(kQdepJoints, [&](int t) { qdep_joints<N, NR>(t, sh, L, xe); });
   run(kTree, [&](int t) { fk_tree<N, NR>(t, L); });
   run(kFrames, [&](int t) { body_frames<N, NR>(t, sh, L); });
   run(kJacobian, [&](int t) { jacobian<N, NR>(t, L); });
   run(kTwists, [&](int t) { twists<N, NR>(t, L); });
-  run(kWdot, [&](int t) { world_columns_dot<N, NR>(t, L); });
+  run(kWdot, [&](int t) { world_columns_dot<N, NR, FEAT>(t, L); });
   run(kJdot, [&](int t) { jacobian_dot<N, NR>(t, L); });
 }
 
@@ -993,12 +1046,15 @@ CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, con
   constexpr bool SPRINGS = (FEAT & kSprings) != 0;
   static_assert(((FEAT & ~(kContacts | kPerlane | kRobust)) == 0 &&
                  (FEAT & (kPerlane | kRobust)) != (kPerlane | kRobust)) ||
-                    FEAT == kSprings || FEAT == (kSprings | kPerlane),
+                    FEAT == kSprings || FEAT == (kSprings | kPerlane) || FEAT == kQdep,
                 "the cooperative solve runs no closure but ground contact, with per-lane "
                 "params or the robust modes, not both; or springs alone, with lane-shared or "
-                "per-lane params");
+                "per-lane params; or the q-dependent joints alone");
   const Shared<N, NR> sh = lane_params<N, NR, FEAT>(run, L, topo_i, stat_f, lane_f, lane, B);
-  run(kSetup, [&](int t) { setup<N, NR>(t, sh, L, lane, B, x0s, q0s, qd0s, q1s, qd1s, taus); });
+  run(kSetup, [&](int t) {
+    setup<N, NR>(t, sh, L, lane, B, x0s, q0s, qd0s, q1s, qd1s, taus);
+    if constexpr ((FEAT & kQdep) != 0) setup_qdep<N, NR>(t, L);
+  });
   run(kPairs, [&](int t) {
     setup_pairs<N, NR>(t, L);
     if constexpr (SPRINGS) setup_springs<N, NR>(t, sh, L);
@@ -1022,7 +1078,7 @@ CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, con
           ge = L.gt[e - 1];
         }
       }
-      kinematics<N, NR>(run, sh, L, xe);
+      kinematics<N, NR, FEAT>(run, sh, L, xe);
       if constexpr (SPRINGS) spring_state<N, NR>(run, sh, L, e == 0 && rebuild);
       if (e == 0 && rebuild) {  // H and H^-1 at x
         newton_inverse<N, NR, FEAT>(run, sh, L);

@@ -64,11 +64,21 @@ enum JointKind {
 
 // Closure kinds, the q-dependent joints (kQdep), the per-lane physical
 // params (kPerlane) and the robust solve modes (kRobust) of the FEAT bitmask;
-// the longest cable a lane holds and the longest per-lane record.
+// the longest cable a lane holds and the longest per-lane record (floats):
+// 8 and 512 in the fixed builds, sized from the scene in a build made for
+// one scene (-DCHORD_MAX_CABLE_POINTS, -DCHORD_MAX_RECORD).
 constexpr int kContacts = 1, kSprings = 2, kCables = 4, kAllClosures = 7, kQdep = 8,
               kPerlane = 16, kRobust = 32;
+#ifdef CHORD_MAX_CABLE_POINTS
+constexpr int kMaxCablePoints = CHORD_MAX_CABLE_POINTS;
+#else
 constexpr int kMaxCablePoints = 8;
+#endif
+#ifdef CHORD_MAX_RECORD
+constexpr int kMaxLaneRecord = CHORD_MAX_RECORD;
+#else
 constexpr int kMaxLaneRecord = 512;
+#endif
 
 struct Frame {
   float R[3][3];
@@ -1184,7 +1194,8 @@ CHORD_HD void chord_bdf2_lane(int lane, int B, const float* x0s, const float* q0
 }
 
 // The same solve in the mode rc names (the kRobust builds; integrators.newton
-// semantics): chord=False re-builds H and H^-1 at every iterate; a guarded
+// semantics; a kPerlane build reads the lane's physical params from lane_f,
+// as chord_bdf2_lane does): chord=False re-builds H and H^-1 at every iterate; a guarded
 // iteration (every one, or with guard_last the last one only) takes the full
 // step if |g| did not grow there, else the half step if it did not grow
 // there, else stays put (a non-finite trial compares false, so it counts as
@@ -1200,11 +1211,16 @@ CHORD_HD void chord_bdf2_lane_robust(int lane, int B, const float* x0s, const fl
                                      const float* qd0s, const float* q1s, const float* qd1s,
                                      const float* taus, const int* topo_i, const float* stat_f,
                                      ChordConfig cfg, RobustConfig rc, float* x_out,
-                                     float* hinv_out) {
+                                     float* hinv_out, const float* lane_f = nullptr) {
   constexpr bool QDEP = (FEAT & kQdep) != 0;
-  static_assert((FEAT & kRobust) != 0 && (FEAT & kPerlane) == 0,
-                "the robust solve runs in the kRobust builds, with lane-shared params");
+  constexpr bool PERLANE = (FEAT & kPerlane) != 0;
+  static_assert((FEAT & kRobust) != 0, "the robust solve runs in the kRobust builds");
   Shared<N, NR> sh(topo_i, stat_f);
+  float rec[PERLANE ? kMaxLaneRecord : 1];
+  if constexpr (PERLANE)
+    sh.read_lane(lane_f, lane, B, rec);
+  else
+    (void)rec, (void)lane_f;
   History<NR> hs;
   float x[NR], g[NR];
   for (int r = 0; r < NR; ++r) {

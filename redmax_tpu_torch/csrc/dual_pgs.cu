@@ -1,7 +1,9 @@
 // Fused dual projected Gauss-Seidel QP solve for Hopper (sm_90a), one thread
 // per lane. Replaces redmax_tpu/pallas_qp.py::_build_kernel; the lane
 // arithmetic is in dual_pgs_lane.cuh. Built with nvcc into a shared library
-// with a plain C interface and loaded with ctypes (qp_kernel.py).
+// with a plain C interface and loaded with ctypes (qp_kernel.py): as it
+// stands (the shapes the paths run), or with -DPGS_N=n -DPGS_M=m, a unit of
+// that one shape, made at its first launch.
 #include <cuda_runtime.h>
 
 #include "dual_pgs_lane.cuh"
@@ -40,7 +42,12 @@ extern "C" int dual_pgs_launch(int n, int m, int B, const float* H, const float*
                                int iters, float reg, float* x_out, float* lam_out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
+#if defined(PGS_N) && defined(PGS_M)
+  if (n == PGS_N && m == PGS_M)
+    return launch<PGS_N, PGS_M>(B, H, f, A, b, lo, hi, iters, reg, x_out, lam_out, s);
+#else
   if (n == 6 && m == 12) return launch<6, 12>(B, H, f, A, b, lo, hi, iters, reg, x_out, lam_out, s);
   if (n == 6 && m == 8) return launch<6, 8>(B, H, f, A, b, lo, hi, iters, reg, x_out, lam_out, s);
+#endif
   return -1;
 }

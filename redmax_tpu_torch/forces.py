@@ -12,8 +12,8 @@ ForceSpringDamper (with tension_only) and ForceCable, each with the
 closed-form K/D blocks of its wrenches (ground_contact_blocks per contact
 body; pair_closure_blocks per pair of body points, cross-body blocks
 included), which the structured Newton matrix uses in place of autodiff.
-SpringDamperM, ForcePointDirection and ForceDeformableSegments raise
-(ROADMAP queue 1 item 10).
+SpringDamperM, ForcePointDirection and ForceDeformableSegments raise (not
+ported yet).
 
 A scene holds one closure per contacting body. ground_contact_wrenches,
 ground_contact_energy and stack_contact_params evaluate all of them in one
@@ -52,8 +52,12 @@ class _ForceBase:
         return params["forces"][self.key]
 
 
+# What a closure that is not ported names in its error.
+PORTED = "the port's force closures are ground contact, two-point springs and cables"
+
+
 def _not_ported(name: str):
-    raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item 10)")
+    raise NotImplementedError(f"{name} is not ported yet ({PORTED})")
 
 
 class SpringDamperM(_ForceBase):

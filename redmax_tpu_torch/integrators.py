@@ -597,14 +597,14 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
     closed-form diagonals of model.joint_space_KD_diag (penalty limits
     included), and without force closures Dm is the body damping alone and
     Km is zero. h, I_i, g and body_damping may be per lane. Force closures
-    raise (their Km/Dm in the Euler system are ROADMAP queue 1 item 10).
+    raise (their Km/Dm in the Euler system are not ported yet).
 
     Returns a dict: kin, J, Jdot, phi, Mr [B,nr,nr], frtilde [B,nr],
     Mrtilde [B,nr,nr].
     """
     if force_fns:
         raise NotImplementedError(
-            "force closures in the Euler system (their Km, Dm) are ROADMAP queue 1 item 10")
+            "force closures in the Euler system (their Km, Dm) are not ported yet")
     h, h3 = lanewise(params["h"], 2), lanewise(params["h"], 3)
     B = q0.shape[0]
     kin = forward_kinematics(topo, params, q0, qdot0)

@@ -11,7 +11,7 @@ jax.jvp of S for their Sdot; here it is written out, each coefficient with
 the Taylor branch of the function it differentiates, so both agree to
 roundoff. SPHERICAL and FREE3D carry the post-step exp-map rescale
 (joint_reparam). FREE_ST, COMPOSITE_RP, the Euler-chart types and the
-spline joints are ROADMAP queue 1 item 11.
+spline joints are not ported yet.
 """
 
 import math
@@ -39,7 +39,7 @@ def require_supported(jt: JointType) -> None:
     if jt not in SUPPORTED_TYPES:
         raise NotImplementedError(
             f"joint type {jt.name} is not ported yet (FREE_ST, COMPOSITE_RP, the "
-            "Euler-chart and the spline joints are ROADMAP queue 1 item 11)"
+            "Euler-chart and the spline joints)"
         )
 
 

@@ -28,7 +28,8 @@ class KernelBuild:
     def __init__(self, name: str, sources: Sequence[str], defines: Sequence[str] = ()):
         self.name = name
         self.sources = tuple(sources)
-        self.flags = NVCC_FLAGS + tuple(defines)
+        self.defines = tuple(defines)
+        self.flags = NVCC_FLAGS + self.defines
         self.lib = None
         self.ptxas_report = None  # nvcc -Xptxas -v output of the loaded build
         self._proc = None
@@ -73,7 +74,8 @@ class KernelBuild:
             _, err = self._proc.communicate()
             rc, self._proc = self._proc.returncode, None
             if rc != 0:
-                raise RuntimeError(f"nvcc failed on {self.sources[0]} ({rc}):\n{err}")
+                raise RuntimeError(f"nvcc failed on {self.name} ({self.sources[0]} "
+                                   f"{' '.join(self.defines)}; exit {rc}):\n{err}")
             with open(log, "w") as f:
                 f.write(err)
             os.replace(tmp, so)

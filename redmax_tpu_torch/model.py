@@ -43,11 +43,11 @@ def joint_params_for(params: Dict, jt: int) -> Dict:
 def _split_closures(force_fns: Tuple) -> Tuple[Tuple, Tuple]:
     """(ground contacts, springs and cables) of the scene's closures, each in
     force_fns order; raises on any other closure type (its K/D blocks are
-    not ported: ROADMAP queue 1 item 10)."""
+    not ported)."""
     for fn in force_fns:
         if not isinstance(fn, (forces.ForceGroundCuboid,) + forces.PAIR_CLOSURES):
             raise NotImplementedError(
-                f"force closure {type(fn).__name__} is not ported yet (ROADMAP queue 1 item 10)")
+                f"force closure {type(fn).__name__} is not ported yet ({forces.PORTED})")
     gnd = tuple(fn for fn in force_fns if isinstance(fn, forces.ForceGroundCuboid))
     return gnd, tuple(fn for fn in force_fns if isinstance(fn, forces.PAIR_CLOSURES))
 
@@ -320,13 +320,14 @@ def reparam_all(topo: Topology, params: Dict, q, qdot):
     """Post-step reparameterization (q, qdot) [B, nr] -> (q, qdot): per type
     group, the exp-map rescale of SPHERICAL and FREE3D rotations
     (joints.joint_reparam); the identity for a scene without them. The Euler
-    charts' switch raises (ROADMAP queue 1 item 11)."""
+    charts' switch raises (not ported yet)."""
     index = _index_tensors(topo, q.device)
     for jt, _, idx in index.groups:
         jt_enum = JointType(jt)
         if jt_enum in (JointType.SPHERICAL_EULER, JointType.FREE3D_EULER):
             raise NotImplementedError(
-                f"the Euler-chart switch of {jt_enum.name} is ROADMAP queue 1 item 11")
+                f"the Euler-chart switch of {jt_enum.name} is not ported yet (the port's "
+                "SPHERICAL and FREE3D joints use the exp-map chart)")
         if jt_enum not in EXP_ROTATION:
             continue
         qg, qdg = joint_reparam(jt_enum, q[:, idx], qdot[:, idx])

@@ -21,11 +21,18 @@ every read and write coalesced. What it leaves for later: at B = 1024 only
 32 blocks of 32 threads run on 132 SMs, and the wrapper's [B, P] -> [P, B]
 copies are separate launches.
 
-On a CUDA tensor dual_pgs launches the kernel (and raises if it cannot); on
-a CPU tensor it runs dual_pgs_reference.
+The shapes the paths run, (6, 12) and (6, 8), are instantiated in one
+library built up front (BUILD); any other (n, m) is built for it at its
+first launch (build_for: one nvcc unit of that shape, cached under _build/
+by a hash of its sources and defines), as the JAX package builds a kernel
+per (n, m).
+
+On a CUDA tensor dual_pgs launches the kernel (and raises if it cannot build
+or launch it); on a CPU tensor it runs dual_pgs_reference.
 """
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -36,9 +43,19 @@ from redmax_tpu_torch.qp import pgs_sweeps
 # Launches of the CUDA kernel since the counter was last set to 0.
 dual_pgs_launches = 0
 
-BUILD = KernelBuild("dual_pgs", ("dual_pgs.cu", "dual_pgs_lane.cuh"))
-# (n, m) shapes with an explicit template instantiation in dual_pgs.cu.
+_SOURCES = ("dual_pgs.cu", "dual_pgs_lane.cuh")
+BUILD = KernelBuild("dual_pgs", _SOURCES)
+# (n, m) shapes with an explicit template instantiation in BUILD.
 INSTANTIATED = ((6, 12), (6, 8))
+
+
+@lru_cache(maxsize=None)
+def build_for(n: int, m: int) -> KernelBuild:
+    """The library that launches (n, m): BUILD where it has the shape, else
+    a unit of that one shape (-DPGS_N, -DPGS_M), one KernelBuild a shape."""
+    if (n, m) in INSTANTIATED:
+        return BUILD
+    return KernelBuild(f"dual_pgs_{n}_{m}", _SOURCES, defines=(f"-DPGS_N={n}", f"-DPGS_M={m}"))
 
 
 def dual_pgs_reference(H, f, A, b, lo, hi, iters: int = 40, reg: float = 1e-10):
@@ -58,11 +75,11 @@ def dual_pgs_reference(H, f, A, b, lo, hi, iters: int = 40, reg: float = 1e-10):
     return x, lam
 
 
-def _build_lib():
-    """The kernel library, compiled with nvcc at first use (see kernel_build).
-    Raises when nvcc is missing or the build fails."""
-    first = BUILD.lib is None
-    lib = BUILD.load()
+def _build_lib(build: KernelBuild = BUILD):
+    """The kernel library of build, compiled with nvcc at first use (see
+    kernel_build). Raises when nvcc is missing or the build fails."""
+    first = build.lib is None
+    lib = build.load()
     if first:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dual_pgs_launch.argtypes = [i, i, i] + [p] * 6 + [i, ctypes.c_float] + [p, p, p]
@@ -73,10 +90,11 @@ def _build_lib():
 def dual_pgs(H, f, A, b, lo, hi, iters: int = 40, reg: float = 1e-10):
     """Batched fused dual-PGS solve: (x [B,n], lam [B,m]).
 
-    H [B,n,n], f [B,n], A [B,m,n], b, lo, hi [B,m]. A CUDA tensor goes to
-    the kernel (f32, an instantiated (n, m), else it raises; the wrapper
-    makes the contiguous [P, B] copies the kernel reads); a CPU tensor goes
-    to dual_pgs_reference.
+    H [B,n,n], f [B,n], A [B,m,n], b, lo, hi [B,m], n, m >= 1. A CUDA
+    tensor goes to the kernel (f32, else it raises; a shape outside
+    INSTANTIATED is built at its first launch; the wrapper makes the
+    contiguous [P, B] copies the kernel reads); a CPU tensor goes to
+    dual_pgs_reference.
     """
     if H.device.type == "cpu":
         return dual_pgs_reference(H, f, A, b, lo, hi, iters, reg)
@@ -84,8 +102,8 @@ def dual_pgs(H, f, A, b, lo, hi, iters: int = 40, reg: float = 1e-10):
         raise ValueError(f"dual_pgs: unsupported device {H.device}")
     B, n = f.shape
     m = A.shape[1]
-    if (n, m) not in INSTANTIATED:
-        raise ValueError(f"dual_pgs: no kernel instantiation for (n, m) = {(n, m)}")
+    if n < 1 or m < 1:
+        raise ValueError(f"dual_pgs: (n, m) = {(n, m)}, want both >= 1")
     want = {"H": (B, n, n), "f": (B, n), "A": (B, m, n), "b": (B, m), "lo": (B, m), "hi": (B, m)}
     for (name, shape), a in zip(want.items(), (H, f, A, b, lo, hi)):
         if a.device != H.device or a.dtype != torch.float32:
@@ -107,9 +125,9 @@ def launch(H, f, A, b, lo, hi, iters: int, reg: float):
     """Launch the kernel on the current stream on packed inputs (see pack);
     returns (x [n, B], lam [m, B]) and counts the launch."""
     global dual_pgs_launches
-    lib = _build_lib()
     n, B = f.shape
     m = b.shape[0]
+    lib = _build_lib(build_for(n, m))
     x_out = torch.empty(n, B, dtype=torch.float32, device=f.device)
     lam_out = torch.empty(m, B, dtype=torch.float32, device=f.device)
     stream = torch.cuda.current_stream(f.device).cuda_stream
@@ -118,6 +136,6 @@ def launch(H, f, A, b, lo, hi, iters: int, reg: float):
         x_out.data_ptr(), lam_out.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"dual_pgs kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"dual_pgs kernel launch failed for (n, m) = {(n, m)}: error {err}")
     dual_pgs_launches += 1
     return x_out, lam_out

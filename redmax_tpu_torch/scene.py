@@ -12,8 +12,7 @@ cables) are kept as (object, params) pairs and compiled into
 ``params["forces"]``; a spring-damper's or cable's rest length L = 0 is set
 at compile from the initial configuration. The other forces, deformables,
 the prescribed-motion and attach-point constraints and friction are not
-ported yet (ROADMAP queue 1 items 10, 13 and 15); their SceneBuilder methods
-raise.
+ported yet; their SceneBuilder methods raise.
 """
 
 import math
@@ -97,8 +96,8 @@ def transl(p) -> np.ndarray:
     return E
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+def _not_ported(what: str, has: str = ""):
+    raise NotImplementedError(f"{what} is not ported yet" + (f" ({has})" if has else ""))
 
 
 class SceneBuilder:
@@ -198,16 +197,16 @@ class SceneBuilder:
 
     # -- not ported yet ----------------------------------------------------
     def force_spring_damper_m(self, *a, **k):
-        _not_ported("SpringDamperM", "10")
+        _not_ported("SpringDamperM", forces_mod.PORTED)
 
     def force_point_direction(self, *a, **k):
-        _not_ported("ForcePointDirection", "10")
+        _not_ported("ForcePointDirection", forces_mod.PORTED)
 
     def deformable_spring(self, *a, **k):
-        _not_ported("deformable springs", "10")
+        _not_ported("deformable springs", forces_mod.PORTED)
 
     def constraint_presc_joint(self, *a, **k):
-        _not_ported("prescribed-motion constraints", "13")
+        _not_ported("prescribed-motion constraints", con_mod.PORTED)
 
     constraint_presc_joint_m = constraint_presc_body = constraint_presc_joint
 
@@ -296,7 +295,7 @@ class SceneBuilder:
     # -- compile -----------------------------------------------------------
     def compile(self, dtype=torch.float64, device="cuda") -> "CompiledScene":
         if self.fric:
-            _not_ported("frictional stepping", "15")
+            _not_ported("frictional stepping")
         N = len(self.joints)
         if N != len(self.bodies):
             raise ValueError("every body needs a joint")
@@ -439,7 +438,7 @@ class CompiledScene:
         if integrator == "euler":
             return integrators.make_euler_step(self.topo, self.force_fns, self.constraint_fns)
         if integrator in ("bdf1", "euler_fric"):
-            _not_ported(f"the {integrator!r} step", "13" if integrator == "bdf1" else "15")
+            _not_ported(f"the {integrator!r} step")
         raise ValueError(integrator)
 
     def initial_state(self, integrator: str, B: int = 1):

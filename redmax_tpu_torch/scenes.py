@@ -10,7 +10,7 @@ spherical joints (the q-dependent-joint MPC scenes); ``scene_00_serial_chain``,
 6-13 (7 and 9 with exponential coordinates), whose f64 trajectory dumps gate
 the BDF2 step; ``scene_floor_chain`` is the contact-QP benchmark scene (every
 joint limited, a floor sphere on every link). The other scenes of the JAX
-package's zoo are ROADMAP queue 1 item 12.
+package's zoo are not ported yet.
 """
 
 import math
@@ -75,7 +75,8 @@ def scene_07_spherical(exp_coords: bool = True) -> SceneBuilder:
     at q = (pi/8, 0, 0) with chart rates (2, 2, 2); the exp-map joint gets
     the same rotation and body angular velocity: qdot = Jr(q)^-1 S_xyz qdot_c."""
     if not exp_coords:
-        raise NotImplementedError("the Euler-chart spherical joint is ROADMAP queue 1 item 11")
+        raise NotImplementedError("the Euler-chart spherical joint is not ported yet "
+                                  "(exp_coords=True: the exp-map chart)")
     b = SceneBuilder(name="Spherical joint", h=2e-3, tEnd=1.0)
     q1 = np.array([math.pi / 8, 0.0, 0.0])
     w1 = _euler_xyz_S(q1) @ np.array([2.0, 2.0, 2.0])
@@ -104,7 +105,8 @@ def scene_09_free3d(exp_coords: bool = True) -> SceneBuilder:
     gravity, with exponential coordinates (at q = 0 the Euler chart's S_rot
     is I too, so qdot carries over)."""
     if not exp_coords:
-        raise NotImplementedError("the Euler-chart free joint is ROADMAP queue 1 item 11")
+        raise NotImplementedError("the Euler-chart free joint is not ported yet "
+                                  "(exp_coords=True: the exp-map chart)")
     b = SceneBuilder(name="Free3D joint", h=5e-2, tEnd=6.0, grav=(0, 0, -1))
     b0 = b.body_cuboid(1.0, (1, 1, 1))
     b.joint(JointType.FREE3D, None, b0, qdot=[0, 0, 3, 0.2, 0.4, 0.6])

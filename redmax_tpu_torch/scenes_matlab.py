@@ -5,7 +5,7 @@ Defaults: tspan [0, 2], h 1e-2, grav [0, 0, -980], baumgarte [5, 5, 5],
 density 1.
 
 Ported: case 4 (loop closure, dense KKT), case 6 (joint limit, dual PGS)
-and case 7 (gear couplings). The rest of the zoo is ROADMAP queue 1 item 12.
+and case 7 (gear couplings). The rest of the zoo is not ported yet.
 """
 
 import math
@@ -76,5 +76,6 @@ def build_mscene(sid: int, **compile_kw) -> CompiledScene:
     """Compile reference case `sid`; compile_kw goes to SceneBuilder.compile
     (dtype, device)."""
     if sid not in M_SCENES:
-        raise NotImplementedError(f"mscene {sid} is not ported yet (ROADMAP queue 1 item 12)")
+        raise NotImplementedError(f"mscene {sid} is not ported yet (the ported cases: "
+                                  f"{sorted(M_SCENES)})")
     return M_SCENES[sid]().compile(**compile_kw)

@@ -341,8 +341,8 @@ def test_contact_kernel_route_backward_matches_jax():
 def test_kernel_route_refuses_what_the_kernel_does_not_cover():
     """supports() takes ground contacts, springs and cables and nothing else.
     Per-lane contact or spring coefficients (which once raised) are split
-    out as per lane and pick the PERLANE build, instantiated only for the
-    shapes the card runs (a CUDA tensor of another shape raises)."""
+    out as per lane and pick the PERLANE build, whose fixed library holds
+    the shapes the paths run (another shape gets a build made for it)."""
     tc_free = jchain(nlinks=4).compile(dtype=jnp.float32)
     topo, params = _port(tc_free, torch.float32)
     gnd = forces.ForceGroundCuboid("f0", 1)

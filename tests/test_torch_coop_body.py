@@ -370,28 +370,38 @@ def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
     builds at (12, 12), with and without contacts, the per-lane build with
     contacts at (12, 12) and the spring builds at (12, 12) with and without
     per-lane params (up to MAX_COOP_SPRINGS springs); the thread-per-lane
-    libraries keep them for an explicit call and for more springs, and every
-    other build stays where it was."""
+    libraries keep them for an explicit call and for more springs. The
+    other fixed thread-per-lane keys stay in their libraries unless the
+    shape rule (takes_coop) gives them to the cooperative design, as it
+    gives the q-dependent builds (K1b): those go to the cooperative build
+    made for their shape. A robust mode at (4, 4) goes to a cooperative
+    build made for it, and one with per-lane params to a thread-per-lane
+    build made for it."""
     assert set(chord_kernel.COOP_INSTANTIATED) == {c[3] for c in COOP_CASES.values()}
     assert set(chord_kernel.COOP_INSTANTIATED) <= set(chord_kernel.INSTANTIATED)
     assert chord_kernel.BUILD_COOP in chord_kernel.BUILDS
     for N, nr, kinds in chord_kernel.INSTANTIATED:
-        coop = (N, nr, kinds) in chord_kernel.COOP_INSTANTIATED
-        want = chord_kernel.BUILD_COOP if coop else chord_kernel.build_of(kinds)
+        if (N, nr, kinds) in chord_kernel.COOP_INSTANTIATED:
+            want = chord_kernel.BUILD_COOP
+        elif chord_kernel.takes_coop(N, nr, kinds):
+            want = chord_kernel.build_for(True, N, nr, kinds)
+        else:
+            want = chord_kernel.build_of(kinds)
         assert chord_kernel.library_of(N, nr, kinds) is want
         assert chord_kernel.library_of(N, nr, kinds, thread_per_lane=True) \
             is chord_kernel.build_of(kinds)
+    for key in ((6, 12, chord_kernel.QDEP), (4, 12, chord_kernel.QDEP), (1, 6, chord_kernel.QDEP)):
+        assert chord_kernel.is_coop(chord_kernel.library_of(*key)), key
     # springs up to MAX_COOP_SPRINGS go to the cooperative library, more to
-    # the thread-per-lane one; cables keep their libraries, and so does a
-    # robust mode at (4, 4) or with per-lane params (neither has a build on
-    # the card)
+    # the thread-per-lane one; cables keep their libraries
     most = chord_kernel.MAX_COOP_SPRINGS
     for kinds, lane in ((S, chord_kernel.BUILD), (S | PL, chord_kernel.BUILD_PERLANE)):
         assert chord_kernel.library_of(12, 12, kinds, springs=most) is chord_kernel.BUILD_COOP
         assert chord_kernel.library_of(12, 12, kinds, springs=most + 1) is lane
     assert chord_kernel.library_of(4, 3, chord_kernel.CABLES | PL) is chord_kernel.BUILD_PERLANE
-    assert chord_kernel.library_of(4, 4, C | R) is chord_kernel.BUILD_ROBUST
-    assert chord_kernel.library_of(12, 12, C | PL | R) is chord_kernel.BUILD_PERLANE
+    assert chord_kernel.library_of(4, 4, C | R) is chord_kernel.build_for(True, 4, 4, C | R)
+    assert chord_kernel.library_of(12, 12, C | PL | R, record=244) \
+        is chord_kernel.build_for(False, 12, 12, C | PL | R, 244)
 
 
 @pytest.mark.parametrize("case", list(COOP_CASES))

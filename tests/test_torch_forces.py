@@ -220,13 +220,13 @@ def test_scene_chain_ground_compile_matches():
 
 def test_closures_waiting_for_later_items_raise():
     for name in ("SpringDamperM", "ForcePointDirection", "ForceDeformableSegments"):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="the port's force closures are"):
             getattr(tforces, name)("f0", 0, 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="the port's force closures are"):
         convert.forces_from_fields([("SpringDamperM", {"key": "f0"})])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="the port's force closures are"):
         tscene.SceneBuilder().force_spring_damper_m(0, 1, np.zeros(3), np.zeros(3), 1.0)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="the port's force closures are"):
         tmodel.assemble(None, {}, None, None, (object(),))
     b = tscene.SceneBuilder()
     b.body_sphere(1.0, 0.1)
