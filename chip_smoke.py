@@ -8,12 +8,13 @@ Phases (any failure is an exception and a non-zero exit):
      side by side (the chord kernel's fixed libraries: the thread-per-lane
      design as it stands, with the q-dependent joints, with per-lane params
      and with the robust solve modes, its cooperative design, and the dual
-     PGS; and the builds made for one shape that the phases below launch:
-     the cooperative K1b builds, the default-route cases of phase 26 and
-     uni6's probe build, each picked by the shape rule before anything is
-     built), and print each library's build time, their -Xptxas -v
-     register/spill reports and each cooperative build's layout (lanes a
-     block, shared memory a block);
+     PGS in both designs, a group of threads a lane and one thread a lane;
+     and the builds made for one shape that the phases below launch: the
+     cooperative K1b builds, the default-route cases of phase 26 (the QP's
+     in both designs) and uni6's probe build, each picked by the shape rule
+     before anything is built), and print each library's build time, their
+     -Xptxas -v register/spill reports and each cooperative build's layout
+     (threads a lane, lanes a block, shared memory a block);
   3. hold the chord kernel against its plain PyTorch version on the card
      (scene_chain(12) at B = 1024, 1000 and 997, scene_chain(4); the
      wrapper runs the cooperative design there, one launch a call): x within
@@ -29,18 +30,22 @@ Phases (any failure is an exception and a non-zero exit):
      solves (49 a solve, none of the other design); the same solve on the
      op-level route (float32 and float64) must agree; a small solve on the
      card must agree with the same solve on the CPU in float64;
-  5. hold the dual-PGS kernel against its plain version on the card: random
-     well-posed QPs at (n, m) = (6, 8), B = 1024 and a ragged B = 1000 (x
-     within 2e-5, lambda within 2e-4 of scale), and the contact QPs of the
-     6-link floor chain at (6, 12) (m > n makes the dual singular, so x and
-     the primal objective are held by quantiles against the plain version in
-     float64, not lambda); time the launch (200 launches in a CUDA graph,
-     and CUDA events over 200 back-to-back launches), the wrapper and the
-     plain version, and compute the kernel's bound;
+  5. hold the dual-PGS kernel against its plain version on the card through
+     the default route (the cooperative design, a group of threads a lane,
+     one launch a call and none of the other design): random well-posed QPs
+     at (n, m) = (6, 8), B = 1024 and a ragged B = 1000 (x within 2e-5,
+     lambda within 2e-4 of scale), and the contact QPs of the 6-link floor
+     chain at (6, 12) (m > n makes the dual singular, so x and the primal
+     objective are held by quantiles against the plain version in float64,
+     not lambda), with a NaN lane; time the launch (200 launches in a CUDA
+     graph, and CUDA events over 200 back-to-back launches) in turns with
+     the thread-per-lane build, each design's wrapper and the plain version,
+     and compute the kernel's bound;
   6. the contact-QP path: scene_floor_chain(6), B = 1024, f32, 20 linearly
      implicit Euler steps with 40 PGS sweeps through make_euler_step_batched
-     and make_simulate on the kernel route, with the launch count read around
-     the timed rollouts; the same rollout on the op-level route (float32 and
+     and make_simulate on the kernel route, with the launch counts read
+     around the timed rollouts (20 of the cooperative QP a rollout, none of
+     the other design); the same rollout on the op-level route (float32 and
      float64) must agree; the last step's solution must be feasible; a small
      rollout on the card must agree with the CPU in float64;
   7. the equality branch: reference case 4 (loop closure, dense KKT), B = 64,
@@ -68,16 +73,18 @@ Phases (any failure is an exception and a non-zero exit):
      its thread-per-lane build, as in phase 3;
  11. hold the chord kernel with a cable against its plain version: scene 13
      (a tension-only cable over two links to a stiff prismatic slider) at
-     B = 1024 on rollout states, with a census of lanes taut, slack and within
-     1e-6 L of the gate (those left out of the tolerance and counted); then
-     the same states with L raised so that every lane is slack; timed;
+     B = 1024 on rollout states (the cooperative design), with a census of
+     lanes taut, slack and within 1e-6 L of the gate (those left out of the
+     tolerance and counted); then the same states with L raised so that
+     every lane is slack; timed in turns with the thread-per-lane build;
  12. the spring path: benchmarks/bench_spring_ab.py's spring-MPC solve
      (spring chain, horizon 50, B = 1024, f32, one Adam step) with the checks
      of phase 4 (the cooperative design's 49 launches a solve), the small
      card-against-CPU solve at 12 links;
  13. the cable rollout: scene 13, B = 1024 lanes from its initial state plus
      a seeded perturbation, 50 BDF2 steps on the kernel route (49 launches
-     per rollout), timed, against the float64 op-level rollout;
+     of the cooperative design per rollout, none of the other), timed,
+     against the float64 op-level rollout;
  14. hold the chord kernel with the q-dependent joints (K1b: the
      cooperative QDEP builds made for their shapes, timed in turns with the
      thread-per-lane QDEP builds) against its plain version: the
@@ -102,9 +109,9 @@ Phases (any failure is an exception and a non-zero exit):
      (perlane_draws) on chain-ground-12 at B = 1024, 1000 and 997, the spring
      chain and scene 13, on rollout states under the same draws, by the
      tolerances of phase 8; a NaN lane; lane-shared params broadcast into
-     the per-lane buffer against the builds without it; timed (the
-     chain-ground-12 and spring-chain builds on the cooperative design, in
-     turns with their thread-per-lane builds, as in phase 3);
+     the per-lane buffer against the builds without it; timed (each build on
+     the cooperative design, in turns with its thread-per-lane build, as in
+     phase 3);
  19. the randomized contact path: phase 9's solve with per-lane I_i, h, g,
      kn and mu (perlane_draws), with the checks of phase 4 (the cooperative
      design's 49 launches a solve) and the small card-against-CPU solve at
@@ -112,9 +119,8 @@ Phases (any failure is an exception and a non-zero exit):
  20. system identification: cotangents of that objective into the per-lane
      I_i, h and every kn, kernel route against op-level route;
  21. 50-step rollouts of the spring chain and of scene 13 under the draws
-     of phase 18 on the kernel route (49 launches each, the spring chain's
-     on the cooperative design, scene 13's on the thread-per-lane one, none
-     on the other), against the float64 op-level rollouts;
+     of phase 18 on the kernel route (49 launches each on the cooperative
+     design, none on the other), against the float64 op-level rollouts;
  22. hold the ROBUST builds (K1g) against their plain version in each of
      guarded, guard_last, chord=False and guarded chord=False: chain-12 at
      B = 1024, 1000 and 997 on states 8 steps into a sigma = 6 rollout and
@@ -141,9 +147,10 @@ Phases (any failure is an exception and a non-zero exit):
      each warp) on phase 3's chain-12 and phase 8's chain-ground-12 inputs,
      phase 22's chain-ground-12 inputs in the guarded mode, phase 18's
      per-lane chain-ground-12 inputs, phase 10's spring-chain inputs,
-     phase 18's per-lane spring-chain inputs and phase 14's universal-6
-     inputs (its own probe build), at B = 1024, cycles a lane by phase, and
-     the probe build's own time;
+     phase 18's per-lane spring-chain inputs, phase 14's universal-6
+     inputs (its own probe build) and the scene-13 cable inputs of phases
+     11 and 18 (lane-shared and per-lane), at B = 1024, cycles a lane by
+     phase, and the probe build's own time;
  26. the default route (use_kernel=None) at shapes and kind mixes that no
      fixed library holds, at B = 1024 and a ragged 1000: scene 0 (5, 3),
      scene 12 (2, 2, springs), scene_chain(8) with lane-shared and with
@@ -151,20 +158,21 @@ Phases (any failure is an exception and a non-zero exit):
      springs), a universal chain with a contact
      on each link, the randomized contact solve in guarded3 (per-lane
      params and a robust mode) and reference case 6's Euler rollout on
-     dual_pgs (n = 2): each case's design, its build's nvcc seconds and
+     dual_pgs ((n, m) = (2, 1), the QP's design by its shape rule): each
+     case's design, its build's nvcc seconds and
      ptxas line, a short rollout on the route with its launch count, the
      kernel against its plain version (compare_kernel's tolerances and
      shares; the QP's x and lambda, and its rollout against float64), timed;
  27. print the kernels line (every row with its design, threads a lane and
-     lanes a block; the cooperative rows with the thread-per-lane build's
-     time of this run), the paths' lines (robust_path, backward_modes and
-     coop_phases among them), the card's name and power limit, and the
-     result line.
+     lanes a block; the cooperative rows, the QP's among them, with the
+     thread-per-lane build's time of this run), the paths' lines
+     (robust_path, backward_modes and coop_phases among them), the card's
+     name and power limit, and the result line.
 
-Every MPC path and the per-lane rollouts read the launch counter of the
-chord kernel design the wrapper routes them to (design_of) and require none
-of the other; the other rollouts, on the thread-per-lane design, count both
-designs' launches.
+Every MPC path, the cable rollout and the per-lane rollouts read the launch
+counter of the chord kernel design the wrapper routes them to (design_of)
+and require none of the other; the FREE3D rollout counts both designs'
+launches; the Euler paths read the QP's two counters.
 """
 
 import ctypes
@@ -724,13 +732,30 @@ def dual_pgs_flops(n, m, iters):
     return gj + setup + sweeps + n * (2 * m + 1)
 
 
+def reset_qp_launches() -> None:
+    """Set the dual-PGS kernel's launch counters (both designs) to 0."""
+    qp_kernel.dual_pgs_launches = qp_kernel.dual_pgs_coop_launches = 0
+
+
+def qp_launches():
+    """(cooperative, thread-per-lane) dual-PGS launches since
+    reset_qp_launches."""
+    return qp_kernel.dual_pgs_coop_launches, qp_kernel.dual_pgs_launches
+
+
 def phase_qp_kernel_vs_plain(device="cuda", B=1024):
-    """dual_pgs vs dual_pgs_reference on the card at both instantiated shapes;
-    returns the kernel record fields measured at the path's shape (6, 12)."""
+    """dual_pgs vs dual_pgs_reference on the card at both instantiated shapes,
+    through the default route (the cooperative design: one launch a call,
+    none of the other design); a NaN lane at (6, 12); returns the kernel
+    record fields measured at the path's shape (6, 12)."""
     # (a) well-posed random QPs at (6, 8): lambda is unique, so it is held too
     for Bq in (B, B - 24):
         qps = random_qps(Bq, 6, 1, 4, 3, seed=11, device=device)
+        reset_qp_launches()
         x, lam = qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)
+        if qp_launches() != (1, 0):
+            raise AssertionError(f"dual_pgs (6, 8) B {Bq}: launches (cooperative, thread per "
+                                 f"lane) {qp_launches()}, want (1, 0)")
         x_ref, lam_ref = qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG)
         torch.cuda.synchronize()
         if not (torch.isfinite(x).all() and torch.isfinite(lam).all()):
@@ -749,7 +774,10 @@ def phase_qp_kernel_vs_plain(device="cuda", B=1024):
     sc = scene_floor_chain(6).compile(dtype=torch.float32, device=device)
     qps = contact_qps(sc, floor_chain_states(sc, B, device, torch.float32))
     n, m = qps[1].shape[1], qps[2].shape[1]
+    reset_qp_launches()
     x, lam = qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)
+    if qp_launches() != (1, 0):
+        raise AssertionError(f"dual_pgs (6, 12): launches {qp_launches()}, want (1, 0)")
     x_ref, _ = qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG)
     qps64 = [a.double() for a in qps]
     x64, _ = qp_kernel.dual_pgs_reference(*qps64, iters=PGS_ITERS, reg=PGS_REG)
@@ -793,20 +821,60 @@ def phase_qp_kernel_vs_plain(device="cuda", B=1024):
         raise AssertionError("dual_pgs (6, 12): kernel further from float64 than twice the "
                              "float32 plain version")
 
+    # a NaN lane stays in its lane
+    poisoned = [a.clone() for a in qps]
+    poisoned[1][5, 0] = float("nan")
+    xp, lamp = qp_kernel.dual_pgs(*poisoned, iters=PGS_ITERS, reg=PGS_REG)
+    keep = torch.ones(B, dtype=torch.bool, device=x.device)
+    keep[5] = False
+    same = lambda a, b: torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+    if not torch.isnan(xp[5]).any() or not same(xp[keep], x[keep]) \
+            or not same(lamp[keep], lam[keep]):
+        raise AssertionError("dual_pgs (6, 12): a NaN lane did not stay NaN, or changed another "
+                             "lane")
+    print("dual_pgs (6, 12): NaN lane kept, other lanes bit-equal")
     return time_qp_kernel(qps, dxk, "(6, 12)")
 
 
 def time_qp_kernel(qps, max_abs_err, label):
     """The kernel record fields of dual_pgs on the QPs qps: launch time (200
     launches in a CUDA graph, graph_ms; and events_ms, CUDA events over 200
-    back-to-back launches, the only timing before), the wrapper's with its
-    layout copies, the plain version's, and the bound."""
+    back-to-back launches, the only timing before), the wrapper's, the
+    plain version's, and the bound. Where the wrapper runs the cooperative
+    design, also the thread-per-lane build of the same shape, timed in turns
+    with it (cooperative, thread-per-lane, thread-per-lane, cooperative),
+    each design's wrapper (the cooperative one reads the callers' arrays,
+    the thread-per-lane one makes pack's [P, B] copies and transposes the
+    outputs back) and the cooperative design's layout."""
     B, n = qps[1].shape
     m = qps[2].shape[1]
     packed = qp_kernel.pack(*qps)
-    ms = graph_ms(lambda: qp_kernel.launch(*packed, PGS_ITERS, PGS_REG), reps=200)
-    events_ms = cuda_ms(lambda: qp_kernel.launch(*packed, PGS_ITERS, PGS_REG), reps=200)
+    prev = lambda: qp_kernel.launch(*packed, PGS_ITERS, PGS_REG, thread_per_lane=True)
+    design = {"design": "thread_per_lane", "threads_per_lane": 1, "lanes_per_block": 32}
     wrap_ms = cuda_ms(lambda: qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG), reps=100)
+    if qp_kernel.takes_coop(n, m):
+        cur = lambda: qp_kernel.launch(*qps, PGS_ITERS, PGS_REG)
+        ms = graph_ms(cur, reps=200)
+        prev_ms = (graph_ms(prev, reps=200) + graph_ms(prev, reps=200)) / 2
+        ms = (ms + graph_ms(cur, reps=200)) / 2
+        events_ms = cuda_ms(cur, reps=200)
+        prev_events_ms = cuda_ms(prev, reps=200)
+        prev_wrap_ms = cuda_ms(lambda: [a.t() for a in qp_kernel.launch(
+            *qp_kernel.pack(*qps), PGS_ITERS, PGS_REG, thread_per_lane=True)], reps=100)
+        threads, lanes, smem = qp_kernel.coop_layout(n, m)
+        design = {"design": "group_per_lane", "threads_per_lane": threads,
+                  "lanes_per_block": lanes, "prev_design": "thread_per_lane",
+                  "prev_design_ms": prev_ms, "prev_design_events_ms": prev_events_ms,
+                  "prev_design_wrapper_ms": prev_wrap_ms}
+        print(f"dual_pgs at {label} {(n, m)}, B {B}: cooperative ({threads} threads a lane, "
+              f"{lanes} lanes a block, {smem} bytes of shared memory a block) {ms:.4f} ms, "
+              f"thread-per-lane {prev_ms:.4f} ms (in turns, this run): {prev_ms / ms:.2f}x; "
+              f"events {events_ms:.4f} and {prev_events_ms:.4f} ms; wrapper by design "
+              f"{wrap_ms:.4f} and {prev_wrap_ms:.4f} ms")
+    else:
+        ms = graph_ms(prev, reps=200)
+        events_ms = cuda_ms(prev, reps=200)
     plain_ms = cuda_ms(lambda: qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG),
                        reps=5)
     flops = dual_pgs_flops(n, m, PGS_ITERS) * B
@@ -814,14 +882,14 @@ def time_qp_kernel(qps, max_abs_err, label):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
     print(f"dual_pgs at {label} {(n, m)}, B {B}, {PGS_ITERS} sweeps: kernel {ms:.4f} ms (CUDA "
-          f"events over back-to-back launches {events_ms:.4f} ms), wrapper with "
-          f"layout copies {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops // B} flops/lane "
+          f"events over back-to-back launches {events_ms:.4f} ms), wrapper "
+          f"{wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; {flops // B} flops/lane "
           f"({t_ops * 1e3:.3f} us), {nbytes} bytes ({t_bytes * 1e3:.3f} us); bound "
           f"{bound * 1e3:.3f} us, kernel at {bound / ms:.2%} of it; dependent chain "
           f"{PGS_ITERS * m} row updates per lane, {ms * 1e6 / (PGS_ITERS * m):.1f} ns each")
     return {"max_abs_err": max_abs_err, "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "design": "thread_per_lane", "threads_per_lane": 1, "lanes_per_block": 32}
+            "wrapper_ms": wrap_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", **design}
 
 
 def lane_err(q, ref):
@@ -842,7 +910,7 @@ def phase_euler_path(device="cuda", nlinks=6, B=1024, nsteps=20, reps=3):
     final = sim(sc.params, s0)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    qp_kernel.dual_pgs_launches = 0
+    reset_qp_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
@@ -851,17 +919,19 @@ def phase_euler_path(device="cuda", nlinks=6, B=1024, nsteps=20, reps=3):
     end.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
-    launches = qp_kernel.dual_pgs_launches
+    launches, lane_launches = qp_launches()
     dt = start.elapsed_time(end) / 1e3 / reps
-    if launches != nsteps * reps:
-        raise AssertionError(f"dual_pgs launched {launches} times in {reps} rollouts, "
-                             f"want {nsteps} per rollout")
+    if launches != nsteps * reps or lane_launches != 0:
+        raise AssertionError(f"dual_pgs launched its cooperative design {launches} times and "
+                             f"the thread-per-lane one {lane_launches} times in {reps} "
+                             f"rollouts, want {nsteps} and 0 per rollout")
     finite = torch.isfinite(final.q).all(-1) & torch.isfinite(final.qdot).all(-1)
     finite_frac = float(finite.float().mean())
     peak = torch.cuda.max_memory_allocated()
     print(f"euler path: {B * nsteps / dt:.1f} steps/s ({dt * 1e3:.3f} ms per {nsteps}-step rollout "
           f"by CUDA events, {wall * 1e3:.3f} ms host clock), finite_frac {finite_frac:.4f}, "
-          f"kernel launches {launches // reps} per rollout, peak memory {peak / 2**20:.1f} MiB")
+          f"kernel launches {launches // reps} per rollout (cooperative design; "
+          f"thread-per-lane {lane_launches}), peak memory {peak / 2**20:.1f} MiB")
     if final.q.shape != (B, sc.topo.nr) or finite_frac < 0.99:
         raise AssertionError(f"euler path: shape {tuple(final.q.shape)}, finite_frac {finite_frac}")
 
@@ -882,7 +952,7 @@ def phase_euler_path(device="cuda", nlinks=6, B=1024, nsteps=20, reps=3):
     # The same rollout on the op-level route in float32 and float64. Final q
     # within 1e-3 of scale of the float64 rollout on at least 95% of lanes;
     # the worst lane sits on an active-set boundary and is printed, not held.
-    qp_kernel.dual_pgs_launches = 0
+    reset_qp_launches()
     sim_op = integrators.make_simulate(integrators.make_euler_step_batched(
         sc.topo, (), sc.constraint_fns, pgs_iters=PGS_ITERS, use_kernel=False), nsteps)
     q32 = sim_op(sc.params, s0).q
@@ -890,7 +960,7 @@ def phase_euler_path(device="cuda", nlinks=6, B=1024, nsteps=20, reps=3):
     s64 = State(q=s0.q.double(), qdot=s0.qdot.double())
     q64 = sim_op(sc64.params, s64).q
     torch.cuda.synchronize()
-    if qp_kernel.dual_pgs_launches != 0:
+    if qp_launches() != (0, 0):
         raise AssertionError("op-level route launched the kernel")
     within = {}
     for name, a, ref in (("kernel route vs op-level f64", final.q, q64),
@@ -970,11 +1040,11 @@ def phase_small_euler(device="cuda", B=64, nsteps=5):
                      qdot=torch.tensor(qd, dtype=dtype, device=dev))
 
     loop = lambda dtype, dev: build_mscene(4, dtype=dtype, device=dev)
-    qp_kernel.dual_pgs_launches = 0
+    reset_qp_launches()
     card = rollout_q(loop, loop_states, device, torch.float32, nsteps)
     cpu = rollout_q(loop, loop_states, "cpu", torch.float64, nsteps)
     torch.cuda.synchronize()
-    if qp_kernel.dual_pgs_launches != 0:
+    if qp_launches() != (0, 0):
         raise AssertionError("the equality branch launched the dual-PGS kernel")
     err, both = lane_err(card.cpu(), cpu)
     print(f"equality branch (loop closure, KKT), card f32 vs CPU f64: final q diff of scale "
@@ -1247,8 +1317,11 @@ def phase_cable_kernel_vs_plain(device="cuda", B=1024):
     """The chord kernel with scene 13's cable against chord_bdf2_reference on
     states 8 steps into the cable path's rollout; lanes within 1e-6 L of the
     gate at the predictor (where two float32 orders may disagree on l > L)
-    are counted and left out of the tolerance. Then the same states with L
-    raised so that every lane is slack. Returns the kernel record fields."""
+    are counted and left out of the tolerance; the wrapper runs the
+    cooperative design there (its launches counted, none of the other
+    design). Then the same states with L raised so that every lane is slack.
+    Timed in turns with the thread-per-lane build. Returns the kernel record
+    fields."""
     sc = scene_13_cables().compile(dtype=torch.float32, device=device)
     sc64 = scene_13_cables().compile(dtype=torch.float64, device=device)
     states, params, kept = rollout_states(sc, B, device,
@@ -1261,8 +1334,14 @@ def phase_cable_kernel_vs_plain(device="cuda", B=1024):
           f"{json.dumps(census)} (L {L:.6f}, l - L median {float((l - L).median()):.3e})")
     if census["taut"] == 0:
         raise AssertionError(f"scene 13: no lane has its cable taut: {census}")
+    if design_of(sc, params) != "cooperative":
+        raise AssertionError("scene 13: not routed to the cooperative design")
+    reset_launches()
     err, x = compare_kernel(sc, sc64, params, states, f"scene-13 B {B}", exclude=near)
     check_nan_lane(sc, params, states, x)
+    if launches_of("cooperative") != 2 or launches_of() != 2:
+        raise AssertionError(f"scene 13: {launches_of('cooperative')} cooperative launches "
+                             f"({launches_of()} in all), want 2")
     print(f"scene-13 B {B}: NaN lane kept, other lanes bit-equal")
     record = time_chord_kernel(sc, params, states, err, "scene-13")
 
@@ -1278,7 +1357,8 @@ def phase_cable_kernel_vs_plain(device="cuda", B=1024):
 
 
 def phase_cable_path(device="cuda", B=1024, nsteps=50, reps=3):
-    """Scene 13's cable rollout on the kernel route; returns (kernel launches
+    """Scene 13's cable rollout on the kernel route, 49 launches a rollout of
+    the cooperative design and none of the other; returns (kernel launches
     of the timed rollouts, steps/s, finite_frac)."""
     sc = scene_13_cables().compile(dtype=torch.float32, device=device)
     s0 = integrators.bdf2_init(cable_states0(sc, B, device, torch.float32))
@@ -1295,16 +1375,18 @@ def phase_cable_path(device="cuda", B=1024, nsteps=50, reps=3):
     end.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
-    launches = launches_of()
+    launches = launches_of("cooperative")
     dt = start.elapsed_time(end) / 1e3 / reps
-    if launches != (nsteps - 1) * reps:
-        raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} rollouts, "
-                             f"want {nsteps - 1} per rollout")
+    if launches != (nsteps - 1) * reps or launches_of() != launches:
+        raise AssertionError(f"chord_bdf2 launched its cooperative design {launches} times "
+                             f"({launches_of()} in all) in {reps} rollouts, want {nsteps - 1} "
+                             "per rollout")
     finite = torch.isfinite(final.q).all(-1) & torch.isfinite(final.qdot).all(-1)
     finite_frac = float(finite.float().mean())
     print(f"cable path: {B * nsteps / dt:.1f} steps/s ({dt * 1e3:.3f} ms per {nsteps}-step "
           f"rollout by CUDA events, {wall * 1e3:.3f} ms host clock), finite_frac "
-          f"{finite_frac:.4f}, kernel launches {launches // reps} per rollout")
+          f"{finite_frac:.4f}, kernel launches {launches // reps} per rollout (cooperative "
+          "design)")
     if final.q.shape != (B, sc.topo.nr) or finite_frac < 0.95:
         raise AssertionError(f"cable path: shape {tuple(final.q.shape)}, finite_frac {finite_frac}")
     sc64 = scene_13_cables().compile(dtype=torch.float64, device=device)
@@ -1583,7 +1665,9 @@ def phase_perlane_kernel_vs_plain(device="cuda", B=1024):
     tolerances of phase 8 (on scene 13, lanes within 1e-6 L of the cable's
     gate are counted and left out, as in phase 11). At B = 1024 also a NaN
     lane, and lane-shared params broadcast into the per-lane buffer against
-    the build without it; timed. Returns the kernel record fields by name."""
+    the build without it; timed (every case on the cooperative design, in
+    turns with its thread-per-lane build). Returns the kernel record fields
+    by name."""
     records, B0 = {}, B
     cases = (("chain-ground-12", lambda: chain_ground(12), B0, 8),
              ("chain-ground-12", lambda: chain_ground(12), B0 - 24, 8),
@@ -1603,7 +1687,7 @@ def phase_perlane_kernel_vs_plain(device="cuda", B=1024):
             near = (l - L).abs() <= 1e-6 * L
             print(f"per-lane {label} B {B}: taut {int((l > L).sum())}, slack "
                   f"{int((l <= L).sum())}, within 1e-6 L of the gate {int(near.sum())}")
-        want = "thread_per_lane" if label == "scene-13" else "cooperative"
+        want = "cooperative"
         print(f"per-lane states {label} B {B}: {kept}/{B} lanes from the rollout "
               f"({design_of(sc, params)} design)")
         if design_of(sc, params) != want:
@@ -2032,14 +2116,16 @@ def phase_default_route(device="cuda", Bs=(1024, 1000), nsteps=4):
         s0 = mscene6_states(sc, B, device, torch.float32)
         qps = contact_qps(sc, s0)
         n, m = qps[1].shape[1], qps[2].shape[1]
-        build = qp_kernel.build_for(n, m)
+        build = qp_kernel.library_of(n, m)
+        qp_design = "cooperative" if qp_kernel.is_coop(build) else "thread_per_lane"
         x, lam = qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)
         x_ref, lam_ref = qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG)
         torch.cuda.synchronize()
         active = float(torch.isinf(qps[5]).any(-1).float().mean())
         xs, ls = max(1.0, float(x_ref.abs().max())), max(1.0, float(lam_ref.abs().max()))
         dx, dl = float((x - x_ref).abs().max()), float((lam - lam_ref).abs().max())
-        print(f"default route mscene 6 QP {(n, m)}, B {B}: {build_line(build)}; {active:.4f} of "
+        print(f"default route mscene 6 QP {(n, m)}, B {B}: {qp_design} design (the shape rule, "
+              f"qp_kernel.takes_coop), {build_line(build)}; {active:.4f} of "
               f"lanes with an active limit; max|dx| {dx:.3e} of scale {xs:.3e}, max|dlam| "
               f"{dl:.3e} of scale {ls:.3e}")
         if not (torch.isfinite(x).all() and torch.isfinite(lam).all()) or active == 0:
@@ -2047,20 +2133,22 @@ def phase_default_route(device="cuda", Bs=(1024, 1000), nsteps=4):
         if dx > 2e-5 * xs or dl > 2e-4 * ls:
             raise AssertionError("mscene 6 QP: kernel disagrees with its plain version")
         step = integrators.make_euler_step_batched(sc.topo, (), sc.constraint_fns)
-        qp_kernel.dual_pgs_launches = 0
+        reset_qp_launches()
         q = integrators.make_simulate(step, 20)(sc.params, s0).q
         torch.cuda.synchronize()
-        launches = qp_kernel.dual_pgs_launches
+        coop_launches, lane_launches = qp_launches()
+        launches = coop_launches if qp_design == "cooperative" else lane_launches
         q64 = integrators.make_simulate(
             integrators.make_euler_step_batched(sc64.topo, (), sc64.constraint_fns,
                                                 use_kernel=False), 20)(
             sc64.params, mscene6_states(sc64, B, device, torch.float64)).q
         errq, both = lane_err(q, q64)
         within = float((errq <= 1e-3).double().mean()) * float(both.double().mean())
-        print(f"default route mscene 6 Euler rollout, B {B}: {launches} dual_pgs launches in 20 "
-              f"steps; final q vs f64 op-level: {within:.4f} of lanes within 1e-3 of scale, "
+        print(f"default route mscene 6 Euler rollout, B {B}: {launches} dual_pgs launches of "
+              f"the {qp_design} design in 20 steps ({coop_launches + lane_launches} in all); "
+              f"final q vs f64 op-level: {within:.4f} of lanes within 1e-3 of scale, "
               f"max {float(errq.max()):.3e}")
-        if launches != 20 or within < 0.95:
+        if launches != 20 or coop_launches + lane_launches != 20 or within < 0.95:
             raise AssertionError("mscene 6 rollout: wrong launch count, or off the f64 rollout")
         if B == Bs[0]:
             records["mscene 6"] = {**time_qp_kernel(qps, dx, "mscene 6"), "launches": launches}
@@ -2109,10 +2197,11 @@ NVCC_SECONDS = {}
 
 def on_demand_builds():
     """The builds made for one scene (chord_kernel.build_for,
-    qp_kernel.build_for) that the phases launch, by the shape rule on each
-    case's scene, params and solve mode (nothing is built to decide): the
-    K1b paths' and the default-route cases' (phase 26); and the cooperative
-    probe build of uni6 (phase 25)."""
+    qp_kernel.coop_build_for and build_for) that the phases launch, by the
+    shape rule on each case's scene, params and solve mode (nothing is built
+    to decide): the K1b paths' and the default-route cases' (phase 26; the
+    QP's in both designs, the thread-per-lane one its yardstick); and the
+    cooperative probe build of uni6 (phase 25)."""
     out = []
     cases = [(make, CFG, None) for _, make in QDEP_SCENES] + [c[1:4] for c in DEFAULT_ROUTE]
     for make, cfg, draws in cases:
@@ -2122,8 +2211,8 @@ def on_demand_builds():
     out.append(probe_build(out[0]))
     sc = build_mscene(6, dtype=torch.float32, device="cpu")
     n, m = contact_qps(sc, mscene6_states(sc, 1, "cpu", torch.float32))[2].shape[1:][::-1]
-    out.append(qp_kernel.build_for(n, m))
-    fixed = set(chord_kernel.BUILDS) | {qp_kernel.BUILD, COOP_PROBE}
+    out += [qp_kernel.library_of(n, m), qp_kernel.build_for(n, m)]
+    fixed = set(chord_kernel.BUILDS) | {qp_kernel.BUILD, qp_kernel.BUILD_COOP, COOP_PROBE}
     return tuple(dict.fromkeys(b for b in out if b not in fixed))
 
 
@@ -2132,7 +2221,7 @@ def phase_build():
     libraries and the builds that the phases make for one scene; print
     their ptxas reports and the cooperative design's layout."""
     t0 = time.perf_counter()
-    fixed = chord_kernel.BUILDS + (qp_kernel.BUILD, COOP_PROBE)
+    fixed = chord_kernel.BUILDS + (qp_kernel.BUILD, qp_kernel.BUILD_COOP, COOP_PROBE)
     builds = fixed + on_demand_builds()
     for build in builds:  # one nvcc per library, side by side
         build.start()
@@ -2142,10 +2231,12 @@ def phase_build():
                      if b.name not in done and not b.compiling()})
         time.sleep(0.1)
     NVCC_SECONDS.update(done)
-    coop_builds = []
+    coop_builds, qp_coop_builds = [], []
     for build in builds:
-        if build.sources[0] == "dual_pgs.cu":
+        if build.sources[0].startswith("dual_pgs"):
             qp_kernel._build_lib(build)
+            if qp_kernel.is_coop(build):
+                qp_coop_builds.append(build)
         elif build.name.endswith("_probe"):
             build.load()
         else:
@@ -2164,6 +2255,14 @@ def phase_build():
         print(f"{build.name} layout: lanes (warps) a block and dynamic shared memory a block: "
               + ", ".join(f"{key} {build.lib.chord_bdf2_coop_lanes_per_block(*key)} lanes, "
                           f"{build.lib.chord_bdf2_coop_smem_bytes(*key)} bytes" for key in keys))
+    for build in qp_coop_builds:
+        keys = qp_kernel.INSTANTIATED if build is qp_kernel.BUILD_COOP else [
+            tuple(int(d.split("=")[1]) for d in build.defines)]
+        print(f"{build.name} layout: threads a lane, lanes a block and dynamic shared memory a "
+              "block: " + ", ".join(
+                  f"{key} {build.lib.dual_pgs_coop_layout(*key, 0)} threads, "
+                  f"{build.lib.dual_pgs_coop_layout(*key, 1)} lanes, "
+                  f"{build.lib.dual_pgs_coop_layout(*key, 2)} bytes" for key in keys))
 
 
 def phase_coop_probe(device="cuda", B=1024):
@@ -2171,12 +2270,14 @@ def phase_coop_probe(device="cuda", B=1024):
     chain-12 inputs, phase 8's chain-ground-12 ones, phase 22's
     chain-ground-12 ones in the guarded mode, phase 18's per-lane
     chain-ground-12 ones, phase 10's spring-chain ones, phase 18's
-    per-lane spring-chain ones and the universal-6 chain's (the K1b build,
-    its probe built for it), the cycles of the last of 52 launches (two
+    per-lane spring-chain ones, the universal-6 chain's (the K1b build,
+    its probe built for it) and phase 11's and phase 18's scene-13 ones (the
+    cable builds, lane-shared and per-lane), the cycles of the last of 52
+    launches (two
     warm, 50 timed); returns {case: {"total_cycles", "probe_ms", phase: mean
     cycles a lane}}. The probe's clock reads cost time of their own, so its
-    ms is printed, to be read beside the kernel's of phases 3, 8, 10, 18
-    and 22."""
+    ms is printed, to be read beside the kernel's of phases 3, 8, 10, 11,
+    18 and 22."""
     i = ctypes.c_int
 
     def probe_lib(scene, params, cfg):
@@ -2201,6 +2302,12 @@ def phase_coop_probe(device="cuda", B=1024):
                                                                             scs.force_fns, B))
     scu = uni6().compile(dtype=torch.float32, device=device)
     ustates, uparams, _ = rollout_states(scu, B, device)
+    scc = scene_13_cables().compile(dtype=torch.float32, device=device)
+    cstates, cparams, _ = rollout_states(scc, B, device,
+                                         s0=cable_states0(scc, B, device, torch.float32))
+    cpstates, cpparams, _ = rollout_states(scc, B, device,
+                                           s0=cable_states0(scc, B, device, torch.float32),
+                                           base=draws_extra(scc.params, scc.force_fns, B))
     out = {}
     for label, scene, params, st, cfg in (
             ("chain-12", sc, {**sc.params, "tau": tau}, states, CFG),
@@ -2209,7 +2316,9 @@ def phase_coop_probe(device="cuda", B=1024):
             ("chain-ground-12 per-lane", scg, pparams, pstates, CFG),
             ("spring-chain-12", scs, sparams, sstates, CFG),
             ("spring-chain-12 per-lane", scs, spparams, spstates, CFG),
-            ("universal-6", scu, uparams, ustates, CFG)):
+            ("universal-6", scu, uparams, ustates, CFG),
+            ("scene-13", scc, cparams, cstates, CFG),
+            ("scene-13 per-lane", scc, cpparams, cpstates, CFG)):
         if design_of(scene, params, cfg) != "cooperative":
             raise AssertionError(f"coop probe {label}: not a build of the cooperative design")
         lib, names = probe_lib(scene, params, cfg)
@@ -2250,6 +2359,12 @@ def source_of(record) -> str:
     """The source file of a chord kernel record's design."""
     return "redmax_tpu_torch/csrc/" + (
         "chord_bdf2_coop.cu" if record["design"] == "warp_per_lane" else "chord_bdf2.cu")
+
+
+def qp_source_of(record) -> str:
+    """The source file of a dual-PGS kernel record's design."""
+    return "redmax_tpu_torch/csrc/" + (
+        "dual_pgs_coop.cu" if record["design"] == "group_per_lane" else "dual_pgs.cu")
 
 
 def main():
@@ -2300,7 +2415,7 @@ def main():
         "per-lane spring rollout", lambda: scene_spring_chain(12), spring_chain_states0,
         "cooperative")
     pl_cable_launches, pl_cable_finite = phase_perlane_rollout(
-        "per-lane cable rollout", scene_13_cables, cable_states0, "thread_per_lane")
+        "per-lane cable rollout", scene_13_cables, cable_states0, "cooperative")
     robust_records = phase_robust_kernel_vs_plain()
     robust_paths = phase_robust_paths()
     backward_modes = phase_backward_modes()
@@ -2328,9 +2443,10 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:401",
         "launches": spring_launches, **spring_record, "library_ms": None,
     }, {
-        # the same kernel with scene 13's cable, on the cable rollout
+        # the same design with scene 13's cable (4, 3), on the cable rollout
+        # (the thread-per-lane build timed in turns with it)
         "name": "chord_bdf2[cable]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": source_of(cable_record),
         "replaces": "redmax_tpu/pallas_step.py:561",
         "launches": cable_launches, **cable_record, "library_ms": None,
     }, {
@@ -2373,9 +2489,10 @@ def main():
         "library_ms": None,
     }, {
         # scene 13 (4, 3) with per-lane cable coefficients, on the per-lane
-        # cable rollout
+        # cable rollout (the cooperative design; the thread-per-lane PERLANE
+        # build timed in turns with it)
         "name": "chord_bdf2[perlane_cable]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/chord_bdf2.cu",
+        "source": source_of(perlane_records["scene-13"]),
         "replaces": "redmax_tpu/pallas_step.py:706",
         "launches": pl_cable_launches, **perlane_records["scene-13"], "library_ms": None,
     }, {
@@ -2411,9 +2528,11 @@ def main():
         "launches": robust_paths["contact guarded3 sigma 3"][0],
         **robust_records["guarded_contacts"], "library_ms": None,
     }, {
-        # library_ms: no single PyTorch call computes a dual-PGS solve
+        # library_ms: no single PyTorch call computes a dual-PGS solve; the
+        # cooperative design (a group of threads a lane), the thread-per-lane
+        # build timed in turns with it
         "name": "dual_pgs", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/dual_pgs.cu",
+        "source": qp_source_of(qp_record),
         "replaces": "redmax_tpu/pallas_qp.py:40",
         "launches": qp_launches, **qp_record, "library_ms": None,
     }] + [{
@@ -2424,7 +2543,7 @@ def main():
         **default_records[label], "library_ms": None,
     } for label, _, _, _, replaces in DEFAULT_ROUTE] + [{
         "name": "dual_pgs[default_route mscene 6]", "route": "cuda",
-        "source": "redmax_tpu_torch/csrc/dual_pgs.cu",
+        "source": qp_source_of(default_records["mscene 6"]),
         "replaces": "redmax_tpu/pallas_qp.py:40",
         **default_records["mscene 6"], "library_ms": None,
     }]

@@ -34,20 +34,21 @@ least time. Two designs, chosen by a rule on the shape and kinds before
 anything is built (takes_coop):
 - cooperative (csrc/chord_bdf2_coop.cu, body csrc/chord_bdf2_coop.cuh), on
   every build whose kind mix its body takes (COOP_KINDS: no closure, ground
-  contacts, springs (at most MAX_COOP_SPRINGS, nr <= N), with lane-shared
-  or per-lane params, the robust modes without per-lane params or springs,
-  or the q-dependent joints alone, K1b) and whose lane record fits a
-  block's shared memory (coop_record_bytes; N, nr <= 32). One warp per
-  lane, COOP_LANES lanes a block or fewer where the record is larger
-  (coop_lanes), the lane's frames, J, Jdot, the per-body K/D blocks, H, the
-  Gauss-Jordan rows and H^-1 (and the guard's trials, the springs' endpoint
-  states and pair blocks, the q-dependent columns' time derivatives, or
-  the lane's params) in shared memory, each phase of the solve split over
-  the warp's 32 threads;
+  contacts, springs (at most MAX_COOP_SPRINGS, nr <= N) or cables (at most
+  MAX_COOP_CABLES), with lane-shared or per-lane params, the robust modes
+  without per-lane params or closures but contacts, or the q-dependent
+  joints alone, K1b) and whose lane record fits a block's shared memory
+  (coop_record_bytes; N, nr <= 32). One warp per lane, COOP_LANES lanes a
+  block or fewer where the record is larger (coop_lanes), the lane's
+  frames, J, Jdot, the per-body K/D blocks, H, the Gauss-Jordan rows and
+  H^-1 (and the guard's trials, the springs' endpoint states and pair
+  blocks, the cables' point and segment states and pair blocks, the
+  q-dependent columns' time derivatives, or the lane's params) in shared
+  memory, each phase of the solve split over the warp's 32 threads;
 - thread per lane (csrc/chord_bdf2.cu, body csrc/chord_bdf2_lane.cuh), on
-  every other build (cables, a q-dependent joint with a closure, per-lane
-  params, a robust mode or FREE3D alone, more springs than the cooperative
-  record holds): one thread per lane in blocks of 32, the arithmetic in
+  every other build (closures mixed, a q-dependent joint with a closure,
+  per-lane params in a robust mode, more springs or cables than the
+  cooperative record holds): one thread per lane in blocks of 32, the arithmetic in
   order on that thread, J, Jdot, H and the Gauss-Jordan rows in local
   memory. Its builds at the cooperative shapes and kinds stay in its
   libraries to be timed against the cooperative design (launch(...,
@@ -110,16 +111,20 @@ INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
 # The (N, nr, kinds) of the cooperative design's fixed library (BUILD_COOP).
 COOP_INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS),
                      (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST),
-                     (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS), (12, 12, SPRINGS | PERLANE))
+                     (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS), (12, 12, SPRINGS | PERLANE),
+                     (4, 3, CABLES), (4, 3, CABLES | PERLANE))
 # The kind mixes the cooperative body takes (the static_assert of
 # coop::solve): no closure or ground contacts, with per-lane params or the
-# robust modes (not both); springs, lane-shared or per lane; the q-dependent
-# joints alone.
+# robust modes (not both); springs, lane-shared or per lane; cables,
+# lane-shared or per lane; the q-dependent joints alone.
 COOP_KINDS = (0, CONTACTS, PERLANE, ROBUST, CONTACTS | PERLANE, CONTACTS | ROBUST,
-              SPRINGS, SPRINGS | PERLANE, QDEP)
-# The most springs the cooperative design's spring builds hold
-# (kCoopSprings of csrc/chord_bdf2_coop.cuh).
+              SPRINGS, SPRINGS | PERLANE, CABLES, CABLES | PERLANE, QDEP)
+# The most springs and cables the cooperative design's spring and cable
+# builds hold (kCoopSprings, kCoopCables of csrc/chord_bdf2_coop.cuh; a
+# cable build holds kMaxCablePoints points in all, MAX_CABLE_POINTS in the
+# fixed library).
 MAX_COOP_SPRINGS = 3
+MAX_COOP_CABLES = 2
 # Lanes (warps) a block of the cooperative design where the record fits
 # (the fixed library's), and the dynamic shared memory a block may have
 # on sm_90. setup gives a body or a column a thread without a stride and a
@@ -230,11 +235,15 @@ def record_floats(counts: Closures, N: int) -> int:
     return 7 * N + 4 + 13 * C + 9 * S + 3 * npts + 3 * ncab
 
 
-def coop_record_floats(N: int, kinds: int, record: int = MAX_LANE_RECORD) -> int:
+def coop_record_floats(N: int, kinds: int, record: int = MAX_LANE_RECORD,
+                       cable_points: int = MAX_CABLE_POINTS) -> int:
     """Floats of the per-lane record a cooperative PERLANE build holds
     (coop_record_floats of chord_bdf2_coop.cuh): a spring build's fields
-    for MAX_COOP_SPRINGS springs, to a multiple of 4; else record, the
-    build's kMaxLaneRecord."""
+    for MAX_COOP_SPRINGS springs, a cable build's for MAX_COOP_CABLES cables
+    of cable_points points in all (the build's kMaxCablePoints), each to a
+    multiple of 4; else record, the build's kMaxLaneRecord."""
+    if kinds & CABLES:
+        return (7 * N + 4 + 3 * cable_points + 3 * MAX_COOP_CABLES + 3) // 4 * 4
     if kinds & SPRINGS:
         return (7 * N + 4 + 9 * MAX_COOP_SPRINGS + 3) // 4 * 4
     return record
@@ -249,9 +258,11 @@ def _layout(fields) -> int:
     return -(-at // 16) * 16
 
 
-def coop_record_bytes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD) -> int:
+def coop_record_bytes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD,
+                      cable_points: int = MAX_CABLE_POINTS) -> int:
     """sizeof(coop::LaneOf<N, nr, kinds>) of csrc/chord_bdf2_coop.cuh, its
-    per-lane record (PERLANE) of `record` floats: one lane's share of a
+    per-lane record (PERLANE) of `record` floats, a cable build's record of
+    cable_points points in all (its kMaxCablePoints): one lane's share of a
     block's shared memory. Each field as (bytes, alignment), a derived
     record's fields after its base's (whose size is a multiple of 16)."""
     f, a = 4, 16
@@ -271,19 +282,29 @@ def coop_record_bytes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD
                         (MAX_COOP_SPRINGS * 9 * f, f), (MAX_COOP_SPRINGS * 9 * f, f),
                         (MAX_COOP_SPRINGS * 2 * point, f), (blocks * f, f),
                         (2 * blocks * f, f), (f, f)])
+    elif kinds & CABLES:
+        T, C = cable_points, MAX_COOP_CABLES
+        K = T * T
+        point = 13 * f  # int b, float r[3], x[3], v[3], u[3]
+        base = _layout([(lane, a), (K * 36 * f, a), (K * nr * 6 * f, a)]
+                       + [(T * 3 * f, f)] * 6 + [(T * f, f)] * 3 + [(C * f, f)] * 2
+                       + [(T * point, f)] + [(T * f, f)] * 3 + [(C * f, f)] * 3
+                       + [(K * 2 * f, f)] * 2 + [(f, f)] * 2)
     elif kinds & QDEP:
         base = _layout([(lane, a), (6 * nr * f, a)])
     else:
         base = lane
     if kinds & PERLANE:
-        return _layout([(base, a), (coop_record_floats(N, kinds, record) * f, a)])
+        return _layout([(base, a),
+                        (coop_record_floats(N, kinds, record, cable_points) * f, a)])
     return base
 
 
-def coop_lanes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD) -> int:
+def coop_lanes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD,
+               cable_points: int = MAX_CABLE_POINTS) -> int:
     """Lanes a block of a cooperative build: the most of COOP_LANES, 4, 2,
     1 whose records fit SMEM_PER_BLOCK (0: not even one)."""
-    size = coop_record_bytes(N, nr, kinds, record)
+    size = coop_record_bytes(N, nr, kinds, record, cable_points)
     return next((n for n in (COOP_LANES, 4, 2, 1) if n * size <= SMEM_PER_BLOCK), 0)
 
 
@@ -291,19 +312,29 @@ def _round4(record: int) -> int:
     return max(4, -(-record // 4) * 4)
 
 
-def takes_coop(N: int, nr: int, kinds: int, springs: int = 0, record: int = 0) -> bool:
+def _points(cable_points: int) -> int:
+    """kMaxCablePoints of a build made for a scene with this many cable
+    points in all."""
+    return max(2, cable_points)
+
+
+def takes_coop(N: int, nr: int, kinds: int, springs: int = 0, record: int = 0,
+               cables: int = 0, cable_points: int = 0) -> bool:
     """The shape rule: True when the cooperative design runs (N, nr,
-    kinds) with this many springs and a per-lane record of this many floats
-    (0 without): its body takes the kind mix (COOP_KINDS; springs at most
-    MAX_COOP_SPRINGS, their G J_s fitting the K/D blocks' storage: nr <= N,
-    a per-lane spring record within coop_record_floats), N and nr are at
-    most MAX_COOP_WIDTH, and at least one lane's record fits a block."""
+    kinds) with this many springs, a per-lane record of this many floats
+    (0 without) and this many cables of cable_points points in all: its body
+    takes the kind mix (COOP_KINDS; springs at most MAX_COOP_SPRINGS, their
+    G J_s fitting the K/D blocks' storage: nr <= N, a per-lane spring record
+    within coop_record_floats; cables at most MAX_COOP_CABLES), N and nr are
+    at most MAX_COOP_WIDTH, and at least one lane's record fits a block."""
     if kinds not in COOP_KINDS or max(N, nr) > MAX_COOP_WIDTH:
         return False
     if kinds & SPRINGS and (springs > MAX_COOP_SPRINGS or nr > N
                             or record > coop_record_floats(N, kinds)):
         return False
-    return coop_lanes(N, nr, kinds, _round4(record)) > 0
+    if kinds & CABLES and cables > MAX_COOP_CABLES:
+        return False
+    return coop_lanes(N, nr, kinds, _round4(record), _points(cable_points)) > 0
 
 
 def is_coop(build: KernelBuild) -> bool:
@@ -336,27 +367,29 @@ def _build_for(coop, N, nr, kinds, record, cable_points) -> KernelBuild:
         defines.append(f"-DCHORD_MAX_CABLE_POINTS={cable_points}")
         name += f"_c{cable_points}"
     if coop:
-        defines.append(f"-DCOOP_LANES={coop_lanes(N, nr, kinds, record)}")
+        defines.append(f"-DCOOP_LANES={coop_lanes(N, nr, kinds, record, _points(cable_points))}")
     return KernelBuild(name, _COOP_SOURCES if coop else _SOURCES, defines)
 
 
 def library_of(N: int, nr: int, kinds: int, thread_per_lane: bool = False,
-               springs: int = 0, record: int = 0, cable_points: int = 0) -> KernelBuild:
+               springs: int = 0, record: int = 0, cable_points: int = 0,
+               cables: int = 0) -> KernelBuild:
     """The build that launches (N, nr, kinds) with this many springs, a
-    per-lane record of this many floats (0 without) and this many cable
-    points: the cooperative design where takes_coop holds, else the
-    thread-per-lane one (thread_per_lane: that one in any case, to time it
-    against the other); in either, its fixed library where that holds the
-    key, else the build made for it (build_for)."""
-    if not thread_per_lane and takes_coop(N, nr, kinds, springs, record):
-        if (N, nr, kinds) in COOP_INSTANTIATED and record <= coop_record_floats(N, kinds):
+    per-lane record of this many floats (0 without) and this many cables of
+    cable_points points in all: the cooperative design where takes_coop
+    holds, else the thread-per-lane one (thread_per_lane: that one in any
+    case, to time it against the other); in either, its fixed library where
+    that holds the key, else the build made for it (build_for)."""
+    points = _points(cable_points) if kinds & CABLES else 0
+    if not thread_per_lane and takes_coop(N, nr, kinds, springs, record, cables, cable_points):
+        if (N, nr, kinds) in COOP_INSTANTIATED and record <= coop_record_floats(N, kinds) \
+                and cable_points <= MAX_CABLE_POINTS:
             return BUILD_COOP
-        return build_for(True, N, nr, kinds, _round4(record) if kinds & PERLANE else 0)
+        return build_for(True, N, nr, kinds, _round4(record) if kinds & PERLANE else 0, points)
     if (N, nr, kinds) in INSTANTIATED and record <= MAX_LANE_RECORD \
             and cable_points <= MAX_CABLE_POINTS:
         return build_of(kinds)
-    return build_for(False, N, nr, kinds, _round4(record) if kinds & PERLANE else 0,
-                     max(2, cable_points) if kinds & CABLES else 0)
+    return build_for(False, N, nr, kinds, _round4(record) if kinds & PERLANE else 0, points)
 
 
 def scene_build(topo: Topology, force_fns: Tuple, params: Dict, cfg,
@@ -367,7 +400,8 @@ def scene_build(topo: Topology, force_fns: Tuple, params: Dict, cfg,
     perlane = has_perlane(params)
     kinds = kinds_of(topo, counts, perlane, is_robust(cfg))
     return library_of(topo.njoints, topo.nr, kinds, thread_per_lane, counts.springs,
-                      record_floats(counts, topo.njoints) if perlane else 0, counts.cable_points)
+                      record_floats(counts, topo.njoints) if perlane else 0, counts.cable_points,
+                      counts.cables)
 
 
 def _build_lib(build: KernelBuild):
@@ -588,7 +622,8 @@ _LAUNCH_ERRORS = {-1: "no instantiation of (N, nr, kinds) in this library",
                   -2: "per-lane record longer than the build's",
                   -3: "a robust solve mode in a build without kRobust",
                   -4: "fixed_iters < 1",
-                  -5: "more springs than the cooperative build's record holds"}
+                  -5: "more springs than the cooperative build's record holds",
+                  -6: "more cables or cable points than the cooperative build's record holds"}
 
 
 def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, counts: Closures,
@@ -606,7 +641,8 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
     kinds = kinds_of(topo, counts, lane_f is not None, is_robust(cfg))
     key = (topo.njoints, nr, kinds)
     build = library_of(*key, thread_per_lane, counts.springs,
-                       0 if lane_f is None else lane_f.shape[0], counts.cable_points)
+                       0 if lane_f is None else lane_f.shape[0], counts.cable_points,
+                       counts.cables)
     coop = is_coop(build)
     lib = _build_lib(build)
     x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)

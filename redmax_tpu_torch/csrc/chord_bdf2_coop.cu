@@ -3,17 +3,19 @@
 // (constant-S joints, no closures), K1c (penalty ground contact) and K1d
 // (two-point springs) branches, in the unguarded chord mode with lane-shared
 // params at the (N, NR) the paths run, (12, 12) and (4, 4) with and without
-// contacts, (12, 12) with springs; with per-lane params (K1f) at (12, 12)
-// with contacts and with springs; and in the robust modes (K1g) at (12, 12)
-// with and without contacts. The phases and what bounds the kernel are in
+// contacts, (12, 12) with springs, (4, 3) with a cable (K1e); with per-lane
+// params (K1f) at (12, 12) with contacts and with springs and at (4, 3) with
+// a cable; and in the robust modes (K1g) at (12, 12) with and without
+// contacts. The phases and what bounds the kernel are in
 // chord_bdf2_coop.cuh. Built with -DCHORD_ONE -DCHORD_N=n -DCHORD_NR=nr
 // -DCHORD_FEAT=kinds -DCOOP_LANES=l (and -DCHORD_MAX_RECORD with per-lane
-// params), the unit holds that one build, with l lanes a block: any other
-// shape and mix the body takes (the q-dependent joints alone among them,
-// K1b), made at its first launch. Every other build (cables, the
-// q-dependent joints with a closure, more springs than kCoopSprings, a
-// record that does not fit a block) stays on the thread-per-lane kernel
-// (chord_bdf2.cu).
+// params, -DCHORD_MAX_CABLE_POINTS with cables), the unit holds that one
+// build, with l lanes a block: any other shape and mix the body takes (the
+// q-dependent joints alone among them, K1b), made at its first launch.
+// Every other build (closures mixed, the q-dependent joints with a closure,
+// per-lane params in a robust mode, more springs than kCoopSprings or
+// cables than kCoopCables, a record that does not fit a block) stays on the
+// thread-per-lane kernel (chord_bdf2.cu).
 //
 // Layout: kLanes lanes a block, lane b on warp b % kLanes of block
 // b / kLanes, each warp's record in the block's dynamic shared memory
@@ -23,7 +25,8 @@
 // bytes a block with contacts; a spring build's its springs' states and pair
 // blocks, 226,176 bytes a block, 229,888 with per-lane params; a spring
 // build's G J_s share the storage of the K/D blocks, which no phase reads
-// by then). At B = 1024 that is 128 blocks of 256 threads on the card's 132
+// by then; a cable build's record holds its points, segments and pair
+// blocks with their G J_s). At B = 1024 that is 128 blocks of 256 threads on the card's 132
 // SMs, one block and 8 warps an SM (1024 lanes need 8 an SM whatever the
 // layout). A warp whose lane is past B returns at once; no
 // phase waits on another warp (no block-wide barrier). Built with nvcc into
@@ -129,8 +132,10 @@ cudaError_t launch_kernel(int B, const float* x0, const float* q0, const float* 
 // an instantiation here, -2 for a per-lane record (7N + 4 + 13 ncontacts +
 // 9 nsprings + 3 ncable_points + 3 ncables floats) longer than the build's
 // (coop_record_floats), -3 for a robust solve mode (guarded, guard_last or
-// chord_mode == 0) in a build without kRobust, -4 for fixed_iters < 1, or
-// -5 for more springs than a kSprings build's record holds (kCoopSprings).
+// chord_mode == 0) in a build without kRobust, -4 for fixed_iters < 1, -5
+// for more springs than a kSprings build's record holds (kCoopSprings), or
+// -6 for more cables or cable points than a kCables build's record holds
+// (kCoopCables, kCoopCablePoints).
 // kinds is the build's FEAT bitmask as the wrapper routed it
 // (chord_kernel.kinds_of); the counts are those topo_i holds. A kPerlane
 // build reads the lane's params from lane_f ([P, B]); a kRobust build runs
@@ -148,6 +153,7 @@ extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, i
                                       float growth_reject, float tol_reject, float dx_clamp,
                                       int guarded, int guard_last, int chord_mode, float* x_out,
                                       float* hinv_out, long long* probe, void* stream) {
+  using chord::kCables;
   using chord::kContacts;
   using chord::kPerlane;
   using chord::kRobust;
@@ -162,6 +168,9 @@ extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, i
 #define COOP_LAUNCH(n, nr, f)                                                                 \
   if (N == n && NR == nr && kinds == (f)) {                                                   \
     if (((f) & kSprings) != 0 && nsprings > chord::coop::kCoopSprings) return -5;             \
+    if (((f) & kCables) != 0 && (ncables > chord::coop::kCoopCables ||                        \
+                                 ncable_points > chord::coop::kCoopCablePoints))              \
+      return -6;                                                                              \
     if (((f) & kPerlane) != 0 && record > chord::coop::coop_record_floats<n, f>()) return -2; \
     return launch_kernel<n, nr, f>(B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f, cfg, \
                                    rc, x_out, hinv_out, probe, s);                            \
@@ -178,6 +187,8 @@ extern "C" int chord_bdf2_coop_launch(int N, int NR, int kinds, int ncontacts, i
   COOP_LAUNCH(12, 12, kContacts | kPerlane)
   COOP_LAUNCH(12, 12, kSprings)
   COOP_LAUNCH(12, 12, kSprings | kPerlane)
+  COOP_LAUNCH(4, 3, kCables)
+  COOP_LAUNCH(4, 3, kCables | kPerlane)
 #endif
 #undef COOP_LAUNCH
   return -1;
@@ -194,6 +205,7 @@ extern "C" const char* chord_bdf2_coop_phase_name(int phase) {
 // (chord_kernel's bitmask) in bytes, and its lanes a block, of this unit's
 // build of them (-1 for a build without an instantiation here).
 extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR, int feat) {
+  using chord::kCables;
   using chord::kContacts;
   using chord::kPerlane;
   using chord::kRobust;
@@ -212,6 +224,8 @@ extern "C" long chord_bdf2_coop_smem_bytes(int N, int NR, int feat) {
   COOP_SMEM(12, 12, kContacts | kPerlane)
   COOP_SMEM(12, 12, kSprings)
   COOP_SMEM(12, 12, kSprings | kPerlane)
+  COOP_SMEM(4, 3, kCables)
+  COOP_SMEM(4, 3, kCables | kPerlane)
 #endif
 #undef COOP_SMEM
   return -1;

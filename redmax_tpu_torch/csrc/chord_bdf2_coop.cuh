@@ -3,27 +3,31 @@
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
 // (:689-1320) on its constant-S branches without closures (K1a), with
-// penalty ground contact (K1c, _ground_contact :237-345) and with two-point
+// penalty ground contact (K1c, _ground_contact :237-345), with two-point
 // springs (K1d, _spring_force :401, _point_pair_blocks :516 and their terms
-// of residual and hessian): in the unguarded chord mode with lane-shared
-// params, with per-lane params (K1f, the perlane reads :706-712, :767-841:
-// kPerlane, with contacts or with springs) and in the robust modes (K1g,
-// :1220-1313: kRobust); and on its q-dependent branch without closures (K1b:
-// S(q) and Sdot of the UNIVERSAL, exp-map SPHERICAL and FREE3D joints, FK
-// :907-967, _so3_exp_S :348-398: kQdep), all in one solve loop. The other
-// branches (cables, the q-dependent joints with a closure) stay on the
-// thread-per-lane body of chord_bdf2_lane.cuh, whose helpers (Frame,
-// frame_mul, frame_inv, adjoint, mat6_vec, ad_vec, adT_vec, rt_vec,
-// local_force_blocks, ground_contact, Point, add_point_wrench,
-// spring_force, pair_block, qdep_joint, Shared, ChordConfig, RobustConfig)
-// this file calls as they are. Every sum runs in the
+// of residual and hessian) and with multi-point cables (K1e, _cable_force
+// :561 and its terms of residual and hessian): in the unguarded chord mode
+// with lane-shared params, with per-lane params (K1f, the perlane reads
+// :706-712, :767-841: kPerlane, with contacts, springs or cables) and in the
+// robust modes (K1g, :1220-1313: kRobust); and on its q-dependent branch
+// without closures (K1b: S(q) and Sdot of the UNIVERSAL, exp-map SPHERICAL
+// and FREE3D joints, FK :907-967, _so3_exp_S :348-398: kQdep), all in one
+// solve loop. The other mixes (closures mixed, the q-dependent joints with a
+// closure, per-lane params in a robust mode) stay on the thread-per-lane
+// body of chord_bdf2_lane.cuh, whose helpers (Frame, frame_mul, frame_inv,
+// adjoint, mat6_vec, ad_vec, adT_vec, rt_vec, local_force_blocks,
+// ground_contact, Point, add_point_wrench, spring_force, pair_block,
+// qdep_joint, Shared, ChordConfig, RobustConfig) this file calls as they
+// are; the cables' per-point and per-pair arithmetic is written here again
+// term for term (cable_points ... cable_blocks), as phases. Every sum runs in the
 // thread-per-lane body's order, so the two give the same result bit for
 // bit wherever the compiler contracts the same multiply-adds (always under
 // g++, which contracts none).
 //
 // What bounds it on an H100: per-lane f32 arithmetic, about 1.4e5 flops a
 // lane at N = nr = 12 (2.4e5 with a contact on every link, 1.6e5 with the
-// spring chain's three springs, 4.0e5 guarded), against 0.9 KB of state in
+// spring chain's three springs, 4.0e5 guarded; 1.9e4 on scene 13's (4, 3)
+// with its 3-point cable), against 0.9 KB of state in
 // and out (0.5-1 KB more with per-lane params). The
 // thread-per-lane body issues those flops one after another on one thread,
 // with J, H and the Gauss-Jordan rows in local memory. Here the 32 threads
@@ -48,17 +52,24 @@
 //   springs    (kSprings) per (spring, endpoint): the endpoint's state; per
 //              spring: its world force fW (and, where H is built, A =
 //              dfW/d(dx) and Bm = dfW/d(dv)), the force on each endpoint
+//   cables     (kCables) per cable point: its state; per segment: u_s, dv_s,
+//              l_s, 1 / l_s (and, where H is built, w_s); per point: its
+//              cable's l, ldot, gate and tension fs (summed in segment
+//              order), c_j, F_j = fs c_j (and a_j)
 //   forces     per body: the maximal force with the body's own ground
 //              contacts and, where H is built, its closed-form K/D blocks
 //              (the contact force and its blocks in one ground_contact
-//              call), then the wrenches of the spring endpoints on it; then
+//              call), then the wrenches of the spring endpoints or cable
+//              points on it; then
 //              the body's w = I J dq - ch2 (f - I Jdot qdot)
 //   residual   per column: g[r] = sum over bodies of J_r . w
 //   H          per pair: cK K J_s + cD D J_s and J_s I; (kSprings) per pair
-//              block (spring, e, f) with both endpoints on bodies: G, then
-//              per (block, column s): G J_s; per (r, s): H[r][s], summed
-//              over the bodies, then over the blocks, in hessian's order,
-//              plus the joint terms on the diagonal
+//              block (spring, e, f) with both endpoints on bodies, or
+//              (kCables) per pair block (cable point j, point i) with both
+//              points on bodies: G, then per (block, column s): G J_s; per
+//              (r, s): H[r][s], summed over the bodies, then over the
+//              blocks, in hessian's order, plus the joint terms on the
+//              diagonal
 //   GJ         one pivot at a time, each row of the elimination a thread,
 //              from one [NR][2NR] buffer into the other
 //   step       per column: dx = H^-1 g (thread 0: |g|); x -= dx, clamped
@@ -96,14 +107,16 @@ enum Phase {
   kLaneRecord, kSetup, kPairs, kJoints, kTree, kFrames, kJacobian, kTwists, kWdot, kJdot,
   kSpringPoints, kSpringForces, kForcesBlocks, kForces, kNewtonTerms, kSpringBlocks,
   kSpringColumns, kNewtonMatrix, kGaussJordan, kResidual, kStepDx, kStepUpdate, kTrial,
-  kGuardPick, kGuardAccept, kWriteOut, kQdepJoints, kPhases
+  kGuardPick, kGuardAccept, kWriteOut, kQdepJoints, kCablePoints, kCableSegments, kCableForces,
+  kCableBlocks, kCableColumns, kPhases
 };
 constexpr const char* kPhaseNames[kPhases] = {
     "lane_record", "setup", "pairs", "joints", "fk_tree", "body_frames", "jacobian", "twists",
     "world_columns_dot", "jacobian_dot", "spring_points", "spring_forces",
     "body_forces_blocks", "body_forces", "newton_terms", "spring_blocks", "spring_columns",
     "newton_matrix", "gj_pivot", "residual_columns", "step_dx", "step_update", "trial",
-    "guard_pick", "guard_accept", "write_out", "qdep_joints"};
+    "guard_pick", "guard_accept", "write_out", "qdep_joints", "cable_points", "cable_segments",
+    "cable_forces", "cable_blocks", "cable_columns"};
 
 // NF floats from src to dst: on the card as 16-byte accesses where NF is a
 // multiple of 4, else 8-byte ones where it is even, so both sides must be
@@ -211,12 +224,59 @@ struct alignas(16) LaneQdep : Lane<N, NR> {
   alignas(16) float Sbd[NR][6];
 };
 
+// The cables a kCables build's record holds, their points in all (the
+// build's kMaxCablePoints: a build made for one scene sizes it from the
+// scene's points, so it holds them however they split into cables) and
+// their pair blocks (a block for each ordered pair of a cable's points on
+// bodies: at most the square of the points).
+constexpr int kCoopCables = 2;
+constexpr int kCoopCablePoints = kMaxCablePoints;
+constexpr int kCoopCableBlocks = kCoopCablePoints * kCoopCablePoints;
+
+// The record of a kCables build, every point and segment by its index g in
+// the cables' points in order (segment g runs from point g to point g + 1
+// of the same cable): each point's state at the iterate, each segment's
+// u_s, dv_s, l_s, 1 / l_s, u_s . dv_s and (where H is built) w_s = Pm_s
+// dv_s / l_s, each point's c_j, the world force F_j = fs c_j on it and
+// (where H is built) a_j, each cable's tension fs and gate; the static map
+// of points to cables, bodies and params, and each pair block (j, i) with
+// both points on bodies, in hessian's order: its points, its bodies, G =
+// cK K + cD D and G J_s (a store of its own: a cable of P points has P^2
+// blocks, more than the K/D blocks' storage holds).
+template <int N, int NR>
+struct alignas(16) LaneCables : Lane<N, NR> {
+  alignas(16) float CG[kCoopCableBlocks][6][6];
+  alignas(16) float CGJ[kCoopCableBlocks][NR][6];
+  float cu[kCoopCablePoints][3];
+  float cdv[kCoopCablePoints][3];
+  float cw[kCoopCablePoints][3];
+  float cc[kCoopCablePoints][3];
+  float ca[kCoopCablePoints][3];
+  float cF[kCoopCablePoints][3];
+  float cls[kCoopCablePoints], clinv[kCoopCablePoints], cud[kCoopCablePoints];
+  float cfs[kCoopCables], cgate[kCoopCables];
+  Point cpt[kCoopCablePoints];
+  int cpc[kCoopCablePoints];  // the cable of point g
+  int cpj[kCoopCablePoints];  // its index j in that cable
+  int cpb[kCoopCablePoints];  // its body (-1: a world point)
+  int coff[kCoopCables];      // each cable's first point g
+  int cnpts[kCoopCables];     // and its points P
+  int cbo[kCoopCables];       // the offset of its xls, k, d, L in the closure params
+  int cblk[kCoopCableBlocks][2];   // the points (g_j, g_i) of pair block k
+  int cblkb[kCoopCableBlocks][2];  // and their bodies
+  int cnpoints, cnblocks;
+};
+
 // Floats of the per-lane record a kPerlane build holds: kMaxLaneRecord; in a
 // kSprings build, the fields its scenes have (I_i, bd, g, h and
-// kCoopSprings springs: 7N + 4 + 9 kCoopSprings, to a multiple of 4), so
-// that the record and the springs' fields fit a block's shared memory.
+// kCoopSprings springs: 7N + 4 + 9 kCoopSprings, to a multiple of 4), in a
+// kCables build those of kCoopCables cables of kCoopCablePoints points in
+// all (7N + 4 + 3 kCoopCablePoints + 3 kCoopCables, to a multiple of 4), so
+// that the record and the closures' fields fit a block's shared memory.
 template <int N, int FEAT>
 constexpr int coop_record_floats() {
+  if constexpr ((FEAT & kCables) != 0)
+    return (7 * N + 4 + 3 * kCoopCablePoints + 3 * kCoopCables + 3) / 4 * 4;
   return (FEAT & kSprings) != 0 ? (7 * N + 4 + 9 * kCoopSprings + 3) / 4 * 4 : kMaxLaneRecord;
 }
 
@@ -233,7 +293,8 @@ struct alignas(16) LanePerlane : Base {
 template <int N, int NR, int FEAT>
 using LaneBase = std::conditional_t<
     (FEAT & kSprings) != 0, LaneSprings<N, NR>,
-    std::conditional_t<(FEAT & kQdep) != 0, LaneQdep<N, NR>, Lane<N, NR>>>;
+    std::conditional_t<(FEAT & kCables) != 0, LaneCables<N, NR>,
+                       std::conditional_t<(FEAT & kQdep) != 0, LaneQdep<N, NR>, Lane<N, NR>>>>;
 template <int N, int NR, int FEAT>
 using LaneOf = std::conditional_t<
     (FEAT & kRobust) != 0, LaneRobust<N, NR>,
@@ -336,6 +397,52 @@ CHORD_HD void setup_springs(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& 
     }
   }
   if (t == (sh.nsprings > 0 ? sh.nsprings - 1 : 0)) L.nblocks = at;
+}
+
+// Each cable's points, their params and its pair blocks, cable by cable:
+// each cable's thread writes its own, (j, i) over its points on bodies,
+// after the points and blocks of the cables before it.
+template <int N, int NR>
+CHORD_HD void setup_cables(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L) {
+  if (t > 0 && t >= sh.ncables) return;
+  int spec = 0, g = 0, cbo = 0, at = 0;
+  for (int c = 0; c < t; ++c) {
+    const int P = sh.cspec[spec];
+    int on = 0;
+    for (int j = 0; j < P; ++j) on += sh.cspec[spec + 1 + j] >= 0 ? 1 : 0;
+    at += on * on;
+    g += P;
+    cbo += 3 * P + 3;
+    spec += 1 + P;
+  }
+  if (t < sh.ncables) {
+    const int P = sh.cspec[spec];
+    const int* bodies = sh.cspec + spec + 1;
+    L.coff[t] = g;
+    L.cnpts[t] = P;
+    L.cbo[t] = cbo;
+    for (int j = 0; j < P; ++j) {
+      L.cpc[g + j] = t;
+      L.cpj[g + j] = j;
+      L.cpb[g + j] = bodies[j];
+    }
+    for (int j = 0; j < P; ++j) {
+      if (bodies[j] < 0) continue;
+      for (int i = 0; i < P; ++i) {
+        if (bodies[i] < 0) continue;
+        L.cblk[at][0] = g + j;
+        L.cblk[at][1] = g + i;
+        L.cblkb[at][0] = bodies[j];
+        L.cblkb[at][1] = bodies[i];
+        ++at;
+      }
+    }
+    g += P;
+  }
+  if (t == (sh.ncables > 0 ? sh.ncables - 1 : 0)) {
+    L.cnpoints = g;
+    L.cnblocks = at;
+  }
 }
 
 // qdot at the iterate xe, the BDF2 increment dq and the joint forces
@@ -660,6 +767,163 @@ CHORD_HD void spring_columns(int t, LaneSprings<N, NR>& L) {
   }
 }
 
+// The state of cable point g at the record's Ew and phi (point_state's
+// arithmetic, as the cables loop of chord_bdf2_lane.cuh calls it), a point
+// a thread.
+template <int N, int NR>
+CHORD_HD void cable_points(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L) {
+  for (int g = t; g < L.cnpoints; g += kWarp) {
+    const int b = L.cpb[g];
+    const float* r = sh.cb + L.cbo[L.cpc[g]] + 3 * L.cpj[g];
+    Point P;
+    P.b = b;
+    for (int i = 0; i < 3; ++i) {
+      P.r[i] = r[i];
+      P.x[i] = r[i];
+      P.v[i] = 0.0f;
+      P.u[i] = 0.0f;
+    }
+    if (b >= 0) {
+      alignas(16) Frame E;
+      alignas(16) float phi[6];
+      copy_frame(E, L.Ew[b]);
+      copy_f<6>(phi, L.phi[b]);
+      cross3(phi, P.r, P.u);
+      for (int i = 0; i < 3; ++i) P.u[i] = P.u[i] + phi[3 + i];
+      for (int i = 0; i < 3; ++i) {
+        P.x[i] = E.p[i] + (E.R[i][0] * P.r[0] + E.R[i][1] * P.r[1] + E.R[i][2] * P.r[2]);
+        P.v[i] = E.R[i][0] * P.u[0] + E.R[i][1] * P.u[1] + E.R[i][2] * P.u[2];
+      }
+    }
+    L.cpt[g] = P;
+  }
+}
+
+// Segment g (point g to point g + 1 of one cable), a segment a thread: dv,
+// l_s, 1 / l_s, u_s and u_s . dv_s (the cables loop's segment arithmetic)
+// and, where H is built (blocks), w_s = (dv_s - u_s (u_s . dv_s)) / l_s.
+template <int N, int NR>
+CHORD_HD void cable_segments(int t, LaneCables<N, NR>& L, bool blocks) {
+  for (int g = t; g < L.cnpoints; g += kWarp) {
+    if (L.cpj[g] + 1 >= L.cnpts[L.cpc[g]]) continue;
+    const Point p0 = L.cpt[g], p1 = L.cpt[g + 1];
+    float dx[3], dv[3], u[3];
+    for (int i = 0; i < 3; ++i) {
+      dx[i] = p1.x[i] - p0.x[i];
+      dv[i] = p1.v[i] - p0.v[i];
+    }
+    const float l2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
+    const float ls = sqrtf(l2 < 1e-24f ? 1e-24f : l2);
+    const float linv = 1.0f / ls;
+    for (int i = 0; i < 3; ++i) u[i] = dx[i] * linv;
+    const float ud = u[0] * dv[0] + u[1] * dv[1] + u[2] * dv[2];
+    for (int i = 0; i < 3; ++i) {
+      L.cu[g][i] = u[i];
+      L.cdv[g][i] = dv[i];
+    }
+    L.cls[g] = ls;
+    L.clinv[g] = linv;
+    L.cud[g] = ud;
+    if (blocks)
+      for (int i = 0; i < 3; ++i) L.cw[g][i] = (dv[i] - u[i] * ud) * linv;
+  }
+}
+
+// Point g of a cable, a point a thread: the cable's l = sum l_s and ldot =
+// sum u_s . dv_s in segment order, its gate (l > L) and tension fs (each
+// point's thread sums them alike; the cable's first point records them),
+// then c_j = u_j [j < P-1] - u_{j-1} [j > 0], F_j = fs c_j and, where H is
+// built, a_j (the cables loop's arithmetic, term for term).
+template <int N, int NR>
+CHORD_HD void cable_forces(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L, bool blocks) {
+  for (int g = t; g < L.cnpoints; g += kWarp) {
+    const int c = L.cpc[g], j = L.cpj[g], P = L.cnpts[c], g0 = L.coff[c];
+    const float* cb = sh.cb + L.cbo[c];
+    const float k = cb[3 * P], d = cb[3 * P + 1], Lr = cb[3 * P + 2];
+    float l = 0.0f, ldot = 0.0f;
+    for (int s = 0; s + 1 < P; ++s) {
+      l = l + L.cls[g0 + s];
+      ldot = ldot + L.cud[g0 + s];
+    }
+    const float gate = l > Lr ? 1.0f : 0.0f;
+    const float fs = gate * (k * (l - Lr) / Lr + d * ldot / Lr);
+    float cj[3];
+    for (int i = 0; i < 3; ++i) {
+      cj[i] = (j < P - 1 ? L.cu[g][i] : 0.0f) - (j > 0 ? L.cu[g - 1][i] : 0.0f);
+      L.cc[g][i] = cj[i];
+      L.cF[g][i] = fs * cj[i];
+    }
+    if (j == 0) {
+      L.cfs[c] = fs;
+      L.cgate[c] = gate;
+    }
+    if (!blocks) continue;
+    for (int i = 0; i < 3; ++i) {
+      float ai = -gate * (k / Lr) * cj[i];
+      if (j > 0) ai = ai + gate * (d / Lr) * L.cw[g - 1][i];
+      if (j < P - 1) ai = ai - gate * (d / Lr) * L.cw[g][i];
+      L.ca[g][i] = ai;
+    }
+  }
+}
+
+// G of cable pair block k (point j's wrench against point i's perturbation:
+// A = c_j a_i^T + fs D_ji, Bm = -gate (d/L) c_j c_i^T, pair_block with
+// coefficient 1, the cables loop's arithmetic), a block a thread.
+template <int N, int NR>
+CHORD_HD void cable_blocks(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L) {
+  const float h = sh.h;
+  const float cK = -(4.0f / 9.0f) * h * h;
+  const float cD = -(2.0f / 3.0f) * h;
+  for (int q = t; q < L.cnblocks; q += kWarp) {
+    const int gj = L.cblk[q][0], gi = L.cblk[q][1];
+    const int c = L.cpc[gj], P = L.cnpts[c], g0 = L.coff[c];
+    const int j = gj - g0, i = gi - g0;
+    const float* cb = sh.cb + L.cbo[c];
+    const float d = cb[3 * P + 1], Lr = cb[3 * P + 2];
+    const float fs = L.cfs[c], gate = L.cgate[c];
+    alignas(16) Frame Ej, Ei;
+    alignas(16) float G[6][6];
+    copy_frame(Ej, L.Ew[L.cblkb[q][0]]);
+    copy_frame(Ei, L.Ew[L.cblkb[q][1]]);
+    const Point pj = L.cpt[gj], pi = L.cpt[gi];
+    float fb[3];
+    const float F[3] = {L.cF[gj][0], L.cF[gj][1], L.cF[gj][2]};
+    rt_vec(Ej.R, F, fb);
+    const float t1 = j < P - 1 ? ((i == j + 1 ? 1.0f : 0.0f) - (i == j ? 1.0f : 0.0f)) * L.clinv[gj]
+                               : 0.0f;
+    const float t2 = j > 0 ? ((i == j ? 1.0f : 0.0f) - (i == j - 1 ? 1.0f : 0.0f)) * L.clinv[gj - 1]
+                           : 0.0f;
+    float A[3][3], Bm[3][3];
+    for (int m = 0; m < 3; ++m)
+      for (int n = 0; n < 3; ++n) {
+        const float I = m == n ? 1.0f : 0.0f;
+        float Dmn = 0.0f;
+        if (j < P - 1) Dmn = Dmn + t1 * (I - L.cu[gj][m] * L.cu[gj][n]);
+        if (j > 0) Dmn = Dmn - t2 * (I - L.cu[gj - 1][m] * L.cu[gj - 1][n]);
+        A[m][n] = L.cc[gj][m] * L.ca[gi][n] + fs * Dmn;
+        Bm[m][n] = -gate * (d / Lr) * L.cc[gj][m] * L.cc[gi][n];
+      }
+    pair_block(Ej, pj, fb, Ei, pi, A, Bm, 1.0f, i == j, cK, cD, G);
+    copy_f<36>(&L.CG[q][0][0], &G[0][0]);
+  }
+}
+
+// CGJ[k][s] = G_k J_c[s] of each cable pair block k (bodies b, c) and column
+// s that moves body c (add_pair's), a (block, column) a thread.
+template <int N, int NR>
+CHORD_HD void cable_columns(int t, LaneCables<N, NR>& L) {
+  for (int q = t; q < L.cnblocks * NR; q += kWarp) {
+    const int k = q / NR, s = q % NR, c = L.cblkb[k][1];
+    if (!L.moves(c, s)) continue;
+    alignas(16) float G[6][6], Js[6], GJs[6];
+    copy_f<36>(&G[0][0], &L.CG[k][0][0]);
+    copy_f<6>(Js, L.J[c][s]);
+    mat6_vec(G, Js, GJs);
+    copy_f<6>(L.CGJ[k][s], GJs);
+  }
+}
+
 // The index of body i's k-th ground contact (k < its count).
 template <int N, int NR>
 CHORD_HD int nth_contact(const Shared<N, NR>& sh, int i, int k) {
@@ -715,6 +979,13 @@ CHORD_HD void body_forces(int t, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>& L
       for (int e = 0; e < 2; ++e)
         if (sh.sspec[4 * s + 1 + e] == i)
           add_point_wrench(E, sh.sp + 9 * s + 3 * e, L.F[s][e], fcl);
+    for (int k = 0; k < 6; ++k) fm[k] = fm[k] + fcl[k];
+  }
+  if constexpr ((FEAT & kCables) != 0) {
+    float fcl[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int g = 0; g < L.cnpoints; ++g)
+      if (L.cpb[g] == i)
+        add_point_wrench(E, sh.cb + L.cbo[L.cpc[g]] + 3 * L.cpj[g], L.cF[g], fcl);
     for (int k = 0; k < 6; ++k) fm[k] = fm[k] + fcl[k];
   }
   const float ch2 = (4.0f / 9.0f) * sh.h * sh.h;
@@ -822,6 +1093,18 @@ CHORD_HD void newton_matrix(int t, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>&
         alignas(16) float Jr[6], GJs[6];
         copy_f<6>(Jr, L.J[b][r]);
         copy_f<6>(GJs, L.GJ[k][s]);
+        float a = 0.0f;
+        for (int m = 0; m < 6; ++m) a = a + Jr[m] * GJs[m];
+        acc = acc + a;
+      }
+    }
+    if constexpr ((FEAT & kCables) != 0) {
+      for (int k = 0; k < L.cnblocks; ++k) {
+        const int b = L.cblkb[k][0], c = L.cblkb[k][1];
+        if (!L.moves(b, r) || !L.moves(c, s)) continue;
+        alignas(16) float Jr[6], GJs[6];
+        copy_f<6>(Jr, L.J[b][r]);
+        copy_f<6>(GJs, L.CGJ[k][s]);
         float a = 0.0f;
         for (int m = 0; m < 6; ++m) a = a + Jr[m] * GJs[m];
         acc = acc + a;
@@ -997,9 +1280,19 @@ CHORD_HD void spring_state(const Run& run, const Shared<N, NR>& sh, LaneSprings<
   run(kSpringForces, [&](int t) { spring_forces<N, NR>(t, sh, L, blocks); });
 }
 
+// The point states, segments and forces of the cables at the kinematics'
+// iterate (with w_s and a_j where H is built: blocks).
+template <int N, int NR, class Run>
+CHORD_HD void cable_state(const Run& run, const Shared<N, NR>& sh, LaneCables<N, NR>& L,
+                          bool blocks) {
+  run(kCablePoints, [&](int t) { cable_points<N, NR>(t, sh, L); });
+  run(kCableSegments, [&](int t) { cable_segments<N, NR>(t, L, blocks); });
+  run(kCableForces, [&](int t) { cable_forces<N, NR>(t, sh, L, blocks); });
+}
+
 // The forces, w and the K/D blocks at the kinematics' iterate (and the
-// springs' pair blocks there), then H and H^-1 there (newton_matrix's joint
-// terms at the record's x).
+// springs' or cables' pair blocks there), then H and H^-1 there
+// (newton_matrix's joint terms at the record's x).
 template <int N, int NR, int FEAT, class Run>
 CHORD_HD void newton_inverse(const Run& run, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>& L) {
   run(kForcesBlocks, [&](int t) { body_forces<N, NR, FEAT, true>(t, sh, L); });
@@ -1007,6 +1300,10 @@ CHORD_HD void newton_inverse(const Run& run, const Shared<N, NR>& sh, LaneOf<N, 
   if constexpr ((FEAT & kSprings) != 0) {
     run(kSpringBlocks, [&](int t) { spring_blocks<N, NR>(t, sh, L); });
     run(kSpringColumns, [&](int t) { spring_columns<N, NR>(t, L); });
+  }
+  if constexpr ((FEAT & kCables) != 0) {
+    run(kCableBlocks, [&](int t) { cable_blocks<N, NR>(t, sh, L); });
+    run(kCableColumns, [&](int t) { cable_columns<N, NR>(t, L); });
   }
   run(kNewtonMatrix, [&](int t) { newton_matrix<N, NR, FEAT>(t, sh, L); });
   CHORD_NO_UNROLL
@@ -1044,12 +1341,14 @@ CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, con
                     RobustConfig rc = RobustConfig{0, 0, 1}) {
   constexpr bool ROBUST = (FEAT & kRobust) != 0;
   constexpr bool SPRINGS = (FEAT & kSprings) != 0;
+  constexpr bool CABLES = (FEAT & kCables) != 0;
   static_assert(((FEAT & ~(kContacts | kPerlane | kRobust)) == 0 &&
                  (FEAT & (kPerlane | kRobust)) != (kPerlane | kRobust)) ||
-                    FEAT == kSprings || FEAT == (kSprings | kPerlane) || FEAT == kQdep,
+                    FEAT == kSprings || FEAT == (kSprings | kPerlane) || FEAT == kCables ||
+                    FEAT == (kCables | kPerlane) || FEAT == kQdep,
                 "the cooperative solve runs no closure but ground contact, with per-lane "
-                "params or the robust modes, not both; or springs alone, with lane-shared or "
-                "per-lane params; or the q-dependent joints alone");
+                "params or the robust modes, not both; or springs alone, or cables alone, "
+                "with lane-shared or per-lane params; or the q-dependent joints alone");
   const Shared<N, NR> sh = lane_params<N, NR, FEAT>(run, L, topo_i, stat_f, lane_f, lane, B);
   run(kSetup, [&](int t) {
     setup<N, NR>(t, sh, L, lane, B, x0s, q0s, qd0s, q1s, qd1s, taus);
@@ -1058,6 +1357,7 @@ CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, con
   run(kPairs, [&](int t) {
     setup_pairs<N, NR>(t, L);
     if constexpr (SPRINGS) setup_springs<N, NR>(t, sh, L);
+    if constexpr (CABLES) setup_cables<N, NR>(t, sh, L);
   });
   bool have_g = false, stayput = false;
   CHORD_NO_UNROLL
@@ -1080,6 +1380,7 @@ CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, con
       }
       kinematics<N, NR, FEAT>(run, sh, L, xe);
       if constexpr (SPRINGS) spring_state<N, NR>(run, sh, L, e == 0 && rebuild);
+      if constexpr (CABLES) cable_state<N, NR>(run, sh, L, e == 0 && rebuild);
       if (e == 0 && rebuild) {  // H and H^-1 at x
         newton_inverse<N, NR, FEAT>(run, sh, L);
       } else {

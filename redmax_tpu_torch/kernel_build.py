@@ -3,7 +3,9 @@
 Each kernel is one .cu file with a plain C interface (no PyTorch headers),
 compiled for sm_90a into a shared library keyed by a hash of its sources
 and flags, and loaded with ctypes. start() spawns nvcc without waiting, so
-several kernels can compile side by side; load() waits for it.
+several kernels can compile side by side; load() waits for it. nvcc writes
+its messages to a file beside the library, not to a pipe: a pipe that no one
+reads until nvcc exits would stop nvcc once it filled.
 """
 
 import ctypes
@@ -45,6 +47,10 @@ class KernelBuild:
             self._so = os.path.join(BUILD, f"{self.name}_{h.hexdigest()[:16]}.so")
         return self._so, self._so[:-3] + ".ptxas.txt", f"{self._so}.{os.getpid()}.tmp"
 
+    def _messages(self) -> str:
+        """nvcc's messages of the build in flight (its log beside the library)."""
+        return f"{self._paths()[2]}.log"
+
     def start(self) -> None:
         """Spawn nvcc unless the library is built or already compiling.
         Raises when nvcc is missing."""
@@ -56,8 +62,8 @@ class KernelBuild:
             raise RuntimeError(f"nvcc not found: the {self.name} kernel cannot be built")
         os.makedirs(BUILD, exist_ok=True)
         cmd = [nvcc, *self.flags, "-o", tmp, os.path.join(CSRC, self.sources[0])]
-        self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                      text=True)
+        with open(self._messages(), "w") as out:
+            self._proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
 
     def compiling(self) -> bool:
         """True while a started nvcc has not exited."""
@@ -71,8 +77,10 @@ class KernelBuild:
         self.start()
         so, log, tmp = self._paths()
         if self._proc is not None:
-            _, err = self._proc.communicate()
-            rc, self._proc = self._proc.returncode, None
+            rc, self._proc = self._proc.wait(), None
+            with open(self._messages()) as f:
+                err = f.read()
+            os.remove(self._messages())
             if rc != 0:
                 raise RuntimeError(f"nvcc failed on {self.name} ({self.sources[0]} "
                                    f"{' '.join(self.defines)}; exit {rc}):\n{err}")

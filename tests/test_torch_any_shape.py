@@ -62,7 +62,8 @@ C, S, CAB, Q, PL, R = ck.CONTACTS, ck.SPRINGS, ck.CABLES, ck.QDEP, ck.PERLANE, c
 GROUND4_RECORD = 7 * 4 + 4 + 13 * 4
 SIZES = [(12, 12, 0), (4, 4, C), (12, 12, R), (12, 12, C | R), (12, 12, C | PL),
          (12, 12, S), (12, 12, S | PL), (6, 12, Q), (4, 12, Q), (1, 6, Q), (5, 3, 0),
-         (2, 2, S), (8, 8, 0), (8, 8, PL), (3, 3, C | PL), (32, 32, 0), (2, 4, Q)]
+         (2, 2, S), (8, 8, 0), (8, 8, PL), (3, 3, C | PL), (32, 32, 0), (2, 4, Q),
+         (4, 3, CAB), (4, 3, CAB | PL), (3, 3, CAB), (12, 12, CAB | PL), (32, 32, CAB)]
 # records of explicit size: (N, nr, kinds, record floats); the last fits no block
 RECORDS = [(4, 4, C | PL, GROUND4_RECORD), (5, 3, PL, 40), (32, 32, C | PL, 24000)]
 LOOP = r"""
@@ -191,9 +192,9 @@ def test_shape_rule_routes_by_kinds_width_and_room():
     that fits one lane in a block; lanes a block the most of 8, 4, 2, 1
     that fit."""
     for key in [(5, 3, 0), (2, 2, S), (8, 8, 0), (6, 12, Q), (4, 12, Q), (1, 6, Q),
-                (4, 4, C | R), (3, 3, PL), (32, 32, 0)]:
+                (4, 4, C | R), (3, 3, PL), (32, 32, 0), (4, 3, CAB), (4, 3, CAB | PL)]:
         assert ck.takes_coop(*key), key
-    for key in [(6, 6, C | S), (3, 6, C | Q), (12, 12, C | PL | R), (4, 3, CAB),
+    for key in [(6, 6, C | S), (3, 6, C | Q), (12, 12, C | PL | R), (4, 3, CAB | C),
                 (6, 12, Q | R), (33, 33, 0), (4, 32 + 1, 0), (4, 8, S)]:
         assert not ck.takes_coop(*key), key
     assert ck.takes_coop(12, 12, S, springs=3) and not ck.takes_coop(12, 12, S, springs=4)
@@ -211,7 +212,8 @@ def test_library_of_fixed_and_built_for_the_scene():
     for it, of the design the rule picks, with the key in its defines."""
     for key in ck.COOP_INSTANTIATED:
         assert ck.library_of(*key) is ck.BUILD_COOP
-    assert ck.library_of(4, 3, CAB) is ck.BUILD
+    assert ck.library_of(4, 3, CAB) is ck.BUILD_COOP
+    assert ck.library_of(4, 3, CAB, thread_per_lane=True) is ck.BUILD
     assert ck.library_of(6, 12, Q, thread_per_lane=True) is ck.BUILD_QDEP
     b = ck.library_of(6, 12, Q)
     assert ck.is_coop(b) and b is ck.build_for(True, 6, 12, Q)
@@ -226,8 +228,11 @@ def test_library_of_fixed_and_built_for_the_scene():
     big = ck.library_of(12, 12, C | PL, record=ck.MAX_LANE_RECORD + 1)
     assert big is not ck.BUILD_COOP and "-DCHORD_MAX_RECORD=516" in big.defines
     cab = ck.library_of(4, 3, CAB, cable_points=9)
+    assert cab is not ck.BUILD_COOP and "-DCHORD_MAX_CABLE_POINTS=9" in cab.defines
+    assert ck.library_of(4, 3, CAB, cable_points=8) is ck.BUILD_COOP
+    cab = ck.library_of(4, 3, CAB, thread_per_lane=True, cable_points=9)
     assert cab is not ck.BUILD and "-DCHORD_MAX_CABLE_POINTS=9" in cab.defines
-    assert ck.library_of(4, 3, CAB, cable_points=8) is ck.BUILD
+    assert ck.library_of(4, 3, CAB, thread_per_lane=True, cable_points=8) is ck.BUILD
     # the QP: the fixed shapes, else one unit a shape
     assert qp_kernel.build_for(6, 12) is qp_kernel.BUILD
     qb = qp_kernel.build_for(2, 1)
@@ -248,6 +253,44 @@ def test_build_keys_cache_and_differ():
     paths = {b._paths()[0] for b in builds}
     assert len(paths) == len(keys)
     assert isinstance(builds[0], KernelBuild)
+
+
+def test_nvcc_messages_never_stop_a_build(tmp_path, monkeypatch):
+    """A compiler that writes far more than a pipe holds (ptxas -v of many
+    kernels, or warnings with their instantiation chains) still finishes
+    while the caller only polls compiling(), as chip_smoke's build phase
+    does; its messages become the build's ptxas report, and a failure
+    raises with them. (A stand-in nvcc on PATH: g++ builds the library.)"""
+    import os
+    import time
+
+    from redmax_tpu_torch import kernel_build
+
+    stub = tmp_path / "stub.so"
+    subprocess.run(["g++", "-shared", "-fPIC", "-x", "c++", "-", "-o", str(stub)],
+                   input=b"extern \"C\" int stub() { return 7; }", check=True)
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "python3 -c \"import sys; sys.stderr.write('warning ' * 50000)\"\n"
+                    "[ -n \"$NVCC_FAILS\" ] && exit 2\n"
+                    "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+                    f"cp {stub} \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
+    monkeypatch.setattr(kernel_build, "BUILD", str(tmp_path / "_build"))
+    build = KernelBuild("noisy", ("dual_pgs.cu", "dual_pgs_lane.cuh"))
+    build.start()
+    t0 = time.perf_counter()
+    while build.compiling():
+        assert time.perf_counter() - t0 < 30, "the compiler stopped on its own messages"
+        time.sleep(0.02)
+    assert build.load().stub() == 7
+    assert build.ptxas_report.count("warning") == 50000
+    assert not os.path.exists(build._messages())
+    monkeypatch.setenv("NVCC_FAILS", "1")
+    failing = KernelBuild("noisy_fails", ("dual_pgs.cu", "dual_pgs_lane.cuh"), ("-DX",))
+    with pytest.raises(RuntimeError, match="nvcc failed on noisy_fails"):
+        failing.load()
 
 
 def test_coop_record_bytes_equals_gxx_sizeof(lib):

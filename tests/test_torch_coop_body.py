@@ -44,6 +44,7 @@ import torch
 from redmax_tpu import integrators as jint
 from redmax_tpu import pallas_step
 from redmax_tpu import scene as jscene
+from redmax_tpu.scenes import scene_13_cables as jscene13
 from redmax_tpu.scenes import scene_chain as jchain
 from redmax_tpu.scenes import scene_chain_ground as jground
 from redmax_tpu.scenes import scene_tree as jtree
@@ -154,6 +155,8 @@ def jax_scene(name, mu=0.5, floor_z=BENCH_GROUND["floor_z"]):
         return forest_builder().compile(dtype=jnp.float32)
     if name == "spring-chain-12":
         return spring_chain_jax().compile(dtype=jnp.float32)
+    if name == "scene-13":
+        return jscene13().compile(dtype=jnp.float32)
     if name == "spring-chain-12-plus":  # a fourth spring: more than the cooperative record holds
         b = spring_chain_jax()
         b.force_point_point(-1, 6, xl1=(3.0, 0.0, 1.0), xl2=(0.5, 0, 0), k=20.0, d=1.0)
@@ -329,6 +332,7 @@ def test_coop_body_nan_lane_stays_in_its_lane(coop_lib, scene):
 
 
 C, R, PL, S = chord_kernel.CONTACTS, chord_kernel.ROBUST, chord_kernel.PERLANE, chord_kernel.SPRINGS
+CAB = chord_kernel.CABLES
 # A launch of each cooperative build: (scene, solve mode, per-lane h), and
 # the (N, nr, kinds) it runs.
 COOP_CASES = {
@@ -344,6 +348,8 @@ COOP_CASES = {
     "chain-ground-12-perlane": ("chain-ground-12", "chord", True, (12, 12, C | PL)),
     "spring-chain-12": ("spring-chain-12", "chord", False, (12, 12, S)),
     "spring-chain-12-perlane": ("spring-chain-12", "chord", True, (12, 12, S | PL)),
+    "scene-13": ("scene-13", "chord", False, (4, 3, CAB)),
+    "scene-13-perlane": ("scene-13", "chord", True, (4, 3, CAB | PL)),
 }
 MODES = {"chord": CFG_KW, "guarded": dict(CFG_KW, guarded=True),
          "guard_last": dict(CFG_KW, guard_last=True), "rehess": dict(CFG_KW, chord=False),
@@ -364,13 +370,14 @@ def _coop_launch_case(case, B=4):
 
 
 def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
-    """The builds without cables or q-dependent joints that the paths run go
-    to the cooperative library: the unguarded chord builds with lane-shared
-    params at (12, 12) and (4, 4), with and without contacts, the robust
-    builds at (12, 12), with and without contacts, the per-lane build with
-    contacts at (12, 12) and the spring builds at (12, 12) with and without
-    per-lane params (up to MAX_COOP_SPRINGS springs); the thread-per-lane
-    libraries keep them for an explicit call and for more springs. The
+    """The builds without q-dependent joints that the paths run go to the
+    cooperative library: the unguarded chord builds with lane-shared params
+    at (12, 12) and (4, 4), with and without contacts, the robust builds at
+    (12, 12), with and without contacts, the per-lane build with contacts
+    at (12, 12), the spring builds at (12, 12) and the cable builds at
+    (4, 3), each with and without per-lane params (up to MAX_COOP_SPRINGS
+    springs); the thread-per-lane libraries keep them for an explicit call
+    and for more springs. The
     other fixed thread-per-lane keys stay in their libraries unless the
     shape rule (takes_coop) gives them to the cooperative design, as it
     gives the q-dependent builds (K1b): those go to the cooperative build
@@ -393,12 +400,16 @@ def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
     for key in ((6, 12, chord_kernel.QDEP), (4, 12, chord_kernel.QDEP), (1, 6, chord_kernel.QDEP)):
         assert chord_kernel.is_coop(chord_kernel.library_of(*key)), key
     # springs up to MAX_COOP_SPRINGS go to the cooperative library, more to
-    # the thread-per-lane one; cables keep their libraries
+    # the thread-per-lane one; scene 13's cable builds go to the cooperative
+    # library, their thread-per-lane builds stay for an explicit call
     most = chord_kernel.MAX_COOP_SPRINGS
     for kinds, lane in ((S, chord_kernel.BUILD), (S | PL, chord_kernel.BUILD_PERLANE)):
         assert chord_kernel.library_of(12, 12, kinds, springs=most) is chord_kernel.BUILD_COOP
         assert chord_kernel.library_of(12, 12, kinds, springs=most + 1) is lane
-    assert chord_kernel.library_of(4, 3, chord_kernel.CABLES | PL) is chord_kernel.BUILD_PERLANE
+    assert chord_kernel.library_of(4, 3, CAB | PL, cables=1, cable_points=3) \
+        is chord_kernel.BUILD_COOP
+    assert chord_kernel.library_of(4, 3, CAB | PL, thread_per_lane=True, cables=1,
+                                   cable_points=3) is chord_kernel.BUILD_PERLANE
     assert chord_kernel.library_of(4, 4, C | R) is chord_kernel.build_for(True, 4, 4, C | R)
     assert chord_kernel.library_of(12, 12, C | PL | R, record=244) \
         is chord_kernel.build_for(False, 12, 12, C | PL | R, 244)
@@ -441,12 +452,14 @@ def test_wrapper_launches_the_cooperative_build(monkeypatch, case):
                                    "launch-chain-ground-12-perlane",
                                    "build-spring-chain-12", "launch-spring-chain-12",
                                    "build-spring-chain-12-perlane",
-                                   "launch-spring-chain-12-perlane"])
+                                   "launch-spring-chain-12-perlane",
+                                   "build-scene-13", "launch-scene-13",
+                                   "build-scene-13-perlane", "launch-scene-13-perlane"])
 def test_failed_coop_build_or_launch_raises_without_fallback(monkeypatch, fault):
     """A cooperative build that fails, or a launch that returns an error,
     raises: the thread-per-lane library is never loaded and no counter
-    moves (on chain-ground-4, and on each of the robust, per-lane and spring
-    cooperative builds)."""
+    moves (on chain-ground-4, and on each of the robust, per-lane, spring
+    and cable cooperative builds)."""
     fault, _, case = fault.partition("-")
     topo, cfg, packed = _coop_launch_case(case or "chain-ground-4")
 

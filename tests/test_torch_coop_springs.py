@@ -117,6 +117,8 @@ extern "C" long coop_lane_bytes(int N, int NR, int feat) {
   SIZE(12, 12, 17)
   SIZE(12, 12, 2)
   SIZE(12, 12, 18)
+  SIZE(4, 3, 4)
+  SIZE(4, 3, 20)
 #undef SIZE
   return -1;
 }
@@ -308,5 +310,6 @@ def test_coop_records_fit_shared_memory(lib):
         assert 0 < block <= 232_448, (key, block)
         if key in BLOCK_BYTES:
             assert block == BLOCK_BYTES[key], (key, block)
-    assert set(BLOCK_BYTES) | {(12, 12, S), (12, 12, S | PL)} == \
+    cables = {(4, 3, chord_kernel.CABLES), (4, 3, chord_kernel.CABLES | PL)}
+    assert set(BLOCK_BYTES) | {(12, 12, S), (12, 12, S | PL)} | cables == \
         set(chord_kernel.COOP_INSTANTIATED)
