@@ -163,11 +163,34 @@ Phases (any failure is an exception and a non-zero exit):
      ptxas line, a short rollout on the route with its launch count, the
      kernel against its plain version (compare_kernel's tolerances and
      shares; the QP's x and lambda, and its rollout against float64), timed;
- 27. print the kernels line (every row with its design, threads a lane and
+ 27. the scene zoo, every scene of redmax_tpu/scenes.py under BDF2 and
+     BDF1: (1) scenes 1-5, 14, -2, -1, 100, scene_tree, scene_bridge and
+     scene_umbrella at B = 1024, f32, lanes at the initial state with
+     q + 1e-2 N(0, 1), one rollout of the scene's own nsteps on the default
+     route (make_bdf2_step_batched): the design takes_coop picks (the
+     cooperative one for all but the umbrella, whose six springs go one
+     thread a lane), nsteps - 1 launches of it a rollout and none of the
+     other, steps/s (CUDA events, 3 rollouts after a warm-up), finite_frac,
+     the final q within 1e-3 of scale of the f64 op-level rollout on 95% of
+     lanes; on the states after the rollout the kernel against its plain
+     version by compare_kernel (scene 14: a census of the lanes past and
+     within 1e-5 of a joint limit), timed with its bound; (2) the same
+     scenes through make_bdf1_step (op level), the same checks against f64;
+     (3) scenes 7 and 9 on Euler charts, BDF2 and BDF1: supports() false,
+     no chord launch, the final charts equal to the f64 run's on 95% of
+     lanes, the lanes that switched counted; (4) the energy certificates in
+     f64 on the card, one lane, |H - Hexpected| <= 1e-2: BDF1 and BDF2 of
+     scenes 1-5, 14, 7 and 9 (Euler charts), BDF1 of 0, 6, 8, 10, 12 and 13
+     (scene 11's 1200 steps left out), in a pool of processes on the card
+     with the Euler-chart scenes' f64 references, while (5) scene 100's
+     adjoint MPC
+     (mpc.make_mpc_solver, Adam, 10 steps, BDF1 and BDF2) in f64: the
+     objective falls and the gradient lies within 1e-6 of scale of the CPU's;
+ 28. print the kernels line (every row with its design, threads a lane and
      lanes a block; the cooperative rows, the QP's among them, with the
      thread-per-lane build's time of this run), the paths' lines
-     (robust_path, backward_modes and coop_phases among them), the card's
-     name and power limit, and the result line.
+     (robust_path, backward_modes, coop_phases and scene_zoo among them),
+     the card's name and power limit, and the result line.
 
 Every MPC path, the cable rollout and the per-lane rollouts read the launch
 counter of the chord kernel design the wrapper routes them to (design_of)
@@ -192,10 +215,12 @@ import torch
 
 from redmax_tpu_torch import chord_kernel, forces, integrators, model, mpc, qp_kernel
 from redmax_tpu_torch.kernel_build import KernelBuild
-from redmax_tpu_torch.scenes import (scene_00_serial_chain, scene_09_free3d,
-                                     scene_12_spring_damper, scene_13_cables, scene_chain,
+from redmax_tpu_torch.euler import DEFAULT_CHART
+from redmax_tpu_torch.scenes import (SCENES, build_scene, scene_00_serial_chain,
+                                     scene_07_spherical, scene_09_free3d, scene_12_spring_damper,
+                                     scene_13_cables, scene_bridge, scene_chain,
                                      scene_chain_ground, scene_floor_chain, scene_qdep_chain,
-                                     scene_spring_chain)
+                                     scene_spring_chain, scene_tree, scene_umbrella)
 from redmax_tpu_torch.scenes_matlab import build_mscene
 from redmax_tpu_torch.types import State, lanewise
 
@@ -394,15 +419,15 @@ def rand_states(nr, B, seed, device):
     return [t(a) for a in (x0, q0, qd0, q1, qd1)], t(tau)
 
 
-def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG):
+def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG, both_designs=True):
     """The kernel record fields at one scene's shapes in the solve mode of
     cfg: launch time (device time of 200 launches in a CUDA graph,
     graph_ms; and events_ms, CUDA events over 200 back-to-back launches,
     the way earlier runs timed it), the wrapper's with its layout copies,
     the plain version's, and the bound. Where the wrapper runs the
-    cooperative design, also the thread-per-lane build of the same shape,
-    timed in turns with it (cooperative, thread-per-lane, thread-per-lane,
-    cooperative), and the cooperative design's layout."""
+    cooperative design, also its layout and (both_designs) the
+    thread-per-lane build of the same shape, timed in turns with it
+    (cooperative, thread-per-lane, thread-per-lane, cooperative)."""
     B = states[0].shape[0]
     fns = sc.force_fns
     args = chord_kernel.pack(sc.topo, params, *states, fns)
@@ -411,16 +436,17 @@ def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG):
     events_ms = cuda_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)
     design = {"design": "thread_per_lane", "threads_per_lane": 1, "lanes_per_block": 32}
     if coop:
-        prev = lambda: chord_kernel.launch(sc.topo, cfg, *args, thread_per_lane=True)
-        prev_ms = (graph_ms(prev, reps=200) + graph_ms(prev, reps=200)) / 2
-        ms = (ms + graph_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)) / 2
         lib = chord_kernel._build_lib(chord_kernel.scene_build(sc.topo, fns, params, cfg))
         kinds = chord_kernel.kinds_of(sc.topo, args[8], args[9] is not None,
                                       chord_kernel.is_robust(cfg))
         design = {"design": "warp_per_lane", "threads_per_lane": 32,
                   "lanes_per_block": lib.chord_bdf2_coop_lanes_per_block(
-                      sc.topo.njoints, sc.topo.nr, kinds),
-                  "prev_design": "thread_per_lane", "prev_design_ms": prev_ms}
+                      sc.topo.njoints, sc.topo.nr, kinds)}
+    if coop and both_designs:
+        prev = lambda: chord_kernel.launch(sc.topo, cfg, *args, thread_per_lane=True)
+        prev_ms = (graph_ms(prev, reps=200) + graph_ms(prev, reps=200)) / 2
+        ms = (ms + graph_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)) / 2
+        design.update(prev_design="thread_per_lane", prev_design_ms=prev_ms)
         print(f"chord_bdf2 at {label}, B {B}: cooperative (a warp a lane, "
               f"{design['lanes_per_block']} lanes a block) {ms:.4f} ms, thread-per-lane "
               f"{prev_ms:.4f} ms (in turns, this run): {prev_ms / ms:.2f}x")
@@ -1104,7 +1130,7 @@ def corner_census(sc64, states):
 
 
 def compare_kernel(sc, sc64, params, states, label, min_ok=0.99, exclude=None, cfg=CFG,
-                   mask_ok=1.0, info=None):
+                   mask_ok=1.0, info=None, plain_gap=False):
     """Kernel against the f32 plain version (x) and the f64 plain version
     (H^-1) lane by lane in the solve mode of cfg, on at least min_ok of the
     finite lanes that exclude (a [B] mask) leaves in, the finite masks equal
@@ -1123,7 +1149,13 @@ def compare_kernel(sc, sc64, params, states, label, min_ok=0.99, exclude=None, c
     With chord=False, the lanes on which H^-1 at the last iterate differs
     from the chord mode's (H^-1 at the predictor) by more than twice the
     tolerance must be at least a tenth of the lanes, and on every one of them
-    the kernel's H^-1 must lie nearer the former."""
+    the kernel's H^-1 must lie nearer the former.
+    plain_gap: a lane whose H^-1 (kernel's or the f32 plain version's)
+    misses 2e-5 of scale from f64 where cond(H) times the float32 unit
+    roundoff exceeds 2e-5 (no float32 order can promise 2e-5 there) is held
+    by quantiles instead, as phase 5 holds the QP: over those lanes the
+    kernel's distance from f64 no more than twice the plain version's at
+    the median and the 95% quantile (the lanes counted and printed)."""
     fns, B = sc.force_fns, states[0].shape[0]
     info = {} if info is None else info
     x, hinv = chord_kernel.chord_bdf2(sc.topo, cfg, params, *states, fns)
@@ -1151,7 +1183,22 @@ def compare_kernel(sc, sc64, params, states, label, min_ok=0.99, exclude=None, c
     dh = (hinv.double() - hinv64).abs().amax((-1, -2)) / hscale
     dh_plain = (hinv_ref.double() - hinv64).abs().amax((-1, -2)) / hscale
     held = both if exclude is None else both & ~exclude
-    ok = held & (dx <= 5e-6) & (dh <= 2e-5)
+    ill = torch.zeros_like(held)
+    if plain_gap:
+        cond = torch.linalg.cond(torch.linalg.inv(torch.where(
+            both[:, None, None], hinv64, torch.eye(hinv64.shape[-1], dtype=hinv64.dtype,
+                                                   device=hinv64.device))))
+        ill = held & ((dh > 2e-5) | (dh_plain > 2e-5)) & (cond * 2.0 ** -24 > 2e-5)
+    ok = held & (dx <= 5e-6) & ((dh <= 2e-5) | ill)
+    if ill.any():
+        qk, qp = quantiles(dh[ill]), quantiles(dh_plain[ill])
+        print(f"{label}: on the {int(ill.sum())} held lanes whose H^-1 misses 2e-5 of scale from "
+              f"f64 at cond(H) past 2e-5 / 2^-24 (max cond {float(cond[ill].max()):.3e}), kernel "
+              f"p50 {qk[0]:.3e} p95 {qk[1]:.3e} against the f32 plain version's p50 {qp[0]:.3e} "
+              f"p95 {qp[1]:.3e}")
+        if qk[0] > 2.0 * qp[0] or qk[1] > 2.0 * qp[1]:
+            raise AssertionError(f"{label}: the kernel's H^-1 is off f64 by more than twice the "
+                                 "f32 plain version's")
     share = float(ok[held].float().mean())
     worst = int(torch.where(both, dx, torch.zeros_like(dx)).argmax())
     qx, qh = quantiles(dx[both]), quantiles(dh[both])
@@ -2156,6 +2203,337 @@ def phase_default_route(device="cuda", Bs=(1024, 1000), nsteps=4):
     return records
 
 
+# ---------------------------------------------------------------------------
+# The scene zoo: every scene of the reference's zoo under BDF2 and BDF1
+# ---------------------------------------------------------------------------
+
+
+# (label, builder) of phase 27's scenes on the kernel route: scenes 1-5, 14,
+# -2, -1 and 100 of scenes.SCENES and the procedural tree, bridge and
+# umbrella. The bridge runs at h = 2.5e-3 for tEnd = 0.25 (100 steps): at
+# its default h = 1e-2 the chord config diverges on every lane in both
+# packages (the structured H lacks the light planks' geometric stiffness),
+# and its free fall past about 0.35 s parts float32 from float64 on a few
+# percent of lanes; the phase shows both (bridge_checks).
+ZOO = tuple((f"scene {sid}", SCENES[sid]) for sid in (1, 2, 3, 4, 5, 14, -2, -1, 100)) + (
+    ("tree", scene_tree), ("bridge", lambda: scene_bridge(h=2.5e-3, tEnd=0.25)),
+    ("umbrella", scene_umbrella))
+# scenes 7 and 9 on their Euler charts: the op-level route
+ZOO_EULER = (("scene 7 euler", lambda: scene_07_spherical(exp_coords=False)),
+             ("scene 9 euler", lambda: scene_09_free3d(exp_coords=False)))
+# the certificates held on the card: BDF1 and BDF2, and BDF1 alone (the BDF2
+# ones of these scenes are held per step by the CPU tests)
+CERT_BOTH = (1, 2, 3, 4, 5, 14, 7, 9)
+CERT_BDF1 = (0, 6, 8, 10, 12, 13)
+# Processes that share the card for the certificates and the Euler-chart
+# scenes' f64 references: each is host-bound small launches (a scene-7
+# certificate takes about a minute alone).
+ZOO_WORKERS = 6
+
+
+def zoo_state0(sc, B, device, dtype, seed=0):
+    """B lanes at the scene's initial state with q + 1e-2 N(0, 1) (numpy
+    seed 0), each with the initial charts of its Euler-chart joints."""
+    rng = np.random.default_rng(seed)
+    q = sc.state0.q.double().cpu().numpy() + 1e-2 * rng.normal(size=(B, sc.topo.nr))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return State(q=t(q), qdot=t(np.broadcast_to(sc.state0.qdot.double().cpu().numpy(), q.shape)),
+                 aux={k: v.to(device).expand(B, *v.shape).contiguous()
+                      for k, v in sc.state0.aux.items()})
+
+
+def timed_rollout(sim, params, s0, reps):
+    """(final state, device seconds a rollout): CUDA events around reps
+    rollouts."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        final = sim(params, s0)
+    end.record()
+    torch.cuda.synchronize()
+    return final, start.elapsed_time(end) / 1e3 / reps
+
+
+def against_f64(label, q, q64):
+    """The share of lanes (of all) finite in both whose final q lies within
+    1e-3 of scale of the float64 rollout's (PERF.md section 2); printed with
+    the quantiles, held at 0.95."""
+    both = torch.isfinite(q).all(-1) & torch.isfinite(q64).all(-1)
+    if not both.any():
+        raise AssertionError(f"{label}: no lane finite in both rollouts")
+    err, both = lane_err(q, q64)
+    within = float((err <= 1e-3).double().sum()) / q.shape[0]
+    p50, _, p99, mx = quantiles(err)
+    print(f"{label} vs f64: final q diff of scale median {p50:.3e}, p99 {p99:.3e}, max "
+          f"{mx:.3e}; {within:.4f} of lanes within 1e-3 ({int(both.sum())} finite in both)")
+    if within < 0.95:
+        raise AssertionError(f"{label}: off the float64 rollout")
+    return within
+
+
+def limit_census(sc64, states, x):
+    """Lanes of a scene with joint limits: past a limit at the predictor or
+    at the kernel's solution, and within 1e-5 max(1, |limit|) of one there
+    (where two float32 orders may take the limit's branch either way)."""
+    lo, hi = sc64.params["qlimL"], sc64.params["qlimU"]
+    out = {}
+    for name, v in (("predictor", states[0]), ("solution", x)):
+        v = v.double()
+        near = torch.minimum((v - lo).abs() / lo.abs().clamp(min=1.0),
+                             (v - hi).abs() / hi.abs().clamp(min=1.0)) <= 1e-5
+        out[f"past_a_limit_at_{name}"] = int(((v < lo) | (v > hi)).any(-1).sum())
+        out[f"within_1e-5_of_a_limit_at_{name}"] = int(near.any(-1).sum())
+    return out
+
+
+def next_step_states(final, params):
+    """The chord solve of the step after a BDF2 rollout's last (history,
+    quadratic predictor), lanes the rollout rejected replaced by lane 0's."""
+    ok = (torch.isfinite(final.q) & torch.isfinite(final.qdot)).all(-1)
+    fix = lambda a: torch.where(ok[:, None], a, a[ok][:1])
+    q0, qd0, q1, qd1 = (fix(a) for a in (final.q_prev, final.qdot_prev, final.q, final.qdot))
+    h = lanewise(params["h"], 2)
+    return [q1 + h * qd1 + 0.5 * h * (qd1 - qd0), q0, qd0, q1, qd1]
+
+
+def euler_rollout(k, integ, dtype, B, device):
+    """(sim, params, state0) of ZOO_EULER[k]'s rollout under integ ("bdf2" on
+    the default route, "bdf1"): B lanes from zoo_state0, its own nsteps."""
+    sc = ZOO_EULER[k][1]().compile(dtype=dtype, device=device)
+    if integ == "bdf2":
+        step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG)
+        s0 = integrators.bdf2_init(zoo_state0(sc, B, device, dtype))
+    else:
+        step = integrators.make_bdf1_step(sc.topo, sc.force_fns, CFG)
+        s0 = zoo_state0(sc, B, device, dtype)
+    return integrators.make_simulate(step, sc.nsteps), sc.params, s0
+
+
+def zoo_job(job):
+    """A worker of phase 27's pool: ("cert", sid, integrator, device) ->
+    (job, (H, Hexpected, seconds)), one energy certificate of scene sid (7 and
+    9 on Euler charts) in f64, one lane, the default NewtonConfig(): H = T +
+    V - V0 after its nsteps; ("euler", k, integrator, B, device) -> (job,
+    (final q, final charts)) of euler_rollout in f64, on the CPU."""
+    torch.set_num_threads(1)   # a worker's host work is small launches
+    t = time.perf_counter()
+    if job[0] == "euler":
+        _, k, integ, B, device = job
+        sim, params, s0 = euler_rollout(k, integ, torch.float64, B, device)
+        final = sim(params, s0)
+        return job, (final.q.cpu(), final.aux["euler_chart"].cpu())
+    _, sid, integ, device = job
+    sc = build_scene(sid, device=device, **({"exp_coords": False} if sid in (7, 9) else {}))
+    s0 = sc.initial_state(integ)
+    T0, V0 = sc.energies(s0.q, s0.qdot, s0.aux)
+    final = integrators.make_simulate(sc.make_step(integ), sc.nsteps)(sc.params, s0)
+    T, V = sc.energies(final.q, final.qdot, final.aux)
+    return job, (float(T + V - V0), sc.Hexpected[integ], time.perf_counter() - t)
+
+
+def bridge_checks(device, B):
+    """The bridge outside the zoo's cut, BDF2 at B = 1024 on the kernel route
+    against the op-level route in float64: at its default h = 1e-2, where
+    both diverge, the finite masks equal on 95% of lanes; over its full
+    tEnd = 0.5 at h = 2.5e-3 the share within 1e-3 of scale, printed."""
+    out = {}
+    for key, make in (("h_1e-2", scene_bridge), ("tEnd_0.5", lambda: scene_bridge(h=2.5e-3))):
+        finals = []
+        for dtype, use in ((torch.float32, None), (torch.float64, False)):
+            sc = make().compile(dtype=dtype, device=device)
+            finals.append(integrators.make_simulate(integrators.make_bdf2_step_batched(
+                sc.topo, sc.force_fns, CFG, use_kernel=use), sc.nsteps)(
+                sc.params, integrators.bdf2_init(zoo_state0(sc, B, device, dtype))).q)
+        fin = [torch.isfinite(q).all(-1) for q in finals]
+        agree = float((fin[0] == fin[1]).double().mean())
+        err, _ = lane_err(*finals) if (fin[0] & fin[1]).any() else (torch.ones(1), None)
+        within = float((err <= 1e-3).double().sum()) / B
+        print(f"zoo bridge {key} ({sc.nsteps} steps, BDF2, B {B}): finite_frac "
+              f"{float(fin[0].double().mean()):.4f} on the kernel route, "
+              f"{float(fin[1].double().mean()):.4f} on the f64 op-level route, masks equal on "
+              f"{agree:.4f} of lanes; {within:.4f} of lanes within 1e-3 of scale")
+        out[key] = {"finite_frac": float(fin[0].double().mean()),
+                    "finite_frac_f64": float(fin[1].double().mean()), "masks_equal": agree,
+                    "within_1e-3_of_f64": within}
+    if out["h_1e-2"]["masks_equal"] < 0.95:
+        raise AssertionError("zoo bridge at h = 1e-2: the kernel route and the f64 op-level "
+                             "route diverge on different lanes")
+    return out
+
+
+def phase_scene_zoo(device="cuda", B=1024, reps=3):
+    """Phase 27: every scene of redmax_tpu/scenes.py under BDF2 and BDF1
+    (docstring of this script). Returns (kernel records by label with the
+    zoo rollout's launches, the zoo's JSON line)."""
+    t0 = time.perf_counter()
+    records, line = {}, {"bdf2": {}, "bdf1": {}, "euler_charts": {}, "certificates": {},
+                         "adjoint_mpc": {}}
+    # 1. BDF2 on the default route; 2. BDF1 at op level
+    for label, make in ZOO:
+        sc = make().compile(dtype=torch.float32, device=device)
+        sc64 = make().compile(dtype=torch.float64, device=device)
+        nsteps = sc.nsteps
+        if not chord_kernel.supports(sc.topo, sc.force_fns, CFG):
+            raise AssertionError(f"zoo {label}: the default route does not take the kernel")
+        routed = design_of(sc, sc.params)
+        build = chord_kernel.scene_build(sc.topo, sc.force_fns, sc.params, CFG)
+        sim = integrators.make_simulate(
+            integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG), nsteps)
+        s0 = integrators.bdf2_init(zoo_state0(sc, B, device, torch.float32))
+        sim(sc.params, s0)
+        torch.cuda.synchronize()
+        reset_launches()
+        final, dt = timed_rollout(sim, sc.params, s0, reps)
+        launches = launches_of(routed)
+        finite = float((torch.isfinite(final.q) & torch.isfinite(final.qdot)).all(-1)
+                       .float().mean())
+        print(f"zoo {label} (N, nr) = {(sc.topo.njoints, sc.topo.nr)}, BDF2, B {B}, "
+              f"{nsteps} steps: {routed} design, {build_line(build)}; "
+              f"{B * nsteps / dt:.1f} steps/s ({dt * 1e3:.3f} ms a rollout), "
+              f"{launches // reps} launches a rollout, finite_frac {finite:.4f}")
+        if launches != (nsteps - 1) * reps or launches_of() != launches:
+            raise AssertionError(f"zoo {label}: {launches} launches of the {routed} design "
+                                 f"({launches_of()} in all) in {reps} rollouts, want "
+                                 f"{nsteps - 1} a rollout")
+        reset_launches()
+        q64 = integrators.make_simulate(
+            integrators.make_bdf2_step_batched(sc64.topo, sc64.force_fns, CFG, use_kernel=False),
+            nsteps)(sc64.params, integrators.bdf2_init(
+                zoo_state0(sc64, B, device, torch.float64))).q
+        torch.cuda.synchronize()
+        if launches_of() != 0:
+            raise AssertionError("the op-level route launched the kernel")
+        within = against_f64(f"zoo {label} BDF2", final.q, q64)
+        states = next_step_states(final, sc.params)
+        err, x = compare_kernel(sc, sc64, sc.params, states, f"zoo {label} B {B}",
+                                plain_gap=True)
+        if label == "scene 14":
+            census = limit_census(sc64, states, x)
+            print(f"zoo {label}: joint limits {json.dumps(census)}")
+            if census["past_a_limit_at_solution"] == 0:
+                raise AssertionError("zoo scene 14: no lane past a joint limit")
+        records[label] = {**time_chord_kernel(sc, sc.params, states, err, f"zoo {label}",
+                                              both_designs=False), "launches": launches // reps}
+        line["bdf2"][label] = {"design": routed, "steps_per_s": B * nsteps / dt,
+                               "finite_frac": finite, "within_1e-3_of_f64": within,
+                               "launches_per_rollout": launches // reps}
+
+        reset_launches()
+        step1 = integrators.make_bdf1_step(sc.topo, sc.force_fns, CFG)
+        final1, dt1 = timed_rollout(integrators.make_simulate(step1, nsteps), sc.params,
+                                    zoo_state0(sc, B, device, torch.float32), 1)
+        q64 = integrators.make_simulate(integrators.make_bdf1_step(sc64.topo, sc64.force_fns, CFG),
+                                        nsteps)(sc64.params,
+                                                zoo_state0(sc64, B, device, torch.float64)).q
+        torch.cuda.synchronize()
+        finite1 = float((torch.isfinite(final1.q) & torch.isfinite(final1.qdot)).all(-1)
+                        .float().mean())
+        if launches_of() != 0:
+            raise AssertionError("the BDF1 step launched the chord kernel")
+        print(f"zoo {label} BDF1 (op level), B {B}: {B * nsteps / dt1:.1f} steps/s "
+              f"({dt1 * 1e3:.3f} ms, one rollout), finite_frac {finite1:.4f}")
+        line["bdf1"][label] = {"steps_per_s": B * nsteps / dt1, "finite_frac": finite1,
+                               "within_1e-3_of_f64": against_f64(f"zoo {label} BDF1",
+                                                                 final1.q, q64)}
+
+    line["bridge"] = bridge_checks(device, B)
+    t1 = time.perf_counter()
+
+    # 3.-5. in a pool of ZOO_WORKERS processes on the card (the longest
+    # first): the certificates in f64, one lane each, and the Euler-chart
+    # scenes' f64 references; meanwhile in this process the Euler-chart
+    # scenes in f32 (their rates are taken with the pool on the card) and
+    # the adjoint MPC of scene 100 (the reference's task) in f64 against the
+    # same on the CPU
+    jobs = ([("cert", 7, i, device) for i in ("bdf1", "bdf2")]
+            + [("euler", k, i, B, device) for k in range(len(ZOO_EULER)) for i in ("bdf2", "bdf1")]
+            + [("cert", s_, i, device) for s_ in CERT_BOTH if s_ != 7 for i in ("bdf1", "bdf2")]
+            + [("cert", s_, "bdf1", device) for s_ in CERT_BDF1])
+    with torch.multiprocessing.get_context("spawn").Pool(ZOO_WORKERS) as pool:
+        pending = pool.map_async(zoo_job, jobs)
+        finals = {}
+        for k, (label, make) in enumerate(ZOO_EULER):
+            sc = make().compile(dtype=torch.float32, device="cpu")
+            if chord_kernel.supports(sc.topo, sc.force_fns, CFG):
+                raise AssertionError(f"{label}: supports() admits an Euler-chart scene")
+            for integ in ("bdf2", "bdf1"):
+                reset_launches()
+                finals[k, integ] = timed_rollout(*euler_rollout(k, integ, torch.float32, B,
+                                                                device), 1)
+                if launches_of() != 0:
+                    raise AssertionError(f"{label}: the chord kernel was launched")
+        t2 = time.perf_counter()
+        task = mpc.PointPosTask(body=1, wp=1.0, wreg=1e-5, pscale=1e4)
+        for integ in ("bdf1", "bdf2"):
+            objs = {}
+            for dev in (device, "cpu"):
+                sc = build_scene(100, device=dev)
+                objs[dev] = (sc, mpc.make_objective(sc.topo, sc.force_fns, task,
+                                                    (5.0, 0.0, 0.0), 10, integ))
+            p0 = np.random.default_rng(7).normal(size=2) * 0.3
+            grads = {}
+            for dev, (sc, obj) in objs.items():
+                p = torch.tensor(p0, device=dev, requires_grad=True)
+                v = obj(sc.params, p, sc.state0, torch.tensor([8.0, 0.0, 4.0], device=dev,
+                                                               dtype=torch.float64))
+                grads[dev] = (float(v.detach()), torch.autograd.grad(v, p)[0].cpu())
+            sc, obj = objs[device]
+            target = torch.tensor([8.0, 0.0, 4.0], device=device, dtype=torch.float64)
+            res = mpc.make_mpc_solver(obj, iters=10, lr=0.05)(
+                sc.params, torch.tensor(p0, device=device), sc.state0, target)
+            v1 = float(obj(sc.params, res.p, sc.state0, target))
+            g, g_cpu = grads[device][1], grads["cpu"][1]
+            dg = float((g - g_cpu).abs().max()) / max(1.0, float(g_cpu.abs().max()))
+            print(f"adjoint MPC scene 100 {integ} (f64, 10 steps): objective "
+                  f"{grads[device][0]:.6e} -> {v1:.6e} after 10 Adam steps; gradient "
+                  f"{g.tolist()} vs CPU {g_cpu.tolist()}: {dg:.3e} of scale")
+            if not v1 < grads[device][0] or dg > 1e-6:
+                raise AssertionError(f"adjoint MPC {integ}: the objective did not fall, or the "
+                                     "gradient is off the CPU's")
+            line["adjoint_mpc"][integ] = {"objective_0": grads[device][0], "objective_10": v1,
+                                          "grad_diff_of_scale": dg}
+        t3 = time.perf_counter()
+        results = dict(pending.get(timeout=900))
+    for k, (label, _) in enumerate(ZOO_EULER):
+        for integ in ("bdf2", "bdf1"):
+            (final, dt), (q64, ch64) = finals[k, integ], results["euler", k, integ, B, device]
+            nsteps = ZOO_EULER[k][1]().compile(device="cpu").nsteps
+            q, ch = final.q.cpu(), final.aux["euler_chart"].cpu()
+            both = torch.isfinite(q).all(-1) & torch.isfinite(q64).all(-1)
+            same = (ch == ch64).all(-1) & both
+            share = float(same.double().mean())
+            switched = int((ch != DEFAULT_CHART).any(-1).sum())
+            err, _ = lane_err(q[same], q64[same])
+            print(f"zoo {label} {integ.upper()} (op level: supports() False, 0 chord launches), "
+                  f"B {B}, {nsteps} steps: {B * nsteps / dt:.1f} steps/s (with the pool on the "
+                  f"card); final chart equal to the f64 run's on {share:.4f} of lanes; "
+                  f"{switched} lanes off the initial chart at the end (f64: "
+                  f"{int((ch64 != DEFAULT_CHART).any(-1).sum())}); on lanes of equal charts, "
+                  f"{float((err <= 1e-3).double().mean()):.4f} within 1e-3 of scale (max "
+                  f"{float(err.max()):.3e})")
+            if share < 0.95:
+                raise AssertionError(f"{label} {integ}: final charts off the float64 run's")
+            line["euler_charts"][f"{label} {integ}"] = {
+                "steps_per_s_shared_card": B * nsteps / dt, "chart_equal_to_f64": share,
+                "lanes_off_initial_chart": switched, "chord_launches": 0}
+    for job, out in results.items():
+        if job[0] != "cert":
+            continue
+        (_, sid, integ, _), (H, expected, sec) = job, out
+        dH = abs(H - expected)
+        print(f"certificate scene {sid} {integ} (f64, one lane): H {H!r}, expected "
+              f"{expected!r}, |dH| {dH:.3e} ({sec:.1f} s in its process)")
+        line["certificates"][f"{sid} {integ}"] = dH
+        if not dH <= 1e-2:
+            raise AssertionError(f"certificate scene {sid} {integ}: |dH| {dH} > 1e-2")
+    print("certificate scene 11 (1200 steps) left out")
+    t4 = time.perf_counter()
+    print(f"scene zoo phase: {t4 - t0:.1f} s (kernel-route and BDF1 rollouts {t1 - t0:.1f} s; "
+          f"the pool of {ZOO_WORKERS} processes {t4 - t1:.1f} s, beside it the Euler charts in "
+          f"f32 {t2 - t1:.1f} s and the adjoint MPC {t3 - t2:.1f} s)")
+    return records, line
+
+
 def ptxas_kernels(report: str):
     """(kernel, registers, frame bytes, spill store bytes, spill load bytes)
     of each kernel in an nvcc -Xptxas -v report, the kernel named by its
@@ -2201,9 +2579,11 @@ def on_demand_builds():
     shape rule on each case's scene, params and solve mode (nothing is built
     to decide): the K1b paths' and the default-route cases' (phase 26; the
     QP's in both designs, the thread-per-lane one its yardstick); and the
-    cooperative probe build of uni6 (phase 25)."""
+    cooperative probe build of uni6 (phase 25); the scene zoo's (phase
+    27)."""
     out = []
-    cases = [(make, CFG, None) for _, make in QDEP_SCENES] + [c[1:4] for c in DEFAULT_ROUTE]
+    cases = ([(make, CFG, None) for _, make in QDEP_SCENES] + [c[1:4] for c in DEFAULT_ROUTE]
+             + [(make, CFG, None) for _, make in ZOO])
     for make, cfg, draws in cases:
         sc = make().compile(dtype=torch.float32, device="cpu")
         params = sc.params if draws is None else draws(sc.params, sc.force_fns, 4)
@@ -2421,6 +2801,7 @@ def main():
     backward_modes = phase_backward_modes()
     coop_phases = phase_coop_probe()
     default_records = phase_default_route()
+    zoo_records, zoo_line = phase_scene_zoo()
 
     kernels = [{
         # the cooperative design (a warp a lane), on the main path; the
@@ -2546,7 +2927,16 @@ def main():
         "source": qp_source_of(default_records["mscene 6"]),
         "replaces": "redmax_tpu/pallas_qp.py:40",
         **default_records["mscene 6"], "library_ms": None,
-    }]
+    }] + [{
+        # the scene zoo's BDF2 rollouts (phase 27), each scene on the build
+        # made for its shape (scene 2: the fixed library); launches: a
+        # rollout's nsteps - 1; replaces: the branch of _build_kernel the
+        # scene runs (the umbrella's springs)
+        "name": f"chord_bdf2[zoo {label}]", "route": "cuda",
+        "source": source_of(zoo_records[label]),
+        "replaces": "redmax_tpu/pallas_step.py:" + ("401" if label == "umbrella" else "689"),
+        **zoo_records[label], "library_ms": None,
+    } for label, _ in ZOO]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {"solves_per_s": rate, "finite_frac": finite_frac,
                                     "card": smi}}))
@@ -2575,6 +2965,7 @@ def main():
            for name, (l, r, f) in robust_paths.items()}, "card": smi}}))
     print(json.dumps({"backward_modes": {**backward_modes, "card": smi}}))
     print(json.dumps({"coop_phases": {**coop_phases, "card": smi}}))
+    print(json.dumps({"scene_zoo": {**zoo_line, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

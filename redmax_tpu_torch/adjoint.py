@@ -24,16 +24,17 @@ import torch
 
 def batched_jacobian(res_fn: Callable, x):
     """The exact per-lane Jacobian dg/dx [B, n, n] of a lane-separable
-    batched residual g = res_fn(x) [B, n] at x [B, n]: one reverse pass per
-    row over g[:, i].sum() (lanes do not mix, so the sum's gradient is each
-    lane's row). Enables grad locally on a detached x; returns a detached H."""
+    batched residual g = res_fn(x) [B, n] at x [B, n]: one reverse pass,
+    batched over the n unit cotangents e_i on every lane (lanes do not mix,
+    so row i of each lane is the gradient of g[:, i].sum()). Enables grad
+    locally on a detached x; returns a detached H."""
     n = x.shape[-1]
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         g = res_fn(xg)
-        rows = [torch.autograd.grad(g[:, i].sum(), xg, retain_graph=i < n - 1)[0]
-                for i in range(n)]
-    return torch.stack(rows, dim=-2).detach()
+        eye = torch.eye(n, dtype=g.dtype, device=g.device)[:, None, :].expand(n, *g.shape)
+        (rows,) = torch.autograd.grad(g, xg, grad_outputs=eye, is_grads_batched=True)
+    return rows.transpose(0, 1).detach()
 
 
 class _ImplicitSolve(torch.autograd.Function):

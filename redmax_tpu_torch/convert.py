@@ -3,7 +3,8 @@
 The JAX package's SceneParams is a nested dict of arrays; handed over as
 numpy (``jax.tree_util.tree_map(np.asarray, sc.params)``) it becomes this
 package's SceneParams with the same layout, params["constraints"]
-and params["forces"] included. The Topology's tuple fields carry over as
+and params["forces"] included. A state's aux (the Euler-chart joints'
+charts, int32 there) becomes int64 tensors. The Topology's tuple fields carry over as
 they are, and the constraint and force objects are rebuilt from their class
 names and attributes. No
 function here imports the JAX package.
@@ -23,6 +24,13 @@ def params_from_numpy(params_np: Dict[str, Any], device="cuda", dtype=torch.floa
     if isinstance(params_np, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in params_np.items()}
     return torch.tensor(np.array(params_np, dtype=np.float64), dtype=dtype, device=device)
+
+
+def aux_from_numpy(aux_np: Dict[str, Any], device="cuda") -> Dict[str, torch.Tensor]:
+    """A state's aux (``{"euler_chart": [G] or [B, G]}``, as numpy) -> int64
+    tensors on device, the shape kept."""
+    return {k: torch.tensor(np.asarray(v), dtype=torch.int64, device=device)
+            for k, v in aux_np.items()}
 
 
 def topology_from_fields(njoints, nr, parent, jtype, qstart, ndof) -> Topology:

@@ -1,11 +1,12 @@
-"""Implicit integrators, batch-first: SDIRK2-bootstrapped BDF2 with
-fixed-iteration chord Newton, and the linearly implicit Euler step with hard
-constraints (dense KKT for equalities, dual projected Gauss-Seidel for
-inequalities).
+"""Implicit integrators, batch-first: BDF1, SDIRK2-bootstrapped BDF2, and
+the linearly implicit Euler step with hard constraints (dense KKT for
+equalities, dual projected Gauss-Seidel for inequalities).
 
 Semantics are those of the JAX package's integrators.py (and of the
 reference drivers):
 
+  * BDF1 g = M (q1 - q0 - h qdot0) - h^2 f with qdot1 = (q1 - q0)/h
+    (driverRedMaxBDF1.m:160-187).
   * SDIRK2 bootstrap with alpha = (2 - sqrt(2))/2, two substeps, then BDF2
     g = M (q2 - 4/3 q1 + 1/3 q0 - 8/9 h qdot1 + 2/9 h qdot0) - 4/9 h^2 f
     (driverRedMaxBDF2.m:64-293).
@@ -19,7 +20,10 @@ reference drivers):
     implicit damping, constraint rows from constraints.assemble_constraints,
     Baumgarte stabilization from params["baumgarte"][2].
 
-Every state tensor is [B, nr]; lanes step in lock-step and never mix.
+Every state tensor is [B, nr]; lanes step in lock-step and never mix. A
+state's aux (the Euler-chart joints' charts, [B, G]) goes to every residual
+and Newton matrix and through the post-step reparam_all, which switches
+charts and remaps the BDF2 history.
 """
 
 import math
@@ -219,8 +223,8 @@ def _newton_line_search(res_fn, x0, cfg: NewtonConfig, jac_fn):
 # ---------------------------------------------------------------------------
 
 
-def _Mf(topo, force_fns, params, q, qdot):
-    M, f, _ = assemble(topo, params, q, qdot, force_fns)
+def _Mf(topo, force_fns, params, q, qdot, aux=None):
+    M, f, _ = assemble(topo, params, q, qdot, force_fns, aux)
     return M, f
 
 
@@ -228,68 +232,87 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
-def residual_sdirk2a(topo, force_fns, params: Dict, qa, q0, qdot0):
+def residual_bdf1(topo, force_fns, params: Dict, q1, q0, qdot0, aux=None):
+    h = lanewise(params["h"], 2)
+    dqtmp = q1 - q0 - h * qdot0
+    qdot1 = (q1 - q0) / h
+    M, f = _Mf(topo, force_fns, params, q1, qdot1, aux)
+    return _mv(M, dqtmp) - h * h * f
+
+
+def residual_sdirk2a(topo, force_fns, params: Dict, qa, q0, qdot0, aux=None):
     ah = SDIRK_ALPHA * lanewise(params["h"], 2)
     dqtmp = qa - q0 - ah * qdot0
     qdota = (qa - q0) / ah
-    M, f = _Mf(topo, force_fns, params, qa, qdota)
+    M, f = _Mf(topo, force_fns, params, qa, qdota, aux)
     return _mv(M, dqtmp) - ah * ah * f
 
 
-def residual_sdirk2b(topo, force_fns, params: Dict, q1, q0, qdot0, qdota):
+def residual_sdirk2b(topo, force_fns, params: Dict, q1, q0, qdot0, qdota, aux=None):
     a = SDIRK_ALPHA
     h = lanewise(params["h"], 2)
     ah = a * h
     dqtmp = q1 - q0 - (2 * a - 1) * h * qdot0 - 2 * (1 - a) * h * qdota
     qdot1 = (q1 - q0 - (1 - a) * h * qdota) / ah
-    M, f = _Mf(topo, force_fns, params, q1, qdot1)
+    M, f = _Mf(topo, force_fns, params, q1, qdot1, aux)
     return _mv(M, dqtmp) - ah * ah * f
 
 
-def residual_bdf2(topo, force_fns, params: Dict, q2, q0, qdot0, q1, qdot1):
+def residual_bdf2(topo, force_fns, params: Dict, q2, q0, qdot0, q1, qdot1, aux=None):
     h = lanewise(params["h"], 2)
     dqtmp = q2 - (4 / 3) * q1 + (1 / 3) * q0 - (8 / 9) * h * qdot1 + (2 / 9) * h * qdot0
     qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
-    M, f = _Mf(topo, force_fns, params, q2, qdot2)
+    M, f = _Mf(topo, force_fns, params, q2, qdot2, aux)
     return _mv(M, dqtmp) - (4 / 9) * h * h * f
 
 
 # ---------------------------------------------------------------------------
 # Structured Newton matrices (see model.structured_hessian; cK and cD are
-# scalars or per lane [B], as h is)
+# scalars or per lane [B], as h is; aux is the state's)
 # ---------------------------------------------------------------------------
 
 
+def _hess_bdf1(topo, force_fns):
+    def hess(theta, q1, aux=None):
+        params, q0, qdot0 = theta
+        h = params["h"]
+        return structured_hessian(
+            topo, params, q1, (q1 - q0) / lanewise(h, 2), -h * h, -h, force_fns, aux
+        )
+
+    return hess
+
+
 def _hess_sdirk2a(topo, force_fns):
-    def hess(theta, qa):
+    def hess(theta, qa, aux=None):
         params, q0, qdot0 = theta
         ah = SDIRK_ALPHA * params["h"]
         return structured_hessian(
-            topo, params, qa, (qa - q0) / lanewise(ah, 2), -ah * ah, -ah, force_fns
+            topo, params, qa, (qa - q0) / lanewise(ah, 2), -ah * ah, -ah, force_fns, aux
         )
 
     return hess
 
 
 def _hess_sdirk2b(topo, force_fns):
-    def hess(theta, q1):
+    def hess(theta, q1, aux=None):
         params, q0, qdot0, qdota = theta
         a = SDIRK_ALPHA
         ah = a * params["h"]
         h2 = lanewise(params["h"], 2)
         qdot1 = (q1 - q0 - (1 - a) * h2 * qdota) / (a * h2)
-        return structured_hessian(topo, params, q1, qdot1, -ah * ah, -ah, force_fns)
+        return structured_hessian(topo, params, q1, qdot1, -ah * ah, -ah, force_fns, aux)
 
     return hess
 
 
 def _hess_bdf2(topo, force_fns):
-    def hess(theta, q2):
+    def hess(theta, q2, aux=None):
         params, q0, qdot0, q1, qdot1 = theta
         h = params["h"]
         qdot2 = (3 / (2 * lanewise(h, 2))) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
         return structured_hessian(
-            topo, params, q2, qdot2, -(4 / 9) * h * h, -(2 / 3) * h, force_fns
+            topo, params, q2, qdot2, -(4 / 9) * h * h, -(2 / 3) * h, force_fns, aux
         )
 
     return hess
@@ -378,9 +401,64 @@ def _make_solve_T(cfg: NewtonConfig):
     return lambda H, xbar: solve_T(factor(H), xbar)
 
 
+def _solver(cfg: NewtonConfig, differentiable: bool):
+    """(res, hess, theta, x0, aux) -> x*: one Newton solve of res(theta, x,
+    aux=aux) = 0 from x0, hess(theta, x, aux=aux) its structured matrix (None:
+    the exact one). differentiable routes it through implicit_solve_factored
+    (the adjoint reuses the forward factor) for a fixed-iteration config
+    with adjoint_reuse_factor, else through implicit_solve (the backward
+    builds H at the solution: structured or exact, as cfg.hessian says)."""
+    _, _, solve_T = make_solver(cfg.linsolve)
+    factored = cfg.fixed_iters > 0 and cfg.adjoint_reuse_factor
+    solve_T_H = _make_solve_T(cfg)
+
+    def newton_fn(fn, jac, x0):
+        return newton(fn, x0, cfg, jac_fn=jac)[0]
+
+    def solve(res, hess, theta, x0, aux):
+        res_aux = lambda theta, x: res(theta, x, aux=aux)
+        hess_aux = None if hess is None else (lambda theta, x: hess(theta, x, aux=aux))
+        nf = _newton_factored(cfg, res_aux, hess_aux)
+        if not differentiable:
+            return nf(theta, x0)[0]
+        if factored:
+            return implicit_solve_factored(res_aux, nf, solve_T, theta, x0)
+        return implicit_solve(res_aux, newton_fn, hess_aux, solve_T_H, theta, x0)
+
+    return solve
+
+
+def make_bdf1_step(
+    topo: Topology,
+    force_fns: Tuple = (),
+    cfg: NewtonConfig = NewtonConfig(),
+    differentiable: bool = False,
+):
+    """One batched BDF1 step State -> State over [B, nr] states, from the
+    predictor q0 + h qdot0, then the post-step reparam_all (simLoop,
+    driverRedMaxBDF1.m:57-92). differentiable=True: the implicit-function
+    VJP (_solver), the reference adjoint (TaskBDF1.m:45-81)."""
+    hess = _hess_bdf1(topo, force_fns) if cfg.hessian == "structured" else None
+    solve = _solver(cfg, differentiable)
+
+    def res(theta, q1, aux=None):
+        params, q0, qdot0 = theta
+        return residual_bdf1(topo, force_fns, params, q1, q0, qdot0, aux)
+
+    def step(params: Dict, state: State) -> State:
+        q0, qdot0 = state.q, state.qdot
+        h = lanewise(params["h"], 2)
+        q1 = solve(res, hess, (params, q0, qdot0), q0 + h * qdot0, state.aux)
+        q1, qdot1, aux, _, _ = reparam_all(topo, params, q1, (q1 - q0) / h, state.aux)
+        return State(q=q1, qdot=qdot1, aux=aux)
+
+    return step
+
+
 def _reparam(topo, params, s: Bdf2State) -> Bdf2State:
-    q, qdot = reparam_all(topo, params, s.q, s.qdot)
-    return s._replace(q=q, qdot=qdot)
+    q, qdot, aux, q_prev, qdot_prev = reparam_all(topo, params, s.q, s.qdot, s.aux,
+                                                  s.q_prev, s.qdot_prev)
+    return s._replace(q=q, qdot=qdot, aux=aux, q_prev=q_prev, qdot_prev=qdot_prev)
 
 
 def make_bdf2_step(
@@ -389,57 +467,36 @@ def make_bdf2_step(
     cfg: NewtonConfig = NewtonConfig(),
     differentiable: bool = False,
 ):
-    """One batched BDF2 step with SDIRK2 bootstrap at k=0.
-
-    differentiable=True routes each solve through implicit_solve_factored
-    (the adjoint reuses the forward factor) for a fixed-iteration config
-    with adjoint_reuse_factor, else through implicit_solve (the backward
-    builds H at the solution: structured or exact, as cfg.hessian says).
-    Exposes .bootstrap and .inner, the two phases make_simulate runs.
+    """One batched BDF2 step with SDIRK2 bootstrap at k=0; differentiable as
+    make_bdf1_step's. Exposes .bootstrap and .inner, the two phases
+    make_simulate runs.
     """
     structured = cfg.hessian == "structured"
     hess_a = _hess_sdirk2a(topo, force_fns) if structured else None
     hess_b = _hess_sdirk2b(topo, force_fns) if structured else None
     hess_2 = _hess_bdf2(topo, force_fns) if structured else None
-    _, _, solve_T = make_solver(cfg.linsolve)
-    factored = cfg.fixed_iters > 0 and cfg.adjoint_reuse_factor
-    solve_T_H = _make_solve_T(cfg)
+    solve = _solver(cfg, differentiable)
 
-    def newton_fn(fn, jac, x0):
-        return newton(fn, x0, cfg, jac_fn=jac)[0]
-
-    def _res_a(theta, qa):
+    def res_a(theta, qa, aux=None):
         params, q0, qdot0 = theta
-        return residual_sdirk2a(topo, force_fns, params, qa, q0, qdot0)
+        return residual_sdirk2a(topo, force_fns, params, qa, q0, qdot0, aux)
 
-    def _res_b(theta, q1):
+    def res_b(theta, q1, aux=None):
         params, q0, qdot0, qdota = theta
-        return residual_sdirk2b(topo, force_fns, params, q1, q0, qdot0, qdota)
+        return residual_sdirk2b(topo, force_fns, params, q1, q0, qdot0, qdota, aux)
 
-    def _res_2(theta, q2):
+    def res_2(theta, q2, aux=None):
         params, q0, qdot0, q1, qdot1 = theta
-        return residual_bdf2(topo, force_fns, params, q2, q0, qdot0, q1, qdot1)
-
-    nf = {"a": _newton_factored(cfg, _res_a, hess_a),
-          "b": _newton_factored(cfg, _res_b, hess_b),
-          "2": _newton_factored(cfg, _res_2, hess_2)}
-    res = {"a": _res_a, "b": _res_b, "2": _res_2}
-    hess = {"a": hess_a, "b": hess_b, "2": hess_2}
-
-    def _solve(key, theta, x0):
-        if not differentiable:
-            return nf[key](theta, x0)[0]
-        if factored:
-            return implicit_solve_factored(res[key], nf[key], solve_T, theta, x0)
-        return implicit_solve(res[key], newton_fn, hess[key], solve_T_H, theta, x0)
+        return residual_bdf2(topo, force_fns, params, q2, q0, qdot0, q1, qdot1, aux)
 
     def bootstrap(params: Dict, s: Bdf2State) -> Bdf2State:
         q0, qdot0 = s.q, s.qdot
         h = lanewise(params["h"], 2)
         ah = SDIRK_ALPHA * h
-        qa = _solve("a", (params, q0, qdot0), q0 + ah * qdot0)
+        qa = solve(res_a, hess_a, (params, q0, qdot0), q0 + ah * qdot0, s.aux)
         qdota = (qa - q0) / ah
-        q1 = _solve("b", (params, q0, qdot0, qdota), qa + (1 - SDIRK_ALPHA) * h * qdota)
+        q1 = solve(res_b, hess_b, (params, q0, qdot0, qdota),
+                   qa + (1 - SDIRK_ALPHA) * h * qdota, s.aux)
         qdot1 = (q1 - q0 - (1 - SDIRK_ALPHA) * h * qdota) / ah
         return _reparam(topo, params, Bdf2State(
             q=q1, qdot=qdot1, q_prev=q0, qdot_prev=qdot0, k=s.k + 1, aux=s.aux))
@@ -451,7 +508,7 @@ def make_bdf2_step(
         guess = q1 + h * qdot1
         if cfg.predictor == "quadratic":
             guess = guess + 0.5 * h * (qdot1 - qdot0)
-        q2 = _solve("2", (params, q0, qdot0, q1, qdot1), guess)
+        q2 = solve(res_2, hess_2, (params, q0, qdot0, q1, qdot1), guess, s.aux)
         qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
         return _reparam(topo, params, Bdf2State(
             q=q2, qdot=qdot2, q_prev=q1, qdot_prev=qdot1, k=s.k + 1, aux=s.aux))
@@ -585,7 +642,7 @@ def make_simulate(step_fn: Callable, nsteps: int):
 # ---------------------------------------------------------------------------
 
 
-def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
+def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0, aux=None):
     """Assemble the linearly implicit Euler system at batched (q0, qdot0):
 
         Mrtilde qdot1 = frtilde
@@ -607,7 +664,7 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
             "force closures in the Euler system (their Km, Dm) are not ported yet")
     h, h3 = lanewise(params["h"], 2), lanewise(params["h"], 3)
     B = q0.shape[0]
-    kin = forward_kinematics(topo, params, q0, qdot0)
+    kin = forward_kinematics(topo, params, q0, qdot0, aux)
     J, Jdot, phi = jacobians(topo, params, kin, qdot0)
     Jt = J.transpose(-1, -2)
 
@@ -628,13 +685,13 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0):
             "Mr": Mr, "frtilde": frtilde, "Mrtilde": Mrtilde}
 
 
-def euler_qp_system(topo, force_fns, constraint_fns, params, q0, qdot0):
+def euler_qp_system(topo, force_fns, constraint_fns, params, q0, qdot0, aux=None):
     """(Mrtilde, frtilde, qp) with qp = None for a scene without constraint
     rows, else the stacked rows (A, b, lo, hi, me): the me equality rows
     first with boxes (-inf, inf), then the inequality rows, an active one
     with box (0, inf) and an inactive one masked to a zero row with
     b = 0 and lo = hi = 0."""
-    sys = euler_system(topo, force_fns, params, q0, qdot0)
+    sys = euler_system(topo, force_fns, params, q0, qdot0, aux)
     if not constraint_fns:
         return sys["Mrtilde"], sys["frtilde"], None
     rows = assemble_constraints(constraint_fns, params, topo, sys["kin"], sys["phi"],
@@ -660,7 +717,8 @@ def _make_euler_step(topo, force_fns, constraint_fns, ineq_solve: Callable):
 
     def step(params: Dict, state: State) -> State:
         q0, qdot0 = state.q, state.qdot
-        Mrt, frt, qp = euler_qp_system(topo, force_fns, constraint_fns, params, q0, qdot0)
+        Mrt, frt, qp = euler_qp_system(topo, force_fns, constraint_fns, params, q0, qdot0,
+                                       state.aux)
         if qp is None:
             qdot1 = torch.linalg.solve(Mrt, frt[..., None])[..., 0]
         else:
@@ -670,8 +728,8 @@ def _make_euler_step(topo, force_fns, constraint_fns, ineq_solve: Callable):
             else:
                 qdot1, _ = ineq_solve(Mrt, frt, A, b, lo, hi)
         q1 = q0 + lanewise(params["h"], 2) * qdot1
-        q1, qdot1 = reparam_all(topo, params, q1, qdot1)
-        return State(q=q1, qdot=qdot1, aux=state.aux)
+        q1, qdot1, aux, _, _ = reparam_all(topo, params, q1, qdot1, state.aux)
+        return State(q=q1, qdot=qdot1, aux=aux)
 
     return step
 

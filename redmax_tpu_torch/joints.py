@@ -10,15 +10,19 @@ FREE3D (translation q[0:3] then an exp-map ball joint q[3:6]) and FREE2D
 jax.jvp of S for their Sdot; here it is written out, each coefficient with
 the Taylor branch of the function it differentiates, so both agree to
 roundoff. SPHERICAL and FREE3D carry the post-step exp-map rescale
-(joint_reparam). FREE_ST, COMPOSITE_RP, the Euler-chart types and the
-spline joints are not ported yet.
+(joint_reparam). SPHERICAL_EULER (R from the joint's Euler chart,
+S = [T; 0]) and FREE3D_EULER (translation q[0:3] then an Euler-chart ball
+joint q[3:6]) read their per-lane chart index from params["chart"]
+(euler.py; the chart switch after each step is model.reparam_all's), with
+Sdot in closed form too. FREE_ST, COMPOSITE_RP and the spline joints are
+not ported yet.
 """
 
 import math
 
 import torch
 
-from redmax_tpu_torch import se3
+from redmax_tpu_torch import euler, se3
 from redmax_tpu_torch.types import JointType
 
 CONSTANT_S_TYPES = (
@@ -30,7 +34,9 @@ CONSTANT_S_TYPES = (
 )
 # S(q) in closed form, per lane; FREE2D has no kernel branch (op level only).
 QDEP_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D, JointType.FREE2D)
-SUPPORTED_TYPES = CONSTANT_S_TYPES + QDEP_TYPES
+# S(q) in closed form on the joint's Euler chart (params["chart"], per lane).
+EULER_TYPES = (JointType.SPHERICAL_EULER, JointType.FREE3D_EULER)
+SUPPORTED_TYPES = CONSTANT_S_TYPES + QDEP_TYPES + EULER_TYPES
 # Exp-map rotation DOFs of the joints with a post-step rescale: q[slice].
 EXP_ROTATION = {JointType.SPHERICAL: slice(0, 3), JointType.FREE3D: slice(3, 6)}
 
@@ -38,8 +44,8 @@ EXP_ROTATION = {JointType.SPHERICAL: slice(0, 3), JointType.FREE3D: slice(3, 6)}
 def require_supported(jt: JointType) -> None:
     if jt not in SUPPORTED_TYPES:
         raise NotImplementedError(
-            f"joint type {jt.name} is not ported yet (FREE_ST, COMPOSITE_RP, the "
-            "Euler-chart and the spline joints)"
+            f"joint type {jt.name} is not ported yet (FREE_ST, COMPOSITE_RP and the "
+            "spline joints)"
         )
 
 
@@ -219,8 +225,30 @@ def _free2d(q, qdot):
     return se3.make_E(R, p), S, Sdot
 
 
+def _spherical_euler(q, qdot, chart):
+    """R = euler_R(chart, q), S = [T; 0], Sdot = [Tdot; 0]
+    (redmax_tpu/joints.py::_S_spherical_euler, its jax.jvp in closed form)."""
+    T, Tdot = euler.euler_T_and_dot(chart, q, qdot)
+    return _rotation_E(euler.euler_R(chart, q)), _rot_cols(T), _rot_cols(Tdot)
+
+
+def _free3d_euler(q, qdot, chart):
+    """Q = [euler_R(chart, r) | p], p = q[0:3], r = q[3:6]: translation
+    columns [0; R^T e_k] with d(R^T)/dt = -hat(w) R^T, w = T rdot the body
+    angular velocity; rotation columns those of SPHERICAL_EULER."""
+    r, rd = q[..., 3:6], qdot[..., 3:6]
+    R = euler.euler_R(chart, r)
+    T, Tdot = euler.euler_T_and_dot(chart, r, rd)
+    Rt = R.transpose(-1, -2)
+    dRt = -se3.hat3((T @ rd[..., None])[..., 0]) @ Rt
+    S = torch.cat([torch.cat([torch.zeros_like(Rt), Rt], dim=-2), _rot_cols(T)], dim=-1)
+    Sdot = torch.cat([torch.cat([torch.zeros_like(dRt), dRt], dim=-2), _rot_cols(Tdot)], dim=-1)
+    return se3.make_E(R, q[..., 0:3]), S, Sdot
+
+
 _QDEP = {JointType.UNIVERSAL: _universal, JointType.SPHERICAL: _spherical,
          JointType.FREE3D: _free3d, JointType.FREE2D: _free2d}
+_EULER = {JointType.SPHERICAL_EULER: _spherical_euler, JointType.FREE3D_EULER: _free3d_euler}
 
 
 def joint_QSSdot(jt: JointType, q, qdot, params):
@@ -228,11 +256,15 @@ def joint_QSSdot(jt: JointType, q, qdot, params):
     Sdot are [G, 6, d] for the constant-S types (Sdot = 0) and
     [..., G, 6, d] for the q-dependent ones.
 
-    q, qdot: [..., G, d] (leading batch dims); params: per-type arrays [G, ...].
+    q, qdot: [..., G, d] (leading batch dims); params: per-type arrays [G, ...],
+    and for the Euler-chart types params["chart"], the int64 chart index
+    [..., G] of each joint and lane.
     """
     require_supported(jt)
     if jt in _QDEP:
         return _QDEP[jt](q, qdot)
+    if jt in _EULER:
+        return _EULER[jt](q, qdot, params["chart"])
     G = q.shape[-2]
     dtype, device = q.dtype, q.device
     if jt == JointType.FIXED:

@@ -23,9 +23,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from redmax_tpu_torch import forces, se3
+from redmax_tpu_torch import euler, forces, se3
 from redmax_tpu_torch.joints import EXP_ROTATION, joint_QSSdot, joint_reparam
-from redmax_tpu_torch.types import MAX_NDOF, NDOF, JointType, Topology, lanewise
+from redmax_tpu_torch.types import EULER_CHART_TYPES, MAX_NDOF, NDOF, JointType, Topology, lanewise
 
 
 class Kinematics(NamedTuple):
@@ -60,6 +60,7 @@ class _Index(NamedTuple):
     dofj: Any       # [nr] owning joint of each reduced DOF
     col: Any        # [nr] flat (joint, dof) index into [N * MAX_NDOF]
     anc: Any        # [N, nr] bool: joint of DOF r is body i's ancestor or i
+    charts: Dict    # Euler-chart type -> its members' columns [G] of aux["euler_chart"]
 
 
 @lru_cache(maxsize=None)
@@ -77,19 +78,34 @@ def _index_tensors(topo: Topology, device: torch.device) -> _Index:
                               dtype=torch.long, device=device).reshape(len(members), d)
         groups.append((jt, torch.as_tensor(members, dtype=torch.long, device=device), idx))
     dofj = topo.dof_joint()
+    ej = topo.euler_joints()
+    charts = {jt: torch.as_tensor([ej.index(m) for m in members], dtype=torch.long, device=device)
+              for jt, members in topo.type_groups().items() if JointType(jt) in EULER_CHART_TYPES}
     return _Index(
         groups=tuple(groups),
         rounds=tuple(T(ptr) for ptr in topo.doubling_rounds()),
         dofj=T(dofj),
         col=T(dofj * MAX_NDOF + topo.dof_index()),
         anc=T(topo.ancestor_mask()[:, dofj] > 0),
+        charts=charts,
     )
 
 
-def forward_kinematics(topo: Topology, params: Dict, q, qdot) -> Kinematics:
+def _charts(aux, cols):
+    """The chart indices [B, G] of one Euler-chart type group from the
+    state's aux (columns cols of aux["euler_chart"] [B, G_euler])."""
+    if not aux or "euler_chart" not in aux:
+        raise ValueError("the scene has Euler-chart joints: pass the state's aux "
+                         "({'euler_chart': int64 [B, G]})")
+    return aux["euler_chart"][..., cols]
+
+
+def forward_kinematics(topo: Topology, params: Dict, q, qdot, aux=None) -> Kinematics:
     """Joint transforms and subspaces per type group, then the world chain.
     A constant-S group's [G, 6, d] columns broadcast over the lanes; a
-    q-dependent group fills its own per-lane [B, G, 6, d] columns."""
+    q-dependent group fills its own per-lane [B, G, 6, d] columns. aux: the
+    state's aux, whose aux["euler_chart"] [B, G] gives the Euler-chart
+    joints their charts (unused without such joints)."""
     B = q.shape[0]
     N = topo.njoints
     dtype, device = q.dtype, q.device
@@ -100,9 +116,10 @@ def forward_kinematics(topo: Topology, params: Dict, q, qdot) -> Kinematics:
     for jt, mem, idx in index.groups:
         jt_enum = JointType(jt)
         d = NDOF[jt_enum]
-        Qg, Sg, Sdotg = joint_QSSdot(
-            jt_enum, q[:, idx], qdot[:, idx], joint_params_for(params, jt)
-        )
+        pg = joint_params_for(params, jt)
+        if jt in index.charts:
+            pg = {**pg, "chart": _charts(aux, index.charts[jt])}
+        Qg, Sg, Sdotg = joint_QSSdot(jt_enum, q[:, idx], qdot[:, idx], pg)
         Q[:, mem] = Qg
         S[:, mem, :, :d] = Sg
         Sdot[:, mem, :, :d] = Sdotg
@@ -226,7 +243,8 @@ def closure_forces(topo: Topology, params: Dict, kin: Kinematics, phi, q, qdot,
     return torch.zeros_like(q), fm
 
 
-def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns: Tuple = ()):
+def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns: Tuple = (),
+                       aux=None):
     """Structured Newton matrix H = M + cK*K~ + cD*D~ [B, nr, nr].
 
     K~/D~ keep every term that does not differentiate the kinematic geometry:
@@ -238,10 +256,11 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
     and cD are scalars or per lane [B]. Springs and cables add
     J_b^T K_bc J_c (and the same with D) for every pair of their body points
     (forces.pair_closure_blocks), the blocks that couple two bodies
-    included: the JAX package's jacfwd Km, Dm in closed form.
+    included: the JAX package's jacfwd Km, Dm in closed form. aux: the
+    state's aux (forward_kinematics).
     """
     gnd, pair = _split_closures(force_fns)
-    kin = forward_kinematics(topo, params, q, qdot)
+    kin = forward_kinematics(topo, params, q, qdot, aux)
     J, Jdot, phi = jacobians(topo, params, kin, qdot)
     B, N, nr = q.shape[0], topo.njoints, topo.nr
 
@@ -268,13 +287,13 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
     return M + lanewise(cK, 3) * Kt + lanewise(cD, 3) * Dt
 
 
-def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
-    """Full reduced assembly: (M [B,nr,nr], f [B,nr], aux dict).
+def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = (), aux=None):
+    """Full reduced assembly: (M [B,nr,nr], f [B,nr], parts dict).
 
     force_fns: static tuple of force closures compiled from the scene's
-    force list (forces.py)."""
+    force list (forces.py); aux: the state's aux (forward_kinematics)."""
     _split_closures(force_fns)  # raises before any work on an unported closure
-    kin = forward_kinematics(topo, params, q, qdot)
+    kin = forward_kinematics(topo, params, q, qdot, aux)
     J, Jdot, phi = jacobians(topo, params, kin, qdot)
     B = q.shape[0]
 
@@ -288,18 +307,18 @@ def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
     M = MmJt @ J
     fqvv = -(MmJt @ (Jdot @ qdot[..., None]))[..., 0]
     f = fr + (J.transpose(-1, -2) @ fm.reshape(B, -1, 1))[..., 0] + fqvv
-    aux = {"kin": kin, "J": J, "Jdot": Jdot, "phi": phi, "fm": fm, "fr": fr}
-    return M, f, aux
+    return M, f, {"kin": kin, "J": J, "Jdot": Jdot, "phi": phi, "fm": fm, "fr": fr}
 
 
-def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
+def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = (), aux=None):
     """Kinetic and potential energy (T [B], V [B]):
       T = 1/2 sum_i phi_i^T M_i phi_i
       V = -sum_i m_i g . p_wi + 1/2 k (q - qrest)^2 + limit penalties
         + force energies.
+    aux: the state's aux (forward_kinematics).
     """
     gnd, pair = _split_closures(force_fns)
-    kin = forward_kinematics(topo, params, q, qdot)
+    kin = forward_kinematics(topo, params, q, qdot, aux)
     _, _, phi = jacobians(topo, params, kin, qdot)
     I = params["I_i"]
     T = 0.5 * (phi * (I * phi)).sum((-1, -2))
@@ -316,22 +335,38 @@ def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = ()):
     return T, V
 
 
-def reparam_all(topo: Topology, params: Dict, q, qdot):
-    """Post-step reparameterization (q, qdot) [B, nr] -> (q, qdot): per type
-    group, the exp-map rescale of SPHERICAL and FREE3D rotations
-    (joints.joint_reparam); the identity for a scene without them. The Euler
-    charts' switch raises (not ported yet)."""
+def reparam_all(topo: Topology, params: Dict, q, qdot, aux=None, q_prev=None, qdot_prev=None):
+    """Post-step reparameterization (Joint.reparam, Joint.m:372-379) of
+    (q, qdot) [B, nr] per type group: the exp-map rescale of SPHERICAL and
+    FREE3D rotations (joints.joint_reparam) and the 12-chart switch of the
+    Euler-chart joints (euler.reparam_spherical), which also updates
+    aux["euler_chart"] and remaps the previous step's q_prev, qdot_prev (the
+    BDF2 history, JointSpherical.m:96-103) of the lanes that switch; the
+    identity for a scene without such joints. Returns (q, qdot, aux, q_prev,
+    qdot_prev), the last two None where they were not given."""
     index = _index_tensors(topo, q.device)
+    B = q.shape[0]
     for jt, _, idx in index.groups:
         jt_enum = JointType(jt)
-        if jt_enum in (JointType.SPHERICAL_EULER, JointType.FREE3D_EULER):
-            raise NotImplementedError(
-                f"the Euler-chart switch of {jt_enum.name} is not ported yet (the port's "
-                "SPHERICAL and FREE3D joints use the exp-map chart)")
+        if jt_enum in EULER_CHART_TYPES:
+            cols = index.charts[jt]
+            ridx = idx[:, EULER_CHART_TYPES[jt_enum]]
+            flat = ridx.reshape(-1)
+            qp = q if q_prev is None else q_prev
+            qdp = qdot if qdot_prev is None else qdot_prev
+            ch, qg, qdg, qpg, qdpg = euler.reparam_spherical(
+                _charts(aux, cols), q[:, ridx], qdot[:, ridx], qp[:, ridx], qdp[:, ridx])
+            aux = {**aux, "euler_chart": aux["euler_chart"].index_copy(1, cols, ch)}
+            q = q.index_copy(1, flat, qg.reshape(B, -1))
+            qdot = qdot.index_copy(1, flat, qdg.reshape(B, -1))
+            if q_prev is not None:
+                q_prev = q_prev.index_copy(1, flat, qpg.reshape(B, -1))
+                qdot_prev = qdot_prev.index_copy(1, flat, qdpg.reshape(B, -1))
+            continue
         if jt_enum not in EXP_ROTATION:
             continue
         qg, qdg = joint_reparam(jt_enum, q[:, idx], qdot[:, idx])
         flat = idx.reshape(-1)
-        q = q.index_copy(1, flat, qg.reshape(q.shape[0], -1))
-        qdot = qdot.index_copy(1, flat, qdg.reshape(q.shape[0], -1))
-    return q, qdot
+        q = q.index_copy(1, flat, qg.reshape(B, -1))
+        qdot = qdot.index_copy(1, flat, qdg.reshape(B, -1))
+    return q, qdot, aux, q_prev, qdot_prev

@@ -25,6 +25,7 @@ import torch
 from redmax_tpu_torch import constraints as con_mod
 from redmax_tpu_torch import forces as forces_mod
 from redmax_tpu_torch import integrators, model
+from redmax_tpu_torch.euler import DEFAULT_CHART
 from redmax_tpu_torch.joints import require_supported
 from redmax_tpu_torch.types import NDOF, JointType, State, Topology
 
@@ -368,7 +369,11 @@ class SceneBuilder:
                             for obj, cp in self.constraints},
             "forces": {obj.key: {k: T(v) for k, v in fp.items()} for obj, fp in self.forces},
         }
-        state0 = State(q=T(q0), qdot=T(qdot0), aux={})
+        aux0 = {}
+        if topo.euler_joints():
+            aux0["euler_chart"] = torch.full((len(topo.euler_joints()),), DEFAULT_CHART,
+                                             dtype=torch.int64, device=device)
+        state0 = State(q=T(q0), qdot=T(qdot0), aux=aux0)
         self._init_rest_lengths(topo, params, state0, dtype)
         return CompiledScene(
             name=self.name, topo=topo, params=params, state0=state0,
@@ -388,7 +393,8 @@ class SceneBuilder:
                 and float(fp["L"]) == 0.0]
         if not auto:
             return
-        kin0 = model.forward_kinematics(topo, params, state0.q[None], state0.qdot[None])
+        kin0 = model.forward_kinematics(topo, params, state0.q[None], state0.qdot[None],
+                                        _lanes(state0.aux, 1))
         E_wi = kin0.E_wi[0].cpu().numpy()
 
         def world_pt(b, xl):
@@ -402,6 +408,11 @@ class SceneBuilder:
                 L = np.linalg.norm(world_pt(obj.body2, fp["xl2"]) - world_pt(obj.body1, fp["xl1"]))
             params["forces"][obj.key]["L"] = torch.as_tensor(
                 L, dtype=dtype, device=params["forces"][obj.key]["k"].device)
+
+
+def _lanes(aux: Dict, B: int) -> Dict:
+    """A scene's unbatched aux ([G] per entry) broadcast to B lanes ([B, G])."""
+    return {k: v.expand(B, *v.shape).contiguous() for k, v in aux.items()}
 
 
 @dataclass
@@ -420,29 +431,38 @@ class CompiledScene:
     def nsteps(self) -> int:
         return math.ceil(self.tEnd / self.h)
 
-    def assemble(self, q, qdot):
-        """(M [B,nr,nr], f [B,nr], aux) at batched (q, qdot) [B, nr]."""
-        return model.assemble(self.topo, self.params, q, qdot, self.force_fns)
+    def assemble(self, q, qdot, aux=None):
+        """(M [B,nr,nr], f [B,nr], parts) at batched (q, qdot) [B, nr]; aux:
+        the state's (default: state0's charts on every lane)."""
+        aux = _lanes(self.state0.aux, q.shape[0]) if aux is None else aux
+        return model.assemble(self.topo, self.params, q, qdot, self.force_fns, aux)
 
-    def energies(self, q, qdot):
-        """(T [B], V [B]) at batched (q, qdot) [B, nr]."""
-        return model.energies(self.topo, self.params, q, qdot, self.force_fns)
+    def energies(self, q, qdot, aux=None):
+        """(T [B], V [B]) at batched (q, qdot) [B, nr]; aux as in assemble."""
+        aux = _lanes(self.state0.aux, q.shape[0]) if aux is None else aux
+        return model.energies(self.topo, self.params, q, qdot, self.force_fns, aux)
 
-    def make_step(self, integrator: str, cfg: Optional["integrators.NewtonConfig"] = None):
-        """A batched step function over [B, nr] states: "bdf2" or "euler"
-        (the op-level routes; the kernel routes are
+    def make_step(self, integrator: str = "bdf1",
+                  cfg: Optional["integrators.NewtonConfig"] = None):
+        """A batched step function over [B, nr] states: "bdf1", "bdf2" or
+        "euler" (the op-level routes; the kernel routes are
         integrators.make_bdf2_step_batched / make_euler_step_batched)."""
+        if integrator == "bdf1":
+            return integrators.make_bdf1_step(self.topo, self.force_fns,
+                                              cfg or integrators.NewtonConfig())
         if integrator == "bdf2":
             return integrators.make_bdf2_step(self.topo, self.force_fns,
                                               cfg or integrators.NewtonConfig())
         if integrator == "euler":
             return integrators.make_euler_step(self.topo, self.force_fns, self.constraint_fns)
-        if integrator in ("bdf1", "euler_fric"):
+        if integrator == "euler_fric":
             _not_ported(f"the {integrator!r} step")
         raise ValueError(integrator)
 
-    def initial_state(self, integrator: str, B: int = 1):
-        """state0 broadcast to B lanes, as the integrator's state type."""
+    def initial_state(self, integrator: str = "bdf1", B: int = 1):
+        """state0 broadcast to B lanes (its aux too), as the integrator's
+        state type."""
         s = State(q=self.state0.q.expand(B, -1).contiguous(),
-                  qdot=self.state0.qdot.expand(B, -1).contiguous(), aux={})
+                  qdot=self.state0.qdot.expand(B, -1).contiguous(),
+                  aux=_lanes(self.state0.aux, B))
         return integrators.bdf2_init(s) if integrator == "bdf2" else s

@@ -55,6 +55,13 @@ NDOF: Dict[JointType, int] = {
     JointType.FREE_ST: 6,
 }
 
+# Joint types carrying a dynamic Euler chart index in State.aux["euler_chart"],
+# with the slice of q holding the chart angles.
+EULER_CHART_TYPES = {
+    JointType.SPHERICAL_EULER: slice(0, 3),
+    JointType.FREE3D_EULER: slice(3, 6),
+}
+
 MAX_NDOF = 6
 
 
@@ -100,6 +107,10 @@ class Topology:
             ptr = ptr[ptr]
         return tuple(rounds)
 
+    def euler_joints(self) -> Tuple[int, ...]:
+        """Joint indices (ascending) that carry a chart in aux["euler_chart"]."""
+        return tuple(i for i, t in enumerate(self.jtype) if JointType(t) in EULER_CHART_TYPES)
+
     def dof_joint(self) -> np.ndarray:
         """Map each reduced DOF to its owning joint index: shape [nr]."""
         out = np.zeros(self.nr, dtype=np.int64)
@@ -126,8 +137,9 @@ class Topology:
 class State:
     """Reduced-coordinate state. q, qdot: shape [B, nr] on the batched paths.
 
-    aux holds per-joint discrete state (Euler charts); it stays empty for the
-    joint types this package implements.
+    aux holds per-joint discrete state: {"euler_chart": int64 [B, G]} (the
+    chart index of each of the G Euler-chart joints, topo.euler_joints(), per
+    lane) for a scene with such joints, else {}.
     """
 
     q: Any

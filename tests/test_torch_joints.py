@@ -117,7 +117,8 @@ def test_reparam_matches(dtype):
     ref = jax.jit(jax.vmap(lambda a, b: jmodel.reparam_all(sc.topo, sc.params, a, b, {})[:2]))(
         jnp.asarray(q, jdt), jnp.asarray(qd, jdt))
     topo, params = _port(sc)
-    out = tmodel.reparam_all(topo, params, torch.tensor(q, dtype=tdt), torch.tensor(qd, dtype=tdt))
+    out = tmodel.reparam_all(topo, params, torch.tensor(q, dtype=tdt),
+                             torch.tensor(qd, dtype=tdt))[:2]
     tol = 1e-12 if dtype == "float64" else 1e-6
     for name, a, b in zip(("q", "qdot"), out, ref):
         b = np.asarray(b, np.float64)
@@ -269,11 +270,8 @@ def test_rollout_gradient_finite_at_zero(use_kernel):
 def test_unported_joint_types_raise():
     b = tscene.SceneBuilder()
     b.body_cuboid(1.0, (1, 1, 1))
-    for jt in (TJT.FREE_ST, TJT.COMPOSITE_RP, TJT.SPHERICAL_EULER, TJT.FREE3D_EULER,
-               TJT.SPLINE_CURVE, TJT.SPLINE_SURFACE):
+    for jt in (TJT.FREE_ST, TJT.COMPOSITE_RP, TJT.SPLINE_CURVE, TJT.SPLINE_SURFACE):
         with pytest.raises(NotImplementedError, match="is not ported yet"):
             b.joint(jt, None, 0)
-    with pytest.raises(NotImplementedError, match="is not ported yet"):
-        tscenes.scene_07_spherical(exp_coords=False)
     w = joints.reparam_exp(torch.tensor([0.0, 0.0, 5.0], dtype=torch.float64))
     assert math.isclose(float(w[2]), 5.0 - 2 * math.pi)
