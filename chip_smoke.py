@@ -186,11 +186,24 @@ Phases (any failure is an exception and a non-zero exit):
      adjoint MPC
      (mpc.make_mpc_solver, Adam, 10 steps, BDF1 and BDF2) in f64: the
      objective falls and the gradient lies within 1e-6 of scale of the CPU's;
- 28. print the kernels line (every row with its design, threads a lane and
+ 28. the feature-rich zoo (redmax_tpu/scenes_matlab.py) under the linearly
+     implicit Euler tier: every case but the friction ones (27-31, 33) and
+     the two that read the reference's OBJ meshes (26, 34), each through
+     make_euler_step_batched and make_simulate with its scene function, at
+     B = 1024 (lane 0 at the initial state, lanes 1.. with qdot0 +
+     1e-3 N(0, 1)): the full nsteps in float64, lane 0's energy certificate
+     |H - Hexpected["euler"]| <= 1e-2; min(nsteps, 100) steps in float32
+     on the default route, timed (steps/s), no chord launch and K2 launched
+     once a step on mscene 6's joint limit (n, m) = (2, 1), none elsewhere;
+     each float32 step from the float64 run's state within 1e-3 of scale of
+     the float64 step on >= 95% of lanes at every step; K2 against its plain
+     version on mscene 6's QPs after the rollout and at its steps; prints
+     mscene_zoo;
+ 29. print the kernels line (every row with its design, threads a lane and
      lanes a block; the cooperative rows, the QP's among them, with the
      thread-per-lane build's time of this run), the paths' lines
-     (robust_path, backward_modes, coop_phases and scene_zoo among them),
-     the card's name and power limit, and the result line.
+     (robust_path, backward_modes, coop_phases, scene_zoo and mscene_zoo
+     among them), the card's name and power limit, and the result line.
 
 Every MPC path, the cable rollout and the per-lane rollouts read the launch
 counter of the chord kernel design the wrapper routes them to (design_of)
@@ -213,7 +226,8 @@ import time
 import numpy as np
 import torch
 
-from redmax_tpu_torch import chord_kernel, forces, integrators, model, mpc, qp_kernel
+from redmax_tpu_torch import (chord_kernel, forces, integrators, model, mpc, qp_kernel,
+                              scenes_matlab)
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.euler import DEFAULT_CHART
 from redmax_tpu_torch.scenes import (SCENES, build_scene, scene_00_serial_chain,
@@ -2534,6 +2548,156 @@ def phase_scene_zoo(device="cuda", B=1024, reps=3):
     return records, line
 
 
+# ---------------------------------------------------------------------------
+# The feature-rich scene zoo (scenes_matlab.py) under the Euler tier
+# ---------------------------------------------------------------------------
+
+
+# phase 28's cases: every case of scenes_matlab.M_SCENES but the friction
+# ones (frictional stepping is not ported) and the two that read the
+# reference's OBJ meshes (not in this repository)
+MZOO = tuple(sorted(set(scenes_matlab.M_SCENES) - set(scenes_matlab.FRICTION)
+                    - set(scenes_matlab.OBJ_CASES)))
+# f32 steps a case: min(nsteps, MZOO_F32_STEPS)
+MZOO_F32_STEPS = 100
+
+
+def mzoo_state0(sc, B, device, dtype, seed=0):
+    """B lanes of a case: lane 0 at its initial state, lanes 1.. with
+    qdot0 + 1e-3 N(0, 1) (numpy seed 0); q at q0 on every lane."""
+    rng = np.random.default_rng(seed)
+    q0 = sc.state0.q.double().cpu().numpy()
+    qd = sc.state0.qdot.double().cpu().numpy()[None] + 1e-3 * rng.normal(size=(B, sc.topo.nr))
+    qd[0] = sc.state0.qdot.double().cpu().numpy()
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return State(q=t(np.broadcast_to(q0, qd.shape).copy()), qdot=t(qd))
+
+
+def per_step_share(sc, step, scene_fn, s0_64, hist64, K):
+    """(share of q, share of qdot): the worst over steps k < K of the share of
+    lanes whose float32 step from the float64 run's state k lies within 1e-3
+    of scale (the f64 state's largest magnitude at k + 1, at least 1) of the
+    float64 state k + 1. The K steps' lanes go as one batch of K B lanes,
+    each with the scene function's params at its own end time (k + 1) h;
+    that batch (float32) is returned too."""
+    q64, qd64 = hist64
+    B, nr = s0_64.q.shape
+    qs = torch.cat([s0_64.q[None], q64[:K - 1]]).reshape(K * B, nr)
+    qds = torch.cat([s0_64.qdot[None], qd64[:K - 1]]).reshape(K * B, nr)
+    params = sc.params
+    if scene_fn is not None:
+        k = torch.arange(1, K + 1, device=qs.device, dtype=params["h"].dtype)
+        params = scene_fn(params, (k * params["h"]).repeat_interleave(B))
+    lanes = State(q=qs.float(), qdot=qds.float())
+    out = step(params, lanes)
+    shares = []
+    for got, want in ((out.q, q64[:K]), (out.qdot, qd64[:K])):
+        got = got.reshape(K, B, nr).double()
+        scale = want.abs().amax((1, 2)).clamp(min=1.0)
+        err = (got - want).abs().amax(-1) / scale[:, None]
+        ok = (err <= 1e-3) & torch.isfinite(err)
+        shares.append(float(ok.double().mean(1).min()))
+    return shares, lanes
+
+
+def phase_mscene_zoo(device="cuda", B=1024):
+    """Phase 28: the feature-rich zoo (scenes_matlab.py) under the linearly
+    implicit Euler tier through make_euler_step_batched and make_simulate
+    (with each case's scene function): per case (1) a float64 rollout of its
+    full nsteps at B = 1024 (mzoo_state0), lane 0's certificate
+    |H - Hexpected["euler"]| <= 1e-2; (2) float32 for min(nsteps, 100) steps
+    from the same lanes on the default route, timed (CUDA events, one
+    rollout after a warm step), with the chord kernel launched never and the QP kernel once a
+    step where the case has inequality rows (mscene 6: (n, m) = (2, 1)) and
+    never elsewhere; (3) per step against float64 (per_step_share: >= 95% of
+    lanes within 1e-3 of scale at every step); (4) mscene 6: K2 against its
+    plain version on the QPs of the states after the f32 rollout (x within
+    2e-5, lambda within 2e-4 of scale), and on the QPs of the K B lanes of
+    (3), which must hold an active limit; timed on the former. The float64
+    runs take the op-level QP (K2 is float32). Returns (K2's record for
+    mscene 6, the zoo's JSON line)."""
+    t0 = time.perf_counter()
+    line, record = {}, None
+    for sid in MZOO:
+        ts = time.perf_counter()
+        sc64 = build_mscene(sid, dtype=torch.float64, device=device)
+        sc = build_mscene(sid, dtype=torch.float32, device=device)
+        fn = scenes_matlab.SCENE_FNS.get(sid)
+        ineq = any(c.n_ineq_m or c.n_ineq_r for c in sc.constraint_fns)
+        s64 = mzoo_state0(sc64, B, device, torch.float64)
+        step64 = integrators.make_euler_step_batched(sc64.topo, sc64.force_fns,
+                                                     sc64.constraint_fns,
+                                                     use_kernel=False if ineq else None)
+        final64, hist64 = integrators.make_simulate(step64, sc64.nsteps, record=True,
+                                                    scene_fn=fn)(sc64.params, s64)
+        _, V0 = sc64.energies(s64.q[:1], s64.qdot[:1])
+        T1, V1 = sc64.energies(final64.q[:1], final64.qdot[:1])
+        H = float(T1[0] + V1[0] - V0[0])
+        dH = abs(H - sc64.Hexpected["euler"])
+        t64 = time.perf_counter() - ts
+
+        K = min(sc.nsteps, MZOO_F32_STEPS)
+        step = integrators.make_euler_step_batched(sc.topo, sc.force_fns, sc.constraint_fns)
+        s32 = mzoo_state0(sc, B, device, torch.float32)
+        step(fn(sc.params, sc.params["h"]) if fn else sc.params, s32)   # warm: loads K2's build
+        torch.cuda.synchronize()
+        reset_launches()
+        reset_qp_launches()
+        final, dt = timed_rollout(integrators.make_simulate(step, K, scene_fn=fn), sc.params,
+                                  s32, 1)
+        coop, lane = qp_launches()
+        chord = launches_of()
+        (share_q, share_qd), lanes = per_step_share(sc, step, fn, s64, hist64, K)
+        end = lane_err(final.q, hist64[0][K - 1])[0]
+        finite = float((torch.isfinite(final.q) & torch.isfinite(final.qdot)).all(-1)
+                       .double().mean())
+        print(f"mscene {sid} ({sc.name}; N {sc.topo.njoints}, nr {sc.topo.nr}, "
+              f"{len(sc.constraint_fns)} constraints, {len(sc.force_fns)} closures"
+              f"{', scene_fn' if fn else ''}): f64 {sc64.nsteps} steps at B {B} "
+              f"({'op-level QP' if ineq else 'default route'}) in {t64:.1f} s, lane 0 H {H!r} "
+              f"vs {sc64.Hexpected['euler']!r}, |dH| {dH:.3e}; f32 {K} steps "
+              f"{B * K / dt:.1f} steps/s ({dt * 1e3 / K:.3f} ms a step), finite {finite:.4f}, "
+              f"per step vs f64: q {share_q:.4f}, qdot {share_qd:.4f} of lanes within 1e-3 "
+              f"(worst step); after {K} steps {float((end <= 1e-3).double().mean()):.4f} "
+              f"within 1e-3; launches: dual_pgs cooperative {coop}, thread per lane {lane}, "
+              f"chord {chord}")
+        if not dH <= 1e-2:
+            raise AssertionError(f"mscene {sid}: certificate |dH| {dH} > 1e-2")
+        if share_q < 0.95:
+            raise AssertionError(f"mscene {sid}: f32 steps off the f64 run ({share_q})")
+        if chord != 0 or lane != 0 or coop != (K if ineq else 0):
+            raise AssertionError(f"mscene {sid}: launches chord {chord}, dual_pgs {coop} + "
+                                 f"{lane}, want 0 and {K if ineq else 0} cooperative")
+        if ineq:
+            for where, states in (("after the rollout", final), ("at the rollout's steps", lanes)):
+                qps = contact_qps(sc, states)
+                x, lam = qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)
+                x_ref, lam_ref = qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG)
+                torch.cuda.synchronize()
+                xs, ls = max(1.0, float(x_ref.abs().max())), max(1.0, float(lam_ref.abs().max()))
+                dx, dl = float((x - x_ref).abs().max()), float((lam - lam_ref).abs().max())
+                active = float(torch.isinf(qps[5]).any(-1).float().mean())
+                print(f"mscene {sid} QP {(qps[1].shape[1], qps[2].shape[1])} {where} "
+                      f"({qps[1].shape[0]} lanes): {active:.4f} of lanes with an active limit; "
+                      f"max|dx| {dx:.3e} of scale {xs:.3e}, max|dlam| {dl:.3e} of scale {ls:.3e}")
+                if dx > 2e-5 * xs or dl > 2e-4 * ls or not torch.isfinite(x).all():
+                    raise AssertionError(f"mscene {sid}: K2 disagrees with its plain version")
+            if active == 0:
+                raise AssertionError(f"mscene {sid}: no active limit on the rollout's steps")
+            qps = contact_qps(sc, final)
+            dx = float((qp_kernel.dual_pgs(*qps, iters=PGS_ITERS, reg=PGS_REG)[0]
+                        - qp_kernel.dual_pgs_reference(*qps, iters=PGS_ITERS, reg=PGS_REG)[0])
+                       .abs().max())
+            record = {**time_qp_kernel(qps, dx, f"mscene zoo {sid}"), "launches": coop}
+        line[str(sid)] = {"dH": dH, "f32_per_step_share_q": share_q,
+                          "f32_per_step_share_qdot": share_qd, "f32_steps_per_s": B * K / dt,
+                          "f32_steps": K, "f64_steps": sc64.nsteps, "f64_seconds": t64,
+                          "launches": {"dual_pgs_cooperative": coop, "dual_pgs_thread": lane,
+                                       "chord": chord}}
+    print(f"mscene zoo phase: {time.perf_counter() - t0:.1f} s")
+    return record, line
+
+
 def ptxas_kernels(report: str):
     """(kernel, registers, frame bytes, spill store bytes, spill load bytes)
     of each kernel in an nvcc -Xptxas -v report, the kernel named by its
@@ -2802,6 +2966,7 @@ def main():
     coop_phases = phase_coop_probe()
     default_records = phase_default_route()
     zoo_records, zoo_line = phase_scene_zoo()
+    mzoo_record, mzoo_line = phase_mscene_zoo()
 
     kernels = [{
         # the cooperative design (a warp a lane), on the main path; the
@@ -2936,7 +3101,13 @@ def main():
         "source": source_of(zoo_records[label]),
         "replaces": "redmax_tpu/pallas_step.py:" + ("401" if label == "umbrella" else "689"),
         **zoo_records[label], "library_ms": None,
-    } for label, _ in ZOO]
+    } for label, _ in ZOO] + [{
+        # phase 28: mscene 6's joint limit on the zoo's f32 rollout (the
+        # cooperative QP at (2, 1)); launches: that rollout's
+        "name": "dual_pgs[mscene zoo 6]", "route": "cuda",
+        "source": qp_source_of(mzoo_record), "replaces": "redmax_tpu/pallas_qp.py:40",
+        **mzoo_record, "library_ms": None,
+    }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {"solves_per_s": rate, "finite_frac": finite_frac,
                                     "card": smi}}))
@@ -2966,6 +3137,7 @@ def main():
     print(json.dumps({"backward_modes": {**backward_modes, "card": smi}}))
     print(json.dumps({"coop_phases": {**coop_phases, "card": smi}}))
     print(json.dumps({"scene_zoo": {**zoo_line, "card": smi}}))
+    print(json.dumps({"mscene_zoo": {**mzoo_line, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,18 +16,21 @@ Row protocol: a constraint object exposes any of
 with static row counts in .n_eq_m / .n_eq_r / .n_ineq_m / .n_ineq_r.
 Per-constraint parameters (lane-shared) live in params["constraints"][key].
 
-Ported: ConstraintLoop, ConstraintJointLimit, ConstraintFloor,
-ConstraintMultQ. The prescribed-motion and attach-point constraints need
-the time-dependent scene hook and the deformables; they raise (not ported
-yet).
+The constraints: ConstraintLoop, ConstraintJointLimit, ConstraintFloor,
+ConstraintMultQ, the prescribed-motion ones (ConstraintPrescJoint,
+ConstraintPrescBody, ConstraintPrescJointM, ConstraintPrescBodyW, whose
+targets a scene function sets over time) and ConstraintAttachPoint (a
+deformable spring's end). A constraint with acceleration-level targets
+also has eq_m_acc / eq_r_acc -> [B,k].
 """
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from redmax_tpu_torch import se3
+from redmax_tpu_torch.forces import body_index
 
 
 class _ConstraintBase:
@@ -54,14 +57,18 @@ class ConstraintLoop(_ConstraintBase):
         Gm[A] =  v12^T R_wa Gamma(xA),  Gm[B] = -v12^T R_wb Gamma(xB)
         g = v12^T (x_wA - x_wB)
     params: xA [3], xB [3], axisA [3] (the hinge axis of A's joint).
+    radius and height: the joint ring's contact geometry (metadata for
+    joint friction; no row reads them).
     """
 
     n_eq_m = 2
 
-    def __init__(self, key, bodyA: int, bodyB: int):
+    def __init__(self, key, bodyA: int, bodyB: int, radius: float = 1.0, height: float = 1.0):
         super().__init__(key)
         self.bodyA = bodyA
         self.bodyB = bodyB
+        self.radius = radius
+        self.height = height
 
     def _v12(self, R_wa, axis):
         v0 = _mv(R_wa, axis)                                     # [B,3]
@@ -156,24 +163,162 @@ class ConstraintMultQ(_ConstraintBase):
         return C, g, torch.zeros_like(g)
 
 
-# What a constraint that is not ported names in its error.
-PORTED = "the port's constraints are the loop closure, joint limit, floor and angle coupling"
+def _select_rows(B, cols, width, like):
+    """Rows [B, len(cols), width] with -1 at (k, cols[k]), zero elsewhere."""
+    G = like.new_zeros(B, len(cols), width)
+    for k, c in enumerate(cols):
+        G[:, k, c] = -1.0
+    return G
 
 
-def _later(name: str):
-    def init(self, *a, **k):
-        raise NotImplementedError(f"{name} is not ported yet ({PORTED})")
-
-    return type(name, (_ConstraintBase,), {"__init__": init})
+def _rows_of(v, B, d):
+    """A target [d] (lane-shared) or [B, d] (per lane) as [B, d]."""
+    return v.reshape(-1, d).expand(B, d)
 
 
-# Prescribed motion needs make_simulate's time-dependent scene hook; the
-# attach point needs the deformables.
-ConstraintPrescJoint = _later("ConstraintPrescJoint")
-ConstraintPrescBody = _later("ConstraintPrescBody")
-ConstraintPrescJointM = _later("ConstraintPrescJointM")
-ConstraintPrescBodyW = _later("ConstraintPrescBodyW")
-ConstraintAttachPoint = _later("ConstraintAttachPoint")
+class ConstraintPrescJoint(_ConstraintBase):
+    """Prescribed joint velocity (matlab/+redmax/ConstraintPrescJoint.m:16-42):
+    rows -I on the joint's DOFs with gdot = qdot_target, so that the Euler
+    step's rows give qdot = qdot_target; with a q_target in its params also
+    the position error g = q_target - q (Baumgarte feedback). params:
+    qdot_target [d], optional q_target [d] and qddot_target [d] (the
+    acceleration rows, eq_r_acc), set over time by a scene function."""
+
+    def __init__(self, key, dofs: Sequence[int]):
+        super().__init__(key)
+        self.dofs = tuple(dofs)
+        self.n_eq_r = len(self.dofs)
+
+    def eq_r(self, params, topo, kin, phi, q, qdot):
+        cp = self.p(params)
+        B, d = q.shape[0], len(self.dofs)
+        C = _select_rows(B, self.dofs, topo.nr, q)
+        if "q_target" in cp:
+            g = _rows_of(cp["q_target"], B, d) - q[:, body_index(self.dofs, q.device)]
+        else:
+            g = q.new_zeros(B, d)
+        return C, g, _rows_of(cp["qdot_target"], B, d)
+
+    def eq_r_acc(self, params, topo, kin, phi, q, qdot):
+        cp = self.p(params)
+        B, d = q.shape[0], len(self.dofs)
+        if "qddot_target" not in cp:
+            return q.new_zeros(B, d)
+        return _rows_of(cp["qddot_target"], B, d)
+
+
+class ConstraintPrescBody(_ConstraintBase):
+    """Prescribed body twist components (matlab/+redmax/ConstraintPrescBody.m:
+    17-45, velocity level): rows -e_comp on the body's twist, gdot =
+    phi_target. params: phi_target [len(comps)]; comps are 0-based twist
+    indices."""
+
+    def __init__(self, key, body: int, comps: Sequence[int]):
+        super().__init__(key)
+        self.body = body
+        self.comps = tuple(comps)
+        self.n_eq_m = len(self.comps)
+
+    def eq_m(self, params, topo, kin, phi, q, qdot):
+        B, d = q.shape[0], len(self.comps)
+        G = _select_rows(B, [6 * self.body + c for c in self.comps], 6 * topo.njoints, q)
+        return G, q.new_zeros(B, d), _rows_of(self.p(params)["phi_target"], B, d)
+
+
+class ConstraintPrescJointM(_ConstraintBase):
+    """A revolute joint prescribed by one maximal row
+    (matlab/+redmax/ConstraintPrescJointM.m:31-60): the hinge-axis angular
+    component of the joint frame's relative twist,
+        Gm[child] = row_a(Ad_ji),  Gm[parent] = -row_a(Ad_ji Ad(E_ip)),
+    with E_ip = E_wi[child]^-1 E_wi[parent], and gdot = qdot_target
+    (velocity level only, as the reference enforces). axis_idx: 0, 1, 2 for
+    an x, y, z hinge axis. params: qdot_target []."""
+
+    n_eq_m = 1
+
+    def __init__(self, key, joint: int, parent_joint: int, axis_idx: int):
+        super().__init__(key)
+        self.joint = joint
+        self.parent = parent_joint
+        self.axis_idx = axis_idx
+
+    def eq_m(self, params, topo, kin, phi, q, qdot):
+        B, N = q.shape[0], topo.njoints
+        Ad_ji = se3.Ad(params["E0_ji"][..., self.joint, :, :])
+        E_ip = se3.inv(kin.E_wi[:, self.joint]) @ kin.E_wi[:, self.parent]
+        G = q.new_zeros(B, 1, 6 * N)
+        G[:, 0, 6 * self.joint: 6 * self.joint + 6] = Ad_ji[..., self.axis_idx, :]
+        G[:, 0, 6 * self.parent: 6 * self.parent + 6] = -(Ad_ji @ se3.Ad(E_ip))[:, self.axis_idx]
+        return G, q.new_zeros(B, 1), _rows_of(self.p(params)["qdot_target"], B, 1)
+
+
+class ConstraintPrescBodyW(_ConstraintBase):
+    """Prescribed body motion with world-frame linear targets (the
+    ConstraintPrescBody of the reference's sceneFcn13/20,
+    testRedMaxScenes.m:1237-1279): vt_w (world linear velocity) and wt_i
+    (body angular velocity) become the twist target
+        phi_t = [wt_i; R^T vt_w],
+    and the acceleration target (eq_m_acc)
+        phidot_t = [wtdot_i; R^T vtdot_w - w x (R^T vt_w)],
+    on the components comps (0-based). params: vt_w, wt_i, vtdot_w, wtdot_i
+    [3], set over time by a scene function."""
+
+    def __init__(self, key, body: int, comps: Sequence[int]):
+        super().__init__(key)
+        self.body = body
+        self.comps = tuple(comps)
+        self.n_eq_m = len(self.comps)
+
+    def _targets(self, params, kin, phi):
+        cp = self.p(params)
+        B = phi.shape[0]
+        R = kin.E_wi[:, self.body, :3, :3]
+        vt_i = _mv(R.transpose(-1, -2), cp["vt_w"].expand(B, 3))
+        w = phi[:, self.body, :3]
+        phi_t = torch.cat([cp["wt_i"].expand(B, 3), vt_i], dim=-1)
+        phidot_t = torch.cat([cp["wtdot_i"].expand(B, 3),
+                              _mv(R.transpose(-1, -2), cp["vtdot_w"].expand(B, 3))
+                              - torch.linalg.cross(w, vt_i)], dim=-1)
+        sel = body_index(self.comps, phi.device)
+        return phi_t[:, sel], phidot_t[:, sel]
+
+    def eq_m(self, params, topo, kin, phi, q, qdot):
+        B, d = q.shape[0], len(self.comps)
+        G = _select_rows(B, [6 * self.body + c for c in self.comps], 6 * topo.njoints, q)
+        return G, q.new_zeros(B, d), self._targets(params, kin, phi)[0]
+
+    def eq_m_acc(self, params, topo, kin, phi, q, qdot):
+        return self._targets(params, kin, phi)[1]
+
+
+class ConstraintAttachPoint(_ConstraintBase):
+    """Welds a point-mass node to a point r of a rigid body, or to the world
+    point r for body = -1 (matlab/+redmax/ConstraintAttachSpring.m:23-60):
+    g = x_pt - x_node, G = [R_b Gamma(r) on the body, -I on the node's
+    linear twist]. params: r [3]."""
+
+    n_eq_m = 3
+
+    def __init__(self, key, body: int, node_body: int):
+        super().__init__(key)
+        self.body = body
+        self.node = node_body
+
+    def eq_m(self, params, topo, kin, phi, q, qdot):
+        r = self.p(params)["r"]
+        B, N = q.shape[0], topo.njoints
+        G = q.new_zeros(B, 3, 6 * N)
+        G[:, :, 6 * self.node + 3: 6 * self.node + 6] = -torch.eye(3, dtype=q.dtype,
+                                                                   device=q.device)
+        x_node = kin.E_wi[:, self.node, :3, 3]
+        if self.body >= 0:
+            E_b = kin.E_wi[:, self.body]
+            G[:, :, 6 * self.body: 6 * self.body + 6] = E_b[:, :3, :3] @ se3.Gamma(r)
+            x_pt = _mv(E_b[:, :3, :3], r.expand(B, 3)) + E_b[:, :3, 3]
+        else:
+            x_pt = r.expand(B, 3)
+        g = x_pt - x_node
+        return G, g, torch.zeros_like(g)
 
 
 def assemble_constraints(constraint_fns: Tuple, params: Dict, topo, kin, phi, q, qdot, J):
@@ -182,24 +327,35 @@ def assemble_constraints(constraint_fns: Tuple, params: Dict, topo, kin, phi, q,
     Returns a dict with
       Geq [B,me,nr], geq [B,me], geqdot [B,me]   (maximal rows times J)
       Cin [B,mi,nr], cin [B,mi], act [B,mi] bool
-    me/mi are static totals over all constraints (0 if none). The
-    acceleration-level rows (geqddot) belong to the explicit tier (queue 1
-    item 14).
+      geqddot [B,me]                            (the acceleration-level
+                                                 targets: eq_m_acc / eq_r_acc
+                                                 where a constraint has them)
+    me/mi are static totals over all constraints (0 if none). No Euler step
+    reads geqddot; the acceleration-level (explicit) tier will.
     """
     B, nr = q.shape[0], topo.nr
-    Geq, geq, geqdot, Cin, cin, act = [], [], [], [], [], []
+    Geq, geq, geqdot, geqddot, Cin, cin, act = [], [], [], [], [], [], []
     args = (params, topo, kin, phi, q, qdot)
+
+    def acc_rows(con, nrows):
+        for name in ("eq_m_acc", "eq_r_acc"):
+            if hasattr(con, name):
+                return getattr(con, name)(*args)
+        return q.new_zeros(B, nrows)
+
     for con in constraint_fns:
         if con.n_eq_m:
             G, g, gd = con.eq_m(*args)
             Geq.append(G @ J)
             geq.append(g)
             geqdot.append(gd)
+            geqddot.append(acc_rows(con, con.n_eq_m))
         if con.n_eq_r:
             G, g, gd = con.eq_r(*args)
             Geq.append(G)
             geq.append(g)
             geqdot.append(gd)
+            geqddot.append(acc_rows(con, con.n_eq_r))
         if con.n_ineq_m:
             C, c, a = con.ineq_m(*args)
             Cin.append(C @ J)
@@ -217,6 +373,6 @@ def assemble_constraints(constraint_fns: Tuple, params: Dict, topo, kin, phi, q,
         return torch.cat(lst, dim=1)
 
     return {
-        "Geq": cat(Geq, nr), "geq": cat(geq), "geqdot": cat(geqdot),
+        "Geq": cat(Geq, nr), "geq": cat(geq), "geqdot": cat(geqdot), "geqddot": cat(geqddot),
         "Cin": cat(Cin, nr), "cin": cat(cin), "act": cat(act, dtype=torch.bool),
     }

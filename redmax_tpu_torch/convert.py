@@ -45,25 +45,32 @@ def topology_from_fields(njoints, nr, parent, jtype, qstart, ndof) -> Topology:
     )
 
 
-_CONSTRAINT_FIELDS = {
-    "ConstraintLoop": ("bodyA", "bodyB"),
-    "ConstraintJointLimit": ("dof",),
-    "ConstraintFloor": ("body",),
-    "ConstraintMultQ": ("dofA", "dofB"),
+def _loop_args(a):
+    meta = a.get("static_params", {})
+    return (int(a["bodyA"]), int(a["bodyB"]), float(meta.get("radius", 1.0)),
+            float(meta.get("height", 1.0)))
+
+
+_CONSTRAINT_ARGS = {
+    "ConstraintLoop": _loop_args,
+    "ConstraintJointLimit": lambda a: (int(a["dof"]),),
+    "ConstraintFloor": lambda a: (int(a["body"]),),
+    "ConstraintMultQ": lambda a: (int(a["dofA"]), int(a["dofB"])),
+    "ConstraintPrescJoint": lambda a: (tuple(int(d) for d in a["dofs"]),),
+    "ConstraintPrescBody": lambda a: (int(a["body"]), tuple(int(c) for c in a["comps"])),
+    "ConstraintPrescJointM": lambda a: (int(a["joint"]), int(a["parent"]), int(a["axis_idx"])),
+    "ConstraintPrescBodyW": lambda a: (int(a["body"]), tuple(int(c) for c in a["comps"])),
+    "ConstraintAttachPoint": lambda a: (int(a["body"]), int(a["node"])),
 }
 
 
 def constraints_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tuple:
     """constraint_fns from (class name, attribute dict) pairs, as
     ``[(type(c).__name__, vars(c)) for c in sc.constraint_fns]`` gives them
-    for a JAX CompiledScene; the keys into params["constraints"] carry over."""
-    out = []
-    for name, attrs in fields:
-        if name not in _CONSTRAINT_FIELDS:
-            raise NotImplementedError(f"{name} is not ported yet ({constraints.PORTED})")
-        cls = getattr(constraints, name)
-        out.append(cls(attrs["key"], *(int(attrs[k]) for k in _CONSTRAINT_FIELDS[name])))
-    return tuple(out)
+    for a JAX CompiledScene; the keys into params["constraints"] carry over
+    (a loop's ring radius and height from its static_params)."""
+    return tuple(getattr(constraints, name)(attrs["key"], *_CONSTRAINT_ARGS[name](attrs))
+                 for name, attrs in fields)
 
 
 _FORCE_ARGS = {
@@ -72,6 +79,9 @@ _FORCE_ARGS = {
     "ForceSpringDamper": lambda a: (int(a["body1"]), int(a["body2"]),
                                     bool(a.get("tension_only", False))),
     "ForceCable": lambda a: (tuple(int(b) for b in a["bodies"]),),
+    "SpringDamperM": lambda a: (int(a["body1"]), int(a["body2"])),
+    "ForcePointDirection": lambda a: (int(a["body"]),),
+    "ForceDeformableSegments": lambda a: (tuple(int(b) for b in a["nodes"]),),
 }
 
 
@@ -79,9 +89,5 @@ def forces_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tuple:
     """force_fns from (class name, attribute dict) pairs, as
     ``[(type(f).__name__, vars(f)) for f in sc.force_fns]`` gives them for a
     JAX CompiledScene; the keys into params["forces"] carry over."""
-    out = []
-    for name, attrs in fields:
-        if name not in _FORCE_ARGS:
-            raise NotImplementedError(f"{name} is not ported yet ({forces.PORTED})")
-        out.append(getattr(forces, name)(attrs["key"], *_FORCE_ARGS[name](attrs)))
-    return tuple(out)
+    return tuple(getattr(forces, name)(attrs["key"], *_FORCE_ARGS[name](attrs))
+                 for name, attrs in fields)

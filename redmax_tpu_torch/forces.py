@@ -11,9 +11,13 @@ energy certificates. Ported here: ForceGroundCuboid, ForcePointPoint,
 ForceSpringDamper (with tension_only) and ForceCable, each with the
 closed-form K/D blocks of its wrenches (ground_contact_blocks per contact
 body; pair_closure_blocks per pair of body points, cross-body blocks
-included), which the structured Newton matrix uses in place of autodiff.
-SpringDamperM, ForcePointDirection and ForceDeformableSegments raise (not
-ported yet).
+included), which the structured Newton matrix and the Euler system use in
+place of autodiff. SpringDamperM, ForcePointDirection and
+ForceDeformableSegments (the feature-rich variant's spring-damper,
+constant point force and deformable springs) carry implicit_KD = False:
+they enter the residual and the energies but no Newton-matrix block, and
+the Euler system takes SpringDamperM's own truncated blocks (matlab_KD,
+custom_KD = True).
 
 A scene holds one closure per contacting body. ground_contact_wrenches,
 ground_contact_energy and stack_contact_params evaluate all of them in one
@@ -50,29 +54,6 @@ class _ForceBase:
 
     def p(self, params: Dict) -> Dict:
         return params["forces"][self.key]
-
-
-# What a closure that is not ported names in its error.
-PORTED = "the port's force closures are ground contact, two-point springs and cables"
-
-
-def _not_ported(name: str):
-    raise NotImplementedError(f"{name} is not ported yet ({PORTED})")
-
-
-class SpringDamperM(_ForceBase):
-    def __init__(self, *a, **k):
-        _not_ported("SpringDamperM")
-
-
-class ForcePointDirection(_ForceBase):
-    def __init__(self, *a, **k):
-        _not_ported("ForcePointDirection")
-
-
-class ForceDeformableSegments(_ForceBase):
-    def __init__(self, *a, **k):
-        _not_ported("ForceDeformableSegments")
 
 
 # The 8 cuboid corner sign triples (ForceGroundCuboid.m:72-81 column order).
@@ -574,3 +555,147 @@ def pair_closure_blocks(fns: Sequence, params: Dict, kin, phi):
     sel = body_index(keep, dev)
     K, D = torch.cat(Ks, dim=1)[:, sel], torch.cat(Ds, dim=1)[:, sel]
     return K, D, tuple(bj[p] for p in keep), tuple(bi[p] for p in keep)
+
+
+# ---------------------------------------------------------------------------
+# The feature-rich variant's closures, explicit in the Newton matrix
+# ---------------------------------------------------------------------------
+
+
+def _point_wrench(xl, R, f):
+    """Body wrench [..., 6] of world forces f [..., 3] at body points xl:
+    Gamma(xl)^T R^T f = [xl x R^T f; R^T f]."""
+    fb = (R.transpose(-1, -2) @ f[..., None])[..., 0]
+    return torch.cat([torch.linalg.cross(xl.expand_as(fb), fb), fb], dim=-1)
+
+
+class SpringDamperM(_TwoPoint):
+    """The feature-rich variant's spring-damper with its own sign conventions
+    (matlab/+redmax/SpringDamper.m computeFKD):
+        fs = k (l - L)/L - d ldot/L        (the MINUS on damping)
+        fW = (fs / l) dx at point 1, -fW at point 2.
+    Its damping force stays in f0 of the Euler step (strip_damping = False)
+    while its D enters the left side through matlab_KD (custom_KD); no
+    autodiff block (implicit_KD = False). params: xl1, xl2, k, d, L (the
+    builder sets L = 0 to the initial distance). Energy 1/2 k ((l - L)/L)^2.
+    """
+
+    strip_damping = False
+    implicit_KD = False
+    custom_KD = True
+
+    def _geometry(self, params, kin, phi):
+        fp = self.p(params)
+        x, v, R, u = body_points(kin, phi, (self.body1, self.body2),
+                                 torch.stack([fp["xl1"], fp["xl2"]]))
+        dx = x[:, 1] - x[:, 0]
+        l = torch.sqrt(torch.clamp((dx * dx).sum(-1), min=_L2_MIN))
+        return fp, dx, l, v, R
+
+    def __call__(self, params, kin, J, phi, q, qdot):
+        fp, dx, l, v, R = self._geometry(params, kin, phi)
+        ldot = (dx * (v[:, 1] - v[:, 0])).sum(-1) / l
+        fs = fp["k"] * (l - fp["L"]) / fp["L"] - fp["d"] * ldot / fp["L"]
+        fW = (fs / l)[:, None] * dx
+        F = torch.stack([fW, -fW], dim=1)
+        return torch.zeros_like(q), _point_wrenches((self.body1, self.body2),
+                                                    torch.stack([fp["xl1"], fp["xl2"]]), R, F,
+                                                    kin.E_wi.shape[1])
+
+    def matlab_KD(self, params, kin, phi):
+        """The reference's own truncated blocks (SpringDamper.computeFKD,
+        :137-157) over the two bodies' 12 coordinates, (Km, Dm) [B, 12, 12]
+        in this package's Euler convention (Mrtilde = ... - h J^T Dm J -
+        h^2 J^T Km J, so Km = +K_ref, Dm = -D_ref): with
+        fn = [-Gamma1^T R1^T dx; Gamma2^T R2^T dx] / l,
+            K_ref = -sym(fn (k/L) [-dhat^T R1 Gamma1, dhat^T R2 Gamma2]),
+            D_ref = -fn (d/L) [dhat^T R1 Gamma1, -dhat^T R2 Gamma2],
+        the -fs d(fn)/dE term dropped as the reference drops it."""
+        fp, dx, l, _, R = self._geometry(params, kin, phi)
+        xl = torch.stack([fp["xl1"], fp["xl2"]])
+        dhat = dx / l[:, None]
+        G1 = _point_wrench(xl[0], R[:, 0], dx)
+        G2 = _point_wrench(xl[1], R[:, 1], dx)
+        fn = torch.cat([-G1, G2], dim=-1) / l[:, None]                     # [B, 12]
+        r1 = _point_wrench(xl[0], R[:, 0], dhat)
+        r2 = _point_wrench(xl[1], R[:, 1], dhat)
+        kL = lanewise(fp["k"] / fp["L"], 2)
+        dL = lanewise(fp["d"] / fp["L"], 2)
+        row = torch.cat([-kL * r1, kL * r2], dim=-1)
+        Kb = fn[:, :, None] * row[:, None, :]
+        Km = -0.5 * (Kb + Kb.transpose(-1, -2))
+        drow = torch.cat([dL * r1, -dL * r2], dim=-1)
+        Dm = fn[:, :, None] * drow[:, None, :]
+        return Km, Dm
+
+    def energy(self, params, kin, q, qdot):
+        fp, _, l, _, _ = self._geometry(params, kin, None)
+        e = (l - fp["L"]) / fp["L"]
+        return 0.5 * fp["k"] * e * e
+
+
+class ForcePointDirection(_ForceBase):
+    """A constant world force k d at the body point xl
+    (matlab/+redmax/SpringPointDirection.m): wrench Gamma(xl)^T R^T (k d).
+    The reference disables its stiffness (K = 0*K, :84; implicit_KD = False)
+    and comments its energy out, so energy() is 0 and the certificates
+    exclude its work. params: xl [3], d [3], k."""
+
+    implicit_KD = False
+
+    def __init__(self, key, body: int):
+        super().__init__(key)
+        self.body = body
+
+    def __call__(self, params, kin, J, phi, q, qdot):
+        fp = self.p(params)
+        R = kin.E_wi[:, self.body, :3, :3]
+        f = (lanewise(fp["k"], 2) * fp["d"]).expand(R.shape[0], 3)
+        fm = torch.zeros_like(phi)
+        fm[:, self.body] = _point_wrench(fp["xl"], R, f)
+        return torch.zeros_like(q), fm
+
+    def energy(self, params, kin, q, qdot):
+        return kin.E_wi.new_zeros(kin.E_wi.shape[0])
+
+
+class ForceDeformableSegments(_ForceBase):
+    """The segment springs of a DeformableSpring (matlab/+redmax/
+    DeformableSpring.m:163-187): per segment s between nodes s and s + 1,
+    e = (l - L_s)/L_s, f = K e dx / (L_s l) at node s and -f at node s + 1.
+    The nodes are translational point masses with unrotated frames, so a
+    node's wrench is [0; f]. Explicit in the Euler step, as the reference
+    integrates it (implicit_KD = False). params: K, L [nodes - 1] (the
+    builder sets them from the initial configuration). Energy
+    sum_s 1/2 K e_s^2."""
+
+    implicit_KD = False
+
+    def __init__(self, key, node_bodies):
+        super().__init__(key)
+        self.nodes = tuple(node_bodies)
+
+    def _segments(self, params, kin):
+        fp = self.p(params)
+        xs = kin.E_wi[:, body_index(self.nodes, kin.E_wi.device), :3, 3]     # [B, n, 3]
+        dx = xs[:, 1:] - xs[:, :-1]
+        l = torch.sqrt(torch.clamp((dx * dx).sum(-1), min=_L2_MIN))
+        return fp, dx, l, (l - fp["L"]) / fp["L"]
+
+    def __call__(self, params, kin, J, phi, q, qdot):
+        fp, dx, l, e = self._segments(params, kin)
+        f = (lanewise(fp["K"], 2) * e / (fp["L"] * l))[..., None] * dx       # [B, n-1, 3]
+        z = torch.zeros_like(f[:, :1])
+        fn = torch.cat([f, z], dim=1) - torch.cat([z, f], dim=1)             # [B, n, 3]
+        fm = torch.zeros_like(phi)
+        idx = body_index(self.nodes, phi.device)
+        return torch.zeros_like(q), fm.index_add(1, idx, torch.cat([torch.zeros_like(fn), fn], -1))
+
+    def energy(self, params, kin, q, qdot):
+        fp, _, _, e = self._segments(params, kin)
+        return 0.5 * fp["K"] * (e * e).sum(-1)
+
+
+# Closures that enter the residual and the energies one by one, with no
+# Newton-matrix block (implicit_KD = False).
+EXPLICIT_CLOSURES = (SpringDamperM, ForcePointDirection, ForceDeformableSegments)

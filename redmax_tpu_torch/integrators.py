@@ -37,9 +37,10 @@ from redmax_tpu_torch.adjoint import (
 )
 from redmax_tpu_torch.constraints import assemble_constraints
 from redmax_tpu_torch.linalg import make_solver
+from redmax_tpu_torch import forces
 from redmax_tpu_torch.model import (
-    assemble, forward_kinematics, jacobians, joint_space_force, joint_space_KD_diag,
-    mass_diag, maximal_force, reparam_all, structured_hessian,
+    _split_closures, assemble, closure_forces, forward_kinematics, jacobians, joint_space_force,
+    joint_space_KD_diag, mass_diag, maximal_force, reparam_all, structured_hessian,
 )
 from redmax_tpu_torch.qp import kkt_solve, qp_pgs_batched
 from redmax_tpu_torch.types import State, Topology, lanewise
@@ -620,19 +621,37 @@ def make_bdf2_step_batched(
     return step
 
 
-def make_simulate(step_fn: Callable, nsteps: int):
-    """Roll a step function for nsteps and return the final state. A step
-    function that exposes .bootstrap/.inner (BDF2) runs the SDIRK2 bootstrap
-    once, then nsteps - 1 inner steps; any other (Euler) is called nsteps
-    times."""
+def make_simulate(step_fn: Callable, nsteps: int, record: bool = False,
+                  scene_fn: Callable = None):
+    """Roll a step function for nsteps and return the final state, and with
+    record=True also the history (q [nsteps, B, nr], qdot [nsteps, B, nr])
+    of the state after each step. A step function that exposes
+    .bootstrap/.inner (BDF2) runs the SDIRK2 bootstrap once, then
+    nsteps - 1 inner steps; any other (Euler) is called nsteps times.
+
+    scene_fn(params, t) -> params: the time-dependent scene hook (the
+    reference's sceneFcn, called with each step's end time
+    t = (k + 1) h, the bootstrap's included, testRedMax.m:569), applied to
+    the params given here, not to its own earlier output.
+    """
     split = hasattr(step_fn, "bootstrap") and nsteps >= 1
 
     def simulate(params: Dict, state0):
-        s = step_fn.bootstrap(params, state0) if split else state0
+        def at_t(k):
+            return scene_fn(params, (k + 1) * params["h"]) if scene_fn else params
+
+        qs, qds = [], []
+        s = step_fn.bootstrap(at_t(0), state0) if split else state0
         inner = step_fn.inner if split else step_fn
-        for _ in range(nsteps - 1 if split else nsteps):
-            s = inner(params, s)
-        return s
+        if split and record:
+            qs.append(s.q)
+            qds.append(s.qdot)
+        for k in range(1 if split else 0, nsteps):
+            s = inner(at_t(k), s)
+            if record:
+                qs.append(s.q)
+                qds.append(s.qdot)
+        return (s, (torch.stack(qs), torch.stack(qds))) if record else s
 
     return simulate
 
@@ -642,26 +661,91 @@ def make_simulate(step_fn: Callable, nsteps: int):
 # ---------------------------------------------------------------------------
 
 
+def _closure_KD(force_fns: Tuple, params: Dict, kin, phi, J):
+    """The force closures' part of the Euler system's left side and f0, from
+    closed-form blocks (the JAX package takes Km, Dm by jacfwd of the
+    closures, model.maximal_force_KD): (J^T Km J, J^T Dm J [B, nr, nr],
+    Dm_strip phi [B, N, 6]). Km and Dm sum the blocks of the closures with
+    implicit_KD (ground contacts: forces.ground_contact_blocks, masks
+    frozen; springs and cables: forces.pair_closure_blocks), Km
+    symmetrized; Dm_strip sums those that also strip their damping force
+    from f0 (strip_damping, the default); a closure with custom_KD adds its
+    own blocks (SpringDamperM.matlab_KD) after the symmetrization."""
+    gnd, pair, _ = _split_closures(force_fns)
+    B, N, nr = J.shape[0], kin.E_wi.shape[1], J.shape[-1]
+    Jblk = J.reshape(B, N, 6, nr)
+    dev = phi.device
+
+    def blocks(fns):
+        """(K, D [B, P, 6, 6], bj, bi) of the closures fns, or None."""
+        out = []
+        g = tuple(fn for fn in fns if fn in gnd)
+        if g:
+            bodies = tuple(fn.body for fn in g)
+            idx = forces.body_index(bodies, dev)
+            K, D = forces.ground_contact_blocks(kin.E_wi[:, idx], phi[:, idx],
+                                                forces.stack_contact_params(g, params))
+            out.append((K, D, bodies, bodies))
+        p = forces.pair_closure_blocks(tuple(fn for fn in fns if fn in pair), params, kin, phi) \
+            if any(fn in pair for fn in fns) else None
+        if p is not None:
+            out.append(p)
+        if not out:
+            return None
+        return (torch.cat([o[0] for o in out], 1), torch.cat([o[1] for o in out], 1),
+                sum((tuple(o[2]) for o in out), ()), sum((tuple(o[3]) for o in out), ()))
+
+    def contract(X, bj, bi):
+        return torch.einsum("bpir,bpij,bpjs->brs", Jblk[:, forces.body_index(bj, dev)], X,
+                            Jblk[:, forces.body_index(bi, dev)])
+
+    KmJ = DmJ = phi.new_zeros(B, nr, nr)
+    fm_strip = torch.zeros_like(phi)
+    implicit = gnd + pair
+    blk = blocks(implicit)
+    if blk is not None:
+        K, D, bj, bi = blk
+        KmJ = contract(K, bj, bi)
+        KmJ = 0.5 * (KmJ + KmJ.transpose(-1, -2))
+        DmJ = contract(D, bj, bi)
+        strip = tuple(fn for fn in implicit if getattr(fn, "strip_damping", True))
+        if strip != implicit:
+            blk = blocks(strip)
+        if blk is not None:
+            D, bj, bi = blk[1], blk[2], blk[3]
+            fm_strip = fm_strip.index_add(
+                1, forces.body_index(bj, dev),
+                (D @ phi[:, forces.body_index(bi, dev), :, None])[..., 0])
+    for fn in force_fns:
+        if getattr(fn, "custom_KD", False):
+            Kc, Dc = fn.matlab_KD(params, kin, phi)
+            Jc = torch.cat([Jblk[:, b] if b >= 0 else torch.zeros_like(Jblk[:, 0])
+                            for b in (fn.body1, fn.body2)], dim=1)            # [B, 12, nr]
+            KmJ = KmJ + Jc.transpose(-1, -2) @ Kc @ Jc
+            DmJ = DmJ + Jc.transpose(-1, -2) @ Dc @ Jc
+    return KmJ, DmJ, fm_strip
+
+
 def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0, aux=None):
     """Assemble the linearly implicit Euler system at batched (q0, qdot0):
 
         Mrtilde qdot1 = frtilde
         frtilde = Mr qdot0 + h (J^T (f0_m - Mm Jdot qdot0) + f0_r)
-        Mrtilde = Mr - h J^T Dm J - h Dr - h^2 Kr
+        Mrtilde = Mr - h J^T Dm J - h^2 J^T Km J - h Dr - h^2 Kr
 
     f0 excludes the damping forces: damping is one-sidedly implicit, its
-    force is dropped and only D enters the left side. Kr and Dr are the
-    closed-form diagonals of model.joint_space_KD_diag (penalty limits
-    included), and without force closures Dm is the body damping alone and
-    Km is zero. h, I_i, g and body_damping may be per lane. Force closures
-    raise (their Km/Dm in the Euler system are not ported yet).
+    force is dropped and only D enters the left side (testRedMax.m:476),
+    except for a closure with strip_damping = False (SpringDamperM), whose
+    damping force stays. Kr and Dr are the closed-form diagonals of
+    model.joint_space_KD_diag (penalty limits included). Dm is the body
+    damping plus the closures' Dm, Km the closures' symmetrized Km, both
+    from closed-form blocks (_closure_KD); closures with implicit_KD =
+    False (ForcePointDirection, ForceDeformableSegments) stay explicit in
+    f0. h, I_i, g and body_damping may be per lane.
 
     Returns a dict: kin, J, Jdot, phi, Mr [B,nr,nr], frtilde [B,nr],
     Mrtilde [B,nr,nr].
     """
-    if force_fns:
-        raise NotImplementedError(
-            "force closures in the Euler system (their Km, Dm) are not ported yet")
     h, h3 = lanewise(params["h"], 2), lanewise(params["h"], 3)
     B = q0.shape[0]
     kin = forward_kinematics(topo, params, q0, qdot0, aux)
@@ -675,12 +759,18 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0, aux=
     bd6 = params["body_damping"].repeat_interleave(6, dim=-1)    # Dm = -diag(bd6)
     phif = phi.reshape(B, -1)
     f0_m = maximal_force(topo, params, kin, phi).reshape(B, -1) + bd6 * phif
+    if force_fns:
+        KmJ, DmJ, fm_strip = _closure_KD(force_fns, params, kin, phi, J)
+        _, fm_cl = closure_forces(topo, params, kin, phi, q0, qdot0, force_fns)
+        f0_m = f0_m + (fm_cl - fm_strip).reshape(B, -1)
 
     Ivec = mass_diag(params["I_i"])                              # [(B,) 6N, 1]
     Mr = Jt @ (Ivec * J)
     Mr = 0.5 * (Mr + Mr.transpose(-1, -2))
     frtilde = _mv(Mr, qdot0) + h * (_mv(Jt, f0_m - Ivec[..., 0] * _mv(Jdot, qdot0)) + f0_r)
     Mrtilde = Mr + h3 * (Jt @ (bd6[..., None] * J)) - torch.diag_embed(h * Dr + h * h * Kr)
+    if force_fns:
+        Mrtilde = Mrtilde - h3 * DmJ - h3 * h3 * KmJ
     return {"kin": kin, "J": J, "Jdot": Jdot, "phi": phi,
             "Mr": Mr, "frtilde": frtilde, "Mrtilde": Mrtilde}
 
@@ -765,10 +855,11 @@ def make_euler_step_batched(
     use_kernel: None = the kernel when the scene has inequality rows,
     False = the op-level route (make_euler_step, qp.qp_pgs_batched),
     True = require the kernel (raises for a scene without inequality rows).
-    On a CUDA tensor the kernel route launches the CUDA kernel (float32 and
-    an instantiated (nr, rows) shape, else it raises); on a CPU tensor it
-    runs the kernel's plain PyTorch version. Pure-equality scenes solve the
-    dense KKT system and launch nothing. tau, h, I_i, g and body_damping
+    On a CUDA tensor the kernel route launches the CUDA kernel (float32, else
+    it raises; any (nr, rows): a shape outside qp_kernel.INSTANTIATED is
+    built at its first launch); on a CPU tensor it runs the kernel's plain
+    PyTorch version. Pure-equality scenes solve the dense KKT system and
+    launch nothing. tau, h, I_i, g and body_damping
     may be per lane (split_batched_params); the kernel's inputs are per lane
     already.
     """

@@ -14,16 +14,24 @@ roundoff. SPHERICAL and FREE3D carry the post-step exp-map rescale
 S = [T; 0]) and FREE3D_EULER (translation q[0:3] then an Euler-chart ball
 joint q[3:6]) read their per-lane chart index from params["chart"]
 (euler.py; the chart switch after each step is model.reparam_all's), with
-Sdot in closed form too. FREE_ST, COMPOSITE_RP and the spline joints are
-not ported yet.
+Sdot in closed form too. FREE_ST (R = exp(hat(q[0:3])), the translation
+q[3:6] in the rotated frame) and COMPOSITE_RP (a revolute then a prismatic
+joint) have closed-form S and Sdot. The spline joints (SPLINE_CURVE, a
+cyclic cubic B-spline of control frames; SPLINE_SURFACE, a bicubic patch of
+six basis motions) and make_composite (any two joints in series) are
+products of exponentials Q = C exp(xi_1 phi_1(q)) ... exp(xi_n phi_n(q)),
+whose S and Sdot follow in closed form from the factors (_poe): the JAX
+package takes them by jacfwd and jax.jvp of Q.
 """
 
 import math
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 from redmax_tpu_torch import euler, se3
-from redmax_tpu_torch.types import JointType
+from redmax_tpu_torch.types import NDOF, JointType
 
 CONSTANT_S_TYPES = (
     JointType.FIXED,
@@ -32,21 +40,9 @@ CONSTANT_S_TYPES = (
     JointType.PLANAR,
     JointType.TRANSLATIONAL,
 )
-# S(q) in closed form, per lane; FREE2D has no kernel branch (op level only).
-QDEP_TYPES = (JointType.UNIVERSAL, JointType.SPHERICAL, JointType.FREE3D, JointType.FREE2D)
-# S(q) in closed form on the joint's Euler chart (params["chart"], per lane).
-EULER_TYPES = (JointType.SPHERICAL_EULER, JointType.FREE3D_EULER)
-SUPPORTED_TYPES = CONSTANT_S_TYPES + QDEP_TYPES + EULER_TYPES
 # Exp-map rotation DOFs of the joints with a post-step rescale: q[slice].
-EXP_ROTATION = {JointType.SPHERICAL: slice(0, 3), JointType.FREE3D: slice(3, 6)}
-
-
-def require_supported(jt: JointType) -> None:
-    if jt not in SUPPORTED_TYPES:
-        raise NotImplementedError(
-            f"joint type {jt.name} is not ported yet (FREE_ST, COMPOSITE_RP and the "
-            "spline joints)"
-        )
+EXP_ROTATION = {JointType.SPHERICAL: slice(0, 3), JointType.FREE3D: slice(3, 6),
+                JointType.FREE_ST: slice(0, 3)}
 
 
 def _eye_E(q):
@@ -246,9 +242,152 @@ def _free3d_euler(q, qdot, chart):
     return se3.make_E(R, q[..., 0:3]), S, Sdot
 
 
+def _free_st(q, qdot):
+    """Q = [R | R p], R = exp(hat(r)), r = q[0:3], p = q[3:6] (the
+    translation acts in the rotated frame): rotation columns
+    [Jr; -hat(p) Jr], translation columns [0; I]; Sdot's rotation columns
+    [dJr; -hat(pdot) Jr - hat(p) dJr] (redmax_tpu/joints.py::_S_free_st)."""
+    r, p = q[..., 0:3], q[..., 3:6]
+    Jr, dJr = _right_jacobian_and_dot(r, qdot[..., 0:3])
+    R = se3.exp_so3(r)
+    hp = se3.hat3(p)
+    I3 = torch.eye(3, dtype=q.dtype, device=q.device).expand_as(Jr)
+    Z = torch.zeros_like(Jr)
+    S = torch.cat([torch.cat([Jr, -hp @ Jr], dim=-2), torch.cat([Z, I3], dim=-2)], dim=-1)
+    dS = torch.cat([dJr, -se3.hat3(qdot[..., 3:6]) @ Jr - hp @ dJr], dim=-2)
+    Sdot = torch.cat([dS, torch.cat([Z, Z], dim=-2)], dim=-1)
+    return se3.make_E(R, (R @ p[..., None])[..., 0]), S, Sdot
+
+
+def _composite_rp(q, qdot, params):
+    """A revolute joint (axis1) then a prismatic one (axis2): Q = [R1 | R1 a2 q1],
+    S = [[a1; -q1 (a2 x a1)], [0; a2]], only the first column moving."""
+    a1, a2 = params["axis1"], params["axis2"]                    # [G, 3]
+    R = se3.exp_so3(a1 * q[..., 0:1])
+    t = (R @ (a2 * q[..., 1:2])[..., None])[..., 0]
+    c = torch.linalg.cross(a2, a1).expand_as(t)
+    z = torch.zeros_like(t)
+    S = _cols(torch.cat([a1.expand_as(t), -q[..., 1:2] * c], dim=-1),
+              torch.cat([z, a2.expand_as(t)], dim=-1))
+    Sdot = _cols(torch.cat([z, -qdot[..., 1:2] * c], dim=-1), torch.cat([z, z], dim=-1))
+    return se3.make_E(R, t), S, Sdot
+
+
+def _poe(C, xi, phi, dphi, dphid, qdot):
+    """(Q, S, Sdot) of a product of exponentials Q = C E_1 ... E_n,
+    E_i = exp(xi_i phi_i(q)), C constant in q: C [..., 4, 4], the unit
+    twists xi [..., n, 6], phi [..., n], dphi [..., n, d] = dphi_i/dq_k,
+    dphid [..., n, d] = its time derivative, qdot [..., d]. With
+    R_i = E_{i+1} ... E_n and a_i = Ad(R_i^-1) xi_i,
+        S_k = sum_i dphi_ik a_i,
+        Sdot_k = sum_i dphid_ik a_i - dphi_ik ad(sig_i) a_i,
+    where sig_i = sum_{j>i} phidot_j a_j is R_i's body velocity
+    (d/dt Ad(R_i^-1) = -ad(sig_i) Ad(R_i^-1))."""
+    n = xi.shape[-2]
+    E = se3.exp6(xi * phi[..., None])                            # [..., n, 4, 4]
+    Q = C
+    for i in range(n):
+        Q = Q @ E[..., i, :, :]
+    phidot = (dphi * qdot[..., None, :]).sum(-1)                 # [..., n]
+    S = Sdot = sig = Rinv = None
+    for i in reversed(range(n)):
+        a = xi[..., i, :] if Rinv is None else (se3.Ad(Rinv) @ xi[..., i, :, None])[..., 0]
+        Si = a[..., :, None] * dphi[..., i, None, :]
+        Sdi = a[..., :, None] * dphid[..., i, None, :]
+        if sig is not None:
+            Sdi = Sdi - (se3.ad(sig) @ a[..., None]) * dphi[..., i, None, :]
+        S, Sdot = (Si, Sdi) if S is None else (S + Si, Sdot + Sdi)
+        v = phidot[..., i, None] * a
+        sig = v if sig is None else sig + v
+        Einv = se3.inv(E[..., i, :, :])
+        Rinv = Einv if Rinv is None else Rinv @ Einv
+    return Q, S, Sdot
+
+
+# The cubic B-spline coefficient matrix (JointSplineCurve.m:15-20) and the
+# row sums of its rows i-1.. for i = 2, 3, 4 (Btilde_i, :187-201).
+_BSPLINE = (np.array([[1, -3, 3, -1], [4, 0, -6, 3], [1, 3, 3, -3], [0, 0, 0, 1]],
+                     dtype=np.float64) / 6.0)
+_BSUM = np.stack([_BSPLINE[i - 1:].sum(axis=0) for i in (2, 3, 4)])   # [3, 4]
+# The surface joint's basis twists, columns of JointSplineSurface's E
+# (Eq. 25): translations along x, y, z, then rotations about x, y, z.
+_SURF_XI = np.concatenate([np.eye(6)[3:], np.eye(6)[:3]])             # [6 factors, 6]
+
+
+def _powers(x):
+    """([1, x, x^2, x^3], its first and second derivatives) [..., 4] each."""
+    o, z = torch.ones_like(x), torch.zeros_like(x)
+    return (torch.stack([o, x, x * x, x * x * x], dim=-1),
+            torch.stack([z, o, 2.0 * x, 3.0 * x * x], dim=-1),
+            torch.stack([z, z, 2.0 * o, 6.0 * x], dim=-1))
+
+
+_TABLES = {"bsum": _BSUM, "bspline": _BSPLINE, "surf_xi": _SURF_XI}
+
+
+@lru_cache(maxsize=None)
+def _table(name: str, dtype, device):
+    """One of the constant tables as a tensor, made once per (dtype, device):
+    no host-to-device copy after the first call."""
+    return torch.as_tensor(_TABLES[name], dtype=dtype, device=device)
+
+
+def _const(name, like):
+    return _table(name, like.dtype, like.device)
+
+
+def _spline_curve(q, qdot, params):
+    """JointSplineCurve (matlab/+redmax/JointSplineCurve.m:112-139): the
+    cyclic cubic B-spline of ncfs control frames Cs with relative twists
+    dCs. With qq = q mod ncfs (a Python-style remainder, as jnp.mod),
+    cell k = clip(floor(qq), 0, ncfs - 1) and u = qq - k:
+        Q = Cs[k] prod_{i=2..4} exp(dCs[(k + i - 1) mod ncfs] Btilde_i(u)),
+    floor being constant inside a cell (du/dq = 1)."""
+    Cs, dCs = params["Cs"], params["dCs"]                        # [G, ncfs, 4, 4], [G, ncfs, 6]
+    ncfs = Cs.shape[-3]
+    qq = torch.remainder(q[..., 0], ncfs)
+    k = torch.clamp(torch.floor(qq), 0, ncfs - 1)
+    u = qq - k
+    k = k.long()
+    g = torch.arange(Cs.shape[0], device=q.device)
+    ki = torch.remainder(k[..., None] + torch.arange(1, 4, device=q.device), ncfs)
+    xi = dCs[g[:, None], ki]                                     # [..., G, 3, 6]
+    bs = _const("bsum", q)
+    p0, p1, p2 = (torch.einsum("ij,...j->...i", bs, x) for x in _powers(u))
+    qd = qdot[..., 0, None]
+    return _poe(Cs[g, k], xi, p0, p1[..., None], (p2 * qd)[..., None], qdot)
+
+
+def _spline_surface(q, qdot, params):
+    """JointSplineSurface (matlab/+redmax/JointSplineSurface.m:85-95): a
+    4x4 patch of control values cs [G, 4, 4, 6]: Q = prod_{i=1..6}
+    exp(e_i phi_i), phi_i = (B v(q2))^T cs[..., i] (B v(q1)), v(x) = [1, x,
+    x^2, x^3], e_i the basis twists."""
+    cs = params["cs"]
+    Bm = _const("bspline", q)
+    v1, d1, dd1 = (x @ Bm.T for x in _powers(q[..., 0]))         # B v(q1) and derivatives
+    v2, d2, dd2 = (x @ Bm.T for x in _powers(q[..., 1]))
+    form = lambda l, r: torch.einsum("...a,...abi,...b->...i", l, cs, r)   # [..., G, 6]
+    phi = form(v2, v1)
+    dphi = torch.stack([form(v2, d1), form(d2, v1)], dim=-1)                # [..., G, 6, 2]
+    qd1, qd2 = qdot[..., 0, None], qdot[..., 1, None]
+    f12 = form(d2, d1)
+    dphid = torch.stack([form(v2, dd1) * qd1 + f12 * qd2,
+                         f12 * qd1 + form(dd2, v1) * qd2], dim=-1)
+    xi = _const("surf_xi", q).expand(*phi.shape, 6)
+    C = torch.eye(4, dtype=q.dtype, device=q.device).expand(*q.shape[:-1], 4, 4)
+    return _poe(C, xi, phi, dphi, dphid, qdot)
+
+
+# S(q) in closed form from q alone, per lane [..., G, 6, d]; FREE2D and FREE_ST
+# have no kernel branch (op level only).
 _QDEP = {JointType.UNIVERSAL: _universal, JointType.SPHERICAL: _spherical,
-         JointType.FREE3D: _free3d, JointType.FREE2D: _free2d}
+         JointType.FREE3D: _free3d, JointType.FREE2D: _free2d, JointType.FREE_ST: _free_st}
+# S(q) on the joint's Euler chart (params["chart"], per lane).
 _EULER = {JointType.SPHERICAL_EULER: _spherical_euler, JointType.FREE3D_EULER: _free3d_euler}
+# S(q) in closed form from q and the joint's own params, per lane.
+_PARAM_QDEP = {JointType.COMPOSITE_RP: _composite_rp, JointType.SPLINE_CURVE: _spline_curve,
+               JointType.SPLINE_SURFACE: _spline_surface}
 
 
 def joint_QSSdot(jt: JointType, q, qdot, params):
@@ -260,9 +399,10 @@ def joint_QSSdot(jt: JointType, q, qdot, params):
     and for the Euler-chart types params["chart"], the int64 chart index
     [..., G] of each joint and lane.
     """
-    require_supported(jt)
     if jt in _QDEP:
         return _QDEP[jt](q, qdot)
+    if jt in _PARAM_QDEP:
+        return _PARAM_QDEP[jt](q, qdot, params)
     if jt in _EULER:
         return _EULER[jt](q, qdot, params["chart"])
     G = q.shape[-2]
@@ -283,6 +423,29 @@ def joint_QSSdot(jt: JointType, q, qdot, params):
         I3 = torch.eye(3, dtype=dtype, device=device).expand(G, 3, 3)
         Q, S = _translation_E(q), torch.cat([torch.zeros_like(I3), I3], dim=-2)
     return Q, S, torch.zeros_like(S)
+
+
+def make_composite(jt1: JointType, jt2: JointType):
+    """Two joints in series as one (matlab/+redmax/JointComposite.m:38-72):
+    a function (q, qdot, params) -> (Q, S, Sdot) over [..., G, d1 + d2],
+    params {"p1": the first joint's params, "p2": the second's}, with
+    Q = Q1 Q2, S = [Ad(Q2^-1) S1, S2] and
+    Sdot = [Ad(Q2^-1) S1dot - ad(S2 qdot2) Ad(Q2^-1) S1, S2dot].
+    Scenes build such a joint as two joints with a massless link between
+    them (SceneBuilder.joint_composite)."""
+    n1 = NDOF[jt1]
+
+    def qssdot(q, qdot, params):
+        Q1, S1, Sd1 = joint_QSSdot(jt1, q[..., :n1], qdot[..., :n1], params.get("p1", {}))
+        Q2, S2, Sd2 = joint_QSSdot(jt2, q[..., n1:], qdot[..., n1:], params.get("p2", {}))
+        A = se3.Ad(se3.inv(Q2))
+        sig = (S2 @ qdot[..., n1:, None])[..., 0]
+        AS1 = A @ S1
+        S2, Sd2 = S2.expand(*AS1.shape[:-1], S2.shape[-1]), Sd2.expand(*AS1.shape[:-1], S2.shape[-1])
+        return (Q1 @ Q2, torch.cat([AS1, S2], dim=-1),
+                torch.cat([A @ Sd1 - se3.ad(sig) @ AS1, Sd2], dim=-1))
+
+    return qssdot
 
 
 def reparam_exp(w):

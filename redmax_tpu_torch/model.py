@@ -15,7 +15,9 @@ be per lane (types.SceneParams): they broadcast against the lane dim.
   * Force closures (forces.py) add to fm. All ground contacts of a scene are
     evaluated in one batched pass, and their closed-form K/D blocks join the
     per-body blocks of the structured Newton matrix; springs and cables add
-    closed-form blocks between pairs of bodies.
+    closed-form blocks between pairs of bodies. The closures with
+    implicit_KD = False (SpringDamperM, ForcePointDirection,
+    ForceDeformableSegments) add their wrenches and energies and no block.
 """
 
 from functools import lru_cache
@@ -40,16 +42,27 @@ def joint_params_for(params: Dict, jt: int) -> Dict:
     return params.get("joint", {}).get(str(int(jt)), {})
 
 
-def _split_closures(force_fns: Tuple) -> Tuple[Tuple, Tuple]:
-    """(ground contacts, springs and cables) of the scene's closures, each in
-    force_fns order; raises on any other closure type (its K/D blocks are
-    not ported)."""
+def _split_closures(force_fns: Tuple) -> Tuple[Tuple, Tuple, Tuple]:
+    """(ground contacts, springs and cables, explicit closures) of the
+    scene's closures, each in force_fns order. The explicit ones are those
+    with implicit_KD = False (forces.EXPLICIT_CLOSURES, or a closure added
+    with SceneBuilder.add_force that says so): each is evaluated by its own
+    call and energy and gives no Newton-matrix block, as the JAX package's
+    maximal_force_KD leaves them out. Raises on any other closure (its K/D
+    blocks would need autodiff)."""
+    gnd, pair, other = [], [], []
     for fn in force_fns:
-        if not isinstance(fn, (forces.ForceGroundCuboid,) + forces.PAIR_CLOSURES):
+        if isinstance(fn, forces.ForceGroundCuboid):
+            gnd.append(fn)
+        elif isinstance(fn, forces.PAIR_CLOSURES):
+            pair.append(fn)
+        elif not getattr(fn, "implicit_KD", True):
+            other.append(fn)
+        else:
             raise NotImplementedError(
-                f"force closure {type(fn).__name__} is not ported yet ({forces.PORTED})")
-    gnd = tuple(fn for fn in force_fns if isinstance(fn, forces.ForceGroundCuboid))
-    return gnd, tuple(fn for fn in force_fns if isinstance(fn, forces.PAIR_CLOSURES))
+                f"force closure {type(fn).__name__}: its K/D blocks have no closed form here "
+                "(set implicit_KD = False to keep it explicit)")
+    return tuple(gnd), tuple(pair), tuple(other)
 
 
 class _Index(NamedTuple):
@@ -236,11 +249,15 @@ def maximal_force(topo: Topology, params: Dict, kin: Kinematics, phi):
 def closure_forces(topo: Topology, params: Dict, kin: Kinematics, phi, q, qdot,
                    force_fns: Tuple):
     """Sum of the registered force closures: (fr_cl [B, nr], fm_cl [B, N, 6])."""
-    gnd, pair = _split_closures(force_fns)
+    gnd, pair, other = _split_closures(force_fns)
     fm = forces.ground_contact_wrenches(gnd, params, kin, phi) if gnd else torch.zeros_like(phi)
     if pair:
         fm = fm + forces.pair_closure_wrenches(pair, params, kin, phi)
-    return torch.zeros_like(q), fm
+    fr = torch.zeros_like(q)
+    for fn in other:
+        fr_a, fm_a = fn(params, kin, None, phi, q, qdot)
+        fr, fm = fr + fr_a, fm + fm_a
+    return fr, fm
 
 
 def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns: Tuple = (),
@@ -259,7 +276,7 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
     included: the JAX package's jacfwd Km, Dm in closed form. aux: the
     state's aux (forward_kinematics).
     """
-    gnd, pair = _split_closures(force_fns)
+    gnd, pair, _ = _split_closures(force_fns)
     kin = forward_kinematics(topo, params, q, qdot, aux)
     J, Jdot, phi = jacobians(topo, params, kin, qdot)
     B, N, nr = q.shape[0], topo.njoints, topo.nr
@@ -292,7 +309,7 @@ def assemble(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = (), aux=N
 
     force_fns: static tuple of force closures compiled from the scene's
     force list (forces.py); aux: the state's aux (forward_kinematics)."""
-    _split_closures(force_fns)  # raises before any work on an unported closure
+    _split_closures(force_fns)  # raises before any work on a closure with no K/D
     kin = forward_kinematics(topo, params, q, qdot, aux)
     J, Jdot, phi = jacobians(topo, params, kin, qdot)
     B = q.shape[0]
@@ -317,7 +334,7 @@ def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = (), aux=N
         + force energies.
     aux: the state's aux (forward_kinematics).
     """
-    gnd, pair = _split_closures(force_fns)
+    gnd, pair, other = _split_closures(force_fns)
     kin = forward_kinematics(topo, params, q, qdot, aux)
     _, _, phi = jacobians(topo, params, kin, qdot)
     I = params["I_i"]
@@ -332,6 +349,9 @@ def energies(topo: Topology, params: Dict, q, qdot, force_fns: Tuple = (), aux=N
         V = V + forces.ground_contact_energy(gnd, params, kin)
     if pair:
         V = V + forces.pair_closure_energy(pair, params, kin)
+    for fn in other:
+        if hasattr(fn, "energy"):
+            V = V + fn.energy(params, kin, q, qdot)
     return T, V
 
 

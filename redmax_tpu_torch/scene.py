@@ -5,14 +5,18 @@
 + SceneParams (a dict of tensors, in the JAX package's layout) + initial
 State — on which the dynamics run as plain functions of batched tensors.
 
-Constraints (loop closure, joint limit, floor contact, gear coupling) and
-forces (penalty ground contact, point-point springs, spring-dampers,
-cables) are kept as (object, params) pairs and compiled into
-``constraint_fns`` / ``force_fns`` plus ``params["constraints"]`` /
-``params["forces"]``; a spring-damper's or cable's rest length L = 0 is set
-at compile from the initial configuration. The other forces, deformables,
-the prescribed-motion and attach-point constraints and friction are not
-ported yet; their SceneBuilder methods raise.
+Bodies are cuboids, spheres, cylinders, OBJ meshes and rigid composites
+(mesh.py); every joint type, and two joints in series through a massless
+link (joint_composite). Constraints (loop closure, joint limit, floor
+contact, gear coupling, prescribed motion, a deformable spring's attached
+ends) and forces (penalty ground contact, point-point springs, spring-dampers
+of both variants, cables, a constant point force, a deformable spring's
+segments, any closure given to add_force) are kept as (object, params)
+pairs and compiled into ``constraint_fns`` / ``force_fns`` plus
+``params["constraints"]`` / ``params["forces"]``; a spring-damper's or
+cable's rest length L = 0 is set at compile from the initial configuration,
+and so are a deformable spring's node positions and segment lengths.
+Friction (a scene that sets fric) is not ported yet: compile raises.
 """
 
 import math
@@ -24,10 +28,9 @@ import torch
 
 from redmax_tpu_torch import constraints as con_mod
 from redmax_tpu_torch import forces as forces_mod
-from redmax_tpu_torch import integrators, model
+from redmax_tpu_torch import integrators, joints, mesh, model, se3
 from redmax_tpu_torch.euler import DEFAULT_CHART
-from redmax_tpu_torch.joints import require_supported
-from redmax_tpu_torch.types import NDOF, JointType, State, Topology
+from redmax_tpu_torch.types import EULER_CHART_TYPES, NDOF, JointType, State, Topology
 
 _BIG = 1e8  # default joint limit bounds and limit stiffness
 
@@ -41,6 +44,8 @@ class _BodySpec:
     sides: Optional[np.ndarray] = None
     radius: Optional[float] = None
     damping: float = 0.0         # viscous body damping
+    E_oi: Optional[np.ndarray] = None    # a mesh body's inertial frame in its OBJ frame
+    mesh: Optional[Tuple[np.ndarray, np.ndarray]] = None   # (V, F) of a mesh body
 
 
 @dataclass
@@ -97,8 +102,8 @@ def transl(p) -> np.ndarray:
     return E
 
 
-def _not_ported(what: str, has: str = ""):
-    raise NotImplementedError(f"{what} is not ported yet" + (f" ({has})" if has else ""))
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (friction is a later slice)")
 
 
 class SceneBuilder:
@@ -121,6 +126,8 @@ class SceneBuilder:
         self.fric = False
         self.mu = np.array([0.6, 0.6])
         self.Hexpected: Dict[str, float] = {}
+        # (node bodies, body0, r0, body1, r1, force key) of each deformable spring
+        self._deform_inits: List[Tuple] = []
 
     # -- bodies ------------------------------------------------------------
     def _add_body(self, spec: _BodySpec) -> int:
@@ -149,26 +156,80 @@ class SceneBuilder:
             E_ji=self._E(E_ji), name=name,
         ))
 
+    def body_mesh_obj(self, density, obj_path, name="") -> int:
+        """A body from an OBJ mesh (BodyMeshObj): its diagonal inertia and
+        inertial frame E_oi by mesh.mesh_mass_properties. As in the
+        reference, set_body_transform(body, E0 @ E_oi) then places it
+        (testRedMaxScenes.m:781)."""
+        V, F = mesh.read_obj(obj_path)
+        I6, E_oi = mesh.mesh_mass_properties(V, F, density)
+        return self._add_body(_BodySpec(density=density, inertia=I6, E_ji=np.eye(4), name=name,
+                                        E_oi=E_oi, mesh=(V, F)))
+
+    def body_composite(self, parts, name="") -> int:
+        """A rigid composite (BodyComposite) of (part, E) pairs in the joint
+        frame, a part an inertia [6] or ("cuboid", density, sides),
+        ("cylinder", density, radius, height), ("sphere", density, radius);
+        its E_ji is the composite's inertial frame (testRedMaxScenes.m:760)."""
+        inertias, Es = [], []
+        for part, E in parts:
+            if isinstance(part, tuple):
+                kind = part[0]
+                if kind == "cuboid":
+                    I6 = _np_inertia_cuboid(part[2], part[1])
+                elif kind == "cylinder":
+                    I6 = _np_inertia_cylinder(part[2], part[3], part[1])
+                elif kind == "sphere":
+                    I6 = _np_inertia_sphere(part[2], part[1])
+                else:
+                    raise ValueError(kind)
+            else:
+                I6 = np.asarray(part, dtype=np.float64)
+            inertias.append(I6)
+            Es.append(np.asarray(E, dtype=np.float64))
+        I6, E_jc = mesh.composite_mass_properties(inertias, Es)
+        return self._add_body(_BodySpec(density=0.0, inertia=I6, E_ji=E_jc, name=name))
+
     def set_body_damping(self, body: int, d: float) -> None:
         self.bodies[body].damping = d
+
+    def set_body_transform(self, body: int, E_ji) -> None:
+        self.bodies[body].E_ji = np.asarray(E_ji, dtype=np.float64)
 
     # -- joints ------------------------------------------------------------
     def joint(self, jtype: JointType, parent: Optional[int], body: int, E_pj=None,
               q=None, qdot=None, name="", **jparams) -> int:
-        require_supported(jtype)
+        """Joint `body` of type jtype under the joint `parent` (None: the
+        root). Type params: axis (REVOLUTE, PRISMATIC), plane (PLANAR),
+        axis1 and axis2 (COMPOSITE_RP), control_frames [ncfs of 4x4]
+        (SPLINE_CURVE: the relative twists dCs[j] = log(C_{j-1}^-1 C_j),
+        cyclic, JointSplineCurve.m:44-57), control_values [4, 4, 6]
+        (SPLINE_SURFACE). Other keywords become attributes of the joint's
+        spec (as the reference scenes set contact_sides, ...)."""
         d = NDOF[jtype]
         if body != len(self.joints):
             raise ValueError("joint i must own body i (add in order)")
         params = {}
+        unit = lambda a: np.asarray(a, dtype=np.float64) / np.linalg.norm(a)
         if jtype in (JointType.REVOLUTE, JointType.PRISMATIC):
-            axis = np.asarray(jparams.pop("axis"), dtype=np.float64)
-            params["axis"] = axis / np.linalg.norm(axis)
+            params["axis"] = unit(jparams.pop("axis"))
         elif jtype == JointType.PLANAR:
             plane = np.asarray(
                 jparams.pop("plane", np.array([[1.0, 0, 0], [0, 1.0, 0]]).T),
                 dtype=np.float64,
             )
             params["plane"] = plane / np.linalg.norm(plane, axis=0, keepdims=True)
+        elif jtype == JointType.SPLINE_CURVE:
+            Cs = np.stack([np.asarray(C, dtype=np.float64)
+                           for C in jparams.pop("control_frames")])
+            prev = np.roll(Cs, 1, axis=0)
+            rel = torch.as_tensor(np.linalg.inv(prev) @ Cs, dtype=torch.float64)
+            params["Cs"], params["dCs"] = Cs, se3.log6(rel).numpy()
+        elif jtype == JointType.COMPOSITE_RP:
+            params["axis1"] = unit(jparams.pop("axis1"))
+            params["axis2"] = unit(jparams.pop("axis2"))
+        elif jtype == JointType.SPLINE_SURFACE:
+            params["cs"] = np.asarray(jparams.pop("control_values"), dtype=np.float64)
         spec = _JointSpec(
             jtype=jtype,
             parent=-1 if parent is None else parent,
@@ -184,6 +245,31 @@ class SceneBuilder:
         self.joints.append(spec)
         return len(self.joints) - 1
 
+    def joint_composite(self, jt1: JointType, jt2: JointType, parent: Optional[int], body: int,
+                        E_pj=None, q=None, qdot=None, name="", p1: Optional[Dict] = None,
+                        p2: Optional[Dict] = None) -> Tuple[int, int]:
+        """Two joints in series for any (jt1, jt2) (JointComposite.m:38-72):
+        jt1 owns a massless link body at the composite's joint frame and jt2
+        (E_pj = I) owns `body`, which is Q = Q1 Q2 with S = [Ad(Q2^-1) S1,
+        S2] (joints.make_composite). q, qdot concatenate the two joints'
+        coordinates; p1, p2 are their type params ({"axis": ...}). The
+        link adds nothing to the mass matrix or gravity, and every DOF moves
+        the real body, so Mr stays positive definite. Create `body` just
+        before. Returns the two joint indices."""
+        if body != len(self.joints):
+            raise ValueError("create the composite's body immediately before joint_composite")
+        self.bodies.insert(body, _BodySpec(density=0.0, inertia=np.zeros(6), E_ji=np.eye(4),
+                                           name=(name or "composite") + "_link"))
+        d1, d2 = NDOF[jt1], NDOF[jt2]
+        q = np.zeros(d1 + d2) if q is None else np.atleast_1d(np.asarray(q, dtype=np.float64))
+        qdot = np.zeros(d1 + d2) if qdot is None else np.atleast_1d(
+            np.asarray(qdot, dtype=np.float64))
+        j1 = self.joint(jt1, parent, body, E_pj=E_pj, q=q[:d1], qdot=qdot[:d1],
+                        name=(name or "composite") + "_1", **(p1 or {}))
+        j2 = self.joint(jt2, j1, body + 1, E_pj=np.eye(4), q=q[d1:], qdot=qdot[d1:],
+                        name=(name or "composite") + "_2", **(p2 or {}))
+        return j1, j2
+
     def set_stiffness(self, j: int, k: float) -> None:
         self.joints[j].stiffness = k
 
@@ -195,21 +281,6 @@ class SceneBuilder:
         self.joints[j].qlimU = upper
         self.joints[j].qlimK = k
         self.joints[j].qlimD = d
-
-    # -- not ported yet ----------------------------------------------------
-    def force_spring_damper_m(self, *a, **k):
-        _not_ported("SpringDamperM", forces_mod.PORTED)
-
-    def force_point_direction(self, *a, **k):
-        _not_ported("ForcePointDirection", forces_mod.PORTED)
-
-    def deformable_spring(self, *a, **k):
-        _not_ported("deformable springs", forces_mod.PORTED)
-
-    def constraint_presc_joint(self, *a, **k):
-        _not_ported("prescribed-motion constraints", con_mod.PORTED)
-
-    constraint_presc_joint_m = constraint_presc_body = constraint_presc_joint
 
     # -- forces ------------------------------------------------------------
     def _force_key(self) -> str:
@@ -255,6 +326,64 @@ class SceneBuilder:
              "d": np.float64(d), "L": np.float64(L)},
         ))
 
+    def force_spring_damper_m(self, body1, body2, xl1, xl2, k, d=0.0, L=0.0) -> None:
+        """The feature-rich variant's spring-damper (forces.SpringDamperM, its
+        own sign conventions); L = 0 sets the rest length at compile."""
+        self.forces.append((
+            forces_mod.SpringDamperM(self._force_key(), body1, body2),
+            {"xl1": np.asarray(xl1, dtype=np.float64), "xl2": np.asarray(xl2, dtype=np.float64),
+             "k": np.float64(k), "d": np.float64(d), "L": np.float64(L)},
+        ))
+
+    def force_point_direction(self, body, xl, d, k) -> None:
+        """The constant world force k d at the body point xl
+        (forces.ForcePointDirection)."""
+        self.forces.append((
+            forces_mod.ForcePointDirection(self._force_key(), body),
+            {"xl": np.asarray(xl, dtype=np.float64), "d": np.asarray(d, dtype=np.float64),
+             "k": np.float64(k)},
+        ))
+
+    def add_force(self, force_obj, fparams: Dict[str, Any]) -> None:
+        """Register a closure of the forces.py protocol with its params
+        (params["forces"][force_obj.key]); one with no closed-form K/D
+        blocks must set implicit_KD = False (model._split_closures)."""
+        self.forces.append((force_obj, fparams))
+
+    # -- deformables -------------------------------------------------------
+    def deformable_spring(self, nnodes, stiffness, mass, body0, r0, body1, r1,
+                          damping=0.0) -> List[int]:
+        """A serial point-mass spring of nnodes nodes (DeformableSpring with
+        ConstraintAttachSpring, matlab/+redmax/DeformableSpring.m): each
+        node a translational root joint carrying a point mass mass/nnodes
+        (rotational inertia 1e-9, never excited), the segments a
+        forces.ForceDeformableSegments, the two ends attached to the point
+        r0 of body0 and r1 of body1 (body -1 or None: a world point) by
+        constraints.ConstraintAttachPoint. The nodes start evenly spaced
+        between the ends and the rest lengths are those segments' lengths,
+        both set at compile (DeformableSpring.initGeometry_). Returns the
+        node bodies."""
+        node_ids = []
+        eps = 1e-9
+        for _ in range(nnodes):
+            b = self._add_body(_BodySpec(
+                density=0.0, inertia=np.array([eps, eps, eps] + [mass / nnodes] * 3),
+                E_ji=np.eye(4), name=f"defnode{len(self.bodies)}"))
+            j = self.joint(JointType.TRANSLATIONAL, None, b)
+            if damping:
+                self.set_damping(j, damping)
+            node_ids.append(b)
+        key = self._force_key()
+        self.forces.append((forces_mod.ForceDeformableSegments(key, node_ids),
+                            {"K": np.float64(stiffness), "L": np.zeros(nnodes - 1)}))
+        body0 = -1 if body0 is None else body0
+        body1 = -1 if body1 is None else body1
+        for body, r, node in ((body0, r0, node_ids[0]), (body1, r1, node_ids[-1])):
+            self.constraints.append((con_mod.ConstraintAttachPoint(self._con_key(), body, node),
+                                     {"r": np.asarray(r, dtype=np.float64)}))
+        self._deform_inits.append((node_ids, body0, r0, body1, r1, key))
+        return node_ids
+
     # -- constraints -------------------------------------------------------
     def _con_key(self) -> str:
         return f"c{len(self.constraints)}"
@@ -262,12 +391,14 @@ class SceneBuilder:
     def _dof(self, joint: int) -> int:
         return sum(NDOF[self.joints[j].jtype] for j in range(joint))
 
-    def constraint_loop(self, bodyA, bodyB, xA, xB) -> None:
+    def constraint_loop(self, bodyA, bodyB, xA, xB, radius=1.0, height=1.0) -> None:
         """Loop closure; body A's joint must be revolute (its axis defines
-        the basis of the two constrained directions)."""
+        the basis of the two constrained directions). radius and height
+        (the joint ring's contact geometry) are kept on the constraint as
+        metadata."""
         axisA = self.joints[bodyA].params["axis"]
         self.constraints.append((
-            con_mod.ConstraintLoop(self._con_key(), bodyA, bodyB),
+            con_mod.ConstraintLoop(self._con_key(), bodyA, bodyB, radius, height),
             {"xA": np.asarray(xA, dtype=np.float64), "xB": np.asarray(xB, dtype=np.float64),
              "axisA": np.asarray(axisA, dtype=np.float64)},
         ))
@@ -293,10 +424,80 @@ class SceneBuilder:
             {"factor": np.float64(factor)},
         ))
 
+    def constraint_presc_joint(self, joint: int, qdot_target) -> None:
+        """Prescribe the velocity of a joint's DOFs (ConstraintPrescJoint);
+        a scene function may set q_target, qdot_target, qddot_target."""
+        start, d = self._dof(joint), NDOF[self.joints[joint].jtype]
+        self.constraints.append((
+            con_mod.ConstraintPrescJoint(self._con_key(), range(start, start + d)),
+            {"qdot_target": np.atleast_1d(np.asarray(qdot_target, np.float64))},
+        ))
+
+    def constraint_presc_joint_m(self, joint: int) -> None:
+        """Prescribe a revolute joint by one maximal row
+        (ConstraintPrescJointM); its qdot_target is set by a scene
+        function."""
+        axis = np.asarray(self.joints[joint].params["axis"])
+        self.constraints.append((
+            con_mod.ConstraintPrescJointM(self._con_key(), joint, self.joints[joint].parent,
+                                          int(np.argmax(np.abs(axis)))),
+            {"qdot_target": np.float64(0.0)},
+        ))
+
+    def constraint_presc_body_w(self, body: int, comps) -> None:
+        """World-frame prescribed body motion on the twist components comps
+        (ConstraintPrescBodyW); its targets are set by a scene function."""
+        z = np.zeros(3)
+        self.constraints.append((
+            con_mod.ConstraintPrescBodyW(self._con_key(), body, comps),
+            {"vt_w": z, "wt_i": z, "vtdot_w": z, "wtdot_i": z},
+        ))
+
+    def constraint_presc_body(self, body: int, comps, phi_target) -> None:
+        """Prescribed body twist components (ConstraintPrescBody)."""
+        self.constraints.append((
+            con_mod.ConstraintPrescBody(self._con_key(), body, comps),
+            {"phi_target": np.atleast_1d(np.asarray(phi_target, np.float64))},
+        ))
+
     # -- compile -----------------------------------------------------------
+    def _init_deformables(self) -> None:
+        """Each deformable spring's node positions (its joints' q) evenly
+        spaced between its ends, and its segments' rest lengths
+        (DeformableSpring.initGeometry_, DeformableSpring.m:61-91), the ends
+        placed by forward kinematics of the joints' initial q in float64."""
+        if not self._deform_inits:
+            return
+        E_wi = []
+        for i, js in enumerate(self.joints):
+            pj = {k: torch.as_tensor(v, dtype=torch.float64)[None] for k, v in js.params.items()}
+            if js.jtype in EULER_CHART_TYPES:
+                pj["chart"] = torch.full((1,), DEFAULT_CHART, dtype=torch.int64)
+            q = torch.as_tensor(js.q, dtype=torch.float64)[None]
+            Q = joints.joint_QSSdot(js.jtype, q, torch.zeros_like(q), pj)[0][0].numpy()
+            E_wj = js.E_pj @ Q if js.parent < 0 else E_wi[js.parent][1] @ js.E_pj @ Q
+            E_wi.append((E_wj @ self.bodies[i].E_ji, E_wj))
+
+        def world_pt(b, r):
+            if b < 0:
+                return np.asarray(r, dtype=np.float64)
+            E = E_wi[b][0]
+            return E[:3, :3] @ np.asarray(r) + E[:3, 3]
+
+        for node_ids, body0, r0, body1, r1, fkey in self._deform_inits:
+            x0, x1 = world_pt(body0, r0), world_pt(body1, r1)
+            n = len(node_ids)
+            xs = [(1 - i / (n - 1)) * x0 + (i / (n - 1)) * x1 for i in range(n)]
+            for i, b in enumerate(node_ids):
+                self.joints[b].q = xs[i].copy()
+            for obj, fp in self.forces:
+                if obj.key == fkey:
+                    fp["L"] = np.array([np.linalg.norm(xs[i + 1] - xs[i]) for i in range(n - 1)])
+
     def compile(self, dtype=torch.float64, device="cuda") -> "CompiledScene":
         if self.fric:
             _not_ported("frictional stepping")
+        self._init_deformables()
         N = len(self.joints)
         if N != len(self.bodies):
             raise ValueError("every body needs a joint")
@@ -389,7 +590,8 @@ class SceneBuilder:
         from Scene.init in the reference, Scene.m:117), from the body frames
         in the compile dtype, as the JAX package computes it."""
         auto = [(obj, fp) for obj, fp in self.forces
-                if isinstance(obj, (forces_mod.ForceSpringDamper, forces_mod.ForceCable))
+                if isinstance(obj, (forces_mod.ForceSpringDamper, forces_mod.SpringDamperM,
+                                    forces_mod.ForceCable))
                 and float(fp["L"]) == 0.0]
         if not auto:
             return

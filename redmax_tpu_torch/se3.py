@@ -1,5 +1,5 @@
 """Batched SE(3)/se(3) operations (the subset forward kinematics, the
-Jacobians and the constraint rows use).
+Jacobians, the constraint rows and the spline joints use).
 
 Conventions (those of the JAX package's se3.py):
 
@@ -91,3 +91,57 @@ def exp_so3(w):
     W = hat3(w)
     I3 = torch.eye(3, dtype=w.dtype, device=w.device)
     return I3 + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def unhat3(S):
+    """(..., 3, 3) -> (..., 3): the vector of a skew-symmetric matrix."""
+    return torch.stack([S[..., 2, 1], S[..., 0, 2], S[..., 1, 0]], dim=-1)
+
+
+def _coefs(t):
+    """(sin th / th, (1 - cos th)/th^2, (th - sin th)/th^3) of th^2 = t, with
+    their Taylor series below _T_SMALL (the JAX package's _sinc_sq,
+    _cosc_sq, _sincc_sq)."""
+    small = t < _T_SMALL
+    ts = torch.where(small, torch.ones_like(t), t)
+    th = torch.sqrt(ts)
+    sn = torch.sin(th)
+    a = torch.where(small, 1.0 - t / 6.0 + t * t / 120.0, sn / th)
+    b = torch.where(small, 0.5 - t / 24.0 + t * t / 720.0, (1.0 - torch.cos(th)) / ts)
+    c = torch.where(small, 1.0 / 6.0 - t / 120.0 + t * t / 5040.0, (th - sn) / (ts * th))
+    return a, b, c
+
+
+def exp6(phi):
+    """SE(3) exponential of twists (..., 6) -> (..., 4, 4): R = I + a W + b W^2,
+    p = (I + b W + c W^2) v (the JAX package's se3.exp)."""
+    w, v = phi[..., :3], phi[..., 3:]
+    a, b, c = (x[..., None, None] for x in _coefs((w * w).sum(-1)))
+    W = hat3(w)
+    W2 = W @ W
+    I3 = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    R = I3 + a * W + b * W2
+    p = ((I3 + b * W + c * W2) @ v[..., None])[..., 0]
+    return make_E(R, p)
+
+
+def log6(E):
+    """SE(3) logarithm (..., 4, 4) -> (..., 6) (the JAX package's se3.log):
+    w from the skew part of R by atan2, v = V^-1 p."""
+    R, p = E[..., :3, :3], E[..., :3, 3]
+    u = unhat3(0.5 * (R - R.transpose(-1, -2)))
+    s2 = (u * u).sum(-1)
+    c = 0.5 * (R.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0)
+    small = s2 < _T_SMALL
+    s = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    scale = torch.where(small, 1.0 + s2 / 6.0 + 0.075 * s2 * s2, torch.atan2(s, c) / s)
+    w = scale[..., None] * u
+    t = (w * w).sum(-1)
+    small = t < _T_SMALL
+    ts = torch.where(small, torch.ones_like(t), t)
+    a, b, _ = _coefs(ts)
+    coef = torch.where(small, 1.0 / 12.0 + t / 720.0, (1.0 - a / (2.0 * b)) / ts)
+    W = hat3(w)
+    I3 = torch.eye(3, dtype=E.dtype, device=E.device)
+    Vinv = I3 - 0.5 * W + coef[..., None, None] * (W @ W)
+    return torch.cat([w, (Vinv @ p[..., None])[..., 0]], dim=-1)

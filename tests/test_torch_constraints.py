@@ -148,13 +148,17 @@ def test_rows_and_euler_system_match(scene):
 
 
 def test_constraints_waiting_for_later_items_raise():
+    """The constraint subsystem's rows are all ported (every constraint class
+    of the JAX package has its counterpart); what still raises is friction:
+    a scene with frictional contact at compile, and the euler_fric step."""
     for name in ("ConstraintPrescJoint", "ConstraintPrescBody", "ConstraintPrescJointM",
                  "ConstraintPrescBodyW", "ConstraintAttachPoint"):
-        with pytest.raises(NotImplementedError, match="the port's constraints are"):
-            getattr(tcon, name)("c0", 0, 1)
-    with pytest.raises(NotImplementedError, match="the port's constraints are"):
-        convert.constraints_from_fields([("ConstraintPrescJoint", {"key": "c0"})])
-    with pytest.raises(NotImplementedError, match="the port's constraints are"):
-        tscene.SceneBuilder().constraint_presc_joint(0, [1.0])
-    with pytest.raises(NotImplementedError, match="Euler system"):
-        tint.euler_system(None, (object(),), {}, None, None)
+        assert getattr(jcon, name).__name__ == getattr(tcon, name).__name__
+    for sid in (31, 33):        # frictional floor contact; the driven walker
+        b = tms.M_SCENES[sid]()
+        assert any(type(c).__name__ in ("ConstraintFloor", "ConstraintPrescJointM")
+                   for c, _ in b.constraints)
+        with pytest.raises(NotImplementedError, match="frictional stepping"):
+            b.compile(device="cpu")
+    with pytest.raises(NotImplementedError, match="euler_fric"):
+        tms.build_mscene(6, device="cpu").make_step("euler_fric")

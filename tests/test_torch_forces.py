@@ -219,15 +219,26 @@ def test_scene_chain_ground_compile_matches():
 
 
 def test_closures_waiting_for_later_items_raise():
+    """Every closure of the JAX package is ported; a closure whose K/D
+    blocks would need autodiff (no closed form, implicit_KD left True)
+    raises in the assembly; the chord kernel refuses the closures it has no
+    branch for (SpringDamperM, ForcePointDirection, ForceDeformableSegments);
+    the L-BFGS and MPPI solvers are still to come."""
     for name in ("SpringDamperM", "ForcePointDirection", "ForceDeformableSegments"):
-        with pytest.raises(NotImplementedError, match="the port's force closures are"):
-            getattr(tforces, name)("f0", 0, 1)
-    with pytest.raises(NotImplementedError, match="the port's force closures are"):
-        convert.forces_from_fields([("SpringDamperM", {"key": "f0"})])
-    with pytest.raises(NotImplementedError, match="the port's force closures are"):
-        tscene.SceneBuilder().force_spring_damper_m(0, 1, np.zeros(3), np.zeros(3), 1.0)
-    with pytest.raises(NotImplementedError, match="the port's force closures are"):
+        assert getattr(tforces, name).implicit_KD is False
+    with pytest.raises(NotImplementedError, match="implicit_KD"):
         tmodel.assemble(None, {}, None, None, (object(),))
+    from redmax_tpu_torch import chord_kernel, integrators, mpc
+    from redmax_tpu_torch.scenes_matlab import build_mscene
+    cfg = integrators.NewtonConfig(fixed_iters=3, chord=True, hessian="structured",
+                                   linsolve="gj")
+    for sid in (24, 10, 12):
+        sc = build_mscene(sid, device="cpu")
+        assert not chord_kernel.supports(sc.topo, sc.force_fns, cfg), sid
+    with pytest.raises(NotImplementedError, match="L-BFGS"):
+        mpc.make_mpc_solver(None, method="lbfgs")
+    with pytest.raises(NotImplementedError, match="MPPI"):
+        mpc.make_mppi_solver_batched()
     b = tscene.SceneBuilder()
     b.body_sphere(1.0, 0.1)
     with pytest.raises(ValueError, match="cuboid"):

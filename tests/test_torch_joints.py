@@ -268,10 +268,27 @@ def test_rollout_gradient_finite_at_zero(use_kernel):
 
 
 def test_unported_joint_types_raise():
-    b = tscene.SceneBuilder()
-    b.body_cuboid(1.0, (1, 1, 1))
+    """Every joint type is ported; the chord kernel has no branch for
+    FREE_ST, COMPOSITE_RP and the splines, so supports() refuses their
+    scenes (they run at op level), and FREE_ST carries the exp-map rescale
+    of its rotation."""
+    from redmax_tpu_torch import chord_kernel
+    from redmax_tpu_torch.scenes_matlab import build_mscene
     for jt in (TJT.FREE_ST, TJT.COMPOSITE_RP, TJT.SPLINE_CURVE, TJT.SPLINE_SURFACE):
-        with pytest.raises(NotImplementedError, match="is not ported yet"):
-            b.joint(jt, None, 0)
+        b = tscene.SceneBuilder()
+        b.body_cuboid(1.0, (1, 1, 1))
+        kw = {TJT.COMPOSITE_RP: dict(axis1=(1, 0, 0), axis2=(1, 0, 0)),
+              TJT.SPLINE_CURVE: dict(control_frames=[np.eye(4), tscene.transl([1, 0, 0])]),
+              TJT.SPLINE_SURFACE: dict(control_values=np.zeros((4, 4, 6)))}.get(jt, {})
+        b.joint(jt, None, 0, **kw)
+        sc = b.compile(device="cpu")
+        assert not chord_kernel.supports(sc.topo, (), CFG), jt
+    for sid in (19, 21, 22):
+        sc = build_mscene(sid, device="cpu")
+        assert not chord_kernel.supports(sc.topo, sc.force_fns, CFG), sid
+    q = torch.tensor([[[0.0, 0.0, 5.0, 1.0, 2.0, 3.0]]], dtype=torch.float64)
+    q1, _ = joints.joint_reparam(TJT.FREE_ST, q, torch.zeros_like(q))
+    assert math.isclose(float(q1[0, 0, 2]), 5.0 - 2 * math.pi)
+    assert q1[0, 0, 3:].tolist() == [1.0, 2.0, 3.0]
     w = joints.reparam_exp(torch.tensor([0.0, 0.0, 5.0], dtype=torch.float64))
     assert math.isclose(float(w[2]), 5.0 - 2 * math.pi)
