@@ -199,11 +199,41 @@ Phases (any failure is an exception and a non-zero exit):
      the float64 step on >= 95% of lanes at every step; K2 against its plain
      version on mscene 6's QPs after the rollout and at its steps; prints
      mscene_zoo;
- 29. print the kernels line (every row with its design, threads a lane and
+ 29. the explicit and O(n) tiers and sampling MPC (phase_explicit_tiers):
+     (1) the ode45 energy certificates of tests/test_ode45.py (19 cases;
+     not 26 and 34, whose OBJ files the repository lacks) through
+     explicit.simulate_ode45, dense and recursive (mscene 12 dense only), in
+     float64 at B = 1024 (lane 0 at the initial state, lanes 1.. with qdot0
+     + 1e-3 N(0, 1)), lane 0's |H - cert| within 1e-2 (5e-2 for mscenes 19
+     and 21), the recursive run's final state within 1e-6 of scale of the
+     dense run's on >= 95% of lanes (19 and 21 reported only), scene 5's
+     time-varying torques (|H - 160.8208| <= 1e-2), mscenes 15 and 22 in
+     float32 within 1e-3 of scale of float64 on >= 95% of lanes (mscene
+     0's chaotic chain: the share printed); each
+     case's controller iterations, accepted lane-steps and rate; in a pool
+     of ODE45_WORKERS processes on the card (after (3) and (2)'s float32
+     rates, which run alone) while this process runs (2) the PCG tier
+     (pcg.make_euler_pcg_step) in float64 one step from each state of a
+     20-step dense Euler run at B = 1024: chain-30 (no damping) qdot
+     within 1e-8 of the dense step in <= 3 CG iterations, mscene 15 (loop,
+     Schur complement, tol 1e-12) within 1e-8, chain-120 within 1e-6 of
+     scale; in float32 (tol PCG_F32_TOL) chain-30 and chain-120 timed
+     beside the dense Euler step, chain-30 within 1e-3 of scale of float64
+     on >= 95% of lanes, chain-120's share printed (float32 is off float64
+     in both tiers there), no lane at maxit; and (3) MPPI
+     (mpc.make_mppi_solver_batched) at the main path's configuration, 1024
+     candidates as the lanes of make_objective_batched: 49 launches of the
+     chord kernel's cooperative design a solve and none of the other, the
+     costs within rtol 1e-3 of the op-level route's on >= 99% of the same
+     candidates, the update within 1e-3 of scale, the mean cost not above
+     p0's; MPPI solves/s; at sigma 0.3 the failure masking; prints
+     explicit_tiers;
+ 30. print the kernels line (every row with its design, threads a lane and
      lanes a block; the cooperative rows, the QP's among them, with the
      thread-per-lane build's time of this run), the paths' lines
-     (robust_path, backward_modes, coop_phases, scene_zoo and mscene_zoo
-     among them), the card's name and power limit, and the result line.
+     (robust_path, backward_modes, coop_phases, scene_zoo, mscene_zoo and
+     explicit_tiers among them), the card's name and power limit, and the
+     result line.
 
 Every MPC path, the cable rollout and the per-lane rollouts read the launch
 counter of the chord kernel design the wrapper routes them to (design_of)
@@ -226,8 +256,8 @@ import time
 import numpy as np
 import torch
 
-from redmax_tpu_torch import (chord_kernel, forces, integrators, model, mpc, qp_kernel,
-                              scenes_matlab)
+from redmax_tpu_torch import (chord_kernel, explicit, forces, integrators, model, mpc, pcg,
+                              qp_kernel, scenes_matlab)
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.euler import DEFAULT_CHART
 from redmax_tpu_torch.scenes import (SCENES, build_scene, scene_00_serial_chain,
@@ -2698,6 +2728,393 @@ def phase_mscene_zoo(device="cuda", B=1024):
     return record, line
 
 
+# ---------------------------------------------------------------------------
+# The explicit and O(n) tiers (explicit.py, recursive.py, pcg.py) and
+# sampling MPC (mpc.make_mppi_solver_batched) on the chord kernel
+# ---------------------------------------------------------------------------
+
+
+# (recursive, dense) ode45 energy certificates of tests/test_ode45.py (the
+# reference's RECURS_ODE45 and REDMAX_ODE45), every case but 26 and 34,
+# whose OBJ files the repository lacks; mscene 12 has no recursive one. The
+# order is the pool's, the longest first (as they ran on the CPU).
+ODE45_CERTS = {
+    12: (None, -0.0345395920267038),
+    15: (2.5092171102578504, 2.5092171060550754),
+    4: (4176.3993502426255873, 4176.3993502425073530),
+    22: (-1.4604474130101153, -1.4604474127263529),
+    23: (-0.2671194855411159, -0.2671194856266084),
+    21: (-18.5261468157405034, -18.5261468464450445),
+    0: (-3.0971281943493523, -3.0971281068341341),
+    14: (-0.8577782593856682, -0.8577782794236555),
+    -1: (-5.6531026717020723, -5.6531026765951538),
+    1: (-1.9548841516880202, -1.9548841526830074),
+    2: (-3.2850447686942061, -3.2850447782984702),
+    11: (2898.56113448227, 2898.56113448227),
+    16: (-5.7644270883174613, -5.7644270894088550),
+    10: (1210.7099042740396726, 1210.7099042740403547),
+    19: (-8.7962825142149086, -8.7962825142917609),
+    35: (167.0835245643339135, 167.0835245643319240),
+    25: (-11.2086902929768257, -11.2086902930313954),
+    17: (835.418079875333, 835.418079875333),
+    18: (4.5466342688068826, 4.5466342688068924),
+}
+# the two cases whose accept/reject sequences are ulp-sensitive: band 5e-2,
+# and their dense-against-recursive share reported, not gated
+ODE45_LOOSE = {19: 5e-2, 21: 5e-2}
+# cases also run in float32: the final state within 1e-3 of scale of the
+# float64 run's on >= 95% of lanes, except on ODE45_CHAOTIC, where that
+# share is printed: mscene 0's chain parts its float32 lanes from float64
+# over its span
+ODE45_F32 = (0, 15, 22)
+ODE45_CHAOTIC = (0,)
+# scene 5's sceneFcn05 torque schedule through ode45: lane 0's H
+ODE45_SCENE5 = 160.820781710469
+# Processes that share the card for the ode45 cases: each is host-bound
+# small launches, a derivative call at a time.
+ODE45_WORKERS = 6
+# The PCG tier in float32: an absolute tolerance on ||r|| that float32
+# reaches (|frtilde| is about 80 on chain-30, 2500 on chain-120) and the
+# iteration cap.
+PCG_F32_TOL = 1e-4
+PCG_MAXIT = 100
+# MPPI's noise in p (torques pscale p = 1e3 p): sigma 3 N m, the main
+# path's torque scale (bench.py's p0 = 3/1e3 N(0, 1)); at sigma 0.3 every
+# candidate diverges (the phase shows it)
+MPPI_SIGMA = 3e-3
+
+
+def ode45_job(job):
+    """A worker of phase 29's pool: ("ode45", sid, method, dtype name, B,
+    device) -> (job, result): explicit.simulate_ode45 of mscene sid
+    ("dense" or "recursive") from mzoo_state0's B lanes, scene 5 with its
+    scene function; result: lane 0's H = T + V - V0, the final y [B, 2 nr]
+    (float64, on the CPU), the loop's iterations, the largest step count of
+    a lane, the accepted steps summed over lanes and the run's seconds."""
+    torch.set_num_threads(1)   # a worker's host work is small launches
+    _, sid, method, dt, B, device = job
+    dtype = getattr(torch, dt)
+    sc = build_mscene(sid, dtype=dtype, device=device)
+    s0 = mzoo_state0(sc, B, device, dtype)
+    fn = scenes_matlab.scene_fn_05 if sid == 5 else None
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    fin = explicit.simulate_ode45(sc, method, state0=s0, scene_fn=fn)
+    sync()
+    sec = time.perf_counter() - t
+    st = explicit.ode45_stats
+    _, V0 = sc.energies(s0.q[:1], s0.qdot[:1])
+    T, V = sc.energies(fin.q[:1], fin.qdot[:1])
+    return job, {"H": float(T[0] + V[0] - V0[0]),
+                 "y": torch.cat([fin.q, fin.qdot], -1).double().cpu(),
+                 "iterations": st["iterations"], "steps_max": int(st["steps"].max()),
+                 "accepted": int(st["accepted"].sum()), "seconds": sec}
+
+
+def ode45_jobs(B, device):
+    """Phase 29's ode45 jobs, the longest first: every certificate case
+    dense and recursive in float64, scene 5 and the float32 cases."""
+    jobs = []
+    for sid, (rec, _) in ODE45_CERTS.items():
+        jobs.append(("ode45", sid, "dense", "float64", B, device))
+        if rec is not None:
+            jobs.append(("ode45", sid, "recursive", "float64", B, device))
+        if sid in ODE45_F32:
+            jobs.append(("ode45", sid, "dense", "float32", B, device))
+        if sid == 23:
+            jobs.append(("ode45", 5, "dense", "float64", B, device))
+    return jobs
+
+
+def ode45_checks(results, B, device):
+    """Phase 29 (1)'s gates and readings from the pool's results."""
+    line = {}
+    for job, out in results.items():
+        _, sid, method, dt, _, _ = job
+        rate = out["accepted"] / out["seconds"]
+        label = f"mscene {sid} {method} {dt}"
+        entry = {"iterations": out["iterations"], "steps_max": out["steps_max"],
+                 "accepted_lane_steps": out["accepted"], "seconds": out["seconds"],
+                 "accepted_lane_steps_per_s": rate}
+        msg = (f"ode45 {label}, B {B}: {out['iterations']} controller iterations (a lane at most "
+               f"{out['steps_max']} steps), {out['accepted']} accepted lane-steps in "
+               f"{out['seconds']:.2f} s ({rate:.1f} lane-steps/s, in a pool of {ODE45_WORKERS})")
+        if dt == "float64":
+            cert = ODE45_SCENE5 if sid == 5 else ODE45_CERTS[sid][0 if method == "recursive"
+                                                                  else 1]
+            dH = abs(out["H"] - cert)
+            band = ODE45_LOOSE.get(sid, 1e-2)
+            entry["dH"] = dH
+            msg += f"; lane 0 H {out['H']!r} vs {cert!r}, |dH| {dH:.3e} (band {band})"
+            if not dH <= band:
+                raise AssertionError(f"ode45 {label}: certificate |dH| {dH} > {band}")
+        print(msg)
+        line[label] = entry
+    for sid in ODE45_CERTS:
+        run = lambda method, dt: results["ode45", sid, method, dt, B, device]["y"]
+        y, entry = run("dense", "float64"), line[f"mscene {sid} dense float64"]
+        pairs = []
+        if ODE45_CERTS[sid][0] is not None:
+            pairs.append(("recursive float64", run("recursive", "float64"), 1e-6,
+                          sid not in ODE45_LOOSE))
+        if sid in ODE45_F32:
+            pairs.append(("dense float32", run("dense", "float32"), 1e-3,
+                          sid not in ODE45_CHAOTIC))
+        for name, other, tol, gated in pairs:
+            err, _ = lane_err(other, y)
+            share = float((err <= tol).double().sum()) / B
+            p50, _, p99, mx = quantiles(err)
+            print(f"ode45 mscene {sid} {name} vs dense float64: final y diff of scale median "
+                  f"{p50:.3e}, p99 {p99:.3e}, max {mx:.3e}; {share:.4f} of lanes within {tol}"
+                  + (" (gated at 0.95)" if gated else " (reported)"))
+            entry[f"{name}_share_within_{tol}"] = share
+            if gated and share < 0.95:
+                raise AssertionError(f"ode45 mscene {sid}: {name} off the dense float64 run")
+    return line
+
+
+def pcg_per_step(label, sc, tol, gate, B, nsteps, device, scale_gate=False):
+    """The PCG tier in float64 against the dense Euler step, one step from
+    each state of the dense run (mzoo_state0's B lanes, nsteps): qdot equal
+    within gate (of the dense qdot's scale with scale_gate) on every lane
+    and step; returns the CG iterations' (max, mean) and the worst error."""
+    s0 = mzoo_state0(sc, B, device, torch.float64)
+    dense = integrators.make_euler_step(sc.topo, sc.force_fns, sc.constraint_fns)
+    tier = pcg.make_euler_pcg_step(sc.topo, sc.force_fns, sc.constraint_fns, tol=tol)
+    s, worst, its = s0, 0.0, []
+    for _ in range(nsteps):
+        want = dense(sc.params, s)
+        got = tier(sc.params, s)
+        its.append(pcg.pcg_stats["iters"])
+        scale = max(1.0, float(want.qdot.abs().max())) if scale_gate else 1.0
+        worst = max(worst, float((got.qdot - want.qdot).abs().max()) / scale)
+        s = want
+    its = torch.stack(its).double()
+    print(f"pcg {label} f64 (tol {tol}), B {B}, {nsteps} steps, one PCG step from each dense "
+          f"state: max |qdot - dense| {worst:.3e}{' of scale' if scale_gate else ''} (gate "
+          f"{gate}); CG iterations max {int(its.max())}, mean {float(its.mean()):.2f}")
+    if not worst <= gate:
+        raise AssertionError(f"pcg {label}: off the dense Euler step ({worst})")
+    return int(its.max()), float(its.mean()), worst
+
+
+def pcg_f32(label, make, B, nsteps, device, gate_f64):
+    """The PCG tier in float32 (PCG_F32_TOL, PCG_MAXIT) beside the dense
+    Euler step in float32, each a timed rollout of nsteps (CUDA events,
+    after a warm step), both against the float64 dense rollout; returns the
+    line's entry. gate_f64: hold the PCG rollout within 1e-3 of scale of
+    float64 on 95% of lanes (against_f64), else report both tiers' shares."""
+    sc64 = make().compile(dtype=torch.float64, device=device)
+    sc = make().compile(dtype=torch.float32, device=device)
+    s64 = mzoo_state0(sc64, B, device, torch.float64)
+    s32 = mzoo_state0(sc, B, device, torch.float32)
+    q64 = integrators.make_simulate(integrators.make_euler_step(sc64.topo, sc64.force_fns),
+                                    nsteps)(sc64.params, s64).q
+    dense = integrators.make_euler_step(sc.topo, sc.force_fns)
+    tier = pcg.make_euler_pcg_step(sc.topo, sc.force_fns, tol=PCG_F32_TOL, maxit=PCG_MAXIT)
+    dense(sc.params, s32)
+    tier(sc.params, s32)
+    torch.cuda.synchronize()
+    final_d, dt_d = timed_rollout(integrators.make_simulate(dense, nsteps), sc.params, s32, 1)
+    its = []
+
+    def rollout(params, s):
+        for _ in range(nsteps):
+            s = tier(params, s)
+            its.append(pcg.pcg_stats["iters"])
+        return s
+
+    final, dt = timed_rollout(rollout, sc.params, s32, 1)
+    its = torch.stack(its)
+    at_max = int((its >= PCG_MAXIT).sum())
+    finite = float((torch.isfinite(final.q) & torch.isfinite(final.qdot)).all(-1)
+                   .double().mean())
+    rates = B * nsteps / dt, B * nsteps / dt_d
+    print(f"pcg {label} f32 (tol {PCG_F32_TOL} on ||r||, maxit {PCG_MAXIT}), B {B}, {nsteps} "
+          f"steps: PCG {rates[0]:.1f} steps/s ({dt * 1e3 / nsteps:.3f} ms a step), dense Euler "
+          f"{rates[1]:.1f} steps/s ({dt_d * 1e3 / nsteps:.3f} ms a step); CG iterations max "
+          f"{int(its.max())}, mean {float(its.double().mean()):.2f}; {at_max} lane-steps at "
+          f"maxit; finite {finite:.4f}")
+    entry = {"pcg_steps_per_s": rates[0], "dense_steps_per_s": rates[1],
+             "cg_iters_max": int(its.max()), "cg_iters_mean": float(its.double().mean()),
+             "lane_steps_at_maxit": at_max, "finite_frac": finite}
+    if gate_f64:
+        entry["within_1e-3_of_f64"] = against_f64(f"pcg {label} f32", final.q, q64)
+    else:
+        for name, q in (("pcg", final.q), ("dense", final_d.q)):
+            err, _ = lane_err(q, q64)
+            share = float((err <= 1e-3).double().sum()) / B
+            p50, _, p99, mx = quantiles(err)
+            print(f"pcg {label} f32 {name} tier vs dense f64 (reported: float32 is off the "
+                  f"float64 run in both tiers): final q diff of scale median {p50:.3e}, p99 "
+                  f"{p99:.3e}, max {mx:.3e}; {share:.4f} of lanes within 1e-3")
+            entry[f"{name}_within_1e-3_of_f64"] = share
+    if finite < 1.0 or at_max:
+        raise AssertionError(f"pcg {label} f32: non-finite lanes or lanes at maxit")
+    return entry
+
+
+def pcg_f64_checks(device="cuda", B=1024, nsteps=20):
+    """Phase 29 (2), float64: the matrix-free PCG tier
+    (pcg.make_euler_pcg_step) one step from each state of the dense Euler
+    run (pcg_per_step)."""
+    line = {}
+    for label, make, tol, gate, of_scale in (
+            ("chain-30", lambda: scene_chain(30, damping=0.0).compile(device=device), 1e-6,
+             1e-8, False),
+            ("mscene 15", lambda: build_mscene(15, device=device), 1e-12, 1e-8, False),
+            ("chain-120", lambda: scene_chain(120).compile(device=device), 1e-6, 1e-6, True)):
+        # chain-120 in float64: 5 steps (its CG runs ~21 iterations a step)
+        its_max, its_mean, worst = pcg_per_step(label, make(), tol, gate, B,
+                                                5 if label == "chain-120" else nsteps, device,
+                                                of_scale)
+        if label == "chain-30" and its_max > 3:
+            raise AssertionError(f"pcg chain-30: {its_max} CG iterations, want <= 3 (the "
+                                 "preconditioner is exact for its pure-inertia LHS)")
+        line[f"{label} f64"] = {"max_qdot_diff": worst, "cg_iters_max": its_max,
+                                "cg_iters_mean": its_mean, "tol": tol}
+    return line
+
+
+def pcg_f32_rates(device="cuda", B=1024, nsteps=20):
+    """Phase 29 (2), float32: the PCG tier timed beside the dense Euler step
+    on chain-30 and chain-120 (pcg_f32)."""
+    return {f"{label} f32": pcg_f32(label, lambda: scene_chain(n), B, nsteps, device, gate_f64)
+            for label, n, gate_f64 in (("chain-30", 30, True), ("chain-120", 120, False))}
+
+
+def phase_mppi(device="cuda", S=1024, horizon=50, reps=3):
+    """Phase 29 (3): sampling MPC (mpc.make_mppi_solver_batched) at the main
+    path's configuration, the candidates as lanes of make_objective_batched
+    (the chord kernel, K1a); returns (launches of the timed solves, the
+    line's entry)."""
+    sc = scene_chain(12).compile(dtype=torch.float32, device=device)
+    task = mpc.PointPosTask(body=sc.topo.njoints - 1, wp=1.0, wreg=1e-6, pscale=1e3)
+    obj, obj_plain = (mpc.make_objective_batched(sc.topo, sc.force_fns, task, (0.5, 0.0, 0.0),
+                                                 horizon, CFG, use_kernel=uk)
+                      for uk in (None, False))
+    p0, targets = bench_inputs(sc.topo.nr, 1, device, torch.float32)
+    p0, tgt = p0[0], targets[0]
+    s0 = State(q=sc.state0.q, qdot=sc.state0.qdot)
+    solve = mpc.make_mppi_solver_batched(obj, n_samples=S, sigma=MPPI_SIGMA)
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    design = design_of(sc, sc.params)
+    solve(gen(0), sc.params, p0, s0, tgt)    # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for r in range(reps):
+        p_new, mean_cost = solve(gen(r), sc.params, p0, s0, tgt)
+    end.record()
+    torch.cuda.synchronize()
+    dt = start.elapsed_time(end) / 1e3 / reps
+    launches, other = launches_of(design), launches_of() - launches_of(design)
+    print(f"mppi chain-12 (sigma {MPPI_SIGMA}, {S} candidates, horizon {horizon}, f32): "
+          f"{1 / dt:.2f} MPPI solves/s ({dt * 1e3:.3f} ms a solve, {S / dt:.1f} rollouts/s); "
+          f"chord kernel launches {launches // reps} a solve on the {design} design, {other} on "
+          "the other")
+    if launches != (horizon - 1) * reps or other != 0:
+        raise AssertionError(f"mppi: {launches} launches of the {design} design in {reps} "
+                             f"solves and {other} of the other, want {horizon - 1} a solve")
+
+    # the same candidates through the kernel route and the op-level route
+    cand = mpc._candidates(gen(1), p0, S, MPPI_SIGMA)
+    lanes = lambda v: v.expand(S, *v.shape).contiguous()
+    s0b = State(q=lanes(s0.q), qdot=lanes(s0.qdot))
+    with torch.no_grad():
+        costs = obj(sc.params, cand, s0b, lanes(tgt))
+        reset_launches()
+        costs_plain = obj_plain(sc.params, cand, s0b, lanes(tgt))
+        plain_launches = launches_of()
+        cost_p0 = obj_plain(sc.params, p0[None], State(q=s0.q[None], qdot=s0.qdot[None]),
+                            tgt[None])[0]
+    fin, fin_p = torch.isfinite(costs), torch.isfinite(costs_plain)
+    both = fin & fin_p
+    rel = (costs.double() - costs_plain.double()).abs() / costs_plain.double().abs()
+    same = (both & (rel <= 1e-3)) | (~fin & ~fin_p)
+    agree = float(same.double().mean())
+    p_k, m_k = mpc._mppi_combine(costs, cand, p0, 1.0)
+    p_p, m_p = mpc._mppi_combine(costs_plain, cand, p0, 1.0)
+    dp_all = float((p_k - p_p).abs().max()) / max(1.0, float(p_p.abs().max()))
+    # At temperature 1 the weights follow exp(-cost) over costs tens apart,
+    # so the best few candidates carry the update, and the best are often
+    # the lanes a float32 rollout is most sensitive on (a lane off by rtol
+    # 1e-3 between two float32 orders can hold most of the weight): the
+    # update is held over the candidates whose costs agree, the full
+    # update's difference printed.
+    inf = torch.full_like(costs, float("inf"))
+    p_ks, _ = mpc._mppi_combine(torch.where(same, costs, inf), cand, p0, 1.0)
+    p_ps, _ = mpc._mppi_combine(torch.where(same, costs_plain, inf), cand, p0, 1.0)
+    dp = float((p_ks - p_ps).abs().max()) / max(1.0, float(p_ps.abs().max()))
+    rank = torch.argsort(torch.where(fin, costs, inf))
+    off = (~same[rank]).nonzero()
+    print(f"mppi same candidates: finite {float(fin.double().mean()):.4f} (op level "
+          f"{float(fin_p.double().mean()):.4f}); kernel-route cost within rtol 1e-3 of the "
+          f"op-level route's on {agree:.4f} of candidates (max rel {float(rel[both].max()):.3e}; "
+          f"the best-ranked of those off at rank {int(off[0]) if len(off) else None}); p_new "
+          f"diff {dp:.3e} of scale over the candidates that agree (gated at 1e-3), {dp_all:.3e} "
+          f"over all; mean cost {float(m_k):.6f} (op level {float(m_p):.6f}) vs cost of p0 "
+          f"{float(cost_p0):.6f}; op-level launches {plain_launches}")
+    if agree < 0.99 or dp > 1e-3 or plain_launches:
+        raise AssertionError("mppi: the kernel route's costs or update are off the op-level "
+                             "route's")
+    if not float(m_k) <= float(cost_p0):
+        raise AssertionError(f"mppi: mean cost {float(m_k)} above the cost of p0 "
+                             f"{float(cost_p0)}")
+
+    # the solvers' default sigma 0.3 (torques 300 N m): the failure masking on the card
+    wide = mpc._candidates(gen(2), p0, S, 0.3)
+    with torch.no_grad():
+        c_wide = obj(sc.params, wide, s0b, lanes(tgt))
+    p_w, m_w = mpc._mppi_combine(c_wide, wide, p0, 1.0)
+    fin_w = float(torch.isfinite(c_wide).double().mean())
+    print(f"mppi sigma 0.3: finite {fin_w:.4f} of candidates; mean cost {float(m_w)}; p_new "
+          f"{'= p0' if torch.allclose(p_w, p0, atol=1e-6) else 'moved'}")
+    if torch.isnan(p_w).any() or torch.isnan(m_w) or (fin_w == 0 and not (
+            torch.isinf(m_w) and torch.allclose(p_w, p0, atol=1e-6))):
+        raise AssertionError("mppi sigma 0.3: NaN, or all candidates diverged and the result "
+                             "is not p0 with an inf cost")
+    return launches, {"solves_per_s": 1 / dt, "candidates": S, "sigma": MPPI_SIGMA,
+                      "launches_per_solve": launches // reps, "design": design,
+                      "finite_frac": float(fin.double().mean()), "cost_agree_share": agree,
+                      "p_new_diff_of_scale": dp, "p_new_diff_of_scale_all": dp_all,
+                      "mean_cost": float(m_k),
+                      "cost_p0": float(cost_p0), "sigma_0.3_finite_frac": fin_w}
+
+
+def phase_explicit_tiers(device="cuda", B=1024, workers=ODE45_WORKERS):
+    """Phase 29: (3) MPPI on the chord kernel and (2) the PCG tier's float32
+    rates, each alone on the card; then (1) the ode45 certificates at B
+    lanes in a pool of workers processes on the card (inline with
+    workers = 0), beside it (2) the PCG tier's float64 checks; returns
+    (MPPI's kernel launches, the phase's JSON line)."""
+    t0 = time.perf_counter()
+    launches, mppi_line = phase_mppi(device)
+    t1 = time.perf_counter()
+    pcg_line = pcg_f32_rates(device, B)
+    t2 = time.perf_counter()
+    jobs = ode45_jobs(B, device)
+    if workers:
+        with torch.multiprocessing.get_context("spawn").Pool(workers) as pool:
+            pending = pool.map_async(ode45_job, jobs)
+            pcg_line.update(pcg_f64_checks(device, B))
+            t3 = time.perf_counter()
+            results = dict(pending.get(timeout=1000))
+    else:
+        pcg_line.update(pcg_f64_checks(device, B))
+        t3 = time.perf_counter()
+        results = dict(map(ode45_job, jobs))
+    ode45_line = ode45_checks(results, B, device)
+    t4 = time.perf_counter()
+    print(f"explicit tiers phase: {t4 - t0:.1f} s (MPPI {t1 - t0:.1f} s, the PCG tier's f32 "
+          f"rates {t2 - t1:.1f} s, then the ode45 pool of {workers} processes {t4 - t2:.1f} s, "
+          f"beside it the PCG tier's f64 checks {t3 - t2:.1f} s)")
+    return launches, {"ode45": ode45_line, "pcg": pcg_line, "mppi": mppi_line,
+                      "seconds": t4 - t0}
+
+
 def ptxas_kernels(report: str):
     """(kernel, registers, frame bytes, spill store bytes, spill load bytes)
     of each kernel in an nvcc -Xptxas -v report, the kernel named by its
@@ -2967,6 +3384,7 @@ def main():
     default_records = phase_default_route()
     zoo_records, zoo_line = phase_scene_zoo()
     mzoo_record, mzoo_line = phase_mscene_zoo()
+    mppi_launches, tiers_line = phase_explicit_tiers()
 
     kernels = [{
         # the cooperative design (a warp a lane), on the main path; the
@@ -3107,6 +3525,14 @@ def main():
         "name": "dual_pgs[mscene zoo 6]", "route": "cuda",
         "source": qp_source_of(mzoo_record), "replaces": "redmax_tpu/pallas_qp.py:40",
         **mzoo_record, "library_ms": None,
+    }, {
+        # phase 29: the main path's build (K1a, chain-12) under sampling MPC,
+        # 1024 candidates as its lanes; its times are phase 3's (the same
+        # build at the same shape); launches: the timed MPPI solves'
+        "name": "chord_bdf2[mppi]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
+        "replaces": "redmax_tpu/pallas_step.py:689",
+        **record, "launches": mppi_launches, "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {"solves_per_s": rate, "finite_frac": finite_frac,
@@ -3138,6 +3564,7 @@ def main():
     print(json.dumps({"coop_phases": {**coop_phases, "card": smi}}))
     print(json.dumps({"scene_zoo": {**zoo_line, "card": smi}}))
     print(json.dumps({"mscene_zoo": {**mzoo_line, "card": smi}}))
+    print(json.dumps({"explicit_tiers": {**tiers_line, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,16 +23,17 @@ import torch
 
 
 def batched_jacobian(res_fn: Callable, x):
-    """The exact per-lane Jacobian dg/dx [B, n, n] of a lane-separable
-    batched residual g = res_fn(x) [B, n] at x [B, n]: one reverse pass,
-    batched over the n unit cotangents e_i on every lane (lanes do not mix,
-    so row i of each lane is the gradient of g[:, i].sum()). Enables grad
-    locally on a detached x; returns a detached H."""
-    n = x.shape[-1]
+    """The exact per-lane Jacobian dg/dx [B, m, n] of a lane-separable
+    batched function g = res_fn(x) [B, m] at x [B, n] (a residual: m = n):
+    one reverse pass, batched over the m unit cotangents e_i on every lane
+    (lanes do not mix, so row i of each lane is the gradient of
+    g[:, i].sum()). Enables grad locally on a detached x; returns a
+    detached Jacobian."""
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         g = res_fn(xg)
-        eye = torch.eye(n, dtype=g.dtype, device=g.device)[:, None, :].expand(n, *g.shape)
+        m = g.shape[-1]
+        eye = torch.eye(m, dtype=g.dtype, device=g.device)[:, None, :].expand(m, *g.shape)
         (rows,) = torch.autograd.grad(g, xg, grad_outputs=eye, is_grads_batched=True)
     return rows.transpose(0, 1).detach()
 

@@ -744,7 +744,9 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0, aux=
     f0. h, I_i, g and body_damping may be per lane.
 
     Returns a dict: kin, J, Jdot, phi, Mr [B,nr,nr], frtilde [B,nr],
-    Mrtilde [B,nr,nr].
+    Mrtilde [B,nr,nr], and the pieces the matrix-free PCG tier applies
+    against J x: Kr, Dr (diagonals [B,nr]) and KDmJ = h J^T Dm J + h^2 J^T
+    Km J [B,nr,nr] of the force closures (None without closures).
     """
     h, h3 = lanewise(params["h"], 2), lanewise(params["h"], 3)
     B = q0.shape[0]
@@ -769,10 +771,12 @@ def euler_system(topo: Topology, force_fns: Tuple, params: Dict, q0, qdot0, aux=
     Mr = 0.5 * (Mr + Mr.transpose(-1, -2))
     frtilde = _mv(Mr, qdot0) + h * (_mv(Jt, f0_m - Ivec[..., 0] * _mv(Jdot, qdot0)) + f0_r)
     Mrtilde = Mr + h3 * (Jt @ (bd6[..., None] * J)) - torch.diag_embed(h * Dr + h * h * Kr)
+    KDmJ = None
     if force_fns:
         Mrtilde = Mrtilde - h3 * DmJ - h3 * h3 * KmJ
+        KDmJ = h3 * DmJ + h3 * h3 * KmJ
     return {"kin": kin, "J": J, "Jdot": Jdot, "phi": phi,
-            "Mr": Mr, "frtilde": frtilde, "Mrtilde": Mrtilde}
+            "Mr": Mr, "frtilde": frtilde, "Mrtilde": Mrtilde, "Kr": Kr, "Dr": Dr, "KDmJ": KDmJ}
 
 
 def euler_qp_system(topo, force_fns, constraint_fns, params, q0, qdot0, aux=None):

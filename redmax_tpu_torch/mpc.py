@@ -10,8 +10,8 @@ the reference's adjoint driver, driverRedMaxAdjointBDF1.m:15-62) and the
 batched one (the *_batched functions: P [B, nr], BDF2 on the kernel route
 where the scene qualifies). Lanes are independent: the gradient of the sum
 of the lane objectives is the per-lane gradient, and a diverged (NaN) lane
-poisons only its own rows of P. The L-BFGS and MPPI solvers are not ported
-yet (they raise).
+poisons only its own rows of P. The sampling MPPI solvers take both forms;
+the L-BFGS solver is not ported yet (it raises).
 """
 
 from dataclasses import dataclass
@@ -207,8 +207,9 @@ def make_mpc_solver(objective_fn: Callable, iters: int = 1, lr: float = 1e-2,
     method "adam" (optax.adam's defaults); "lbfgs", the reference's
     fminunc quasi-Newton coupling, is not ported yet."""
     if method == "lbfgs":
-        raise NotImplementedError("make_mpc_solver(method='lbfgs') is not ported yet "
-                                  "(the L-BFGS solver; method='adam' is)")
+        raise NotImplementedError("make_mpc_solver(method='lbfgs') is not ported yet: the "
+                                  "L-BFGS solver (optax.lbfgs with its zoom line search) "
+                                  "comes with parallel.py; method='adam' is ported")
     if method != "adam":
         raise ValueError(method)
     return _adam_solver(objective_fn, iters, lr)
@@ -219,10 +220,72 @@ def make_mpc_solver_batched(objective_fn: Callable, iters: int = 1, lr: float = 
     return _adam_solver(objective_fn, iters, lr)
 
 
-def make_mppi_solver(*args, **kwargs):
-    raise NotImplementedError("make_mppi_solver is not ported yet (the sampling MPPI solver)")
+def _mppi_combine(costs, cand, p0, temperature):
+    """Softmax-average the candidates cand [S, ...] by their costs [S], with
+    per-candidate failure masking: a diverged (non-finite) candidate gets
+    weight 0; if every candidate diverged, the result is p0 with an inf
+    cost (never NaN). Returns (p_new, mean_cost)."""
+    finite = torch.isfinite(costs)
+    costs = torch.where(finite, costs, torch.full_like(costs, float("inf")))
+    any_ok = finite.any()
+    w = torch.softmax(torch.where(any_ok, -costs / temperature, torch.zeros_like(costs)), dim=0)
+    cand = torch.where(any_ok, cand, p0[None])
+    p_new = torch.einsum("s,s...->...", w, cand)
+    # A masked candidate's weight is exactly 0 but its cost is inf, and
+    # 0 * inf = NaN: sum only the finite ones.
+    mean_cost = torch.where(finite, w * costs, torch.zeros_like(costs)).sum()
+    return p_new, torch.where(any_ok, mean_cost, torch.full_like(mean_cost, float("inf")))
 
 
-def make_mppi_solver_batched(*args, **kwargs):
-    raise NotImplementedError("make_mppi_solver_batched is not ported yet "
-                              "(the sampling MPPI solver)")
+def _candidates(generator, p0, n_samples: int, sigma: float):
+    """p0 + sigma N(0, 1) [n_samples, ...], drawn on the generator's device."""
+    eps = torch.randn((n_samples,) + tuple(p0.shape), generator=generator, dtype=p0.dtype,
+                      device=generator.device)
+    return p0[None] + sigma * eps.to(p0.device)
+
+
+def make_mppi_solver(rollout_cost: Callable, n_samples: int = 256, sigma: float = 0.3,
+                     temperature: float = 1.0):
+    """Sampling MPC (MPPI) over an unbatched cost: perturb p0 with Gaussian
+    noise, roll out every candidate, softmax-average by cost.
+
+    rollout_cost(params, p [nr], state0, x_target) -> scalar (make_objective).
+    Returns solve(generator, params, p0 [nr], state0, x_target) -> (p_new
+    [nr], mean_cost); generator (a torch.Generator) takes the place of the
+    JAX package's key. The candidates run one after another as lanes of
+    the lane-of-one objective, with gradients off (MPPI takes none);
+    make_mppi_solver_batched runs them as the lanes of one batch.
+    """
+
+    def solve(generator, params: Dict, p0, state0: State, x_target):
+        cand = _candidates(generator, p0, n_samples, sigma)
+        with torch.no_grad():
+            costs = torch.stack([rollout_cost(params, p, state0, x_target) for p in cand])
+        return _mppi_combine(costs, cand, p0, temperature)
+
+    return solve
+
+
+def make_mppi_solver_batched(objective_batched: Callable, n_samples: int = 256,
+                             sigma: float = 0.3, temperature: float = 1.0):
+    """MPPI over an explicitly batched objective (make_objective_batched):
+    the candidates are the batch's lanes, so on the card the rollouts run
+    on the chord kernel where the scene takes it.
+
+    objective_batched(params, P [S, nr], state0 [S, ...], x_targets [S, 3])
+    -> costs [S]. Returns solve(generator, params, p0 [nr], state0
+    (unbatched), x_target [3]) -> (p_new [nr], mean_cost): make_mppi_solver's
+    result for the same generator state.
+    """
+
+    def solve(generator, params: Dict, p0, state0: State, x_target):
+        cand = _candidates(generator, p0, n_samples, sigma)
+        lanes = lambda v: v.expand(n_samples, *v.shape).contiguous()
+        s0 = State(q=lanes(state0.q), qdot=lanes(state0.qdot),
+                   aux={k: lanes(v) for k, v in state0.aux.items()})
+        tgts = lanes(x_target)
+        with torch.no_grad():
+            costs = objective_batched(params, cand, s0, tgts)
+        return _mppi_combine(costs, cand, p0, temperature)
+
+    return solve

@@ -80,6 +80,19 @@ class Topology:
     qstart: Tuple[int, ...]       # offset of each joint's DOFs in the flat q
     ndof: Tuple[int, ...]         # DOFs per joint
 
+    @property
+    def levels(self) -> Tuple[Tuple[int, ...], ...]:
+        """Joints grouped by tree depth (parents before children, so each
+        level's parents lie in the level before); the joints of one level
+        are independent of one another."""
+        depth = [0] * self.njoints
+        for i, p in enumerate(self.parent):
+            depth[i] = 0 if p < 0 else depth[p] + 1
+        out: List[List[int]] = [[] for _ in range(max(depth) + 1)]
+        for i, d in enumerate(depth):
+            out[d].append(i)
+        return tuple(tuple(l) for l in out)
+
     def ancestor_mask(self) -> np.ndarray:
         """anc[i, a] = 1.0 iff joint a is an ancestor of i or i itself."""
         n = self.njoints

@@ -223,7 +223,7 @@ def test_closures_waiting_for_later_items_raise():
     blocks would need autodiff (no closed form, implicit_KD left True)
     raises in the assembly; the chord kernel refuses the closures it has no
     branch for (SpringDamperM, ForcePointDirection, ForceDeformableSegments);
-    the L-BFGS and MPPI solvers are still to come."""
+    the L-BFGS solver is still to come (the MPPI solvers are ported)."""
     for name in ("SpringDamperM", "ForcePointDirection", "ForceDeformableSegments"):
         assert getattr(tforces, name).implicit_KD is False
     with pytest.raises(NotImplementedError, match="implicit_KD"):
@@ -237,8 +237,7 @@ def test_closures_waiting_for_later_items_raise():
         assert not chord_kernel.supports(sc.topo, sc.force_fns, cfg), sid
     with pytest.raises(NotImplementedError, match="L-BFGS"):
         mpc.make_mpc_solver(None, method="lbfgs")
-    with pytest.raises(NotImplementedError, match="MPPI"):
-        mpc.make_mppi_solver_batched()
+    assert callable(mpc.make_mppi_solver_batched(None))     # ported (test_torch_mppi.py)
     b = tscene.SceneBuilder()
     b.body_sphere(1.0, 0.1)
     with pytest.raises(ValueError, match="cuboid"):
