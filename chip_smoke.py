@@ -228,12 +228,30 @@ Phases (any failure is an exception and a non-zero exit):
      candidates, the update within 1e-3 of scale, the mean cost not above
      p0's; MPPI solves/s; at sigma 0.3 the failure masking; prints
      explicit_tiers;
- 30. print the kernels line (every row with its design, threads a lane and
+ 30. the friction zoo (phase_friction_zoo): mscenes 27-31 and 33 through
+     make_step("euler_fric") (staggered projections, friction.py) and
+     make_simulate (scene_fn_33 for 33): (1) float64 for the full nsteps at
+     B = FRIC_B64 (mzoo_state0 lanes), lane 0's certificate in the band of
+     tests/test_friction.py (1e-2 absolute for 28, 29, 31; 7%, 15% and 3%
+     relative for 27, 30, 33), the staggered-projections iterations of each
+     step (max and mean over lanes) printed; (2) float32 at B = 1024 for
+     min(nsteps, 50) steps (2 for the 4-bars 30 and 33), timed (CUDA events
+     after a warm step), finite
+     share, the K3 kernel (pgs_kernel.pgs_sweeps, csrc/pgs_sweeps.cu: the
+     port's own, replacing the op-level sweeps) launched once for each sweep
+     solve of the rollout and never on the CPU, the per-step share against
+     float64 held at 0.95; (3) K3 against its plain version (qp.pgs_sweeps)
+     on real solves at 3000 sweeps, float64 and float32: mscene 27's and
+     mscene 30's friction passes (T^T b within 1e-10 / 2e-4 of scale) and
+     mscene 33's first QP (x), each with a lane not active and a NaN lane,
+     timed (CUDA graph and events) beside the plain version and the bound;
+     prints friction_zoo;
+ 31. print the kernels line (every row with its design, threads a lane and
      lanes a block; the cooperative rows, the QP's among them, with the
      thread-per-lane build's time of this run), the paths' lines
-     (robust_path, backward_modes, coop_phases, scene_zoo, mscene_zoo and
-     explicit_tiers among them), the card's name and power limit, and the
-     result line.
+     (robust_path, backward_modes, coop_phases, scene_zoo, mscene_zoo,
+     explicit_tiers and friction_zoo among them), the card's name and power
+     limit, and the result line.
 
 Every MPC path, the cable rollout and the per-lane rollouts read the launch
 counter of the chord kernel design the wrapper routes them to (design_of)
@@ -256,8 +274,8 @@ import time
 import numpy as np
 import torch
 
-from redmax_tpu_torch import (chord_kernel, explicit, forces, integrators, model, mpc, pcg,
-                              qp_kernel, scenes_matlab)
+from redmax_tpu_torch import (chord_kernel, explicit, forces, friction, integrators, model, mpc,
+                              pcg, pgs_kernel, qp, qp_kernel, scenes_matlab)
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.euler import DEFAULT_CHART
 from redmax_tpu_torch.scenes import (SCENES, build_scene, scene_00_serial_chain,
@@ -2584,8 +2602,8 @@ def phase_scene_zoo(device="cuda", B=1024, reps=3):
 
 
 # phase 28's cases: every case of scenes_matlab.M_SCENES but the friction
-# ones (frictional stepping is not ported) and the two that read the
-# reference's OBJ meshes (not in this repository)
+# ones (their step is euler_fric, which phase 30 runs) and the two that read
+# the reference's OBJ meshes (not in this repository)
 MZOO = tuple(sorted(set(scenes_matlab.M_SCENES) - set(scenes_matlab.FRICTION)
                     - set(scenes_matlab.OBJ_CASES)))
 # f32 steps a case: min(nsteps, MZOO_F32_STEPS)
@@ -2603,13 +2621,15 @@ def mzoo_state0(sc, B, device, dtype, seed=0):
     return State(q=t(np.broadcast_to(q0, qd.shape).copy()), qdot=t(qd))
 
 
-def per_step_share(sc, step, scene_fn, s0_64, hist64, K):
+def per_step_share(sc, step, scene_fn, s0_64, hist64, K, fbm64=None):
     """(share of q, share of qdot): the worst over steps k < K of the share of
     lanes whose float32 step from the float64 run's state k lies within 1e-3
     of scale (the f64 state's largest magnitude at k + 1, at least 1) of the
     float64 state k + 1. The K steps' lanes go as one batch of K B lanes,
     each with the scene function's params at its own end time (k + 1) h;
-    that batch (float32) is returned too."""
+    that batch (float32) is returned too. fbm64: the friction step's warm
+    starts aux["fbm"] [nsteps, B, 6N] of the float64 run (after each step;
+    zeros before the first), which the float32 step then starts from."""
     q64, qd64 = hist64
     B, nr = s0_64.q.shape
     qs = torch.cat([s0_64.q[None], q64[:K - 1]]).reshape(K * B, nr)
@@ -2618,7 +2638,11 @@ def per_step_share(sc, step, scene_fn, s0_64, hist64, K):
     if scene_fn is not None:
         k = torch.arange(1, K + 1, device=qs.device, dtype=params["h"].dtype)
         params = scene_fn(params, (k * params["h"]).repeat_interleave(B))
-    lanes = State(q=qs.float(), qdot=qds.float())
+    aux = {}
+    if fbm64 is not None:
+        fbm = torch.cat([torch.zeros_like(fbm64[:1]), fbm64[:K - 1]])
+        aux = {"fbm": fbm.reshape(K * B, -1).float()}
+    lanes = State(q=qs.float(), qdot=qds.float(), aux=aux)
     out = step(params, lanes)
     shares = []
     for got, want in ((out.q, q64[:K]), (out.qdot, qd64[:K])):
@@ -3115,6 +3139,384 @@ def phase_explicit_tiers(device="cuda", B=1024, workers=ODE45_WORKERS):
                       "seconds": t4 - t0}
 
 
+# ---------------------------------------------------------------------------
+# Staggered-projections friction (friction.py) and its sweeps kernel (K3)
+# ---------------------------------------------------------------------------
+
+
+# phase 30's cases, each with the band of tests/test_friction.py that lane
+# 0's certificate keeps: ("abs", |H - Hexpected|) or ("rel", |H / Hexpected - 1|)
+FRIC_BANDS = {27: ("rel", 0.07), 28: ("abs", 1e-2), 29: ("abs", 1e-2), 30: ("rel", 0.15),
+              31: ("abs", 1e-2), 33: ("rel", 0.03)}
+# lanes of each case's float64 certificate rollout: 1024, and 512 for the
+# 4-bars, whose K3 solves (m = 80 and 72, a lane's D 52 and 42 KB of shared
+# memory) take two waves at 1024 lanes (phase 30 took 137 s on mscene 33's
+# float64 rollout at 1024)
+FRIC_B64 = {27: 1024, 28: 1024, 29: 1024, 30: 512, 31: 1024, 33: 512}
+# the cases whose float64 rollouts run in a pool of processes on the card,
+# beside the rest of the phase (the two longest: alone on an H100, mscene
+# 33's took 81.1 s and 30's 18.6 s)
+FRIC_POOLED = (33, 30)
+# float32 steps of each case (min(nsteps, 50) at FRIC_B32 lanes), shorter
+# for the 4-bars, whose float32 staggered projections run sp_iter_max = 100
+# iterations at most steps (3.9 and 4.1 s a step), as JAX's own float32 step
+# does (scripts/f32_departures.py friction 30); and the lanes of the
+# float64 run whose steps the per-step share re-runs in float32
+FRIC_F32_STEPS = {27: 50, 28: 50, 29: 50, 30: 2, 31: 50, 33: 2}
+FRIC_B32 = 1024
+FRIC_SHARE_LANES = 128
+# cases whose float32 step cannot hold 95% of lanes within 1e-3 of scale of
+# the float64 step, or whose float32 lanes go NaN: held on the printed
+# shares (ROADMAP.md queue 3 item 3). The JAX package's own float32 step
+# departs from its float64 one as far and loses lanes too
+# (scripts/f32_departures.py friction, friction_finite).
+FRIC_F32_HELD = (27, 28, 29, 30, 33)
+# K3 against its plain version: (label, case, which solve of a step),
+# "friction" the first friction pass, "qp" the first dual QP
+K3_CASES = (("friction mscene 27", 27, "friction"), ("friction mscene 30", 30, "friction"),
+            ("qp mscene 33", 33, "qp"))
+# H100 SXM peak float64 rate outside the tensor cores (NVIDIA data sheet)
+PEAK_F64_FLOPS = 34e12
+
+
+def fric_rollout(sc, step, fn, s0, nsteps):
+    """make_simulate of the euler_fric step for nsteps from s0, recording
+    each step's q, qdot and aux["fbm"]; returns (final, (q [nsteps, B, nr],
+    qdot), fbm [nsteps, B, 6N], per-step staggered-projections iterations
+    [nsteps, B], the K3 sweep solves the rollout asked for)."""
+    fbms, its, solves = [], [], [0]
+
+    def rec(params, s):
+        out = step(params, s)
+        fbms.append(out.aux["fbm"])
+        its.append(step.stats["sp_iters"])
+        solves[0] += step.stats["sweep_solves"]
+        return out
+
+    final, hist = integrators.make_simulate(rec, nsteps, record=True, scene_fn=fn)(sc.params, s0)
+    return final, hist, torch.stack(fbms), torch.stack(its), solves[0]
+
+
+def fric_H(sc, s0, final):
+    """Lane 0's H = T + V - V0 after the rollout."""
+    _, V0 = sc.energies(s0.q[:1], s0.qdot[:1])
+    T1, V1 = sc.energies(final.q[:1], final.qdot[:1])
+    return float(T1[0] + V1[0] - V0[0])
+
+
+def band_ok(sid, H, expected):
+    kind, tol = FRIC_BANDS[sid]
+    err = abs(H - expected) if kind == "abs" else abs(H - expected) / abs(expected)
+    return err, err <= tol
+
+
+def k3_flops(m, iters):
+    """Floating-point operations of one lane of K3, counted from its loop: a
+    row update is a dot of m (2m), the residual (3), the division and the
+    clip's two compares (3)."""
+    return iters * m * (2 * m + 6)
+
+
+def k3_inputs(sc, step, params, state, kind):
+    """K3's inputs (D, r, lo, hi, reg) of the first solve of `kind` in one
+    step from state, with what turns its lambda into the output that
+    matters: ("friction", T [B, nt, 6N]) for the friction pass (its wrench
+    is T^T b), ("qp", (Hf, HinvAT)) for a dual QP (x = Hf - HinvAT lam)."""
+    caps, duals = [], []
+    k3, solve = pgs_kernel.pgs_sweeps, friction._Dual.solve
+
+    def spy_k3(D, r, lo, hi, iters, reg, active=None):
+        caps.append((D, r, lo, hi, reg))
+        return k3(D, r, lo, hi, iters, reg, active)
+
+    def spy_solve(self, f, active=None):
+        duals.append((self, f, len(caps)))
+        return solve(self, f, active)
+
+    pgs_kernel.pgs_sweeps, friction._Dual.solve = spy_k3, spy_solve
+    try:
+        step(params, state)
+    finally:
+        pgs_kernel.pgs_sweeps, friction._Dual.solve = k3, solve
+    if kind == "qp":
+        dual, f, at = duals[0]
+        Hf = torch.linalg.lu_solve(*dual.lu, f[..., None])[..., 0]
+        return caps[at], ("qp", (Hf, dual.HinvAT))
+    first = next(c for c in caps if c[4] == friction.FRICTION_REG)
+    kin = model.forward_kinematics(sc.topo, params, state.q, state.qdot, state.aux)
+    T = friction.tangent_matrix(sc.friction_model, sc.topo, kin, params, state.q, state.qdot)
+    return first, ("friction", T)
+
+
+def k3_output(how, lam):
+    kind, data = how
+    if kind == "friction":
+        return (data.transpose(-1, -2) @ lam[..., None])[..., 0]
+    Hf, HinvAT = data
+    return Hf - (HinvAT @ lam[..., None])[..., 0]
+
+
+def k3_check(label, sc, step, params, state, kind, smi, iters=3000):
+    """K3 against its plain version (qp.pgs_sweeps) on the inputs of a real
+    solve of the step at state's lanes, at iters sweeps (the plain version
+    replayed from a CUDA graph of one sweep, held bit for bit against its
+    launched run at m <= 8), with lane 1 not active and lane 2 NaN
+    (r[2, 0]): the output that matters (k3_inputs)
+    within 1e-10 of scale in float64 and 2e-4 in float32 on the active lanes
+    whose inputs hold no NaN, the inactive lane 1 at 0 in both, every lane with
+    NaN inputs NaN in both; then K3 timed (CUDA graph and CUDA
+    events) beside its plain version's one timed run and its bound. Returns
+    the kernel record fields."""
+    (D, r, lo, hi, reg), how = k3_inputs(sc, step, params, state, kind)
+    B, m = r.shape
+    r = r.clone()
+    r[2, 0] = float("nan")
+    active = torch.ones(B, dtype=torch.bool, device=r.device)
+    active[1] = False
+    run = lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg, active)
+    lam = run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    lam_ref = qp.pgs_sweeps(D, r, lo, hi, iters, reg, active, graph=True)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if m <= 8:   # the graph replays the plain version's own kernels: bit for bit
+        again = qp.pgs_sweeps(D, r, lo, hi, iters, reg, active)
+        if not ((again == lam_ref) | (again.isnan() & lam_ref.isnan())).all():
+            raise AssertionError(f"K3 {label}: the plain version's graph replay differs")
+    out, ref = k3_output(how, lam), k3_output(how, lam_ref)
+    # lanes held to the tolerance: every active one whose inputs hold no NaN
+    # (a float32 rollout's diverged lanes come NaN; they and lane 2 must come
+    # out NaN in both)
+    ok_in = ~(D.isnan().flatten(1).any(1) | r.isnan().any(1) | lo.isnan().any(1)
+              | hi.isnan().any(1))
+    keep = ok_in & active
+    if (torch.isnan(out) != torch.isnan(ref))[active].any():
+        raise AssertionError(f"K3 {label} {D.dtype}: NaN where the plain version has none")
+    scale = max(1.0, float(ref[keep].abs().max()))
+    err = float((out[keep] - ref[keep]).abs().max())
+    tol = 1e-10 if D.dtype == torch.float64 else 2e-4
+    if not err <= tol * scale:
+        raise AssertionError(f"K3 {label} {D.dtype}: max |d out| {err} of scale {scale}")
+    if lam[1].abs().max() != 0 or lam_ref[1].abs().max() != 0:
+        raise AssertionError(f"K3 {label}: the inactive lane was swept")
+    if torch.isfinite(lam[2]).any() or torch.isfinite(lam_ref[2]).any():
+        raise AssertionError(f"K3 {label}: the NaN lane came out finite")
+    dsize = D.element_size()
+    reps = 200 if m <= 8 else 20
+    ms = graph_ms(lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg), reps=reps)
+    events_ms = cuda_ms(lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg), reps=reps)
+    flops = k3_flops(m, iters) * B
+    nbytes = dsize * B * (m * m + 4 * m)
+    peak = PEAK_F64_FLOPS if D.dtype == torch.float64 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    smem, shared_d = pgs_kernel.layout(m, D.dtype)
+    print(f"K3 {label} {str(D.dtype)[6:]} (m {m}, B {B}, {iters} sweeps, reg {reg:g}): max |d "
+          f"out| {err:.3e} of scale {scale:.3e} (tol {tol:g}) on {int(keep.sum())} lanes; the "
+          f"inactive lane 1 at 0 and every lane with NaN inputs NaN in both ({int((~ok_in).sum())} "
+          f"such lanes); kernel {ms:.4f} ms ({reps} launches in a CUDA graph), {events_ms:.4f} ms "
+          f"(CUDA events), plain {plain_ms:.1f} ms (one sweep's CUDA graph, replayed); bound "
+          f"{bound:.4f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops:.3e} flops, {nbytes} "
+          f"bytes), kernel at {bound / ms:.2%} of it; {ms * 1e6 / (iters * m):.1f} ns a row "
+          f"update of the lane's chain; {smem} bytes of shared memory a lane "
+          f"(D {'in shared memory' if shared_d else 'read from device memory'}); card {smi}")
+    return {"max_abs_err": err, "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "m": m, "B": B, "dtype": str(D.dtype)[6:], "reps": reps,
+            "design": "warp_per_lane", "threads_per_lane": 32, "lanes_per_block": 1}
+
+
+def fric64(sid, device):
+    """The float64 certificate rollout of friction case sid at FRIC_B64 lanes
+    (mzoo_state0) for its full nsteps: a dict of its readings, the first
+    FRIC_SHARE_LANES lanes' history (q, qdot, fbm after each step) and the
+    final state, on the CPU."""
+    ts = time.perf_counter()
+    fn = scenes_matlab.SCENE_FNS.get(sid)
+    sc64 = build_mscene(sid, dtype=torch.float64, device=device)
+    s64 = mzoo_state0(sc64, FRIC_B64[sid], device, torch.float64)
+    step64 = sc64.make_step("euler_fric")
+    pgs_kernel.pgs_sweeps_launches = pgs_kernel.pgs_sweeps_host_runs = 0
+    final64, hist64, fbm64, its64, solves64 = fric_rollout(sc64, step64, fn, s64, sc64.nsteps)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    n, cpu = FRIC_SHARE_LANES, lambda a: a.detach().cpu()
+    H = fric_H(sc64, s64, final64)
+    return {"H": H, "seconds": time.perf_counter() - ts,
+            "launches": (pgs_kernel.pgs_sweeps_launches, pgs_kernel.pgs_sweeps_host_runs),
+            "solves": solves64, "its_max": its64.amax(1).tolist(),
+            "its_mean": [round(float(v), 2) for v in its64.double().mean(1)],
+            "hist": (cpu(hist64[0][:, :n]), cpu(hist64[1][:, :n])), "fbm": cpu(fbm64[:, :n]),
+            "final": (cpu(final64.q), cpu(final64.qdot), cpu(final64.aux["fbm"]))}
+
+
+def fric64_job(job):
+    """A worker of phase 30's pool: ("fric64", sid, device) -> (sid, fric64)."""
+    torch.set_num_threads(1)   # a worker's host work is small launches
+    return job[1], fric64(job[1], job[2])
+
+
+def fric_want(device, n):
+    """K3's (launches, CPU runs) for n sweep solves: every one on the card (a
+    CPU rehearsal's on the g++ build)."""
+    return (n, 0) if device != "cpu" else (0, n)
+
+
+def fric32(sid, device):
+    """The float32 rollout of friction case sid at FRIC_B32 lanes for
+    min(nsteps, FRIC_F32_STEPS[sid]) steps, timed by CUDA events after a
+    warm step on 8 lanes: a dict of the scene, its step, the final state and
+    the readings; K3 launched once for each sweep solve and no CPU run."""
+    fn = scenes_matlab.SCENE_FNS.get(sid)
+    sc = build_mscene(sid, dtype=torch.float32, device=device)
+    K = min(sc.nsteps, FRIC_F32_STEPS[sid])
+    step = sc.make_step("euler_fric")
+    s32 = mzoo_state0(sc, FRIC_B32, device, torch.float32)
+    warm = State(q=s32.q[:8], qdot=s32.qdot[:8])
+    step(fn(sc.params, sc.params["h"]) if fn else sc.params, warm)
+    torch.cuda.synchronize()
+    pgs_kernel.pgs_sweeps_launches = pgs_kernel.pgs_sweeps_host_runs = 0
+    solves = [0]
+
+    def counted(params, s):
+        out = step(params, s)
+        solves[0] += step.stats["sweep_solves"]
+        return out
+
+    final, dt = timed_rollout(integrators.make_simulate(counted, K, scene_fn=fn), sc.params,
+                              s32, 1)
+    l32 = (pgs_kernel.pgs_sweeps_launches, pgs_kernel.pgs_sweeps_host_runs)
+    finite = float((torch.isfinite(final.q) & torch.isfinite(final.qdot)).all(-1)
+                   .double().mean())
+    if l32 != fric_want(device, solves[0]) or solves[0] == 0:
+        raise AssertionError(f"mscene {sid} f32: K3 launches {l32}, want "
+                             f"{fric_want(device, solves[0])}")
+    return {"sc": sc, "step": step, "final": final, "K": K, "dt": dt, "finite": finite,
+            "launches": l32[0] + l32[1], "solves": solves[0]}
+
+
+def fric_case(sid, device, smi, res, r32, line):
+    """Phase 30's checks of friction case sid: its float64 certificate
+    rollout res (fric64) and float32 rollout r32 (fric32), and the float32
+    step against float64 per step (per_step_share); fills line[sid] and
+    returns the float64 scene, step and final state for the K3 checks."""
+    fn = scenes_matlab.SCENE_FNS.get(sid)
+    sc64 = build_mscene(sid, dtype=torch.float64, device=device)
+    step64 = sc64.make_step("euler_fric")
+    B64, t64, H = FRIC_B64[sid], res["seconds"], res["H"]
+    l64, solves64 = res["launches"], res["solves"]
+    its_max, its_mean = res["its_max"], res["its_mean"]
+    dev = lambda a: a.to(device)
+    hist64, fbm64 = tuple(map(dev, res["hist"])), dev(res["fbm"])
+    fq, fqd, ffbm = map(dev, res["final"])
+    final64 = State(q=fq, qdot=fqd, aux={"fbm": ffbm})
+    s64 = mzoo_state0(sc64, FRIC_SHARE_LANES, device, torch.float64)
+    err, ok = band_ok(sid, H, sc64.Hexpected["euler_fric"])
+    counts = friction.row_counts(sc64.friction_model)
+    print(f"mscene {sid} ({sc64.name}; N {sc64.topo.njoints}, nr {sc64.topo.nr}, {counts}"
+          f"{', scene_fn' if fn else ''}): f64 {sc64.nsteps} steps at B {B64} in {t64:.1f} s"
+          f"{' (in the pool)' if sid in FRIC_POOLED else ''}, lane 0 H {H!r} vs "
+          f"{sc64.Hexpected['euler_fric']!r}, {FRIC_BANDS[sid][0]} err {err:.3e} (band "
+          f"{FRIC_BANDS[sid][1]:g}); K3 launches {l64[0]} for {solves64} sweep solves, CPU runs "
+          f"{l64[1]}")
+    print(f"mscene {sid} f64 staggered-projections iterations a step, max over lanes: "
+          f"{its_max}")
+    print(f"mscene {sid} f64 staggered-projections iterations a step, mean over lanes: "
+          f"{its_mean}")
+    if not ok:
+        raise AssertionError(f"mscene {sid}: certificate off its band ({H} vs "
+                             f"{sc64.Hexpected['euler_fric']})")
+    if tuple(l64) != fric_want(device, solves64):
+        raise AssertionError(f"mscene {sid} f64: K3 launches {l64}, want "
+                             f"{fric_want(device, solves64)}")
+
+    sc, step, K, dt, finite = r32["sc"], r32["step"], r32["K"], r32["dt"], r32["finite"]
+    n = FRIC_SHARE_LANES
+    (share_q, share_qd), lanes = per_step_share(sc, step, fn, s64, hist64, K, fbm64=fbm64)
+    q1 = step(sc.params if fn is None else fn(sc.params, sc.params["h"] * torch.arange(
+        1, K + 1, device=device, dtype=sc.params["h"].dtype).repeat_interleave(n)), lanes).q
+    err_q = (q1.reshape(K, n, -1).double() - hist64[0][:K, :n]).abs().amax(-1) / \
+        hist64[0][:K, :n].abs().amax((1, 2)).clamp(min=1.0)[:, None]
+    q_p50, _, q_p99, q_max = quantiles(err_q.flatten())
+    share_q2 = float((err_q <= 1e-2).double().mean(1).min())
+    print(f"mscene {sid} f32 {K} steps at B {FRIC_B32}: {FRIC_B32 * K / dt:.1f} steps/s "
+          f"({dt * 1e3 / K:.3f} ms a step), finite {finite:.4f}; K3 launches {r32['launches']} "
+          f"for {r32['solves']} sweep solves; per step vs f64 ({n} lanes): q {share_q:.4f}, qdot "
+          f"{share_qd:.4f} of lanes within 1e-3 (worst step); q within 1e-2 {share_q2:.4f}; q "
+          f"off of scale median {q_p50:.3e}, p99 {q_p99:.3e}, max {q_max:.3e}"
+          f"{' (held on the printed share)' if sid in FRIC_F32_HELD else ''}; card {smi}")
+    if sid not in FRIC_F32_HELD and (share_q < 0.95 or finite < 0.95):
+        raise AssertionError(f"mscene {sid}: f32 steps off the f64 run ({share_q}) or "
+                             f"finite share {finite}")
+    line[str(sid)] = {
+        "H": H, "band_err": err, "f64_B": B64, "f64_steps": sc64.nsteps,
+        "f64_seconds": t64, "sp_iters_max": its_max, "sp_iters_mean": its_mean,
+        "f32_steps": K, "f32_steps_per_s": FRIC_B32 * K / dt, "f32_finite_frac": finite,
+        "f32_per_step_share_q": share_q, "f32_per_step_share_qdot": share_qd,
+        "f32_per_step_share_q_1e-2": share_q2, "f32_q_err_median": q_p50,
+        "f32_q_err_max": q_max, "f32_held": sid in FRIC_F32_HELD,
+        "k3_launches": {"float64": l64[0] + l64[1], "float32": r32["launches"]},
+        "rows": counts}
+    return sc64, step64, final64
+
+
+def phase_friction_zoo(device="cuda", smi=""):
+    """Phase 30: the friction zoo (mscenes 27-31 and 33) through
+    make_step("euler_fric") and make_simulate (scene_fn_33 for mscene 33),
+    in three parts. (1) Alone on the card, each case in float32 at FRIC_B32
+    = 1024 lanes for min(nsteps, FRIC_F32_STEPS[sid]) steps (fric32): timed
+    by CUDA events after a warm step, finite_frac, K3 launched once for
+    each sweep solve and never on the CPU. (2) Each case's float64
+    certificate rollout at FRIC_B64 lanes (mzoo_state0, fric64; the cases of
+    FRIC_POOLED in a pool of processes on the card beside the others): lane
+    0's certificate in its band of tests/test_friction.py, the
+    staggered-projections iterations of each step (max and mean over the
+    lanes), and the float32 step against it per step (per_step_share on
+    FRIC_SHARE_LANES lanes, warm-started from its fbm), held at >= 0.95 with
+    finite_frac, printed only for the cases in FRIC_F32_HELD (fric_case).
+    (3) Alone on the card, K3 against its plain version on the solves of
+    K3_CASES in float64 and float32, timed (k3_check). Returns (the K3
+    records by (label, dtype), with their launches; the phase's JSON
+    line)."""
+    t0 = time.perf_counter()
+    line, records, finals = {}, {}, {}
+    r32 = {sid: fric32(sid, device) for sid in FRIC_BANDS}
+    t1 = time.perf_counter()
+    pool = (torch.multiprocessing.get_context("spawn").Pool(len(FRIC_POOLED))
+            if FRIC_POOLED else None)
+    pending = {sid: pool.apply_async(fric64_job, (("fric64", sid, device),))
+               for sid in FRIC_POOLED} if pool else {}
+    try:
+        for sid in sorted(FRIC_BANDS, key=lambda sid: sid in pending):   # pooled ones last
+            res = pending[sid].get(timeout=1000)[1] if sid in pending else fric64(sid, device)
+            finals[sid] = fric_case(sid, device, smi, res, r32[sid], line)
+    finally:
+        if pool:
+            pool.close()
+            pool.join()
+    t2 = time.perf_counter()
+    for label, sid, kind in K3_CASES:
+        fn = scenes_matlab.SCENE_FNS.get(sid)
+        at = lambda s: fn(s.params, s.params["h"] * s.nsteps) if fn else s.params
+        for dtype, (scx, stepx, fin) in (("float64", finals[sid]),
+                                         ("float32", (r32[sid]["sc"], r32[sid]["step"],
+                                                      r32[sid]["final"]))):
+            lanes = State(q=fin.q[:1024], qdot=fin.qdot[:1024],
+                          aux={"fbm": fin.aux["fbm"][:1024]})
+            records[(label, dtype)] = {**k3_check(label, scx, stepx, at(scx), lanes, kind, smi),
+                                       "launches": line[str(sid)]["k3_launches"][dtype]}
+    line["k3"] = {f"{label} {dtype}": rec for (label, dtype), rec in records.items()}
+    t3 = time.perf_counter()
+    line["seconds"] = t3 - t0
+    print(f"friction zoo phase: {t3 - t0:.1f} s (float32 rollouts {t1 - t0:.1f} s; float64 "
+          f"rollouts and per-step shares {t2 - t1:.1f} s, those of {list(FRIC_POOLED)} in a "
+          f"pool of {len(FRIC_POOLED)} processes; K3 against its plain version {t3 - t2:.1f} s)")
+    return records, line
+
+
 def ptxas_kernels(report: str):
     """(kernel, registers, frame bytes, spill store bytes, spill load bytes)
     of each kernel in an nvcc -Xptxas -v report, the kernel named by its
@@ -3182,7 +3584,8 @@ def phase_build():
     libraries and the builds that the phases make for one scene; print
     their ptxas reports and the cooperative design's layout."""
     t0 = time.perf_counter()
-    fixed = chord_kernel.BUILDS + (qp_kernel.BUILD, qp_kernel.BUILD_COOP, COOP_PROBE)
+    fixed = chord_kernel.BUILDS + (qp_kernel.BUILD, qp_kernel.BUILD_COOP, COOP_PROBE,
+                                   pgs_kernel.BUILD)
     builds = fixed + on_demand_builds()
     for build in builds:  # one nvcc per library, side by side
         build.start()
@@ -3200,6 +3603,8 @@ def phase_build():
                 qp_coop_builds.append(build)
         elif build.name.endswith("_probe"):
             build.load()
+        elif build is pgs_kernel.BUILD:
+            pgs_kernel._lib(build)
         else:
             chord_kernel._build_lib(build)
             if chord_kernel.is_coop(build):
@@ -3385,6 +3790,7 @@ def main():
     zoo_records, zoo_line = phase_scene_zoo()
     mzoo_record, mzoo_line = phase_mscene_zoo()
     mppi_launches, tiers_line = phase_explicit_tiers()
+    k3_records, fric_line = phase_friction_zoo(smi=smi)
 
     kernels = [{
         # the cooperative design (a warp a lane), on the main path; the
@@ -3533,7 +3939,18 @@ def main():
         "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:689",
         **record, "launches": mppi_launches, "library_ms": None,
-    }]
+    }] + [{
+        # phase 30: the port's own kernel K3 (no TPU kernel: the op-level
+        # lax.scan sweeps of the friction step), on real solves of the
+        # friction zoo's rollouts; launches: that case's rollout in that
+        # dtype (float64 the certificate, float32 the timed one); library_ms:
+        # no PyTorch call runs projected Gauss-Seidel sweeps
+        "name": f"pgs_sweeps[{label} {dtype}]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/pgs_sweeps.cu",
+        "replaces": "redmax_tpu/friction.py:633" if label.startswith("friction")
+        else "redmax_tpu/qp.py:77",
+        "replaces_pallas_kernel": False, **rec, "library_ms": None,
+    } for (label, dtype), rec in k3_records.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {"solves_per_s": rate, "finite_frac": finite_frac,
                                     "card": smi}}))
@@ -3565,6 +3982,7 @@ def main():
     print(json.dumps({"scene_zoo": {**zoo_line, "card": smi}}))
     print(json.dumps({"mscene_zoo": {**mzoo_line, "card": smi}}))
     print(json.dumps({"explicit_tiers": {**tiers_line, "card": smi}}))
+    print(json.dumps({"friction_zoo": {**fric_line, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 The JAX package's SceneParams is a nested dict of arrays; handed over as
 numpy (``jax.tree_util.tree_map(np.asarray, sc.params)``) it becomes this
 package's SceneParams with the same layout, params["constraints"]
-and params["forces"] included. A state's aux (the Euler-chart joints'
+and params["forces"] included (a friction scene's mu, baumgarte and loop
+closures' xA, axisA too; the friction step reads them as they come). A state's aux (the Euler-chart joints'
 charts, int32 there) becomes int64 tensors. The Topology's tuple fields carry over as
 they are, and the constraint and force objects are rebuilt from their class
 names and attributes. No
@@ -15,7 +16,7 @@ from typing import Any, Dict, Iterable, Tuple
 import numpy as np
 import torch
 
-from redmax_tpu_torch import constraints, forces
+from redmax_tpu_torch import constraints, forces, friction
 from redmax_tpu_torch.types import Topology
 
 
@@ -91,3 +92,21 @@ def forces_from_fields(fields: Iterable[Tuple[str, Dict[str, Any]]]) -> Tuple:
     JAX CompiledScene; the keys into params["forces"] carry over."""
     return tuple(getattr(forces, name)(attrs["key"], *_FORCE_ARGS[name](attrs))
                  for name, attrs in fields)
+
+
+def friction_model_from_fields(rings: Iterable[Dict[str, Any]],
+                               loop_rings: Iterable[Dict[str, Any]],
+                               constraint_fns: Tuple) -> "friction.FrictionModel":
+    """A friction scene's FrictionModel from the JAX package's, its rings'
+    fields as ``[r._asdict() for r in fm.rings]`` and ``[lr._asdict() for lr
+    in fm.loop_rings]`` give them; the floor and maximal-equality constraints
+    are those of constraint_fns (constraints_from_fields), in their order."""
+    def arrays(d):
+        return {k: np.asarray(v, dtype=np.float64) if isinstance(v, np.ndarray) else v
+                for k, v in d.items()}
+
+    return friction.FrictionModel(
+        rings=tuple(friction.Ring(**arrays(r)) for r in rings),
+        loop_rings=tuple(friction.LoopRing(**arrays(r)) for r in loop_rings),
+        floor_cons=tuple(c for c in constraint_fns if isinstance(c, constraints.ConstraintFloor)),
+        eq_cons=tuple(c for c in constraint_fns if c.n_eq_m))

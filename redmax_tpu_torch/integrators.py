@@ -661,6 +661,32 @@ def make_simulate(step_fn: Callable, nsteps: int, record: bool = False,
 # ---------------------------------------------------------------------------
 
 
+def closure_blocks(fns: Tuple, params: Dict, kin, phi):
+    """(K, D [B, P, 6, 6], bj, bi) of the ground contacts, springs and cables
+    among the closures fns, one 6x6 block a (body j, body i) pair: the
+    derivative of body j's wrench by body i's pose (K) or twist (D), in
+    closed form (forces.ground_contact_blocks, masks frozen;
+    forces.pair_closure_blocks); or None when fns holds none of them.
+    Raises on a closure with neither a block nor implicit_KD = False
+    (model._split_closures)."""
+    gnd, pair, _ = _split_closures(fns)
+    dev = phi.device
+    out = []
+    if gnd:
+        bodies = tuple(fn.body for fn in gnd)
+        idx = forces.body_index(bodies, dev)
+        K, D = forces.ground_contact_blocks(kin.E_wi[:, idx], phi[:, idx],
+                                            forces.stack_contact_params(gnd, params))
+        out.append((K, D, bodies, bodies))
+    p = forces.pair_closure_blocks(pair, params, kin, phi) if pair else None
+    if p is not None:
+        out.append(p)
+    if not out:
+        return None
+    return (torch.cat([o[0] for o in out], 1), torch.cat([o[1] for o in out], 1),
+            sum((tuple(o[2]) for o in out), ()), sum((tuple(o[3]) for o in out), ()))
+
+
 def _closure_KD(force_fns: Tuple, params: Dict, kin, phi, J):
     """The force closures' part of the Euler system's left side and f0, from
     closed-form blocks (the JAX package takes Km, Dm by jacfwd of the
@@ -676,25 +702,6 @@ def _closure_KD(force_fns: Tuple, params: Dict, kin, phi, J):
     Jblk = J.reshape(B, N, 6, nr)
     dev = phi.device
 
-    def blocks(fns):
-        """(K, D [B, P, 6, 6], bj, bi) of the closures fns, or None."""
-        out = []
-        g = tuple(fn for fn in fns if fn in gnd)
-        if g:
-            bodies = tuple(fn.body for fn in g)
-            idx = forces.body_index(bodies, dev)
-            K, D = forces.ground_contact_blocks(kin.E_wi[:, idx], phi[:, idx],
-                                                forces.stack_contact_params(g, params))
-            out.append((K, D, bodies, bodies))
-        p = forces.pair_closure_blocks(tuple(fn for fn in fns if fn in pair), params, kin, phi) \
-            if any(fn in pair for fn in fns) else None
-        if p is not None:
-            out.append(p)
-        if not out:
-            return None
-        return (torch.cat([o[0] for o in out], 1), torch.cat([o[1] for o in out], 1),
-                sum((tuple(o[2]) for o in out), ()), sum((tuple(o[3]) for o in out), ()))
-
     def contract(X, bj, bi):
         return torch.einsum("bpir,bpij,bpjs->brs", Jblk[:, forces.body_index(bj, dev)], X,
                             Jblk[:, forces.body_index(bi, dev)])
@@ -702,7 +709,7 @@ def _closure_KD(force_fns: Tuple, params: Dict, kin, phi, J):
     KmJ = DmJ = phi.new_zeros(B, nr, nr)
     fm_strip = torch.zeros_like(phi)
     implicit = gnd + pair
-    blk = blocks(implicit)
+    blk = closure_blocks(implicit, params, kin, phi)
     if blk is not None:
         K, D, bj, bi = blk
         KmJ = contract(K, bj, bi)
@@ -710,7 +717,7 @@ def _closure_KD(force_fns: Tuple, params: Dict, kin, phi, J):
         DmJ = contract(D, bj, bi)
         strip = tuple(fn for fn in implicit if getattr(fn, "strip_damping", True))
         if strip != implicit:
-            blk = blocks(strip)
+            blk = closure_blocks(strip, params, kin, phi)
         if blk is not None:
             D, bj, bi = blk[1], blk[2], blk[3]
             fm_strip = fm_strip.index_add(

@@ -6,6 +6,9 @@ and flags, and loaded with ctypes. start() spawns nvcc without waiting, so
 several kernels can compile side by side; load() waits for it. nvcc writes
 its messages to a file beside the library, not to a pipe: a pipe that no one
 reads until nvcc exits would stop nvcc once it filled.
+
+A host build (host=True) compiles a C++ source of csrc/ with g++ the same
+way, for a kernel whose lane body also runs on CPU tensors (pgs_kernel).
 """
 
 import ctypes
@@ -21,19 +24,23 @@ BUILD = os.path.join(_ROOT, "_build")
 # No --use_fast_math: the QP boxes hold infinities and NaN marks a diverged lane.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 
 class KernelBuild:
-    """One kernel library: sources[0] is the .cu file, the rest its headers;
-    defines are extra nvcc flags (-D...) of this build."""
+    """One kernel library: sources[0] is the .cu file (a .cpp file for a
+    host build), the rest its headers; defines are extra compiler flags
+    (-D...) of this build; host: g++ for the CPU instead of nvcc."""
 
-    def __init__(self, name: str, sources: Sequence[str], defines: Sequence[str] = ()):
+    def __init__(self, name: str, sources: Sequence[str], defines: Sequence[str] = (),
+                 host: bool = False):
         self.name = name
         self.sources = tuple(sources)
         self.defines = tuple(defines)
-        self.flags = NVCC_FLAGS + self.defines
+        self.host = host
+        self.flags = (HOST_FLAGS if host else NVCC_FLAGS) + self.defines
         self.lib = None
-        self.ptxas_report = None  # nvcc -Xptxas -v output of the loaded build
+        self.ptxas_report = None  # nvcc -Xptxas -v output of the loaded build (g++'s, host)
         self._proc = None
         self._so = None
 
@@ -48,20 +55,31 @@ class KernelBuild:
         return self._so, self._so[:-3] + ".ptxas.txt", f"{self._so}.{os.getpid()}.tmp"
 
     def _messages(self) -> str:
-        """nvcc's messages of the build in flight (its log beside the library)."""
+        """The compiler's messages of the build in flight (its log beside the
+        library)."""
         return f"{self._paths()[2]}.log"
 
-    def start(self) -> None:
-        """Spawn nvcc unless the library is built or already compiling.
-        Raises when nvcc is missing."""
-        so, _, tmp = self._paths()
-        if self.lib is not None or self._proc is not None or os.path.exists(so):
-            return
+    def _compiler(self) -> str:
+        """g++ for a host build, else nvcc. Raises when it is missing."""
+        if self.host:
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: the host build of {self.name} cannot be built")
+            return gxx
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
             raise RuntimeError(f"nvcc not found: the {self.name} kernel cannot be built")
+        return nvcc
+
+    def start(self) -> None:
+        """Spawn the compiler unless the library is built or already
+        compiling. Raises when the compiler is missing."""
+        so, _, tmp = self._paths()
+        if self.lib is not None or self._proc is not None or os.path.exists(so):
+            return
+        cc = self._compiler()
         os.makedirs(BUILD, exist_ok=True)
-        cmd = [nvcc, *self.flags, "-o", tmp, os.path.join(CSRC, self.sources[0])]
+        cmd = [cc, *self.flags, "-o", tmp, os.path.join(CSRC, self.sources[0])]
         with open(self._messages(), "w") as out:
             self._proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
 
@@ -82,7 +100,8 @@ class KernelBuild:
                 err = f.read()
             os.remove(self._messages())
             if rc != 0:
-                raise RuntimeError(f"nvcc failed on {self.name} ({self.sources[0]} "
+                cc = "g++" if self.host else "nvcc"
+                raise RuntimeError(f"{cc} failed on {self.name} ({self.sources[0]} "
                                    f"{' '.join(self.defines)}; exit {rc}):\n{err}")
             with open(log, "w") as f:
                 f.write(err)

@@ -169,7 +169,11 @@ def jacobians(topo: Topology, params: Dict, kin: Kinematics, qdot):
     Jblk = ancd[:, None, :] * torch.einsum("bikl,brl->bikr", Ad_bw, W)  # [B,N,6,nr]
     J = Jblk.reshape(B, 6 * N, nr)
 
-    phi = (J @ qdot[..., None]).reshape(B, N, 6)                 # body twists
+    # body twists; one lane goes through the batched product as two, since
+    # at B = 1 the CPU's matrix-vector product sums in another order: a
+    # lane's phi is then the same whatever its batch
+    Jb, qb = (J, qdot) if B > 1 else (torch.cat([J, J]), torch.cat([qdot, qdot]))
+    phi = (Jb @ qb[..., None])[:B].reshape(B, N, 6)
     adphi = se3.ad(phi)                                          # [B,N,6,6]
     Sbdot_eff = adphi @ Sb + Sbdot
     Wdot = torch.einsum("brkl,brl->brk", Ad_wb, cols(Sbdot_eff))

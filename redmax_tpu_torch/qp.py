@@ -10,7 +10,8 @@ reference's quadprog calls.
 
 Inactive (masked) rows are encoded with a zero row and zero rhs and
 lo = hi = 0, so they solve to lambda = 0 and do not perturb the others.
-The fused CUDA kernel of the same solve is qp_kernel.dual_pgs.
+The fused CUDA kernel of the same solve is qp_kernel.dual_pgs; the sweeps
+alone, in float32 and float64, are pgs_kernel.pgs_sweeps (K3).
 """
 
 import torch
@@ -27,19 +28,41 @@ def kkt_solve(H, G, f, e, reg: float = 0.0):
     return sol[..., :n], sol[..., n:]
 
 
-def pgs_sweeps(D, r, lo, hi, iters: int, reg: float):
+def pgs_sweeps(D, r, lo, hi, iters: int, reg: float, active=None, graph: bool = False):
     """`iters` Gauss-Seidel sweeps on D lam = r with per-row clipping.
     D [B,m,m], r, lo, hi [B,m]. Rows update in order and every update reads
     the freshest lam. Near-zero diagonals (|D_ii| < reg, masked rows) divide
-    by 1. A NaN stays NaN through the clip. Returns lam [B,m]."""
+    by 1. A NaN stays NaN through the clip. active [B] bool: only those
+    lanes are swept, the others come out 0 (None: every lane). Returns
+    lam [B,m]. The plain version of the K3 kernel (pgs_kernel.pgs_sweeps).
+    graph (CUDA tensors): capture one sweep's operations in a CUDA graph and
+    replay it iters times, the same kernels on the same buffers without
+    their host launches (lam bit for bit as without)."""
+    if active is not None:
+        lam = torch.zeros_like(r)
+        idx = active.nonzero()[:, 0]
+        if idx.numel():
+            lam[idx] = pgs_sweeps(D[idx], r[idx], lo[idx], hi[idx], iters, reg, graph=graph)
+        return lam
     m = r.shape[-1]
     diag = torch.diagonal(D, dim1=-2, dim2=-1)
     safe = torch.where(diag.abs() < reg, torch.ones_like(diag), diag)
     lam = torch.zeros_like(r)
-    for _ in range(iters):
+
+    def sweep():
         for i in range(m):
             resid = r[:, i] - (D[:, i, :] * lam).sum(-1) + diag[:, i] * lam[:, i]
             lam[:, i] = torch.minimum(torch.maximum(resid / safe[:, i], lo[:, i]), hi[:, i])
+
+    if graph and D.is_cuda and iters > 0:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):     # recorded, not run: lam stays 0
+            sweep()
+        for _ in range(iters):
+            g.replay()
+        return lam
+    for _ in range(iters):
+        sweep()
     return lam
 
 

@@ -16,7 +16,9 @@ pairs and compiled into ``constraint_fns`` / ``force_fns`` plus
 ``params["constraints"]`` / ``params["forces"]``; a spring-damper's or
 cable's rest length L = 0 is set at compile from the initial configuration,
 and so are a deformable spring's node positions and segment lengths.
-Friction (a scene that sets fric) is not ported yet: compile raises.
+A scene that sets fric also compiles its friction model (friction.py: the
+contact rings of its joints and loop closures, its floor contacts) and
+starts aux["fbm"] at zeros [6N]; its step is make_step("euler_fric").
 """
 
 import math
@@ -28,7 +30,7 @@ import torch
 
 from redmax_tpu_torch import constraints as con_mod
 from redmax_tpu_torch import forces as forces_mod
-from redmax_tpu_torch import integrators, joints, mesh, model, se3
+from redmax_tpu_torch import friction, integrators, joints, mesh, model, se3
 from redmax_tpu_torch.euler import DEFAULT_CHART
 from redmax_tpu_torch.types import EULER_CHART_TYPES, NDOF, JointType, State, Topology
 
@@ -100,10 +102,6 @@ def transl(p) -> np.ndarray:
     E = np.eye(4)
     E[:3, 3] = p
     return E
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (friction is a later slice)")
 
 
 class SceneBuilder:
@@ -495,8 +493,6 @@ class SceneBuilder:
                     fp["L"] = np.array([np.linalg.norm(xs[i + 1] - xs[i]) for i in range(n - 1)])
 
     def compile(self, dtype=torch.float64, device="cuda") -> "CompiledScene":
-        if self.fric:
-            _not_ported("frictional stepping")
         self._init_deformables()
         N = len(self.joints)
         if N != len(self.bodies):
@@ -571,16 +567,24 @@ class SceneBuilder:
             "forces": {obj.key: {k: T(v) for k, v in fp.items()} for obj, fp in self.forces},
         }
         aux0 = {}
+        if self.fric:
+            aux0["fbm"] = torch.zeros(6 * N, dtype=dtype, device=device)
         if topo.euler_joints():
             aux0["euler_chart"] = torch.full((len(topo.euler_joints()),), DEFAULT_CHART,
                                              dtype=torch.int64, device=device)
         state0 = State(q=T(q0), qdot=T(qdot0), aux=aux0)
         self._init_rest_lengths(topo, params, state0, dtype)
+        constraint_fns = tuple(obj for obj, _ in self.constraints)
+        friction_model = None
+        if self.fric:
+            friction_model = friction.build_friction_model(
+                topo, self.joints, self.bodies, constraint_fns,
+                {obj.key: cp for obj, cp in self.constraints})
         return CompiledScene(
             name=self.name, topo=topo, params=params, state0=state0,
-            force_fns=tuple(obj for obj, _ in self.forces),
-            constraint_fns=tuple(obj for obj, _ in self.constraints),
+            force_fns=tuple(obj for obj, _ in self.forces), constraint_fns=constraint_fns,
             h=self.h, tEnd=self.tEnd, Hexpected=dict(self.Hexpected),
+            friction_model=friction_model,
         )
 
 
@@ -628,6 +632,7 @@ class CompiledScene:
     h: float
     tEnd: float
     Hexpected: Dict[str, float]
+    friction_model: Optional[friction.FrictionModel] = None  # a scene that sets fric
 
     @property
     def nsteps(self) -> int:
@@ -648,7 +653,9 @@ class CompiledScene:
                   cfg: Optional["integrators.NewtonConfig"] = None):
         """A batched step function over [B, nr] states: "bdf1", "bdf2" or
         "euler" (the op-level routes; the kernel routes are
-        integrators.make_bdf2_step_batched / make_euler_step_batched)."""
+        integrators.make_bdf2_step_batched / make_euler_step_batched), or
+        "euler_fric" for a scene that sets fric (friction.make_euler_fric_step,
+        its sweeps on the K3 kernel)."""
         if integrator == "bdf1":
             return integrators.make_bdf1_step(self.topo, self.force_fns,
                                               cfg or integrators.NewtonConfig())
@@ -658,7 +665,9 @@ class CompiledScene:
         if integrator == "euler":
             return integrators.make_euler_step(self.topo, self.force_fns, self.constraint_fns)
         if integrator == "euler_fric":
-            _not_ported(f"the {integrator!r} step")
+            if self.friction_model is None:
+                raise ValueError("the euler_fric step needs a scene compiled with fric = True")
+            return friction.make_euler_fric_step(self.topo, self.force_fns, self.friction_model)
         raise ValueError(integrator)
 
     def initial_state(self, integrator: str = "bdf1", B: int = 1):

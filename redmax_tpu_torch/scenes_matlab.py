@@ -6,9 +6,11 @@ matlab/testRedMax.m:170-177 holds it). Defaults (matlab/+redmax/Scene.m:
 29-53): tspan [0, 2], h 1e-2, grav [0, 0, -980], baumgarte [5, 5, 5],
 density 1.
 
-The cases with joint friction or frictional contact (27-31, 33) build but
-do not compile: frictional stepping is not ported yet. Cases 26 and 34
-read the reference's OBJ meshes, whose paths their builders take (obj=).
+The cases with joint friction or frictional contact (27-31, 33) compile
+with their friction model and step under staggered projections
+(make_step("euler_fric"), friction.py; certificates Hexpected["euler_fric"]).
+Cases 26 and 34 read the reference's OBJ meshes, whose paths their builders
+take (obj=).
 Cases 5, 9, 13, 20, 32 (and 33) drive their targets over time through a
 scene function (SCENE_FNS), the reference's sceneFcn, which
 integrators.make_simulate calls at each step's end time; each is
@@ -27,8 +29,8 @@ from redmax_tpu_torch.scene import CompiledScene, SceneBuilder, transl
 from redmax_tpu_torch.scenes import _rot
 from redmax_tpu_torch.types import JointType
 
-# The cases with friction (frictional stepping is not ported yet) and the
-# cases that read an OBJ mesh.
+# The cases with friction (their step is "euler_fric") and the cases that
+# read an OBJ mesh.
 FRICTION = (27, 28, 29, 30, 31, 33)
 OBJ_CASES = (26, 34)
 
@@ -878,7 +880,6 @@ SCENE_FNS: Dict[int, Callable] = {5: scene_fn_05, 9: scene_fn_09, 13: scene_fn_1
 
 def build_mscene(sid: int, obj=None, **compile_kw) -> CompiledScene:
     """Compile reference case sid; obj: the OBJ path of cases 26 and 34;
-    compile_kw goes to SceneBuilder.compile (dtype, device). The friction
-    cases raise at compile."""
+    compile_kw goes to SceneBuilder.compile (dtype, device)."""
     make = M_SCENES[sid]
     return (make(obj=obj) if sid in OBJ_CASES else make()).compile(**compile_kw)

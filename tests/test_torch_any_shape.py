@@ -56,6 +56,16 @@ from test_torch_joints import qdep_chain_jax
 from test_torch_lane_body import CFG_KW, CSRC, _port, _states
 from test_torch_perlane import perlane_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C, S, CAB, Q, PL, R = ck.CONTACTS, ck.SPRINGS, ck.CABLES, ck.QDEP, ck.PERLANE, ck.ROBUST
 # The per-lane record of chain-ground-4 (7N + 4 + 13 C floats), the size a
 # build made for it holds.

@@ -33,6 +33,16 @@ from redmax_tpu_torch import convert
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch.types import State
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CHORD = dict(fixed_iters=3, predictor="quadratic", chord=True, adjoint_reuse_factor=False)
 CONFIGS = {
     "structured_gj": dict(CHORD, hessian="structured", linsolve="gj"),

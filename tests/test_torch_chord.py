@@ -43,6 +43,16 @@ from redmax_tpu_torch.types import State
 from test_torch_model import mixed_builder
 from test_torch_springs import jax_scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG_KW = dict(fixed_iters=3, predictor="quadratic", chord=True,
               hessian="structured", linsolve="gj")
 JCFG = jint.NewtonConfig(**CFG_KW)

@@ -34,6 +34,16 @@ from redmax_tpu_torch import scenes_matlab as tms
 from redmax_tpu_torch.types import JointType as TJT
 from test_torch_model import _flat, mixed_builder
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-10
 
 
@@ -149,8 +159,11 @@ def test_rows_and_euler_system_match(scene):
 
 def test_constraints_waiting_for_later_items_raise():
     """The constraint subsystem's rows are all ported (every constraint class
-    of the JAX package has its counterpart); what still raises is friction:
-    a scene with frictional contact at compile, and the euler_fric step."""
+    of the JAX package has its counterpart), and so is friction, which used
+    to raise here: a scene with frictional floor contact (31) and the driven
+    walker (33) compile, their floor and maximal equality constraints in
+    their friction model, and give an euler_fric step; a scene compiled
+    without fric has no friction model, and its euler_fric step raises."""
     for name in ("ConstraintPrescJoint", "ConstraintPrescBody", "ConstraintPrescJointM",
                  "ConstraintPrescBodyW", "ConstraintAttachPoint"):
         assert getattr(jcon, name).__name__ == getattr(tcon, name).__name__
@@ -158,7 +171,13 @@ def test_constraints_waiting_for_later_items_raise():
         b = tms.M_SCENES[sid]()
         assert any(type(c).__name__ in ("ConstraintFloor", "ConstraintPrescJointM")
                    for c, _ in b.constraints)
-        with pytest.raises(NotImplementedError, match="frictional stepping"):
-            b.compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="euler_fric"):
-        tms.build_mscene(6, device="cpu").make_step("euler_fric")
+        sc = b.compile(device="cpu")
+        fm = sc.friction_model
+        assert fm.floor_cons == tuple(c for c in sc.constraint_fns
+                                      if isinstance(c, tcon.ConstraintFloor))
+        assert fm.eq_cons == tuple(c for c in sc.constraint_fns if c.n_eq_m)
+        assert callable(sc.make_step("euler_fric"))
+    sc6 = tms.build_mscene(6, device="cpu")
+    assert sc6.friction_model is None
+    with pytest.raises(ValueError, match="euler_fric"):
+        sc6.make_step("euler_fric")

@@ -56,6 +56,16 @@ from test_torch_lane_body import CFG_KW, _gxx_build, _port, _states
 from test_torch_model import mixed_builder
 from test_torch_springs import spring_chain_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOOP = r"""
 #include <cstring>
 #include "chord_bdf2_coop.cuh"

@@ -44,6 +44,16 @@ from test_torch_coop_springs import _hold
 from test_torch_lane_body import CFG_KW, _closure_case, _gxx_build, _perlane_case, _port, _states
 from test_torch_springs import cable3, lengths
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOOP = r"""
 #include <cstring>
 #include "chord_bdf2_coop.cuh"

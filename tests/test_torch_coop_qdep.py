@@ -41,6 +41,16 @@ from test_torch_joints import qdep_chain_jax, qdep_mixed
 from test_torch_lane_body import CFG_KW, _gxx_build, _port
 from test_torch_qdep import qdep_states
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 QDEP = chord_kernel.QDEP
 LOOP = r"""
 #include <cstring>

@@ -25,6 +25,16 @@ from redmax_tpu_torch.scenes_matlab import build_mscene
 from redmax_tpu_torch.types import State
 from test_torch_constraints import SCENES, port_of
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # base q added to state0 (the floor chain bent down so its last link touches)
 BASE = {"mscene04": 0.0, "mscene06": 0.0, "floor3": np.array([1.4, 0.3, 0.3])}
 

@@ -26,6 +26,16 @@ from redmax_tpu_torch import scenes as tscenes
 from redmax_tpu_torch import se3 as tse3
 from test_torch_model import _close, _flat
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GROUND = dict(nlinks=3, floor_z=-0.02, kn=300.0, kt=20.0, kd=5.0)
 B = 8
 

@@ -1,16 +1,28 @@
 """Import hygiene of the PyTorch port: no module of redmax_tpu_torch, and
-not chip_smoke.py, imports JAX, jaxlib, optax or the JAX package."""
+not chip_smoke.py or scripts/f32_card.py (both run on the card), imports
+JAX, jaxlib, optax or the JAX package."""
 
 import ast
 import glob
 import os
 
 import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "optax", "redmax_tpu")
 FILES = sorted(glob.glob(os.path.join(ROOT, "redmax_tpu_torch", "**", "*.py"), recursive=True)) + [
-    os.path.join(ROOT, "chip_smoke.py")
+    os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "f32_card.py")
 ]
 
 

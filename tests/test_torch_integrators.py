@@ -14,6 +14,16 @@ from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch.scenes import scene_00_serial_chain
 from redmax_tpu_torch.types import State
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DATA = os.path.join(os.path.dirname(__file__), "data")
 CFG = tint.NewtonConfig(fixed_iters=3, predictor="quadratic", chord=True,
                         hessian="structured", linsolve="gj")

@@ -44,6 +44,16 @@ from redmax_tpu_torch import scenes as tscenes
 from redmax_tpu_torch.types import JointType as TJT
 from test_torch_model import _close, _flat, _port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DATA = os.path.join(os.path.dirname(__file__), "data")
 CFG = tint.NewtonConfig(fixed_iters=3, predictor="quadratic", chord=True,
                         hessian="structured", linsolve="gj")

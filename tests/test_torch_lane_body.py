@@ -59,6 +59,16 @@ from test_torch_perlane import perlane_params
 from test_torch_qp import mixed_qp
 from test_torch_springs import cable3, lengths, spring3, spring_chain_jax, tension_only
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "redmax_tpu_torch", "csrc")
 LOOP = r"""

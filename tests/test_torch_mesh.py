@@ -19,6 +19,16 @@ from redmax_tpu_torch import scenes_matlab as tms
 from test_torch_model import _flat
 from test_torch_mscene_modules import close, port_of
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIDES = (1.0, 2.0, 3.0)
 
 

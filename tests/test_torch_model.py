@@ -25,6 +25,16 @@ from redmax_tpu_torch import scenes as tscenes
 from redmax_tpu_torch import se3 as tse3
 from redmax_tpu_torch.types import JointType as TJT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-10  # relative to each quantity's largest magnitude (f64 roundoff)
 
 

@@ -33,6 +33,16 @@ from redmax_tpu_torch import mpc as tmpc
 from redmax_tpu_torch.types import State
 from test_torch_springs import spring3
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG_KW = dict(fixed_iters=3, predictor="quadratic", chord=True,
               hessian="structured", linsolve="gj")
 NLINKS, HORIZON, B, LR = 4, 5, 8, 0.05

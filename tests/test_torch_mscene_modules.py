@@ -43,6 +43,16 @@ from redmax_tpu_torch import scenes_matlab as tms
 from redmax_tpu_torch.types import JointType as TJT
 from redmax_tpu_torch.types import State
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B = 6
 
 

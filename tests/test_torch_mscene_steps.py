@@ -23,6 +23,15 @@ from redmax_tpu_torch.types import State
 from test_torch_mscene_modules import port_of
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("sid", [5, 9, 12, 13, 19, 21, 22, 24, 25, 32, 35])
 def test_euler_steps_match_vmap(sid):
     sc = jms.M_SCENES[sid]().compile()

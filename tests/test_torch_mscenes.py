@@ -1,10 +1,11 @@
 """The feature-rich scene zoo (scenes_matlab.py) on redmax_tpu_torch against
-redmax_tpu, in float64 on the CPU: every case that compiles (all but the
-friction cases 27-31, 33 and the OBJ cases 26, 34, which test_torch_mesh.py
-builds on an OBJ it writes) compiles to JAX's topology, params (through
-convert), closures, constraints and initial state; its linearly implicit
-Euler system and constraint rows at seeded states match JAX's at 1e-10 of
-scale. The friction cases raise at compile.
+redmax_tpu, in float64 on the CPU: every case that compiles here (all but
+the OBJ cases 26, 34, which test_torch_mesh.py builds on an OBJ it writes)
+compiles to JAX's topology, params (through convert), closures, constraints
+and initial state; its linearly implicit Euler system and constraint rows at
+seeded states match JAX's at 1e-10 of scale. The friction cases (27-31, 33)
+compile with their friction model (the row counts of each case) and an
+euler_fric step (test_torch_friction*.py hold them against JAX).
 """
 
 import dataclasses
@@ -18,14 +19,28 @@ import torch
 from redmax_tpu import constraints as jcon
 from redmax_tpu import integrators as jint
 from redmax_tpu import scenes_matlab as jms
-from redmax_tpu_torch import chord_kernel
+from redmax_tpu_torch import chord_kernel, friction
 from redmax_tpu_torch import constraints as tcon
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch import scenes_matlab as tms
 from test_torch_model import _flat
 from test_torch_mscene_modules import close, port_of
 
-COMPILED = sorted(set(jms.M_SCENES) - set(tms.FRICTION) - set(tms.OBJ_CASES))
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+COMPILED = sorted(set(jms.M_SCENES) - set(tms.OBJ_CASES))
+# (joint rings, loop rings, floors, maximal equality rows, friction rows) of
+# each friction case
+FRICTION_ROWS = {27: (2, 0, 0, 0, 32), 28: (2, 0, 0, 0, 24), 29: (2, 0, 0, 0, 32),
+                 30: (4, 1, 0, 2, 80), 31: (2, 0, 1, 0, 34), 33: (3, 1, 4, 3, 72)}
 
 
 def test_registry_matches():
@@ -50,10 +65,19 @@ def test_registry_matches():
 
 @pytest.mark.parametrize("sid", tms.FRICTION)
 def test_friction_cases_raise_at_compile(sid):
+    """Each friction case compiles (it raised before friction.py was
+    ported): its friction model has the case's rows, aux["fbm"] starts at
+    zeros [6N], and make_step("euler_fric") returns a step."""
     b = tms.M_SCENES[sid]()
     assert b.fric
-    with pytest.raises(NotImplementedError, match="frictional stepping"):
-        b.compile(device="cpu")
+    sc = b.compile(device="cpu")
+    counts = friction.row_counts(sc.friction_model)
+    assert tuple(counts[k] for k in ("rings", "loop_rings", "floors", "eq_rows",
+                                     "friction_rows")) == FRICTION_ROWS[sid]
+    torch.testing.assert_close(sc.state0.aux["fbm"],
+                               torch.zeros(6 * sc.topo.njoints, dtype=torch.float64))
+    assert sc.initial_state("euler", B=3).aux["fbm"].shape == (3, 6 * sc.topo.njoints)
+    assert callable(sc.make_step("euler_fric"))
 
 
 @pytest.mark.parametrize("sid", COMPILED)

@@ -27,6 +27,16 @@ from redmax_tpu.scenes import scene_chain_ground as jground
 from redmax_tpu_torch import convert
 from redmax_tpu_torch import integrators as tint
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TAU = (30.0, 600.0)  # each lane's torque scale, drawn from these
 BASE = dict(fixed_iters=3, predictor="quadratic", hessian="structured", linsolve="gj")
 MODES = {

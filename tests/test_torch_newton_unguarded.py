@@ -35,6 +35,16 @@ from redmax_tpu_torch import adjoint, linalg
 from redmax_tpu_torch import integrators as tint
 from test_torch_newton_modes import BASE, TAU, check_mode, rand_states, scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOW_TAU = (30.0,)
 
 

@@ -19,6 +19,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from redmax_tpu import integrators as jint
@@ -30,6 +31,15 @@ from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch.types import State
 from test_torch_chord import BENCH_GROUND
 from test_torch_perlane import JCFG, TCFG, close, port_scene
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def contact_and_springs():

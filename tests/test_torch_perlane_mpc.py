@@ -12,6 +12,7 @@ file because the JAX oracle's trace takes 25-45 s on a CPU.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from redmax_tpu import integrators as jint
@@ -24,6 +25,15 @@ from redmax_tpu_torch import mpc as tmpc
 from redmax_tpu_torch.types import State
 from test_torch_chord import BENCH_GROUND
 from test_torch_perlane import CFG_KW, perlane_params, port_scene
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_randomized_contact_mpc_solve_matches_jax():

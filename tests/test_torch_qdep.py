@@ -36,6 +36,16 @@ from redmax_tpu_torch import integrators as tint
 from test_torch_joints import qdep_chain_jax, qdep_mixed, rotation_samples
 from test_torch_lane_body import CFG_KW, _gxx_build, _port, _run_lane_lib, _states
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOOP = r"""
 #include "chord_bdf2_lane.cuh"
 #define LANE(n, nr, f)                                                                    \

@@ -12,6 +12,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from redmax_tpu import integrators as jint
@@ -25,6 +26,15 @@ from redmax_tpu_torch import mpc as tmpc
 from redmax_tpu_torch.types import State
 from test_torch_joints import qdep_mixed
 from test_torch_lane_body import CFG_KW
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_mpc_solve_through_the_reparam_matches_jax():

@@ -21,6 +21,15 @@ from redmax_tpu_torch import qp as tqp
 from redmax_tpu_torch import qp_kernel
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def mixed_qp(seed, B, n, me, mi, mb, dtype):
     """Random well-posed QPs with equality, inequality and boxed rows
     (H = Q Q^T + 3 I), as tests/test_linalg.py makes them."""

@@ -37,6 +37,16 @@ from redmax_tpu_torch.scenes_matlab import build_mscene
 from test_torch_lane_body import _gxx_build, floor_chain_systems
 from test_torch_qp import mixed_qp
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPES = [(6, 8), (6, 12), (2, 1), (7, 3)]
 LOOP = r"""
 #include <cmath>

@@ -10,8 +10,18 @@ traces take most of a minute.
 """
 
 import pytest
+import torch
 
 from test_torch_backward_modes import CONFIGS, check_gradients
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_default_config_gradients_through_bootstrap_match_jax():

@@ -16,6 +16,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from redmax_tpu import integrators as jint
@@ -26,6 +27,16 @@ from redmax_tpu_torch import chord_kernel, convert
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch import mpc as tmpc
 from redmax_tpu_torch.types import State
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch's intra-op threads set to 1 for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CFG_KW = dict(fixed_iters=3, predictor="quadratic", chord=True, guard_last=True,
               hessian="structured", linsolve="gj")
