@@ -175,7 +175,8 @@ Phases (any failure is an exception and a non-zero exit):
      lanes; on the states after the rollout the kernel against its plain
      version by compare_kernel (scene 14: a census of the lanes past and
      within 1e-5 of a joint limit), timed with its bound; (2) the same
-     scenes through make_bdf1_step (op level), the same checks against f64;
+     scenes through make_bdf1_step (op level) for min(nsteps, 50) steps,
+     the same checks against f64;
      (3) scenes 7 and 9 on Euler charts, BDF2 and BDF1: supports() false,
      no chord launch, the final charts equal to the f64 run's on 95% of
      lanes, the lanes that switched counted; (4) the energy certificates in
@@ -244,14 +245,30 @@ Phases (any failure is an exception and a non-zero exit):
      on real solves at 3000 sweeps, float64 and float32: mscene 27's and
      mscene 30's friction passes (T^T b within 1e-10 / 2e-4 of scale) and
      mscene 33's first QP (x), each with a lane not active and a NaN lane,
-     timed (CUDA graph and events) beside the plain version and the bound;
+     timed (10 launches in a CUDA graph, 100 at m <= 8, and CUDA events)
+     beside the plain version and the bound;
      prints friction_zoo;
- 31. print the kernels line (every row with its design, threads a lane and
+ 31. the last modules (phase_last_modules): (1) the L-BFGS MPC solve
+     (mpc.make_mpc_solver(method="lbfgs"), 3 iterations) at bench.py's
+     scale on the chord kernel (K1a), timed by metrics.bench_throughput,
+     49 launches an evaluation, the median objective before and after, the
+     objective at the returned P against the float64 op-level route, the
+     optimizer on the card against the CPU; (2) parallel.py on a world of
+     one (NCCL, a FileStore): sharded_mpc_batched over the main path's
+     Adam solve at
+     B = 1024 bit for bit the unsharded solve, its mean the finite-lane
+     mean, and __graft_entry__.py's two legs; (3) 6 Adam iterations of the
+     main path through checkpoint.checkpointed_run, stopped after 3 and
+     resumed, bit for bit the uninterrupted run; (4) tests/test_io.py:16's
+     text scene through sceneio.load_scene_text, 50 BDF2 steps at B = 1024
+     on the default route, lane 0's energy drift, its OBJ, HTML and JSON
+     exports; prints lbfgs_path and sharded_path;
+ 32. print the kernels line (every row with its design, threads a lane and
      lanes a block; the cooperative rows, the QP's among them, with the
      thread-per-lane build's time of this run), the paths' lines
      (robust_path, backward_modes, coop_phases, scene_zoo, mscene_zoo,
-     explicit_tiers and friction_zoo among them), the card's name and power
-     limit, and the result line.
+     explicit_tiers, friction_zoo, lbfgs_path and sharded_path among them),
+     the card's name and power limit, and the result line.
 
 Every MPC path, the cable rollout and the per-lane rollouts read the launch
 counter of the chord kernel design the wrapper routes them to (design_of)
@@ -269,13 +286,16 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from redmax_tpu_torch import (chord_kernel, explicit, forces, friction, integrators, model, mpc,
-                              pcg, pgs_kernel, qp, qp_kernel, scenes_matlab)
+from redmax_tpu_torch import (checkpoint, chord_kernel, explicit, export, forces, friction,
+                              integrators, metrics, model, mpc, parallel, pcg, pgs_kernel, qp,
+                              qp_kernel, sceneio, scenes_matlab)
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.euler import DEFAULT_CHART
 from redmax_tpu_torch.scenes import (SCENES, build_scene, scene_00_serial_chain,
@@ -2291,6 +2311,9 @@ CERT_BDF1 = (0, 6, 8, 10, 12, 13)
 # scenes' f64 references: each is host-bound small launches (a scene-7
 # certificate takes about a minute alone).
 ZOO_WORKERS = 6
+# Phase 27 (2)'s BDF1 rollouts run min(nsteps, ZOO_BDF1_STEPS) steps: their
+# host-bound launches (~20 ms a step) took 55 s of the script at full depth.
+ZOO_BDF1_STEPS = 50
 
 
 def zoo_state0(sc, B, device, dtype, seed=0):
@@ -2481,20 +2504,21 @@ def phase_scene_zoo(device="cuda", B=1024, reps=3):
                                "launches_per_rollout": launches // reps}
 
         reset_launches()
+        n1 = min(nsteps, ZOO_BDF1_STEPS)
         step1 = integrators.make_bdf1_step(sc.topo, sc.force_fns, CFG)
-        final1, dt1 = timed_rollout(integrators.make_simulate(step1, nsteps), sc.params,
+        final1, dt1 = timed_rollout(integrators.make_simulate(step1, n1), sc.params,
                                     zoo_state0(sc, B, device, torch.float32), 1)
         q64 = integrators.make_simulate(integrators.make_bdf1_step(sc64.topo, sc64.force_fns, CFG),
-                                        nsteps)(sc64.params,
-                                                zoo_state0(sc64, B, device, torch.float64)).q
+                                        n1)(sc64.params,
+                                            zoo_state0(sc64, B, device, torch.float64)).q
         torch.cuda.synchronize()
         finite1 = float((torch.isfinite(final1.q) & torch.isfinite(final1.qdot)).all(-1)
                         .float().mean())
         if launches_of() != 0:
             raise AssertionError("the BDF1 step launched the chord kernel")
-        print(f"zoo {label} BDF1 (op level), B {B}: {B * nsteps / dt1:.1f} steps/s "
+        print(f"zoo {label} BDF1 (op level), B {B}, {n1} steps: {B * n1 / dt1:.1f} steps/s "
               f"({dt1 * 1e3:.3f} ms, one rollout), finite_frac {finite1:.4f}")
-        line["bdf1"][label] = {"steps_per_s": B * nsteps / dt1, "finite_frac": finite1,
+        line["bdf1"][label] = {"steps_per_s": B * n1 / dt1, "steps": n1, "finite_frac": finite1,
                                "within_1e-3_of_f64": against_f64(f"zoo {label} BDF1",
                                                                  final1.q, q64)}
 
@@ -2512,7 +2536,9 @@ def phase_scene_zoo(device="cuda", B=1024, reps=3):
             + [("cert", s_, i, device) for s_ in CERT_BOTH if s_ != 7 for i in ("bdf1", "bdf2")]
             + [("cert", s_, "bdf1", device) for s_ in CERT_BDF1])
     with torch.multiprocessing.get_context("spawn").Pool(ZOO_WORKERS) as pool:
-        pending = pool.map_async(zoo_job, jobs)
+        # one job a task: map_async's default chunks of two put scene 7's two
+        # certificates, the longest jobs, in one worker one after the other
+        pending = pool.map_async(zoo_job, jobs, chunksize=1)
         finals = {}
         for k, (label, make) in enumerate(ZOO_EULER):
             sc = make().compile(dtype=torch.float32, device="cpu")
@@ -3122,7 +3148,7 @@ def phase_explicit_tiers(device="cuda", B=1024, workers=ODE45_WORKERS):
     jobs = ode45_jobs(B, device)
     if workers:
         with torch.multiprocessing.get_context("spawn").Pool(workers) as pool:
-            pending = pool.map_async(ode45_job, jobs)
+            pending = pool.map_async(ode45_job, jobs, chunksize=1)   # the longest first
             pcg_line.update(pcg_f64_checks(device, B))
             t3 = time.perf_counter()
             results = dict(pending.get(timeout=1000))
@@ -3304,7 +3330,7 @@ def k3_check(label, sc, step, params, state, kind, smi, iters=3000):
     if torch.isfinite(lam[2]).any() or torch.isfinite(lam_ref[2]).any():
         raise AssertionError(f"K3 {label}: the NaN lane came out finite")
     dsize = D.element_size()
-    reps = 200 if m <= 8 else 20
+    reps = 100 if m <= 8 else 10
     ms = graph_ms(lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg), reps=reps)
     events_ms = cuda_ms(lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg), reps=reps)
     flops = k3_flops(m, iters) * B
@@ -3517,6 +3543,356 @@ def phase_friction_zoo(device="cuda", smi=""):
     return records, line
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the last modules (L-BFGS MPC, parallel.py, checkpoint, metrics,
+# sceneio, export)
+# ---------------------------------------------------------------------------
+
+LBFGS_ITERS = 3
+# tests/test_io.py:16's scene: two hinge links joined by a spring-damper
+TEXT_SCENE = """#options
+simt redCGnomat
+#link
+name top
+dens 3
+size 3 0.8 0.5
+ppos 0 0 0
+cpos -1.4 0 0
+angl 0.25
+type hinge 0 0 1
+#link
+name middle
+dens 3
+size 3 0.8 0.5
+prnt top
+ppos 1.4 0 0
+cpos -1.4 0 0
+angl 0
+type hinge 0 0 1
+#spring
+lnka top
+lnkb middle
+posa 1 0 0
+posb -1 0 0
+stif 100
+damp 1
+"""
+
+
+def text_scene():
+    """TEXT_SCENE through sceneio.load_scene_text (a SceneBuilder)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.txt")
+        with open(path, "w") as fh:
+            fh.write(TEXT_SCENE)
+        return sceneio.load_scene_text(path)
+
+
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit as values, a NaN (a diverged lane) equal to a NaN."""
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()))
+    return type(a) is type(b) and a == b
+
+
+class Counted:
+    """An objective that counts its evaluations (each with its gradient in
+    the solvers)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+
+def main_path_problem(device, nlinks=12, horizon=50, B=1024, dtype=torch.float32, use_kernel=None):
+    """bench.py's batched MPC problem on the port: (scene, objective
+    (make_objective_batched on the route use_kernel picks), p0, state0,
+    targets)."""
+    sc = scene_chain(nlinks).compile(dtype=dtype, device=device)
+    task = mpc.PointPosTask(body=sc.topo.njoints - 1, wp=1.0, wreg=1e-6, pscale=1e3)
+    obj = mpc.make_objective_batched(sc.topo, sc.force_fns, task, (0.5, 0.0, 0.0), horizon, CFG,
+                                     use_kernel=use_kernel)
+    p0, targets = bench_inputs(sc.topo.nr, B, device, dtype)
+    s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
+               qdot=sc.state0.qdot.expand(B, -1).contiguous())
+    return sc, obj, p0, s0, targets
+
+
+def phase_lbfgs(device="cuda", B=1024, horizon=50, iters=LBFGS_ITERS):
+    """Phase 31 (1): the L-BFGS MPC solve (mpc.make_mpc_solver(method=
+    "lbfgs"): optax.lbfgs(memory_size=8) with its zoom line search, every
+    lane its own) at bench.py's scale on the kernel route (K1a), timed by
+    metrics.bench_throughput; 49 launches of the cooperative design an
+    evaluation and none of the other; the objective at the returned P (the
+    same P) held against the float64 op-level route as closely as the
+    float32 op-level route is; and the optimizer alone on the card against
+    the CPU (Rosenbrock, f64, 1e-10). No small-size solve is held: which
+    trial each lane's search accepts turns on rounding (its first trial is
+    a step of length 1 in p, a torque of 1000, and later ones land where 3
+    chord iterations do not converge), so at chain-4, horizon 5, B = 64
+    the kernel route's solve and the op-level route's agree on 0.05 of
+    lanes, and on the CPU the float64 solve against itself from
+    p0 (1 + 1e-7) on 0.11 (tests/test_torch_lbfgs.py holds the solver to
+    optax's). Returns (launches, the lbfgs_path line)."""
+    sc, obj, p0, s0, targets = main_path_problem(device, B=B, horizon=horizon)
+    design = design_of(sc, sc.params)
+    counted = Counted(obj)
+    solve = mpc.make_mpc_solver(counted, iters=iters, method="lbfgs")
+    last = {}
+
+    def run(*args):
+        last["res"] = solve(*args)
+        return last["res"]
+
+    args = (sc.params, p0, s0, targets)
+    reset_launches()
+    dt, _ = metrics.bench_throughput(run, args, n_warmup=0, n_reps=1)
+    launches, other = launches_of(design), launches_of() - launches_of(design)
+    evals = counted.calls
+    res = last["res"]
+    with torch.no_grad():
+        before, after = obj(sc.params, p0, s0, targets), obj(sc.params, res.p, s0, targets)
+    fin = torch.isfinite(before) & torch.isfinite(after)
+    fell = float((after[fin] < before[fin]).double().mean())
+    finite_frac = float(torch.isfinite(after).double().mean())
+    med = lambda v: float(v[torch.isfinite(v)].median())
+    line = {"B": B, "horizon": horizon, "iters": iters, "seconds_per_solve": dt,
+            "evals_per_iter": evals / iters, "launches": launches,
+            "launches_per_eval": launches / evals, "design": design,
+            "median_objective_before": med(before), "median_objective_after": med(after),
+            "fell_share_of_finite": fell, "finite_frac": finite_frac}
+    print(f"lbfgs chain-12 (B = {B}, horizon {horizon}, {iters} iterations, f32): "
+          f"{dt:.3f} s a solve (metrics.bench_throughput), {evals / iters:.1f} value-and-gradient "
+          f"evaluations an iteration, chord kernel launches {launches} ({launches / evals:.1f} "
+          f"an evaluation) on the {design} design, {other} on the other; median objective "
+          f"{med(before):.6f} -> {med(after):.6f}, fell on {fell:.4f} of the finite lanes, "
+          f"finite_frac {finite_frac:.4f}")
+    if launches != (horizon - 1) * evals or other:
+        raise AssertionError(f"lbfgs: {launches} launches of the {design} design and {other} of "
+                             f"the other in {evals} evaluations, want {horizon - 1} each")
+    if res.p.shape != p0.shape or not torch.isfinite(res.p[torch.isfinite(after)]).all():
+        raise AssertionError("lbfgs: unexpected shape, or a non-finite P on a finite lane")
+    if not med(after) < med(before) or fell < 0.5:
+        raise AssertionError("lbfgs: the objective did not fall")
+
+    # The objective at the returned P (the same P) on the op-level route in
+    # float32 and in float64. Some lanes' returned P lies where the rollout
+    # is rounding-sensitive (the search accepts large torques), so the
+    # kernel route is held to the float64 values on as many lanes as the
+    # float32 op-level route is, less 1%, and to its finite mask.
+    sc64, obj64, _, s64, t64 = main_path_problem(device, B=B, horizon=horizon,
+                                                 dtype=torch.float64, use_kernel=False)
+    _, obj_plain, _, _, _ = main_path_problem(device, B=B, horizon=horizon, use_kernel=False)
+    with torch.no_grad():
+        plain = obj_plain(sc.params, res.p, s0, targets).double()
+        ref64 = obj64(sc64.params, res.p.double(), s64, t64)
+    after = after.double()
+    masks = float((torch.isfinite(after) == torch.isfinite(plain)).double().mean())
+
+    def share(v):
+        both = torch.isfinite(v) & torch.isfinite(ref64)
+        return float(((v - ref64).abs() <= 1e-3 * ref64.abs())[both].double().mean())
+
+    within, within_plain, kernel_vs_plain = share(after), share(plain), float(
+        ((after - plain).abs() <= 1e-3 * plain.abs()).double().mean())
+    print(f"lbfgs: the objective at the returned P, float32 against the float64 op-level route: "
+          f"within rtol 1e-3 on {within:.4f} of lanes finite in both on the kernel route, "
+          f"{within_plain:.4f} on the float32 op-level route; kernel route against the float32 "
+          f"op-level route {kernel_vs_plain:.4f}, finite masks agree on {masks:.4f}")
+    if masks < 0.99 or within < within_plain - 0.01:
+        raise AssertionError("lbfgs: the kernel route's objective at the returned P is off the "
+                             "op-level route's")
+
+    # the optimizer alone on the card: tests/test_torch_lbfgs.py's Rosenbrock
+    # function (f64, 8 iterations) against the same solve on the CPU
+    rosen = lambda _, p, s, t: (100.0 * (p[..., 1:] - p[..., :-1] ** 2) ** 2
+                                + (1.0 - p[..., :-1]) ** 2).sum(-1)
+    start = torch.tensor([-1.2, 1.0, -0.5, 0.8], dtype=torch.float64)
+    card, cpu = (mpc.make_mpc_solver(rosen, iters=8, method="lbfgs")(None, start.to(d), None,
+                                                                      None).p.cpu()
+                 for d in (device, "cpu"))
+    rosen_err = float((card - cpu).abs().max() / cpu.abs().max())
+    print(f"lbfgs Rosenbrock (f64, 8 iterations): card against CPU {rosen_err:.3e} of scale")
+    if rosen_err > 1e-10:
+        raise AssertionError("lbfgs: the optimizer's iterates on the card are off the CPU's")
+
+    line["rosenbrock_card_vs_cpu"] = rosen_err
+    line["returned_p_kernel_vs_op_level_f32"] = kernel_vs_plain
+    line["returned_p_within_1e-3_of_f64"] = within
+    line["returned_p_within_1e-3_of_f64_op_level_f32"] = within_plain
+    return launches, line
+
+
+def graft_leg(mesh, nlinks, horizon, use_kernel, device):
+    """One leg of __graft_entry__.py's dryrun_multichip (:60-104) on the
+    port: the sharded batched MPC training step (forward, adjoint, one Adam
+    step) of the nlinks chain at 2 lanes a rank, p0 = 0.003 N(0, 1) and
+    targets N(0, 1) (seed 0), its NewtonConfig (tol 1e-6); the mean must be
+    finite."""
+    sc = scene_chain(nlinks).compile(dtype=torch.float32, device=device)
+    cfg = dataclasses.replace(CFG, tol=1e-6)
+    task = mpc.PointPosTask(body=nlinks - 1, wp=1.0, wreg=1e-6, pscale=1e3)
+    obj = mpc.make_objective_batched(sc.topo, sc.force_fns, task, (0.5, 0.0, 0.0), horizon, cfg,
+                                     use_kernel=use_kernel)
+    run = parallel.sharded_mpc_batched(mpc.make_mpc_solver_batched(obj, iters=1, lr=0.05), mesh)
+    B = 2 * mesh.size()
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    p0 = t(0.003 * rng.normal(size=(B, sc.topo.nr)))
+    s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
+               qdot=sc.state0.qdot.expand(B, -1).contiguous())
+    res, mean = run(sc.params, p0, s0, t(rng.normal(size=(B, 3))))
+    if not torch.isfinite(mean):
+        raise AssertionError(f"graft leg ({nlinks} links, horizon {horizon}): mean {mean}")
+    return float(mean)
+
+
+def phase_sharded(device="cuda", B=1024, horizon=50):
+    """Phase 31 (2): parallel.py on a world of one (NCCL on the card, gloo
+    in a CPU rehearsal; a FileStore in a temp dir): sharded_mpc_batched
+    over the main path's Adam solve at B = 1024 (49 launches of the
+    cooperative design), P bit for bit the unsharded solve's in this
+    process (a NaN lane equal to a NaN), the mean the finite-lane mean; then
+    __graft_entry__.py's two legs at world size 1 (12 links, horizon 25,
+    op level; 2 links, horizon 3, kernel route). Returns (launches, the
+    sharded_path line)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh(model=1)
+            setup = time.perf_counter() - t0
+            if mesh.device_type != torch.device(device).type or dist.get_backend() != backend:
+                raise AssertionError(f"sharded: a {mesh.device_type} mesh on "
+                                     f"{dist.get_backend()}")
+            sc, obj, p0, s0, targets = main_path_problem(device, B=B, horizon=horizon)
+            design = design_of(sc, sc.params)
+            solve = mpc.make_mpc_solver_batched(obj, iters=1, lr=0.05)
+            ref = solve(sc.params, p0, s0, targets)
+            torch.cuda.synchronize()
+            reset_launches()
+            res, mean = parallel.sharded_mpc_batched(solve, mesh)(sc.params, p0, s0, targets)
+            torch.cuda.synchronize()
+            launches, other = launches_of(design), launches_of() - launches_of(design)
+            same = all(bit_equal(getattr(res, f), getattr(ref, f))
+                       for f in ("p", "objective", "grad_norm"))
+            fin = torch.isfinite(ref.objective)
+            want = float(ref.objective[fin].double().sum() / fin.sum())
+            graft = [graft_leg(mesh, 12, 25, False, device), graft_leg(mesh, 2, 3, True, device)]
+        finally:
+            dist.destroy_process_group()
+    print(f"sharded (world of one, {backend}; setup {setup:.2f} s): sharded_mpc_batched over the "
+          f"main path's solve (B = {B}) {'equals' if same else 'differs from'} the unsharded "
+          f"solve bit for bit; mean {float(mean):.6f} (finite-lane mean {want:.6f}); chord "
+          f"kernel launches {launches} on the {design} design, {other} on the other; __graft_entry__ legs' means "
+          f"{graft[0]:.6f} (12 links, horizon 25) and {graft[1]:.6f} (2 links, horizon 3, kernel "
+          "route)")
+    if not same:
+        raise AssertionError("sharded: the sharded solve differs from the unsharded one")
+    if abs(float(mean) - want) > 1e-5 * abs(want):
+        raise AssertionError(f"sharded: mean {float(mean)} is not the finite-lane mean {want}")
+    if launches != horizon - 1 or other:
+        raise AssertionError(f"sharded: {launches} launches of the {design} design, {other} of "
+                             f"the other, want {horizon - 1}")
+    return launches, {"B": B, "world_size": 1, "backend": backend, "bit_equal": same,
+                      "mean": float(mean), "finite_lane_mean": want, "launches": launches,
+                      "design": design, "graft_means": graft, "setup_s": setup}
+
+
+def phase_checkpoint(device="cuda", B=1024, horizon=50, n=6):
+    """Phase 31 (3): n Adam iterations of the main path's objective through
+    checkpoint.checkpointed_run (a snapshot every 2), stopped after 3 and
+    resumed: P and the Adam moments bit for bit the uninterrupted run's.
+    Returns the seconds of the three runs."""
+    sc, obj, p0, s0, targets = main_path_problem(device, B=B, horizon=horizon)
+    init, update = mpc._adam(0.05)
+
+    def iterate(carry, _i):
+        P, opt_state = carry
+        Pg = P.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(obj(sc.params, Pg, s0, targets).sum(), Pg)
+        step, opt_state = update(g, opt_state)
+        return P + step, opt_state
+
+    t0 = time.perf_counter()
+    carry0 = (p0, init(p0))
+    ref = carry0
+    for i in range(n):
+        ref = iterate(ref, i)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.checkpointed_run(iterate, carry0, n // 2, tmp, every=2)
+        full = checkpoint.checkpointed_run(iterate, carry0, n, tmp, every=2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    a, b = checkpoint.tree_flatten(full), checkpoint.tree_flatten(ref)
+    same = len(a) == len(b) and all(bit_equal(x, y) for x, y in zip(a, b))
+    print(f"checkpoint: {n} Adam iterations of the main path (B = {B}) stopped after {n // 2} and "
+          f"resumed {'equal' if same else 'differ from'} the uninterrupted run bit for bit "
+          f"(P, both moments, count {full[1][2]}); {dt:.1f} s for the three runs")
+    if not same or type(full[1][2]) is not int:
+        raise AssertionError("checkpoint: the resumed run differs from the uninterrupted one")
+    return dt
+
+
+def phase_text_scene(device="cuda", B=1024, nsteps=50):
+    """Phase 31 (4): TEXT_SCENE through sceneio.load_scene_text, compiled
+    on the card in float32, nsteps BDF2 steps at B lanes (zoo_state0)
+    through make_simulate on the default route (the chord kernel built for
+    its shape, in phase 2), every step finite; lane 0's energy drift
+    (metrics.energy_drift); export_objs, export_html and FrameExporter of
+    lane 0's trajectory into a temp dir. Returns the line's entry."""
+    sc = text_scene().compile(dtype=torch.float32, device=device)
+    design = design_of(sc, sc.params)
+    step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG)
+    s0 = integrators.bdf2_init(zoo_state0(sc, B, device, torch.float32))
+    reset_launches()
+    final, (hq, hqd) = integrators.make_simulate(step, nsteps, record=True)(sc.params, s0)
+    torch.cuda.synchronize()
+    launches = launches_of(design)
+    finite = bool(torch.isfinite(hq).all() and torch.isfinite(hqd).all())
+    drift = metrics.energy_drift(sc, State(q=final.q[0], qdot=final.qdot[0]))
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = hq[:, 0]
+        n_obj = export.export_objs(sc, traj, os.path.join(tmp, "objs"))
+        export.export_html(sc, traj, os.path.join(tmp, "viewer.html"))
+        ex = export.FrameExporter(sc, os.path.join(tmp, "frames"))
+        for k in range(nsteps):
+            kin = model.forward_kinematics(sc.topo, sc.params, hq[k, :1], hqd[k, :1])
+            ex.add_frame((k + 1) * sc.h, kin)
+        with open(ex.write()) as fh:
+            n_frames = len(json.load(fh)["frames"])
+        sizes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp) for f in fs)
+    print(f"text scene (tests/test_io.py:16's, {sc.topo.njoints} links and a spring, B = {B}, "
+          f"f32): {nsteps} BDF2 steps on the default route, {launches} launches of the {design} "
+          f"design, every step finite: {finite}; lane 0's energy drift {drift:.6e}; exported "
+          f"{n_obj} OBJ frames, a viewer and {n_frames} JSON frames ({sizes} bytes)")
+    if not finite or n_obj != nsteps or n_frames != nsteps:
+        raise AssertionError("text scene: a non-finite step or a missing export")
+    if launches != nsteps - 1:
+        raise AssertionError(f"text scene: {launches} launches, want {nsteps - 1}")
+    return {"steps": nsteps, "launches": launches, "design": design,
+            "energy_drift_lane0": drift, "obj_frames": n_obj}
+
+
+def phase_last_modules(device="cuda"):
+    """Phase 31: the L-BFGS MPC, the sharded solve, checkpoint and resume,
+    and the text scene (each above). Returns (L-BFGS launches, sharded
+    launches, lbfgs_path, sharded_path)."""
+    t0 = time.perf_counter()
+    lbfgs_launches, lbfgs_line = phase_lbfgs(device)
+    sharded_launches, sharded_line = phase_sharded(device)
+    sharded_line["checkpoint_s"] = phase_checkpoint(device)
+    sharded_line["text_scene"] = phase_text_scene(device)
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s")
+    return lbfgs_launches, sharded_launches, lbfgs_line, sharded_line
+
+
 def ptxas_kernels(report: str):
     """(kernel, registers, frame bytes, spill store bytes, spill load bytes)
     of each kernel in an nvcc -Xptxas -v report, the kernel named by its
@@ -3563,10 +3939,11 @@ def on_demand_builds():
     to decide): the K1b paths' and the default-route cases' (phase 26; the
     QP's in both designs, the thread-per-lane one its yardstick); and the
     cooperative probe build of uni6 (phase 25); the scene zoo's (phase
-    27)."""
+    27); the text scene's and the 2-link chain's of phase 31."""
     out = []
     cases = ([(make, CFG, None) for _, make in QDEP_SCENES] + [c[1:4] for c in DEFAULT_ROUTE]
-             + [(make, CFG, None) for _, make in ZOO])
+             + [(make, CFG, None) for _, make in ZOO]
+             + [(text_scene, CFG, None), (lambda: scene_chain(2), CFG, None)])
     for make, cfg, draws in cases:
         sc = make().compile(dtype=torch.float32, device="cpu")
         params = sc.params if draws is None else draws(sc.params, sc.force_fns, 4)
@@ -3791,6 +4168,7 @@ def main():
     mzoo_record, mzoo_line = phase_mscene_zoo()
     mppi_launches, tiers_line = phase_explicit_tiers()
     k3_records, fric_line = phase_friction_zoo(smi=smi)
+    lbfgs_launches, sharded_launches, lbfgs_line, sharded_line = phase_last_modules()
 
     kernels = [{
         # the cooperative design (a warp a lane), on the main path; the
@@ -3939,6 +4317,22 @@ def main():
         "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
         "replaces": "redmax_tpu/pallas_step.py:689",
         **record, "launches": mppi_launches, "library_ms": None,
+    }, {
+        # phase 31: the same build (K1a, chain-12, B = 1024) under the L-BFGS
+        # MPC solve; its times are phase 3's; launches: the timed solve's
+        # (49 an evaluation)
+        "name": "chord_bdf2[lbfgs]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
+        "replaces": "redmax_tpu/pallas_step.py:689",
+        **record, "launches": lbfgs_launches, "library_ms": None,
+    }, {
+        # phase 31: the same build under parallel.sharded_mpc_batched on a
+        # world of one (NCCL); its times are phase 3's; launches: the
+        # sharded solve's
+        "name": "chord_bdf2[sharded]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/chord_bdf2_coop.cu",
+        "replaces": "redmax_tpu/pallas_step.py:689",
+        **record, "launches": sharded_launches, "library_ms": None,
     }] + [{
         # phase 30: the port's own kernel K3 (no TPU kernel: the op-level
         # lax.scan sweeps of the friction step), on real solves of the
@@ -3983,6 +4377,8 @@ def main():
     print(json.dumps({"mscene_zoo": {**mzoo_line, "card": smi}}))
     print(json.dumps({"explicit_tiers": {**tiers_line, "card": smi}}))
     print(json.dumps({"friction_zoo": {**fric_line, "card": smi}}))
+    print(json.dumps({"lbfgs_path": {**lbfgs_line, "card": smi}}))
+    print(json.dumps({"sharded_path": {**sharded_line, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,11 +21,13 @@ faster one; this is the tier for scenes whose nr runs into the hundreds.
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from redmax_tpu_torch import se3
 from redmax_tpu_torch.constraints import assemble_constraints
 from redmax_tpu_torch.integrators import euler_system
 from redmax_tpu_torch.model import Kinematics, reparam_all
+from redmax_tpu_torch.parallel import gather_blocks
 from redmax_tpu_torch.recursive import (
     _against, _join, _level_tensors, _mtv, _mv, _pad_q, _rows, _unpad_q, make_minv_product,
 )
@@ -159,11 +161,26 @@ def _euler_matfree(topo: Topology, force_fns: Tuple, params: Dict, q, qdot, aux)
     return lhs, sys["frtilde"], make_minv_product(topo, params, sys["kin"]), sys
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "pcg mesh= (the constraint rows' CG sharded over a device mesh) is not ported yet: "
-            "it comes with parallel.py")
+def _check_mesh(mesh):
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh= takes a torch DeviceMesh (parallel.make_mesh), got {type(mesh)}")
+
+
+def _pcg_rows_sharded(mesh, lhs, b, precond, tol, maxit) -> PcgResult:
+    """pcg over the rows b [B, k, n] split over the mesh's "model" ranks:
+    the rows padded with zero rows to a multiple of the model size (a zero
+    right-hand side is converged at the start), this rank's share solved,
+    the shares gathered in rank order and the pad dropped. Each row's CG is
+    its own program, so the result is the unsharded pcg's."""
+    m = mesh.size(mesh.mesh_dim_names.index("model"))
+    rows = b.shape[1]
+    per = -(-rows // m)
+    bp = torch.cat([b, b.new_zeros(b.shape[0], per * m - rows, b.shape[2])], dim=1)
+    r = mesh.get_local_rank("model")
+    res = pcg(lhs, bp[:, r * per:(r + 1) * per], precond, tol, maxit)
+    res = PcgResult(*(x[:, :rows] for x in gather_blocks(res, 1, mesh.get_group("model"))))
+    pcg_stats["iters"] = res.iters
+    return res
 
 
 def make_euler_pcg_solver(topo: Topology, force_fns: Tuple = (), tol: float = 1e-6,
@@ -200,13 +217,15 @@ def make_euler_pcg_constrained_solver(
     reference runs one PCG per constraint row under OpenMP plus one for the
     unconstrained solve; here the me + 1 right-hand sides of every lane are
     lanes of one batched CG ([B, me + 1, nr]), sharing each lane's operator
-    and preconditioner. mesh= (sharding those rows over devices) is not
-    ported yet and raises.
+    and preconditioner. mesh (a parallel.make_mesh DeviceMesh) splits those
+    rows over its "model" ranks (the device-parallel form of the
+    reference's OpenMP row loop); the result is the unsharded solve's, bit
+    for bit.
 
     Returns solve(params, q, qdot, aux) -> (qdot1 [B, nr], lam [B, me],
     PcgResult over [B, me + 1]).
     """
-    _no_mesh(mesh)
+    _check_mesh(mesh)
 
     def solve(params: Dict, q, qdot, aux=None):
         lhs, frt, minv, sys = _euler_matfree(topo, force_fns, params, q, qdot, aux)
@@ -214,7 +233,9 @@ def make_euler_pcg_constrained_solver(
                                     sys["J"])
         Geq = rows["Geq"]                                          # [B, me, nr]
         rhsG = -rows["geqdot"] - params["baumgarte"][2] * rows["geq"]
-        res = pcg(lhs, torch.cat([frt[:, None], Geq], dim=1), minv, tol, maxit)
+        rhs = torch.cat([frt[:, None], Geq], dim=1)
+        res = (pcg(lhs, rhs, minv, tol, maxit) if mesh is None
+               else _pcg_rows_sharded(mesh, lhs, rhs, minv, tol, maxit))
         qdot1_unc = res.x[:, 0]
         MiGt = res.x[:, 1:].transpose(-1, -2)                      # [B, nr, me]
         lam = torch.linalg.solve(Geq @ MiGt, _mv(Geq, qdot1_unc) - rhsG)
@@ -235,15 +256,17 @@ def make_euler_pcg_step(
     step loop, RigidBodyMain.cpp:412-431): the velocity solve (with the
     Schur complement where the scene has equality rows), the position
     update and the reparameterization. (params, State [B, nr]) -> State, the
-    contract of integrators.make_euler_step."""
-    _no_mesh(mesh)
+    contract of integrators.make_euler_step. mesh: as in
+    make_euler_pcg_constrained_solver."""
+    _check_mesh(mesh)
     eq_only = tuple(c for c in constraint_fns if (c.n_eq_m or c.n_eq_r))
     if len(eq_only) != len(constraint_fns):
         raise NotImplementedError(
             "the PCG tier takes equality (loop-closure) constraints only; inequality rows "
             "need the dense QP path (integrators.make_euler_step)")
     if eq_only:
-        vel_solve = make_euler_pcg_constrained_solver(topo, force_fns, eq_only, tol, maxit)
+        vel_solve = make_euler_pcg_constrained_solver(topo, force_fns, eq_only, tol, maxit,
+                                                      mesh=mesh)
     else:
         vel_solve = make_euler_pcg_solver(topo, force_fns, tol, maxit)
 

@@ -126,6 +126,8 @@ class SceneBuilder:
         self.Hexpected: Dict[str, float] = {}
         # (node bodies, body0, r0, body1, r1, force key) of each deformable spring
         self._deform_inits: List[Tuple] = []
+        # editing paths of critical points (sceneio's #spline stanza): metadata
+        self.spline_paths: List[Dict[str, Any]] = []
 
     # -- bodies ------------------------------------------------------------
     def _add_body(self, spec: _BodySpec) -> int:

@@ -1,5 +1,5 @@
 """Batched SE(3)/se(3) operations (the subset forward kinematics, the
-Jacobians, the constraint rows and the spline joints use).
+Jacobians, the constraint rows, the spline joints and the exporters use).
 
 Conventions (those of the JAX package's se3.py):
 
@@ -145,3 +145,31 @@ def log6(E):
     I3 = torch.eye(3, dtype=E.dtype, device=E.device)
     Vinv = I3 - 0.5 * W + coef[..., None, None] * (W @ W)
     return torch.cat([w, (Vinv @ p[..., None])[..., 0]], dim=-1)
+
+
+def mat_to_q(R):
+    """(..., 3, 3) rotation -> (..., 4) quaternion [w x y z], branchless: all
+    four Shepperd candidates evaluated, the best selected by mask (the JAX
+    package's mat_to_q; the reference's se3.matToQ, se3.m:202, branches and
+    agrees up to the sign convention)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-30))
+
+    S0 = safe_sqrt(tr + 1.0) * 2
+    q0 = torch.stack([0.25 * S0, (m21 - m12) / S0, (m02 - m20) / S0, (m10 - m01) / S0], dim=-1)
+    S1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2
+    q1 = torch.stack([(m21 - m12) / S1, 0.25 * S1, (m01 + m10) / S1, (m02 + m20) / S1], dim=-1)
+    S2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2
+    q2 = torch.stack([(m02 - m20) / S2, (m01 + m10) / S2, 0.25 * S2, (m12 + m21) / S2], dim=-1)
+    S3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2
+    q3 = torch.stack([(m10 - m01) / S3, (m02 + m20) / S3, (m12 + m21) / S3, 0.25 * S3], dim=-1)
+    use0 = tr > 0
+    use1 = (m00 > m11) & (m00 > m22) & ~use0
+    use2 = (m11 > m22) & ~((m00 > m11) & (m00 > m22)) & ~use0
+    return torch.where(use0[..., None], q0, torch.where(
+        use1[..., None], q1, torch.where(use2[..., None], q2, q3)))

@@ -233,7 +233,7 @@ def test_closures_waiting_for_later_items_raise():
     blocks would need autodiff (no closed form, implicit_KD left True)
     raises in the assembly; the chord kernel refuses the closures it has no
     branch for (SpringDamperM, ForcePointDirection, ForceDeformableSegments);
-    the L-BFGS solver is still to come (the MPPI solvers are ported)."""
+    the MPPI and L-BFGS solvers are ported."""
     for name in ("SpringDamperM", "ForcePointDirection", "ForceDeformableSegments"):
         assert getattr(tforces, name).implicit_KD is False
     with pytest.raises(NotImplementedError, match="implicit_KD"):
@@ -245,8 +245,7 @@ def test_closures_waiting_for_later_items_raise():
     for sid in (24, 10, 12):
         sc = build_mscene(sid, device="cpu")
         assert not chord_kernel.supports(sc.topo, sc.force_fns, cfg), sid
-    with pytest.raises(NotImplementedError, match="L-BFGS"):
-        mpc.make_mpc_solver(None, method="lbfgs")
+    assert callable(mpc.make_mpc_solver(None, method="lbfgs"))   # test_torch_lbfgs.py
     assert callable(mpc.make_mppi_solver_batched(None))     # ported (test_torch_mppi.py)
     b = tscene.SceneBuilder()
     b.body_sphere(1.0, 0.1)

@@ -4,8 +4,8 @@ task, PointPosTask(body=1, wp=1, wreg=1e-5, pscale=1e4), 10 steps) and its
 gradient in p for BDF1 and BDF2 on both adjoint routes (the factor-reusing
 one of a fixed-iteration config, and implicit_solve with the exact H of the
 default config) against jax.grad at 1e-8 of scale; one Adam step of
-mpc.make_mpc_solver against the JAX package's; and the L-BFGS solver, not
-ported yet, raises. The JAX oracles are jitted once each.
+mpc.make_mpc_solver against the JAX package's (the L-BFGS solver is held in
+test_torch_lbfgs.py). The JAX oracles are jitted once each.
 """
 
 import jax
@@ -79,7 +79,8 @@ def test_adam_step_matches_jax():
         tsc.params, torch.tensor(p), tsc.state0, torch.tensor(TARGET, dtype=torch.float64))
     for name in ("p", "objective", "grad_norm"):
         _close(getattr(res, name), getattr(ref, name), 1e-8, name)
-    with pytest.raises(NotImplementedError, match="L-BFGS"):
-        tmpc.make_mpc_solver(tobj, method="lbfgs")
+    assert callable(tmpc.make_mpc_solver(tobj, method="lbfgs"))   # test_torch_lbfgs.py
+    with pytest.raises(ValueError):
+        tmpc.make_mpc_solver(tobj, method="sgd")
     for fn in (tmpc.make_mppi_solver, tmpc.make_mppi_solver_batched):
         assert callable(fn(tobj))          # ported (test_torch_mppi.py)

@@ -152,9 +152,10 @@ def test_lanes_converge_at_different_iterations():
 
 def test_mesh_and_inequality_rows_raise():
     sc = tms.build_mscene(15, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel.py"):
+    # mesh= takes a DeviceMesh (the sharded solve: test_torch_parallel.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpcg.make_euler_pcg_constrained_solver(sc.topo, (), sc.constraint_fns, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel.py"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpcg.make_euler_pcg_step(sc.topo, (), sc.constraint_fns, mesh=object())
     sc6 = tms.build_mscene(6, device="cpu")
     with pytest.raises(NotImplementedError, match="equality"):
