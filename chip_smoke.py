@@ -8,7 +8,8 @@ Phases (any failure is an exception and a non-zero exit):
      side by side (the chord kernel's fixed libraries: the thread-per-lane
      design as it stands, with the q-dependent joints, with per-lane params
      and with the robust solve modes, its cooperative design, and the dual
-     PGS in both designs, a group of threads a lane and one thread a lane;
+     PGS in both designs, a group of threads a lane and one thread a lane,
+     K3's fixed library and its unit for phase 30's m = 200;
      and the builds made for one shape that the phases below launch: the
      cooperative K1b builds, the default-route cases of phase 26 (the QP's
      in both designs) and uni6's probe build, each picked by the shape rule
@@ -240,13 +241,23 @@ Phases (any failure is an exception and a non-zero exit):
      after a warm step), finite
      share, the K3 kernel (pgs_kernel.pgs_sweeps, csrc/pgs_sweeps.cu: the
      port's own, replacing the op-level sweeps) launched once for each sweep
-     solve of the rollout and never on the CPU, the per-step share against
-     float64 held at 0.95; (3) K3 against its plain version (qp.pgs_sweeps)
-     on real solves at 3000 sweeps, float64 and float32: mscene 27's and
-     mscene 30's friction passes (T^T b within 1e-10 / 2e-4 of scale) and
-     mscene 33's first QP (x), each with a lane not active and a NaN lane,
-     timed (10 launches in a CUDA graph, 100 at m <= 8, and CUDA events)
-     beside the plain version and the bound;
+     solve of the rollout, by the design pgs_kernel.design_of routes it to
+     (one thread a lane for the dual QPs, a warp a lane with one triangle of
+     the symmetric D for the friction passes), never by the earlier warp
+     design and never on the CPU, the per-step share against float64 held
+     at 0.95; (3) K3 against its plain version (qp.pgs_sweeps) on real
+     solves at 3000 sweeps and 1024 lanes, float64 and float32: mscene 27's
+     and mscene 30's friction passes (T^T b within 1e-10 / 2e-4 of scale)
+     and mscene 33's first QP (x), each with a lane not active and a NaN
+     lane, in the routed launch, the warp design's other store and the
+     earlier warp design (k3_variants), each timed (5 launches in a CUDA
+     graph, 50 at m <= 8, and CUDA events) beside the plain version and the
+     bound, with ns and cycles a row update (the SM clock nvidia-smi reads
+     under the routed launch), shared memory, lanes an SM, waves at 1024 and
+     ptxas registers and spills; and K3 past the zoo's widths (k3_wide:
+     m = 200 on a synthetic dual, symmetric and not, float64 and float32,
+     where float64's transpose does not fit a block's shared memory) held
+     and timed the same way at 100 sweeps;
      prints friction_zoo;
  31. the last modules (phase_last_modules): (1) the L-BFGS MPC solve
      (mpc.make_mpc_solver(method="lbfgs"), 3 iterations) at bench.py's
@@ -3174,14 +3185,12 @@ def phase_explicit_tiers(device="cuda", B=1024, workers=ODE45_WORKERS):
 # 0's certificate keeps: ("abs", |H - Hexpected|) or ("rel", |H / Hexpected - 1|)
 FRIC_BANDS = {27: ("rel", 0.07), 28: ("abs", 1e-2), 29: ("abs", 1e-2), 30: ("rel", 0.15),
               31: ("abs", 1e-2), 33: ("rel", 0.03)}
-# lanes of each case's float64 certificate rollout: 1024, and 512 for the
-# 4-bars, whose K3 solves (m = 80 and 72, a lane's D 52 and 42 KB of shared
-# memory) take two waves at 1024 lanes (phase 30 took 137 s on mscene 33's
-# float64 rollout at 1024)
-FRIC_B64 = {27: 1024, 28: 1024, 29: 1024, 30: 512, 31: 1024, 33: 512}
+# lanes of each case's float64 certificate rollout: 1024 (the 4-bars' K3
+# friction solves, m = 80 and 72, keep one triangle of their symmetric D
+# (pgs_kernel.warp_store): 8 lanes an SM, one wave at 1024 lanes)
+FRIC_B64 = {27: 1024, 28: 1024, 29: 1024, 30: 1024, 31: 1024, 33: 1024}
 # the cases whose float64 rollouts run in a pool of processes on the card,
-# beside the rest of the phase (the two longest: alone on an H100, mscene
-# 33's took 81.1 s and 30's 18.6 s)
+# beside the rest of the phase (the two longest)
 FRIC_POOLED = (33, 30)
 # float32 steps of each case (min(nsteps, 50) at FRIC_B32 lanes), shorter
 # for the 4-bars, whose float32 staggered projections run sp_iter_max = 100
@@ -3201,6 +3210,12 @@ FRIC_F32_HELD = (27, 28, 29, 30, 33)
 # "friction" the first friction pass, "qp" the first dual QP
 K3_CASES = (("friction mscene 27", 27, "friction"), ("friction mscene 30", 30, "friction"),
             ("qp mscene 33", 33, "qp"))
+# lanes and sweeps of phase 30's K3 checks
+K3_B, K3_ITERS = 1024, 3000
+# phase 30's check of K3 past the zoo's widths: m (a -DPGS_K unit built at
+# first launch; in float64 D transposed does not fit a block's shared
+# memory, 232,992 bytes against an H100's 232,448) and sweeps
+K3_WIDE_M, K3_WIDE_ITERS = 200, 100
 # H100 SXM peak float64 rate outside the tensor cores (NVIDIA data sheet)
 PEAK_F64_FLOPS = 34e12
 
@@ -3276,31 +3291,179 @@ def k3_inputs(sc, step, params, state, kind):
 
 def k3_output(how, lam):
     kind, data = how
+    if kind == "lam":
+        return lam
     if kind == "friction":
         return (data.transpose(-1, -2) @ lam[..., None])[..., 0]
     Hf, HinvAT = data
     return Hf - (HinvAT @ lam[..., None])[..., 0]
 
 
-def k3_check(label, sc, step, params, state, kind, smi, iters=3000):
+# K3's designs (pgs_kernel.DESIGNS) by the names of the kernel records
+K3_DESIGN_NAMES = {"thread": "thread_per_lane", "warp": "warp_per_lane",
+                   "warp_div": "warp_per_lane_div"}
+
+
+def k3_ptxas(report):
+    """{(design, dtype, size, flag): (registers, spill store bytes, spill
+    load bytes)} of K3's kernels in an nvcc -Xptxas -v report:
+    thread_kernel<T, M> as ("thread", dtype, M, 0), warp_kernel<T, K,
+    store> as ("warp", dtype, K, store: pgs_kernel.STORES), div_kernel<T,
+    K, shared_d> as ("warp_div", dtype, K, shared_d)."""
+    out, key, frame = {}, None, (0, 0)
+    names = {"thread": "thread", "warp": "warp", "div": "warp_div"}
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '[^']*?(thread|warp|div)_kernelI([fd])Li(\d+)E"
+                      r"(?:L[bi](\d)E)?E", line)
+        if m:
+            key = (names[m.group(1)], "float32" if m.group(2) == "f" else "float64",
+                   int(m.group(3)), int(m.group(4) or 0))
+            frame = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key is not None:
+            out[key] = (int(m.group(1)), *frame)
+            key = None
+    return out
+
+
+def sm_clock_mhz(fn, seconds=1.0):
+    """(median SM clock in MHz, samples) that nvidia-smi reads every 50 ms
+    while fn() runs back to back for `seconds` (NaN where it read none);
+    the sampler is stopped before this returns."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                             "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    vals = sorted(float(v) for v in out.split() if re.fullmatch(r"\d+(\.\d+)?", v))
+    return (vals[len(vals) // 2] if vals else float("nan")), len(vals)
+
+
+def k3_layout_fields(m, dtype, design, store, B=1024):
+    """The launch's shared memory, lanes an SM and waves at B lanes
+    (pgs_kernel.layout; store: the warp design's; K3's records and phase 30
+    use B = 1024), and its ptxas registers and spills."""
+    lay = pgs_kernel.layout(m, dtype, design, store)
+    size = m if design == "thread" else -(-m // 32)
+    flag = pgs_kernel.STORES[store] if design == "warp" else int(lay["shared_d"]) \
+        if design == "warp_div" else 0
+    regs, st, ld = k3_ptxas(pgs_kernel.build_for(m).ptxas_report or "").get(
+        (design, str(dtype)[6:], size, flag), (None, None, None))
+    return {"smem_bytes_a_block": lay["smem"], "lanes_a_block": lay["lanes"],
+            "lanes_per_sm": lay["lanes_per_sm"], "waves": -(-B // lay["lanes_at_once"]),
+            "shared_d": lay["shared_d"], "registers": regs, "spill_store_bytes": st,
+            "spill_load_bytes": ld}
+
+
+def k3_variants(m, dtype, symmetric, B):
+    """The K3 launches phase 30 holds and times at (m, dtype, B lanes;
+    symmetric: D equals its transpose): the one pgs_sweeps routes to
+    (design_of, and the warp design's warp_store, or warp_div where no store
+    fits), the warp design's other stores that fit in shared memory (the
+    triangle only for a symmetric D), the warp design's store beside the
+    thread design, and the earlier warp design (warp_div). (design, store)
+    pairs, the routed one first."""
+    routed = pgs_kernel.design_of(m, dtype)
+    store = pgs_kernel._store_on_card(m, dtype, B, symmetric)
+    if routed == "thread":
+        return [("thread", "full"), ("warp", store), ("warp_div", "full")]
+    limit = pgs_kernel.layout(m, dtype, "warp_div")["max_smem"]
+    others = [("warp", st) for st in ("full", "triangle") if st != store
+              and (symmetric or st != "triangle")
+              and pgs_kernel.smem_bytes(m, dtype, st) <= limit]
+    if store is None:
+        return [("warp_div", "full")] + others
+    return [("warp", store)] + others + [("warp_div", "full")]
+
+
+# K3's stores of D (pgs_kernel.STORES) as the records name them
+K3_STORE_NAMES = {"full": "full transpose", "triangle": "lower triangle"}
+
+
+def k3_time_design(label, D, r, lo, hi, iters, reg, active, design, store, routed, how, ref,
+                   keep, ok_in, bound, clock, smi, reps=None):
+    """One K3 launch variant on a case's inputs (store: the warp design's):
+    its output held against the plain version's (ref) within 1e-10 of
+    scale in float64 and 2e-4 in float32 on the lanes `keep`, the inactive
+    lane 1 at 0 and NaN where the plain version is; then timed (graph,
+    events; reps launches, by default 50 at m <= 8 and 5 above) and laid
+    out. The routed variant (design and store: those pgs_sweeps takes) is
+    held through pgs_sweeps as the friction step calls it, the others
+    through pgs_kernel.launch; each is timed through pgs_kernel.launch
+    (pgs_sweeps reads D's symmetry on the host, which a CUDA graph cannot
+    capture), and the routed one through pgs_sweeps too (CUDA events:
+    "wrapper_ms", that read included). Returns the variant's fields."""
+    B, m = r.shape
+    launch = lambda act: pgs_kernel.launch(D, r, lo, hi, iters, reg, act, design=design,
+                                           store=store)
+    run = (lambda act: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg, act)) if routed \
+        else launch
+    lam = run(active)
+    out = k3_output(how, lam)
+    name = (f"K3 {label} {str(D.dtype)[6:]} {design}"
+            f"{f' ({K3_STORE_NAMES[store]})' if design == 'warp' else ''}")
+    if (torch.isnan(out) != torch.isnan(ref))[active].any():
+        raise AssertionError(f"{name}: NaN where the plain version has none")
+    scale = max(1.0, float(ref[keep].abs().max()))
+    err = float((out[keep] - ref[keep]).abs().max())
+    tol = 1e-10 if D.dtype == torch.float64 else 2e-4
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max |d out| {err} of scale {scale}")
+    if lam[1].abs().max() != 0:
+        raise AssertionError(f"{name}: the inactive lane was swept")
+    if torch.isfinite(lam[2]).any():
+        raise AssertionError(f"{name}: the NaN lane came out finite")
+    reps = reps or (50 if m <= 8 else 5)
+    ms = graph_ms(lambda: launch(None), reps=reps)
+    events_ms = cuda_ms(lambda: launch(None), reps=reps)
+    wrapper = {"wrapper_ms": cuda_ms(lambda: run(None), reps=reps)} if routed else {}
+    through = f", through pgs_sweeps {wrapper['wrapper_ms']:.4f} ms" if routed else ""
+    ns = ms * 1e6 / (iters * m)
+    lay = k3_layout_fields(m, D.dtype, design, store, B)
+    rec = {"design": K3_DESIGN_NAMES[design],
+           "store": K3_STORE_NAMES[store] if design == "warp" else "per-lane block"
+           if design == "thread" else "full transpose" if lay["shared_d"] else "device memory",
+           "max_abs_err": err, "ms": ms, "events_ms": events_ms,
+           "reps": reps, "ns_per_row": ns, "cycles_per_row": ns * clock / 1e3,
+           "share_of_bound": bound / ms, **wrapper, **lay}
+    print(f"{name} (m {m}, B {B}, {iters} sweeps, reg {reg:g}): max |d out| {err:.3e} of scale "
+          f"{scale:.3e} (tol {tol:g}) on {int(keep.sum())} lanes, the inactive lane 1 at 0 and "
+          f"the {int((~ok_in).sum())} lanes with NaN inputs NaN; {ms:.4f} ms ({reps} launches in "
+          f"a CUDA graph), {events_ms:.4f} ms (CUDA events){through}; {ns:.1f} ns, "
+          f"{rec['cycles_per_row']:.0f} cycles a row update at {clock:.0f} MHz; {bound / ms:.2%} "
+          f"of the bound; {rec['smem_bytes_a_block']} bytes of shared memory a block of "
+          f"{rec['lanes_a_block']} lanes (D {'in shared memory' if rec['shared_d'] else 'read from device memory'}), "
+          f"{rec['lanes_per_sm']} lanes an SM, {rec['waves']} wave(s) at B = {B}; ptxas "
+          f"{rec['registers']} registers, spill stores/loads {rec['spill_store_bytes']}/"
+          f"{rec['spill_load_bytes']} bytes; card {smi}")
+    return rec
+
+
+def k3_check(label, sc, step, params, state, kind, smi, iters=K3_ITERS):
     """K3 against its plain version (qp.pgs_sweeps) on the inputs of a real
-    solve of the step at state's lanes, at iters sweeps (the plain version
-    replayed from a CUDA graph of one sweep, held bit for bit against its
-    launched run at m <= 8), with lane 1 not active and lane 2 NaN
-    (r[2, 0]): the output that matters (k3_inputs)
-    within 1e-10 of scale in float64 and 2e-4 in float32 on the active lanes
-    whose inputs hold no NaN, the inactive lane 1 at 0 in both, every lane with
-    NaN inputs NaN in both; then K3 timed (CUDA graph and CUDA
-    events) beside its plain version's one timed run and its bound. Returns
-    the kernel record fields."""
+    solve of the step at state's lanes (K3_B of them), at iters
+    sweeps (the plain version replayed from a CUDA graph of one sweep, held
+    bit for bit against its launched run at m <= 8), with lane 1 not active
+    and lane 2 NaN (r[2, 0]): each of k3_variants (k3_time_design) on the
+    output that matters (k3_inputs), the routed one on pgs_sweeps's route;
+    the SM clock read while the routed variant runs. Returns the routed
+    variant's kernel record fields, the others under "also_timed"."""
     (D, r, lo, hi, reg), how = k3_inputs(sc, step, params, state, kind)
     B, m = r.shape
     r = r.clone()
     r[2, 0] = float("nan")
     active = torch.ones(B, dtype=torch.bool, device=r.device)
     active[1] = False
-    run = lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg, active)
-    lam = run()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     lam_ref = qp.pgs_sweeps(D, r, lo, hi, iters, reg, active, graph=True)
@@ -3311,48 +3474,96 @@ def k3_check(label, sc, step, params, state, kind, smi, iters=3000):
         again = qp.pgs_sweeps(D, r, lo, hi, iters, reg, active)
         if not ((again == lam_ref) | (again.isnan() & lam_ref.isnan())).all():
             raise AssertionError(f"K3 {label}: the plain version's graph replay differs")
-    out, ref = k3_output(how, lam), k3_output(how, lam_ref)
+    if lam_ref[1].abs().max() != 0 or torch.isfinite(lam_ref[2]).any():
+        raise AssertionError(f"K3 {label}: the plain version swept the inactive lane or kept the "
+                             "NaN lane finite")
+    ref = k3_output(how, lam_ref)
     # lanes held to the tolerance: every active one whose inputs hold no NaN
     # (a float32 rollout's diverged lanes come NaN; they and lane 2 must come
     # out NaN in both)
     ok_in = ~(D.isnan().flatten(1).any(1) | r.isnan().any(1) | lo.isnan().any(1)
               | hi.isnan().any(1))
     keep = ok_in & active
-    if (torch.isnan(out) != torch.isnan(ref))[active].any():
-        raise AssertionError(f"K3 {label} {D.dtype}: NaN where the plain version has none")
-    scale = max(1.0, float(ref[keep].abs().max()))
-    err = float((out[keep] - ref[keep]).abs().max())
-    tol = 1e-10 if D.dtype == torch.float64 else 2e-4
-    if not err <= tol * scale:
-        raise AssertionError(f"K3 {label} {D.dtype}: max |d out| {err} of scale {scale}")
-    if lam[1].abs().max() != 0 or lam_ref[1].abs().max() != 0:
-        raise AssertionError(f"K3 {label}: the inactive lane was swept")
-    if torch.isfinite(lam[2]).any() or torch.isfinite(lam_ref[2]).any():
-        raise AssertionError(f"K3 {label}: the NaN lane came out finite")
-    dsize = D.element_size()
-    reps = 100 if m <= 8 else 10
-    ms = graph_ms(lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg), reps=reps)
-    events_ms = cuda_ms(lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg), reps=reps)
     flops = k3_flops(m, iters) * B
-    nbytes = dsize * B * (m * m + 4 * m)
+    nbytes = D.element_size() * B * (m * m + 4 * m)
     peak = PEAK_F64_FLOPS if D.dtype == torch.float64 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
-    smem, shared_d = pgs_kernel.layout(m, D.dtype)
-    print(f"K3 {label} {str(D.dtype)[6:]} (m {m}, B {B}, {iters} sweeps, reg {reg:g}): max |d "
-          f"out| {err:.3e} of scale {scale:.3e} (tol {tol:g}) on {int(keep.sum())} lanes; the "
-          f"inactive lane 1 at 0 and every lane with NaN inputs NaN in both ({int((~ok_in).sum())} "
-          f"such lanes); kernel {ms:.4f} ms ({reps} launches in a CUDA graph), {events_ms:.4f} ms "
-          f"(CUDA events), plain {plain_ms:.1f} ms (one sweep's CUDA graph, replayed); bound "
-          f"{bound:.4f} ms "
-          f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops:.3e} flops, {nbytes} "
-          f"bytes), kernel at {bound / ms:.2%} of it; {ms * 1e6 / (iters * m):.1f} ns a row "
-          f"update of the lane's chain; {smem} bytes of shared memory a lane "
-          f"(D {'in shared memory' if shared_d else 'read from device memory'}); card {smi}")
-    return {"max_abs_err": err, "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "m": m, "B": B, "dtype": str(D.dtype)[6:], "reps": reps,
-            "design": "warp_per_lane", "threads_per_lane": 32, "lanes_per_block": 1}
+    variants = k3_variants(m, D.dtype, torch.equal(D, D.mT), B)
+    clock, samples = sm_clock_mhz(lambda: pgs_kernel.pgs_sweeps(D, r, lo, hi, iters, reg),
+                                  seconds=0.5)
+    recs = [k3_time_design(label, D, r, lo, hi, iters, reg, active, d, s, k == 0, how, ref,
+                           keep, ok_in, bound, clock, smi)
+            for k, (d, s) in enumerate(variants)]
+    print(f"K3 {label} {str(D.dtype)[6:]}: plain {plain_ms:.1f} ms (one sweep's CUDA graph, "
+          f"replayed); bound {bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
+          f"{flops:.3e} flops, {nbytes} bytes); SM clock {clock:.0f} MHz ({samples} samples of "
+          f"nvidia-smi under the routed launch); routed {recs[0]['design']} "
+          f"{recs[0]['ms']:.4f} ms against " + ", ".join(
+              f"{r_['design']} ({r_['store']}) {r_['ms']:.4f} ms: {r_['ms'] / recs[0]['ms']:.2f}x"
+              for r_ in recs[1:]))
+    return {**recs[0], "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "m": m, "B": B,
+            "dtype": str(D.dtype)[6:], "sm_clock_mhz": clock, "also_timed": recs[1:]}
+
+
+def k3_wide(smi, device="cuda", seed=0):
+    """K3 at m = K3_WIDE_M on K3_B lanes of a synthetic dual made on the card
+    from a seed (D = A A^T / k + 1e-3 I, A [m, k] ~ N(0, 1), k = m / 2, made
+    symmetric bit for bit; r ~ N(0, 1); boxes -U(0.1, 1), U(0.1, 1)), and on
+    the same D with a skew part (a dual QP's D is not symmetric), in
+    float64 and float32: each of k3_variants held against qp.pgs_sweeps at
+    K3_WIDE_ITERS sweeps on lam itself (1e-10 / 2e-4 of scale), with lane 1
+    not active and lane 2 NaN, and timed (2 launches) as k3_check's are.
+    Returns {"<dtype> <symmetric|unsymmetric>": [records, routed first]}."""
+    m, B, iters, reg = K3_WIDE_M, K3_B, K3_WIDE_ITERS, 1e-12
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: torch.rand(*shape, generator=gen, device=device, dtype=torch.float64)
+    A = torch.randn(B, m, m // 2, generator=gen, device=device, dtype=torch.float64)
+    D = A @ A.mT / (m // 2) + 1e-3 * torch.eye(m, device=device, dtype=torch.float64)
+    D = 0.5 * (D + D.mT)
+    S = torch.randn(B, m, m, generator=gen, device=device, dtype=torch.float64)
+    r = torch.randn(B, m, generator=gen, device=device, dtype=torch.float64)
+    lo, hi = -(0.1 + 0.9 * rand(B, m)), 0.1 + 0.9 * rand(B, m)
+    r[2, 0] = float("nan")
+    active = torch.ones(B, dtype=torch.bool, device=device)
+    active[1] = False
+    keep, ok_in = active.clone(), torch.ones_like(active)
+    keep[2] = ok_in[2] = False
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for sym, Dx in (("symmetric", D), ("unsymmetric", D + 0.05 * (S - S.mT))):
+            Dc, rc, loc, hic = (a.to(dtype) for a in (Dx, r, lo, hi))
+            ref = qp.pgs_sweeps(Dc, rc, loc, hic, iters, reg, active, graph=True)
+            peak = PEAK_F64_FLOPS if dtype == torch.float64 else PEAK_F32_FLOPS
+            bound = max(k3_flops(m, iters) * B / peak,
+                        Dc.element_size() * B * (m * m + 4 * m) / PEAK_BYTES_PER_S) * 1e3
+            clock, _ = sm_clock_mhz(lambda: pgs_kernel.pgs_sweeps(Dc, rc, loc, hic, iters, reg),
+                                    seconds=0.3)
+            label = f"wide {sym}"
+            out[f"{str(dtype)[6:]} {sym}"] = [
+                k3_time_design(label, Dc, rc, loc, hic, iters, reg, active, d, st, k == 0,
+                               ("lam", None), ref, keep, ok_in, bound, clock, smi, reps=2)
+                for k, (d, st) in enumerate(k3_variants(m, dtype, sym == "symmetric", B))]
+    return out
+
+
+def k3_counts():
+    """K3's counters: (launches on the card, CPU runs, launches by design)."""
+    by = dict(pgs_kernel.design_launches)
+    return sum(by.values()), pgs_kernel.pgs_sweeps_host_runs, by
+
+
+def k3_reset():
+    pgs_kernel.pgs_sweeps_host_runs = 0
+    pgs_kernel.design_launches.update({d: 0 for d in pgs_kernel.design_launches})
+
+
+def k3_launches_ok(device, counts, n):
+    """Every one of n sweep solves launched on the card (a CPU rehearsal's
+    on the g++ build), by the routed designs only (none by warp_div)."""
+    launches, host, by = counts
+    return (launches, host) == fric_want(device, n) and by["warp_div"] == 0
 
 
 def fric64(sid, device):
@@ -3365,15 +3576,14 @@ def fric64(sid, device):
     sc64 = build_mscene(sid, dtype=torch.float64, device=device)
     s64 = mzoo_state0(sc64, FRIC_B64[sid], device, torch.float64)
     step64 = sc64.make_step("euler_fric")
-    pgs_kernel.pgs_sweeps_launches = pgs_kernel.pgs_sweeps_host_runs = 0
+    k3_reset()
     final64, hist64, fbm64, its64, solves64 = fric_rollout(sc64, step64, fn, s64, sc64.nsteps)
     if device != "cpu":
         torch.cuda.synchronize()
     n, cpu = FRIC_SHARE_LANES, lambda a: a.detach().cpu()
     H = fric_H(sc64, s64, final64)
     return {"H": H, "seconds": time.perf_counter() - ts,
-            "launches": (pgs_kernel.pgs_sweeps_launches, pgs_kernel.pgs_sweeps_host_runs),
-            "solves": solves64, "its_max": its64.amax(1).tolist(),
+            "launches": k3_counts(), "solves": solves64, "its_max": its64.amax(1).tolist(),
             "its_mean": [round(float(v), 2) for v in its64.double().mean(1)],
             "hist": (cpu(hist64[0][:, :n]), cpu(hist64[1][:, :n])), "fbm": cpu(fbm64[:, :n]),
             "final": (cpu(final64.q), cpu(final64.qdot), cpu(final64.aux["fbm"]))}
@@ -3404,7 +3614,7 @@ def fric32(sid, device):
     warm = State(q=s32.q[:8], qdot=s32.qdot[:8])
     step(fn(sc.params, sc.params["h"]) if fn else sc.params, warm)
     torch.cuda.synchronize()
-    pgs_kernel.pgs_sweeps_launches = pgs_kernel.pgs_sweeps_host_runs = 0
+    k3_reset()
     solves = [0]
 
     def counted(params, s):
@@ -3414,14 +3624,14 @@ def fric32(sid, device):
 
     final, dt = timed_rollout(integrators.make_simulate(counted, K, scene_fn=fn), sc.params,
                               s32, 1)
-    l32 = (pgs_kernel.pgs_sweeps_launches, pgs_kernel.pgs_sweeps_host_runs)
+    l32 = k3_counts()
     finite = float((torch.isfinite(final.q) & torch.isfinite(final.qdot)).all(-1)
                    .double().mean())
-    if l32 != fric_want(device, solves[0]) or solves[0] == 0:
+    if not k3_launches_ok(device, l32, solves[0]) or solves[0] == 0:
         raise AssertionError(f"mscene {sid} f32: K3 launches {l32}, want "
-                             f"{fric_want(device, solves[0])}")
+                             f"{fric_want(device, solves[0])} by the routed designs")
     return {"sc": sc, "step": step, "final": final, "K": K, "dt": dt, "finite": finite,
-            "launches": l32[0] + l32[1], "solves": solves[0]}
+            "launches": l32[0] + l32[1], "by_design": l32[2], "solves": solves[0]}
 
 
 def fric_case(sid, device, smi, res, r32, line):
@@ -3446,8 +3656,8 @@ def fric_case(sid, device, smi, res, r32, line):
           f"{', scene_fn' if fn else ''}): f64 {sc64.nsteps} steps at B {B64} in {t64:.1f} s"
           f"{' (in the pool)' if sid in FRIC_POOLED else ''}, lane 0 H {H!r} vs "
           f"{sc64.Hexpected['euler_fric']!r}, {FRIC_BANDS[sid][0]} err {err:.3e} (band "
-          f"{FRIC_BANDS[sid][1]:g}); K3 launches {l64[0]} for {solves64} sweep solves, CPU runs "
-          f"{l64[1]}")
+          f"{FRIC_BANDS[sid][1]:g}); K3 launches {l64[0]} for {solves64} sweep solves (by "
+          f"design {l64[2]}), CPU runs {l64[1]}")
     print(f"mscene {sid} f64 staggered-projections iterations a step, max over lanes: "
           f"{its_max}")
     print(f"mscene {sid} f64 staggered-projections iterations a step, mean over lanes: "
@@ -3455,9 +3665,9 @@ def fric_case(sid, device, smi, res, r32, line):
     if not ok:
         raise AssertionError(f"mscene {sid}: certificate off its band ({H} vs "
                              f"{sc64.Hexpected['euler_fric']})")
-    if tuple(l64) != fric_want(device, solves64):
+    if not k3_launches_ok(device, l64, solves64):
         raise AssertionError(f"mscene {sid} f64: K3 launches {l64}, want "
-                             f"{fric_want(device, solves64)}")
+                             f"{fric_want(device, solves64)} by the routed designs")
 
     sc, step, K, dt, finite = r32["sc"], r32["step"], r32["K"], r32["dt"], r32["finite"]
     n = FRIC_SHARE_LANES
@@ -3470,7 +3680,7 @@ def fric_case(sid, device, smi, res, r32, line):
     share_q2 = float((err_q <= 1e-2).double().mean(1).min())
     print(f"mscene {sid} f32 {K} steps at B {FRIC_B32}: {FRIC_B32 * K / dt:.1f} steps/s "
           f"({dt * 1e3 / K:.3f} ms a step), finite {finite:.4f}; K3 launches {r32['launches']} "
-          f"for {r32['solves']} sweep solves; per step vs f64 ({n} lanes): q {share_q:.4f}, qdot "
+          f"for {r32['solves']} sweep solves (by design {r32['by_design']}); per step vs f64 ({n} lanes): q {share_q:.4f}, qdot "
           f"{share_qd:.4f} of lanes within 1e-3 (worst step); q within 1e-2 {share_q2:.4f}; q "
           f"off of scale median {q_p50:.3e}, p99 {q_p99:.3e}, max {q_max:.3e}"
           f"{' (held on the printed share)' if sid in FRIC_F32_HELD else ''}; card {smi}")
@@ -3485,6 +3695,7 @@ def fric_case(sid, device, smi, res, r32, line):
         "f32_per_step_share_q_1e-2": share_q2, "f32_q_err_median": q_p50,
         "f32_q_err_max": q_max, "f32_held": sid in FRIC_F32_HELD,
         "k3_launches": {"float64": l64[0] + l64[1], "float32": r32["launches"]},
+        "k3_launches_by_design": {"float64": l64[2], "float32": r32["by_design"]},
         "rows": counts}
     return sc64, step64, final64
 
@@ -3504,7 +3715,8 @@ def phase_friction_zoo(device="cuda", smi=""):
     FRIC_SHARE_LANES lanes, warm-started from its fbm), held at >= 0.95 with
     finite_frac, printed only for the cases in FRIC_F32_HELD (fric_case).
     (3) Alone on the card, K3 against its plain version on the solves of
-    K3_CASES in float64 and float32, timed (k3_check). Returns (the K3
+    K3_CASES in float64 and float32, timed (k3_check), and at m = K3_WIDE_M
+    on a synthetic dual (k3_wide). Returns (the K3
     records by (label, dtype), with their launches; the phase's JSON
     line)."""
     t0 = time.perf_counter()
@@ -3530,11 +3742,15 @@ def phase_friction_zoo(device="cuda", smi=""):
         for dtype, (scx, stepx, fin) in (("float64", finals[sid]),
                                          ("float32", (r32[sid]["sc"], r32[sid]["step"],
                                                       r32[sid]["final"]))):
-            lanes = State(q=fin.q[:1024], qdot=fin.qdot[:1024],
-                          aux={"fbm": fin.aux["fbm"][:1024]})
-            records[(label, dtype)] = {**k3_check(label, scx, stepx, at(scx), lanes, kind, smi),
-                                       "launches": line[str(sid)]["k3_launches"][dtype]}
+            lanes = State(q=fin.q[:K3_B], qdot=fin.qdot[:K3_B],
+                          aux={"fbm": fin.aux["fbm"][:K3_B]})
+            rec = k3_check(label, scx, stepx, at(scx), lanes, kind, smi)
+            # launches: the routed design's in that case's rollout in that dtype
+            by = line[str(sid)]["k3_launches_by_design"][dtype]
+            routed = pgs_kernel.design_of(rec["m"], getattr(torch, dtype))
+            records[(label, dtype)] = {**rec, "launches": by[routed]}
     line["k3"] = {f"{label} {dtype}": rec for (label, dtype), rec in records.items()}
+    line["k3_wide"] = k3_wide(smi, device)
     t3 = time.perf_counter()
     line["seconds"] = t3 - t0
     print(f"friction zoo phase: {t3 - t0:.1f} s (float32 rollouts {t1 - t0:.1f} s; float64 "
@@ -3962,7 +4178,7 @@ def phase_build():
     their ptxas reports and the cooperative design's layout."""
     t0 = time.perf_counter()
     fixed = chord_kernel.BUILDS + (qp_kernel.BUILD, qp_kernel.BUILD_COOP, COOP_PROBE,
-                                   pgs_kernel.BUILD)
+                                   pgs_kernel.BUILD, pgs_kernel.build_for(K3_WIDE_M))
     builds = fixed + on_demand_builds()
     for build in builds:  # one nvcc per library, side by side
         build.start()
@@ -3980,7 +4196,7 @@ def phase_build():
                 qp_coop_builds.append(build)
         elif build.name.endswith("_probe"):
             build.load()
-        elif build is pgs_kernel.BUILD:
+        elif build.sources == pgs_kernel.BUILD.sources:
             pgs_kernel._lib(build)
         else:
             chord_kernel._build_lib(build)
@@ -3989,6 +4205,11 @@ def phase_build():
     print(f"build: {time.perf_counter() - t0:.1f} s; nvcc of each library (side by side, s): "
           + ", ".join(f"{n} {s:.1f}" for n, s in done.items()))
     for build in builds:
+        if build.sources == pgs_kernel.BUILD.sources:
+            for key, (regs, stores, loads) in sorted(k3_ptxas(build.ptxas_report).items()):
+                print(f"ptxas {build.name} {key}: {regs} registers, spill stores/loads "
+                      f"{stores}/{loads}")
+            continue
         for kernel, regs, frame, stores, loads in ptxas_kernels(build.ptxas_report):
             print(f"ptxas {build.name} {kernel}: {regs} registers, {frame}-byte frame, "
                   f"spill stores/loads {stores}/{loads}")
@@ -4336,9 +4557,14 @@ def main():
     }] + [{
         # phase 30: the port's own kernel K3 (no TPU kernel: the op-level
         # lax.scan sweeps of the friction step), on real solves of the
-        # friction zoo's rollouts; launches: that case's rollout in that
-        # dtype (float64 the certificate, float32 the timed one); library_ms:
-        # no PyTorch call runs projected Gauss-Seidel sweeps
+        # friction zoo's rollouts: each record the design pgs_kernel.design_of
+        # routes the case to ("design": thread_per_lane for the dual QPs,
+        # warp_per_lane for the friction passes), with the other launches
+        # timed in the same run under "also_timed" (the earlier warp design,
+        # warp_per_lane_div, which no route takes, among them); launches:
+        # that design's in that case's rollout in that dtype (float64 the
+        # certificate, float32 the timed one); library_ms: no PyTorch call
+        # runs projected Gauss-Seidel sweeps
         "name": f"pgs_sweeps[{label} {dtype}]", "route": "cuda",
         "source": "redmax_tpu_torch/csrc/pgs_sweeps.cu",
         "replaces": "redmax_tpu/friction.py:633" if label.startswith("friction")
