@@ -11,8 +11,10 @@ Phases (any failure is an exception and a non-zero exit):
      PGS in both designs, a group of threads a lane and one thread a lane,
      K3's fixed library and its unit for phase 30's m = 200;
      and the builds made for one shape that the phases below launch: the
-     cooperative K1b builds, the default-route cases of phase 26 (the QP's
-     in both designs) and uni6's probe build, each picked by the shape rule
+     cooperative K1b builds, the default-route cases of phase 26 and the
+     umbrella's of phase 27 (each with the thread-per-lane build it is
+     timed against; the QP's in both designs) and uni6's probe build, each
+     picked by the shape rule
      before anything is built), and print each library's build time, their
      -Xptxas -v register/spill reports and each cooperative build's layout
      (threads a lane, lanes a block, shared memory a block);
@@ -160,17 +162,20 @@ Phases (any failure is an exception and a non-zero exit):
      on each link, the randomized contact solve in guarded3 (per-lane
      params and a robust mode) and reference case 6's Euler rollout on
      dual_pgs ((n, m) = (2, 1), the QP's design by its shape rule): each
-     case's design, its build's nvcc seconds and
+     case's design (every chord case the cooperative one, asserted: the
+     kind mixes too), its build's nvcc seconds and
      ptxas line, a short rollout on the route with its launch count, the
      kernel against its plain version (compare_kernel's tolerances and
-     shares; the QP's x and lambda, and its rollout against float64), timed;
+     shares; the QP's x and lambda, and its rollout against float64), timed
+     in a CUDA graph beside its thread-per-lane build (ptxas of both);
  27. the scene zoo, every scene of redmax_tpu/scenes.py under BDF2 and
      BDF1: (1) scenes 1-5, 14, -2, -1, 100, scene_tree, scene_bridge and
      scene_umbrella at B = 1024, f32, lanes at the initial state with
      q + 1e-2 N(0, 1), one rollout of the scene's own nsteps on the default
      route (make_bdf2_step_batched): the design takes_coop picks (the
-     cooperative one for all but the umbrella, whose six springs go one
-     thread a lane), nsteps - 1 launches of it a rollout and none of the
+     cooperative one for every scene, asserted; the umbrella's record sized
+     for its six springs, and timed beside its thread-per-lane build),
+     nsteps - 1 launches of it a rollout and none of the
      other, steps/s (CUDA events, 3 rollouts after a warm-up), finite_frac,
      the final q within 1e-3 of scale of the f64 op-level rollout on 95% of
      lanes; on the states after the rollout the kernel against its plain
@@ -512,6 +517,16 @@ def rand_states(nr, B, seed, device):
     return [t(a) for a in (x0, q0, qd0, q1, qd1)], t(tau)
 
 
+def ptxas_of(build, kinds, topo):
+    """(registers, frame bytes, spill stores, spill loads) of the kernel of
+    (N, nr, kinds) in build's ptxas report (the most registers where the
+    unit holds several kernels of that key), or None where the report has
+    none (a library loaded from an earlier run's cache)."""
+    key = f"<{topo.njoints},{topo.nr},{kinds}>"
+    found = [k[1:] for k in ptxas_kernels(build.ptxas_report or "") if k[0] == key]
+    return max(found) if found else None
+
+
 def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG, both_designs=True):
     """The kernel record fields at one scene's shapes in the solve mode of
     cfg: launch time (device time of 200 launches in a CUDA graph,
@@ -520,7 +535,8 @@ def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG, both_desi
     the plain version's, and the bound. Where the wrapper runs the
     cooperative design, also its layout and (both_designs) the
     thread-per-lane build of the same shape, timed in turns with it
-    (cooperative, thread-per-lane, thread-per-lane, cooperative)."""
+    (cooperative, thread-per-lane, thread-per-lane, cooperative), with each
+    build's ptxas registers, frame and spills (ptxas_of)."""
     B = states[0].shape[0]
     fns = sc.force_fns
     args = chord_kernel.pack(sc.topo, params, *states, fns)
@@ -539,7 +555,11 @@ def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG, both_desi
         prev = lambda: chord_kernel.launch(sc.topo, cfg, *args, thread_per_lane=True)
         prev_ms = (graph_ms(prev, reps=200) + graph_ms(prev, reps=200)) / 2
         ms = (ms + graph_ms(lambda: chord_kernel.launch(sc.topo, cfg, *args), reps=200)) / 2
-        design.update(prev_design="thread_per_lane", prev_design_ms=prev_ms)
+        lane_build = chord_kernel.scene_build(sc.topo, fns, params, cfg, thread_per_lane=True)
+        design.update(prev_design="thread_per_lane", prev_design_ms=prev_ms,
+                      ptxas=ptxas_of(chord_kernel.scene_build(sc.topo, fns, params, cfg),
+                                     kinds, sc.topo),
+                      prev_ptxas=ptxas_of(lane_build, kinds, sc.topo))
         print(f"chord_bdf2 at {label}, B {B}: cooperative (a warp a lane, "
               f"{design['lanes_per_block']} lanes a block) {ms:.4f} ms, thread-per-lane "
               f"{prev_ms:.4f} ms (in turns, this run): {prev_ms / ms:.2f}x")
@@ -2226,6 +2246,8 @@ def phase_default_route(device="cuda", Bs=(1024, 1000), nsteps=4):
                 raise AssertionError(f"{label}: the default route does not take the kernel")
             routed = design_of(sc, params0, cfg)
             build = chord_kernel.scene_build(sc.topo, sc.force_fns, params0, cfg)
+            if routed != "cooperative":  # every mix with N, nr <= 32 that fits a block
+                raise AssertionError(f"{label}: the shape rule routes it to the {routed} design")
             states, params, kept = rollout_states(sc, B, device, base=base)
             step = integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, cfg)
             s0 = integrators.bdf2_init(State(q=states[3], qdot=states[4]))
@@ -2314,6 +2336,10 @@ ZOO = tuple((f"scene {sid}", SCENES[sid]) for sid in (1, 2, 3, 4, 5, 14, -2, -1,
 # scenes 7 and 9 on their Euler charts: the op-level route
 ZOO_EULER = (("scene 7 euler", lambda: scene_07_spherical(exp_coords=False)),
              ("scene 9 euler", lambda: scene_09_free3d(exp_coords=False)))
+# the zoo scenes timed beside their thread-per-lane build: the umbrella (six
+# springs), the last zoo scene that build ran on the card before the
+# cooperative body took every kind mix
+ZOO_BOTH_DESIGNS = ("umbrella",)
 # the certificates held on the card: BDF1 and BDF2, and BDF1 alone (the BDF2
 # ones of these scenes are held per step by the CPU tests)
 CERT_BOTH = (1, 2, 3, 4, 5, 14, 7, 9)
@@ -2473,6 +2499,8 @@ def phase_scene_zoo(device="cuda", B=1024, reps=3):
             raise AssertionError(f"zoo {label}: the default route does not take the kernel")
         routed = design_of(sc, sc.params)
         build = chord_kernel.scene_build(sc.topo, sc.force_fns, sc.params, CFG)
+        if routed != "cooperative":
+            raise AssertionError(f"zoo {label}: the shape rule routes it to the {routed} design")
         sim = integrators.make_simulate(
             integrators.make_bdf2_step_batched(sc.topo, sc.force_fns, CFG), nsteps)
         s0 = integrators.bdf2_init(zoo_state0(sc, B, device, torch.float32))
@@ -2509,7 +2537,8 @@ def phase_scene_zoo(device="cuda", B=1024, reps=3):
             if census["past_a_limit_at_solution"] == 0:
                 raise AssertionError("zoo scene 14: no lane past a joint limit")
         records[label] = {**time_chord_kernel(sc, sc.params, states, err, f"zoo {label}",
-                                              both_designs=False), "launches": launches // reps}
+                                              both_designs=label in ZOO_BOTH_DESIGNS),
+                          "launches": launches // reps}
         line["bdf2"][label] = {"design": routed, "steps_per_s": B * nsteps / dt,
                                "finite_frac": finite, "within_1e-3_of_f64": within,
                                "launches_per_rollout": launches // reps}
@@ -4155,15 +4184,20 @@ def on_demand_builds():
     to decide): the K1b paths' and the default-route cases' (phase 26; the
     QP's in both designs, the thread-per-lane one its yardstick); and the
     cooperative probe build of uni6 (phase 25); the scene zoo's (phase
-    27); the text scene's and the 2-link chain's of phase 31."""
+    27); the text scene's and the 2-link chain's of phase 31; and the
+    thread-per-lane builds that phase 26's chord cases and the umbrella
+    are timed against."""
     out = []
+    both = [c[1:4] for c in DEFAULT_ROUTE] + [(make, CFG, None) for label, make in ZOO
+                                              if label in ZOO_BOTH_DESIGNS]
     cases = ([(make, CFG, None) for _, make in QDEP_SCENES] + [c[1:4] for c in DEFAULT_ROUTE]
              + [(make, CFG, None) for _, make in ZOO]
              + [(text_scene, CFG, None), (lambda: scene_chain(2), CFG, None)])
-    for make, cfg, draws in cases:
+    for make, cfg, draws, lane in [(*c, False) for c in cases] + [(*c, True) for c in both]:
         sc = make().compile(dtype=torch.float32, device="cpu")
         params = sc.params if draws is None else draws(sc.params, sc.force_fns, 4)
-        out.append(chord_kernel.scene_build(sc.topo, sc.force_fns, params, cfg))
+        out.append(chord_kernel.scene_build(sc.topo, sc.force_fns, params, cfg,
+                                            thread_per_lane=lane))
     out.append(probe_build(out[0]))
     sc = build_mscene(6, dtype=torch.float32, device="cpu")
     n, m = contact_qps(sc, mscene6_states(sc, 1, "cpu", torch.float32))[2].shape[1:][::-1]
@@ -4506,7 +4540,8 @@ def main():
         "launches": qp_launches, **qp_record, "library_ms": None,
     }] + [{
         # the default route at shapes and kind mixes no fixed library holds
-        # (phase 26), each on the build made for it; launches: its rollout's
+        # (phase 26), each on the cooperative build made for it (timed beside
+        # its thread-per-lane build); launches: its rollout's
         "name": f"chord_bdf2[default_route {label}]", "route": "cuda",
         "source": source_of(default_records[label]), "replaces": replaces,
         **default_records[label], "library_ms": None,
@@ -4516,9 +4551,10 @@ def main():
         "replaces": "redmax_tpu/pallas_qp.py:40",
         **default_records["mscene 6"], "library_ms": None,
     }] + [{
-        # the scene zoo's BDF2 rollouts (phase 27), each scene on the build
-        # made for its shape (scene 2: the fixed library); launches: a
-        # rollout's nsteps - 1; replaces: the branch of _build_kernel the
+        # the scene zoo's BDF2 rollouts (phase 27), each scene on the
+        # cooperative build made for its shape (scene 2: the fixed library;
+        # the umbrella's timed beside its thread-per-lane build); launches:
+        # a rollout's nsteps - 1; replaces: the branch of _build_kernel the
         # scene runs (the umbrella's springs)
         "name": f"chord_bdf2[zoo {label}]", "route": "cuda",
         "source": source_of(zoo_records[label]),

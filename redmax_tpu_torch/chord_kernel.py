@@ -33,26 +33,22 @@ a contact on every link), so the operation count, not the bytes, sets the
 least time. Two designs, chosen by a rule on the shape and kinds before
 anything is built (takes_coop):
 - cooperative (csrc/chord_bdf2_coop.cu, body csrc/chord_bdf2_coop.cuh), on
-  every build whose kind mix its body takes (COOP_KINDS: no closure, ground
-  contacts, springs (at most MAX_COOP_SPRINGS, nr <= N) or cables (at most
-  MAX_COOP_CABLES), with lane-shared or per-lane params, the robust modes
-  without per-lane params or closures but contacts, or the q-dependent
-  joints alone, K1b) and whose lane record fits a block's shared memory
-  (coop_record_bytes; N, nr <= 32). One warp per lane, COOP_LANES lanes a
-  block or fewer where the record is larger (coop_lanes), the lane's
-  frames, J, Jdot, the per-body K/D blocks, H, the Gauss-Jordan rows and
-  H^-1 (and the guard's trials, the springs' endpoint states and pair
-  blocks, the cables' point and segment states and pair blocks, the
-  q-dependent columns' time derivatives, or the lane's params) in shared
+  every build of any kind mix with N, nr <= 32 whose lane record fits a
+  block's shared memory (coop_record_bytes, each kind's fields after the
+  last's; its springs, cables and cable points sized from the scene in a
+  build made for it). One warp per lane, COOP_LANES lanes a block or fewer
+  where the record is larger (coop_lanes), the lane's frames, J, Jdot, the
+  per-body K/D blocks, H, the Gauss-Jordan rows and H^-1 (and, where the
+  kinds have them, the guard's trials, the springs' endpoint states and
+  pair blocks, the cables' point and segment states and pair blocks, the
+  q-dependent columns' time derivatives and the lane's params) in shared
   memory, each phase of the solve split over the warp's 32 threads;
 - thread per lane (csrc/chord_bdf2.cu, body csrc/chord_bdf2_lane.cuh), on
-  every other build (closures mixed, a q-dependent joint with a closure,
-  per-lane params in a robust mode, more springs or cables than the
-  cooperative record holds): one thread per lane in blocks of 32, the arithmetic in
-  order on that thread, J, Jdot, H and the Gauss-Jordan rows in local
-  memory. Its builds at the cooperative shapes and kinds stay in its
-  libraries to be timed against the cooperative design (launch(...,
-  thread_per_lane=True)).
+  every other build (N or nr above 32, or a record that fits no block):
+  one thread per lane in blocks of 32, the arithmetic in order on that
+  thread, J, Jdot, H and the Gauss-Jordan rows in local memory. Its
+  builds at the cooperative shapes and kinds stay to be timed against the
+  cooperative design (launch(..., thread_per_lane=True)).
 
 The closure code is compiled in only where a scene has that kind of closure,
 the q-dependent joint code only where a scene has such a joint, the
@@ -64,8 +60,9 @@ libraries built side by side (BUILD, BUILD_QDEP with QDEP, BUILD_PERLANE
 with PERLANE, BUILD_ROBUST with ROBUST, and the cooperative BUILD_COOP);
 any other (N, nr, kinds) that supports() admits is built for its scene at
 its first launch (build_for: one nvcc unit of that one build, its per-lane
-record and cable sized from the scene, cached under _build/ by a hash of
-its sources and defines), as the JAX package builds a kernel per scene.
+record, springs and cables sized from the scene, cached under _build/ by a
+hash of its sources and defines), as the JAX package builds a kernel per
+scene.
 
 On a CUDA tensor chord_bdf2 launches the kernel of its design (and raises if
 it cannot build or launch it, with the key in the message and no fallback
@@ -113,18 +110,12 @@ COOP_INSTANTIATED = ((12, 12, 0), (12, 12, CONTACTS), (4, 4, 0), (4, 4, CONTACTS
                      (12, 12, ROBUST), (12, 12, CONTACTS | ROBUST),
                      (12, 12, CONTACTS | PERLANE), (12, 12, SPRINGS), (12, 12, SPRINGS | PERLANE),
                      (4, 3, CABLES), (4, 3, CABLES | PERLANE))
-# The kind mixes the cooperative body takes (the static_assert of
-# coop::solve): no closure or ground contacts, with per-lane params or the
-# robust modes (not both); springs, lane-shared or per lane; cables,
-# lane-shared or per lane; the q-dependent joints alone.
-COOP_KINDS = (0, CONTACTS, PERLANE, ROBUST, CONTACTS | PERLANE, CONTACTS | ROBUST,
-              SPRINGS, SPRINGS | PERLANE, CABLES, CABLES | PERLANE, QDEP)
-# The most springs and cables the cooperative design's spring and cable
-# builds hold (kCoopSprings, kCoopCables of csrc/chord_bdf2_coop.cuh; a
-# cable build holds kMaxCablePoints points in all, MAX_CABLE_POINTS in the
-# fixed library).
-MAX_COOP_SPRINGS = 3
-MAX_COOP_CABLES = 2
+# The springs and cables the fixed cooperative library's spring and cable
+# builds hold (kCoopSprings, kCoopCables of csrc/chord_bdf2_coop.cuh; its
+# cable builds hold MAX_CABLE_POINTS points in all); a scene with more runs
+# a build made for it, its stores sized from the scene.
+COOP_LIBRARY_SPRINGS = 3
+COOP_LIBRARY_CABLES = 2
 # Lanes (warps) a block of the cooperative design where the record fits
 # (the fixed library's), and the dynamic shared memory a block may have
 # on sm_90. setup gives a body or a column a thread without a stride and a
@@ -236,17 +227,21 @@ def record_floats(counts: Closures, N: int) -> int:
 
 
 def coop_record_floats(N: int, kinds: int, record: int = MAX_LANE_RECORD,
-                       cable_points: int = MAX_CABLE_POINTS) -> int:
+                       cable_points: int = MAX_CABLE_POINTS, springs: int = COOP_LIBRARY_SPRINGS,
+                       cables: int = COOP_LIBRARY_CABLES) -> int:
     """Floats of the per-lane record a cooperative PERLANE build holds
-    (coop_record_floats of chord_bdf2_coop.cuh): a spring build's fields
-    for MAX_COOP_SPRINGS springs, a cable build's for MAX_COOP_CABLES cables
-    of cable_points points in all (the build's kMaxCablePoints), each to a
-    multiple of 4; else record, the build's kMaxLaneRecord."""
-    if kinds & CABLES:
-        return (7 * N + 4 + 3 * cable_points + 3 * MAX_COOP_CABLES + 3) // 4 * 4
+    (coop_record_floats of chord_bdf2_coop.cuh): with ground contacts,
+    record (the build's kMaxLaneRecord); else the record_floats fields of
+    the closures the build holds (springs springs, cables cables of
+    cable_points points in all), to a multiple of 4."""
+    if kinds & CONTACTS:
+        return record
+    p = 7 * N + 4
     if kinds & SPRINGS:
-        return (7 * N + 4 + 9 * MAX_COOP_SPRINGS + 3) // 4 * 4
-    return record
+        p += 9 * springs
+    if kinds & CABLES:
+        p += 3 * cable_points + 3 * cables
+    return -(-p // 4) * 4
 
 
 def _layout(fields) -> int:
@@ -259,52 +254,53 @@ def _layout(fields) -> int:
 
 
 def coop_record_bytes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD,
-                      cable_points: int = MAX_CABLE_POINTS) -> int:
-    """sizeof(coop::LaneOf<N, nr, kinds>) of csrc/chord_bdf2_coop.cuh, its
-    per-lane record (PERLANE) of `record` floats, a cable build's record of
-    cable_points points in all (its kMaxCablePoints): one lane's share of a
-    block's shared memory. Each field as (bytes, alignment), a derived
-    record's fields after its base's (whose size is a multiple of 16)."""
+                      cable_points: int = MAX_CABLE_POINTS, springs: int = COOP_LIBRARY_SPRINGS,
+                      cables: int = COOP_LIBRARY_CABLES) -> int:
+    """sizeof(coop::LaneOf<N, nr, kinds>) of csrc/chord_bdf2_coop.cuh with
+    the build's kMaxLaneRecord `record`, springs springs and cables cables
+    of cable_points points in all: one lane's share of a block's shared
+    memory. Each field as (bytes, alignment); each kind's fields after the
+    record before it (whose size is a multiple of 16), in the order QDEP,
+    SPRINGS, CABLES, ROBUST, PERLANE."""
     f, a = 4, 16
     frames = [(48 * N, a)] * 3
     union = max(2 * N * 36, (12 * N // nr) * nr * 6) * f
-    lane = _layout(frames + [(36 * N * f, a), (union, a), (4 * nr * nr * f, a)]
-                   + [(6 * N * nr * f, a)] * 4 + [(6 * nr * f, a)] * 3
-                   + [(6 * N * f, a)] * 2 + [(nr * f, a)] + [(nr * f, f)] * 10
-                   + [(f, f)] * 2 + [(N * f, f), (nr * f, f)] + [(N * f, f)] * 2
-                   + [(N * nr * f, f), (f, f)])
-    if kinds & ROBUST:
-        return _layout([(lane, a), (2 * nr * f, a), (2 * nr * f, a), (2 * f, f), (f, f)])
+    rec = _layout(frames + [(36 * N * f, a), (union, a), (4 * nr * nr * f, a)]
+                  + [(6 * N * nr * f, a)] * 4 + [(6 * nr * f, a)] * 3
+                  + [(6 * N * f, a)] * 2 + [(nr * f, a)] + [(nr * f, f)] * 10
+                  + [(f, f)] * 2 + [(N * f, f), (nr * f, f)] + [(N * f, f)] * 2
+                  + [(N * nr * f, f), (f, f)])
+    point = 13 * f  # int b, float r[3], x[3], v[3], u[3]
+    if kinds & QDEP:
+        rec = _layout([(rec, a), (6 * nr * f, a)])
     if kinds & SPRINGS:
-        blocks = 4 * MAX_COOP_SPRINGS
-        point = 13 * f  # int b, float r[3], x[3], v[3], u[3]
-        base = _layout([(lane, a), (blocks * 36 * f, a), (MAX_COOP_SPRINGS * 6 * f, f),
-                        (MAX_COOP_SPRINGS * 9 * f, f), (MAX_COOP_SPRINGS * 9 * f, f),
-                        (MAX_COOP_SPRINGS * 2 * point, f), (blocks * f, f),
-                        (2 * blocks * f, f), (f, f)])
-    elif kinds & CABLES:
-        T, C = cable_points, MAX_COOP_CABLES
+        S, blocks = springs, 4 * springs
+        rec = _layout([(rec, a), (blocks * 36 * f, a), (S * 6 * f, f), (S * 9 * f, f),
+                       (S * 9 * f, f), (S * 2 * point, f), (blocks * f, f),
+                       (2 * blocks * f, f), (f, f)])
+        if blocks * nr > 2 * N * 6:  # G J_s in a store of their own (springs_in_kd)
+            rec = _layout([(rec, a), (blocks * nr * 6 * f, a)])
+    if kinds & CABLES:
+        T, C = cable_points, cables
         K = T * T
-        point = 13 * f  # int b, float r[3], x[3], v[3], u[3]
-        base = _layout([(lane, a), (K * 36 * f, a), (K * nr * 6 * f, a)]
-                       + [(T * 3 * f, f)] * 6 + [(T * f, f)] * 3 + [(C * f, f)] * 2
-                       + [(T * point, f)] + [(T * f, f)] * 3 + [(C * f, f)] * 3
-                       + [(K * 2 * f, f)] * 2 + [(f, f)] * 2)
-    elif kinds & QDEP:
-        base = _layout([(lane, a), (6 * nr * f, a)])
-    else:
-        base = lane
+        rec = _layout([(rec, a), (K * 36 * f, a), (K * nr * 6 * f, a)]
+                      + [(T * 3 * f, f)] * 6 + [(T * f, f)] * 3 + [(C * f, f)] * 2
+                      + [(T * point, f)] + [(T * f, f)] * 3 + [(C * f, f)] * 3
+                      + [(K * 2 * f, f)] * 2 + [(f, f)] * 2)
+    if kinds & ROBUST:
+        rec = _layout([(rec, a), (2 * nr * f, a), (2 * nr * f, a), (2 * f, f), (f, f)])
     if kinds & PERLANE:
-        return _layout([(base, a),
-                        (coop_record_floats(N, kinds, record, cable_points) * f, a)])
-    return base
+        floats = coop_record_floats(N, kinds, record, cable_points, springs, cables)
+        rec = _layout([(rec, a), (floats * f, a)])
+    return rec
 
 
 def coop_lanes(N: int, nr: int, kinds: int, record: int = MAX_LANE_RECORD,
-               cable_points: int = MAX_CABLE_POINTS) -> int:
+               cable_points: int = MAX_CABLE_POINTS, springs: int = COOP_LIBRARY_SPRINGS,
+               cables: int = COOP_LIBRARY_CABLES) -> int:
     """Lanes a block of a cooperative build: the most of COOP_LANES, 4, 2,
     1 whose records fit SMEM_PER_BLOCK (0: not even one)."""
-    size = coop_record_bytes(N, nr, kinds, record, cable_points)
+    size = coop_record_bytes(N, nr, kinds, record, cable_points, springs, cables)
     return next((n for n in (COOP_LANES, 4, 2, 1) if n * size <= SMEM_PER_BLOCK), 0)
 
 
@@ -322,19 +318,14 @@ def takes_coop(N: int, nr: int, kinds: int, springs: int = 0, record: int = 0,
                cables: int = 0, cable_points: int = 0) -> bool:
     """The shape rule: True when the cooperative design runs (N, nr,
     kinds) with this many springs, a per-lane record of this many floats
-    (0 without) and this many cables of cable_points points in all: its body
-    takes the kind mix (COOP_KINDS; springs at most MAX_COOP_SPRINGS, their
-    G J_s fitting the K/D blocks' storage: nr <= N, a per-lane spring record
-    within coop_record_floats; cables at most MAX_COOP_CABLES), N and nr are
-    at most MAX_COOP_WIDTH, and at least one lane's record fits a block."""
-    if kinds not in COOP_KINDS or max(N, nr) > MAX_COOP_WIDTH:
+    (0 without) and this many cables of cable_points points in all: N and
+    nr are at most MAX_COOP_WIDTH and one lane's record, sized for these
+    closures as a build made for them sizes it, fits a block. Any kind mix
+    goes; the width and the room decide."""
+    if max(N, nr) > MAX_COOP_WIDTH:
         return False
-    if kinds & SPRINGS and (springs > MAX_COOP_SPRINGS or nr > N
-                            or record > coop_record_floats(N, kinds)):
-        return False
-    if kinds & CABLES and cables > MAX_COOP_CABLES:
-        return False
-    return coop_lanes(N, nr, kinds, _round4(record), _points(cable_points)) > 0
+    return coop_lanes(N, nr, kinds, _round4(record), _points(cable_points), max(1, springs),
+                      max(1, cables)) > 0
 
 
 def is_coop(build: KernelBuild) -> bool:
@@ -346,18 +337,23 @@ _COOP_SOURCES = ("chord_bdf2_coop.cu", "chord_bdf2_coop.cuh", "chord_bdf2_lane.c
 
 
 def build_for(coop: bool, N: int, nr: int, kinds: int, record: int = 0,
-              cable_points: int = 0) -> KernelBuild:
+              cable_points: int = 0, springs: int = 0, cables: int = 0) -> KernelBuild:
     """The build of one (N, nr, kinds) made for a scene: one nvcc unit
     (-DCHORD_ONE) of the cooperative design (coop, with coop_lanes lanes a
     block) or of the thread-per-lane one, its per-lane record (PERLANE) of
-    `record` floats and its longest cable (CABLES) of `cable_points` points.
-    One KernelBuild a key, compiled at its first launch into _build/ and
-    cached there by a hash of its sources and defines."""
-    return _build_for(bool(coop), N, nr, kinds, record, cable_points)
+    `record` floats and its cables (CABLES) of `cable_points` points in
+    all; a cooperative build's record holds `springs` springs (SPRINGS) and
+    `cables` cables (CABLES), at least one. One KernelBuild a key, compiled
+    at its first launch into _build/ and cached there by a hash of its
+    sources and defines."""
+    coop = bool(coop)
+    springs = max(1, springs) if coop and kinds & SPRINGS else 0
+    cables = max(1, cables) if coop and kinds & CABLES else 0
+    return _build_for(coop, N, nr, kinds, record, cable_points, springs, cables)
 
 
 @lru_cache(maxsize=None)
-def _build_for(coop, N, nr, kinds, record, cable_points) -> KernelBuild:
+def _build_for(coop, N, nr, kinds, record, cable_points, springs, cables) -> KernelBuild:
     defines = [f"-DCHORD_ONE", f"-DCHORD_N={N}", f"-DCHORD_NR={nr}", f"-DCHORD_FEAT={kinds}"]
     name = f"chord_bdf2_{'coop' if coop else 'lane'}_{N}_{nr}_{kinds}"
     if kinds & PERLANE:
@@ -366,8 +362,15 @@ def _build_for(coop, N, nr, kinds, record, cable_points) -> KernelBuild:
     if kinds & CABLES:
         defines.append(f"-DCHORD_MAX_CABLE_POINTS={cable_points}")
         name += f"_c{cable_points}"
+    if springs:
+        defines.append(f"-DCHORD_MAX_SPRINGS={springs}")
+        name += f"_s{springs}"
+    if cables:
+        defines.append(f"-DCHORD_MAX_CABLES={cables}")
+        name += f"_k{cables}"
     if coop:
-        defines.append(f"-DCOOP_LANES={coop_lanes(N, nr, kinds, record, _points(cable_points))}")
+        lanes = coop_lanes(N, nr, kinds, record, _points(cable_points), springs, cables)
+        defines.append(f"-DCOOP_LANES={lanes}")
     return KernelBuild(name, _COOP_SOURCES if coop else _SOURCES, defines)
 
 
@@ -379,17 +382,20 @@ def library_of(N: int, nr: int, kinds: int, thread_per_lane: bool = False,
     cable_points points in all: the cooperative design where takes_coop
     holds, else the thread-per-lane one (thread_per_lane: that one in any
     case, to time it against the other); in either, its fixed library where
-    that holds the key, else the build made for it (build_for)."""
+    that holds the key and the closures, else the build made for it
+    (build_for)."""
     points = _points(cable_points) if kinds & CABLES else 0
+    rec = _round4(record) if kinds & PERLANE else 0
     if not thread_per_lane and takes_coop(N, nr, kinds, springs, record, cables, cable_points):
         if (N, nr, kinds) in COOP_INSTANTIATED and record <= coop_record_floats(N, kinds) \
-                and cable_points <= MAX_CABLE_POINTS:
+                and cable_points <= MAX_CABLE_POINTS and springs <= COOP_LIBRARY_SPRINGS \
+                and cables <= COOP_LIBRARY_CABLES:
             return BUILD_COOP
-        return build_for(True, N, nr, kinds, _round4(record) if kinds & PERLANE else 0, points)
+        return build_for(True, N, nr, kinds, rec, points, springs, cables)
     if (N, nr, kinds) in INSTANTIATED and record <= MAX_LANE_RECORD \
             and cable_points <= MAX_CABLE_POINTS:
         return build_of(kinds)
-    return build_for(False, N, nr, kinds, _round4(record) if kinds & PERLANE else 0, points)
+    return build_for(False, N, nr, kinds, rec, points)
 
 
 def scene_build(topo: Topology, force_fns: Tuple, params: Dict, cfg,

@@ -9,13 +9,14 @@
 // contacts. The phases and what bounds the kernel are in
 // chord_bdf2_coop.cuh. Built with -DCHORD_ONE -DCHORD_N=n -DCHORD_NR=nr
 // -DCHORD_FEAT=kinds -DCOOP_LANES=l (and -DCHORD_MAX_RECORD with per-lane
-// params, -DCHORD_MAX_CABLE_POINTS with cables), the unit holds that one
-// build, with l lanes a block: any other shape and mix the body takes (the
-// q-dependent joints alone among them, K1b), made at its first launch.
-// Every other build (closures mixed, the q-dependent joints with a closure,
-// per-lane params in a robust mode, more springs than kCoopSprings or
-// cables than kCoopCables, a record that does not fit a block) stays on the
-// thread-per-lane kernel (chord_bdf2.cu).
+// params, -DCHORD_MAX_SPRINGS with springs, -DCHORD_MAX_CABLES and
+// -DCHORD_MAX_CABLE_POINTS with cables, each sized from the scene), the
+// unit holds that one build, with l lanes a block: any other shape and kind
+// mix, made at its first launch (the q-dependent joints, K1b, mixed
+// closures, a q-dependent joint with closures, per-lane params in a robust
+// mode, more springs or cables than the fixed library's records hold).
+// The thread-per-lane kernel (chord_bdf2.cu) keeps N or NR above 32 and a
+// record that fits no block.
 //
 // Layout: kLanes lanes a block, lane b on warp b % kLanes of block
 // b / kLanes, each warp's record in the block's dynamic shared memory
@@ -25,8 +26,10 @@
 // bytes a block with contacts; a spring build's its springs' states and pair
 // blocks, 226,176 bytes a block, 229,888 with per-lane params; a spring
 // build's G J_s share the storage of the K/D blocks, which no phase reads
-// by then; a cable build's record holds its points, segments and pair
-// blocks with their G J_s). At B = 1024 that is 128 blocks of 256 threads on the card's 132
+// by then, where they fit it, else have a store of their own; a cable
+// build's record holds its points, segments and pair blocks with their
+// G J_s; a build of several kinds holds the fields of each). A record
+// too large for 8 lanes a block runs 4, 2 or 1 (COOP_LANES). At B = 1024 that is 128 blocks of 256 threads on the card's 132
 // SMs, one block and 8 warps an SM (1024 lanes need 8 an SM whatever the
 // layout). A warp whose lane is past B returns at once; no
 // phase waits on another warp (no block-wide barrier). Built with nvcc into
@@ -133,9 +136,9 @@ cudaError_t launch_kernel(int B, const float* x0, const float* q0, const float* 
 // 9 nsprings + 3 ncable_points + 3 ncables floats) longer than the build's
 // (coop_record_floats), -3 for a robust solve mode (guarded, guard_last or
 // chord_mode == 0) in a build without kRobust, -4 for fixed_iters < 1, -5
-// for more springs than a kSprings build's record holds (kCoopSprings), or
-// -6 for more cables or cable points than a kCables build's record holds
-// (kCoopCables, kCoopCablePoints).
+// for more springs than a kSprings build's record holds (kCoopSprings, the
+// build's -DCHORD_MAX_SPRINGS), or -6 for more cables or cable points than
+// a kCables build's record holds (kCoopCables, kCoopCablePoints).
 // kinds is the build's FEAT bitmask as the wrapper routed it
 // (chord_kernel.kinds_of); the counts are those topo_i holds. A kPerlane
 // build reads the lane's params from lane_f ([P, B]); a kRobust build runs

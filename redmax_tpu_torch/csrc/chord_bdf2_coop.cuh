@@ -2,19 +2,20 @@
 // every value that crosses a phase in the lane's record in shared memory.
 //
 // Replaces the lane arithmetic of redmax_tpu/pallas_step.py::_build_kernel
-// (:689-1320) on its constant-S branches without closures (K1a), with
-// penalty ground contact (K1c, _ground_contact :237-345), with two-point
-// springs (K1d, _spring_force :401, _point_pair_blocks :516 and their terms
-// of residual and hessian) and with multi-point cables (K1e, _cable_force
-// :561 and its terms of residual and hessian): in the unguarded chord mode
-// with lane-shared params, with per-lane params (K1f, the perlane reads
-// :706-712, :767-841: kPerlane, with contacts, springs or cables) and in the
-// robust modes (K1g, :1220-1313: kRobust); and on its q-dependent branch
-// without closures (K1b: S(q) and Sdot of the UNIVERSAL, exp-map SPHERICAL
-// and FREE3D joints, FK :907-967, _so3_exp_S :348-398: kQdep), all in one
-// solve loop. The other mixes (closures mixed, the q-dependent joints with a
-// closure, per-lane params in a robust mode) stay on the thread-per-lane
-// body of chord_bdf2_lane.cuh, whose helpers (Frame, frame_mul, frame_inv,
+// (:689-1320) on its constant-S branches (K1a), with penalty ground contact
+// (K1c, _ground_contact :237-345), with two-point springs (K1d,
+// _spring_force :401, _point_pair_blocks :516 and their terms of residual
+// and hessian) and with multi-point cables (K1e, _cable_force :561 and its
+// terms of residual and hessian), in any mix of them; in the unguarded
+// chord mode with lane-shared params, with per-lane params (K1f, the
+// perlane reads :706-712, :767-841: kPerlane) and in the robust modes (K1g,
+// :1220-1313: kRobust), with or without per-lane params; and on its
+// q-dependent branch (K1b: S(q) and Sdot of the UNIVERSAL, exp-map SPHERICAL
+// and FREE3D joints, FK :907-967, _so3_exp_S :348-398: kQdep), with or
+// without closures: every kind mix in one solve loop, each kind's phases
+// and record fields compiled in where its bit is set (LaneOf). The
+// thread-per-lane body of chord_bdf2_lane.cuh keeps the shapes past this
+// design's width or room, and its helpers (Frame, frame_mul, frame_inv,
 // adjoint, mat6_vec, ad_vec, adT_vec, rt_vec, local_force_blocks,
 // ground_contact, Point, add_point_wrench, spring_force, pair_block,
 // qdep_joint, Shared, ChordConfig, RobustConfig) this file calls as they
@@ -59,7 +60,7 @@
 //   forces     per body: the maximal force with the body's own ground
 //              contacts and, where H is built, its closed-form K/D blocks
 //              (the contact force and its blocks in one ground_contact
-//              call), then the wrenches of the spring endpoints or cable
+//              call), then the wrenches of the spring endpoints and cable
 //              points on it; then
 //              the body's w = I J dq - ch2 (f - I Jdot qdot)
 //   residual   per column: g[r] = sum over bodies of J_r . w
@@ -84,7 +85,7 @@
 // would order them). Each phase is a function of (tid, the lane's record)
 // that reads only what earlier phases wrote, so g++ runs the same phases on
 // the CPU one tid after another, in either order
-// (tests/test_torch_coop_body.py, tests/test_torch_coop_robust.py). The
+// (tests/test_torch_coop_*.py). The
 // loops and every decision of the solve (the guard's pick included) are
 // uniform across the warp (one lane): each thread reads them from the
 // record after the barrier. Tensor cores have no place here: their only
@@ -152,8 +153,9 @@ struct alignas(16) Lane {
   alignas(16) Frame Ew[N];   // body frames in the world
   alignas(16) float Abw[N][6][6];  // Ad(inv(E_wi))
   // Each body's closed-form K/D blocks (KDb[0] K, KDb[1] D), from
-  // body_forces to newton_terms; a kSprings build then keeps G J_s of its
-  // pair blocks there (GJ, read by newton_matrix), as many blocks as fit.
+  // body_forces to newton_terms; a kSprings build whose pair blocks' G J_s
+  // fit here keeps them here after that (GJ, from spring_columns to
+  // newton_matrix: spring_gj).
   union {
     alignas(16) float KDb[2][N][6][6];
     alignas(16) float GJ[2 * N * 6 / NR][NR][6];
@@ -182,30 +184,55 @@ struct alignas(16) Lane {
   CHORD_HD float hinv(int r, int s) const { return M[NR & 1][r][NR + s]; }
 };
 
-// The record of a kRobust build: the full and the half trial iterate, their
-// residuals and |g|, and the guard's pick (0 full, 1 half, -1 stay put).
-template <int N, int NR>
-struct alignas(16) LaneRobust : Lane<N, NR> {
-  alignas(16) float xt[2][NR];
-  alignas(16) float gt[2][NR];
-  float gtn[2];
-  int pick;
+// Each kind of the FEAT bitmask adds its own fields to the record, after
+// those of the kinds before it (in this order: kQdep, kSprings, kCables,
+// kRobust, kPerlane), so a build holds exactly the fields of its kinds and
+// a build of one kind keeps the layout it had alone.
+
+// kQdep: the time derivative Sbd[r] of each body-frame column (zero on the
+// constant-S ones), and Sb[r] per iterate on the q-dependent joints'
+// columns.
+template <class Base, int NR>
+struct alignas(16) WithQdep : Base {
+  alignas(16) float Sbd[NR][6];
 };
 
-// The springs a kSprings build's record holds, and their pair blocks (a
-// block for each ordered pair of endpoints on bodies: four a spring at
-// most).
+// The springs, cables and cable points a build's record holds: 3, 2 and
+// kMaxCablePoints (8) in the fixed library; a build made for one scene
+// sizes each from the scene (-DCHORD_MAX_SPRINGS, -DCHORD_MAX_CABLES,
+// -DCHORD_MAX_CABLE_POINTS), so it holds the scene's closures however
+// they split. Pair blocks: one for each ordered pair of endpoints on
+// bodies, four a spring at most; one for each ordered pair of a cable's
+// points on bodies, at most the square of the points.
+#ifdef CHORD_MAX_SPRINGS
+constexpr int kCoopSprings = CHORD_MAX_SPRINGS;
+#else
 constexpr int kCoopSprings = 3;
+#endif
+#ifdef CHORD_MAX_CABLES
+constexpr int kCoopCables = CHORD_MAX_CABLES;
+#else
+constexpr int kCoopCables = 2;
+#endif
 constexpr int kCoopBlocks = 4 * kCoopSprings;
+constexpr int kCoopCablePoints = kMaxCablePoints;
+constexpr int kCoopCableBlocks = kCoopCablePoints * kCoopCablePoints;
 
-// The record of a kSprings build: each endpoint's state at the iterate and
-// the world force on it, each spring's A = dfW/d(dx) and Bm = dfW/d(dv)
-// where H is built, and each pair block (spring, e, f) with both endpoints
-// on bodies, in hessian's order: its bodies and G = cK K + cD D (G J_s goes
-// to the base record's GJ).
+// True where the springs' G J_s of every pair block fit the storage of the
+// K/D blocks (the union GJ), which newton_terms has read by then: the
+// spring chain's 12 blocks at (12, 12) fill it. Elsewhere (more springs, or
+// nr above N) they have a store of their own (WithSpringColumns).
 template <int N, int NR>
-struct alignas(16) LaneSprings : Lane<N, NR> {
-  static_assert(kCoopBlocks * NR <= 2 * N * 6, "G J_s of every block fits in the K/D blocks");
+constexpr bool springs_in_kd() {
+  return kCoopBlocks * NR <= 2 * N * 6;
+}
+
+// kSprings: each endpoint's state at the iterate and the world force on it,
+// each spring's A = dfW/d(dx) and Bm = dfW/d(dv) where H is built, and each
+// pair block (spring, e, f) with both endpoints on bodies, in hessian's
+// order: its bodies and G = cK K + cD D.
+template <class Base>
+struct alignas(16) WithSprings : Base {
   alignas(16) float G[kCoopBlocks][6][6];
   float F[kCoopSprings][2][3];  // the world force on endpoint e, +fW on 0, -fW on 1
   float A[kCoopSprings][3][3];
@@ -216,35 +243,23 @@ struct alignas(16) LaneSprings : Lane<N, NR> {
   int nblocks;
 };
 
-// The record of a kQdep build: the time derivative Sbd[r] of each
-// body-frame column (zero on the constant-S ones), and Sb[r] per iterate on
-// the q-dependent joints' columns.
-template <int N, int NR>
-struct alignas(16) LaneQdep : Lane<N, NR> {
-  alignas(16) float Sbd[NR][6];
+// The store of the springs' G J_s where the K/D blocks' does not hold them.
+template <class Base, int NR>
+struct alignas(16) WithSpringColumns : Base {
+  alignas(16) float SGJ[kCoopBlocks][NR][6];
 };
 
-// The cables a kCables build's record holds, their points in all (the
-// build's kMaxCablePoints: a build made for one scene sizes it from the
-// scene's points, so it holds them however they split into cables) and
-// their pair blocks (a block for each ordered pair of a cable's points on
-// bodies: at most the square of the points).
-constexpr int kCoopCables = 2;
-constexpr int kCoopCablePoints = kMaxCablePoints;
-constexpr int kCoopCableBlocks = kCoopCablePoints * kCoopCablePoints;
-
-// The record of a kCables build, every point and segment by its index g in
-// the cables' points in order (segment g runs from point g to point g + 1
-// of the same cable): each point's state at the iterate, each segment's
-// u_s, dv_s, l_s, 1 / l_s, u_s . dv_s and (where H is built) w_s = Pm_s
-// dv_s / l_s, each point's c_j, the world force F_j = fs c_j on it and
-// (where H is built) a_j, each cable's tension fs and gate; the static map
-// of points to cables, bodies and params, and each pair block (j, i) with
-// both points on bodies, in hessian's order: its points, its bodies, G =
-// cK K + cD D and G J_s (a store of its own: a cable of P points has P^2
-// blocks, more than the K/D blocks' storage holds).
-template <int N, int NR>
-struct alignas(16) LaneCables : Lane<N, NR> {
+// kCables, every point and segment by its index g in the cables' points in
+// order (segment g runs from point g to point g + 1 of the same cable):
+// each point's state at the iterate, each segment's u_s, dv_s, l_s, 1 / l_s,
+// u_s . dv_s and (where H is built) w_s = Pm_s dv_s / l_s, each point's
+// c_j, the world force F_j = fs c_j on it and (where H is built) a_j, each
+// cable's tension fs and gate; the static map of points to cables, bodies
+// and params, and each pair block (j, i) with both points on bodies, in
+// hessian's order: its points, its bodies, G = cK K + cD D and G J_s (a
+// store of its own: a cable of P points has P^2 blocks).
+template <class Base, int NR>
+struct alignas(16) WithCables : Base {
   alignas(16) float CG[kCoopCableBlocks][6][6];
   alignas(16) float CGJ[kCoopCableBlocks][NR][6];
   float cu[kCoopCablePoints][3];
@@ -267,40 +282,64 @@ struct alignas(16) LaneCables : Lane<N, NR> {
   int cnpoints, cnblocks;
 };
 
-// Floats of the per-lane record a kPerlane build holds: kMaxLaneRecord; in a
-// kSprings build, the fields its scenes have (I_i, bd, g, h and
-// kCoopSprings springs: 7N + 4 + 9 kCoopSprings, to a multiple of 4), in a
-// kCables build those of kCoopCables cables of kCoopCablePoints points in
-// all (7N + 4 + 3 kCoopCablePoints + 3 kCoopCables, to a multiple of 4), so
-// that the record and the closures' fields fit a block's shared memory.
+// kRobust: the full and the half trial iterate, their residuals and |g|,
+// and the guard's pick (0 full, 1 half, -1 stay put).
+template <class Base, int NR>
+struct alignas(16) WithTrials : Base {
+  alignas(16) float xt[2][NR];
+  alignas(16) float gt[2][NR];
+  float gtn[2];
+  int pick;
+};
+
+// Floats of the per-lane record a kPerlane build holds, the fields of
+// lane_f its kinds have (chord_bdf2_lane.cuh: P = 7N + 4 + 13C + 9S +
+// 3 NPTS + 3 NCAB) for the closures its record holds, to a multiple of 4:
+// with ground contacts, whose count no build fixes, kMaxLaneRecord (512 in
+// the fixed library, the scene's record in a build made for one scene).
 template <int N, int FEAT>
 constexpr int coop_record_floats() {
-  if constexpr ((FEAT & kCables) != 0)
-    return (7 * N + 4 + 3 * kCoopCablePoints + 3 * kCoopCables + 3) / 4 * 4;
-  return (FEAT & kSprings) != 0 ? (7 * N + 4 + 9 * kCoopSprings + 3) / 4 * 4 : kMaxLaneRecord;
+  if constexpr ((FEAT & kContacts) != 0) return kMaxLaneRecord;
+  int p = 7 * N + 4;
+  if constexpr ((FEAT & kSprings) != 0) p += 9 * kCoopSprings;
+  if constexpr ((FEAT & kCables) != 0) p += 3 * kCoopCablePoints + 3 * kCoopCables;
+  return (p + 3) / 4 * 4;
 }
 
-// The record of a kPerlane build: the lane's record of lane_f (P floats at
-// most), which its Shared reads the physical params from.
+// kPerlane: the lane's record of lane_f (P floats at most), which its
+// Shared reads the physical params from.
 template <class Base, int P>
 struct alignas(16) LanePerlane : Base {
   alignas(16) float rec[P];
 };
 
-// The record of a build of kinds FEAT: the fields of the robust modes, of
-// the springs or of the per-lane params only where FEAT has them, so the
-// other builds keep their record.
+// The record of a build of kinds FEAT but its per-lane params, each kind's
+// fields after those of the kinds before it, and the whole record.
 template <int N, int NR, int FEAT>
-using LaneBase = std::conditional_t<
-    (FEAT & kSprings) != 0, LaneSprings<N, NR>,
-    std::conditional_t<(FEAT & kCables) != 0, LaneCables<N, NR>,
-                       std::conditional_t<(FEAT & kQdep) != 0, LaneQdep<N, NR>, Lane<N, NR>>>>;
+struct LaneKinds {
+  using Q = std::conditional_t<(FEAT & kQdep) != 0, WithQdep<Lane<N, NR>, NR>, Lane<N, NR>>;
+  using S = std::conditional_t<(FEAT & kSprings) != 0, WithSprings<Q>, Q>;
+  using SC = std::conditional_t<(FEAT & kSprings) != 0 && !springs_in_kd<N, NR>(),
+                                WithSpringColumns<S, NR>, S>;
+  using C = std::conditional_t<(FEAT & kCables) != 0, WithCables<SC, NR>, SC>;
+  using type = std::conditional_t<(FEAT & kRobust) != 0, WithTrials<C, NR>, C>;
+};
 template <int N, int NR, int FEAT>
-using LaneOf = std::conditional_t<
-    (FEAT & kRobust) != 0, LaneRobust<N, NR>,
-    std::conditional_t<(FEAT & kPerlane) != 0,
-                       LanePerlane<LaneBase<N, NR, FEAT>, coop_record_floats<N, FEAT>()>,
-                       LaneBase<N, NR, FEAT>>>;
+using LaneBase = typename LaneKinds<N, NR, FEAT>::type;
+template <int N, int NR, int FEAT>
+using LaneOf = std::conditional_t<(FEAT & kPerlane) != 0,
+                                  LanePerlane<LaneBase<N, NR, FEAT>, coop_record_floats<N, FEAT>()>,
+                                  LaneBase<N, NR, FEAT>>;
+
+// G J_s of the springs' pair blocks, [block][column][6]: in the K/D blocks'
+// storage or in a store of its own (springs_in_kd).
+template <int N, int NR, class Rec>
+CHORD_HD float (*spring_gj(Rec& L))[NR][6] {
+  if constexpr (springs_in_kd<N, NR>())
+    return L.GJ;
+  else
+    return L.SGJ;
+}
 
 // Lane `lane` of the [P, B] per-lane buffer into the record, a float a
 // thread.
@@ -355,8 +394,8 @@ CHORD_HD void setup(int t, const Shared<N, NR>& sh, Lane<N, NR>& L, int lane, in
 
 // Sbd[r] = 0 of every column, a column a thread (kQdep): qdep_joints
 // overwrites the q-dependent joints' at every iterate.
-template <int N, int NR>
-CHORD_HD void setup_qdep(int t, LaneQdep<N, NR>& L) {
+template <int N, int NR, class Rec>
+CHORD_HD void setup_qdep(int t, Rec& L) {
   if (t >= NR) return;
   for (int k = 0; k < 6; ++k) L.Sbd[t][k] = 0.0f;
 }
@@ -377,52 +416,54 @@ CHORD_HD void setup_pairs(int t, Lane<N, NR>& L) {
 // The pair blocks of each spring, spring by spring: each spring's thread
 // writes its own, (e, f) over its endpoints on bodies, after the blocks of
 // the springs before it.
-template <int N, int NR>
-CHORD_HD void setup_springs(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& L) {
-  if (t > 0 && t >= sh.nsprings) return;
-  int at = 0;
-  for (int s = 0; s < t; ++s) {
-    const int n = (sh.sspec[4 * s + 1] >= 0 ? 1 : 0) + (sh.sspec[4 * s + 2] >= 0 ? 1 : 0);
-    at += n * n;
-  }
-  for (int e = 0; e < 2 && t < sh.nsprings; ++e) {
-    const int b = sh.sspec[4 * t + 1 + e];
-    for (int f = 0; f < 2 && b >= 0; ++f) {
-      const int c = sh.sspec[4 * t + 1 + f];
-      if (c < 0) continue;
-      L.blk[at] = 4 * t + 2 * e + f;
-      L.blkb[at][0] = b;
-      L.blkb[at][1] = c;
-      ++at;
+template <int N, int NR, class Rec>
+CHORD_HD void setup_springs(int t, const Shared<N, NR>& sh, Rec& L) {
+  if (t == 0 && sh.nsprings == 0) L.nblocks = 0;
+  for (int u = t; u < sh.nsprings; u += kWarp) {
+    int at = 0;
+    for (int s = 0; s < u; ++s) {
+      const int n = (sh.sspec[4 * s + 1] >= 0 ? 1 : 0) + (sh.sspec[4 * s + 2] >= 0 ? 1 : 0);
+      at += n * n;
     }
+    for (int e = 0; e < 2; ++e) {
+      const int b = sh.sspec[4 * u + 1 + e];
+      for (int f = 0; f < 2 && b >= 0; ++f) {
+        const int c = sh.sspec[4 * u + 1 + f];
+        if (c < 0) continue;
+        L.blk[at] = 4 * u + 2 * e + f;
+        L.blkb[at][0] = b;
+        L.blkb[at][1] = c;
+        ++at;
+      }
+    }
+    if (u == sh.nsprings - 1) L.nblocks = at;
   }
-  if (t == (sh.nsprings > 0 ? sh.nsprings - 1 : 0)) L.nblocks = at;
 }
 
 // Each cable's points, their params and its pair blocks, cable by cable:
 // each cable's thread writes its own, (j, i) over its points on bodies,
 // after the points and blocks of the cables before it.
-template <int N, int NR>
-CHORD_HD void setup_cables(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L) {
-  if (t > 0 && t >= sh.ncables) return;
-  int spec = 0, g = 0, cbo = 0, at = 0;
-  for (int c = 0; c < t; ++c) {
-    const int P = sh.cspec[spec];
-    int on = 0;
-    for (int j = 0; j < P; ++j) on += sh.cspec[spec + 1 + j] >= 0 ? 1 : 0;
-    at += on * on;
-    g += P;
-    cbo += 3 * P + 3;
-    spec += 1 + P;
-  }
-  if (t < sh.ncables) {
+template <int N, int NR, class Rec>
+CHORD_HD void setup_cables(int t, const Shared<N, NR>& sh, Rec& L) {
+  if (t == 0 && sh.ncables == 0) L.cnpoints = L.cnblocks = 0;
+  for (int u = t; u < sh.ncables; u += kWarp) {
+    int spec = 0, g = 0, cbo = 0, at = 0;
+    for (int c = 0; c < u; ++c) {
+      const int P = sh.cspec[spec];
+      int on = 0;
+      for (int j = 0; j < P; ++j) on += sh.cspec[spec + 1 + j] >= 0 ? 1 : 0;
+      at += on * on;
+      g += P;
+      cbo += 3 * P + 3;
+      spec += 1 + P;
+    }
     const int P = sh.cspec[spec];
     const int* bodies = sh.cspec + spec + 1;
-    L.coff[t] = g;
-    L.cnpts[t] = P;
-    L.cbo[t] = cbo;
+    L.coff[u] = g;
+    L.cnpts[u] = P;
+    L.cbo[u] = cbo;
     for (int j = 0; j < P; ++j) {
-      L.cpc[g + j] = t;
+      L.cpc[g + j] = u;
       L.cpj[g + j] = j;
       L.cpb[g + j] = bodies[j];
     }
@@ -437,11 +478,10 @@ CHORD_HD void setup_cables(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L)
         ++at;
       }
     }
-    g += P;
-  }
-  if (t == (sh.ncables > 0 ? sh.ncables - 1 : 0)) {
-    L.cnpoints = g;
-    L.cnblocks = at;
+    if (u == sh.ncables - 1) {
+      L.cnpoints = g + P;
+      L.cnblocks = at;
+    }
   }
 }
 
@@ -520,8 +560,8 @@ CHORD_HD void joints(int t, const Shared<N, NR>& sh, Lane<N, NR>& L, const float
 // and their time derivatives Sbd[r] at the record's qdot (qdep_joint, as
 // fk_and_J calls it), and E_pj = E0_pj Q (a root joint's is its world
 // frame); a joint a thread.
-template <int N, int NR>
-CHORD_HD void qdep_joints(int t, const Shared<N, NR>& sh, LaneQdep<N, NR>& L, const float* xe) {
+template <int N, int NR, class Rec>
+CHORD_HD void qdep_joints(int t, const Shared<N, NR>& sh, Rec& L, const float* xe) {
   if (t >= N || !is_qdep(sh.jtype[t])) return;
   const int j = t;
   Frame Q, E0;
@@ -666,96 +706,99 @@ CHORD_HD void jacobian_dot(int t, Lane<N, NR>& L) {
 
 // The state of endpoint e of spring s at the record's Ew and phi
 // (point_state's arithmetic), a (spring, endpoint) a thread.
-template <int N, int NR>
-CHORD_HD void spring_points(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& L) {
-  if (t >= 2 * sh.nsprings) return;
-  const int s = t / 2, e = t % 2;
-  const int b = sh.sspec[4 * s + 1 + e];
-  const float* sp = sh.sp + 9 * s + 3 * e;
-  const float r[3] = {sp[0], sp[1], sp[2]};
-  Point P;
-  P.b = b;
-  for (int i = 0; i < 3; ++i) {
-    P.r[i] = r[i];
-    P.x[i] = r[i];
-    P.v[i] = 0.0f;
-    P.u[i] = 0.0f;
-  }
-  if (b >= 0) {
-    alignas(16) Frame E;
-    alignas(16) float phi[6];
-    copy_frame(E, L.Ew[b]);
-    copy_f<6>(phi, L.phi[b]);
-    cross3(phi, r, P.u);
-    for (int i = 0; i < 3; ++i) P.u[i] = P.u[i] + phi[3 + i];
+template <int N, int NR, class Rec>
+CHORD_HD void spring_points(int t, const Shared<N, NR>& sh, Rec& L) {
+  for (int q = t; q < 2 * sh.nsprings; q += kWarp) {
+    const int s = q / 2, e = q % 2;
+    const int b = sh.sspec[4 * s + 1 + e];
+    const float* sp = sh.sp + 9 * s + 3 * e;
+    const float r[3] = {sp[0], sp[1], sp[2]};
+    Point P;
+    P.b = b;
     for (int i = 0; i < 3; ++i) {
-      P.x[i] = E.p[i] + (E.R[i][0] * r[0] + E.R[i][1] * r[1] + E.R[i][2] * r[2]);
-      P.v[i] = E.R[i][0] * P.u[0] + E.R[i][1] * P.u[1] + E.R[i][2] * P.u[2];
+      P.r[i] = r[i];
+      P.x[i] = r[i];
+      P.v[i] = 0.0f;
+      P.u[i] = 0.0f;
     }
+    if (b >= 0) {
+      alignas(16) Frame E;
+      alignas(16) float phi[6];
+      copy_frame(E, L.Ew[b]);
+      copy_f<6>(phi, L.phi[b]);
+      cross3(phi, r, P.u);
+      for (int i = 0; i < 3; ++i) P.u[i] = P.u[i] + phi[3 + i];
+      for (int i = 0; i < 3; ++i) {
+        P.x[i] = E.p[i] + (E.R[i][0] * r[0] + E.R[i][1] * r[1] + E.R[i][2] * r[2]);
+        P.v[i] = E.R[i][0] * P.u[0] + E.R[i][1] * P.u[1] + E.R[i][2] * P.u[2];
+      }
+    }
+    L.pt[s][e] = P;
   }
-  L.pt[s][e] = P;
 }
 
 // Spring s's world force fW (spring_force), the force on each endpoint
 // (+fW on 0, -fW on 1) and, where H is built (blocks), A and Bm; a spring a
 // thread.
-template <int N, int NR>
-CHORD_HD void spring_forces(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& L, bool blocks) {
-  if (t >= sh.nsprings) return;
-  const int* spec = sh.sspec + 4 * t;
-  const Point p1 = L.pt[t][0], p2 = L.pt[t][1];
-  float fW[3], A[3][3], Bm[3][3];
-  if (blocks)
-    spring_force<true>(p1, p2, sh.sp + 9 * t, spec[0], spec[3], fW, A, Bm);
-  else
-    spring_force<false>(p1, p2, sh.sp + 9 * t, spec[0], spec[3], fW, A, Bm);
-  for (int e = 0; e < 2; ++e) {
-    const float se = e == 0 ? 1.0f : -1.0f;
-    for (int i = 0; i < 3; ++i) L.F[t][e][i] = se * fW[i];
-  }
-  if (!blocks) return;
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      L.A[t][i][j] = A[i][j];
-      L.Bm[t][i][j] = Bm[i][j];
+template <int N, int NR, class Rec>
+CHORD_HD void spring_forces(int t, const Shared<N, NR>& sh, Rec& L, bool blocks) {
+  for (int s = t; s < sh.nsprings; s += kWarp) {
+    const int* spec = sh.sspec + 4 * s;
+    const Point p1 = L.pt[s][0], p2 = L.pt[s][1];
+    float fW[3], A[3][3], Bm[3][3];
+    if (blocks)
+      spring_force<true>(p1, p2, sh.sp + 9 * s, spec[0], spec[3], fW, A, Bm);
+    else
+      spring_force<false>(p1, p2, sh.sp + 9 * s, spec[0], spec[3], fW, A, Bm);
+    for (int e = 0; e < 2; ++e) {
+      const float se = e == 0 ? 1.0f : -1.0f;
+      for (int i = 0; i < 3; ++i) L.F[s][e][i] = se * fW[i];
     }
+    if (!blocks) continue;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        L.A[s][i][j] = A[i][j];
+        L.Bm[s][i][j] = Bm[i][j];
+      }
+  }
 }
 
 // G of pair block k (spring s, endpoint e's wrench against endpoint f's
 // perturbation, pair_block with dF_e/dx_f = s_e sig_f A: the application
 // signs s = (+1, -1), the dx signs sig = (-1, +1)), a block a thread.
-template <int N, int NR>
-CHORD_HD void spring_blocks(int t, const Shared<N, NR>& sh, LaneSprings<N, NR>& L) {
-  if (t >= L.nblocks) return;
-  const int code = L.blk[t];
-  const int s = code / 4, e = (code / 2) % 2, f = code % 2;
+template <int N, int NR, class Rec>
+CHORD_HD void spring_blocks(int t, const Shared<N, NR>& sh, Rec& L) {
   const float h = sh.h;
   const float cK = -(4.0f / 9.0f) * h * h;
   const float cD = -(2.0f / 3.0f) * h;
-  const float se = e == 0 ? 1.0f : -1.0f;
-  alignas(16) Frame Eb, Ec;
-  alignas(16) float G[6][6];
-  copy_frame(Eb, L.Ew[L.blkb[t][0]]);
-  copy_frame(Ec, L.Ew[L.blkb[t][1]]);
-  const Point pe = L.pt[s][e], pf = L.pt[s][f];
-  float A[3][3], Bm[3][3], F[3], fb[3];
-  for (int i = 0; i < 3; ++i) {
-    F[i] = L.F[s][e][i];
-    for (int j = 0; j < 3; ++j) {
-      A[i][j] = L.A[s][i][j];
-      Bm[i][j] = L.Bm[s][i][j];
+  for (int k = t; k < L.nblocks; k += kWarp) {
+    const int code = L.blk[k];
+    const int s = code / 4, e = (code / 2) % 2, f = code % 2;
+    const float se = e == 0 ? 1.0f : -1.0f;
+    alignas(16) Frame Eb, Ec;
+    alignas(16) float G[6][6];
+    copy_frame(Eb, L.Ew[L.blkb[k][0]]);
+    copy_frame(Ec, L.Ew[L.blkb[k][1]]);
+    const Point pe = L.pt[s][e], pf = L.pt[s][f];
+    float A[3][3], Bm[3][3], F[3], fb[3];
+    for (int i = 0; i < 3; ++i) {
+      F[i] = L.F[s][e][i];
+      for (int j = 0; j < 3; ++j) {
+        A[i][j] = L.A[s][i][j];
+        Bm[i][j] = L.Bm[s][i][j];
+      }
     }
+    rt_vec(Eb.R, F, fb);
+    pair_block(Eb, pe, fb, Ec, pf, A, Bm, se * (f == 0 ? -1.0f : 1.0f), e == f, cK, cD, G);
+    copy_f<36>(&L.G[k][0][0], &G[0][0]);
   }
-  rt_vec(Eb.R, F, fb);
-  pair_block(Eb, pe, fb, Ec, pf, A, Bm, se * (f == 0 ? -1.0f : 1.0f), e == f, cK, cD, G);
-  copy_f<36>(&L.G[t][0][0], &G[0][0]);
 }
 
-// GJ[k][s] = G_k J_c[s] of each pair block k (bodies b, c) and column s that
-// moves body c (add_pair's), a (block, column) a thread, into the K/D
-// blocks' storage (newton_terms has read them).
-template <int N, int NR>
-CHORD_HD void spring_columns(int t, LaneSprings<N, NR>& L) {
+// G J_s of each pair block k (bodies b, c) and column s that moves body c
+// (add_pair's), a (block, column) a thread, into spring_gj's store.
+template <int N, int NR, class Rec>
+CHORD_HD void spring_columns(int t, Rec& L) {
+  float(*GJ)[NR][6] = spring_gj<N, NR>(L);
   for (int q = t; q < L.nblocks * NR; q += kWarp) {
     const int k = q / NR, s = q % NR, c = L.blkb[k][1];
     if (!L.moves(c, s)) continue;
@@ -763,15 +806,15 @@ CHORD_HD void spring_columns(int t, LaneSprings<N, NR>& L) {
     copy_f<36>(&G[0][0], &L.G[k][0][0]);
     copy_f<6>(Js, L.J[c][s]);
     mat6_vec(G, Js, GJs);
-    copy_f<6>(L.GJ[k][s], GJs);
+    copy_f<6>(GJ[k][s], GJs);
   }
 }
 
 // The state of cable point g at the record's Ew and phi (point_state's
 // arithmetic, as the cables loop of chord_bdf2_lane.cuh calls it), a point
 // a thread.
-template <int N, int NR>
-CHORD_HD void cable_points(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L) {
+template <int N, int NR, class Rec>
+CHORD_HD void cable_points(int t, const Shared<N, NR>& sh, Rec& L) {
   for (int g = t; g < L.cnpoints; g += kWarp) {
     const int b = L.cpb[g];
     const float* r = sh.cb + L.cbo[L.cpc[g]] + 3 * L.cpj[g];
@@ -802,8 +845,8 @@ CHORD_HD void cable_points(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L)
 // Segment g (point g to point g + 1 of one cable), a segment a thread: dv,
 // l_s, 1 / l_s, u_s and u_s . dv_s (the cables loop's segment arithmetic)
 // and, where H is built (blocks), w_s = (dv_s - u_s (u_s . dv_s)) / l_s.
-template <int N, int NR>
-CHORD_HD void cable_segments(int t, LaneCables<N, NR>& L, bool blocks) {
+template <int N, int NR, class Rec>
+CHORD_HD void cable_segments(int t, Rec& L, bool blocks) {
   for (int g = t; g < L.cnpoints; g += kWarp) {
     if (L.cpj[g] + 1 >= L.cnpts[L.cpc[g]]) continue;
     const Point p0 = L.cpt[g], p1 = L.cpt[g + 1];
@@ -834,8 +877,8 @@ CHORD_HD void cable_segments(int t, LaneCables<N, NR>& L, bool blocks) {
 // point's thread sums them alike; the cable's first point records them),
 // then c_j = u_j [j < P-1] - u_{j-1} [j > 0], F_j = fs c_j and, where H is
 // built, a_j (the cables loop's arithmetic, term for term).
-template <int N, int NR>
-CHORD_HD void cable_forces(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L, bool blocks) {
+template <int N, int NR, class Rec>
+CHORD_HD void cable_forces(int t, const Shared<N, NR>& sh, Rec& L, bool blocks) {
   for (int g = t; g < L.cnpoints; g += kWarp) {
     const int c = L.cpc[g], j = L.cpj[g], P = L.cnpts[c], g0 = L.coff[c];
     const float* cb = sh.cb + L.cbo[c];
@@ -870,8 +913,8 @@ CHORD_HD void cable_forces(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L,
 // G of cable pair block k (point j's wrench against point i's perturbation:
 // A = c_j a_i^T + fs D_ji, Bm = -gate (d/L) c_j c_i^T, pair_block with
 // coefficient 1, the cables loop's arithmetic), a block a thread.
-template <int N, int NR>
-CHORD_HD void cable_blocks(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L) {
+template <int N, int NR, class Rec>
+CHORD_HD void cable_blocks(int t, const Shared<N, NR>& sh, Rec& L) {
   const float h = sh.h;
   const float cK = -(4.0f / 9.0f) * h * h;
   const float cD = -(2.0f / 3.0f) * h;
@@ -911,8 +954,8 @@ CHORD_HD void cable_blocks(int t, const Shared<N, NR>& sh, LaneCables<N, NR>& L)
 
 // CGJ[k][s] = G_k J_c[s] of each cable pair block k (bodies b, c) and column
 // s that moves body c (add_pair's), a (block, column) a thread.
-template <int N, int NR>
-CHORD_HD void cable_columns(int t, LaneCables<N, NR>& L) {
+template <int N, int NR, class Rec>
+CHORD_HD void cable_columns(int t, Rec& L) {
   for (int q = t; q < L.cnblocks * NR; q += kWarp) {
     const int k = q / NR, s = q % NR, c = L.cblkb[k][1];
     if (!L.moves(c, s)) continue;
@@ -973,19 +1016,17 @@ CHORD_HD void body_forces(int t, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>& L
       ground_contact<false>(E, phi, sh.cp + 13 * nth_contact(sh, i, k), sh.h, 0.0f, fm, nullptr,
                             nullptr);
   }
-  if constexpr ((FEAT & kSprings) != 0) {
+  if constexpr ((FEAT & (kSprings | kCables)) != 0) {
     float fcl[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int s = 0; s < sh.nsprings; ++s)
-      for (int e = 0; e < 2; ++e)
-        if (sh.sspec[4 * s + 1 + e] == i)
-          add_point_wrench(E, sh.sp + 9 * s + 3 * e, L.F[s][e], fcl);
-    for (int k = 0; k < 6; ++k) fm[k] = fm[k] + fcl[k];
-  }
-  if constexpr ((FEAT & kCables) != 0) {
-    float fcl[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int g = 0; g < L.cnpoints; ++g)
-      if (L.cpb[g] == i)
-        add_point_wrench(E, sh.cb + L.cbo[L.cpc[g]] + 3 * L.cpj[g], L.cF[g], fcl);
+    if constexpr ((FEAT & kSprings) != 0)
+      for (int s = 0; s < sh.nsprings; ++s)
+        for (int e = 0; e < 2; ++e)
+          if (sh.sspec[4 * s + 1 + e] == i)
+            add_point_wrench(E, sh.sp + 9 * s + 3 * e, L.F[s][e], fcl);
+    if constexpr ((FEAT & kCables) != 0)
+      for (int g = 0; g < L.cnpoints; ++g)
+        if (L.cpb[g] == i)
+          add_point_wrench(E, sh.cb + L.cbo[L.cpc[g]] + 3 * L.cpj[g], L.cF[g], fcl);
     for (int k = 0; k < 6; ++k) fm[k] = fm[k] + fcl[k];
   }
   const float ch2 = (4.0f / 9.0f) * sh.h * sh.h;
@@ -1087,12 +1128,13 @@ CHORD_HD void newton_matrix(int t, const Shared<N, NR>& sh, LaneOf<N, NR, FEAT>&
       acc = acc + m_rs + kd + cD * (-2.0f) * qvv;
     }
     if constexpr ((FEAT & kSprings) != 0) {
+      float(*GJ)[NR][6] = spring_gj<N, NR>(L);
       for (int k = 0; k < L.nblocks; ++k) {
         const int b = L.blkb[k][0], c = L.blkb[k][1];
         if (!L.moves(b, r) || !L.moves(c, s)) continue;
         alignas(16) float Jr[6], GJs[6];
         copy_f<6>(Jr, L.J[b][r]);
-        copy_f<6>(GJs, L.GJ[k][s]);
+        copy_f<6>(GJs, GJ[k][s]);
         float a = 0.0f;
         for (int m = 0; m < 6; ++m) a = a + Jr[m] * GJs[m];
         acc = acc + a;
@@ -1187,8 +1229,8 @@ CHORD_HD void step_update(int t, Lane<N, NR>& L, float dx_clamp) {
 // Trial e of a guarded iteration (1 the full step, 2 the half step) from
 // the dx of step_dx: xt[e - 1] = x - dx or x - dx / 2, dx clamped as in
 // step_update.
-template <int N, int NR>
-CHORD_HD void trial(int t, LaneRobust<N, NR>& L, int e, float dx_clamp) {
+template <int N, int NR, class Rec>
+CHORD_HD void trial(int t, Rec& L, int e, float dx_clamp) {
   if (t >= NR) return;
   const float d = clamped_dx<N, NR>(t, L, dx_clamp);
   L.xt[e - 1][t] = L.x[t] - (e == 1 ? d : 0.5f * d);
@@ -1198,8 +1240,8 @@ CHORD_HD void trial(int t, LaneRobust<N, NR>& L, int e, float dx_clamp) {
 // did not grow there, else the half step if it did not grow there, else
 // stay put (a non-finite |g| compares false: grown). gln is |g| at the
 // iterate (step_dx's).
-template <int N, int NR>
-CHORD_HD void guard_pick(int t, LaneRobust<N, NR>& L) {
+template <int N, int NR, class Rec>
+CHORD_HD void guard_pick(int t, Rec& L) {
   if (t != 0) return;
   float n[2];
   for (int e = 0; e < 2; ++e) {
@@ -1215,8 +1257,8 @@ CHORD_HD void guard_pick(int t, LaneRobust<N, NR>& L) {
 
 // The accepted trial: its x, and its g and |g| carried (not recomputed at
 // the new iterate).
-template <int N, int NR>
-CHORD_HD void guard_accept(int t, LaneRobust<N, NR>& L, int pick) {
+template <int N, int NR, class Rec>
+CHORD_HD void guard_accept(int t, Rec& L, int pick) {
   if (t >= NR) return;
   L.x[t] = L.xt[pick][t];
   L.g[t] = L.gt[pick][t];
@@ -1273,18 +1315,16 @@ CHORD_HD void kinematics(const Run& run, const Shared<N, NR>& sh, LaneOf<N, NR, 
 
 // The endpoint states and forces of the springs at the kinematics' iterate
 // (with A and Bm where H is built: blocks).
-template <int N, int NR, class Run>
-CHORD_HD void spring_state(const Run& run, const Shared<N, NR>& sh, LaneSprings<N, NR>& L,
-                           bool blocks) {
+template <int N, int NR, class Run, class Rec>
+CHORD_HD void spring_state(const Run& run, const Shared<N, NR>& sh, Rec& L, bool blocks) {
   run(kSpringPoints, [&](int t) { spring_points<N, NR>(t, sh, L); });
   run(kSpringForces, [&](int t) { spring_forces<N, NR>(t, sh, L, blocks); });
 }
 
 // The point states, segments and forces of the cables at the kinematics'
 // iterate (with w_s and a_j where H is built: blocks).
-template <int N, int NR, class Run>
-CHORD_HD void cable_state(const Run& run, const Shared<N, NR>& sh, LaneCables<N, NR>& L,
-                          bool blocks) {
+template <int N, int NR, class Run, class Rec>
+CHORD_HD void cable_state(const Run& run, const Shared<N, NR>& sh, Rec& L, bool blocks) {
   run(kCablePoints, [&](int t) { cable_points<N, NR>(t, sh, L); });
   run(kCableSegments, [&](int t) { cable_segments<N, NR>(t, L, blocks); });
   run(kCableForces, [&](int t) { cable_forces<N, NR>(t, sh, L, blocks); });
@@ -1342,13 +1382,6 @@ CHORD_HD void solve(const Run& run, LaneOf<N, NR, FEAT>& L, int lane, int B, con
   constexpr bool ROBUST = (FEAT & kRobust) != 0;
   constexpr bool SPRINGS = (FEAT & kSprings) != 0;
   constexpr bool CABLES = (FEAT & kCables) != 0;
-  static_assert(((FEAT & ~(kContacts | kPerlane | kRobust)) == 0 &&
-                 (FEAT & (kPerlane | kRobust)) != (kPerlane | kRobust)) ||
-                    FEAT == kSprings || FEAT == (kSprings | kPerlane) || FEAT == kCables ||
-                    FEAT == (kCables | kPerlane) || FEAT == kQdep,
-                "the cooperative solve runs no closure but ground contact, with per-lane "
-                "params or the robust modes, not both; or springs alone, or cables alone, "
-                "with lane-shared or per-lane params; or the q-dependent joints alone");
   const Shared<N, NR> sh = lane_params<N, NR, FEAT>(run, L, topo_i, stat_f, lane_f, lane, B);
   run(kSetup, [&](int t) {
     setup<N, NR>(t, sh, L, lane, B, x0s, q0s, qd0s, q1s, qd1s, taus);

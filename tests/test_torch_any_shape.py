@@ -2,8 +2,8 @@
 
   * The routing rule and the build keys, in pure Python: the cooperative
     design takes a shape by a rule decided before anything is built
-    (chord_kernel.takes_coop: its body takes the kind mix, N, nr <= 32, a
-    lane's record fits a block), every other key goes to the thread-per-lane
+    (chord_kernel.takes_coop: any kind mix, N, nr <= 32, a lane's record
+    sized for the scene fits a block), every other key goes to the thread-per-lane
     design; a key a fixed library holds goes to it, any other to the build
     made for it (build_for), the same KernelBuild for the same key and
     other defines for another.
@@ -73,7 +73,8 @@ GROUND4_RECORD = 7 * 4 + 4 + 13 * 4
 SIZES = [(12, 12, 0), (4, 4, C), (12, 12, R), (12, 12, C | R), (12, 12, C | PL),
          (12, 12, S), (12, 12, S | PL), (6, 12, Q), (4, 12, Q), (1, 6, Q), (5, 3, 0),
          (2, 2, S), (8, 8, 0), (8, 8, PL), (3, 3, C | PL), (32, 32, 0), (2, 4, Q),
-         (4, 3, CAB), (4, 3, CAB | PL), (3, 3, CAB), (12, 12, CAB | PL), (32, 32, CAB)]
+         (4, 3, CAB), (4, 3, CAB | PL), (3, 3, CAB), (12, 12, CAB | PL), (32, 32, CAB)] + [
+    (n, nr, f) for n, nr in ((6, 8), (3, 6)) for f in range(64)]   # every kind mix
 # records of explicit size: (N, nr, kinds, record floats); the last fits no block
 RECORDS = [(4, 4, C | PL, GROUND4_RECORD), (5, 3, PL, 40), (32, 32, C | PL, 24000)]
 LOOP = r"""
@@ -197,18 +198,21 @@ def lib(tmp_path_factory):
 
 
 def test_shape_rule_routes_by_kinds_width_and_room():
-    """takes_coop: the cooperative body's kind mixes (COOP_KINDS), at most
-    MAX_COOP_SPRINGS springs with nr <= N, N and nr at most 32, a record
-    that fits one lane in a block; lanes a block the most of 8, 4, 2, 1
+    """takes_coop: every kind mix, N and nr at most 32, a record (sized for
+    the scene's closures) that fits one lane in a block: the kinds weigh
+    only through the record's size; lanes a block the most of 8, 4, 2, 1
     that fit."""
     for key in [(5, 3, 0), (2, 2, S), (8, 8, 0), (6, 12, Q), (4, 12, Q), (1, 6, Q),
-                (4, 4, C | R), (3, 3, PL), (32, 32, 0), (4, 3, CAB), (4, 3, CAB | PL)]:
+                (4, 4, C | R), (3, 3, PL), (32, 32, 0), (4, 3, CAB), (4, 3, CAB | PL),
+                (6, 6, C | S), (3, 6, C | Q), (12, 12, C | PL | R), (4, 3, CAB | C),
+                (6, 12, Q | R), (4, 8, S)]:
         assert ck.takes_coop(*key), key
-    for key in [(6, 6, C | S), (3, 6, C | Q), (12, 12, C | PL | R), (4, 3, CAB | C),
-                (6, 12, Q | R), (33, 33, 0), (4, 32 + 1, 0), (4, 8, S)]:
+    for key in [(33, 33, 0), (4, 32 + 1, 0), (33, 6, C | S)]:
         assert not ck.takes_coop(*key), key
-    assert ck.takes_coop(12, 12, S, springs=3) and not ck.takes_coop(12, 12, S, springs=4)
-    assert not ck.takes_coop(12, 12, S | PL, springs=3, record=200)
+    assert ck.takes_coop(12, 12, S, springs=3) and ck.takes_coop(12, 12, S, springs=6)
+    assert ck.takes_coop(12, 12, S | PL, springs=3, record=200)
+    assert ck.takes_coop(8, 7, S, springs=6) and ck.coop_lanes(8, 7, S, 4, 2, 6) == 8
+    assert not ck.takes_coop(12, 12, S, springs=110)   # no lane fits a block
     assert ck.takes_coop(32, 32, C | PL, record=4000)
     assert not ck.takes_coop(32, 32, C | PL, record=24000)   # no lane fits a block
     assert ck.coop_lanes(32, 32, 0) == 1 and ck.coop_lanes(12, 12, 0) == 8
@@ -230,9 +234,17 @@ def test_library_of_fixed_and_built_for_the_scene():
     assert b.defines == ("-DCHORD_ONE", "-DCHORD_N=6", "-DCHORD_NR=12", "-DCHORD_FEAT=8",
                          "-DCOOP_LANES=8")
     t = ck.library_of(12, 12, C | PL | R, record=244)
+    assert ck.is_coop(t) and t.sources[0] == "chord_bdf2_coop.cu"
+    assert t.defines == ("-DCHORD_ONE", "-DCHORD_N=12", "-DCHORD_NR=12", "-DCHORD_FEAT=49",
+                         "-DCHORD_MAX_RECORD=244", "-DCOOP_LANES=8")
+    t = ck.library_of(12, 12, C | PL | R, thread_per_lane=True, record=244)
     assert not ck.is_coop(t) and t.sources[0] == "chord_bdf2.cu"
     assert t.defines == ("-DCHORD_ONE", "-DCHORD_N=12", "-DCHORD_NR=12", "-DCHORD_FEAT=49",
                          "-DCHORD_MAX_RECORD=244")
+    u = ck.library_of(8, 7, S, springs=6)
+    assert u.defines == ("-DCHORD_ONE", "-DCHORD_N=8", "-DCHORD_NR=7", "-DCHORD_FEAT=2",
+                         "-DCHORD_MAX_SPRINGS=6", "-DCOOP_LANES=8")
+    assert ck.library_of(33, 6, C | S, springs=1).sources[0] == "chord_bdf2.cu"
     # a fixed library's limits: a longer record or cable goes to a build of its own
     assert ck.library_of(12, 12, C | PL, record=ck.MAX_LANE_RECORD) is ck.BUILD_COOP
     big = ck.library_of(12, 12, C | PL, record=ck.MAX_LANE_RECORD + 1)
@@ -255,7 +267,8 @@ def test_build_keys_cache_and_differ():
     (KernelBuild hashes its sources and flags)."""
     keys = [(True, 5, 3, 0), (False, 5, 3, 0), (True, 8, 8, 0), (True, 2, 2, S),
             (False, 3, 6, C | Q), (False, 12, 12, C | PL | R, 244),
-            (False, 12, 12, C | PL | R, 248), (False, 4, 3, CAB, 0, 9)]
+            (False, 12, 12, C | PL | R, 248), (False, 4, 3, CAB, 0, 9),
+            (True, 2, 2, S, 0, 0, 4), (True, 4, 3, C | CAB, 0, 9, 0, 3)]
     builds = [ck.build_for(*k) for k in keys]
     assert all(ck.build_for(*k) is b for k, b in zip(keys, builds))
     flags = [(b.sources[0],) + b.flags for b in builds]
@@ -400,7 +413,7 @@ def test_lane_body_at_new_shapes_matches_kernel_body(lib, case):
     build = ck.scene_build(topo, fns, {**params, "tau": torch.tensor(tau)},
                            tint.NewtonConfig(**kw))
     assert build not in ck.BUILDS
-    assert ck.is_coop(build) == (case == "scene0")
+    assert ck.is_coop(build)
     x_np, hinv_np = pallas_step.chord_bdf2_dense(
         sc.topo, jint.NewtonConfig(**kw), {**pj, "tau": jnp.asarray(tau)}, *states, xp=np,
         force_fns=sc.force_fns)

@@ -21,13 +21,14 @@ the tree and the forest the cooperative body gives the thread-per-lane
 body's result (chord_bdf2_lane.cuh, built in the same g++ unit) bit for
 bit: it sums in the same order, and g++ contracts no multiply-add.
 
-The wrapper routes the nine builds of the cooperative design (the four
-chord shapes, the two robust ones, the per-lane contact one and the spring
-chain's with lane-shared and with per-lane params) to its library and
+The wrapper routes the builds of the cooperative library (the four chord
+shapes, the two robust ones, the per-lane contact one, the spring chain's
+and scene 13's cable with lane-shared and with per-lane params) to it and
 passes each its closure counts, solve mode and per-lane buffer; a scene
-with more springs than that design's record holds goes to the
-thread-per-lane library by rule, and a failed build or launch there raises
-without falling back to the thread-per-lane library.
+with more springs than that library's records hold goes to a cooperative
+build made for it, and one with more springs than a block's shared memory
+holds to the thread-per-lane library, by rule; a failed cooperative build
+or launch raises without falling back to the thread-per-lane library.
 
 These builds are tests only, never a route of a wrapper.
 """
@@ -51,6 +52,7 @@ from redmax_tpu.scenes import scene_tree as jtree
 from redmax_tpu.types import JointType as JJT
 from redmax_tpu_torch import chord_kernel
 from redmax_tpu_torch import integrators as tint
+from redmax_tpu_torch.kernel_build import KernelBuild
 from test_torch_chord import BENCH_GROUND, contact_states, corner_regimes
 from test_torch_lane_body import CFG_KW, _gxx_build, _port, _states
 from test_torch_model import mixed_builder
@@ -167,15 +169,24 @@ def jax_scene(name, mu=0.5, floor_z=BENCH_GROUND["floor_z"]):
         return spring_chain_jax().compile(dtype=jnp.float32)
     if name == "scene-13":
         return jscene13().compile(dtype=jnp.float32)
-    if name == "spring-chain-12-plus":  # a fourth spring: more than the cooperative record holds
+    if name.startswith("spring-chain-12-plus"):
+        # a fourth spring (more than the fixed library's records hold), or
+        # MANY_SPRINGS in all (more than a block's shared memory holds)
         b = spring_chain_jax()
-        b.force_point_point(-1, 6, xl1=(3.0, 0.0, 1.0), xl2=(0.5, 0, 0), k=20.0, d=1.0)
+        for k in range(1 if name == "spring-chain-12-plus" else MANY_SPRINGS - 3):
+            b.force_point_point(-1, 6 + k % 6, xl1=(3.0, 0.0, 1.0), xl2=(0.5, 0, 0), k=20.0,
+                                d=1.0)
         return b.compile(dtype=jnp.float32)
     nlinks = int(name.split("-")[-1])
     if name.startswith("chain-ground"):
         return jground(nlinks=nlinks, **{**BENCH_GROUND, "mu": mu, "floor_z": floor_z}).compile(
             dtype=jnp.float32)
     return jchain(nlinks=nlinks).compile(dtype=jnp.float32)
+
+
+# Springs on the 12-link spring chain past what a cooperative record a
+# block holds (about 1.98 KB a spring at (12, 12), 232,448 bytes a block).
+MANY_SPRINGS = 110
 
 
 def _run_coop(lib, topo, params, tau, states, force_fns=(), reverse=False, cfg_kw=CFG_KW,
@@ -385,15 +396,14 @@ def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
     at (12, 12) and (4, 4), with and without contacts, the robust builds at
     (12, 12), with and without contacts, the per-lane build with contacts
     at (12, 12), the spring builds at (12, 12) and the cable builds at
-    (4, 3), each with and without per-lane params (up to MAX_COOP_SPRINGS
-    springs); the thread-per-lane libraries keep them for an explicit call
-    and for more springs. The
-    other fixed thread-per-lane keys stay in their libraries unless the
-    shape rule (takes_coop) gives them to the cooperative design, as it
-    gives the q-dependent builds (K1b): those go to the cooperative build
-    made for their shape. A robust mode at (4, 4) goes to a cooperative
-    build made for it, and one with per-lane params to a thread-per-lane
-    build made for it."""
+    (4, 3), each with and without per-lane params (up to
+    COOP_LIBRARY_SPRINGS springs; more go to a cooperative build made for
+    the scene, its store sized from it); the thread-per-lane libraries keep
+    them for an explicit call. The other fixed thread-per-lane keys go to
+    the cooperative build made for their shape where the shape rule
+    (takes_coop) gives them to it, as it gives the q-dependent builds
+    (K1b). A robust mode at (4, 4) goes to a cooperative build made for it,
+    and so does one with per-lane params at (12, 12)."""
     assert set(chord_kernel.COOP_INSTANTIATED) == {c[3] for c in COOP_CASES.values()}
     assert set(chord_kernel.COOP_INSTANTIATED) <= set(chord_kernel.INSTANTIATED)
     assert chord_kernel.BUILD_COOP in chord_kernel.BUILDS
@@ -409,20 +419,27 @@ def test_wrapper_routes_the_four_shapes_to_the_cooperative_build():
             is chord_kernel.build_of(kinds)
     for key in ((6, 12, chord_kernel.QDEP), (4, 12, chord_kernel.QDEP), (1, 6, chord_kernel.QDEP)):
         assert chord_kernel.is_coop(chord_kernel.library_of(*key)), key
-    # springs up to MAX_COOP_SPRINGS go to the cooperative library, more to
-    # the thread-per-lane one; scene 13's cable builds go to the cooperative
-    # library, their thread-per-lane builds stay for an explicit call
-    most = chord_kernel.MAX_COOP_SPRINGS
+    # springs up to COOP_LIBRARY_SPRINGS go to the cooperative library, more
+    # to a cooperative build sized for them; scene 13's cable builds go to
+    # the cooperative library, their thread-per-lane builds stay for an
+    # explicit call
+    most = chord_kernel.COOP_LIBRARY_SPRINGS
     for kinds, lane in ((S, chord_kernel.BUILD), (S | PL, chord_kernel.BUILD_PERLANE)):
+        rec = (7 * 12 + 4 + 9 * (most + 1)) if kinds & PL else 0
         assert chord_kernel.library_of(12, 12, kinds, springs=most) is chord_kernel.BUILD_COOP
-        assert chord_kernel.library_of(12, 12, kinds, springs=most + 1) is lane
+        more = chord_kernel.library_of(12, 12, kinds, springs=most + 1, record=rec)
+        assert more is chord_kernel.build_for(True, 12, 12, kinds, -(-rec // 4) * 4 if rec else 0,
+                                              0, most + 1)
+        assert f"-DCHORD_MAX_SPRINGS={most + 1}" in more.defines
+        assert chord_kernel.library_of(12, 12, kinds, thread_per_lane=True,
+                                       springs=most + 1, record=rec) is lane
     assert chord_kernel.library_of(4, 3, CAB | PL, cables=1, cable_points=3) \
         is chord_kernel.BUILD_COOP
     assert chord_kernel.library_of(4, 3, CAB | PL, thread_per_lane=True, cables=1,
                                    cable_points=3) is chord_kernel.BUILD_PERLANE
     assert chord_kernel.library_of(4, 4, C | R) is chord_kernel.build_for(True, 4, 4, C | R)
     assert chord_kernel.library_of(12, 12, C | PL | R, record=244) \
-        is chord_kernel.build_for(False, 12, 12, C | PL | R, 244)
+        is chord_kernel.build_for(True, 12, 12, C | PL | R, 244)
 
 
 @pytest.mark.parametrize("case", list(COOP_CASES))
@@ -494,31 +511,73 @@ def test_failed_coop_build_or_launch_raises_without_fallback(monkeypatch, fault)
     assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == before
 
 
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_failed_mix_build_or_launch_raises_without_fallback(monkeypatch, fault):
+    """A kind mix on the cooperative build made for its scene (chain-ground-4
+    with a spring-damper, contacts and a spring, no fixed library's key):
+    a failed build, or a launch that returns an error, raises with the key,
+    no thread-per-lane build is ever loaded and no counter moves."""
+    b = jground(nlinks=4, **BENCH_GROUND)
+    b.force_spring_damper(-1, 3, [0.0, 0.0, 3.0], [0.5, 0.0, 0.0], k=200.0, d=2.0)
+    topo, params, fns = _port(b.compile(dtype=jnp.float32))
+    states, tau = contact_states(topo.nr, 4)
+    p = {**params, "tau": torch.tensor(tau)}
+    cfg = tint.NewtonConfig(**CFG_KW)
+    packed = chord_kernel.pack(topo, p, *(torch.tensor(a) for a in states), fns)
+    build = chord_kernel.scene_build(topo, fns, p, cfg)
+    assert chord_kernel.is_coop(build) and build not in chord_kernel.BUILDS
+    assert "-DCHORD_FEAT=3" in build.defines and "-DCHORD_MAX_SPRINGS=1" in build.defines
+
+    def load(b):
+        if b is build and fault == "build":
+            raise RuntimeError("nvcc failed")
+        raise AssertionError(f"loaded {b.name}")
+
+    monkeypatch.setattr(KernelBuild, "load", load)
+    if fault == "launch":
+        lib = types.SimpleNamespace(chord_bdf2_coop_launch=lambda *a: 700)
+        monkeypatch.setattr(chord_kernel, "_build_lib", lambda b: lib if b is build else load(b))
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda *a: types.SimpleNamespace(cuda_stream=0))
+    before = (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches)
+    with pytest.raises(RuntimeError, match="nvcc failed" if fault == "build"
+                       else r"\(N, nr, kinds\) = \(4, 4, 3\): error 700"):
+        chord_kernel.launch(topo, cfg, *packed)
+    assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == before
+
+
 @pytest.mark.parametrize("perlane", [False, True])
 def test_wrapper_routes_more_springs_than_the_record_holds_to_thread_per_lane(monkeypatch,
                                                                               perlane):
-    """The spring chain with a fourth spring (MAX_COOP_SPRINGS is 3), with
-    lane-shared and with per-lane params: library_of's rule on the spring
-    count sends it to the thread-per-lane library before any launch (the
-    cooperative library is never loaded), launch passes that library its
-    counts and counts the launch on its counter, and chip_smoke.design_of
-    reports the thread-per-lane design there and the cooperative one for
-    the spring chain itself."""
+    """The spring chain with MANY_SPRINGS springs, with lane-shared and
+    with per-lane params: no cooperative record of them fits a block's
+    shared memory, so library_of's rule sends it to the thread-per-lane
+    library before any launch (the cooperative library is never loaded),
+    launch passes that library its counts and counts the launch on its
+    counter; chip_smoke.design_of reports the thread-per-lane design there
+    and the cooperative one for the spring chain itself and with a fourth
+    spring (a build made for it)."""
     import chip_smoke
 
     B = 4
     for name, want in (("spring-chain-12", "cooperative"),
-                       ("spring-chain-12-plus", "thread_per_lane")):
+                       ("spring-chain-12-plus", "cooperative"),
+                       ("spring-chain-12-plus-many", "thread_per_lane")):
         topo, params, fns = _port(jax_scene(name))
         if perlane:
             params = {**params, "h": params["h"] * (1 + 0.1 * torch.arange(B))}
         sc = types.SimpleNamespace(topo=topo, force_fns=fns)
-        assert chip_smoke.design_of(sc, params) == want
-    assert len(fns) == chord_kernel.MAX_COOP_SPRINGS + 1
+        assert chip_smoke.design_of(sc, params) == want, name
+    assert len(fns) == MANY_SPRINGS
+    kinds = S | (PL if perlane else 0)
+    record = 7 * 12 + 4 + 9 * MANY_SPRINGS
+    assert chord_kernel.coop_lanes(12, 12, kinds, record, 2, MANY_SPRINGS, 1) == 0
+    assert chord_kernel.coop_lanes(12, 12, kinds, record, 2, 4, 1) == chord_kernel.COOP_LANES // 2
     states, tau = contact_states(topo.nr, B)
     packed = chord_kernel.pack(topo, {**params, "tau": torch.tensor(tau)},
                                *(torch.tensor(a) for a in states), fns)
-    lane_build = chord_kernel.BUILD_PERLANE if perlane else chord_kernel.BUILD
+    lane_build = (chord_kernel.build_for(False, 12, 12, kinds, -(-record // 4) * 4) if perlane
+                  else chord_kernel.BUILD)
     seen = []
     lib = types.SimpleNamespace(chord_bdf2_launch=lambda *a: seen.append(a) or 0)
 
@@ -534,4 +593,4 @@ def test_wrapper_routes_more_springs_than_the_record_holds_to_thread_per_lane(mo
     assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == \
         (before[0] + 1, before[1])
     (a,) = seen
-    assert a[:9] == (12, 12, 0, int(perlane), 0, 4, 0, 0, B)
+    assert a[:9] == (12, 12, 0, int(perlane), 0, MANY_SPRINGS, 0, 0, B)

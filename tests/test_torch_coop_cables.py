@@ -20,9 +20,13 @@ thread-per-lane body (chord_bdf2_lane.cuh) is built in the same g++ unit.
 - A slack cable (L raised above every lane's length) gives the build
   without cables bit for bit.
 - A NaN lane stays in its lane, with and without per-lane params.
+- A cable with ground contacts (the 3-link cable scene, taut, with a
+  contact on every link; C | CABLES at (3, 3)) gives the thread-per-lane
+  body's result bit for bit and is held against chord_bdf2_dense; both
+  closures act.
 - The records: the cable builds' fit a block's shared memory at 8 lanes,
   their size is chord_kernel.coop_record_bytes', and the cables the record
-  holds are the wrapper's MAX_COOP_CABLES.
+  holds are the wrapper's COOP_LIBRARY_CABLES.
 
 These builds are tests only, never a route of a wrapper.
 """
@@ -40,9 +44,12 @@ from redmax_tpu import pallas_step
 from redmax_tpu import scene as jscene
 from redmax_tpu.types import JointType as JJT
 from redmax_tpu_torch import chord_kernel, convert
+from redmax_tpu_torch.forces import ForceCable
+from test_torch_chord import contact_states
 from test_torch_coop_springs import _hold
 from test_torch_lane_body import CFG_KW, _closure_case, _gxx_build, _perlane_case, _port, _states
 from test_torch_springs import cable3, lengths
+from test_torch_zoo_kernel import _hold as hold_rel
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -97,7 +104,7 @@ void run_thread(const Args& a) {
     return 0;                                        \
   }
 // coop: 1 the cooperative body, 0 the thread-per-lane one; feat: the kinds
-// of the build (4 cables, 16 per-lane params).
+// of the build (1 contacts, 4 cables, 16 per-lane params).
 extern "C" int chord_bdf2_cables_cpu(int coop, int reverse, int N, int NR, int feat, int B,
                                      const float* x0, const float* q0, const float* qd0,
                                      const float* q1, const float* qd1, const float* tau,
@@ -113,6 +120,7 @@ extern "C" int chord_bdf2_cables_cpu(int coop, int reverse, int N, int NR, int f
   BODY(4, 3, 20)
   BODY(3, 3, 0)
   BODY(3, 3, 4)
+  BODY(3, 3, 5)
   return -1;
 }
 // Bytes of one lane's record of the cooperative build (N, NR, feat), -1 for
@@ -127,6 +135,7 @@ extern "C" long coop_lane_bytes(int N, int NR, int feat) {
   SIZE(12, 12, 4)
   SIZE(12, 12, 20)
   SIZE(2, 6, 4)
+  SIZE(3, 3, 5)
 #undef SIZE
   return -1;
 }
@@ -214,7 +223,7 @@ def test_coop_cable_body_matches_kernel_body(lib, case):
     sc, states, tau = _case(case)
     topo, params, fns = _port(sc)
     counts = chord_kernel.counts_of(chord_kernel.closure_spec(topo, fns))
-    assert counts.cables == len(fns) <= chord_kernel.MAX_COOP_CABLES
+    assert counts.cables == len(fns) <= chord_kernel.COOP_LIBRARY_CABLES
     if case == "cable3_taut":
         assert -1 in fns[0].bodies   # a world point
     x, hinv = _coop_equals_thread(lib, topo, params, tau, states, fns, CAB)
@@ -313,15 +322,16 @@ def test_coop_cable_nan_lane_stays_in_its_lane(lib, case):
 
 # The cable layouts of the g++ unit (kMaxCablePoints 8, as the fixed library)
 CABLE_LAYOUTS = [(4, 3, CAB), (4, 3, CAB | PL), (3, 3, CAB), (12, 12, CAB), (12, 12, CAB | PL),
-                 (2, 6, CAB)]
+                 (2, 6, CAB), (3, 3, CAB | chord_kernel.CONTACTS)]
 
 
 def test_coop_cable_records_fit_shared_memory(lib):
     """The cable builds' records are coop_record_bytes' (the wrapper's
-    mirror of sizeof) and hold MAX_COOP_CABLES cables of MAX_CABLE_POINTS
-    points in all; the fixed library's at 8 lanes a block fit the 232,448
-    bytes of dynamic shared memory a Hopper block may have."""
-    assert lib.coop_max_cables() == chord_kernel.MAX_COOP_CABLES >= 1
+    mirror of sizeof) and hold COOP_LIBRARY_CABLES cables of
+    MAX_CABLE_POINTS points in all; the fixed library's at 8 lanes a block
+    fit the 232,448 bytes of dynamic shared memory a Hopper block may
+    have."""
+    assert lib.coop_max_cables() == chord_kernel.COOP_LIBRARY_CABLES >= 1
     assert lib.coop_max_cable_points() == chord_kernel.MAX_CABLE_POINTS
     for key in CABLE_LAYOUTS:
         assert chord_kernel.coop_record_bytes(*key) == lib.coop_lane_bytes(*key), key
@@ -333,25 +343,72 @@ def test_coop_cable_records_fit_shared_memory(lib):
 
 
 def test_cable_shape_rule():
-    """takes_coop sends a cable build alone (lane-shared or per lane, up to
-    MAX_COOP_CABLES cables) to the cooperative design, and a cable with
-    contacts, springs or a robust mode, or more cables, to the
-    thread-per-lane one; library_of gives the fixed cooperative library at
-    scene 13's keys, a build of its own with more points than it holds, and
-    the old builds with thread_per_lane."""
+    """takes_coop sends a cable build of any mix (alone, with contacts,
+    springs or a robust mode, lane-shared or per lane) and any count of
+    cables to the cooperative design; library_of gives the fixed cooperative
+    library at scene 13's keys, a build of its own, its stores sized from
+    the scene, with more points or cables than the library holds or another
+    mix, and the old builds with thread_per_lane."""
     C, S, R = chord_kernel.CONTACTS, chord_kernel.SPRINGS, chord_kernel.ROBUST
     ck = chord_kernel
     for kinds in (CAB, CAB | PL):
         assert ck.takes_coop(4, 3, kinds, cables=1, cable_points=3)
         assert ck.takes_coop(4, 3, kinds, cables=2, cable_points=8)
-        assert not ck.takes_coop(4, 3, kinds, cables=3, cable_points=9)
+        assert ck.takes_coop(4, 3, kinds, cables=3, cable_points=9)
         assert ck.library_of(4, 3, kinds, cables=1, cable_points=3) is ck.BUILD_COOP
         assert ck.library_of(4, 3, kinds, thread_per_lane=True, cables=1,
                              cable_points=3) is ck.build_of(kinds)
     for kinds in (CAB | C, CAB | S, CAB | R, CAB | PL | R):
-        assert not ck.takes_coop(4, 3, kinds, cables=1, cable_points=3), kinds
+        assert ck.takes_coop(4, 3, kinds, cables=1, cable_points=3), kinds
+        b = ck.library_of(4, 3, kinds, springs=1, record=64, cables=1, cable_points=3)
+        assert ck.is_coop(b) and b not in ck.BUILDS and "-DCHORD_MAX_CABLES=1" in b.defines
     big = ck.library_of(4, 3, CAB, cables=2, cable_points=12)
     assert ck.is_coop(big) and "-DCHORD_MAX_CABLE_POINTS=12" in big.defines
-    assert big is ck.build_for(True, 4, 3, CAB, 0, 12)
+    assert big is ck.build_for(True, 4, 3, CAB, 0, 12, cables=2)
     three = ck.library_of(4, 3, CAB, cables=3, cable_points=9)
-    assert not ck.is_coop(three) and "-DCHORD_MAX_CABLE_POINTS=9" in three.defines
+    assert ck.is_coop(three) and "-DCHORD_MAX_CABLE_POINTS=9" in three.defines
+    assert "-DCHORD_MAX_CABLES=3" in three.defines
+    assert not ck.takes_coop(4, 3, CAB, cables=1, cable_points=64)   # no lane fits a block
+
+
+def cable_ground():
+    """The 3-link cable scene (a world anchor over three links, taut) with a
+    ground contact on every link at the contact-MPC workload's
+    coefficients, the floor 0.06 below the joints."""
+    b = cable3(jscene, JJT, L=0.5)
+    E_g = np.eye(4)
+    E_g[2, 3] = -0.06
+    for i in range(3):
+        b.force_ground_cuboid(i, E_ground=E_g, kn=100.0, kt=0.1, kd=10.0, mu=0.5)
+    return b
+
+
+def test_coop_cable_with_contacts_matches_kernel_body(lib):
+    """A cable with ground contacts (C | CABLES at (3, 3)): bit for bit the
+    thread-per-lane body (both tid orders), against chord_bdf2_dense(xp=np)
+    at x 5e-6 max(1, |x|) and H^-1 2e-5 of scale; the cable is taut on some
+    lanes and both closures act (with the cable's k = d = 0, or the
+    contacts' kn = kt = kd = 0, x is another); the shape rule routes it to
+    the cooperative design."""
+    C = chord_kernel.CONTACTS
+    sc = cable_ground().compile(dtype=jnp.float32)
+    states, tau = contact_states(sc.topo.nr, 16)
+    topo, params, fns = _port(sc)
+    counts = chord_kernel.counts_of(chord_kernel.closure_spec(topo, fns))
+    assert chord_kernel.kinds_of(topo, counts) == C | CAB
+    assert chord_kernel.is_coop(chord_kernel.scene_build(topo, fns, params, JCFG))
+    x, hinv = _coop_equals_thread(lib, topo, params, tau, states, fns, C | CAB)
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(
+        sc.topo, JCFG, {**sc.params, "tau": jnp.asarray(tau)}, *states, xp=np,
+        force_fns=sc.force_fns)
+    hold_rel(x, hinv, x_np, hinv_np)
+    finite = np.isfinite(x).all(-1)
+    cable = next(fn for fn in fns if isinstance(fn, ForceCable))
+    assert (lengths(topo, params, cable, states[0])
+            > float(params["forces"][cable.key]["L"])).any()
+    for coefs in (("k", "d"), ("kn", "kt", "kd")):
+        off = {key: {c: v * 0 if c in coefs else v for c, v in fp.items()}
+               for key, fp in params["forces"].items()}
+        x_off, _ = _run(lib, topo, {**params, "forces": off}, tau, states, fns, C | CAB)
+        both = finite & np.isfinite(x_off).all(-1)
+        assert np.abs(x_off[both] - x[both]).max() > 1e-4, coefs

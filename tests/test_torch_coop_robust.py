@@ -20,7 +20,14 @@ thread-per-lane body (chord_bdf2_lane.cuh) is built in the same g++ unit.
   for bit and is held against chord_bdf2_dense with its perlane reads;
   lane-shared params broadcast into the per-lane buffer give the build
   without it bit for bit.
-- A NaN lane stays in its lane in both.
+- Per-lane params in the robust modes (C | PERLANE | ROBUST, the randomized
+  contact solve's build) on chain-ground-12 under the same draws, the
+  torques of about half the lanes scaled up 300x, in guarded, guard_last
+  and chord=False: bit for bit the thread-per-lane robust PERLANE body
+  (both tid orders), and held against chord_bdf2_dense(xp=np) with its
+  perlane reads in the same mode as the robust cases above are; the guard
+  acts on some held lane.
+- A NaN lane stays in its lane in each.
 
 These builds are tests only, never a route of a wrapper.
 """
@@ -85,7 +92,7 @@ void run_thread(const Args& a) {
     if constexpr ((f & chord::kRobust) != 0)
       chord::chord_bdf2_lane_robust<n, nr, f>(lane, a.B, a.x0, a.q0, a.qd0, a.q1, a.qd1, a.tau,
                                               a.topo_i, a.stat_f, a.cfg, a.rc, a.x_out,
-                                              a.hinv_out);
+                                              a.hinv_out, a.lane_f);
     else
       chord::chord_bdf2_lane<n, nr, f>(lane, a.B, a.x0, a.q0, a.qd0, a.q1, a.qd1, a.tau,
                                        a.topo_i, a.stat_f, a.cfg, a.x_out, a.hinv_out,
@@ -102,6 +109,9 @@ void run_thread(const Args& a) {
   }
 // coop: 1 the cooperative body, 0 the thread-per-lane one; feat: the kinds
 // of the (12, 12) build (1 contacts, 16 per-lane params, 32 robust modes).
+extern "C" long coop_lane_bytes_12(int feat) {
+  return feat == 49 ? static_cast<long>(sizeof(chord::coop::LaneOf<12, 12, 49>)) : -1;
+}
 extern "C" int chord_bdf2_12_cpu(int coop, int reverse, int feat, int B, const float* x0,
                                  const float* q0, const float* qd0, const float* q1,
                                  const float* qd1, const float* tau, const int* topo_i,
@@ -117,6 +127,7 @@ extern "C" int chord_bdf2_12_cpu(int coop, int reverse, int feat, int B, const f
   BODY(17)
   BODY(32)
   BODY(33)
+  BODY(49)
   return -1;
 }
 """
@@ -128,6 +139,8 @@ def lib(tmp_path_factory):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.chord_bdf2_12_cpu.argtypes = [i] * 4 + [p] * 9 + [i, f, f, f, i, i, i, p, p]
     lib.chord_bdf2_12_cpu.restype = i
+    lib.coop_lane_bytes_12.argtypes = [i]
+    lib.coop_lane_bytes_12.restype = ctypes.c_long
     return lib
 
 
@@ -279,11 +292,78 @@ def test_coop_perlane_broadcast_equals_shared_build(lib):
     np.testing.assert_array_equal(hb, h0)
 
 
-@pytest.mark.parametrize("case", ["guarded", "rehess", "perlane"])
+def _perlane_robust_case(B=24, up=True):
+    """chain-ground-12 under _perlane_case's per-lane draws (I_i, body
+    damping, g, h, each contact's kn and mu), its torques 3x the draws' and,
+    with up, scaled up 300x on about half the lanes, so that the guard takes
+    half steps and stays put on some (as _robust_case does)."""
+    sc, pn, tau, states, feat = _perlane_case("contacts", B)
+    lanes = np.random.default_rng(7).choice([1.0, 300.0 if up else 1.0], size=(B, 1))
+    return sc, pn, (3.0 * tau * lanes).astype(np.float32), states, feat | chord_kernel.ROBUST
+
+
+@pytest.mark.parametrize("mode", ["guarded", "guard_last", "rehess"])
+def test_coop_perlane_robust_matches_kernel_body(lib, mode):
+    """The cooperative body with per-lane params in a robust mode (the
+    (12, 12) C | PERLANE | ROBUST build): bit for bit the thread-per-lane
+    robust PERLANE body (both tid orders), and against chord_bdf2_dense(
+    xp=np) with its perlane reads in the same mode, the finite masks equal,
+    x at 5e-6 and H^-1 at 2e-5 of scale on the lanes float32 determines
+    (the oracle within 1e-3 max(1, |x|) of the port's plain version in
+    float64, at least 3/4 of the finite lanes); in the guarded modes the
+    guard acts on some held lane; its record is coop_record_bytes'.
+    chord=False has no guard: it is held against the oracle on the draws'
+    torques without the 300x lanes, and bit for bit against the
+    thread-per-lane body on both (with the 300x lanes, where H is rebuilt
+    at stiff iterates from their own roundoff, the two bodies, bit for bit
+    one, and the oracle part by up to 1e-5 in x and 3e-5 of scale in
+    H^-1)."""
+    sc, pn, tau, states, feat = _perlane_robust_case()
+    assert feat == chord_kernel.CONTACTS | chord_kernel.PERLANE | chord_kernel.ROBUST
+    assert chord_kernel.coop_record_bytes(12, 12, feat) == lib.coop_lane_bytes_12(feat)
+    kw = ROBUST_MODES[mode]
+    topo, _, fns = _port(sc)
+    params = convert.params_from_numpy(pn, "cpu", torch.float32)
+    if mode == "rehess":
+        _coop_equals_thread(lib, topo, params, tau, states, fns, feat, kw)
+        tau = _perlane_robust_case(up=False)[2]
+    p = {**params, "tau": torch.tensor(tau)}
+    assert chord_kernel.is_coop(chord_kernel.scene_build(topo, fns, p, tint.NewtonConfig(**kw)))
+    x, hinv = _coop_equals_thread(lib, topo, params, tau, states, fns, feat, kw)
+    pj = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), pn)
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(
+        sc.topo, jint.NewtonConfig(**kw), {**pj, "tau": jnp.asarray(tau)}, *states, xp=np,
+        force_fns=sc.force_fns)
+    info = {}
+    p64 = jax.tree_util.tree_map(lambda a: a.double(), p)
+    x64, _ = chord_kernel.chord_bdf2_reference(
+        topo, tint.NewtonConfig(**kw), p64, *(torch.tensor(a).double() for a in states), fns,
+        info=info)
+    finite = np.isfinite(x_np).all(-1)
+    assert finite.mean() >= 0.5, finite
+    np.testing.assert_array_equal(np.isfinite(x).all(-1), finite)
+    x64 = x64.numpy()
+    held = finite & (np.abs(x_np - x64) <= 1e-3 * np.maximum(1.0, np.abs(x64))).all(-1)
+    assert held.sum() >= 0.75 * finite.sum(), (held.sum(), finite.sum())
+    if "steps" in info:
+        assert ((info["steps"].numpy() < 1.0).any(-1) & held).sum() > 0
+    np.testing.assert_allclose(x[held], x_np[held], rtol=0, atol=5e-6)
+    scale = float(np.abs(hinv_np[held]).max())
+    np.testing.assert_allclose(hinv[held], hinv_np[held], rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("case", ["guarded", "rehess", "perlane", "perlane_guarded"])
 def test_coop_nan_lane_stays_in_its_lane(lib, case):
     """A lane with a NaN input (robust: a NaN q1; per-lane: a NaN h) comes out
     NaN and leaves every other lane's x and H^-1 bit-equal."""
-    if case == "perlane":
+    if case == "perlane_guarded":
+        sc, pn, tau, states, feat = _perlane_robust_case()
+        topo, _, fns = _port(sc)
+        params, kw = convert.params_from_numpy(pn, "cpu", torch.float32), ROBUST_MODES["guarded"]
+        poisoned_params = {**params, "h": params["h"].clone()}
+        poisoned_params["h"][5] = float("nan")
+        poisoned = states
+    elif case == "perlane":
         sc, pn, tau, states, feat = _perlane_case("contacts")
         topo, _, fns = _port(sc)
         params, kw = convert.params_from_numpy(pn, "cpu", torch.float32), CFG_KW

@@ -21,7 +21,19 @@ thread-per-lane body (chord_bdf2_lane.cuh) is built in the same g++ unit.
 - A NaN lane stays in its lane, with and without per-lane params.
 - The records: the spring builds' fit a block's shared memory at 8 lanes,
   the other cooperative builds keep theirs, and the spring count the record
-  holds is the wrapper's MAX_COOP_SPRINGS.
+  holds is the wrapper's COOP_LIBRARY_SPRINGS.
+- Springs mixed with other kinds and more springs than the fixed library
+  holds, in a second g++ unit whose records hold MIX_SPRINGS = 34 springs
+  (-DCHORD_MAX_SPRINGS, as a build made for a scene sizes them):
+  chain-ground-6 with a spring-damper (contacts and a spring on one body),
+  the umbrella's (8, 7) with its six spring-dampers (24 pair blocks, G J_s
+  in a store of their own), the mixed-joint scene (N = 6, nr = 8 > N) with
+  two springs and a 3-link chain with 34 springs (more springs, endpoints
+  and pair blocks than a warp has threads), each bit for bit the
+  thread-per-lane body (both tid orders), held against
+  chord_bdf2_dense(xp=np) (x 5e-6 max(1, |x|), H^-1 2e-5 of scale), its
+  record coop_record_bytes', the shape rule sending it to the cooperative
+  design; a NaN lane stays in its lane.
 
 These builds are tests only, never a route of a wrapper.
 """
@@ -36,9 +48,20 @@ import torch
 
 from redmax_tpu import integrators as jint
 from redmax_tpu import pallas_step
+from redmax_tpu import scene as jscene
+from redmax_tpu import scenes as jscenes
+from redmax_tpu.scenes import scene_chain as jchain
+from redmax_tpu.scenes import scene_chain_ground as jground
+from redmax_tpu.types import JointType as JJT
 from redmax_tpu_torch import chord_kernel, convert
 from redmax_tpu_torch import integrators as tint
-from test_torch_lane_body import CFG_KW, _closure_case, _gxx_build, _perlane_case, _port
+from redmax_tpu_torch.forces import ForcePointPoint, ForceSpringDamper
+from test_torch_chord import BENCH_GROUND, contact_states
+from test_torch_lane_body import CFG_KW, _closure_case, _gxx_build, _perlane_case, _port, \
+    _states
+from test_torch_model import mixed_builder
+from test_torch_zoo_kernel import _hold as hold_rel
+from test_torch_zoo_kernel import zoo_states
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,6 +74,7 @@ def single_thread():
 
 
 LOOP = r"""
+HEAD
 #include <cstring>
 #include "chord_bdf2_coop.cuh"
 // One phase on every tid of the lane's warp in turn, forward or in reverse.
@@ -93,7 +117,7 @@ void run_thread(const Args& a) {
     return 0;                                        \
   }
 // coop: 1 the cooperative body, 0 the thread-per-lane one; feat: the kinds
-// of the build (2 springs, 16 per-lane params).
+// of the build (1 contacts, 2 springs, 16 per-lane params).
 extern "C" int chord_bdf2_springs_cpu(int coop, int reverse, int N, int NR, int feat, int B,
                                       const float* x0, const float* q0, const float* qd0,
                                       const float* q1, const float* qd1, const float* tau,
@@ -104,12 +128,7 @@ extern "C" int chord_bdf2_springs_cpu(int coop, int reverse, int N, int NR, int 
   const Args a{B, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, lane_f,
                chord::ChordConfig{fixed_iters, growth_reject, tol_reject, dx_clamp}, x_out,
                hinv_out};
-  BODY(12, 12, 0)
-  BODY(12, 12, 2)
-  BODY(12, 12, 18)
-  BODY(3, 3, 0)
-  BODY(3, 3, 2)
-  BODY(3, 3, 18)
+  BODIES
   return -1;
 }
 // Bytes of one lane's record of the cooperative build (N, NR, feat), -1 for
@@ -118,29 +137,33 @@ extern "C" long coop_lane_bytes(int N, int NR, int feat) {
 #define SIZE(n, nr, f)             \
   if (N == n && NR == nr && feat == f) \
     return static_cast<long>(sizeof(chord::coop::LaneOf<n, nr, f>));
-  SIZE(12, 12, 0)
-  SIZE(12, 12, 1)
-  SIZE(4, 4, 0)
-  SIZE(4, 4, 1)
-  SIZE(12, 12, 32)
-  SIZE(12, 12, 33)
-  SIZE(12, 12, 17)
-  SIZE(12, 12, 2)
-  SIZE(12, 12, 18)
-  SIZE(4, 3, 4)
-  SIZE(4, 3, 20)
+  SIZES
 #undef SIZE
   return -1;
 }
 extern "C" int coop_max_springs() { return chord::coop::kCoopSprings; }
 """
+
+def _loop(bodies, sizes, head=""):
+    """LOOP with the (N, NR, feat) builds of its bodies and sizes."""
+    return (LOOP.replace("HEAD", head)
+            .replace("  BODIES", "\n".join(f"  BODY({n}, {nr}, {f})" for n, nr, f in bodies))
+            .replace("  SIZES", "\n".join(f"  SIZE({n}, {nr}, {f})" for n, nr, f in sizes)))
+
+
+# The builds of the unit as the fixed library sizes them, and of the unit
+# whose records hold MIX_SPRINGS springs (the mixes: chain-ground-6 with a
+# spring, the umbrella, the mixed-joint scene with springs).
+BODIES = [(12, 12, 0), (12, 12, 2), (12, 12, 18), (3, 3, 0), (3, 3, 2), (3, 3, 18)]
+SIZES = [(12, 12, 0), (12, 12, 1), (4, 4, 0), (4, 4, 1), (12, 12, 32), (12, 12, 33),
+         (12, 12, 17), (12, 12, 2), (12, 12, 18), (4, 3, 4), (4, 3, 20)]
+MIX_SPRINGS = 34
+MIX_BODIES = [(6, 6, 3), (8, 7, 2), (6, 8, 2), (3, 3, 2)]
 S, PL = chord_kernel.SPRINGS, chord_kernel.PERLANE
 JCFG = jint.NewtonConfig(**CFG_KW)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    lib = _gxx_build(tmp_path_factory, "coop_springs", LOOP)
+def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.chord_bdf2_springs_cpu.argtypes = [i] * 6 + [p] * 9 + [i, f, f, f, p, p]
     lib.chord_bdf2_springs_cpu.restype = i
@@ -148,6 +171,18 @@ def lib(tmp_path_factory):
     lib.coop_lane_bytes.restype = ctypes.c_long
     lib.coop_max_springs.restype = i
     return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _bind(_gxx_build(tmp_path_factory, "coop_springs", _loop(BODIES, SIZES)))
+
+
+@pytest.fixture(scope="module")
+def mix_lib(tmp_path_factory):
+    head = f"#define CHORD_MAX_SPRINGS {MIX_SPRINGS}"
+    return _bind(_gxx_build(tmp_path_factory, "coop_spring_mixes",
+                            _loop(MIX_BODIES, MIX_BODIES, head)))
 
 
 def _run(lib, topo, params, tau, states, fns, feat, body="coop", reverse=False):
@@ -205,7 +240,7 @@ def test_coop_springs_body_matches_kernel_body(lib, case):
     springs act (the build without them gives another x)."""
     sc, states, tau, _ = _closure_case(case)
     topo, params, fns = _port(sc)
-    assert len(fns) <= chord_kernel.MAX_COOP_SPRINGS
+    assert len(fns) <= chord_kernel.COOP_LIBRARY_SPRINGS
     x, hinv = _coop_equals_thread(lib, topo, params, tau, states, fns, S)
     x_np, hinv_np = pallas_step.chord_bdf2_dense(
         sc.topo, JCFG, {**sc.params, "tau": jnp.asarray(tau)}, *states, xp=np,
@@ -313,8 +348,8 @@ def test_coop_records_fit_shared_memory(lib):
     """Every cooperative build's record at 8 lanes a block fits the 232,448
     bytes of dynamic shared memory a Hopper block may have, the earlier
     builds' records are as they were, and the spring builds hold the
-    wrapper's MAX_COOP_SPRINGS springs (the spring chain's three)."""
-    assert lib.coop_max_springs() == chord_kernel.MAX_COOP_SPRINGS >= 3
+    wrapper's COOP_LIBRARY_SPRINGS springs (the spring chain's three)."""
+    assert lib.coop_max_springs() == chord_kernel.COOP_LIBRARY_SPRINGS >= 3
     for key in chord_kernel.COOP_INSTANTIATED:
         block = 8 * lib.coop_lane_bytes(*key)
         assert 0 < block <= 232_448, (key, block)
@@ -323,3 +358,107 @@ def test_coop_records_fit_shared_memory(lib):
     cables = {(4, 3, chord_kernel.CABLES), (4, 3, chord_kernel.CABLES | PL)}
     assert set(BLOCK_BYTES) | {(12, 12, S), (12, 12, S | PL)} | cables == \
         set(chord_kernel.COOP_INSTANTIATED)
+
+
+def chain_ground_spring():
+    """chain-ground-6 at the contact-MPC workload's coefficients (a contact on
+    every link) with a spring-damper from a world point above the root to
+    the tip: the tip body takes a contact and the spring's wrench."""
+    b = jground(nlinks=6, **BENCH_GROUND)
+    b.force_spring_damper(-1, 5, [0.0, 0.0, 3.0], [0.5, 0.0, 0.0], k=200.0, d=2.0)
+    return b
+
+
+def mixed_springs():
+    """The mixed-joint scene (N = 6, nr = 8: planar and translational
+    joints) with a spring-damper from the world to body 5 and a point-point
+    spring between bodies 1 and 4."""
+    b = mixed_builder(jscene, JJT)
+    b.force_spring_damper(-1, 5, [2.0, 0.0, 1.0], [0.2, 0.0, 0.0], k=100.0, d=1.0)
+    b.force_point_point(1, 4, xl1=(0.5, 0, 0.05), xl2=(0.3, 0, -0.05), k=50.0, d=2.0)
+    return b
+
+
+def chain_many_springs(n=MIX_SPRINGS):
+    """scene_chain(3) with n soft springs, spring-dampers and point-point
+    ones in turn, between the world and the links and between links: more
+    springs (and endpoints and pair blocks) than a warp has threads."""
+    b = jchain(nlinks=3)
+    for k in range(n):
+        b1, b2 = (k % 4) - 1, k % 3
+        xl1 = (0.3 + 0.01 * k, 0.0, 0.5 if b1 < 0 else 0.02)
+        xl2 = (0.2 + 0.02 * (k % 5), 0.0, -0.02)
+        if k % 2:
+            b.force_point_point(b1, b2, xl1=xl1, xl2=xl2, k=2.0, d=0.1)
+        else:
+            b.force_spring_damper(b1, b2, list(xl1), list(xl2), k=5.0, d=0.2)
+    return b
+
+
+# (scene, states, the build's kinds) of each mix
+MIXES = {
+    "chain-ground-6-spring": (chain_ground_spring, lambda sc: contact_states(sc.topo.nr, 8),
+                              chord_kernel.CONTACTS | S),
+    "umbrella": (jscenes.scene_umbrella, lambda sc: zoo_states(sc, 8, seed=3), S),
+    "mixed-springs": (mixed_springs, lambda sc: _states(sc.topo.nr, 8), S),
+    "chain-34-springs": (chain_many_springs, lambda sc: _states(sc.topo.nr, 8), S),
+}
+
+
+@pytest.mark.parametrize("case", list(MIXES))
+def test_coop_spring_mixes_match_kernel_body(mix_lib, case):
+    """Springs with contacts, six springs, and springs at nr > N in the
+    cooperative body (records of six springs): bit for bit the
+    thread-per-lane body (both tid orders), against chord_bdf2_dense(xp=np)
+    at x 5e-6 max(1, |x|) and H^-1 2e-5 of scale, the springs acting (with
+    their k = d = 0 x is another); the record is coop_record_bytes',
+    and the shape rule routes the scene to the cooperative design at 8
+    lanes a block."""
+    make, states_of, feat = MIXES[case]
+    sc = make().compile(dtype=jnp.float32)
+    states, tau = states_of(sc)
+    topo, params, fns = _port(sc)
+    N, nr = topo.njoints, topo.nr
+    counts = chord_kernel.counts_of(chord_kernel.closure_spec(topo, fns))
+    assert chord_kernel.kinds_of(topo, counts) == feat and counts.springs <= MIX_SPRINGS
+    assert chord_kernel.takes_coop(N, nr, feat, springs=counts.springs)
+    lanes = chord_kernel.coop_lanes(N, nr, feat, springs=counts.springs)
+    assert lanes == (4 if counts.springs > 32 else chord_kernel.COOP_LANES), lanes
+    assert chord_kernel.coop_record_bytes(N, nr, feat, springs=MIX_SPRINGS) == \
+        mix_lib.coop_lane_bytes(N, nr, feat)
+    assert (case == "umbrella") == (counts.springs == 6)
+    assert (case == "mixed-springs") == (nr > N)
+    x, hinv = _coop_equals_thread(mix_lib, topo, params, tau, states, fns, feat)
+    x_np, hinv_np = pallas_step.chord_bdf2_dense(
+        sc.topo, JCFG, {**sc.params, "tau": jnp.asarray(tau)}, *states, xp=np,
+        force_fns=sc.force_fns)
+    finite = np.isfinite(x_np).all(-1)
+    # _states' last lane (qdot 1e6, angles near 1e4 rad, where numpy's
+    # float32 sin and cos are not libm's) is not float32's to determine:
+    # with the 34 soft springs neither solve rejects it, and it is held on
+    # the other lanes only (bit for bit the thread-per-lane body above)
+    n = -1 if case == "chain-34-springs" else None
+    hold_rel(x[:n], hinv[:n], x_np[:n], hinv_np[:n])
+    springs = {fn.key for fn in fns if isinstance(fn, (ForcePointPoint, ForceSpringDamper))}
+    zero = {key: {**fp, "k": fp["k"] * 0, "d": fp["d"] * 0} if key in springs else fp
+            for key, fp in params["forces"].items()}
+    x_free, _ = _run(mix_lib, topo, {**params, "forces": zero}, tau, states, fns, feat)
+    both = finite & np.isfinite(x_free).all(-1)
+    assert np.abs(x_free[both] - x[both]).max() > 1e-4
+
+
+def test_coop_spring_mix_nan_lane_stays_in_its_lane(mix_lib):
+    """chain-ground-6 with a spring: a lane with a NaN q1 comes out NaN and
+    leaves every other lane's x and H^-1 bit-equal."""
+    make, states_of, feat = MIXES["chain-ground-6-spring"]
+    sc = make().compile(dtype=jnp.float32)
+    states, tau = states_of(sc)
+    topo, params, fns = _port(sc)
+    poisoned = [a.copy() for a in states]
+    poisoned[3][5] = np.nan
+    x, hinv = _run(mix_lib, topo, params, tau, states, fns, feat)
+    xp, hinvp = _run(mix_lib, topo, params, tau, poisoned, fns, feat)
+    keep = np.arange(len(x)) != 5
+    assert np.isnan(xp[5]).all() and np.isfinite(x).all(-1).mean() >= 0.75
+    np.testing.assert_array_equal(xp[keep], x[keep])
+    np.testing.assert_array_equal(hinvp[keep], hinv[keep])

@@ -17,10 +17,11 @@
     bit against the thread-per-lane body (csrc/chord_bdf2_lane.cuh, the same
     g++ unit) and against the oracle; at scene 14 on lanes straddling
     qlimL and qlimU. The thread-per-lane body at the umbrella's (8, 7) with
-    its six spring-dampers, against the oracle.
+    its six spring-dampers (its yardstick on the card), against the oracle;
+    tests/test_torch_coop_springs.py holds the cooperative body there.
   * chord_kernel.scene_build names the design each scene runs on the card:
-    the cooperative one for all but the umbrella (six springs, more than
-    MAX_COOP_SPRINGS), a build made for the scene (no fixed library holds
+    the cooperative one for every scene (the umbrella's record sized for
+    its six springs), a build made for the scene (no fixed library holds
     these shapes), and chord_kernel.supports is false for scenes 7 and 9 on
     Euler charts (the op-level route).
 """
@@ -222,8 +223,9 @@ def test_coop_body_equals_lane_body(lib, scene):
 
 
 def test_umbrella_lane_body(lib):
-    """The umbrella's build runs one thread a lane: its body with six
-    spring-dampers against the oracle."""
+    """The umbrella's thread-per-lane build (the yardstick its cooperative
+    build is timed against on the card): its body with six spring-dampers
+    against the oracle."""
     sc = jscenes.scene_umbrella().compile(dtype=jnp.float32)
     states, tau = zoo_states(sc, 16, seed=3)
     topo, params, fns = _port(sc)
@@ -247,7 +249,7 @@ def test_scene_build_names_the_design(scene):
     sc = SCENES[scene][1]().compile(dtype=torch.float32, device="cpu")
     assert ck.supports(sc.topo, sc.force_fns, cfg)
     build = ck.scene_build(sc.topo, sc.force_fns, sc.params, cfg)
-    assert ck.is_coop(build) == (scene != "umbrella"), build.name
+    assert ck.is_coop(build), build.name
     if (sc.topo.njoints, sc.topo.nr) not in ((12, 12), (4, 4), (4, 3)):
         assert build not in ck.BUILDS and "-DCHORD_ONE" in build.defines
         assert f"-DCHORD_N={sc.topo.njoints}" in build.defines
