@@ -15,9 +15,12 @@ Phases (any failure is an exception and a non-zero exit):
      umbrella's of phase 27 (each with the thread-per-lane build it is
      timed against; the QP's in both designs) and uni6's probe build, each
      picked by the shape rule
-     before anything is built), and print each library's build time, their
-     -Xptxas -v register/spill reports and each cooperative build's layout
-     (threads a lane, lanes a block, shared memory a block);
+     before anything is built), and print each library's build time, which
+     libraries this run compiled and which it found built (the program's
+     kernel_build.compile.<name> and kernel_build.load.<name> counters; every
+     library must have loaded), their -Xptxas -v register/spill reports and
+     each cooperative build's layout (threads a lane, lanes a block, shared
+     memory a block);
   3. hold the chord kernel against its plain PyTorch version on the card
      (scene_chain(12) at B = 1024, 1000 and 997, scene_chain(4); the
      wrapper runs the cooperative design there, one launch a call): x within
@@ -378,15 +381,25 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# metrics.counters() as each reset_* below last read them, by kind of kernel
+_counted_from = {}
+
+
+def _moved(kind: str, name: str) -> float:
+    """How far the counter name moved since the reset of its kind."""
+    return metrics.counters().get(name, 0) - _counted_from.get(kind, {}).get(name, 0)
+
+
 def reset_launches() -> None:
-    """Set the chord kernel's launch counters (both designs) to 0."""
-    chord_kernel.chord_bdf2_launches = chord_kernel.chord_bdf2_coop_launches = 0
+    """Count the chord kernel's launches (both designs) from here."""
+    _counted_from["chord"] = metrics.counters()
 
 
 def launches_of(design=None) -> int:
     """Chord kernel launches since reset_launches: of one design
     ("cooperative" or "thread_per_lane"), or of both (None)."""
-    coop, lane = chord_kernel.chord_bdf2_coop_launches, chord_kernel.chord_bdf2_launches
+    coop = _moved("chord", "chord_kernel.launch.coop")
+    lane = _moved("chord", "chord_kernel.launch.thread")
     return {"cooperative": coop, "thread_per_lane": lane, None: coop + lane}[design]
 
 
@@ -872,14 +885,14 @@ def dual_pgs_flops(n, m, iters):
 
 
 def reset_qp_launches() -> None:
-    """Set the dual-PGS kernel's launch counters (both designs) to 0."""
-    qp_kernel.dual_pgs_launches = qp_kernel.dual_pgs_coop_launches = 0
+    """Count the dual-PGS kernel's launches (both designs) from here."""
+    _counted_from["qp"] = metrics.counters()
 
 
 def qp_launches():
     """(cooperative, thread-per-lane) dual-PGS launches since
     reset_qp_launches."""
-    return qp_kernel.dual_pgs_coop_launches, qp_kernel.dual_pgs_launches
+    return _moved("qp", "qp_kernel.launch.coop"), _moved("qp", "qp_kernel.launch.thread")
 
 
 def phase_qp_kernel_vs_plain(device="cuda", B=1024):
@@ -3579,13 +3592,12 @@ def k3_wide(smi, device="cuda", seed=0):
 
 def k3_counts():
     """K3's counters: (launches on the card, CPU runs, launches by design)."""
-    by = dict(pgs_kernel.design_launches)
-    return sum(by.values()), pgs_kernel.pgs_sweeps_host_runs, by
+    by = {d: _moved("k3", f"pgs_kernel.launch.{d}") for d in pgs_kernel.DESIGNS}
+    return sum(by.values()), _moved("k3", "pgs_kernel.host_runs"), by
 
 
 def k3_reset():
-    pgs_kernel.pgs_sweeps_host_runs = 0
-    pgs_kernel.design_launches.update({d: 0 for d in pgs_kernel.design_launches})
+    _counted_from["k3"] = metrics.counters()
 
 
 def k3_launches_ok(device, counts, n):
@@ -4206,6 +4218,20 @@ def on_demand_builds():
     return tuple(dict.fromkeys(b for b in out if b not in fixed))
 
 
+def builds_of_this_run():
+    """(compiled, loaded, seconds) of this process, from metrics.counters():
+    the libraries whose compiler it started (kernel_build.compile.<name>;
+    a library found built in _build/ is loaded without one), the libraries
+    it loaded (kernel_build.load.<name>) and the seconds spent in
+    KernelBuild.load (kernel_build.seconds)."""
+    counts = metrics.counters()
+
+    def names(prefix):
+        return sorted(k[len(prefix):] for k in counts if k.startswith(prefix))
+    return (names("kernel_build.compile."), names("kernel_build.load."),
+            counts.get("kernel_build.seconds", 0.0))
+
+
 def phase_build():
     """Build every kernel library, one nvcc each, side by side: the fixed
     libraries and the builds that the phases make for one scene; print
@@ -4238,6 +4264,12 @@ def phase_build():
                 coop_builds.append(build)
     print(f"build: {time.perf_counter() - t0:.1f} s; nvcc of each library (side by side, s): "
           + ", ".join(f"{n} {s:.1f}" for n, s in done.items()))
+    compiled, loaded, seconds = builds_of_this_run()
+    unloaded = [b.name for b in builds if b.name not in loaded]
+    if unloaded:
+        raise AssertionError(f"phase 2 left {unloaded} unloaded")
+    print(f"builds: {len(loaded)} loaded ({seconds:.1f} s in KernelBuild.load), compiled in this "
+          f"run: {', '.join(compiled) or 'none'}; the others found built")
     for build in builds:
         if build.sources == pgs_kernel.BUILD.sources:
             for key, (regs, stores, loads) in sorted(k3_ptxas(build.ptxas_report).items()):

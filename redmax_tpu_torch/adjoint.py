@@ -21,6 +21,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from redmax_tpu_torch import metrics
+
 
 def batched_jacobian(res_fn: Callable, x):
     """The exact per-lane Jacobian dg/dx [B, m, n] of a lane-separable
@@ -51,19 +53,21 @@ class _ImplicitSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, xbar):
-        x, *rest = ctx.saved_tensors
-        factor, tensors = rest[:ctx.nfactor], rest[ctx.nfactor:]
-        F = tuple(factor) if ctx.factor_is_tuple else (factor[0] if factor else None)
-        theta = _theta(ctx.params, ctx.paths, [t.detach() for t in tensors])
-        z = ctx.backsolve_fn(theta, x.detach(), F, xbar)
-        need = ctx.needs_input_grad[6:]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(tensors, need)]
-            g = ctx.res_fn(_theta(ctx.params, ctx.paths, leaves), x.detach())
-            wanted = [t for t, n in zip(leaves, need) if n]
-            grads = iter(torch.autograd.grad(g, wanted, grad_outputs=-z, allow_unused=True))
-        # x0 (the predictor) gets no gradient: the solution does not depend on it.
-        return (None,) * 6 + tuple(next(grads) if n else None for n in need)
+        with metrics.span("adjoint.backward"):
+            x, *rest = ctx.saved_tensors
+            factor, tensors = rest[:ctx.nfactor], rest[ctx.nfactor:]
+            F = tuple(factor) if ctx.factor_is_tuple else (factor[0] if factor else None)
+            theta = _theta(ctx.params, ctx.paths, [t.detach() for t in tensors])
+            with metrics.span("adjoint.backsolve"):
+                z = ctx.backsolve_fn(theta, x.detach(), F, xbar)
+            need = ctx.needs_input_grad[6:]
+            with metrics.span("adjoint.vjp"), torch.enable_grad():
+                leaves = [t.detach().requires_grad_(n) for t, n in zip(tensors, need)]
+                g = ctx.res_fn(_theta(ctx.params, ctx.paths, leaves), x.detach())
+                wanted = [t for t, n in zip(leaves, need) if n]
+                grads = iter(torch.autograd.grad(g, wanted, grad_outputs=-z, allow_unused=True))
+            # x0 (the predictor) gets no gradient: the solution does not depend on it.
+            return (None,) * 6 + tuple(next(grads) if n else None for n in need)
 
 
 def _grad_leaves(params, prefix=()):

@@ -1,5 +1,6 @@
 """Fused BDF2 chord-Newton solve: the CUDA kernel, its plain PyTorch
-version, its build and its launch counter.
+version, its build and its launch counters (metrics.counters():
+chord_kernel.launch.coop and chord_kernel.launch.thread, by design).
 
 The kernel (in two designs, below) replaces
 redmax_tpu/pallas_step.py::_build_kernel of the JAX package, on its K1a,
@@ -76,16 +77,11 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from redmax_tpu_torch import integrators, model
+from redmax_tpu_torch import integrators, metrics, model
 from redmax_tpu_torch.forces import ForceCable, ForceGroundCuboid, ForcePointPoint, ForceSpringDamper
 from redmax_tpu_torch.joints import CONSTANT_S_TYPES
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.types import JointType, Topology
-
-# Launches of the CUDA kernel since the counter was last set to 0: the
-# thread-per-lane design, and the cooperative one.
-chord_bdf2_launches = 0
-chord_bdf2_coop_launches = 0
 
 _SOURCES = ("chord_bdf2.cu", "chord_bdf2_lane.cuh")
 BUILD = KernelBuild("chord_bdf2", _SOURCES)
@@ -597,13 +593,14 @@ def pack(topo: Topology, params: Dict, x0, q0, qd0, q1, qd1, force_fns: Tuple = 
     the topology and lane-shared parameter buffers, each with the closures
     of force_fns at its end, their counts (Closures), and the per-lane
     record buffer [P, B] (None when every physical param is lane-shared)."""
-    B, nr = x0.shape
-    tau = params["tau"].expand(B, nr)
-    soa = [a.t().contiguous() for a in (x0, q0, qd0, q1, qd1, tau)]
-    spec = closure_spec(topo, force_fns)
-    lane_f = _lane_buffer(topo, params, force_fns, B) if has_perlane(params) else None
-    return (*soa, _topology_buffer(topo, spec, x0.device),
-            _static_buffer(topo, params, force_fns), counts_of(spec), lane_f)
+    with metrics.span("chord_kernel.pack"):
+        B, nr = x0.shape
+        tau = params["tau"].expand(B, nr)
+        soa = [a.t().contiguous() for a in (x0, q0, qd0, q1, qd1, tau)]
+        spec = closure_spec(topo, force_fns)
+        lane_f = _lane_buffer(topo, params, force_fns, B) if has_perlane(params) else None
+        return (*soa, _topology_buffer(topo, spec, x0.device),
+                _static_buffer(topo, params, force_fns), counts_of(spec), lane_f)
 
 
 def check_buffers(topo: Topology, topo_i, stat_f, counts: Closures, lane_f=None) -> None:
@@ -639,43 +636,40 @@ def launch(topo: Topology, cfg, x0, q0, qd0, q1, qd1, tau, topo_i, stat_f, count
     design's counter. The design and build are library_of's: thread_per_lane
     runs the thread-per-lane build even where the cooperative design takes
     the shape (only to time the two against each other)."""
-    global chord_bdf2_launches, chord_bdf2_coop_launches
-    check_buffers(topo, topo_i, stat_f, counts, lane_f)
-    nr, B = x0.shape
-    if lane_f is not None and lane_f.shape[1] != B:
-        raise ValueError(f"chord_bdf2: a per-lane buffer of {lane_f.shape[1]} lanes for {B}")
-    kinds = kinds_of(topo, counts, lane_f is not None, is_robust(cfg))
-    key = (topo.njoints, nr, kinds)
-    build = library_of(*key, thread_per_lane, counts.springs,
-                       0 if lane_f is None else lane_f.shape[0], counts.cable_points,
-                       counts.cables)
-    coop = is_coop(build)
-    lib = _build_lib(build)
-    x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
-    h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
-    stream = torch.cuda.current_stream(x0.device).cuda_stream
-    states = tuple(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau))
-    lane_ptr = None if lane_f is None else lane_f.data_ptr()
-    solver = (cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
-              int(cfg.guarded), int(cfg.guard_last), int(cfg.chord))
-    if coop:
-        err = lib.chord_bdf2_coop_launch(
-            topo.njoints, nr, kinds, *counts, B, *states,
-            topo_i.data_ptr(), stat_f.data_ptr(), lane_ptr, *solver,
-            x_out.data_ptr(), h_out.data_ptr(), None, stream,
-        )
-    else:
-        err = lib.chord_bdf2_launch(
-            topo.njoints, nr, int(bool(kinds & QDEP)), int(lane_f is not None), *counts, B,
-            *states, topo_i.data_ptr(), stat_f.data_ptr(), lane_ptr, *solver,
-            x_out.data_ptr(), h_out.data_ptr(), stream,
-        )
-    if err != 0:
-        why = _LAUNCH_ERRORS.get(err, "CUDA error")
-        raise RuntimeError(f"{build.name} kernel launch failed for (N, nr, kinds) = {key}: "
-                           f"error {err} ({why})")
-    if coop:
-        chord_bdf2_coop_launches += 1
-    else:
-        chord_bdf2_launches += 1
-    return x_out, h_out
+    with metrics.span("chord_kernel.launch"):
+        check_buffers(topo, topo_i, stat_f, counts, lane_f)
+        nr, B = x0.shape
+        if lane_f is not None and lane_f.shape[1] != B:
+            raise ValueError(f"chord_bdf2: a per-lane buffer of {lane_f.shape[1]} lanes for {B}")
+        kinds = kinds_of(topo, counts, lane_f is not None, is_robust(cfg))
+        key = (topo.njoints, nr, kinds)
+        build = library_of(*key, thread_per_lane, counts.springs,
+                           0 if lane_f is None else lane_f.shape[0], counts.cable_points,
+                           counts.cables)
+        coop = is_coop(build)
+        lib = _build_lib(build)
+        x_out = torch.empty(nr, B, dtype=torch.float32, device=x0.device)
+        h_out = torch.empty(nr * nr, B, dtype=torch.float32, device=x0.device)
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        states = tuple(a.data_ptr() for a in (x0, q0, qd0, q1, qd1, tau))
+        lane_ptr = None if lane_f is None else lane_f.data_ptr()
+        solver = (cfg.fixed_iters, cfg.growth_reject, cfg.tol_reject, cfg.dx_clamp,
+                  int(cfg.guarded), int(cfg.guard_last), int(cfg.chord))
+        if coop:
+            err = lib.chord_bdf2_coop_launch(
+                topo.njoints, nr, kinds, *counts, B, *states,
+                topo_i.data_ptr(), stat_f.data_ptr(), lane_ptr, *solver,
+                x_out.data_ptr(), h_out.data_ptr(), None, stream,
+            )
+        else:
+            err = lib.chord_bdf2_launch(
+                topo.njoints, nr, int(bool(kinds & QDEP)), int(lane_f is not None), *counts, B,
+                *states, topo_i.data_ptr(), stat_f.data_ptr(), lane_ptr, *solver,
+                x_out.data_ptr(), h_out.data_ptr(), stream,
+            )
+        if err != 0:
+            why = _LAUNCH_ERRORS.get(err, "CUDA error")
+            raise RuntimeError(f"{build.name} kernel launch failed for (N, nr, kinds) = {key}: "
+                               f"error {err} ({why})")
+        metrics.count("chord_kernel.launch.coop" if coop else "chord_kernel.launch.thread")
+        return x_out, h_out

@@ -37,7 +37,7 @@ from redmax_tpu_torch.adjoint import (
 )
 from redmax_tpu_torch.constraints import assemble_constraints
 from redmax_tpu_torch.linalg import make_solver
-from redmax_tpu_torch import forces
+from redmax_tpu_torch import forces, metrics
 from redmax_tpu_torch.model import (
     _split_closures, assemble, closure_forces, forward_kinematics, jacobians, joint_space_force,
     joint_space_KD_diag, mass_diag, maximal_force, reparam_all, structured_hessian,
@@ -491,28 +491,30 @@ def make_bdf2_step(
         return residual_bdf2(topo, force_fns, params, q2, q0, qdot0, q1, qdot1, aux)
 
     def bootstrap(params: Dict, s: Bdf2State) -> Bdf2State:
-        q0, qdot0 = s.q, s.qdot
-        h = lanewise(params["h"], 2)
-        ah = SDIRK_ALPHA * h
-        qa = solve(res_a, hess_a, (params, q0, qdot0), q0 + ah * qdot0, s.aux)
-        qdota = (qa - q0) / ah
-        q1 = solve(res_b, hess_b, (params, q0, qdot0, qdota),
-                   qa + (1 - SDIRK_ALPHA) * h * qdota, s.aux)
-        qdot1 = (q1 - q0 - (1 - SDIRK_ALPHA) * h * qdota) / ah
-        return _reparam(topo, params, Bdf2State(
-            q=q1, qdot=qdot1, q_prev=q0, qdot_prev=qdot0, k=s.k + 1, aux=s.aux))
+        with metrics.span("integrators.bootstrap"):
+            q0, qdot0 = s.q, s.qdot
+            h = lanewise(params["h"], 2)
+            ah = SDIRK_ALPHA * h
+            qa = solve(res_a, hess_a, (params, q0, qdot0), q0 + ah * qdot0, s.aux)
+            qdota = (qa - q0) / ah
+            q1 = solve(res_b, hess_b, (params, q0, qdot0, qdota),
+                       qa + (1 - SDIRK_ALPHA) * h * qdota, s.aux)
+            qdot1 = (q1 - q0 - (1 - SDIRK_ALPHA) * h * qdota) / ah
+            return _reparam(topo, params, Bdf2State(
+                q=q1, qdot=qdot1, q_prev=q0, qdot_prev=qdot0, k=s.k + 1, aux=s.aux))
 
     def inner(params: Dict, s: Bdf2State) -> Bdf2State:
-        q0, qdot0 = s.q_prev, s.qdot_prev
-        q1, qdot1 = s.q, s.qdot
-        h = lanewise(params["h"], 2)
-        guess = q1 + h * qdot1
-        if cfg.predictor == "quadratic":
-            guess = guess + 0.5 * h * (qdot1 - qdot0)
-        q2 = solve(res_2, hess_2, (params, q0, qdot0, q1, qdot1), guess, s.aux)
-        qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
-        return _reparam(topo, params, Bdf2State(
-            q=q2, qdot=qdot2, q_prev=q1, qdot_prev=qdot1, k=s.k + 1, aux=s.aux))
+        with metrics.span("integrators.inner"):
+            q0, qdot0 = s.q_prev, s.qdot_prev
+            q1, qdot1 = s.q, s.qdot
+            h = lanewise(params["h"], 2)
+            guess = q1 + h * qdot1
+            if cfg.predictor == "quadratic":
+                guess = guess + 0.5 * h * (qdot1 - qdot0)
+            q2 = solve(res_2, hess_2, (params, q0, qdot0, q1, qdot1), guess, s.aux)
+            qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
+            return _reparam(topo, params, Bdf2State(
+                q=q2, qdot=qdot2, q_prev=q1, qdot_prev=qdot1, k=s.k + 1, aux=s.aux))
 
     def step(params: Dict, s: Bdf2State) -> Bdf2State:
         return bootstrap(params, s) if s.k == 0 else inner(params, s)
@@ -598,20 +600,21 @@ def make_bdf2_step_batched(
         return solve_T(factor(H), xbar.to(H.dtype))
 
     def inner(params: Dict, s: Bdf2State) -> Bdf2State:
-        q0, qd0 = s.q_prev, s.qdot_prev
-        q1, qd1 = s.q, s.qdot
-        h = lanewise(params["h"], 2)
-        guess = q1 + h * qd1
-        if cfg.predictor == "quadratic":
-            guess = guess + 0.5 * h * (qd1 - qd0)
-        theta = (params, q0, qd0, q1, qd1)
-        if differentiable:
-            q2 = implicit_solve_custom(_res2, _kernel, _z, theta, guess)
-        else:
-            q2 = _kernel(theta, guess)[0]
-        qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
-        return _reparam(topo, params, Bdf2State(
-            q=q2, qdot=qdot2, q_prev=q1, qdot_prev=qd1, k=s.k + 1, aux=s.aux))
+        with metrics.span("integrators.inner"):
+            q0, qd0 = s.q_prev, s.qdot_prev
+            q1, qd1 = s.q, s.qdot
+            h = lanewise(params["h"], 2)
+            guess = q1 + h * qd1
+            if cfg.predictor == "quadratic":
+                guess = guess + 0.5 * h * (qd1 - qd0)
+            theta = (params, q0, qd0, q1, qd1)
+            if differentiable:
+                q2 = implicit_solve_custom(_res2, _kernel, _z, theta, guess)
+            else:
+                q2 = _kernel(theta, guess)[0]
+            qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
+            return _reparam(topo, params, Bdf2State(
+                q=q2, qdot=qdot2, q_prev=q1, qdot_prev=qd1, k=s.k + 1, aux=s.aux))
 
     def step(params: Dict, s: Bdf2State) -> Bdf2State:
         return base.bootstrap(params, s) if s.k == 0 else inner(params, s)
@@ -640,18 +643,19 @@ def make_simulate(step_fn: Callable, nsteps: int, record: bool = False,
         def at_t(k):
             return scene_fn(params, (k + 1) * params["h"]) if scene_fn else params
 
-        qs, qds = [], []
-        s = step_fn.bootstrap(at_t(0), state0) if split else state0
-        inner = step_fn.inner if split else step_fn
-        if split and record:
-            qs.append(s.q)
-            qds.append(s.qdot)
-        for k in range(1 if split else 0, nsteps):
-            s = inner(at_t(k), s)
-            if record:
+        with metrics.span("integrators.simulate"):
+            qs, qds = [], []
+            s = step_fn.bootstrap(at_t(0), state0) if split else state0
+            inner = step_fn.inner if split else step_fn
+            if split and record:
                 qs.append(s.q)
                 qds.append(s.qdot)
-        return (s, (torch.stack(qs), torch.stack(qds))) if record else s
+            for k in range(1 if split else 0, nsteps):
+                s = inner(at_t(k), s)
+                if record:
+                    qs.append(s.q)
+                    qds.append(s.qdot)
+            return (s, (torch.stack(qs), torch.stack(qds))) if record else s
 
     return simulate
 

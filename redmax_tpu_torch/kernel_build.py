@@ -9,6 +9,12 @@ reads until nvcc exits would stop nvcc once it filled.
 
 A host build (host=True) compiles a C++ source of csrc/ with g++ the same
 way, for a kernel whose lane body also runs on CPU tensors (pgs_kernel).
+
+Counters (metrics): kernel_build.compile.<name> (compilers started: the
+builds this process compiled rather than found built),
+kernel_build.load.<name> (libraries loaded) and kernel_build.seconds (the
+seconds in load(), waits for the compiler included). While spans record,
+each load is also a span, kernel_build.load.<name>.
 """
 
 import ctypes
@@ -16,7 +22,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Sequence
+
+from redmax_tpu_torch import metrics
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_ROOT, "csrc")
@@ -82,6 +91,7 @@ class KernelBuild:
         cmd = [cc, *self.flags, "-o", tmp, os.path.join(CSRC, self.sources[0])]
         with open(self._messages(), "w") as out:
             self._proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+        metrics.count(f"kernel_build.compile.{self.name}")
 
     def compiling(self) -> bool:
         """True while a started nvcc has not exited."""
@@ -92,6 +102,16 @@ class KernelBuild:
         fails."""
         if self.lib is not None:
             return self.lib
+        t0 = time.perf_counter()
+        with metrics.span(f"kernel_build.load.{self.name}"):
+            try:
+                self._load()
+            finally:
+                metrics.count("kernel_build.seconds", time.perf_counter() - t0)
+        metrics.count(f"kernel_build.load.{self.name}")
+        return self.lib
+
+    def _load(self) -> None:
         self.start()
         so, log, tmp = self._paths()
         if self._proc is not None:
@@ -109,4 +129,3 @@ class KernelBuild:
         with open(log) as f:
             self.ptxas_report = f.read()
         self.lib = ctypes.CDLL(so)
-        return self.lib

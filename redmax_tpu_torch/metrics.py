@@ -2,42 +2,193 @@
 reference's ChronoTimer.h:28-40, SolverDataTracker and batchTest
 aggregation, Scene.cpp:248-287):
 
-  * Timer: tic/toc slots on the host's wall clock;
+  * span: a named interval where the port's work happens (an MPC solve, its
+    forward and gradient, the BDF2 bootstrap and inner steps, the adjoint's
+    backsolve and VJP, the chord kernel's pack and launch, a kernel
+    library's load). A span records inside tracing() and while a torch.profiler
+    session is active, and nowhere else; off, span() tests two flags and
+    returns one shared do-nothing object. A recording span keeps its
+    parent, its call (the root span it descends from), its host interval
+    (time.perf_counter_ns), where CUDA is initialised a pair of CUDA events
+    on the current stream (its device time), under the profiler a
+    record_function of its name (so a profiler trace shows it on the
+    device operations' clock), and at a root the counters' deltas over it.
+    spans() reads the bounded buffer, clear_spans() empties it;
+  * count / counters: named counters, always on (kernel launches by design,
+    kernel builds' compiles, loads and seconds);
   * bench_throughput: seconds per call and calls/s, the warm-up excluded,
     the device of the outputs synchronized before each clock read;
   * energy_drift: the certificate quantity H_end = T_end + V_end - V_0.
 """
 
+import contextlib
+import itertools
+import threading
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from redmax_tpu_torch.checkpoint import tree_flatten
 
+SPAN_CAP = 1 << 16   # spans the buffer holds; later ones are dropped and counted
 
-class Timer:
-    """tic/toc multi-slot wall-clock timer (ChronoTimer.h:28-40). It reads
-    the host clock only: time device work with bench_throughput, or
-    synchronize before toc."""
+_counts: Dict[str, float] = {}
+_counts_lock = threading.Lock()
 
-    def __init__(self):
-        self.t0: Dict[str, float] = {}
-        self.total: Dict[str, float] = {}
-        self.count: Dict[str, int] = {}
 
-    def tic(self, slot: str = "") -> None:
-        self.t0[slot] = time.perf_counter()
+def count(name: str, n: float = 1) -> None:
+    """Add n to the counter name (created at 0)."""
+    with _counts_lock:
+        _counts[name] = _counts.get(name, 0) + n
 
-    def toc(self, slot: str = "") -> float:
-        dt = time.perf_counter() - self.t0[slot]
-        self.total[slot] = self.total.get(slot, 0.0) + dt
-        self.count[slot] = self.count.get(slot, 0) + 1
-        return dt
 
-    def report(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_s": v, "count": self.count[k], "avg_s": v / self.count[k]}
-                for k, v in self.total.items()}
+def counters() -> Dict[str, float]:
+    """A copy of every counter."""
+    with _counts_lock:
+        return dict(_counts)
+
+
+class SpanRecord(NamedTuple):
+    id: int
+    name: str
+    parent: Optional[int]        # the enclosing span's id; None at a root
+    call: int                    # the id of the root the span descends from
+    start_ns: int                # host clock, time.perf_counter_ns
+    end_ns: Optional[int]        # None while the span is open
+    device_ms: Optional[float]   # CUDA events; None without CUDA or while open
+    counts: Optional[Dict[str, float]]   # a root's counter deltas; None below a root
+
+
+_switch = False        # inside tracing()
+_buffer: List["Span"] = []
+_ids = itertools.count()
+_local = threading.local()   # .stack: the spans open on this thread, innermost last
+_root_stack: Optional[list] = None   # the stack of the thread that opened the last root
+_events: list = []     # a pool of free CUDA events
+# record_function's C++ form where this torch has it (a tenth of the cost)
+_annotation = getattr(torch._C._profiler, "_RecordFunctionFast", _profiler.record_function)
+
+
+class _Off:
+    """The span returned while spans do not record: does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A context manager around the work of one named span: a Span that
+    records inside tracing() or under a torch.profiler session, else the
+    shared do-nothing object."""
+    if _switch or _profiler._is_profiler_enabled:
+        return Span(name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def tracing():
+    """Spans record inside this context (besides under the profiler)."""
+    global _switch
+    before, _switch = _switch, True
+    try:
+        yield
+    finally:
+        _switch = before
+
+
+def _event():
+    return _events.pop() if _events else torch.cuda.Event(enable_timing=True)
+
+
+class Span:
+    """One recording span (span() hands these out while spans record). A
+    span opened on a thread with no open span of its own hangs under the
+    innermost span open on the thread that opened the last root (autograd's
+    device thread runs the adjoint under mpc.gradient that way), else it is
+    a root."""
+    __slots__ = ("name", "id", "parent", "call", "start_ns", "end_ns", "device_ms",
+                 "ev", "stream", "rf", "base", "counts", "stack")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _root_stack
+        self.id = None
+        if len(_buffer) >= SPAN_CAP:
+            count("metrics.spans_dropped")
+            return self
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        tail = stack[-1:] or (_root_stack[-1:] if _root_stack is not None else [])
+        self.id = next(_ids)
+        if tail:
+            self.parent, self.call, self.base = tail[0].id, tail[0].call, None
+        else:
+            self.parent, self.call, self.base = None, self.id, counters()
+            _root_stack = stack
+        self.end_ns = self.device_ms = self.counts = None
+        self.stack = stack
+        stack.append(self)
+        _buffer.append(self)
+        self.ev = None
+        if torch.cuda.is_initialized():
+            # both events on the stream current at the start, queried once
+            # (a query costs several microseconds of host time)
+            self.ev, self.stream = (_event(), _event()), torch.cuda.current_stream()
+            self.ev[0].record(self.stream)
+        self.start_ns = time.perf_counter_ns()
+        self.rf = None
+        if _profiler._is_profiler_enabled:
+            self.rf = _annotation(self.name)
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.id is None:
+            return False
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        self.end_ns = time.perf_counter_ns()
+        if self.ev is not None:
+            self.ev[1].record(self.stream)
+        self.stack.pop()
+        if self.base is not None:
+            now = counters()
+            self.counts = {k: v - self.base.get(k, 0) for k, v in now.items()
+                           if v != self.base.get(k, 0)}
+        return False
+
+
+def spans() -> List[SpanRecord]:
+    """The recorded spans in the order they opened, device times resolved
+    (this waits for the device work of each closed span)."""
+    out = []
+    for s in list(_buffer):
+        if s.device_ms is None and s.ev is not None and s.end_ns is not None:
+            s.ev[1].synchronize()
+            s.device_ms = s.ev[0].elapsed_time(s.ev[1])
+        out.append(SpanRecord(s.id, s.name, s.parent, s.call, s.start_ns, s.end_ns,
+                              s.device_ms, s.counts))
+    return out
+
+
+def clear_spans() -> None:
+    """Empty the buffer; the closed spans' events go back to the pool."""
+    for s in _buffer:
+        if s.ev is not None and s.end_ns is not None:
+            _events.extend(s.ev)
+    _buffer.clear()
 
 
 def _synchronize(out) -> None:

@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from redmax_tpu_torch import integrators
+from redmax_tpu_torch import integrators, metrics
 from redmax_tpu_torch.model import forward_kinematics
 from redmax_tpu_torch.types import State, Topology
 
@@ -187,8 +187,10 @@ def _value_and_grad(objective_fn: Callable, params: Dict, state0, x_targets):
     def vg(P):
         Pg = P.detach().requires_grad_(True)
         with torch.enable_grad():
-            v = objective_fn(params, Pg, state0, x_targets)
-            (g,) = torch.autograd.grad(v.sum(), Pg)
+            with metrics.span("mpc.forward"):
+                v = objective_fn(params, Pg, state0, x_targets)
+            with metrics.span("mpc.gradient"):
+                (g,) = torch.autograd.grad(v.sum(), Pg)
         return v.detach(), g
 
     return vg
@@ -201,13 +203,14 @@ def _adam_solver(objective_fn: Callable, iters: int, lr: float):
 
     def solve(params: Dict, P0, state0: State, x_targets) -> MpcResult:
         vg = _value_and_grad(objective_fn, params, state0, x_targets)
-        P = P0.detach()
-        opt_state = init(P)
-        for _ in range(iters):
-            v, g = vg(P)
-            step, opt_state = update(g, opt_state)
-            P = P + step
-        return MpcResult(p=P, objective=v, grad_norm=torch.linalg.vector_norm(g, dim=-1))
+        with metrics.span("mpc.solve"):
+            P = P0.detach()
+            opt_state = init(P)
+            for _ in range(iters):
+                v, g = vg(P)
+                step, opt_state = update(g, opt_state)
+                P = P + step
+            return MpcResult(p=P, objective=v, grad_norm=torch.linalg.vector_norm(g, dim=-1))
 
     return solve
 
@@ -408,13 +411,14 @@ def _lbfgs_solver(objective_fn: Callable, iters: int):
 
     def solve(params: Dict, P0, state0: State, x_targets) -> MpcResult:
         vg = _value_and_grad(objective_fn, params, state0, x_targets)
-        P = P0.detach()
-        lbfgs = _Lbfgs(P)
-        for _ in range(iters):
-            v, g = vg(P)
-            u = lbfgs.direction(g, P)
-            P = P + _lane(_zoom_linesearch(vg, P, u, v, g)) * u
-        return MpcResult(p=P, objective=v, grad_norm=torch.linalg.vector_norm(g, dim=-1))
+        with metrics.span("mpc.solve"):
+            P = P0.detach()
+            lbfgs = _Lbfgs(P)
+            for _ in range(iters):
+                v, g = vg(P)
+                u = lbfgs.direction(g, P)
+                P = P + _lane(_zoom_linesearch(vg, P, u, v, g)) * u
+            return MpcResult(p=P, objective=v, grad_norm=torch.linalg.vector_norm(g, dim=-1))
 
     return solve
 

@@ -33,14 +33,14 @@ a wider m is built at its first launch (build_for).
 Routes, by the device of D:
 - CUDA: the kernel (csrc/pgs_sweeps.cu, body csrc/pgs_sweeps_lane.cuh), built
   with nvcc at first use into _build/ (kernel_build); a failure to build or
-  launch raises, nothing falls back. Counter: design_launches (each launch,
-  through pgs_sweeps or launch, by design).
+  launch raises, nothing falls back. Counters (metrics.counters()):
+  pgs_kernel.launch.<design> (each launch, through pgs_sweeps or launch).
 - CPU: the same lane header compiled by g++ (csrc/pgs_sweeps_host.cpp, a
   host build of kernel_build at first use into _build/), which computes
   the card designs' arithmetic in their order (their results bit for bit),
   not the plain version, whose Python double loop takes seconds a solve at
   3000 sweeps; without g++, or on an x86-64 CPU without FMA, it raises.
-  Counter pgs_sweeps_host_runs.
+  Counter pgs_kernel.host_runs.
 """
 
 import ctypes
@@ -48,12 +48,8 @@ from functools import lru_cache
 
 import torch
 
+from redmax_tpu_torch import metrics
 from redmax_tpu_torch.kernel_build import KernelBuild
-
-# Launches of the CUDA kernel by design (through pgs_sweeps or launch), and
-# runs of the CPU build, since each was last set to 0.
-design_launches = {"thread": 0, "warp": 0, "warp_div": 0}
-pgs_sweeps_host_runs = 0
 
 # The widest m that design_of sends to the thread design, by dtype: where
 # it stops being the faster design (scripts/k3_designs.py on an H100). BUILD
@@ -241,7 +237,7 @@ def _launch(ins, act, iters, reg, design, store):
     if err != 0:
         raise RuntimeError(f"pgs_sweeps ({design}) failed at m = {m}, B = {B}, {D.dtype}: "
                            f"error {err}")
-    design_launches[design] += 1
+    metrics.count(f"pgs_kernel.launch.{design}")
     return lam
 
 
@@ -255,7 +251,6 @@ def pgs_sweeps(D, r, lo, hi, iters: int, reg: float, active=None):
     store of an unsymmetric D, which is right for any D; the earlier warp
     design where no store fits), a CPU tensor runs the g++ build of its lane
     body (see the module docstring); either raises on any failure."""
-    global pgs_sweeps_host_runs
     ins, act = _checked(D, r, lo, hi, active)
     B, m = r.shape
     if m == 0 or B == 0:
@@ -277,7 +272,7 @@ def pgs_sweeps(D, r, lo, hi, iters: int, reg: float, active=None):
     if err != 0:
         raise RuntimeError(f"pgs_sweeps_host failed at m = {m}, B = {B}, {D.dtype}: error {err}"
                            + (" (this CPU has no FMA instruction)" if err == -2 else ""))
-    pgs_sweeps_host_runs += 1
+    metrics.count("pgs_kernel.host_runs")
     return lam
 
 

@@ -21,10 +21,10 @@ chosen by a rule on the shape before anything is built (takes_coop):
   in shared memory, the setup split over the group, each sweep's row i on
   thread i with lambda in shared memory. It reads the inputs as the callers
   hold them, [B, P] row-major, and writes [B, n] and [B, m]: no copy.
-  Counter dual_pgs_coop_launches.
+  Counter qp_kernel.launch.coop (metrics.counters()).
 - thread per lane (csrc/dual_pgs.cu, body csrc/dual_pgs_lane.cuh), on any
   wider (n, m): one thread a lane in blocks of 32, on struct-of-arrays
-  [P, B] copies of the inputs (pack). Counter dual_pgs_launches. Its builds
+  [P, B] copies of the inputs (pack). Counter qp_kernel.launch.thread. Its builds
   at the cooperative shapes are reached by launch(..., thread_per_lane=True)
   only, to time it against the other design.
 
@@ -44,14 +44,10 @@ from functools import lru_cache
 
 import torch
 
+from redmax_tpu_torch import metrics
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.linalg import gj_inverse
 from redmax_tpu_torch.qp import pgs_sweeps
-
-# Launches of the CUDA kernel since the counter was last set to 0: the
-# thread-per-lane design, and the cooperative one.
-dual_pgs_launches = 0
-dual_pgs_coop_launches = 0
 
 _SOURCES = ("dual_pgs.cu", "dual_pgs_lane.cuh")
 _COOP_SOURCES = ("dual_pgs_coop.cu", "dual_pgs_coop.cuh", "dual_pgs_lane.cuh")
@@ -206,7 +202,6 @@ def launch(H, f, A, b, lo, hi, iters: int, reg: float, thread_per_lane: bool = F
     inputs (see pack) and returns x [n, B], lam [m, B]: the route of a
     shape the cooperative design does not take, and at the others only a
     yardstick to time the two against each other."""
-    global dual_pgs_launches, dual_pgs_coop_launches
     coop = not thread_per_lane
     if coop:
         B, n = f.shape
@@ -235,8 +230,5 @@ def launch(H, f, A, b, lo, hi, iters: int, reg: float, thread_per_lane: bool = F
         why = _LAUNCH_ERRORS.get(err, "CUDA error")
         raise RuntimeError(f"{build.name} kernel launch failed for (n, m) = {(n, m)}: "
                            f"error {err} ({why})")
-    if coop:
-        dual_pgs_coop_launches += 1
-    else:
-        dual_pgs_launches += 1
+    metrics.count("qp_kernel.launch.coop" if coop else "qp_kernel.launch.thread")
     return x_out, lam_out

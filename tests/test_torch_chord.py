@@ -36,7 +36,7 @@ from redmax_tpu.scenes import scene_chain as jchain
 from redmax_tpu.scenes import scene_chain_ground as jground
 from redmax_tpu.types import JointType as JJT
 from redmax_tpu.types import State as JState
-from redmax_tpu_torch import chord_kernel, convert, forces
+from redmax_tpu_torch import chord_kernel, convert, forces, metrics
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch import model as tmodel
 from redmax_tpu_torch.types import State
@@ -59,6 +59,12 @@ JCFG = jint.NewtonConfig(**CFG_KW)
 TCFG = tint.NewtonConfig(**CFG_KW)
 # the contact-MPC workload's coefficients (benchmarks/bench_contact.py)
 BENCH_GROUND = dict(kn=100.0, kt=0.1, kd=10.0, mu=0.5, h=1e-2, floor_z=-0.06)
+
+
+def chord_launches():
+    """(thread-per-lane, cooperative) chord kernel launches so far."""
+    c = metrics.counters()
+    return c.get("chord_kernel.launch.thread", 0), c.get("chord_kernel.launch.coop", 0)
 
 
 def _port(sc, dtype):
@@ -148,9 +154,9 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     sc = jchain(nlinks=4).compile(dtype=jnp.float32)
     topo, params = _port(sc, torch.float32)
     states = [torch.tensor(a) for a in _rand_states(sc.topo.nr, 4)]
-    before = chord_kernel.chord_bdf2_launches
+    before = chord_launches()
     x, _ = chord_kernel.chord_bdf2(topo, TCFG, params, *states)
-    assert chord_kernel.chord_bdf2_launches == before
+    assert chord_launches() == before
     x_ref, _ = chord_kernel.chord_bdf2_reference(topo, TCFG, params, *states)
     assert torch.equal(x, x_ref)
     with pytest.raises(ValueError):

@@ -53,7 +53,7 @@ from redmax_tpu.types import JointType as JJT
 from redmax_tpu_torch import chord_kernel
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch.kernel_build import KernelBuild
-from test_torch_chord import BENCH_GROUND, contact_states, corner_regimes
+from test_torch_chord import BENCH_GROUND, chord_launches, contact_states, corner_regimes
 from test_torch_lane_body import CFG_KW, _gxx_build, _port, _states
 from test_torch_model import mixed_builder
 from test_torch_springs import spring_chain_jax
@@ -456,13 +456,12 @@ def test_wrapper_launches_the_cooperative_build(monkeypatch, case):
                         lambda b: lib if b is chord_kernel.BUILD_COOP else None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=0))
-    before = (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches)
+    before = chord_launches()
     kinds = chord_kernel.kinds_of(topo, packed[8], packed[9] is not None,
                                   chord_kernel.is_robust(cfg))
     assert (topo.njoints, topo.nr, kinds) == COOP_CASES[case][3]
     chord_kernel.launch(topo, cfg, *packed)
-    assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == \
-        (before[0], before[1] + 1)
+    assert chord_launches() == (before[0], before[1] + 1)
     (a,) = seen
     lane_f = packed[9]
     assert a[:8] == (topo.njoints, topo.nr, kinds, *packed[8], 4)
@@ -505,10 +504,10 @@ def test_failed_coop_build_or_launch_raises_without_fallback(monkeypatch, fault)
                             lambda b: lib if b is chord_kernel.BUILD_COOP else no_fallback())
         monkeypatch.setattr(torch.cuda, "current_stream",
                             lambda *a: types.SimpleNamespace(cuda_stream=0))
-    before = (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches)
+    before = chord_launches()
     with pytest.raises(RuntimeError, match="nvcc failed" if fault == "build" else "error 700"):
         chord_kernel.launch(topo, cfg, *packed)
-    assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == before
+    assert chord_launches() == before
 
 
 @pytest.mark.parametrize("fault", ["build", "launch"])
@@ -539,11 +538,11 @@ def test_failed_mix_build_or_launch_raises_without_fallback(monkeypatch, fault):
         monkeypatch.setattr(chord_kernel, "_build_lib", lambda b: lib if b is build else load(b))
         monkeypatch.setattr(torch.cuda, "current_stream",
                             lambda *a: types.SimpleNamespace(cuda_stream=0))
-    before = (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches)
+    before = chord_launches()
     with pytest.raises(RuntimeError, match="nvcc failed" if fault == "build"
                        else r"\(N, nr, kinds\) = \(4, 4, 3\): error 700"):
         chord_kernel.launch(topo, cfg, *packed)
-    assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == before
+    assert chord_launches() == before
 
 
 @pytest.mark.parametrize("perlane", [False, True])
@@ -588,9 +587,8 @@ def test_wrapper_routes_more_springs_than_the_record_holds_to_thread_per_lane(mo
     monkeypatch.setattr(chord_kernel, "_build_lib", only_thread_per_lane)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=0))
-    before = (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches)
+    before = chord_launches()
     chord_kernel.launch(topo, tint.NewtonConfig(**CFG_KW), *packed)
-    assert (chord_kernel.chord_bdf2_launches, chord_kernel.chord_bdf2_coop_launches) == \
-        (before[0] + 1, before[1])
+    assert chord_launches() == (before[0] + 1, before[1])
     (a,) = seen
     assert a[:9] == (12, 12, 0, int(perlane), 0, MANY_SPRINGS, 0, 0, B)

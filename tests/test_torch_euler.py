@@ -20,10 +20,10 @@ import torch
 from redmax_tpu import integrators as jint
 from redmax_tpu.types import State as JState
 from redmax_tpu_torch import integrators as tint
-from redmax_tpu_torch import qp_kernel
 from redmax_tpu_torch.scenes_matlab import build_mscene
 from redmax_tpu_torch.types import State
 from test_torch_constraints import SCENES, port_of
+from test_torch_qp import qp_launches
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,10 +56,10 @@ def test_euler_batched_matches_jax(scene, use_kernel):
         sv = vstep(sv)
 
     step = tint.make_euler_step_batched(topo, (), cons, use_kernel=use_kernel)
-    qp_kernel.dual_pgs_launches = 0
+    before = qp_launches()
     final = tint.make_simulate(step, nsteps)(
         params, State(q=torch.tensor(q), qdot=torch.tensor(qd)))
-    assert qp_kernel.dual_pgs_launches == 0  # CPU tensors never launch
+    assert qp_launches() == before  # CPU tensors never launch
     np.testing.assert_allclose(final.q.numpy(), np.asarray(sv.q), rtol=0, atol=1e-8)
     np.testing.assert_allclose(final.qdot.numpy(), np.asarray(sv.qdot), rtol=0, atol=1e-6)
     if scene == "floor3":  # the rollout went through contact, not around it

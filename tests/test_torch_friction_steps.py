@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from redmax_tpu import scenes_matlab as jms
-from redmax_tpu_torch import convert, pgs_kernel
+from redmax_tpu_torch import convert, metrics
 from redmax_tpu_torch import scenes_matlab as tms
 from redmax_tpu_torch.types import State
 
@@ -71,9 +71,9 @@ def check_case(sid):
     jfn = getattr(jms, f"scene_fn_{sid}", None)
     tfn = tms.SCENE_FNS.get(sid)
     q, qd = lanes0(sc, seed=sid)
-    runs = pgs_kernel.pgs_sweeps_host_runs
+    runs = metrics.counters().get("pgs_kernel.host_runs", 0)
     batch = run_port(tc, params, q, qd, tfn)
-    assert pgs_kernel.pgs_sweeps_host_runs > runs      # the sweeps ran on K3's g++ build
+    assert metrics.counters()["pgs_kernel.host_runs"] > runs   # the sweeps ran on K3's g++ build
     jstep = jax.jit(sc.make_step("euler_fric"))
     fbm_tol = FBM_TOL.get(sid, 1e-8)
     for b in range(B):

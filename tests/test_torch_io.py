@@ -5,8 +5,8 @@ input (parsed scene params to roundoff, JSON across the two packages,
 FrameExporter documents, OBJ bytes from both of the port's writers, the HTML
 viewer's data, the Brender bundle, npz checkpoints across the two packages,
 a bit-exact MPC resume with the port's Adam), and the metrics module
-(energy_drift against the JAX package's, Timer, bench_throughput) and
-draw_scene.
+(energy_drift against the JAX package's, bench_throughput; its spans and
+counters are tests/test_torch_trace.py's) and draw_scene.
 """
 
 import json
@@ -335,12 +335,6 @@ def test_energy_drift_matches_jax():
 
 
 def test_timer_and_bench_throughput():
-    timer = metrics.Timer()
-    for _ in range(2):
-        timer.tic("a")
-        assert timer.toc("a") >= 0.0
-    rep = timer.report()["a"]
-    assert rep["count"] == 2 and rep["avg_s"] == pytest.approx(rep["total_s"] / 2)
     dt, rate = metrics.bench_throughput(lambda x: (x * 2, {"y": x}), (torch.ones(3),),
                                         n_warmup=1, n_reps=2)
     assert dt > 0.0 and rate == pytest.approx(1.0 / dt)

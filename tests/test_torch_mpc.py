@@ -27,10 +27,11 @@ from redmax_tpu.scenes import scene_chain as jchain
 from redmax_tpu.scenes import scene_chain_ground as jground
 from redmax_tpu.types import JointType as JJT
 from redmax_tpu.types import State as JState
-from redmax_tpu_torch import chord_kernel, convert
+from redmax_tpu_torch import convert
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch import mpc as tmpc
 from redmax_tpu_torch.types import State
+from test_torch_chord import chord_launches
 from test_torch_springs import spring3
 
 
@@ -89,10 +90,10 @@ def test_mpc_solve_matches_jax(scene):
                                       tint.NewtonConfig(**CFG_KW), use_kernel=True)
     st = State(q=torch.tensor(np.tile(np.asarray(sc.state0.q), (B, 1))),
                qdot=torch.tensor(np.tile(np.asarray(sc.state0.qdot), (B, 1))))
-    before = chord_kernel.chord_bdf2_launches
+    before = chord_launches()
     res = tmpc.make_mpc_solver_batched(obj, iters=1, lr=LR)(
         params, torch.tensor(p0), st, torch.tensor(targets))
-    assert chord_kernel.chord_bdf2_launches == before  # CPU: the plain version
+    assert chord_launches() == before  # CPU: the plain version
 
     for name, got, want in [("objective", res.objective, ref.objective),
                             ("grad_norm", res.grad_norm, ref.grad_norm),

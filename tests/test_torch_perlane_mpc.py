@@ -19,11 +19,10 @@ from redmax_tpu import integrators as jint
 from redmax_tpu import mpc as jmpc
 from redmax_tpu.scenes import scene_chain_ground as jground
 from redmax_tpu.types import State as JState
-from redmax_tpu_torch import chord_kernel
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch import mpc as tmpc
 from redmax_tpu_torch.types import State
-from test_torch_chord import BENCH_GROUND
+from test_torch_chord import BENCH_GROUND, chord_launches
 from test_torch_perlane import CFG_KW, perlane_params, port_scene
 
 
@@ -58,11 +57,11 @@ def test_randomized_contact_mpc_solve_matches_jax():
     task = tmpc.PointPosTask(body=tip, wp=1.0, wreg=1e-6, pscale=1e3)
     obj = tmpc.make_objective_batched(topo, fns, task, XLOCAL, HORIZON,
                                       tint.NewtonConfig(**CFG_KW), use_kernel=True)
-    before = chord_kernel.chord_bdf2_launches
+    before = chord_launches()
     res = tmpc.make_mpc_solver_batched(obj, iters=1, lr=LR)(
         params, torch.tensor(p0), State(q=torch.tensor(q0), qdot=torch.tensor(qd0)),
         torch.tensor(targets))
-    assert chord_kernel.chord_bdf2_launches == before  # CPU: the plain version
+    assert chord_launches() == before  # CPU: the plain version
 
     for name, got, want in [("objective", res.objective, ref.objective),
                             ("grad_norm", res.grad_norm, ref.grad_norm), ("P", res.p, ref.p)]:

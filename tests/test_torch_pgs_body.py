@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from redmax_tpu_torch import kernel_build, pgs_kernel, qp
+from redmax_tpu_torch import kernel_build, metrics, pgs_kernel, qp
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -250,9 +250,9 @@ def same_bits(a, b):
 @pytest.mark.parametrize("m", [1, 7, 24, 33, 80])
 def test_host_body_matches_plain(m, dtype, tol):
     D, r, lo, hi = duals(m, dtype=dtype)
-    before = pgs_kernel.pgs_sweeps_host_runs
+    before = metrics.counters().get("pgs_kernel.host_runs", 0)
     lam = pgs_kernel.pgs_sweeps(D, r, lo, hi, 200, 1e-12)
-    assert pgs_kernel.pgs_sweeps_host_runs == before + 1
+    assert metrics.counters()["pgs_kernel.host_runs"] == before + 1
     assert lam.dtype == dtype and lam.shape == r.shape
     check(lam, plain(m, dtype, 200), tol)
     # the boxes hold: zero-width rows sit at 0, the others inside [lo, hi]

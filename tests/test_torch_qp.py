@@ -18,7 +18,7 @@ import torch
 from redmax_tpu import pallas_qp
 from redmax_tpu import qp as jqp
 from redmax_tpu_torch import qp as tqp
-from redmax_tpu_torch import qp_kernel
+from redmax_tpu_torch import metrics, qp_kernel
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -60,6 +60,12 @@ def masked_qp(seed, B, n, m, dtype):
     return H, f, A, b, lo, hi
 
 
+def qp_launches():
+    """(thread-per-lane, cooperative) dual-PGS launches so far."""
+    c = metrics.counters()
+    return c.get("qp_kernel.launch.thread", 0), c.get("qp_kernel.launch.coop", 0)
+
+
 def _t(arrays):
     return [torch.tensor(a) for a in arrays]
 
@@ -96,9 +102,9 @@ def test_dual_pgs_reference_matches_kernel_body(case):
     else:
         sys = masked_qp(13, 7, 6, 12, np.float32)
     x_np, lam_np = pallas_qp.dual_pgs_dense(*sys, iters=60)
-    before = qp_kernel.dual_pgs_launches
+    before = qp_launches()
     x, lam = qp_kernel.dual_pgs(*_t(sys), iters=60)
-    assert qp_kernel.dual_pgs_launches == before  # a CPU tensor launches nothing
+    assert qp_launches() == before  # a CPU tensor launches nothing
     x, lam = x.numpy(), lam.numpy()
     assert x.dtype == np.float32 and x.shape == x_np.shape and lam.shape == lam_np.shape
 

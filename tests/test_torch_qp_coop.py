@@ -35,7 +35,7 @@ from redmax_tpu_torch import qp_kernel
 from redmax_tpu_torch import integrators as tint
 from redmax_tpu_torch.scenes_matlab import build_mscene
 from test_torch_lane_body import _gxx_build, floor_chain_systems
-from test_torch_qp import mixed_qp
+from test_torch_qp import mixed_qp, qp_launches
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -297,9 +297,9 @@ def test_qp_cpu_tensors_launch_nothing():
     """On CPU tensors dual_pgs runs its plain version: neither design's
     counter moves."""
     sys = qps_of((6, 8))
-    before = (qp_kernel.dual_pgs_launches, qp_kernel.dual_pgs_coop_launches)
+    before = qp_launches()
     x, lam = qp_kernel.dual_pgs(*(torch.tensor(a) for a in sys), iters=ITERS, reg=REG)
-    assert (qp_kernel.dual_pgs_launches, qp_kernel.dual_pgs_coop_launches) == before
+    assert qp_launches() == before
     assert x.shape == sys[1].shape and lam.shape == sys[3].shape
 
 
@@ -337,11 +337,11 @@ def test_qp_failed_coop_build_or_launch_raises_without_fallback(monkeypatch, fau
                             lambda b: lib if b is qp_kernel.BUILD_COOP else no_fallback())
         monkeypatch.setattr(torch.cuda, "current_stream",
                             lambda *a: types.SimpleNamespace(cuda_stream=0))
-    before = (qp_kernel.dual_pgs_launches, qp_kernel.dual_pgs_coop_launches)
+    before = qp_launches()
     with pytest.raises(RuntimeError, match="nvcc failed" if fault == "build"
                        else r"\(n, m\) = \(6, 12\): error 700"):
         qp_kernel.launch(*sys, ITERS, REG)
-    assert (qp_kernel.dual_pgs_launches, qp_kernel.dual_pgs_coop_launches) == before
+    assert qp_launches() == before
 
 
 def test_qp_launch_passes_callers_layout(monkeypatch):
@@ -358,19 +358,17 @@ def test_qp_launch_passes_callers_layout(monkeypatch):
     monkeypatch.setattr(qp_kernel, "_build_lib", lambda b: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=0))
-    before = (qp_kernel.dual_pgs_launches, qp_kernel.dual_pgs_coop_launches)
+    before = qp_launches()
     x, lam = qp_kernel.launch(*sys, ITERS, REG)
     assert x.shape == (B, 6) and lam.shape == (B, 12)
     (design, a), = seen
     assert design == "coop" and a[:3] == (6, 12, B)
     assert a[3:9] == tuple(t.data_ptr() for t in sys) and a[9] == ITERS
-    assert (qp_kernel.dual_pgs_launches, qp_kernel.dual_pgs_coop_launches) == \
-        (before[0], before[1] + 1)
+    assert qp_launches() == (before[0], before[1] + 1)
     x, lam = qp_kernel.launch(*qp_kernel.pack(*sys), ITERS, REG, thread_per_lane=True)
     assert seen[-1][0] == "lane" and seen[-1][1][:3] == (6, 12, B)
     assert x.shape == (6, B) and lam.shape == (12, B)
-    assert (qp_kernel.dual_pgs_launches, qp_kernel.dual_pgs_coop_launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert qp_launches() == (before[0] + 1, before[1] + 1)
     with pytest.raises(ValueError, match="does not take"):
         qp_kernel.launch(torch.zeros(2, 33, 33), torch.zeros(2, 33), torch.zeros(2, 1, 33),
                          *(torch.zeros(2, 1) for _ in range(3)), ITERS, REG)
