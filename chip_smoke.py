@@ -13,9 +13,9 @@ Phases (any failure is an exception and a non-zero exit):
      and the builds made for one shape that the phases below launch: the
      cooperative K1b builds, the default-route cases of phase 26 and the
      umbrella's of phase 27 (each with the thread-per-lane build it is
-     timed against; the QP's in both designs) and uni6's probe build, each
-     picked by the shape rule
-     before anything is built), and print each library's build time, which
+     timed against; the QP's in both designs), uni6's probe build and
+     phase 32's K4 builds, each picked by the shape rule before anything is
+     built), and print each library's build time, which
      libraries this run compiled and which it found built (the program's
      kernel_build.compile.<name> and kernel_build.load.<name> counters; every
      library must have loaded), their -Xptxas -v register/spill reports and
@@ -33,7 +33,11 @@ Phases (any failure is an exception and a non-zero exit):
   4. the main path: bench.py's batched MPC solve (12-link chain, horizon 50,
      B = 1024, f32, one Adam step) through mpc.make_mpc_solver_batched, with
      the launch count of the cooperative design read around the timed
-     solves (49 a solve, none of the other design); the same solve on the
+     solves (49 a solve, none of the other design), and of the residual VJP
+     kernel (K4, 49 a solve in the adjoint backward; every MPC path, the
+     robust ones, the backward modes, L-BFGS and the sharded solve read it
+     too: 49 where residual_vjp.takes and .takes_params admit the scene and
+     params, else none); the same solve on the
      op-level route (float32 and float64) must agree; a small solve on the
      card must agree with the same solve on the CPU in float64;
   5. hold the dual-PGS kernel against its plain version on the card through
@@ -282,7 +286,17 @@ Phases (any failure is an exception and a non-zero exit):
      text scene through sceneio.load_scene_text, 50 BDF2 steps at B = 1024
      on the default route, lane 0's energy drift, its OBJ, HTML and JSON
      exports; prints lbfgs_path and sharded_path;
- 32. print the kernels line (every row with its design, threads a lane and
+ 32. the residual VJP kernel K4 (phase_residual_vjp): on chain-12 and
+     chain-ground-12 at B = 1024 and 32768, one inner step of a path (a
+     contact census with every regime), the kernel against its plain
+     version in f64 on the "reuse" backward and with z given, each lane's
+     error at most 4x the plain f32 version's at the median, p99 and max,
+     one launch a call; timed in a CUDA graph beside the wrapper, the plain
+     version and the op-level VJP it replaced, with the bound of the work
+     the VJP needs (vjp_lane_flops); its builds (and those of chain-4,
+     chain-ground-4 and chain-2, whose small solves run it) are made in
+     phase 2;
+ 33. print the kernels line (every row with its design, threads a lane and
      lanes a block; the cooperative rows, the QP's among them, with the
      thread-per-lane build's time of this run), the paths' lines
      (robust_path, backward_modes, coop_phases, scene_zoo, mscene_zoo,
@@ -314,7 +328,7 @@ import torch.distributed as dist
 
 from redmax_tpu_torch import (checkpoint, chord_kernel, explicit, export, forces, friction,
                               integrators, metrics, model, mpc, parallel, pcg, pgs_kernel, qp,
-                              qp_kernel, sceneio, scenes_matlab)
+                              qp_kernel, residual_vjp, sceneio, scenes_matlab)
 from redmax_tpu_torch.kernel_build import KernelBuild
 from redmax_tpu_torch.euler import DEFAULT_CHART
 from redmax_tpu_torch.scenes import (SCENES, build_scene, scene_00_serial_chain,
@@ -401,6 +415,24 @@ def launches_of(design=None) -> int:
     coop = _moved("chord", "chord_kernel.launch.coop")
     lane = _moved("chord", "chord_kernel.launch.thread")
     return {"cooperative": coop, "thread_per_lane": lane, None: coop + lane}[design]
+
+
+def vjp_launches() -> int:
+    """Residual VJP kernel (K4) launches since reset_launches."""
+    return _moved("chord", "residual_vjp.launch")
+
+
+def vjp_per_solve(sc, params, horizon) -> int:
+    """K4 launches an MPC solve on the kernel route must make: one an inner
+    step where the kernel takes the scene and the params
+    (residual_vjp.takes, .takes_params), else none."""
+    served = residual_vjp.takes(sc.topo, sc.force_fns) and residual_vjp.takes_params(params)
+    return horizon - 1 if served else 0
+
+
+# K4 launches an MPC path's timed solves made, by path (phase 4's "main path"
+# gives the kernels line its launches)
+VJP_LAUNCHES = {}
 
 
 def design_of(sc, params, cfg=CFG) -> str:
@@ -540,7 +572,8 @@ def ptxas_of(build, kinds, topo):
     return max(found) if found else None
 
 
-def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG, both_designs=True):
+def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG, both_designs=True,
+                      plain_reps=50):
     """The kernel record fields at one scene's shapes in the solve mode of
     cfg: launch time (device time of 200 launches in a CUDA graph,
     graph_ms; and events_ms, CUDA events over 200 back-to-back launches,
@@ -549,7 +582,8 @@ def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG, both_desi
     cooperative design, also its layout and (both_designs) the
     thread-per-lane build of the same shape, timed in turns with it
     (cooperative, thread-per-lane, thread-per-lane, cooperative), with each
-    build's ptxas registers, frame and spills (ptxas_of)."""
+    build's ptxas registers, frame and spills (ptxas_of). The plain version
+    is timed over plain_reps calls."""
     B = states[0].shape[0]
     fns = sc.force_fns
     args = chord_kernel.pack(sc.topo, params, *states, fns)
@@ -578,7 +612,7 @@ def time_chord_kernel(sc, params, states, max_abs_err, label, cfg=CFG, both_desi
               f"{prev_ms:.4f} ms (in turns, this run): {prev_ms / ms:.2f}x")
     wrap_ms = cuda_ms(lambda: chord_kernel.chord_bdf2(sc.topo, cfg, params, *states, fns), 100)
     plain_ms = cuda_ms(lambda: chord_kernel.chord_bdf2_reference(
-        sc.topo, cfg, params, *states, fns), reps=50)
+        sc.topo, cfg, params, *states, fns), reps=plain_reps)
     contacts, springs, cables = chord_kernel.closure_spec(sc.topo, fns)
     flops = lane_flops(sc.topo, cfg.fixed_iters, len(contacts), springs, cables,
                        mode_of(cfg)) * B
@@ -668,12 +702,12 @@ def mpc_solver(sc, horizon, use_kernel=None, cfg=CFG, backward="reuse"):
     return mpc.make_mpc_solver_batched(obj, iters=1, lr=0.05), obj
 
 
-def timed_solves(solve, args, horizon, reps, design):
+def timed_solves(solve, args, horizon, reps, design, vjp=None):
     """reps calls of the MPC solve solve(*args) after a warm one, the launch
     counts set to 0 before them and checked after (horizon - 1 a solve on
-    design's counter, none on the other's): (launches, seconds per solve by
-    CUDA events, by the host clock, the last result). Resets the
-    peak-memory count before them."""
+    design's counter, none on the other's; vjp a solve of K4's, where
+    given): (launches, seconds per solve by CUDA events, by the host clock,
+    the last result). Resets the peak-memory count before them."""
     res = solve(*args)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -691,6 +725,9 @@ def timed_solves(solve, args, horizon, reps, design):
         raise AssertionError(f"chord_bdf2 launched {launches} times in {reps} solves on its "
                              f"{design} design ({launches_of()} in all), want {horizon - 1} "
                              "per solve")
+    if vjp is not None and vjp_launches() != vjp * reps:
+        raise AssertionError(f"the residual VJP kernel launched {vjp_launches()} times in {reps} "
+                             f"solves, want {vjp} per solve")
     return launches, start.elapsed_time(end) / 1e3 / reps, wall, res
 
 
@@ -720,13 +757,15 @@ def phase_mpc_path(name, scene, device="cuda", nlinks=12, horizon=50, B=1024, re
     if design is not None and routed != design:
         raise AssertionError(f"{name}: routed to the {routed} design, want {design}")
     launches, dt, wall, res = timed_solves(solve, (params, p0, s0, targets), horizon, reps,
-                                           routed)
+                                           routed, vjp_per_solve(sc, params, horizon))
+    VJP_LAUNCHES[name] = vjp_launches()
     finite = torch.isfinite(res.objective)
     finite_frac = float(finite.float().mean())
     peak = torch.cuda.max_memory_allocated()
     print(f"{name}: {B / dt:.2f} solves/s ({dt * 1e3:.3f} ms per solve by CUDA events, "
           f"{wall * 1e3:.3f} ms host clock), finite_frac {finite_frac:.4f}, "
-          f"kernel launches {launches // reps} per solve ({routed} design), "
+          f"kernel launches {launches // reps} per solve ({routed} design), residual VJP "
+          f"kernel launches {VJP_LAUNCHES[name] // reps} per solve, "
           f"peak memory {peak / 2**20:.1f} MiB")
     if res.objective.shape != (B,) or res.p.shape != (B, sc.topo.nr):
         raise AssertionError(f"{name}: unexpected output shapes")
@@ -2076,7 +2115,8 @@ def time_solves(sc, cfg, sigma, device="cuda", B=1024, horizon=50, reps=3, backw
     s0 = State(q=sc.state0.q.expand(B, -1).contiguous(),
                qdot=sc.state0.qdot.expand(B, -1).contiguous())
     launches, dt, _, res = timed_solves(solve, (sc.params, p0, s0, targets), horizon, reps,
-                                        design_of(sc, sc.params, cfg))
+                                        design_of(sc, sc.params, cfg),
+                                        vjp_per_solve(sc, sc.params, horizon))
     finite = torch.isfinite(res.objective)
     if res.objective.shape != (B,) or not torch.isfinite(res.p[finite]).all():
         raise AssertionError("unexpected shapes, or a non-finite update on a finite lane")
@@ -2364,6 +2404,9 @@ ZOO_WORKERS = 6
 # Phase 27 (2)'s BDF1 rollouts run min(nsteps, ZOO_BDF1_STEPS) steps: their
 # host-bound launches (~20 ms a step) took 55 s of the script at full depth.
 ZOO_BDF1_STEPS = 50
+# Phase 27 (1) times each scene's plain version over ZOO_PLAIN_REPS calls of
+# 20-33 ms: ten give the figure, fifty cost 12-16 s of the script
+ZOO_PLAIN_REPS = 10
 
 
 def zoo_state0(sc, B, device, dtype, seed=0):
@@ -2550,7 +2593,8 @@ def phase_scene_zoo(device="cuda", B=1024, reps=3):
             if census["past_a_limit_at_solution"] == 0:
                 raise AssertionError("zoo scene 14: no lane past a joint limit")
         records[label] = {**time_chord_kernel(sc, sc.params, states, err, f"zoo {label}",
-                                              both_designs=label in ZOO_BOTH_DESIGNS),
+                                              both_designs=label in ZOO_BOTH_DESIGNS,
+                                              plain_reps=ZOO_PLAIN_REPS),
                           "launches": launches // reps}
         line["bdf2"][label] = {"design": routed, "steps_per_s": B * nsteps / dt,
                                "finite_frac": finite, "within_1e-3_of_f64": within,
@@ -3909,6 +3953,7 @@ def phase_lbfgs(device="cuda", B=1024, horizon=50, iters=LBFGS_ITERS):
     reset_launches()
     dt, _ = metrics.bench_throughput(run, args, n_warmup=0, n_reps=1)
     launches, other = launches_of(design), launches_of() - launches_of(design)
+    vjp = vjp_launches()
     evals = counted.calls
     res = last["res"]
     with torch.no_grad():
@@ -3919,18 +3964,22 @@ def phase_lbfgs(device="cuda", B=1024, horizon=50, iters=LBFGS_ITERS):
     med = lambda v: float(v[torch.isfinite(v)].median())
     line = {"B": B, "horizon": horizon, "iters": iters, "seconds_per_solve": dt,
             "evals_per_iter": evals / iters, "launches": launches,
-            "launches_per_eval": launches / evals, "design": design,
+            "launches_per_eval": launches / evals, "vjp_launches": vjp, "design": design,
             "median_objective_before": med(before), "median_objective_after": med(after),
             "fell_share_of_finite": fell, "finite_frac": finite_frac}
     print(f"lbfgs chain-12 (B = {B}, horizon {horizon}, {iters} iterations, f32): "
           f"{dt:.3f} s a solve (metrics.bench_throughput), {evals / iters:.1f} value-and-gradient "
           f"evaluations an iteration, chord kernel launches {launches} ({launches / evals:.1f} "
-          f"an evaluation) on the {design} design, {other} on the other; median objective "
+          f"an evaluation) on the {design} design, {other} on the other, residual VJP kernel "
+          f"launches {vjp} ({vjp / evals:.1f} an evaluation); median objective "
           f"{med(before):.6f} -> {med(after):.6f}, fell on {fell:.4f} of the finite lanes, "
           f"finite_frac {finite_frac:.4f}")
     if launches != (horizon - 1) * evals or other:
         raise AssertionError(f"lbfgs: {launches} launches of the {design} design and {other} of "
                              f"the other in {evals} evaluations, want {horizon - 1} each")
+    if vjp != vjp_per_solve(sc, sc.params, horizon) * evals:
+        raise AssertionError(f"lbfgs: {vjp} residual VJP kernel launches in {evals} evaluations, "
+                             f"want {horizon - 1} each")
     if res.p.shape != p0.shape or not torch.isfinite(res.p[torch.isfinite(after)]).all():
         raise AssertionError("lbfgs: unexpected shape, or a non-finite P on a finite lane")
     if not med(after) < med(before) or fell < 0.5:
@@ -4037,6 +4086,7 @@ def phase_sharded(device="cuda", B=1024, horizon=50):
             res, mean = parallel.sharded_mpc_batched(solve, mesh)(sc.params, p0, s0, targets)
             torch.cuda.synchronize()
             launches, other = launches_of(design), launches_of() - launches_of(design)
+            vjp = vjp_launches()
             same = all(bit_equal(getattr(res, f), getattr(ref, f))
                        for f in ("p", "objective", "grad_norm"))
             fin = torch.isfinite(ref.objective)
@@ -4047,7 +4097,8 @@ def phase_sharded(device="cuda", B=1024, horizon=50):
     print(f"sharded (world of one, {backend}; setup {setup:.2f} s): sharded_mpc_batched over the "
           f"main path's solve (B = {B}) {'equals' if same else 'differs from'} the unsharded "
           f"solve bit for bit; mean {float(mean):.6f} (finite-lane mean {want:.6f}); chord "
-          f"kernel launches {launches} on the {design} design, {other} on the other; __graft_entry__ legs' means "
+          f"kernel launches {launches} on the {design} design, {other} on the other, residual VJP "
+          f"kernel launches {vjp}; __graft_entry__ legs' means "
           f"{graft[0]:.6f} (12 links, horizon 25) and {graft[1]:.6f} (2 links, horizon 3, kernel "
           "route)")
     if not same:
@@ -4057,8 +4108,11 @@ def phase_sharded(device="cuda", B=1024, horizon=50):
     if launches != horizon - 1 or other:
         raise AssertionError(f"sharded: {launches} launches of the {design} design, {other} of "
                              f"the other, want {horizon - 1}")
+    if vjp != vjp_per_solve(sc, sc.params, horizon):
+        raise AssertionError(f"sharded: {vjp} residual VJP kernel launches, want {horizon - 1}")
     return launches, {"B": B, "world_size": 1, "backend": backend, "bit_equal": same,
                       "mean": float(mean), "finite_lane_mean": want, "launches": launches,
+                      "vjp_launches": vjp,
                       "design": design, "graft_means": graft, "setup_s": setup}
 
 
@@ -4150,6 +4204,189 @@ def phase_last_modules(device="cuda"):
     return lbfgs_launches, sharded_launches, lbfgs_line, sharded_line
 
 
+# ---------------------------------------------------------------------------
+# The residual VJP kernel (K4) of the chord route's adjoint backward
+# ---------------------------------------------------------------------------
+
+# Phase 32's scenes, the MPC paths' (phases 4 and 9), each at the main path's
+# B and at the benchmark's (portbench/, 32768 lanes)
+VJP_CASES = (("chain-12", lambda: scene_chain(12)), ("chain-ground-12", lambda: chain_ground(12)))
+VJP_BS = (1024, 32768)
+# the scenes whose MPC solves run K4 on the card (each a build of its own):
+# the two paths', their 4-link copies (the small solves against the CPU) and
+# phase 31's 2-link graft leg
+VJP_BUILD_SCENES = VJP_CASES + (("chain-4", lambda: scene_chain(4)),
+                                ("chain-ground-4", lambda: chain_ground(4)),
+                                ("chain-2", lambda: scene_chain(2)))
+
+
+def vjp_build_of(sc) -> KernelBuild:
+    return residual_vjp.build_for(sc.topo.njoints, sc.topo.nr, residual_vjp.kinds_of(sc.force_fns))
+
+
+def vjp_lane_flops(topo, ncontacts: int, reuse: bool = True) -> int:
+    """Floating-point operations of one lane's residual VJP that the VJP needs
+    (counted as lane_flops counts the chord body's): the static columns Sb,
+    the BDF2 velocity v, the kinematics at q2 without Jdot (FK, J, the
+    twists, Wdot), z = H^-T xbar on the "reuse" backward, then the reverse
+    pass: u = J w, I u, the D blocks (local_force_blocks' 45 and each
+    contact's nb and 8 corners of 83 for the corner's state and 197 for its
+    D row blocks), Dm^T u and Ad^T y, the columns (a, J^T Dm^T u, z, z .
+    Wdot, v ad(W)^T z) and the five cotangents. Left out: what the shared
+    helpers compute beside it and the VJP never reads (the joint forces,
+    local and contact K blocks, the contact wrench), which the kernel pays
+    for."""
+    N, NR = topo.njoints, topo.nr
+    anc = topo.ancestor_mask()[:, topo.dof_joint()]       # [N, NR]: column r moves body i
+    P = int(anc.sum())
+    Q = int(anc[topo.dof_joint()].sum())                  # (p, r): r moves p's body
+    frame_mul, frame_inv, adjoint, mat6 = 63, 18, 27, 66
+    q_local = sum(36 if t == 1 else (3 * (2 * d - 1) if d else 0)
+                  for t, d in zip(topo.jtype, topo.ndof))
+    fk = (q_local + sum(frame_mul * (2 if p < 0 else 3) for p in topo.parent)
+          + NR * (adjoint + mat6) + N * (frame_inv + adjoint) + P * mat6 + P * 12
+          + NR * (adjoint + 30 + mat6))
+    static = sum(frame_inv + adjoint + d * mat6 for d in topo.ndof)
+    z = 2 * NR * NR if reuse else 0
+    bodies = P * 12 + N * (6 + 45 + 72 + 72) + ncontacts * (15 + 8 * (83 + 197))
+    columns = P * 30 + NR * (12 + 30 + 6)
+    out = Q * 6 + NR * 33
+    return static + 6 * NR + fk + z + bodies + columns + out
+
+
+def vjp_lane_bytes(nr: int, reuse: bool = True) -> int:
+    """Bytes a lane reads and writes: q2, q0, qd0, q1, qd1, xbar in, H^-1 in
+    on "reuse", the five cotangents out (f32)."""
+    return 4 * (6 * nr + (nr * nr if reuse else 0) + 5 * nr)
+
+
+def oplevel_vjp(sc, params, q0, qd0, q1, qd1, q2, hinv, xbar):
+    """What K4 replaced on the "reuse" backward: z by the forward's H^-1,
+    then autograd of the op-level residual_bdf2."""
+    z = torch.einsum("...ji,...j->...i", hinv, xbar)
+    leaves = [t.detach().requires_grad_(True) for t in (params["tau"], q0, qd0, q1, qd1)]
+    with torch.enable_grad():
+        g = integrators.residual_bdf2(sc.topo, sc.force_fns, {**params, "tau": leaves[0]}, q2,
+                                      *leaves[1:])
+        return torch.autograd.grad(g, leaves, grad_outputs=-z)
+
+
+def phase_residual_vjp(device="cuda"):
+    """Phase 32: K4 (residual_vjp.launch) against its plain version
+    (residual_vjp_reference) on chain-12 and chain-ground-12 at B = 1024
+    and 32768, on one inner step of a path (rollout_states: a contact
+    census with every regime on the contact scene), q2 and H^-1 from the
+    chord kernel and xbar N(0, 1): on the "reuse" backward (z = H^-T xbar in
+    the launch) and with z given, the kernel's and the plain f32 version's
+    cotangents against the plain version in f64 on the same f32 inputs, each
+    lane's largest error of the lane's scale, the kernel's at most 4x the
+    plain f32 version's (+ 1e-6) at the median, p99 and max (as
+    tests/test_torch_residual_vjp.py holds it at 32768 lanes); one launch
+    counted a call; timed (launches in one CUDA graph, 200 at 1024 lanes, 50
+    at 32768; the wrapper residual_vjp.residual_vjp by CUDA events), beside
+    the plain version and the op-level VJP it replaced (autograd through
+    residual_bdf2), with the bound of the work the VJP needs
+    (vjp_lane_flops, vjp_lane_bytes). Returns {scene: record at B = 1024,
+    with the 32768-lane figures under "at_32768"}."""
+    t0 = time.perf_counter()
+    records = {}
+    for label, make in VJP_CASES:
+        sc = make().compile(dtype=torch.float32, device=device)
+        sc64 = make().compile(dtype=torch.float64, device=device)
+        build = vjp_build_of(sc)
+        regs = ptxas_kernels(build.ptxas_report or "")
+        for B in VJP_BS:
+            states, params, kept = rollout_states(sc, B, device, seed=7)
+            if sc.force_fns:
+                census = corner_census(sc64, states)
+                print(f"residual_vjp {label} B {B}: {kept}/{B} lanes from the rollout; corners "
+                      f"{json.dumps(census)}")
+                if min(census["out"], census["static"], census["dynamic"]) == 0:
+                    raise AssertionError(f"residual_vjp {label}: a contact regime is missing")
+            x0, q0, qd0, q1, qd1 = states
+            q2, hinv = chord_kernel.chord_bdf2(sc.topo, CFG, params, *states, sc.force_fns)
+            rng = np.random.default_rng(8)
+            xbar = torch.tensor(rng.normal(size=(B, sc.topo.nr)), dtype=torch.float32,
+                                device=device)
+            p64 = {**sc64.params, "tau": params["tau"].double()}
+            st = (q0, qd0, q1, qd1, q2)
+            worst = {}
+            for mode in ("reuse", "z given"):
+                reuse = mode == "reuse"
+                z = torch.einsum("...ji,...j->...i", hinv, xbar) if reuse else xbar
+                z64 = (torch.einsum("...ji,...j->...i", hinv.double(), xbar.double()) if reuse
+                       else xbar.double())
+                reset_launches()
+                got = residual_vjp.launch(sc.topo, sc.force_fns, params, *st,
+                                          xbar if reuse else z, hinv if reuse else None)
+                torch.cuda.synchronize()
+                if vjp_launches() != 1 or launches_of() != 0:
+                    raise AssertionError(f"residual_vjp {label}: {vjp_launches()} K4 launches "
+                                         f"and {launches_of()} chord launches, want 1 and 0")
+                plain = residual_vjp.residual_vjp_reference(sc.topo, sc.force_fns, params, *st,
+                                                            -z)
+                want = residual_vjp.residual_vjp_reference(
+                    sc64.topo, sc64.force_fns, p64, *(a.double() for a in st), -z64)
+                for k, w in enumerate(want):
+                    fin = torch.isfinite(w).all(1)
+                    scale = w[fin].abs().amax(1, keepdim=True).clamp(min=1e-30)
+                    e_k = ((got[k][fin].double() - w[fin]).abs() / scale).amax(1)
+                    e_p = ((plain[k][fin].double() - w[fin]).abs() / scale).amax(1)
+                    if not torch.equal(torch.isfinite(e_k), torch.isfinite(e_p)):
+                        raise AssertionError(f"residual_vjp {label} B {B} {mode}: the kernel "
+                                             "and the plain f32 version are finite on other "
+                                             "lanes")
+                    e_k, e_p = e_k[torch.isfinite(e_k)], e_p[torch.isfinite(e_p)]
+                    for qq in (0.5, 0.99, 1.0):
+                        ek, ep = float(e_k.quantile(qq)), float(e_p.quantile(qq))
+                        worst[mode, k, qq] = (ek, ep)
+                        if ek > 4 * ep + 1e-6:
+                            raise AssertionError(f"residual_vjp {label} B {B} {mode}: cotangent "
+                                                 f"{k} at quantile {qq} {ek:.3e} against the "
+                                                 f"plain f32 version's {ep:.3e}")
+            max_err = max(ek for ek, _ in worst.values())
+            print(f"residual_vjp {label} B {B}: kernel against the f64 plain version, of each "
+                  f"lane's scale (kernel / plain f32), reuse and z given, cotangents tau, q0, "
+                  f"qd0, q1, qd1: " + "; ".join(
+                      f"{mode} p99 " + ", ".join(f"{worst[mode, k, 0.99][0]:.2e}/"
+                                                 f"{worst[mode, k, 0.99][1]:.2e}"
+                                                 for k in range(5))
+                      + f", max {max(worst[mode, k, 1.0][0] for k in range(5)):.2e}/"
+                      f"{max(worst[mode, k, 1.0][1] for k in range(5)):.2e}"
+                      for mode in ("reuse", "z given")))
+
+            ins = (*st, xbar)
+            ms = graph_ms(lambda: residual_vjp.launch(sc.topo, sc.force_fns, params, *ins, hinv),
+                          200 if B <= 4096 else 50)
+            events_ms = cuda_ms(lambda: residual_vjp.residual_vjp(
+                sc.topo, sc.force_fns, params, *ins, hinv), 200 if B <= 4096 else 50)
+            z = torch.einsum("...ji,...j->...i", hinv, xbar)
+            plain_ms = cuda_ms(lambda: residual_vjp.residual_vjp_reference(
+                sc.topo, sc.force_fns, params, *st, -z), 5)
+            oplevel_ms = cuda_ms(lambda: oplevel_vjp(sc, params, *st, hinv, xbar), 5)
+            flops = vjp_lane_flops(sc.topo, len(sc.force_fns))
+            nbytes = vjp_lane_bytes(sc.topo.nr)
+            t_ops, t_bytes = flops * B / PEAK_F32_FLOPS * 1e3, nbytes * B / PEAK_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            rec = {"max_rel_err": max_err, "ms": ms, "events_ms": events_ms,
+                   "plain_ms": plain_ms, "oplevel_ms": oplevel_ms, "flops_per_lane": flops,
+                   "bytes_per_lane": nbytes, "bound_ms": bound,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            print(f"residual_vjp {label} B {B}: kernel {ms:.4f} ms (CUDA graph), wrapper "
+                  f"{events_ms:.4f} ms (CUDA events), plain {plain_ms:.3f} ms, the op-level VJP "
+                  f"it replaced {oplevel_ms:.3f} ms; {flops} flops and {nbytes} bytes a lane; "
+                  f"bound {bound * 1e3:.3f} us ({rec['bound_by']}), kernel at {bound / ms:.2%} "
+                  f"of it")
+            if B == VJP_BS[0]:
+                records[label] = {**rec, "design": "warp_per_lane", "threads_per_lane": 32,
+                                  "lanes_per_block": 8, "ptxas": regs[0][1:] if regs else None}
+            else:
+                records[label]["at_32768"] = rec
+        print(f"ptxas {build.name}: {regs}")
+    print(f"residual VJP phase: {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def ptxas_kernels(report: str):
     """(kernel, registers, frame bytes, spill store bytes, spill load bytes)
     of each kernel in an nvcc -Xptxas -v report, the kernel named by its
@@ -4196,9 +4433,10 @@ def on_demand_builds():
     to decide): the K1b paths' and the default-route cases' (phase 26; the
     QP's in both designs, the thread-per-lane one its yardstick); and the
     cooperative probe build of uni6 (phase 25); the scene zoo's (phase
-    27); the text scene's and the 2-link chain's of phase 31; and the
+    27); the text scene's and the 2-link chain's of phase 31; the
     thread-per-lane builds that phase 26's chord cases and the umbrella
-    are timed against."""
+    are timed against; and K4's of the scenes whose MPC solves run it
+    (VJP_BUILD_SCENES)."""
     out = []
     both = [c[1:4] for c in DEFAULT_ROUTE] + [(make, CFG, None) for label, make in ZOO
                                               if label in ZOO_BOTH_DESIGNS]
@@ -4211,6 +4449,8 @@ def on_demand_builds():
         out.append(chord_kernel.scene_build(sc.topo, sc.force_fns, params, cfg,
                                             thread_per_lane=lane))
     out.append(probe_build(out[0]))
+    out += [vjp_build_of(make().compile(dtype=torch.float32, device="cpu"))
+            for _, make in VJP_BUILD_SCENES]
     sc = build_mscene(6, dtype=torch.float32, device="cpu")
     n, m = contact_qps(sc, mscene6_states(sc, 1, "cpu", torch.float32))[2].shape[1:][::-1]
     out += [qp_kernel.library_of(n, m), qp_kernel.build_for(n, m)]
@@ -4258,6 +4498,8 @@ def phase_build():
             build.load()
         elif build.sources == pgs_kernel.BUILD.sources:
             pgs_kernel._lib(build)
+        elif build.sources == residual_vjp._SOURCES:
+            residual_vjp._lib(build)
         else:
             chord_kernel._build_lib(build)
             if chord_kernel.is_coop(build):
@@ -4456,6 +4698,7 @@ def main():
     mppi_launches, tiers_line = phase_explicit_tiers()
     k3_records, fric_line = phase_friction_zoo(smi=smi)
     lbfgs_launches, sharded_launches, lbfgs_line, sharded_line = phase_last_modules()
+    vjp_records = phase_residual_vjp()
 
     kernels = [{
         # the cooperative design (a warp a lane), on the main path; the
@@ -4562,6 +4805,24 @@ def main():
         "replaces": "redmax_tpu/pallas_step.py:1226",
         "launches": robust_paths["contact guarded3 sigma 3"][0],
         **robust_records["guarded_contacts"], "library_ms": None,
+    }, {
+        # phase 32: the residual VJP kernel K4 (the port's own: the JAX
+        # package takes jax.vjp of the op-level residual), on chain-12 at the
+        # main path's B (32768 lanes under "at_32768"); launches: the main
+        # path's timed solves' (phase 4, 49 a solve); oplevel_ms: the VJP it
+        # replaced (autograd through residual_bdf2), no library call
+        "name": "residual_vjp", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/residual_vjp.cu",
+        "replaces": "redmax_tpu/integrators.py:867", "replaces_pallas_kernel": False,
+        "launches": VJP_LAUNCHES["main path"], **vjp_records["chain-12"], "library_ms": None,
+    }, {
+        # the same kernel's contact build, on the contact path's scene;
+        # launches: the contact path's timed solves'
+        "name": "residual_vjp[ground_contact]", "route": "cuda",
+        "source": "redmax_tpu_torch/csrc/residual_vjp.cu",
+        "replaces": "redmax_tpu/integrators.py:867", "replaces_pallas_kernel": False,
+        "launches": VJP_LAUNCHES["contact path"], **vjp_records["chain-ground-12"],
+        "library_ms": None,
     }, {
         # library_ms: no single PyTorch call computes a dual-PGS solve; the
         # cooperative design (a group of threads a lane), the thread-per-lane

@@ -6,8 +6,10 @@ incoming cotangent xbar,
     thetabar = -(dg/dtheta)^T H^{-T} xbar,   H = dg/dx
 
 i.e. one transposed linear solve per step plus one VJP of the residual in
-theta. The forward solve runs with gradients off and the Newton iteration
-itself is never differentiated. Two forms, as in the JAX package:
+theta (through autograd, or by a caller's ResidualVJP: the chord route's
+residual VJP kernel, residual_vjp.py). The forward solve runs with gradients off and
+the Newton iteration itself is never differentiated. Two forms, as in the
+JAX package:
 
   * ``implicit_solve_factored`` reuses the factor the forward solve built
     (chord: H^-1 at the predictor) for the transposed solve, the reference's
@@ -17,7 +19,7 @@ itself is never differentiated. Two forms, as in the JAX package:
     against it.
 """
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -40,13 +42,28 @@ def batched_jacobian(res_fn: Callable, x):
     return rows.transpose(0, 1).detach()
 
 
+class ResidualVJP(NamedTuple):
+    """A VJP of the residual that stands in for autograd's, chosen in the
+    backward of each solve:
+    fn: (theta, x*, F, xbar, z) -> the cotangents of (tau, *states) of the
+        residual's VJP at the cotangent -z, with theta's tensors detached;
+    serves: params -> whether fn takes these params (autograd's VJP where
+        not); asked only where no params leaf but tau requires grad;
+    solves_z: fn solves z = H^-T xbar itself from the factor F (z is None
+        then, and no backsolve runs)."""
+    fn: Callable
+    serves: Callable
+    solves_z: bool
+
+
 class _ImplicitSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, res_fn, solve_fn, backsolve_fn, params, paths, x0, *tensors):
+    def forward(ctx, res_fn, solve_fn, backsolve_fn, vjp, params, paths, x0, *tensors):
         x, F = solve_fn(_theta(params, paths, tensors), x0)
         # a factor may be one tensor, a tuple (LU, pivots) or None
         factor = () if F is None else tuple(F) if isinstance(F, tuple) else (F,)
-        ctx.res_fn, ctx.backsolve_fn, ctx.params, ctx.paths = res_fn, backsolve_fn, params, paths
+        ctx.res_fn, ctx.backsolve_fn, ctx.vjp = res_fn, backsolve_fn, vjp
+        ctx.params, ctx.paths = params, paths
         ctx.nfactor, ctx.factor_is_tuple = len(factor), isinstance(F, tuple)
         ctx.save_for_backward(x, *factor, *tensors)
         return x
@@ -58,16 +75,30 @@ class _ImplicitSolve(torch.autograd.Function):
             factor, tensors = rest[:ctx.nfactor], rest[ctx.nfactor:]
             F = tuple(factor) if ctx.factor_is_tuple else (factor[0] if factor else None)
             theta = _theta(ctx.params, ctx.paths, [t.detach() for t in tensors])
-            with metrics.span("adjoint.backsolve"):
-                z = ctx.backsolve_fn(theta, x.detach(), F, xbar)
-            need = ctx.needs_input_grad[6:]
-            with metrics.span("adjoint.vjp"), torch.enable_grad():
-                leaves = [t.detach().requires_grad_(n) for t, n in zip(tensors, need)]
-                g = ctx.res_fn(_theta(ctx.params, ctx.paths, leaves), x.detach())
-                wanted = [t for t, n in zip(leaves, need) if n]
-                grads = iter(torch.autograd.grad(g, wanted, grad_outputs=-z, allow_unused=True))
+            vjp = ctx.vjp if ctx.vjp is not None and ctx.vjp.serves(theta[0]) else None
+            z = None
+            if vjp is None or not vjp.solves_z:
+                with metrics.span("adjoint.backsolve"):
+                    z = ctx.backsolve_fn(theta, x.detach(), F, xbar)
+            need = ctx.needs_input_grad[7:]
+            if vjp is not None:
+                metrics.count("adjoint.vjp.kernel")
+                with metrics.span("adjoint.vjp"):
+                    tau_bar, *state_bars = vjp.fn(theta, x.detach(), F, xbar, z)
+                # implicit_solve_custom keeps a ResidualVJP only where tau is
+                # the one params leaf that may require grad
+                grads = [tau_bar] * len(ctx.paths) + state_bars
+            else:
+                metrics.count("adjoint.vjp.oplevel")
+                with metrics.span("adjoint.vjp"), torch.enable_grad():
+                    leaves = [t.detach().requires_grad_(n) for t, n in zip(tensors, need)]
+                    g = ctx.res_fn(_theta(ctx.params, ctx.paths, leaves), x.detach())
+                    wanted = [t for t, n in zip(leaves, need) if n]
+                    found = iter(torch.autograd.grad(g, wanted, grad_outputs=-z,
+                                                     allow_unused=True))
+                    grads = [next(found) if n else None for n in need]
             # x0 (the predictor) gets no gradient: the solution does not depend on it.
-            return (None,) * 6 + tuple(next(grads) if n else None for n in need)
+            return (None,) * 7 + tuple(g if n else None for g, n in zip(grads, need))
 
 
 def _grad_leaves(params, prefix=()):
@@ -99,7 +130,7 @@ def _theta(params, paths, tensors):
 
 
 def implicit_solve_custom(res_fn: Callable, solve_fn: Callable, backsolve_fn: Callable,
-                          theta: Any, x0):
+                          theta: Any, x0, vjp: Optional[ResidualVJP] = None):
     """Solve res_fn(theta, x) = 0 with the implicit-function VJP.
 
     theta = (params, *state tensors): params is a nested SceneParams dict
@@ -111,11 +142,19 @@ def implicit_solve_custom(res_fn: Callable, solve_fn: Callable, backsolve_fn: Ca
     tensor, a tuple of tensors, or None).
     backsolve_fn: (theta, x*, F, xbar) -> z = H^-T xbar, with theta's
     tensors detached.
+    vjp: None for the VJP of res_fn through autograd, else a ResidualVJP,
+    which serves the backward of a solve where no params leaf but tau
+    requires grad and vjp.serves(params) holds, and autograd's VJP serves
+    the others. The backward counts its route: adjoint.vjp.kernel where vjp
+    serves (whatever the device: on CPU tensors its plain version runs),
+    adjoint.vjp.oplevel where autograd does.
     """
     params, *states = theta
     found = _grad_leaves(params)
     paths, leaves = tuple(p for p, _ in found), [v for _, v in found]
-    return _ImplicitSolve.apply(res_fn, solve_fn, backsolve_fn, params, paths, x0,
+    if any(p != ("tau",) for p in paths):
+        vjp = None
+    return _ImplicitSolve.apply(res_fn, solve_fn, backsolve_fn, vjp, params, paths, x0,
                                 *leaves, *states)
 
 

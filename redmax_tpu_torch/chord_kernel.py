@@ -71,6 +71,7 @@ to the other design); on a CPU tensor it runs chord_bdf2_reference.
 """
 
 import ctypes
+from collections import OrderedDict
 from functools import lru_cache
 from typing import Dict, NamedTuple, Tuple
 
@@ -544,6 +545,41 @@ def _static_buffer(topo: Topology, params: Dict, force_fns: Tuple = ()):
     rec = [v.reshape(-1, n)[0] for v, n in _record_parts(topo, params, force_fns)]
     parts = [params["E0_pj"], params["E0_ji"], rec[0], axes, jsf, *rec[1:]]
     return torch.cat([p.reshape(-1).float() for p in parts])
+
+
+# The static buffers of the params last built for: _static_buffer's, keyed
+# by the scene and the identities and versions of every params leaf but tau,
+# in the dicts' order (the entry holds the leaves, so that an id is not
+# reused under it).
+_STATIC: "OrderedDict[tuple, tuple]" = OrderedDict()
+_STATIC_CAP = 8
+
+
+def _leaves(params: Dict, out: list) -> list:
+    for v in params.values():
+        if type(v) is dict:
+            _leaves(v, out)
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
+
+
+def static_buffer(topo: Topology, params: Dict, force_fns: Tuple = ()):
+    """_static_buffer of these params, built once for the same leaves
+    (the same tensors, unmodified in place since) and then reused; tau,
+    which it does not hold, may change freely. The residual VJP kernel reads
+    it; pack still builds its own every step."""
+    leaves = _leaves({k: v for k, v in params.items() if k != "tau"}, [])
+    key = (id(topo), id(force_fns), *map(id, leaves), *(t._version for t in leaves))
+    hit = _STATIC.get(key)
+    if hit is not None:
+        _STATIC.move_to_end(key)
+        return hit[1]
+    buf = _static_buffer(topo, params, force_fns)
+    _STATIC[key] = ((topo, force_fns, leaves), buf)
+    if len(_STATIC) > _STATIC_CAP:
+        _STATIC.popitem(last=False)
+    return buf
 
 
 def chord_bdf2(topo: Topology, cfg, params: Dict, x0, q0, qd0, q1, qd1,

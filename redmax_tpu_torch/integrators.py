@@ -33,7 +33,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from redmax_tpu_torch.adjoint import (
-    batched_jacobian, implicit_solve, implicit_solve_custom, implicit_solve_factored,
+    ResidualVJP, batched_jacobian, implicit_solve, implicit_solve_custom,
+    implicit_solve_factored,
 )
 from redmax_tpu_torch.constraints import assemble_constraints
 from redmax_tpu_torch.linalg import make_solver
@@ -548,9 +549,14 @@ def make_bdf2_step_batched(
     kernel; on a CPU tensor it runs the kernel's plain PyTorch version.
 
     differentiable=True wires the implicit-function VJP on the kernel route:
-    z = H^-T xbar, then one VJP of the op-level residual_bdf2 at the
-    detached solution (force closures included, through autograd); the
-    kernel itself is never differentiated. backward picks H:
+    z = H^-T xbar, then the VJP of residual_bdf2 at the detached solution;
+    the kernel itself is never differentiated. That VJP runs on the residual
+    VJP kernel (residual_vjp.residual_vjp, with z solved in the same launch
+    on the "reuse" backward) where residual_vjp.takes admits the scene
+    (constant-S joints, no closure but ground contacts) and, decided in each
+    step's backward, residual_vjp.takes_params the params (lane-shared but
+    tau) and no params leaf but tau requires grad; else through autograd of
+    the op-level residual_bdf2 (force closures included). backward picks H:
       "reuse"   the H^-1 the kernel returned (the chord factor at the
                 predictor; the last one built for chord=False);
       "refresh" the structured H rebuilt at the solution x*;
@@ -560,7 +566,7 @@ def make_bdf2_step_batched(
     adjoint_reuse_factor=False): a differentiable op-level step with another
     backward than "reuse" raises ValueError, as does an unknown backward.
     """
-    from redmax_tpu_torch import chord_kernel
+    from redmax_tpu_torch import chord_kernel, residual_vjp
 
     qualifies = chord_kernel.supports(topo, force_fns, cfg)
     if use_kernel is None:
@@ -589,6 +595,16 @@ def make_bdf2_step_batched(
         x, hinv = chord_kernel.chord_bdf2(topo, cfg, params, x0, q0, qd0, q1, qd1, force_fns)
         return x, hinv if backward == "reuse" else None
 
+    def _vjp(theta, x, hinv, xbar, z):
+        """The residual VJP kernel's cotangents of (tau, q0, qd0, q1, qd1):
+        z = H^-T xbar by the forward's H^-1 in the launch ("reuse"), or the z
+        that _z solved."""
+        params, q0, qd0, q1, qd1 = theta
+        if z is None:
+            return residual_vjp.residual_vjp(topo, force_fns, params, q0, qd0, q1, qd1, x, xbar,
+                                             hinv)
+        return residual_vjp.residual_vjp(topo, force_fns, params, q0, qd0, q1, qd1, x, z)
+
     def _z(theta, x, hinv, xbar):
         """z = H^-T xbar per lane, H as `backward` says."""
         if backward == "reuse":
@@ -598,6 +614,10 @@ def make_bdf2_step_batched(
         else:
             H = batched_jacobian(lambda xx: _res2(theta, xx), x)
         return solve_T(factor(H), xbar.to(H.dtype))
+
+    vjp = (ResidualVJP(_vjp, residual_vjp.takes_params, backward == "reuse")
+           if differentiable and residual_vjp.takes(topo, force_fns) else None)
+    started = []   # the kernel's build started (at the first step on the card)
 
     def inner(params: Dict, s: Bdf2State) -> Bdf2State:
         with metrics.span("integrators.inner"):
@@ -609,7 +629,10 @@ def make_bdf2_step_batched(
                 guess = guess + 0.5 * h * (qd1 - qd0)
             theta = (params, q0, qd0, q1, qd1)
             if differentiable:
-                q2 = implicit_solve_custom(_res2, _kernel, _z, theta, guess)
+                if vjp is not None and not started and guess.device.type == "cuda":
+                    residual_vjp.prepare(topo, force_fns)
+                    started.append(True)
+                q2 = implicit_solve_custom(_res2, _kernel, _z, theta, guess, vjp=vjp)
             else:
                 q2 = _kernel(theta, guess)[0]
             qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)

@@ -15,7 +15,7 @@ aggregation, Scene.cpp:248-287):
     device operations' clock), and at a root the counters' deltas over it.
     spans() reads the bounded buffer, clear_spans() empties it;
   * count / counters: named counters, always on (kernel launches by design,
-    kernel builds' compiles, loads and seconds);
+    the adjoint's VJPs by route, kernel builds' compiles, loads and seconds);
   * bench_throughput: seconds per call and calls/s, the warm-up excluded,
     the device of the outputs synchronized before each clock read;
   * energy_drift: the certificate quantity H_end = T_end + V_end - V_0.

@@ -99,8 +99,10 @@ def test_span_tree_of_an_adam_solve():
     """One mpc.solve root; under it mpc.forward (integrators.simulate: one
     bootstrap, HORIZON - 1 inner steps) and mpc.gradient, which holds one
     adjoint.backward for each implicit solve (2 in the SDIRK2 bootstrap,
-    one an inner step), each with its backsolve and VJP; one call
-    identifier for the whole call."""
+    one an inner step): the bootstrap's each with its backsolve and VJP,
+    an inner step's with its VJP alone (the residual VJP kernel's route,
+    whose launch solves for z too); one call identifier for the whole
+    call."""
     solve, args = adam_solve()
     solve(*args)
     assert metrics.spans() == []
@@ -117,13 +119,12 @@ def test_span_tree_of_an_adam_solve():
     assert kids[sim.id] == ["integrators.bootstrap"] + ["integrators.inner"] * (HORIZON - 1)
     solves = 2 + (HORIZON - 1)
     assert kids[gradient.id] == ["adjoint.backward"] * solves
-    for s in spans:
-        if s.name == "adjoint.backward":
-            assert kids[s.id] == ["adjoint.backsolve", "adjoint.vjp"]
+    backward = [kids[s.id] for s in spans if s.name == "adjoint.backward"]
+    assert backward == [["adjoint.vjp"]] * (HORIZON - 1) + [["adjoint.backsolve", "adjoint.vjp"]] * 2
     assert Counter(s.name for s in spans) == Counter({
         "mpc.solve": 1, "mpc.forward": 1, "mpc.gradient": 1, "integrators.simulate": 1,
         "integrators.bootstrap": 1, "integrators.inner": HORIZON - 1,
-        "adjoint.backward": solves, "adjoint.backsolve": solves, "adjoint.vjp": solves})
+        "adjoint.backward": solves, "adjoint.backsolve": 2, "adjoint.vjp": solves})
     check_nested(spans)
     assert all(s.device_ms is None for s in spans)  # CPU tensors: no CUDA events
     assert root.counts is not None and all(s.counts is None for s in spans if s is not root)
