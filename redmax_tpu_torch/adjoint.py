@@ -48,7 +48,7 @@ class ResidualVJP(NamedTuple):
     fn: (theta, x*, F, xbar, z) -> the cotangents of (tau, *states) of the
         residual's VJP at the cotangent -z, with theta's tensors detached;
     serves: params -> whether fn takes these params (autograd's VJP where
-        not); asked only where no params leaf but tau requires grad;
+        not); asked in each backward;
     solves_z: fn solves z = H^-T xbar itself from the factor F (z is None
         then, and no backsolve runs)."""
     fn: Callable
@@ -58,11 +58,13 @@ class ResidualVJP(NamedTuple):
 
 class _ImplicitSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, res_fn, solve_fn, backsolve_fn, vjp, params, paths, x0, *tensors):
+    def forward(ctx, res_fn, solve_fn, backsolve_fn, vjp, why, grad_other, params, paths, x0,
+                *tensors):
         x, F = solve_fn(_theta(params, paths, tensors), x0)
         # a factor may be one tensor, a tuple (LU, pivots) or None
         factor = () if F is None else tuple(F) if isinstance(F, tuple) else (F,)
         ctx.res_fn, ctx.backsolve_fn, ctx.vjp = res_fn, backsolve_fn, vjp
+        ctx.why, ctx.grad_other = why, grad_other
         ctx.params, ctx.paths = params, paths
         ctx.nfactor, ctx.factor_is_tuple = len(factor), isinstance(F, tuple)
         ctx.save_for_backward(x, *factor, *tensors)
@@ -75,21 +77,26 @@ class _ImplicitSolve(torch.autograd.Function):
             factor, tensors = rest[:ctx.nfactor], rest[ctx.nfactor:]
             F = tuple(factor) if ctx.factor_is_tuple else (factor[0] if factor else None)
             theta = _theta(ctx.params, ctx.paths, [t.detach() for t in tensors])
-            vjp = ctx.vjp if ctx.vjp is not None and ctx.vjp.serves(theta[0]) else None
+            vjp, why = ctx.vjp, ctx.why
+            if vjp is not None:
+                why = ("params" if not vjp.serves(theta[0])
+                       else "grad" if ctx.grad_other else None)
+                vjp = vjp if why is None else None
             z = None
             if vjp is None or not vjp.solves_z:
                 with metrics.span("adjoint.backsolve"):
                     z = ctx.backsolve_fn(theta, x.detach(), F, xbar)
-            need = ctx.needs_input_grad[7:]
+            need = ctx.needs_input_grad[9:]
             if vjp is not None:
                 metrics.count("adjoint.vjp.kernel")
                 with metrics.span("adjoint.vjp"):
                     tau_bar, *state_bars = vjp.fn(theta, x.detach(), F, xbar, z)
-                # implicit_solve_custom keeps a ResidualVJP only where tau is
-                # the one params leaf that may require grad
+                # the ResidualVJP serves only where tau is the one params
+                # leaf that may require grad
                 grads = [tau_bar] * len(ctx.paths) + state_bars
             else:
                 metrics.count("adjoint.vjp.oplevel")
+                metrics.count("adjoint.vjp.oplevel." + why)
                 with metrics.span("adjoint.vjp"), torch.enable_grad():
                     leaves = [t.detach().requires_grad_(n) for t, n in zip(tensors, need)]
                     g = ctx.res_fn(_theta(ctx.params, ctx.paths, leaves), x.detach())
@@ -98,7 +105,7 @@ class _ImplicitSolve(torch.autograd.Function):
                                                      allow_unused=True))
                     grads = [next(found) if n else None for n in need]
             # x0 (the predictor) gets no gradient: the solution does not depend on it.
-            return (None,) * 7 + tuple(g if n else None for g, n in zip(grads, need))
+            return (None,) * 9 + tuple(g if n else None for g, n in zip(grads, need))
 
 
 def _grad_leaves(params, prefix=()):
@@ -130,7 +137,8 @@ def _theta(params, paths, tensors):
 
 
 def implicit_solve_custom(res_fn: Callable, solve_fn: Callable, backsolve_fn: Callable,
-                          theta: Any, x0, vjp: Optional[ResidualVJP] = None):
+                          theta: Any, x0, vjp: Optional[ResidualVJP] = None,
+                          why: str = "route"):
     """Solve res_fn(theta, x) = 0 with the implicit-function VJP.
 
     theta = (params, *state tensors): params is a nested SceneParams dict
@@ -147,29 +155,33 @@ def implicit_solve_custom(res_fn: Callable, solve_fn: Callable, backsolve_fn: Ca
     requires grad and vjp.serves(params) holds, and autograd's VJP serves
     the others. The backward counts its route: adjoint.vjp.kernel where vjp
     serves (whatever the device: on CPU tensors its plain version runs),
-    adjoint.vjp.oplevel where autograd does.
+    adjoint.vjp.oplevel where autograd does, and beside it
+    adjoint.vjp.oplevel.<reason>: with no vjp, why (the caller's reason:
+    "bootstrap" for an SDIRK2 solve, the scene's residual_vjp.refusal on the
+    chord route, "route" by default, a step with no residual VJP kernel on
+    its route); else "params" where vjp.serves refuses the params, then
+    "grad" where a params leaf other than tau requires grad.
     """
     params, *states = theta
     found = _grad_leaves(params)
     paths, leaves = tuple(p for p, _ in found), [v for _, v in found]
-    if any(p != ("tau",) for p in paths):
-        vjp = None
-    return _ImplicitSolve.apply(res_fn, solve_fn, backsolve_fn, vjp, params, paths, x0,
-                                *leaves, *states)
+    grad_other = any(p != ("tau",) for p in paths)
+    return _ImplicitSolve.apply(res_fn, solve_fn, backsolve_fn, vjp, why, grad_other, params,
+                                paths, x0, *leaves, *states)
 
 
 def implicit_solve_factored(res_fn: Callable, newton_factored_fn: Callable,
-                            solve_T_factor_fn: Callable, theta: Any, x0):
+                            solve_T_factor_fn: Callable, theta: Any, x0, why: str = "route"):
     """implicit_solve_custom that reuses the forward factorization:
     newton_factored_fn: (theta, x0) -> (x*, F), F the live factorization;
     solve_T_factor_fn: (F, xbar) -> H^-T xbar."""
     return implicit_solve_custom(
         res_fn, newton_factored_fn, lambda theta, x, F, xbar: solve_T_factor_fn(F, xbar),
-        theta, x0)
+        theta, x0, why=why)
 
 
 def implicit_solve(res_fn: Callable, newton_fn: Callable, hess_fn: Optional[Callable],
-                   solve_T_fn: Optional[Callable], theta: Any, x0):
+                   solve_T_fn: Optional[Callable], theta: Any, x0, why: str = "route"):
     """implicit_solve_custom that builds H at the solution in the backward.
 
     newton_fn: (fn: x -> g, jac_or_None, x0) -> x*, the inner solver.
@@ -193,4 +205,4 @@ def implicit_solve(res_fn: Callable, newton_fn: Callable, hess_fn: Optional[Call
             return solve_T_fn(H, xbar)
         return torch.linalg.solve_ex(H.transpose(-1, -2), xbar[..., None])[0][..., 0]
 
-    return implicit_solve_custom(res_fn, solve, backsolve, theta, x0)
+    return implicit_solve_custom(res_fn, solve, backsolve, theta, x0, why=why)

@@ -404,12 +404,14 @@ def _make_solve_T(cfg: NewtonConfig):
 
 
 def _solver(cfg: NewtonConfig, differentiable: bool):
-    """(res, hess, theta, x0, aux) -> x*: one Newton solve of res(theta, x,
-    aux=aux) = 0 from x0, hess(theta, x, aux=aux) its structured matrix (None:
-    the exact one). differentiable routes it through implicit_solve_factored
-    (the adjoint reuses the forward factor) for a fixed-iteration config
-    with adjoint_reuse_factor, else through implicit_solve (the backward
-    builds H at the solution: structured or exact, as cfg.hessian says)."""
+    """(res, hess, theta, x0, aux, why) -> x*: one Newton solve of res(theta,
+    x, aux=aux) = 0 from x0, hess(theta, x, aux=aux) its structured matrix
+    (None: the exact one); why names the solve's op-level VJP in the
+    adjoint's counters (implicit_solve_custom). differentiable routes it
+    through implicit_solve_factored (the adjoint reuses the forward factor)
+    for a fixed-iteration config with adjoint_reuse_factor, else through
+    implicit_solve (the backward builds H at the solution: structured or
+    exact, as cfg.hessian says)."""
     _, _, solve_T = make_solver(cfg.linsolve)
     factored = cfg.fixed_iters > 0 and cfg.adjoint_reuse_factor
     solve_T_H = _make_solve_T(cfg)
@@ -417,15 +419,15 @@ def _solver(cfg: NewtonConfig, differentiable: bool):
     def newton_fn(fn, jac, x0):
         return newton(fn, x0, cfg, jac_fn=jac)[0]
 
-    def solve(res, hess, theta, x0, aux):
+    def solve(res, hess, theta, x0, aux, why="route"):
         res_aux = lambda theta, x: res(theta, x, aux=aux)
         hess_aux = None if hess is None else (lambda theta, x: hess(theta, x, aux=aux))
         nf = _newton_factored(cfg, res_aux, hess_aux)
         if not differentiable:
             return nf(theta, x0)[0]
         if factored:
-            return implicit_solve_factored(res_aux, nf, solve_T, theta, x0)
-        return implicit_solve(res_aux, newton_fn, hess_aux, solve_T_H, theta, x0)
+            return implicit_solve_factored(res_aux, nf, solve_T, theta, x0, why=why)
+        return implicit_solve(res_aux, newton_fn, hess_aux, solve_T_H, theta, x0, why=why)
 
     return solve
 
@@ -496,10 +498,10 @@ def make_bdf2_step(
             q0, qdot0 = s.q, s.qdot
             h = lanewise(params["h"], 2)
             ah = SDIRK_ALPHA * h
-            qa = solve(res_a, hess_a, (params, q0, qdot0), q0 + ah * qdot0, s.aux)
+            qa = solve(res_a, hess_a, (params, q0, qdot0), q0 + ah * qdot0, s.aux, "bootstrap")
             qdota = (qa - q0) / ah
             q1 = solve(res_b, hess_b, (params, q0, qdot0, qdota),
-                       qa + (1 - SDIRK_ALPHA) * h * qdota, s.aux)
+                       qa + (1 - SDIRK_ALPHA) * h * qdota, s.aux, "bootstrap")
             qdot1 = (q1 - q0 - (1 - SDIRK_ALPHA) * h * qdota) / ah
             return _reparam(topo, params, Bdf2State(
                 q=q1, qdot=qdot1, q_prev=q0, qdot_prev=qdot0, k=s.k + 1, aux=s.aux))
@@ -615,8 +617,9 @@ def make_bdf2_step_batched(
             H = batched_jacobian(lambda xx: _res2(theta, xx), x)
         return solve_T(factor(H), xbar.to(H.dtype))
 
+    why = residual_vjp.refusal(topo, force_fns)    # the op-level VJP's reason where not None
     vjp = (ResidualVJP(_vjp, residual_vjp.takes_params, backward == "reuse")
-           if differentiable and residual_vjp.takes(topo, force_fns) else None)
+           if differentiable and why is None else None)
     started = []   # the kernel's build started (at the first step on the card)
 
     def inner(params: Dict, s: Bdf2State) -> Bdf2State:
@@ -632,7 +635,7 @@ def make_bdf2_step_batched(
                 if vjp is not None and not started and guess.device.type == "cuda":
                     residual_vjp.prepare(topo, force_fns)
                     started.append(True)
-                q2 = implicit_solve_custom(_res2, _kernel, _z, theta, guess, vjp=vjp)
+                q2 = implicit_solve_custom(_res2, _kernel, _z, theta, guess, vjp=vjp, why=why)
             else:
                 q2 = _kernel(theta, guess)[0]
             qdot2 = (3 / (2 * h)) * (q2 - (4 / 3) * q1 + (1 / 3) * q0)
@@ -705,7 +708,10 @@ def closure_blocks(fns: Tuple, params: Dict, kin, phi):
         K, D = forces.ground_contact_blocks(kin.E_wi[:, idx], phi[:, idx],
                                             forces.stack_contact_params(gnd, params))
         out.append((K, D, bodies, bodies))
-    p = forces.pair_closure_blocks(pair, params, kin, phi) if pair else None
+    p = None
+    if pair:
+        with metrics.span("forces.pair_closures"):
+            p = forces.pair_closure_blocks(pair, params, kin, phi)
     if p is not None:
         out.append(p)
     if not out:

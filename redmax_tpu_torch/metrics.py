@@ -5,9 +5,10 @@ aggregation, Scene.cpp:248-287):
   * span: a named interval where the port's work happens (an MPC solve, its
     forward and gradient, the BDF2 bootstrap and inner steps, the adjoint's
     backsolve and VJP, the chord kernel's pack and launch, a kernel
-    library's load). A span records inside tracing() and while a torch.profiler
-    session is active, and nowhere else; off, span() tests two flags and
-    returns one shared do-nothing object. A recording span keeps its
+    library's load, the op-level evaluation of springs and cables). A span
+    records inside tracing() and while a torch.profiler session is active,
+    and nowhere else; off, span() tests two flags and returns one shared
+    do-nothing object. A recording span keeps its
     parent, its call (the root span it descends from), its host interval
     (time.perf_counter_ns), where CUDA is initialised a pair of CUDA events
     on the current stream (its device time), under the profiler a
@@ -15,7 +16,8 @@ aggregation, Scene.cpp:248-287):
     device operations' clock), and at a root the counters' deltas over it.
     spans() reads the bounded buffer, clear_spans() empties it;
   * count / counters: named counters, always on (kernel launches by design,
-    the adjoint's VJPs by route, kernel builds' compiles, loads and seconds);
+    the adjoint's VJPs by route and an op-level VJP's reason, kernel builds'
+    compiles, loads and seconds);
   * bench_throughput: seconds per call and calls/s, the warm-up excluded,
     the device of the outputs synchronized before each clock read;
   * energy_drift: the certificate quantity H_end = T_end + V_end - V_0.

@@ -25,7 +25,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from redmax_tpu_torch import euler, forces, se3
+from redmax_tpu_torch import euler, forces, metrics, se3
 from redmax_tpu_torch.joints import EXP_ROTATION, joint_QSSdot, joint_reparam
 from redmax_tpu_torch.types import EULER_CHART_TYPES, MAX_NDOF, NDOF, JointType, Topology, lanewise
 
@@ -256,7 +256,8 @@ def closure_forces(topo: Topology, params: Dict, kin: Kinematics, phi, q, qdot,
     gnd, pair, other = _split_closures(force_fns)
     fm = forces.ground_contact_wrenches(gnd, params, kin, phi) if gnd else torch.zeros_like(phi)
     if pair:
-        fm = fm + forces.pair_closure_wrenches(pair, params, kin, phi)
+        with metrics.span("forces.pair_closures"):
+            fm = fm + forces.pair_closure_wrenches(pair, params, kin, phi)
     fr = torch.zeros_like(q)
     for fn in other:
         fr_a, fm_a = fn(params, kin, None, phi, q, qdot)
@@ -297,7 +298,8 @@ def structured_hessian(topo: Topology, params: Dict, q, qdot, cK, cD, force_fns:
     Kt = torch.diag_embed(Krd) + torch.einsum("bnir,bnis->brs", Jblk, Kmb @ Jblk)
     Dt = torch.diag_embed(Drd) + torch.einsum("bnir,bnis->brs", Jblk, Dmb @ Jblk)
     if pair:
-        Kp, Dp, bj, bi = forces.pair_closure_blocks(pair, params, kin, phi)
+        with metrics.span("forces.pair_closures"):
+            Kp, Dp, bj, bi = forces.pair_closure_blocks(pair, params, kin, phi)
         Jj, Ji = Jblk[:, forces.body_index(bj, q.device)], Jblk[:, forces.body_index(bi, q.device)]
         Kt = Kt + torch.einsum("bpir,bpij,bpjs->brs", Jj, Kp, Ji)
         Dt = Dt + torch.einsum("bpir,bpij,bpjs->brs", Jj, Dp, Ji)

@@ -25,9 +25,10 @@ at its first launch (or started early by prepare) and cached in _build/.
 
 It serves a step where the joints are constant-S, the closures are none or
 ground contacts and N and nr are at most 32 (takes, decided once a step
-function), the params are lane-shared but tau (takes_params) and no params
-leaf but tau requires grad (both decided in each step's backward,
-adjoint.ResidualVJP); every other step keeps the VJP through autograd. On a
+function; refusal names the first that fails), the params are lane-shared
+but tau (takes_params) and no params leaf but tau requires grad (both
+decided in each step's backward, adjoint.ResidualVJP); every other step
+keeps the VJP through autograd, counted by its reason. On a
 CUDA tensor residual_vjp launches the kernel (and raises where it cannot),
 each launch counted on residual_vjp.launch; on a CPU tensor it runs
 residual_vjp_reference.
@@ -35,7 +36,7 @@ residual_vjp_reference.
 
 import ctypes
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,13 +57,24 @@ def kinds_of(force_fns: Tuple) -> int:
 
 
 @lru_cache(maxsize=None)
+def refusal(topo: Topology, force_fns: Tuple) -> Optional[str]:
+    """Why the kernel does not cover the scene, the first that applies:
+    "joints" (a joint that is not constant-S), "closures" (a closure other
+    than ground contact), "width" (N or nr above 32, past which a lane's
+    record may not fit a block: 147,344 bytes at (32, 32)); None where it
+    covers it."""
+    if not all(JointType(t) in CONSTANT_S_TYPES for t in topo.jtype):
+        return "joints"
+    if not all(type(fn) is ForceGroundCuboid for fn in force_fns):
+        return "closures"
+    if max(topo.njoints, topo.nr) > chord_kernel.MAX_COOP_WIDTH:
+        return "width"
+    return None
+
+
 def takes(topo: Topology, force_fns: Tuple) -> bool:
-    """True where the kernel covers the scene: constant-S joints, no closure
-    but ground contacts, N and nr at most 32 (where a lane's record fits a
-    block whatever the shape: 147,344 bytes at (32, 32))."""
-    return (all(JointType(t) in CONSTANT_S_TYPES for t in topo.jtype)
-            and all(type(fn) is ForceGroundCuboid for fn in force_fns)
-            and max(topo.njoints, topo.nr) <= chord_kernel.MAX_COOP_WIDTH)
+    """True where the kernel covers the scene (refusal gives no reason)."""
+    return refusal(topo, force_fns) is None
 
 
 def takes_params(params: Dict) -> bool:

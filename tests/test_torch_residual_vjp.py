@@ -240,7 +240,7 @@ def test_objective_gradient_on_the_kernel_route(name, backward, monkeypatch):
         oplevel, moved = objective_grad(name, backward, use_kernel=False)
         assert moved == {"adjoint.vjp.kernel": 0, "adjoint.vjp.oplevel": 11}
         assert rel(got, oplevel) <= 1e-10
-    monkeypatch.setattr(residual_vjp, "takes", lambda topo, force_fns: False)
+    monkeypatch.setattr(residual_vjp, "refusal", lambda topo, force_fns: "closures")
     want, moved = objective_grad(name, backward)
     assert moved == {"adjoint.vjp.kernel": 0, "adjoint.vjp.oplevel": 11}
     assert rel(got, want) <= 1e-10
